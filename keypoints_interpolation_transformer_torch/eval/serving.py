@@ -1,0 +1,328 @@
+"""Batch inference API and HTTP serving with dynamic batching (port of
+the JAX ``eval/serving.py``, plain variant).
+
+An ``Inpainter`` loads a reference ``.pth`` checkpoint, pads and buckets
+incoming ragged sequences, runs the composite-inpainting forward on its
+device, and returns each video with only its missing frames replaced.  A
+threaded stdlib HTTP endpoint merges concurrent requests into shared
+forwards (``RequestBatcher``).
+
+POST /inpaint {"videos": [[[x, y] * 54] * T, ...],
+               "masks": [[0/1] * T, ...]}
+  -> {"videos": [...]}  (masked frames replaced by model predictions)
+GET /healthz -> {"ok": true}
+GET /statz   -> request, video and batch counts
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import json
+import queue
+import signal
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from keypoints_interpolation_transformer_tpu.data.keypoints import (
+    NUM_COORDS, NUM_KEYPOINTS)
+from keypoints_interpolation_transformer_tpu.utils.config import ModelConfig
+
+from ..models.completer import KeypointCompleter
+from ..models.convert import load_reference_pth, state_dict_tensors
+from ..ops.losses import composite_prediction
+from ..transforms.corruption import add_sos
+
+
+class Inpainter:
+    """Checkpoint-backed masked-frame inpainting with shape bucketing.
+
+    ``device`` is where the model runs: CUDA tensors go through the
+    kernels, CPU tensors through their plain versions.  ``plain=True``
+    runs the plain versions on any device (the oracle path)."""
+
+    def __init__(self, state_dict, model_cfg: ModelConfig,
+                 bucket_multiple: int = 32, max_seq_len: int = 512,
+                 variant: str = "plain", device="cpu", plain: bool = False):
+        if variant != "plain":
+            raise ValueError(
+                f"variant {variant!r} is not served by the PyTorch port yet "
+                "(only 'plain')")
+        if model_cfg.compute_dtype != "float32" or \
+                model_cfg.matmul_precision != "highest":
+            raise ValueError("the PyTorch port serves float32 only "
+                             "(compute_dtype='float32', "
+                             "matmul_precision='highest')")
+        self.device = torch.device(device)
+        self.model = KeypointCompleter(
+            model_cfg.hidden_dim, model_cfg.num_layers, model_cfg.num_heads,
+            input_size=model_cfg.input_size, ff_dim=model_cfg.ff_dim,
+            device=self.device)
+        self.model.load_state_dict(state_dict_tensors(state_dict))
+        self.model.eval()
+        self.model.pack_weights()
+        self.plain = plain
+        self.bucket = bucket_multiple
+        self.max_seq_len = max_seq_len
+
+    @classmethod
+    def from_checkpoint(cls, path: str,
+                        model_cfg: Optional[ModelConfig] = None, **kw):
+        """Load a reference ``.pth``; its hyperparameters (and the FF width
+        of its first encoder layer) give the model configuration unless
+        ``model_cfg`` is given."""
+        if not path.endswith(".pth"):
+            raise ValueError("the PyTorch port loads reference .pth "
+                             f"checkpoints only, got {path!r}")
+        sd, hyper = load_reference_pth(path)
+        model_cfg = model_cfg or ModelConfig(
+            hidden_dim=int(hyper["hidden_dim"]),
+            num_layers=int(hyper["num_layers"]),
+            num_heads=int(hyper["num_heads"]),
+            input_size=int(hyper.get("input_size", 108)),
+            ff_dim=int(sd["transformer.encoder.layers.0.linear1.weight"]
+                       .shape[0]))
+        return cls(sd, model_cfg, **kw)
+
+    @torch.inference_mode()
+    def _run(self, clean: np.ndarray, miss: np.ndarray,
+             valid: np.ndarray) -> np.ndarray:
+        dev = self.device
+        clean_t = torch.from_numpy(clean).to(dev)
+        inputs, mask = add_sos(clean_t, torch.from_numpy(miss).to(dev))
+        x, x_no = inputs[:, :-1], inputs[:, 1:]
+        x_mask, y_mask = mask[:, :-1], mask[:, 1:]
+        pred = self.model(x, x_no, src_frame_mask=x_mask,
+                          tgt_frame_mask=y_mask,
+                          valid_mask=torch.from_numpy(valid).to(dev),
+                          plain=self.plain)
+        return composite_prediction(pred, clean_t, y_mask).cpu().numpy()
+
+    def inpaint(self, videos: Sequence[np.ndarray],
+                masks: Sequence[np.ndarray]) -> List[np.ndarray]:
+        """videos: ragged (T_i, 54, 2); masks: (T_i,) with 1 = missing.
+        Missing frames may carry any placeholder; the model's predictions
+        replace them.  Videos longer than ``max_seq_len`` are cut."""
+        out: List[Optional[np.ndarray]] = [None] * len(videos)
+        buckets = {}
+        for i, v in enumerate(videos):
+            t = min(len(v), self.max_seq_len)
+            t_pad = min(((t + self.bucket - 1) // self.bucket) * self.bucket,
+                        self.max_seq_len)
+            buckets.setdefault(t_pad, []).append(i)
+        for t_pad, idxs in buckets.items():
+            B = len(idxs)
+            clean = np.zeros((B, t_pad, NUM_KEYPOINTS, NUM_COORDS),
+                             np.float32)
+            miss = np.zeros((B, t_pad), np.float32)
+            valid = np.zeros((B, t_pad), np.float32)
+            for row, i in enumerate(idxs):
+                t = min(len(videos[i]), t_pad)
+                clean[row, :t] = videos[i][:t]
+                miss[row, :t] = np.asarray(masks[i][:t])
+                valid[row, :t] = 1.0
+            res = self._run(clean, miss, valid)
+            for row, i in enumerate(idxs):
+                out[i] = res[row, :min(len(videos[i]), t_pad)]
+        return out  # type: ignore[return-value]
+
+
+class RequestBatcher:
+    """Cross-request dynamic batching around the single device.
+
+    Request handler threads enqueue (videos, masks) jobs; one worker thread
+    drains the queue: after the first job arrives it keeps collecting for
+    ``window_ms`` (or until ``max_batch_videos``) so that concurrent small
+    requests ride the same forward.  The Inpainter's bucketing then groups
+    the merged set by padded length.
+    """
+
+    def __init__(self, inpainter: Inpainter, max_batch_videos: int = 64,
+                 window_ms: float = 3.0):
+        self._inpainter = inpainter
+        self._max = max_batch_videos
+        self._window = window_ms / 1e3
+        self._q: "queue.Queue" = queue.Queue()
+        self._stats_lock = threading.Lock()
+        self._stats = {"requests": 0, "videos": 0, "batches": 0,
+                       "max_batch_videos": 0}
+        self._stop = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    @property
+    def stats(self) -> dict:
+        with self._stats_lock:
+            return dict(self._stats)
+
+    def submit(self, videos, masks) -> concurrent.futures.Future:
+        """Enqueue a job; returns a Future of List[np.ndarray]."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._q.put((videos, masks, fut))
+        return fut
+
+    def close(self):
+        self._stop = True
+        self._q.put(None)
+        self._thread.join(timeout=5)
+        # fail, rather than strand, any job still queued behind the sentinel
+        while True:
+            try:
+                job = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if job is not None:
+                job[2].set_exception(RuntimeError("server shutting down"))
+
+    def _loop(self):
+        while not self._stop:
+            first = self._q.get()
+            if first is None:
+                break
+            jobs = [first]
+            n = len(first[0])
+            deadline = time.monotonic() + self._window
+            while n < self._max:
+                budget = deadline - time.monotonic()
+                if budget <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=budget)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._stop = True
+                    break
+                jobs.append(nxt)
+                n += len(nxt[0])
+            videos = [v for vs, _, _ in jobs for v in vs]
+            masks = [m for _, ms, _ in jobs for m in ms]
+            try:
+                res = self._inpainter.inpaint(videos, masks)
+            except Exception as e:  # surface device errors to every caller
+                for _, _, fut in jobs:
+                    if not fut.cancelled():
+                        fut.set_exception(e)
+                continue
+            with self._stats_lock:
+                s = self._stats
+                s["requests"] += len(jobs)
+                s["videos"] += len(videos)
+                s["batches"] += 1
+                s["max_batch_videos"] = max(s["max_batch_videos"],
+                                            len(videos))
+            off = 0
+            for vs, _, fut in jobs:
+                if not fut.cancelled():
+                    fut.set_result(res[off:off + len(vs)])
+                off += len(vs)
+
+
+def make_server(inpainter: Inpainter, host: str = "127.0.0.1",
+                port: int = 8321, max_batch_videos: int = 64,
+                window_ms: float = 3.0, request_timeout: float = 600.0,
+                max_videos_per_request: int = 256,
+                log_requests: bool = False):
+    """Threaded HTTP server with dynamic batching; returns (server,
+    batcher): call server.serve_forever(), then server.shutdown() and
+    batcher.close()."""
+    batcher = RequestBatcher(inpainter, max_batch_videos, window_ms)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"ok": True})
+            elif self.path == "/statz":
+                self._send(200, batcher.stats)
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/inpaint":
+                self._send(404, {"error": "not found"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n))
+                videos = [np.asarray(v, np.float32) for v in req["videos"]]
+                masks = [np.asarray(m, np.float32) for m in req["masks"]]
+                if len(videos) != len(masks):
+                    raise ValueError("videos/masks length mismatch")
+                if len(videos) > max_videos_per_request:
+                    raise ValueError(
+                        f"too many videos in one request "
+                        f"({len(videos)} > {max_videos_per_request})")
+                for v, m in zip(videos, masks):
+                    if v.ndim != 3 or v.shape[1:] != (NUM_KEYPOINTS,
+                                                      NUM_COORDS):
+                        raise ValueError(
+                            f"video must be (T, {NUM_KEYPOINTS}, "
+                            f"{NUM_COORDS}), got {list(v.shape)}")
+                    if m.ndim != 1 or len(m) != len(v):
+                        raise ValueError("mask length != video length")
+            except (KeyError, TypeError, ValueError,
+                    json.JSONDecodeError) as e:
+                self._send(400, {"error": str(e)})
+                return
+            t0 = time.monotonic()
+            fut = batcher.submit(videos, masks)
+            try:
+                res = fut.result(request_timeout)
+            except concurrent.futures.TimeoutError:
+                fut.cancel()  # drop it if the worker has not started it
+                self._send(504, {"error": "inference timed out"})
+                return
+            except Exception as e:  # device/runtime errors -> HTTP 500
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, {"videos": [r.tolist() for r in res]})
+            if log_requests:
+                n_frames = sum(len(v) for v in videos)
+                print(f"POST /inpaint videos={len(videos)} "
+                      f"frames={n_frames} "
+                      f"latency_ms={(time.monotonic() - t0) * 1e3:.1f}",
+                      flush=True)
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    return server, batcher
+
+
+def serve(inpainter: Inpainter, host: str = "127.0.0.1", port: int = 8321,
+          **kw):
+    """Blocking HTTP serving around an Inpainter (threaded and batched);
+    SIGTERM and SIGINT stop it."""
+    server, batcher = make_server(inpainter, host, port, **kw)
+    print(f"serving on http://{host}:{server.server_address[1]}", flush=True)
+
+    def _shutdown(signum, frame):
+        # serve_forever() must be stopped from another thread
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    prev = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev[sig] = signal.signal(sig, _shutdown)
+        except ValueError:  # not the main thread
+            pass
+    try:
+        server.serve_forever()
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+        batcher.close()
+        server.server_close()

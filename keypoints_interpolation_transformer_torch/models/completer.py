@@ -1,0 +1,171 @@
+"""The flagship KeypointCompleter and its Cycle flags (port of the JAX
+``models/completer.py``), under the reference ``.pth`` state-dict names.
+
+Pipeline: flatten frame -> pre-stream kernel per stream (Linear(108 -> D),
+token_norm [+ token_norm for Cycle], + sinusoidal + learned PE, SwiGLU)
+-> post-LN transformer (src = masked stream, tgt = shifted filled stream)
+-> post-head kernel (SwiGLU, token_norm(decoded + filled embedding),
+swish, Linear(D -> 108)) -> (B, T, K, 2).
+
+The attention biases are built inside the sublayer kernels from the 1-D
+(B, T) masks:
+
+  encoder self-attention   repeat-inc on the source mask, the raw mask
+                           added (torch float key padding), padded keys
+                           blocked;
+  decoder self-attention   repeat-inc on the target mask, the raw mask
+                           added only with ``use_tgt_key_padding`` (Cycle);
+  cross-attention          "all" plus the padding bias.
+
+A stream whose frame mask is not given attends with kind "all".
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from keypoints_interpolation_transformer_tpu.data.keypoints import (
+    FRAME_FEATURES, NUM_COORDS, NUM_KEYPOINTS)
+
+from ..ops.kernels import (fused_post_head, fused_pre_stream_embed,
+                           post_head_plain, pre_stream_embed_plain)
+from .layers import (AttnSpec, MultiHeadAttention, SwiGLU, TransformerCore,
+                     packed_linear, sinusoidal_positional_encoding)
+
+
+class KeypointCompleter(nn.Module):
+    """Encoder-decoder keypoint-sequence inpainter.
+
+    ``generator`` (a CPU ``torch.Generator``) initializes every parameter
+    deterministically (see ``reset_parameters``); without it the modules
+    keep torch's default initialization.
+    """
+
+    def __init__(self, hidden_dim: int, num_layers: int, num_heads: int,
+                 input_size: int = FRAME_FEATURES, ff_dim: int = 2048,
+                 pe_max_len: int = 2048, pe_residual: bool = False,
+                 use_tgt_key_padding: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        D = hidden_dim
+        self.hidden_dim, self.num_layers, self.num_heads = D, num_layers, \
+            num_heads
+        self.input_size, self.ff_dim, self.pe_max_len = input_size, ff_dim, \
+            pe_max_len
+        self.pe_residual = pe_residual
+        self.use_tgt_key_padding = use_tgt_key_padding
+        self.input_embedding = nn.Linear(input_size, D, device=device)
+        self.filled_embedding = nn.Linear(input_size, D, device=device)
+        self.learned_input_positional_encoder = nn.Parameter(
+            torch.rand(1, 1, D, device=device))
+        self.learned_filled_positional_encoder = nn.Parameter(
+            torch.rand(1, 1, D, device=device))
+        self.swiGlu_input_prev = SwiGLU(D, device)
+        self.swiGlu_filled_prev = SwiGLU(D, device)
+        self.transformer = TransformerCore(D, num_heads, num_layers, ff_dim,
+                                           device)
+        self.swiGlu_decoded = SwiGLU(D, device)
+        self.fc_final = nn.Linear(D, input_size, device=device)
+        self.register_buffer(
+            "pe", sinusoidal_positional_encoding(pe_max_len, D, device),
+            persistent=False)
+        if generator is not None:
+            self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw every parameter from ``generator`` (on the CPU) the way
+        torch initializes these modules: Linear weight and bias
+        U(-1/sqrt(in), 1/sqrt(in)); attention in_proj Xavier-uniform with
+        zero biases; LayerNorm ones and zeros; learned positions U(0, 1)."""
+        def uniform(p, bound):
+            p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
+                                                  generator=generator))
+
+        for name, m in self.named_modules():
+            if isinstance(m, nn.Linear):
+                bound = 1.0 / m.in_features ** 0.5
+                uniform(m.weight, bound)
+                if ".out_proj" in name or name.endswith("out_proj"):
+                    m.bias.zero_()
+                else:
+                    uniform(m.bias, bound)
+            elif isinstance(m, MultiHeadAttention):
+                fan_out, fan_in = m.in_proj_weight.shape
+                uniform(m.in_proj_weight, (6.0 / (fan_in + fan_out)) ** 0.5)
+                m.in_proj_bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        for p in (self.learned_input_positional_encoder,
+                  self.learned_filled_positional_encoder):
+            p.copy_(torch.rand(p.shape, generator=generator))
+
+    def pack_weights(self) -> None:
+        """Build every sublayer's kernel-layout weights now (they are built
+        on first use otherwise, and again after a parameter changes)."""
+        for m in self.modules():
+            if isinstance(m, (SwiGLU, MultiHeadAttention)):
+                m.packed()
+            elif isinstance(m, nn.Linear):
+                packed_linear(m)
+
+    def forward(self, inputs: torch.Tensor, filled: torch.Tensor,
+                src_frame_mask: Optional[torch.Tensor] = None,
+                tgt_frame_mask: Optional[torch.Tensor] = None,
+                valid_mask: Optional[torch.Tensor] = None,
+                plain: bool = False) -> torch.Tensor:
+        """inputs, filled (B, T, K, 2); masks (B, T): frame masks 1 =
+        missing, ``valid_mask`` 1 = real frame.  ``plain=True`` runs the
+        plain PyTorch version of every kernel (the oracle path) whatever
+        the device."""
+        B, T = inputs.shape[0], inputs.shape[1]
+        if T > self.pe_max_len:
+            raise ValueError(
+                f"sequence length {T} exceeds pe_max_len={self.pe_max_len}; "
+                "raise pe_max_len or chunk the sequence")
+
+        def f32(t):
+            return None if t is None else t.to(torch.float32).contiguous()
+
+        x = f32(inputs.reshape(B, T, -1))
+        f = f32(filled.reshape(B, T, -1))
+        src_frame_mask, tgt_frame_mask, valid_mask = (
+            f32(src_frame_mask), f32(tgt_frame_mask), f32(valid_mask))
+        pre = pre_stream_embed_plain if plain else fused_pre_stream_embed
+        post = post_head_plain if plain else fused_post_head
+
+        pe = self.pe[:T]
+        pe_in = (pe + self.learned_input_positional_encoder[0]).contiguous()
+        pe_fill = (pe + self.learned_filled_positional_encoder[0]).contiguous()
+        src = pre(x, *packed_linear(self.input_embedding), pe_in,
+                  *self.swiGlu_input_prev.packed(), self.pe_residual, False)
+        tgt, filled_emb = pre(f, *packed_linear(self.filled_embedding),
+                              pe_fill, *self.swiGlu_filled_prev.packed(),
+                              self.pe_residual, True)
+
+        has_src, has_tgt = src_frame_mask is not None, \
+            tgt_frame_mask is not None
+        src_spec = AttnSpec(src_frame_mask, valid_mask,
+                            "repeat-inc" if has_src else "all", has_src)
+        tgt_spec = AttnSpec(tgt_frame_mask, valid_mask,
+                            "repeat-inc" if has_tgt else "all",
+                            self.use_tgt_key_padding and has_tgt)
+        cross_spec = AttnSpec(None, valid_mask, "all", False)
+        decoded = self.transformer(src, tgt, src_spec, tgt_spec, cross_spec,
+                                   plain)
+        out = post(decoded, filled_emb, *self.swiGlu_decoded.packed(),
+                   *packed_linear(self.fc_final))
+        return out.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)
+
+
+def keypoint_completer_cycle(hidden_dim: int, num_layers: int,
+                             num_heads: int, **kw) -> KeypointCompleter:
+    """The Cycle variant: PE table of 512, the extra pre-PE residual, and
+    target key padding."""
+    return KeypointCompleter(hidden_dim, num_layers, num_heads,
+                             pe_max_len=512, pe_residual=True,
+                             use_tgt_key_padding=True, **kw)

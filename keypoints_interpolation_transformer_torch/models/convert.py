@@ -1,0 +1,110 @@
+"""Checkpoint conversion for the port (numpy and torch only).
+
+``params_from_jax`` mirrors ``train/checkpoint.completer_params_to_torch``
+of the JAX package: a Flax KeypointCompleter parameter tree (numpy or any
+array with ``__array__``) becomes a state dict under the reference
+``.pth`` names, which ``KeypointCompleter.load_state_dict`` takes as it
+is.  ``load_reference_pth`` / ``save_reference_pth`` read and write the
+reference checkpoint schema
+``{model_state_dict, optimizer_state_dict, input_size, hidden_dim,
+num_layers, num_heads, loss}``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+HYPER_KEYS = ("input_size", "hidden_dim", "num_layers", "num_heads")
+
+
+def _np(x) -> np.ndarray:
+    return np.array(x, dtype=np.float32, copy=True)
+
+
+def _linear(sd: Dict, prefix: str, leaf: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _np(leaf["kernel"]).T.copy()
+    sd[f"{prefix}.bias"] = _np(leaf["bias"])
+
+
+def params_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax KeypointCompleter params (unrolled layers, with or without the
+    outer ``{"params": ...}``) -> reference-named numpy state dict."""
+    if "params" in params:
+        params = params["params"]
+    sd: Dict[str, np.ndarray] = {}
+    _linear(sd, "input_embedding", params["input_embedding"])
+    _linear(sd, "filled_embedding", params["filled_embedding"])
+    sd["learned_input_positional_encoder"] = _np(params["learned_input_pos"])
+    sd["learned_filled_positional_encoder"] = _np(
+        params["learned_filled_pos"])
+    for ours, theirs in (("swiglu_input_prev", "swiGlu_input_prev"),
+                         ("swiglu_filled_prev", "swiGlu_filled_prev"),
+                         ("swiglu_decoded", "swiGlu_decoded")):
+        for i in (1, 2, 3):
+            _linear(sd, f"{theirs}.fc{i}", params[ours][f"fc{i}"])
+    core = params["transformer"]
+    layer_ids = sorted(int(k.split("_")[1]) for k in core
+                       if k.startswith("encoder_")
+                       and k.split("_")[1].isdigit())
+    for i in layer_ids:
+        for side, attns, norms in (
+                ("encoder", (("self_attn", "self_attn"),),
+                 ("norm1", "norm2")),
+                ("decoder", (("self_attn", "self_attn"),
+                             ("cross_attn", "multihead_attn")),
+                 ("norm1", "norm2", "norm3"))):
+            lp = core[f"{side}_{i}"]
+            base = f"transformer.{side}.layers.{i}"
+            for ours, theirs in attns:
+                at = lp[ours]
+                names = ("q_proj", "k_proj", "v_proj")
+                sd[f"{base}.{theirs}.in_proj_weight"] = np.concatenate(
+                    [_np(at[n]["kernel"]).T for n in names])
+                sd[f"{base}.{theirs}.in_proj_bias"] = np.concatenate(
+                    [_np(at[n]["bias"]) for n in names])
+                _linear(sd, f"{base}.{theirs}.out_proj", at["out_proj"])
+            _linear(sd, f"{base}.linear1", lp["ff"]["linear1"])
+            _linear(sd, f"{base}.linear2", lp["ff"]["linear2"])
+            for nm in norms:
+                sd[f"{base}.{nm}.weight"] = _np(lp[nm]["scale"])
+                sd[f"{base}.{nm}.bias"] = _np(lp[nm]["bias"])
+    for ours, theirs in (("encoder_norm", "transformer.encoder.norm"),
+                         ("decoder_norm", "transformer.decoder.norm")):
+        sd[f"{theirs}.weight"] = _np(core[ours]["scale"])
+        sd[f"{theirs}.bias"] = _np(core[ours]["bias"])
+    _linear(sd, "fc_final", params["fc_final"])
+    return sd
+
+
+def state_dict_tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """numpy or tensor values -> contiguous float32 CPU tensors."""
+    return {k: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float32))
+            if not isinstance(v, torch.Tensor) else v.float().contiguous()
+            for k, v in sd.items()}
+
+
+def load_reference_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """(state dict on the CPU, hyperparameters) of a reference ``.pth``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    hyper = {k: ckpt[k] for k in HYPER_KEYS if k in ckpt}
+    return state_dict_tensors(ckpt["model_state_dict"]), hyper
+
+
+def save_reference_pth(path: str, module: torch.nn.Module, hyper: Mapping,
+                       loss: float = float("nan")) -> None:
+    """Write ``module``'s state dict in the reference ``.pth`` schema;
+    ``hyper`` gives hidden_dim, num_layers, num_heads (and input_size)."""
+    sd = {k: v.detach().cpu().contiguous()
+          for k, v in module.state_dict().items()}
+    torch.save({
+        "model_state_dict": sd,
+        "optimizer_state_dict": {},
+        "input_size": int(hyper.get("input_size", 108)),
+        "hidden_dim": int(hyper["hidden_dim"]),
+        "num_layers": int(hyper["num_layers"]),
+        "num_heads": int(hyper["num_heads"]),
+        "loss": loss,
+    }, path)

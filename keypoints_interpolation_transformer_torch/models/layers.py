@@ -1,0 +1,235 @@
+"""Transformer building blocks under the reference ``.pth`` parameter names
+(port of the JAX ``models/layers.py``).
+
+The modules hold their parameters in torch's layout (Linear weights are
+(out, in); attention keeps the packed ``in_proj_weight``).  The kernels
+take them in the Flax layout (in, out) with q/k/v and fc1/fc2 packed side
+by side; each module builds that form once and keeps it until one of its
+parameters changes (``packed()``).
+
+Every sublayer runs through the kernel wrappers of ``ops/kernels``: the
+plain PyTorch versions for CPU tensors (or when ``plain=True``, the oracle
+path), the CUDA kernels for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels import (attn_sublayer_plain, ffn_plain,
+                           fused_attn_sublayer, fused_ffn)
+from ..ops.kernels.ffn import LN_EPS
+from ..ops.kernels.pointwise import token_norm
+
+__all__ = ["LN_EPS", "token_norm", "sinusoidal_positional_encoding",
+           "SwiGLU", "MultiHeadAttention", "FeedForward", "EncoderLayer",
+           "DecoderLayer", "TransformerCore", "AttnSpec", "packed_linear"]
+
+
+def sinusoidal_positional_encoding(max_len: int, dim: int,
+                                   device=None) -> torch.Tensor:
+    """(max_len, dim) sin/cos table, even columns sin, odd columns cos."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    pe = torch.zeros(max_len, dim, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def _cached(module: nn.Module, name: str, params, build):
+    """``build()`` once per state of ``params`` (their storage and in-place
+    version), kept on ``module`` outside its state dict."""
+    key = tuple((p.data_ptr(), p._version) for p in params)
+    hit = module.__dict__.get(name)
+    if hit is None or hit[0] != key:
+        with torch.inference_mode(False), torch.no_grad():
+            hit = (key, build())
+        module.__dict__[name] = hit
+    return hit[1]
+
+
+def packed_linear(lin: nn.Linear):
+    """(weight^T contiguous (in, out), bias) of a Linear."""
+    return _cached(lin, "_packed", (lin.weight, lin.bias),
+                   lambda: (lin.weight.t().contiguous(), lin.bias.detach()))
+
+
+class AttnSpec(NamedTuple):
+    """What an attention sublayer's bias is built from: the (B, T) frame
+    mask (1 = missing) and valid mask (1 = real frame), both optional."""
+    mask: Optional[torch.Tensor]
+    valid: Optional[torch.Tensor]
+    kind: str
+    add_keypad: bool
+
+
+class SwiGLU(nn.Module):
+    """fc3(fc1(x) * sigmoid(fc2(x))), hidden width == input width."""
+
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, dim, device=device)
+        self.fc2 = nn.Linear(dim, dim, device=device)
+        self.fc3 = nn.Linear(dim, dim, device=device)
+
+    def forward(self, x):
+        return self.fc3(self.fc1(x) * torch.sigmoid(self.fc2(x)))
+
+    def packed(self):
+        """(w12 = [W1 | W2] (D, 2D), b12, w3 (D, D), b3) for the kernels."""
+        def build():
+            return (torch.cat([self.fc1.weight.t(), self.fc2.weight.t()],
+                              1).contiguous(),
+                    torch.cat([self.fc1.bias, self.fc2.bias]),
+                    self.fc3.weight.t().contiguous(), self.fc3.bias.detach())
+        return _cached(self, "_packed", list(self.parameters()), build)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with additive-bias masking, under torch
+    ``nn.MultiheadAttention``'s parameter names.  ``forward`` adds a float
+    ``bias`` broadcasting against (B, H, Tq, Tk) to the logits, as torch
+    does with float masks."""
+
+    def __init__(self, dim: int, num_heads: int, device=None):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} is not divisible by {num_heads}")
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim,
+                                                       device=device))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim, device=device))
+        self.out_proj = nn.Linear(dim, dim, device=device)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, q_in, kv_in, bias=None):
+        B, Tq, D = q_in.shape
+        H, dh = self.num_heads, D // self.num_heads
+        wq, wk, wv = self.in_proj_weight.chunk(3)
+        bq, bk, bv = self.in_proj_bias.chunk(3)
+
+        def heads(t, w, b):
+            return F.linear(t, w, b).reshape(B, -1, H, dh).transpose(1, 2)
+
+        q, k, v = heads(q_in, wq, bq), heads(kv_in, wk, bk), \
+            heads(kv_in, wv, bv)
+        logits = (q @ k.transpose(-1, -2)) / math.sqrt(dh)
+        if bias is not None:
+            logits = logits + bias
+        out = (torch.softmax(logits, -1) @ v).transpose(1, 2).reshape(B, Tq, D)
+        return self.out_proj(out)
+
+    def packed(self):
+        """(wqkv = [Wq | Wk | Wv] (D, 3D), bqkv, wo (D, D), bo)."""
+        def build():
+            return (self.in_proj_weight.t().contiguous(),
+                    self.in_proj_bias.detach(),
+                    self.out_proj.weight.t().contiguous(),
+                    self.out_proj.bias.detach())
+        return _cached(self, "_packed", list(self.parameters()), build)
+
+    def sublayer(self, x, memory, norm: Optional[nn.LayerNorm],
+                 spec: AttnSpec, plain: bool = False):
+        """[norm](x + attention(x, memory or x)) through the sublayer
+        kernel (or its plain version)."""
+        fn = attn_sublayer_plain if plain else fused_attn_sublayer
+        ln_w, ln_b = (None, None) if norm is None else (norm.weight,
+                                                        norm.bias)
+        return fn(x, memory, *self.packed(), ln_w, ln_b, spec.mask,
+                  spec.valid, spec.kind, spec.add_keypad, self.num_heads)
+
+
+class FeedForward(nn.Module):
+    """linear2(gelu(linear1(x))) with exact-erf GELU.  The transformer
+    layers derive from it so that linear1/linear2 sit directly under the
+    layer, as in torch's TransformerEncoderLayer."""
+
+    def __init__(self, dim: int, ff_dim: int, device=None):
+        super().__init__()
+        self.linear1 = nn.Linear(dim, ff_dim, device=device)
+        self.linear2 = nn.Linear(ff_dim, dim, device=device)
+
+    def forward(self, x):
+        return self.linear2(F.gelu(self.linear1(x)))
+
+    def ff_sublayer(self, r, norm_in: nn.LayerNorm, norm_out: nn.LayerNorm,
+                    plain: bool = False):
+        """norm_out(x1 + FF(x1)) with x1 = norm_in(r), through the FF
+        kernel (or its plain version)."""
+        fn = ffn_plain if plain else fused_ffn
+        w1, b1 = packed_linear(self.linear1)
+        w2, b2 = packed_linear(self.linear2)
+        return fn(r, w1, b1, w2, b2, norm_in.weight, norm_in.bias,
+                  norm_out.weight, norm_out.bias, True)
+
+
+class EncoderLayer(FeedForward):
+    """Post-LN: x = LN1(x + SA(x)); x = LN2(x + FF(x))."""
+
+    def __init__(self, dim: int, num_heads: int, ff_dim: int, device=None):
+        super().__init__(dim, ff_dim, device)
+        self.self_attn = MultiHeadAttention(dim, num_heads, device)
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+
+    def forward(self, x, spec: AttnSpec, plain: bool = False):
+        r = self.self_attn.sublayer(x, None, None, spec, plain)
+        return self.ff_sublayer(r, self.norm1, self.norm2, plain)
+
+
+class DecoderLayer(FeedForward):
+    """Post-LN: y = LN1(y + SA(y)); r = y + CA(y, memory);
+    y = LN3(LN2(r) + FF(LN2(r)))."""
+
+    def __init__(self, dim: int, num_heads: int, ff_dim: int, device=None):
+        super().__init__(dim, ff_dim, device)
+        self.self_attn = MultiHeadAttention(dim, num_heads, device)
+        self.multihead_attn = MultiHeadAttention(dim, num_heads, device)
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self.norm3 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+
+    def forward(self, y, memory, self_spec: AttnSpec, cross_spec: AttnSpec,
+                plain: bool = False):
+        y = self.self_attn.sublayer(y, None, self.norm1, self_spec, plain)
+        r = self.multihead_attn.sublayer(y, memory, None, cross_spec, plain)
+        return self.ff_sublayer(r, self.norm2, self.norm3, plain)
+
+
+class _Stack(nn.Module):
+    def __init__(self, layers, dim: int, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+
+
+class TransformerCore(nn.Module):
+    """Encoder-decoder stack with final LayerNorms, as torch
+    ``nn.Transformer`` builds it (``encoder.layers.{i}``, ``encoder.norm``,
+    ``decoder.layers.{i}``, ``decoder.norm``)."""
+
+    def __init__(self, dim: int, num_heads: int, num_layers: int,
+                 ff_dim: int = 2048, device=None):
+        super().__init__()
+        self.encoder = _Stack([EncoderLayer(dim, num_heads, ff_dim, device)
+                               for _ in range(num_layers)], dim, device)
+        self.decoder = _Stack([DecoderLayer(dim, num_heads, ff_dim, device)
+                               for _ in range(num_layers)], dim, device)
+
+    def forward(self, src, tgt, src_spec: AttnSpec, tgt_spec: AttnSpec,
+                cross_spec: AttnSpec, plain: bool = False):
+        x = src
+        for layer in self.encoder.layers:
+            x = layer(x, src_spec, plain)
+        memory = self.encoder.norm(x)
+        y = tgt
+        for layer in self.decoder.layers:
+            y = layer(y, memory, tgt_spec, cross_spec, plain)
+        return self.decoder.norm(y)

@@ -1,0 +1,46 @@
+"""Hand-written CUDA kernels of the serving path, each beside its plain
+PyTorch version, and the table that names them.
+
+Each wrapper takes its plain version for CPU tensors and launches its
+kernel for CUDA tensors, counting those calls in ``wrapper.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+from .attn_sublayer import attn_sublayer_plain, fused_attn_sublayer
+from .ffn import ffn_plain, fused_ffn
+from .pointwise import (fused_post_head, fused_pre_stream_embed,
+                        post_head_plain, pre_stream_embed_plain)
+
+
+class Kernel(NamedTuple):
+    name: str
+    wrapper: object
+    source: str    # path in the repository
+    replaces: str  # the TPU kernel, file:line
+
+
+_TPU = "keypoints_interpolation_transformer_tpu/ops/pallas"
+_SRC = "keypoints_interpolation_transformer_torch/csrc"
+
+KERNELS = (
+    Kernel("pre_stream_embed", fused_pre_stream_embed,
+           f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:230"),
+    Kernel("attn_sublayer", fused_attn_sublayer,
+           f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:135"),
+    Kernel("ffn", fused_ffn,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215"),
+    Kernel("post_head", fused_post_head,
+           f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:90"),
+)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.wrapper.launches for k in KERNELS}

@@ -1,0 +1,75 @@
+"""The port's CUDA kernels on a CUDA card (marker ``gpu``; each test skips
+without a card).  This file imports no JAX, so it also runs where JAX is
+not installed; ``tests/conftest.py`` does import it, so there run
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_the_card(cuda):
+    """Every kernel variant of the serving path against its plain version
+    at the flagship widths, on an aligned and a ragged length."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for T in (40, 128):
+        for name, variant, kern, plain in chk.calls(3, T):
+            chk.compare(name, variant, kern(), plain())
+
+
+@pytest.mark.gpu
+def test_model_kernel_path_on_the_card(cuda):
+    """A two-layer model: the kernel path agrees with the plain path and
+    launches each kernel as often as the TPU kernel it replaces."""
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    B, T, layers = 2, 40, 2
+    model = KeypointCompleter(128, layers, 4, ff_dim=256, device=cuda,
+                              generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0.2, 0.8, (B, T, 54, 2)).astype(
+        np.float32)).to(cuda)
+    m = torch.from_numpy((rng.random((B, T)) < 0.3).astype(np.float32)).to(
+        cuda)
+    valid = torch.ones(B, T, device=cuda)
+    valid[1, T - 7:] = 0.0
+    with torch.inference_mode():
+        want = model(x, x, m, m, valid, plain=True)
+        kernels.reset_launches()
+        got = model(x, x, m, m, valid)
+        torch.cuda.synchronize()
+    assert kernels.launch_counts() == {
+        "pre_stream_embed": 2, "attn_sublayer": 3 * layers,
+        "ffn": 2 * layers, "post_head": 1}
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_wrapper_raises_rather_than_falls_back(cuda):
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    r = torch.zeros(4, 128, device=cuda)
+    w = torch.zeros(128, 256, device=cuda)
+    args = (w, torch.zeros(256, device=cuda), w.t().contiguous(),
+            torch.zeros(128, device=cuda), None, None,
+            torch.ones(128, device=cuda), torch.zeros(128, device=cuda))
+    with pytest.raises(TypeError):
+        kernels.fused_ffn(r.double(), *args)
+    with pytest.raises(ValueError):
+        kernels.fused_ffn(r, *args[:4], None, None, torch.ones(128),
+                          torch.zeros(128))
+    kernels.reset_launches()
+    kernels.fused_ffn(r, *args)
+    assert kernels.launch_counts()["ffn"] == 1
