@@ -29,7 +29,7 @@ constexpr int LDT = BM + 4;  // k-major row stride of a staged block: keeps 16-b
 constexpr float LN_EPS = 1e-5f;
 constexpr float NEG = -1e9f;  // the finite blocker of ops/masks.py
 
-__device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -57,6 +57,33 @@ __device__ __forceinline__ void stage_rows(float* AT, const float* __restrict__ 
   }
 }
 
+// One BK-deep step of the block product: acc[i][j] += sum_{kk < BK}
+// AT[kk * LDA + row_of(i)] * Ws[kk * N + col_of(j)], N = 32 * TN, with AT
+// and Ws the step's k-major tiles in shared memory (LDA a multiple of 4).
+template <int TN, int LDA = LDT>
+__device__ __forceinline__ void mma_tile(float (&acc)[TM][TN], const float* AT, const float* Ws) {
+  constexpr int N = 32 * TN;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    const float4 a4 = *reinterpret_cast<const float4*>(AT + kk * LDA + 4 * warp);
+    const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
+    float b[TN];
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      const float4 b4 = *reinterpret_cast<const float4*>(Ws + kk * N + 4 * lane + 128 * g);
+      b[4 * g] = b4.x;
+      b[4 * g + 1] = b4.y;
+      b[4 * g + 2] = b4.z;
+      b[4 * g + 3] = b4.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
 // acc[i][j] += sum_{k < K} AT[k * LDT + row_of(i)] * W[k * ldw + col_of(j)]
 //
 // AT: the block's rows k-major in shared memory, zero for k in
@@ -70,7 +97,6 @@ __device__ __forceinline__ void mma_rows(float (&acc)[TM][TN], const float* AT, 
                                          float* Ws) {
   static_assert(TN % 4 == 0, "a lane holds whole float4 column groups");
   constexpr int N = 32 * TN, N4 = N / 4;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int idx = threadIdx.x; idx < BK * N4; idx += NT) {
       int kk = idx / N4, c = 4 * (idx - kk * N4);
@@ -80,24 +106,7 @@ __device__ __forceinline__ void mma_rows(float (&acc)[TM][TN], const float* AT, 
       *reinterpret_cast<float4*>(Ws + kk * N + c) = v;
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(AT + (k0 + kk) * LDT + 4 * warp);
-      const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-      float b[TN];
-#pragma unroll
-      for (int g = 0; g < TN / 4; ++g) {
-        const float4 b4 = *reinterpret_cast<const float4*>(Ws + kk * N + 4 * lane + 128 * g);
-        b[4 * g] = b4.x;
-        b[4 * g + 1] = b4.y;
-        b[4 * g + 2] = b4.z;
-        b[4 * g + 3] = b4.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    mma_tile<TN>(acc, AT + k0 * LDT, Ws);
     __syncthreads();
   }
 }

@@ -1,23 +1,58 @@
-// The feed-forward sublayer of the transformer, one launch.
+// The feed-forward sublayer of the transformer: forward (one launch) and
+// backward.
 //
-// Replaces keypoints_interpolation_transformer_tpu/ops/pallas/ffn.py::
-// _kernel_single (the float32 mode; _kernel_split is the bf16x3 mode of the
-// same math):
-//     x1 = LN1(r) if pre_ln else r
-//     u  = x1 W1 + b1;  h = gelu(u) (exact erf);  z = x1 + (h W2 + b2)
-//     y  = LN2(z)
+// Replaces keypoints_interpolation_transformer_tpu/ops/pallas/ffn.py (the
+// float32 mode):
+//   * _kernel_single (with want_residuals for training):
+//         x1 = LN1(r) if pre_ln else r
+//         u  = x1 W1 + b1;  h = gelu(u) (exact erf);  z = x1 + (h W2 + b2)
+//         y  = LN2(z)         [training also writes u (M, FF) and z (M, D)]
+//   * _ffn_bwd_kernel (has_uz): from r, g = dL/dy, u, z and the weights,
+//         dz = LN2'(g);  dW2 = h^T dz;  db2 = sum dz;  du = (dz W2^T) gelu'(u)
+//         dW1 = x1^T du;  db1 = sum du;  dx1 = du W1^T + dz;  dr = LN1'(dx1)
+//     and the LayerNorm gradients.
 //
-// What bounds it on an H100: float32 FFMA work, 2 * 2 * D * FF = 2.1 MFLOP
-// per token at D = 256, FF = 2048 (69 GFLOP per call at B = 256, T = 128),
-// while only 2 KB per token come in and go out.  The (tokens, FF)
-// intermediate would be 268 MB per call if it were written.  Design: one
-// block owns 32 token rows; x1 stays in shared memory, the FF axis is walked
-// in D-wide chunks, each chunk's u and gelu(u) live in registers and a
-// shared tile, and z accumulates in registers across the chunks; LN1 and
-// LN2 run over the full row (one warp per row).  Nothing but r and y touch
-// device memory.  GELU uses erff: the rational erf of the TPU kernel exists
-// only because Mosaic has no erf.
+// What bounds it on an H100: float32 FFMA work.  Forward 2 * 2 * D * FF =
+// 2.1 MFLOP per token at D = 256, FF = 2048 (17.2 GFLOP per call at B = 64,
+// T = 128) against 2 KB per token in and out, and 10 KB more for the u / z
+// residuals in training.  The backward's four products are 4.2 MFLOP per
+// token (34.4 GFLOP per call); it reads u (8 KB per token) once more.
+//
+// Forward design: one block owns 32 token rows; x1 stays in shared memory,
+// the FF axis is walked in D-wide chunks, each chunk's u and gelu(u) live in
+// registers and a shared tile, and z accumulates in registers across the
+// chunks; LN1 and LN2 run over the full row (one warp per row).  GELU uses
+// erff: the rational erf of the TPU kernel exists only because Mosaic has
+// no erf.
+//
+// Backward design.  The TPU kernel walks row cells in order and keeps the
+// (D, FF) weight-gradient sums in VMEM from one cell to the next; blocks on
+// Hopper run in parallel and a block's 227 KB cannot hold a 2 MB sum.  The
+// two consumers of du also contract over different axes: dx1 over FF (a
+// row block's own reduction) and dW1 over the rows.  So the backward runs
+// as row passes and weight passes, and du, like dh, never reaches device
+// memory:
+//   1. ln_bwd: dz from g and z (one warp per row); per-block sums of g * n2
+//      and g.
+//   2. ffn_bwd_rows: per 32-row block, dh = dz W2^T and du = dh gelu'(u) for
+//      one D-wide FF chunk at a time in registers and a shared tile, dx1 +=
+//      du W1^T accumulated in registers; per-block column sums of du (db1).
+//   3. with pre_ln, x1 = LN1(r) and dr = LN1'(dx1) (in place).
+//   4. ffn_bwd_dw1: per 128 rows of dW1^T (all D columns) and row range,
+//      du is rebuilt for 32 rows at a time (the dz tile times a 128-wide
+//      slice of W2^T, then gelu'(u)) and the 128 x D sums += du^T x1 in
+//      registers.  The rebuild costs 2 D FLOP per (row, FF) element (8.6
+//      GFLOP per call at D = 256): the price of keeping du off device
+//      memory.
+//   5. dW2^T = dz^T gelu(u) by the shared weight-gradient product, u read
+//      through the GELU.
+//   6. db2 = column sums of dz; every per-block or per-range partial sum is
+//      added in a fixed order by sum_parts (no atomics: the same bits from
+//      run to run).
+// Gradients come out in torch's Linear layout (dW1^T (FF, D), dW2^T (D, FF)),
+// which is also the layout of the weights the row pass multiplies by.
 #include "common.cuh"
+#include "grad.cuh"
 
 using namespace kit;
 
@@ -29,7 +64,8 @@ ffn_kernel(const float* __restrict__ r, int M, int FF, const float* __restrict__
            const float* __restrict__ b1, const float* __restrict__ w2,
            const float* __restrict__ b2, const float* __restrict__ g1,
            const float* __restrict__ be1, const float* __restrict__ g2,
-           const float* __restrict__ be2, float* __restrict__ y) {
+           const float* __restrict__ be2, float* __restrict__ y, float* __restrict__ u_out,
+           float* __restrict__ z_out) {
   constexpr int D = 32 * TN;
   extern __shared__ __align__(16) float smem[];
   float* Xs = smem;                // D x LDT: x1, k-major
@@ -64,9 +100,13 @@ ffn_kernel(const float* __restrict__ r, int M, int FF, const float* __restrict__
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         int c = col_of(j);
-        float u = c < fc ? v[i][j] + __ldg(b1 + f0 + c) : 0.f;
-        v[i][j] = 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+        v[i][j] = c < fc ? v[i][j] + __ldg(b1 + f0 + c) : 0.f;
       }
+    if (u_out != nullptr) store_rows<TN>(u_out + f0, FF, fc, row0, M, v);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) v[i][j] = gelu(v[i][j]);
     put_rows<TN>(Hs, v);
     __syncthreads();
     mma_rows<TN>(z, Hs, fc, w2 + (size_t)f0 * D, D, D, Ws);
@@ -76,40 +116,249 @@ ffn_kernel(const float* __restrict__ r, int M, int FF, const float* __restrict__
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) z[i][j] = v[i][j] + (z[i][j] + __ldg(b2 + col_of(j)));
+  if (z_out != nullptr) store_rows<TN>(z_out, D, D, row0, M, z);
   layer_norm<TN>(z, g2, be2);
   store_rows<TN>(y, D, D, row0, M, z);
+}
+
+// Backward row pass: dx1 = dz + (dz W2^T * gelu'(u)) W1^T over 32-row
+// blocks; part_db1[blockIdx.x * FF + f] = the block's sum of du[:, f].
+// w2t = W2^T (D, FF), w1t = W1^T (FF, D), both row-major.
+template <int TN>
+__global__ void __launch_bounds__(NT)
+ffn_bwd_rows_kernel(const float* __restrict__ dz, const float* __restrict__ u, int M, int FF,
+                    const float* __restrict__ w1t, const float* __restrict__ w2t,
+                    float* __restrict__ dx1, float* __restrict__ part_db1) {
+  constexpr int D = 32 * TN;
+  extern __shared__ __align__(16) float smem[];
+  float* Zs = smem;                // D x LDT: dz, k-major
+  float* Hs = smem + D * LDT;      // D x LDT: du of one FF chunk
+  float* Ws = smem + 2 * D * LDT;  // BK x D
+  float* red = Ws + BK * D;        // 8 x D
+  const int row0 = blockIdx.x * BM;
+  stage_rows(Zs, dz, D, row0, M, D);
+  __syncthreads();
+  float acc[TM][TN], v[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  for (int f0 = 0; f0 < FF; f0 += D) {
+    const int fc = min(D, FF - f0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) v[i][j] = 0.f;
+    mma_rows<TN>(v, Zs, D, w2t + f0, FF, fc, Ws);  // dh = dz W2^T
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = row0 + row_of(i);
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g) {
+        const int c = col_of(4 * g);
+        float4 uu = make_float4(0.f, 0.f, 0.f, 0.f);
+        const bool in = row < M && c < fc;
+        if (in) uu = __ldg(reinterpret_cast<const float4*>(u + (size_t)row * FF + f0 + c));
+        v[i][4 * g] = in ? v[i][4 * g] * gelu_grad(uu.x) : 0.f;
+        v[i][4 * g + 1] = in ? v[i][4 * g + 1] * gelu_grad(uu.y) : 0.f;
+        v[i][4 * g + 2] = in ? v[i][4 * g + 2] * gelu_grad(uu.z) : 0.f;
+        v[i][4 * g + 3] = in ? v[i][4 * g + 3] * gelu_grad(uu.w) : 0.f;
+      }
+    }
+    block_colsum<TN>(v, red, part_db1 + (size_t)blockIdx.x * FF + f0, fc);
+    put_rows<TN>(Hs, v);
+    __syncthreads();
+    mma_rows<TN>(acc, Hs, fc, w1t + (size_t)f0 * D, D, D, Ws);  // dx1 += du W1^T
+  }
+  get_rows<TN>(v, Zs);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] += v[i][j];
+  store_rows<TN>(dx1, D, D, row0, M, acc);
+}
+
+// Backward weight pass for W1: part[blockIdx.y] holds rows [f0, f0 + FT)
+// of dW1^T = du^T x1 over the block's row range, du rebuilt in shared
+// memory 32 rows at a time (dh = dz W2^T[:, f0 : f0 + FT] by the block
+// product, then gelu'(u)).  Grid (FF / FT, splits).  Each block holds the
+// FT x D sums, four 32-row groups of TM x TN per thread.
+constexpr int FT = 128, LDU = FT + 4;
+
+template <int TN>
+__global__ void __launch_bounds__(NT)
+ffn_bwd_dw1_kernel(const float* __restrict__ dz, const float* __restrict__ x1,
+                   const float* __restrict__ u, const float* __restrict__ w2t, int M, int FF,
+                   int rows, float* __restrict__ part) {
+  constexpr int D = 32 * TN;
+  extern __shared__ __align__(16) float smem[];
+  float* Zs = smem;            // D x LDT: dz of the row tile, k-major
+  float* Us = Zs + D * LDT;    // BM x LDU: du[row][f] (k = row)
+  float* Ws = Us + BM * LDU;   // BK x D (w2t slices, then x1 rows)
+  const int f0 = blockIdx.x * FT;
+  const int r_begin = blockIdx.y * rows, r_end = min(M, r_begin + rows);
+  float acc[4][TM][TN];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[q][i][j] = 0.f;
+  for (int r0 = r_begin; r0 < r_end; r0 += BM) {
+    const int n = min(BM, r_end - r0);
+    stage_rows(Zs, dz, D, r0, r_end, D);
+    __syncthreads();
+    float h[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) h[i][j] = 0.f;
+    mma_rows<4>(h, Zs, D, w2t + f0, FF, FT, Ws);  // dh[row][f], f < FT
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = row_of(i), c = col_of(0);
+      float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < n) {
+        const float4 uu =
+            __ldg(reinterpret_cast<const float4*>(u + (size_t)(r0 + r) * FF + f0 + c));
+        g = make_float4(h[i][0] * gelu_grad(uu.x), h[i][1] * gelu_grad(uu.y),
+                        h[i][2] * gelu_grad(uu.z), h[i][3] * gelu_grad(uu.w));
+      }
+      *reinterpret_cast<float4*>(Us + r * LDU + c) = g;
+    }
+    __syncthreads();
+    // dW1^T[f][d] += sum_row du[row][f] x1[row][d]
+    for (int k0 = 0; k0 < n; k0 += BK) {
+      for (int idx = threadIdx.x; idx < BK * D / 4; idx += NT) {
+        const int kk = idx / (D / 4), c = 4 * (idx - kk * (D / 4));
+        const int k = k0 + kk;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k < n) v = __ldg(reinterpret_cast<const float4*>(x1 + (size_t)(r0 + k) * D + c));
+        *reinterpret_cast<float4*>(Ws + kk * D + c) = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mma_tile<TN, LDU>(acc[q], Us + k0 * LDU + 32 * q, Ws);
+      __syncthreads();
+    }
+  }
+  float* out = part + (size_t)blockIdx.y * FF * D + (size_t)f0 * D;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) store_rows<TN>(out + (size_t)32 * q * D, D, D, 0, BM, acc[q]);
 }
 
 template <int TN>
 int launch(const float* r, int M, int FF, const float* w1, const float* b1, const float* w2,
            const float* b2, const float* g1, const float* be1, const float* g2, const float* be2,
-           float* y, cudaStream_t st) {
+           float* y, float* u, float* z, cudaStream_t st) {
   constexpr int D = 32 * TN;
   const int smem = (2 * D * LDT + BK * D) * sizeof(float);
   static bool ready = false;
   cudaError_t e = allow_smem(ffn_kernel<TN>, smem, ready);
   if (e != cudaSuccess) return (int)e;
   ffn_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(r, M, FF, w1, b1, w2, b2, g1, be1, g2, be2,
-                                                      y);
+                                                      y, u, z);
   return (int)cudaGetLastError();
+}
+
+template <int TN>
+int launch_bwd(const float* g, const float* r, const float* u, const float* z, const float* w1t,
+               const float* w2t, const float* g1, const float* be1, int M, int FF, int s_dw1,
+               int s_dw2, int s_vec, const float* g2, float* x1, float* dz, float* dr,
+               float* dw1t, float* db1, float* dw2t, float* db2, float* ln_out, float* scratch,
+               cudaStream_t st) {
+  constexpr int D = 32 * TN;
+  const int blocks = (M + BM - 1) / BM;
+  float* p_ln2 = scratch;                          // blocks x 2D
+  float* p_db1 = p_ln2 + (size_t)blocks * 2 * D;   // blocks x FF
+  float* p_ln1 = p_db1 + (size_t)blocks * FF;      // blocks x 2D
+  float* p_dw1 = p_ln1 + (size_t)blocks * 2 * D;   // s_dw1 x FF x D
+  float* p_dw2 = p_dw1 + (size_t)s_dw1 * FF * D;   // s_dw2 x D x FF
+  float* p_db2 = p_dw2 + (size_t)s_dw2 * D * FF;   // s_vec x D
+  const bool pre_ln = g1 != nullptr;
+  const int smem_rows = (2 * D * LDT + BK * D + 8 * D) * sizeof(float);
+  const int smem_dw1 = (D * LDT + BM * LDU + BK * D) * sizeof(float);
+  static bool ready_rows = false, ready_dw1 = false;
+  cudaError_t e = allow_smem(ffn_bwd_rows_kernel<TN>, smem_rows, ready_rows);
+  if (e == cudaSuccess) e = allow_smem(ffn_bwd_dw1_kernel<TN>, smem_dw1, ready_dw1);
+  if (e != cudaSuccess) return (int)e;
+  int rc;
+#define KIT_CHECK(x) \
+  if ((rc = (x)) != 0) return rc
+  ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(g, z, g2, M, dz, p_ln2);
+  KIT_CHECK((int)cudaGetLastError());
+  ffn_bwd_rows_kernel<TN><<<blocks, NT, smem_rows, st>>>(dz, u, M, FF, w1t, w2t, dr, p_db1);
+  KIT_CHECK((int)cudaGetLastError());
+  const float* x1r = r;
+  if (pre_ln) {
+    ln_fwd_kernel<TN><<<blocks, NT, 0, st>>>(r, g1, be1, M, x1);
+    KIT_CHECK((int)cudaGetLastError());
+    ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dr, r, g1, M, dr, p_ln1);  // in place
+    KIT_CHECK((int)cudaGetLastError());
+    KIT_CHECK(sum_parts(p_ln1, blocks, 2 * D, ln_out + 2 * D, st));
+    x1r = x1;
+  }
+  ffn_bwd_dw1_kernel<TN><<<dim3(FF / FT, s_dw1), NT, smem_dw1, st>>>(
+      dz, x1r, u, w2t, M, FF, rows_per_split(M, s_dw1), p_dw1);
+  KIT_CHECK((int)cudaGetLastError());
+  KIT_CHECK(sum_parts(p_dw1, s_dw1, FF * D, dw1t, st));
+  KIT_CHECK(atb<true>(dz, D, u, FF, M, D, FF, s_dw2, p_dw2, dw2t, st));
+  KIT_CHECK(colsum(dz, D, M, D, s_vec, p_db2, db2, st));
+  KIT_CHECK(sum_parts(p_db1, blocks, FF, db1, st));
+  KIT_CHECK(sum_parts(p_ln2, blocks, 2 * D, ln_out, st));
+#undef KIT_CHECK
+  return 0;
 }
 
 }  // namespace
 
-// r (M, D) -> y (M, D); w1 (D, FF), w2 (FF, D).  g1, be1 null means no LN1.
+// r (M, D) -> y (M, D); w1 (D, FF), w2 (FF, D).  g1, be1 null means no LN1;
+// u (M, FF) and z (M, D), when not null, receive the training residuals.
 // D is 128 or 256.
 extern "C" int kit_ffn(const void* r, int M, int D, int FF, const void* w1, const void* b1,
                        const void* w2, const void* b2, const void* g1, const void* be1,
-                       const void* g2, const void* be2, void* y, void* stream) {
+                       const void* g2, const void* be2, void* y, void* u, void* z,
+                       void* stream) {
   auto st = (cudaStream_t)stream;
   auto p = [](const void* v) { return (const float*)v; };
+  auto o = [](void* v) { return (float*)v; };
   switch (D) {
     case 128:
       return launch<4>(p(r), M, FF, p(w1), p(b1), p(w2), p(b2), p(g1), p(be1), p(g2), p(be2),
-                       (float*)y, st);
+                       o(y), o(u), o(z), st);
     case 256:
       return launch<8>(p(r), M, FF, p(w1), p(b1), p(w2), p(b2), p(g1), p(be1), p(g2), p(be2),
-                       (float*)y, st);
+                       o(y), o(u), o(z), st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Gradients of kit_ffn's y given g = dL/dy (M, D), the forward's input r and
+// its residuals u, z; w1t = W1^T (FF, D), w2t = W2^T (D, FF).  g1, be1 null
+// means no LN1 (x1 may then be null; with LN1 it is (M, D) scratch for x1).
+// Writes dz (M, D, scratch), dr, dw1t (FF, D), db1, dw2t (D, FF), db2 and
+// ln_out = [dg2 | dbe2 | dg1 | dbe1] (4 D).  scratch holds the partial sums:
+// blocks * (4 D + FF) + s_dw1 * FF * D + s_dw2 * D * FF + s_vec * D floats,
+// blocks = ceil(M / 32).  D is 128 or 256, FF a multiple of 128.
+extern "C" int kit_ffn_bwd(const void* g, const void* r, const void* u, const void* z,
+                           const void* w1t, const void* w2t, const void* g1, const void* be1,
+                           int M, int D, int FF, int s_dw1, int s_dw2, int s_vec, const void* g2,
+                           void* x1, void* dz, void* dr, void* dw1t, void* db1, void* dw2t,
+                           void* db2, void* ln_out, void* scratch, void* stream) {
+  auto st = (cudaStream_t)stream;
+  auto p = [](const void* v) { return (const float*)v; };
+  auto o = [](void* v) { return (float*)v; };
+  if (FF % FT) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 128:
+      return launch_bwd<4>(p(g), p(r), p(u), p(z), p(w1t), p(w2t), p(g1), p(be1), M, FF, s_dw1,
+                           s_dw2, s_vec, p(g2), o(x1), o(dz), o(dr), o(dw1t), o(db1), o(dw2t),
+                           o(db2), o(ln_out), o(scratch), st);
+    case 256:
+      return launch_bwd<8>(p(g), p(r), p(u), p(z), p(w1t), p(w2t), p(g1), p(be1), M, FF, s_dw1,
+                           s_dw2, s_vec, p(g2), o(x1), o(dz), o(dr), o(dw1t), o(db1), o(dw2t),
+                           o(db2), o(ln_out), o(scratch), st);
     default:
       return (int)cudaErrorInvalidValue;
   }

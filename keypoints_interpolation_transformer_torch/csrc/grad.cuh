@@ -1,0 +1,283 @@
+// Building blocks of the port's backward kernels (included by ffn.cu and
+// attn_sublayer.cu), on the block layout of common.cuh.
+//
+// Reductions across rows never use atomics: a kernel writes one partial
+// sum per block (or per row split) into scratch the wrapper allocates, and
+// sum_parts_kernel adds the partials in a fixed order, so every gradient
+// is the same from run to run.
+#pragma once
+
+#include "common.cuh"
+
+namespace kit {
+
+// d/du [u * Phi(u)] = Phi(u) + u * phi(u), exact erf (the forward's GELU).
+__device__ __forceinline__ float gelu_grad(float u) {
+  const float cdf = 0.5f * (1.f + erff(u * 0.70710678118654752f));
+  const float pdf = 0.3989422804014327f * expf(-0.5f * u * u);
+  return fmaf(u, pdf, cdf);
+}
+
+__device__ __forceinline__ float gelu(float u) {
+  return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+}
+
+// The thread's TM x TN values of rows [row0, row0 + BM) (zero for rows >=
+// M) of a row-major matrix with D = 32 * TN columns and row stride ld (a
+// multiple of 4), one 16-byte load per row and column group.
+template <int TN>
+__device__ __forceinline__ void load_rows(float (&v)[TM][TN], const float* __restrict__ src,
+                                          int ld, int row0, int M) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + row_of(i);
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < M)
+        x = __ldg(reinterpret_cast<const float4*>(src + (size_t)row * ld + col_of(4 * g)));
+      v[i][4 * g] = x.x;
+      v[i][4 * g + 1] = x.y;
+      v[i][4 * g + 2] = x.z;
+      v[i][4 * g + 3] = x.w;
+    }
+  }
+}
+
+// Column sums over the block's BM rows of the thread's values: out[c] for
+// c < ncols.  red: shared scratch of 8 * 32 * TN floats.  Fixed order (the
+// thread's 4 rows, then the 8 warps in turn).  Starts and ends with a
+// barrier.
+template <int TN>
+__device__ __forceinline__ void block_colsum(const float (&v)[TM][TN], float* red,
+                                             float* __restrict__ out, int ncols) {
+  constexpr int D = 32 * TN;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < TN; ++j)
+    red[warp * D + col_of(j)] = ((v[0][j] + v[1][j]) + v[2][j]) + v[3][j];
+  __syncthreads();
+  for (int c = threadIdx.x; c < ncols; c += NT) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) s += red[w * D + c];
+    out[c] = s;
+  }
+  __syncthreads();
+}
+
+// LayerNorm over rows [0, M) of width D = 32 * TN (one warp per row):
+// out = norm(x) * gamma + beta.
+template <int TN>
+__global__ void __launch_bounds__(NT)
+ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, int M, float* __restrict__ out) {
+  constexpr int D = 32 * TN;
+  float v[TM][TN];
+  load_rows<TN>(v, x, D, blockIdx.x * BM, M);
+  layer_norm<TN>(v, gamma, beta);
+  store_rows<TN>(out, D, D, blockIdx.x * BM, M, v);
+}
+
+// Backward of y = norm(x) * gamma + beta over rows [0, M) of width D =
+// 32 * TN, given dy: dx, and the block's partial sums of dy * norm(x)
+// (part[0, D)) and of dy (part[D, 2D)) at part + blockIdx.x * 2D.  dx may
+// be dy: each thread reads all its values before it writes them.
+template <int TN>
+__global__ void __launch_bounds__(NT)
+ln_bwd_kernel(const float* dy, const float* __restrict__ x, const float* __restrict__ gamma,
+              int M, float* dx, float* __restrict__ part) {
+  constexpr int D = 32 * TN;
+  constexpr float inv_n = 1.f / D;
+  __shared__ float red[8 * D];
+  const int row0 = blockIdx.x * BM;
+  float n[TM][TN], g[TM][TN];
+  load_rows<TN>(n, x, D, row0, M);
+  load_rows<TN>(g, dy, D, row0, M);
+  float inv[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) s += n[i][j];
+    const float mean = warp_sum(s) * inv_n;
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      n[i][j] -= mean;
+      ss += n[i][j] * n[i][j];
+    }
+    inv[i] = rsqrtf(warp_sum(ss) * inv_n + LN_EPS);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) n[i][j] *= inv[i];
+  }
+  float t[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) t[i][j] = g[i][j] * n[i][j];
+  float* out = part + (size_t)blockIdx.x * 2 * D;
+  block_colsum<TN>(t, red, out, D);
+  block_colsum<TN>(g, red, out + D, D);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float dn = g[i][j] * __ldg(gamma + col_of(j));
+      t[i][j] = dn;
+      s1 += dn;
+      s2 += dn * n[i][j];
+    }
+    const float m1 = warp_sum(s1) * inv_n, m2 = warp_sum(s2) * inv_n;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) t[i][j] = (t[i][j] - m1 - n[i][j] * m2) * inv[i];
+  }
+  store_rows<TN>(dx, D, D, row0, M, t);
+}
+
+// out[r, :] = A[r, :K] W[K, D] (+ add[r, :]) over rows [0, M), D = 32 * TN:
+// the block's rows of A (row stride lda) staged k-major once, W (row
+// stride ldw) streamed.  Dynamic shared memory (K * LDT + BK * D) floats.
+template <int TN>
+__global__ void __launch_bounds__(NT)
+rows_matmul_kernel(const float* __restrict__ A, int lda, int K, const float* __restrict__ W,
+                   int ldw, const float* __restrict__ add, int M, float* __restrict__ out) {
+  constexpr int D = 32 * TN;
+  extern __shared__ __align__(16) float smem[];
+  float* AT = smem;
+  float* Ws = smem + round_up(K, BK) * LDT;
+  const int row0 = blockIdx.x * BM;
+  stage_rows(AT, A, lda, row0, M, K);
+  __syncthreads();
+  float acc[TM][TN];
+  if (add != nullptr) {
+    load_rows<TN>(acc, add, D, row0, M);
+  } else {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+  mma_rows<TN>(acc, AT, K, W, ldw, D, Ws);
+  store_rows<TN>(out, D, D, row0, M, acc);
+}
+
+// The weight-gradient product C = A^T B' over a range of rows: part[z][i][j]
+// = sum over rows k of split z of A[k * lda + i] * B'[k, j], i < NA, j < NB,
+// with B' = gelu(B) when GELU_B.  Grid (ceil(NA / BM), ceil(NB / (32 TN)),
+// splits); split z covers rows [z * rows, min(K, (z + 1) * rows)).  Both
+// operands stream through shared memory in BK-row tiles.  NA, NB, lda and
+// ldb are multiples of 4 and A, B 16-byte aligned.
+template <int TN, bool GELU_B>
+__global__ void __launch_bounds__(NT)
+atb_kernel(const float* __restrict__ A, int lda, const float* __restrict__ B, int ldb, int K,
+           int NA, int NB, int rows, float* __restrict__ part) {
+  constexpr int N = 32 * TN, N4 = N / 4;
+  __shared__ __align__(16) float As[BK * LDT];
+  __shared__ __align__(16) float Bs[BK * N];
+  const int i0 = blockIdx.x * BM, j0 = blockIdx.y * N;
+  const int k_begin = blockIdx.z * rows, k_end = min(K, k_begin + rows);
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+    for (int idx = threadIdx.x; idx < BK * BM / 4; idx += NT) {
+      const int kk = idx / (BM / 4), c = 4 * (idx - kk * (BM / 4));
+      const int k = k0 + kk;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < k_end && i0 + c < NA)
+        v = __ldg(reinterpret_cast<const float4*>(A + (size_t)k * lda + i0 + c));
+      *reinterpret_cast<float4*>(As + kk * LDT + c) = v;
+    }
+    for (int idx = threadIdx.x; idx < BK * N4; idx += NT) {
+      const int kk = idx / N4, c = 4 * (idx - kk * N4);
+      const int k = k0 + kk;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < k_end && j0 + c < NB) {
+        v = __ldg(reinterpret_cast<const float4*>(B + (size_t)k * ldb + j0 + c));
+        if (GELU_B) v = make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
+      }
+      *reinterpret_cast<float4*>(Bs + kk * N + c) = v;
+    }
+    __syncthreads();
+    mma_tile<TN>(acc, As, Bs);
+    __syncthreads();
+  }
+  store_rows<TN>(part + (size_t)blockIdx.z * NA * NB + j0, NB, NB - j0, i0, NA, acc);
+}
+
+// part[z * N + j] = sum of X[r * ld + j] over rows r of split z
+// ([z * rows, min(M, (z + 1) * rows))), j < N, in row order.
+__global__ void colsum_kernel(const float* __restrict__ X, int ld, int M, int N, int rows,
+                              float* __restrict__ part) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= N) return;
+  const int r1 = min(M, (int)(blockIdx.y + 1) * rows);
+  float s = 0.f;
+  for (int r = blockIdx.y * rows; r < r1; ++r) s += __ldg(X + (size_t)r * ld + j);
+  part[(size_t)blockIdx.y * N + j] = s;
+}
+
+// out[i] = sum_{z < S} part[z * N + i], in order of z; N a multiple of 4.
+__global__ void sum_parts_kernel(const float* __restrict__ part, int S, int N,
+                                 float* __restrict__ out) {
+  const int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= N) return;
+  float4 acc = __ldg(reinterpret_cast<const float4*>(part + i));
+  for (int z = 1; z < S; ++z) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(part + (size_t)z * N + i));
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  *reinterpret_cast<float4*>(out + i) = acc;
+}
+
+// ---- host side -------------------------------------------------------------
+
+inline int rows_per_split(int M, int splits) { return ((M + splits - 1) / splits + 31) / 32 * 32; }
+
+inline int sum_parts(const float* part, int S, int N, float* out, cudaStream_t st) {
+  sum_parts_kernel<<<(N / 4 + 255) / 256, 256, 0, st>>>(part, S, N, out);
+  return (int)cudaGetLastError();
+}
+
+inline int colsum(const float* X, int ld, int M, int N, int splits, float* part, float* out,
+                  cudaStream_t st) {
+  colsum_kernel<<<dim3((N + 127) / 128, splits), 128, 0, st>>>(X, ld, M, N,
+                                                              rows_per_split(M, splits), part);
+  int rc = (int)cudaGetLastError();
+  return rc ? rc : sum_parts(part, splits, N, out, st);
+}
+
+// out (NA, NB) = A^T B' over K rows, split over `splits` row ranges.
+template <bool GELU_B>
+inline int atb(const float* A, int lda, const float* B, int ldb, int K, int NA, int NB,
+               int splits, float* part, float* out, cudaStream_t st) {
+  dim3 grid((NA + BM - 1) / BM, (NB + 255) / 256, splits);
+  atb_kernel<8, GELU_B><<<grid, NT, 0, st>>>(A, lda, B, ldb, K, NA, NB,
+                                             rows_per_split(K, splits), part);
+  int rc = (int)cudaGetLastError();
+  return rc ? rc : sum_parts(part, splits, NA * NB, out, st);
+}
+
+// out = A[:, :K] W (+ add), rows [0, M), D = 32 * TN.  K <= 3 D.
+template <int TN>
+inline int rows_matmul(const float* A, int lda, int K, const float* W, int ldw, const float* add,
+                       int M, float* out, cudaStream_t st) {
+  constexpr int D = 32 * TN;
+  static bool ready = false;
+  cudaError_t e = allow_smem(rows_matmul_kernel<TN>, (3 * D * LDT + BK * D) * (int)sizeof(float),
+                             ready);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = (round_up(K, BK) * LDT + BK * D) * (int)sizeof(float);
+  rows_matmul_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(A, lda, K, W, ldw, add, M, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace kit

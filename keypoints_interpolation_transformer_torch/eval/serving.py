@@ -28,26 +28,25 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from keypoints_interpolation_transformer_tpu.data.keypoints import (
-    NUM_COORDS, NUM_KEYPOINTS)
-from keypoints_interpolation_transformer_tpu.utils.config import ModelConfig
-
+from ..data.keypoints import NUM_COORDS, NUM_KEYPOINTS
 from ..models.completer import KeypointCompleter
 from ..models.convert import load_reference_pth, state_dict_tensors
 from ..ops.losses import composite_prediction
 from ..transforms.corruption import add_sos
+from ..utils.config import ModelConfig
 
 
 class Inpainter:
     """Checkpoint-backed masked-frame inpainting with shape bucketing.
 
-    ``device`` is where the model runs: CUDA tensors go through the
-    kernels, CPU tensors through their plain versions.  ``plain=True``
-    runs the plain versions on any device (the oracle path)."""
+    ``device`` is where the model runs, the card unless the caller asks
+    for the CPU: CUDA tensors go through the kernels, CPU tensors through
+    their plain versions.  ``plain=True`` runs the plain versions on any
+    device (the oracle path)."""
 
     def __init__(self, state_dict, model_cfg: ModelConfig,
                  bucket_multiple: int = 32, max_seq_len: int = 512,
-                 variant: str = "plain", device="cpu", plain: bool = False):
+                 variant: str = "plain", device="cuda", plain: bool = False):
         if variant != "plain":
             raise ValueError(
                 f"variant {variant!r} is not served by the PyTorch port yet "
@@ -58,6 +57,10 @@ class Inpainter:
                              "(compute_dtype='float32', "
                              "matmul_precision='highest')")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Inpainter: no CUDA device; pass device='cpu' to run the "
+                "plain versions on the CPU")
         self.model = KeypointCompleter(
             model_cfg.hidden_dim, model_cfg.num_layers, model_cfg.num_heads,
             input_size=model_cfg.input_size, ff_dim=model_cfg.ff_dim,

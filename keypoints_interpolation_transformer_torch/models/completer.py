@@ -18,6 +18,17 @@ The attention biases are built inside the sublayer kernels from the 1-D
   cross-attention          "all" plus the padding bias.
 
 A stream whose frame mask is not given attends with kind "all".
+
+Two routes, as the JAX package's ``build_model`` has them:
+
+  serving   (``eval()`` mode or no gradient): every kernel, with weights
+            packed once outside the autograd graph;
+  training  (``train()`` mode with gradients on): the attention and FF
+            sublayers through their ``autograd.Function``s (training
+            forward and backward kernels); the pre- and post-stream chains
+            through their plain versions under autograd, as the JAX
+            training path keeps those chains in XLA (``build_model`` with
+            ``for_training``), not as a fallback.
 """
 
 from __future__ import annotations
@@ -27,13 +38,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from keypoints_interpolation_transformer_tpu.data.keypoints import (
-    FRAME_FEATURES, NUM_COORDS, NUM_KEYPOINTS)
-
+from ..data.keypoints import FRAME_FEATURES, NUM_COORDS, NUM_KEYPOINTS
 from ..ops.kernels import (fused_post_head, fused_pre_stream_embed,
                            post_head_plain, pre_stream_embed_plain)
 from .layers import (AttnSpec, MultiHeadAttention, SwiGLU, TransformerCore,
-                     packed_linear, sinusoidal_positional_encoding)
+                     graph_linear, packed_linear,
+                     sinusoidal_positional_encoding)
 
 
 class KeypointCompleter(nn.Module):
@@ -121,7 +131,8 @@ class KeypointCompleter(nn.Module):
         """inputs, filled (B, T, K, 2); masks (B, T): frame masks 1 =
         missing, ``valid_mask`` 1 = real frame.  ``plain=True`` runs the
         plain PyTorch version of every kernel (the oracle path) whatever
-        the device."""
+        the device.  The training route is taken in ``train()`` mode when
+        gradients are on (see the module docstring)."""
         B, T = inputs.shape[0], inputs.shape[1]
         if T > self.pe_max_len:
             raise ValueError(
@@ -135,16 +146,24 @@ class KeypointCompleter(nn.Module):
         f = f32(filled.reshape(B, T, -1))
         src_frame_mask, tgt_frame_mask, valid_mask = (
             f32(src_frame_mask), f32(tgt_frame_mask), f32(valid_mask))
-        pre = pre_stream_embed_plain if plain else fused_pre_stream_embed
-        post = post_head_plain if plain else fused_post_head
+        train = self.training and torch.is_grad_enabled()
+        if train:
+            pre, post = pre_stream_embed_plain, post_head_plain
+            linear = graph_linear
+            swiglu = SwiGLU.graph_packed
+        else:
+            pre = pre_stream_embed_plain if plain else fused_pre_stream_embed
+            post = post_head_plain if plain else fused_post_head
+            linear = packed_linear
+            swiglu = SwiGLU.packed
 
         pe = self.pe[:T]
         pe_in = (pe + self.learned_input_positional_encoder[0]).contiguous()
         pe_fill = (pe + self.learned_filled_positional_encoder[0]).contiguous()
-        src = pre(x, *packed_linear(self.input_embedding), pe_in,
-                  *self.swiGlu_input_prev.packed(), self.pe_residual, False)
-        tgt, filled_emb = pre(f, *packed_linear(self.filled_embedding),
-                              pe_fill, *self.swiGlu_filled_prev.packed(),
+        src = pre(x, *linear(self.input_embedding), pe_in,
+                  *swiglu(self.swiGlu_input_prev), self.pe_residual, False)
+        tgt, filled_emb = pre(f, *linear(self.filled_embedding),
+                              pe_fill, *swiglu(self.swiGlu_filled_prev),
                               self.pe_residual, True)
 
         has_src, has_tgt = src_frame_mask is not None, \
@@ -156,9 +175,9 @@ class KeypointCompleter(nn.Module):
                             self.use_tgt_key_padding and has_tgt)
         cross_spec = AttnSpec(None, valid_mask, "all", False)
         decoded = self.transformer(src, tgt, src_spec, tgt_spec, cross_spec,
-                                   plain)
-        out = post(decoded, filled_emb, *self.swiGlu_decoded.packed(),
-                   *packed_linear(self.fc_final))
+                                   plain, train)
+        out = post(decoded, filled_emb, *swiglu(self.swiGlu_decoded),
+                   *linear(self.fc_final))
         return out.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)
 
 

@@ -4,7 +4,8 @@
 of the JAX package: a Flax KeypointCompleter parameter tree (numpy or any
 array with ``__array__``) becomes a state dict under the reference
 ``.pth`` names, which ``KeypointCompleter.load_state_dict`` takes as it
-is.  ``load_reference_pth`` / ``save_reference_pth`` read and write the
+is.  ``adam_state_from_jax`` does the same for the Adam moments of a JAX
+train state, so a JAX run continues in the port.  ``load_reference_pth`` / ``save_reference_pth`` read and write the
 reference checkpoint schema
 ``{model_state_dict, optimizer_state_dict, input_size, hidden_dim,
 num_layers, num_heads, loss}``.
@@ -12,7 +13,7 @@ num_layers, num_heads, loss}``.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +78,30 @@ def params_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
         sd[f"{theirs}.bias"] = _np(core[ours]["bias"])
     _linear(sd, "fc_final", params["fc_final"])
     return sd
+
+
+def adam_state_from_jax(opt_state, names: Sequence[str],
+                        lr: float = 0.0) -> Dict:
+    """Optax ``ScaleByAdamState(count, mu, nu)`` over a Flax
+    KeypointCompleter tree -> the state dict of a ``torch.optim.Adam``
+    whose parameters are ``names`` in that order (the port's
+    ``named_parameters()`` order), each moment laid out as
+    ``params_from_jax`` lays out its parameter."""
+    from ..train.state import BETAS, EPS
+    count, mu, nu = opt_state[0], opt_state[1], opt_state[2]
+    mu_sd, nu_sd = params_from_jax(mu), params_from_jax(nu)
+    missing = [n for n in names if n not in mu_sd]
+    if missing:
+        raise KeyError(f"no Adam moments for {missing[:3]} ...")
+    step = torch.tensor(float(np.asarray(count)))
+    state = {i: {"step": step.clone(),
+                 "exp_avg": torch.from_numpy(mu_sd[n]),
+                 "exp_avg_sq": torch.from_numpy(nu_sd[n])}
+             for i, n in enumerate(names)}
+    group = torch.optim.Adam([torch.zeros(1)], lr=lr, betas=BETAS,
+                             eps=EPS).state_dict()["param_groups"][0]
+    group["params"] = list(range(len(names)))
+    return {"state": state, "param_groups": [group]}
 
 
 def state_dict_tensors(sd: Mapping) -> Dict[str, torch.Tensor]:

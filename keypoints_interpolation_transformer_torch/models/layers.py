@@ -2,14 +2,18 @@
 (port of the JAX ``models/layers.py``).
 
 The modules hold their parameters in torch's layout (Linear weights are
-(out, in); attention keeps the packed ``in_proj_weight``).  The kernels
-take them in the Flax layout (in, out) with q/k/v and fc1/fc2 packed side
-by side; each module builds that form once and keeps it until one of its
-parameters changes (``packed()``).
+(out, in); attention keeps the packed ``in_proj_weight``).  The serving
+kernels take them in the Flax layout (in, out) with q/k/v and fc1/fc2
+packed side by side; each module builds that form once and keeps it until
+one of its parameters changes (``packed()``), outside the autograd graph.
 
 Every sublayer runs through the kernel wrappers of ``ops/kernels``: the
 plain PyTorch versions for CPU tensors (or when ``plain=True``, the oracle
-path), the CUDA kernels for CUDA tensors.
+path), the CUDA kernels for CUDA tensors.  With ``train=True`` (the
+gradient route) a sublayer goes through its ``autograd.Function``
+(training forward plus backward kernel), which takes the parameters
+themselves, so every gradient reaches them; with ``plain=True`` as well,
+autograd differentiates the plain version.
 """
 
 from __future__ import annotations
@@ -21,14 +25,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import (attn_sublayer_plain, ffn_plain,
+from ..ops.kernels import (AttnSublayerFunction, FFNFunction,
+                           attn_sublayer_plain, ffn_plain,
                            fused_attn_sublayer, fused_ffn)
 from ..ops.kernels.ffn import LN_EPS
 from ..ops.kernels.pointwise import token_norm
 
 __all__ = ["LN_EPS", "token_norm", "sinusoidal_positional_encoding",
            "SwiGLU", "MultiHeadAttention", "FeedForward", "EncoderLayer",
-           "DecoderLayer", "TransformerCore", "AttnSpec", "packed_linear"]
+           "DecoderLayer", "TransformerCore", "AttnSpec", "packed_linear",
+           "graph_linear"]
 
 
 def sinusoidal_positional_encoding(max_len: int, dim: int,
@@ -61,6 +67,11 @@ def packed_linear(lin: nn.Linear):
                    lambda: (lin.weight.t().contiguous(), lin.bias.detach()))
 
 
+def graph_linear(lin: nn.Linear):
+    """(weight^T (in, out), bias) of a Linear inside the autograd graph."""
+    return lin.weight.t(), lin.bias
+
+
 class AttnSpec(NamedTuple):
     """What an attention sublayer's bias is built from: the (B, T) frame
     mask (1 = missing) and valid mask (1 = real frame), both optional."""
@@ -90,6 +101,12 @@ class SwiGLU(nn.Module):
                     torch.cat([self.fc1.bias, self.fc2.bias]),
                     self.fc3.weight.t().contiguous(), self.fc3.bias.detach())
         return _cached(self, "_packed", list(self.parameters()), build)
+
+    def graph_packed(self):
+        """``packed()`` built inside the autograd graph, for training."""
+        return (torch.cat([self.fc1.weight.t(), self.fc2.weight.t()], 1),
+                torch.cat([self.fc1.bias, self.fc2.bias]),
+                self.fc3.weight.t(), self.fc3.bias)
 
 
 class MultiHeadAttention(nn.Module):
@@ -136,14 +153,25 @@ class MultiHeadAttention(nn.Module):
         return _cached(self, "_packed", list(self.parameters()), build)
 
     def sublayer(self, x, memory, norm: Optional[nn.LayerNorm],
-                 spec: AttnSpec, plain: bool = False):
+                 spec: AttnSpec, plain: bool = False, train: bool = False):
         """[norm](x + attention(x, memory or x)) through the sublayer
-        kernel (or its plain version)."""
-        fn = attn_sublayer_plain if plain else fused_attn_sublayer
+        kernel (or its plain version); ``train`` takes the gradient
+        route."""
         ln_w, ln_b = (None, None) if norm is None else (norm.weight,
                                                         norm.bias)
-        return fn(x, memory, *self.packed(), ln_w, ln_b, spec.mask,
-                  spec.valid, spec.kind, spec.add_keypad, self.num_heads)
+        masks = (spec.mask, spec.valid, spec.kind, spec.add_keypad,
+                 self.num_heads)
+        if not train:
+            fn = attn_sublayer_plain if plain else fused_attn_sublayer
+            return fn(x, memory, *self.packed(), ln_w, ln_b, *masks)
+        if plain:
+            return attn_sublayer_plain(
+                x, memory, self.in_proj_weight.t(), self.in_proj_bias,
+                self.out_proj.weight.t(), self.out_proj.bias, ln_w, ln_b,
+                *masks)
+        return AttnSublayerFunction.apply(
+            x, memory, self.in_proj_weight, self.in_proj_bias,
+            self.out_proj.weight, self.out_proj.bias, ln_w, ln_b, *masks)
 
 
 class FeedForward(nn.Module):
@@ -160,14 +188,22 @@ class FeedForward(nn.Module):
         return self.linear2(F.gelu(self.linear1(x)))
 
     def ff_sublayer(self, r, norm_in: nn.LayerNorm, norm_out: nn.LayerNorm,
-                    plain: bool = False):
+                    plain: bool = False, train: bool = False):
         """norm_out(x1 + FF(x1)) with x1 = norm_in(r), through the FF
-        kernel (or its plain version)."""
-        fn = ffn_plain if plain else fused_ffn
-        w1, b1 = packed_linear(self.linear1)
-        w2, b2 = packed_linear(self.linear2)
-        return fn(r, w1, b1, w2, b2, norm_in.weight, norm_in.bias,
-                  norm_out.weight, norm_out.bias, True)
+        kernel (or its plain version); ``train`` takes the gradient
+        route."""
+        norms = (norm_in.weight, norm_in.bias, norm_out.weight,
+                 norm_out.bias, True)
+        if not train:
+            fn = ffn_plain if plain else fused_ffn
+            return fn(r, *packed_linear(self.linear1),
+                      *packed_linear(self.linear2), *norms)
+        if plain:
+            return ffn_plain(r, *graph_linear(self.linear1),
+                             *graph_linear(self.linear2), *norms)
+        return FFNFunction.apply(r, self.linear1.weight, self.linear1.bias,
+                                 self.linear2.weight, self.linear2.bias,
+                                 *norms)
 
 
 class EncoderLayer(FeedForward):
@@ -179,9 +215,10 @@ class EncoderLayer(FeedForward):
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
-    def forward(self, x, spec: AttnSpec, plain: bool = False):
-        r = self.self_attn.sublayer(x, None, None, spec, plain)
-        return self.ff_sublayer(r, self.norm1, self.norm2, plain)
+    def forward(self, x, spec: AttnSpec, plain: bool = False,
+                train: bool = False):
+        r = self.self_attn.sublayer(x, None, None, spec, plain, train)
+        return self.ff_sublayer(r, self.norm1, self.norm2, plain, train)
 
 
 class DecoderLayer(FeedForward):
@@ -197,10 +234,12 @@ class DecoderLayer(FeedForward):
         self.norm3 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
     def forward(self, y, memory, self_spec: AttnSpec, cross_spec: AttnSpec,
-                plain: bool = False):
-        y = self.self_attn.sublayer(y, None, self.norm1, self_spec, plain)
-        r = self.multihead_attn.sublayer(y, memory, None, cross_spec, plain)
-        return self.ff_sublayer(r, self.norm2, self.norm3, plain)
+                plain: bool = False, train: bool = False):
+        y = self.self_attn.sublayer(y, None, self.norm1, self_spec, plain,
+                                    train)
+        r = self.multihead_attn.sublayer(y, memory, None, cross_spec, plain,
+                                         train)
+        return self.ff_sublayer(r, self.norm2, self.norm3, plain, train)
 
 
 class _Stack(nn.Module):
@@ -224,12 +263,13 @@ class TransformerCore(nn.Module):
                                for _ in range(num_layers)], dim, device)
 
     def forward(self, src, tgt, src_spec: AttnSpec, tgt_spec: AttnSpec,
-                cross_spec: AttnSpec, plain: bool = False):
+                cross_spec: AttnSpec, plain: bool = False,
+                train: bool = False):
         x = src
         for layer in self.encoder.layers:
-            x = layer(x, src_spec, plain)
-        memory = self.encoder.norm(x)
+            x = layer(x, src_spec, plain, train)
+        memory = self.encoder.norm(x)  # F.layer_norm, also under autograd
         y = tgt
         for layer in self.decoder.layers:
-            y = layer(y, memory, tgt_spec, cross_spec, plain)
+            y = layer(y, memory, tgt_spec, cross_spec, plain, train)
         return self.decoder.norm(y)

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the serving path, each beside its plain
-PyTorch version, and the table that names them.
+"""Hand-written CUDA kernels of the serving and training paths, each beside
+its plain PyTorch version, and the table that names them.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors, counting those calls in ``wrapper.launches``.
@@ -9,8 +9,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-from .attn_sublayer import attn_sublayer_plain, fused_attn_sublayer
-from .ffn import ffn_plain, fused_ffn
+from .attn_sublayer import (AttnSublayerFunction, attn_sublayer_bwd,
+                            attn_sublayer_bwd_plain, attn_sublayer_plain,
+                            attn_sublayer_train_plain, fused_attn_sublayer,
+                            fused_attn_sublayer_train)
+from .ffn import (FFNFunction, ffn_bwd, ffn_bwd_plain, ffn_plain,
+                  ffn_train_plain, fused_ffn, fused_ffn_train)
 from .pointwise import (fused_post_head, fused_pre_stream_embed,
                         post_head_plain, pre_stream_embed_plain)
 
@@ -34,6 +38,14 @@ KERNELS = (
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215"),
     Kernel("post_head", fused_post_head,
            f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:90"),
+    Kernel("attn_sublayer_train", fused_attn_sublayer_train,
+           f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:173"),
+    Kernel("attn_sublayer_bwd", attn_sublayer_bwd,
+           f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:410"),
+    Kernel("ffn_train", fused_ffn_train,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215"),
+    Kernel("ffn_bwd", ffn_bwd,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:450"),
 )
 
 

@@ -53,7 +53,8 @@ def test_model_kernel_path_on_the_card(cuda):
         torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "pre_stream_embed": 2, "attn_sublayer": 3 * layers,
-        "ffn": 2 * layers, "post_head": 1}
+        "ffn": 2 * layers, "post_head": 1, "attn_sublayer_train": 0,
+        "attn_sublayer_bwd": 0, "ffn_train": 0, "ffn_bwd": 0}
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
@@ -73,3 +74,48 @@ def test_wrapper_raises_rather_than_falls_back(cuda):
     kernels.reset_launches()
     kernels.fused_ffn(r, *args)
     assert kernels.launch_counts()["ffn"] == 1
+
+
+@pytest.mark.gpu
+def test_training_kernels_match_plain_on_the_card(cuda):
+    """The training forwards and backwards against their plain versions on
+    an aligned and a ragged length, with a padded row."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for T in (40, 128):
+        for name, variant, kern, plain, grad in chk.train_calls(3, T):
+            chk.compare(name, variant, kern(), plain(), grad)
+
+
+@pytest.mark.gpu
+def test_train_step_kernel_path_on_the_card(cuda):
+    """Two layers, one A1 step on each path from the same parameters and
+    corruption: the same loss, and each training kernel launched once per
+    sublayer."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.train import state, steps
+    from keypoints_interpolation_transformer_torch.utils.config import (
+        Config, ModelConfig)
+    cfg = Config(model=ModelConfig(hidden_dim=128, num_heads=4, num_layers=2,
+                                   ff_dim=256))
+    rng = np.random.default_rng(0)
+    clean = torch.from_numpy(rng.uniform(0.2, 0.8, (4, 40, 54, 2)).astype(
+        np.float32)).to(cuda)
+    length = torch.tensor([40, 33, 40, 21], device=cuda)
+    losses = {}
+    for plain in (True, False):
+        model = steps.build_model(cfg.model, for_training=True,
+                                  generator=torch.Generator().manual_seed(0))
+        st = state.TrainState.create(model, 1e-3)
+        kernels.reset_launches()
+        _, m = steps.make_train_step(model, cfg, None, plain=plain)(
+            st, clean, length, torch.ones(4, device=cuda),
+            torch.Generator(device=cuda).manual_seed(1), 1e-3)
+        torch.cuda.synchronize()
+        losses[plain] = float(m["loss"])
+    assert kernels.launch_counts() == {
+        "pre_stream_embed": 0, "attn_sublayer": 0, "ffn": 0, "post_head": 0,
+        "attn_sublayer_train": 6, "attn_sublayer_bwd": 6, "ffn_train": 4,
+        "ffn_bwd": 4}
+    assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])

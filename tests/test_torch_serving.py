@@ -50,8 +50,8 @@ def test_inpainter_matches_jax_inpainter(rng, jax_params):
     kw = dict(bucket_multiple=16, max_seq_len=64)
     want = jserving.Inpainter({"params": jax_params}, MC, **kw).inpaint(
         videos, masks)
-    got = serving.Inpainter(params_from_jax(jax_params), MC, **kw).inpaint(
-        videos, masks)
+    got = serving.Inpainter(params_from_jax(jax_params), MC, device="cpu",
+                            **kw).inpaint(videos, masks)
     for v, m, g, w in zip(videos, masks, got, want):
         assert g.shape == v.shape
         np.testing.assert_array_equal(g[m == 0], v[m == 0])  # bit-exact
@@ -66,7 +66,8 @@ def test_jax_written_pth_loads_into_port(rng, jax_params, tmp_path):
     videos, masks = _videos(rng, (20,))
     want = jserving.Inpainter.from_checkpoint(
         path, MC, bucket_multiple=16).inpaint(videos, masks)
-    inp = serving.Inpainter.from_checkpoint(path, bucket_multiple=16)
+    inp = serving.Inpainter.from_checkpoint(path, bucket_multiple=16,
+                                            device="cpu")
     assert inp.model.ff_dim == 64  # read from the checkpoint's shapes
     got = inp.inpaint(videos, masks)
     np.testing.assert_allclose(got[0], want[0], atol=2e-5)
@@ -86,11 +87,12 @@ def test_jax_written_pth_loads_into_port(rng, jax_params, tmp_path):
 def test_inpainter_rejects_what_the_port_does_not_serve(jax_params):
     sd = params_from_jax(jax_params)
     with pytest.raises(ValueError):
-        serving.Inpainter(sd, MC, variant="cycle")
+        serving.Inpainter(sd, MC, variant="cycle", device="cpu")
     with pytest.raises(ValueError):
         serving.Inpainter(sd, ModelConfig(hidden_dim=32, num_layers=1,
                                           num_heads=4, ff_dim=64,
-                                          matmul_precision="default"))
+                                          matmul_precision="default"),
+                          device="cpu")
     with pytest.raises(ValueError):
         serving.Inpainter.from_checkpoint("orbax_dir")
 
@@ -103,7 +105,7 @@ def _post(base, payload):
 
 def test_http_serving_endpoint(rng, jax_params):
     inp = serving.Inpainter(params_from_jax(jax_params), MC,
-                            bucket_multiple=16, max_seq_len=32)
+                            bucket_multiple=16, max_seq_len=32, device="cpu")
     server, batcher = serving.make_server(inp, host="127.0.0.1", port=0)
     t = threading.Thread(target=server.serve_forever, daemon=True)
     t.start()
@@ -144,7 +146,7 @@ def test_http_serving_endpoint(rng, jax_params):
 
 def test_batcher_merges_concurrent_requests(rng, jax_params):
     inp = serving.Inpainter(params_from_jax(jax_params), MC,
-                            bucket_multiple=16, max_seq_len=32)
+                            bucket_multiple=16, max_seq_len=32, device="cpu")
     batcher = serving.RequestBatcher(inp, max_batch_videos=64,
                                      window_ms=200.0)
     try:
@@ -158,6 +160,15 @@ def test_batcher_merges_concurrent_requests(rng, jax_params):
         assert batcher.stats["max_batch_videos"] >= 2
     finally:
         batcher.close()
+
+
+def test_inpainter_defaults_to_the_card(jax_params):
+    """Without a device the Inpainter runs on the card, so on a machine
+    without one it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.Inpainter(params_from_jax(jax_params), MC)
 
 
 def test_cli_serve_parser():
@@ -177,13 +188,13 @@ from keypoints_interpolation_transformer_torch import cli
 from keypoints_interpolation_transformer_torch.eval.serving import Inpainter
 from keypoints_interpolation_transformer_torch.models.completer import (
     KeypointCompleter)
-from keypoints_interpolation_transformer_tpu.utils.config import ModelConfig
+from keypoints_interpolation_transformer_torch.utils.config import ModelConfig
 
 m = KeypointCompleter(32, 1, 4, ff_dim=64,
                       generator=torch.Generator().manual_seed(0))
 inp = Inpainter(m.state_dict(), ModelConfig(hidden_dim=32, num_layers=1,
                                             num_heads=4, ff_dim=64),
-                bucket_multiple=16)
+                bucket_multiple=16, device="cpu")
 v = np.random.default_rng(0).uniform(size=(12, 54, 2)).astype(np.float32)
 out = inp.inpaint([v], [np.eye(12, dtype=np.float32)[3]])[0]
 assert out.shape == v.shape and np.isfinite(out).all()
