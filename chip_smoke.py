@@ -3,33 +3,52 @@
 and hold every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # build, then a torch.profiler
-                                       # breakdown of one train step
+    python3 chip_smoke.py --profile    # build, then torch.profiler
+                                       # breakdowns (see below)
+    python3 chip_smoke.py --sweep      # build, then cluster sizes and
+                                       # small-batch latency
 
 Phases (each prints its own lines; any failed check exits non-zero):
   1. device and build: the card's name and power limit, then the nvcc build
      of ``keypoints_interpolation_transformer_torch/csrc/*.cu``;
   2. kernels: every variant of both paths against its plain version at the
-     flagship widths (D=256, 8 heads, FF=2048), B=3, T in {128, 40, 300}
-     with a padded row; then at the shapes of the paths (serving B=256,
-     training B=64, T=128), with CUDA-event times of kernel and plain
-     version and the bound of each (the least time the card could take);
+     flagship widths (D=256, 8 heads, FF=2048), B=3, T in {128, 40, 256,
+     300} with a padded row (the whole-layer kernels with the plain
+     model's masks and the Cycle model's, the decoder with and without its
+     FF tail); then at the shapes of the paths (serving B=256, training
+     B=64, T=128), with CUDA-event times of kernel and plain version and
+     the bound of each (the least time the card could take);
   3. model: the flagship KeypointCompleter (random weights from a seeded
-     torch.Generator) at B=256, T=128, kernel path against plain path by
-     the bench's rule (masked-frame MPJPE delta < 1e-4), and the launch
-     counts of one forward (2 / 18 / 12 / 1);
+     torch.Generator) at B=256, T=128 on the merged route (the default:
+     launches per forward pre_stream_embed 2, enc_layer 6, dec_layer 6,
+     post_head 1) and on the per-sublayer route (``merge_layers`` off:
+     2 / 18 / 12 / 1), each against the plain path by the bench's rule
+     (masked-frame MPJPE delta < 1e-4);
   4. serving: the model saved as a reference .pth, loaded by
      ``Inpainter.from_checkpoint`` and served over HTTP on 127.0.0.1;
-     three concurrent /inpaint requests (one longer than 256 frames)
-     against the plain-path Inpainter; the launch counts of this run;
-  5. throughput: Inpainter frames/s at B=256, T=128, kernel and plain path;
-  6. training: the flagship A1 train step (``train.steps.build_model`` and
+     three concurrent /inpaint requests (one longer than 256 frames, so
+     both routes run) against the plain-path Inpainter; the launch counts
+     of this run;
+  5. variants: a Cycle model (over the flagship as its frozen first model)
+     and an Embedding autoencoder saved as reference .pth files and served
+     by ``Inpainter.from_checkpoint(..., variant=...)`` against the
+     plain-path Inpainter;
+  6. throughput: Inpainter frames/s at B=256, T=128 on the merged route,
+     the per-sublayer route and the plain path, in turns, and the latency
+     of one request of one 128-frame video on each;
+  7. training: the flagship A1 train step (``train.steps.build_model`` and
      ``make_train_step``) at B=64, T=128 from the same seeded parameters
      and the same on-device corruption, three steps on the kernel path and
      three on the plain path: losses within 1e-4 relative, parameters
      after step 1 within 1e-4 of their scale, launch counts per step
      18 / 18 / 12 / 12 (serving kernels 0); then the step time and
      frames/s of both paths.
+
+``--profile`` prints, after the build, the device time by kernel of one
+train step and of one merged-route Inpainter call.  ``--sweep`` prints the
+whole-layer kernels' times at T=128 for B in {256, 64, 8, 1} with clusters
+of 1, 2, 4 and 8 blocks per video (and the size the wrapper picks), then
+the latency of one Inpainter call per route at small batches.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card it exits 1 and prints
@@ -102,11 +121,20 @@ def timed_ms(fn, iters=20, warmup=3):
 
 TRAIN_KERNELS = ("attn_sublayer_train", "attn_sublayer_bwd", "ffn_train",
                  "ffn_bwd")
+_NONE = {"pre_stream_embed": 0, "attn_sublayer": 0, "ffn": 0, "post_head": 0,
+         "attn_sublayer_train": 0, "attn_sublayer_bwd": 0, "ffn_train": 0,
+         "ffn_bwd": 0, "enc_layer": 0, "dec_layer": 0}
 # the training step's launches of each kernel: 18 attention sublayers, 12
 # FF sublayers, forward and backward; none of the serving kernels
-TRAIN_COUNTS = {"pre_stream_embed": 0, "attn_sublayer": 0, "ffn": 0,
-                "post_head": 0, "attn_sublayer_train": 18,
-                "attn_sublayer_bwd": 18, "ffn_train": 12, "ffn_bwd": 12}
+TRAIN_COUNTS = {**_NONE, "attn_sublayer_train": 18, "attn_sublayer_bwd": 18,
+                "ffn_train": 12, "ffn_bwd": 12}
+# one flagship forward at T=128: the merged route (whole layers) and the
+# per-sublayer route (merge_layers off)
+MERGED_COUNTS = {**_NONE, "pre_stream_embed": 2, "enc_layer": LAYERS,
+                 "dec_layer": LAYERS, "post_head": 1}
+SUBLAYER_COUNTS = {**_NONE, "pre_stream_embed": 2,
+                   "attn_sublayer": 3 * LAYERS, "ffn": 2 * LAYERS,
+                   "post_head": 1}
 # (variant, cross-attention, post-LN, mask kind, add_keypad): the three
 # attention sublayers of the model
 ATTN_VARIANTS = (("enc self repeat-inc+keypad", False, False, "repeat-inc",
@@ -187,6 +215,10 @@ class KernelCheck:
             "g": 1.0 + self.rand(D, scale=0.1), "be": self.rand(D, scale=0.1),
             "w1": w(D, FF), "b1": self.rand(FF, scale=0.05),
             "w2": w(FF, D), "b2": self.rand(D, scale=0.05),
+            "cwqkv": w(D, 3 * D), "cbqkv": self.rand(3 * D, scale=0.05),
+            "cwo": w(D, D), "cbo": self.rand(D, scale=0.05),
+            "g2": 1.0 + self.rand(D, scale=0.1),
+            "be2": self.rand(D, scale=0.1),
         }
 
     def calls(self, B, T):
@@ -218,6 +250,39 @@ class KernelCheck:
                 o["wh"], o["bh"])
         out.append(("post_head", "", lambda a=args: k.fused_post_head(*a),
                     lambda a=args: k.post_head_plain(*a)))
+        return out + self.layer_calls(o, mask, valid)
+
+    def layer_calls(self, o, mask, valid):
+        """The whole-layer kernels: the plain model's masks (the encoder
+        repeat-inc with the key padding added, the decoder self-attention
+        repeat-inc) and the Cycle model's (kind "all", all-ones masks
+        added); the decoder with its FF tail and without; cross-attention
+        "all" with the padding bias.  The plain model's come first (they
+        are timed)."""
+        k = self.k
+        ones = self.torch.ones_like(mask)
+        attn = (o["wqkv"], o["bqkv"], o["wo"], o["bo"])
+        ff = (o["w1"], o["b1"], o["w2"], o["b2"], o["g"], o["be"], o["g2"],
+              o["be2"])
+        out = []
+        for flags, m, kind in (("plain", mask, "repeat-inc"),
+                               ("cycle", ones, "all")):
+            args = (o["x"], *attn, *ff, m, valid, kind, True, HEADS)
+            out.append(("enc_layer", f"{flags} {kind}+keypad",
+                        lambda a=args: k.fused_encoder_layer(*a),
+                        lambda a=args: k.encoder_layer_plain(*a)))
+        for with_ff in (True, False):
+            for flags, m, kind, keypad in (
+                    ("plain", mask, "repeat-inc", False),
+                    ("cycle", ones, "all", True)):
+                args = (o["x"], o["mem"], *attn, o["cwqkv"], o["cbqkv"],
+                        o["cwo"], o["cbo"], o["g"], o["be"],
+                        ff if with_ff else None, m, valid, None, valid, kind,
+                        keypad, "all", False, HEADS)
+                out.append(("dec_layer", f"{flags} self {kind}"
+                            f"{'+keypad' if keypad else ''} ff={with_ff}",
+                            lambda a=args: k.fused_decoder_layer(*a),
+                            lambda a=args: k.decoder_layer_plain(*a)))
         return out
 
     def train_calls(self, B, T):
@@ -268,6 +333,12 @@ def work(name, B, T):
     core = 4 * B * HEADS * T * T * dh
     attn_in = N * D + 2 * B * T + 4 * D * D + 4 * D
     ffn_in = N * D + 2 * D * FF + FF + 5 * D
+    # the whole layers, timed with the plain model's masks and the
+    # decoder's FF tail: x (and memory), the mask and valid rows (the
+    # decoder's cross-attention reads the same valid row), the weights
+    enc_in = attn_in + 2 * D * FF + FF + 5 * D
+    dec_in = 2 * N * D + 2 * B * T + 8 * D * D + 8 * D + 2 * D + 2 * D * FF \
+        + FF + 5 * D
     table = {
         "pre_stream_embed": (2 * N * (F_IN * D + 3 * D * D),
                              N * F_IN + T * D + F_IN * D + 3 * D * D + 4 * D
@@ -287,6 +358,9 @@ def work(name, B, T):
         "ffn_bwd": (8 * N * D * FF,
                     2 * N * D + N * FF + N * D + 2 * D * FF + 3 * D
                     + N * D + 2 * D * FF + FF + 5 * D),
+        "enc_layer": (2 * N * D * (4 * D + 2 * FF) + core, enc_in + N * D),
+        "dec_layer": (2 * N * D * (8 * D + 2 * FF) + 2 * core,
+                      dec_in + N * D),
     }
     flop, elems = table[name]
     return flop, elems * f
@@ -315,7 +389,7 @@ def phase_kernels(torch, kmod):
         return ([(*c, False) for c in chk.calls(B, T)]
                 + chk.train_calls(b_train, T))
 
-    for T in (128, 40, 300):
+    for T in (128, 40, 256, 300):
         for name, variant, kern, plain, grad in all_calls(3, T, 3):
             chk.compare(name, f"B=3 T={T} {variant}", kern(), plain(), grad)
     times, first = {}, {}
@@ -356,39 +430,80 @@ def phase_model(torch, kmod, model):
         composite_prediction)
     from keypoints_interpolation_transformer_torch.transforms.corruption \
         import add_sos
-    print("phase 3: flagship KeypointCompleter, kernel path vs plain path",
-          flush=True)
+    print("phase 3: flagship KeypointCompleter, merged and per-sublayer "
+          "route vs plain path", flush=True)
     clean, miss = model_inputs(B_MAIN, T_MAIN, 0)
     clean_t = torch.from_numpy(clean).to(DEV)
     inputs, mask = add_sos(clean_t, torch.from_numpy(miss).to(DEV))
     x, x_no, x_mask, y_mask = inputs[:, :-1], inputs[:, 1:], mask[:, :-1], \
         mask[:, 1:]
     valid = torch.ones(B_MAIN, T_MAIN, device=DEV)
-    outs = {}
+    outs, counts = {}, {}
     with torch.inference_mode():
-        for plain in (True, False):
+        for route in ("plain", "merged", "sublayer"):
+            model.merge_layers = route != "sublayer"
             kmod.reset_launches()
-            pred = model(x, x_no, x_mask, y_mask, valid, plain=plain)
-            outs[plain] = composite_prediction(pred, clean_t, y_mask)
+            pred = model(x, x_no, x_mask, y_mask, valid,
+                         plain=route == "plain")
+            outs[route] = composite_prediction(pred, clean_t,
+                                               y_mask).cpu().numpy()
             torch.cuda.synchronize()
-            counts = kmod.launch_counts()
-            if plain and any(counts.values()):
-                fail(f"plain path launched kernels: {counts}")
-    print(f"  launches in one forward: {counts}", flush=True)
-    if counts != {"pre_stream_embed": 2, "attn_sublayer": 18, "ffn": 12,
-                  "post_head": 1, **{n: 0 for n in TRAIN_KERNELS}}:
-        fail(f"launch counts {counts} != 2 / 18 / 12 / 1 (training 0)")
-    out_k, out_p = outs[False].cpu().numpy(), outs[True].cpu().numpy()
-    if out_k.shape != (B_MAIN, T_MAIN, 54, 2) or not np.isfinite(out_k).all():
-        fail(f"model output shape {out_k.shape} or non-finite values")
-    delta = masked_mpjpe_delta(out_k, out_p, miss)
-    print(f"  masked MPJPE delta kernel vs plain {delta:.3e} "
-          f"(gate {MPJPE_TOL:.0e}); max abs {np.abs(out_k - out_p).max():.3e}",
-          flush=True)
-    if not delta < MPJPE_TOL:
-        fail(f"masked MPJPE delta {delta:.3e} >= {MPJPE_TOL}")
-    if not np.array_equal(out_k[miss == 0], clean[miss == 0]):
-        fail("composite changed a non-missing frame")
+            counts[route] = kmod.launch_counts()
+    model.merge_layers = True
+    if any(counts["plain"].values()):
+        fail(f"plain path launched kernels: {counts['plain']}")
+    out_p = outs["plain"]
+    for route, want in (("merged", MERGED_COUNTS),
+                        ("sublayer", SUBLAYER_COUNTS)):
+        got = outs[route]
+        print(f"  {route} route: launches in one forward {counts[route]}",
+              flush=True)
+        if counts[route] != want:
+            fail(f"{route} route launch counts {counts[route]} != {want}")
+        if got.shape != (B_MAIN, T_MAIN, 54, 2) or \
+                not np.isfinite(got).all():
+            fail(f"{route} route: output shape {got.shape} or non-finite "
+                 "values")
+        delta = masked_mpjpe_delta(got, out_p, miss)
+        print(f"  {route} route: masked MPJPE delta vs plain {delta:.3e} "
+              f"(gate {MPJPE_TOL:.0e}); max abs {np.abs(got - out_p).max():.3e}",
+              flush=True)
+        if not delta < MPJPE_TOL:
+            fail(f"{route} route: masked MPJPE delta {delta:.3e} >= "
+                 f"{MPJPE_TOL}")
+        if not np.array_equal(got[miss == 0], clean[miss == 0]):
+            fail(f"{route} route: composite changed a non-missing frame")
+
+
+def request_videos(seed):
+    """Three videos, one longer than 256 frames (its bucket of 320 takes
+    the per-sublayer encoder and the decoder without its FF tail), with
+    30 % of the frames missing."""
+    rng = np.random.default_rng(seed)
+    lengths = (300, 77, 128)
+    videos = [rng.uniform(0.2, 0.8, (t, 54, 2)).astype(np.float32)
+              for t in lengths]
+    masks = [(rng.random(t) < 0.3).astype(np.float32) for t in lengths]
+    return videos, masks
+
+
+def check_served(tag, videos, masks, got, want):
+    """Each served video: its shape, finite, non-missing frames bit-exact,
+    missing ones within SERVE_TOL of the plain-path Inpainter's."""
+    worst = 0.0
+    for i, (v, m, g, w) in enumerate(zip(videos, masks, got, want)):
+        g = np.asarray(g, np.float32)
+        if g.shape != v.shape or not np.isfinite(g).all():
+            fail(f"{tag} {i}: shape {g.shape} or non-finite values")
+        if not np.array_equal(g[m == 0], v[m == 0]):
+            fail(f"{tag} {i}: a non-missing frame changed")
+        err = float(np.abs(g[m == 1] - w[m == 1]).max())
+        worst = max(worst, err)
+        print(f"  {tag} {i}: T={len(v)} missing={int(m.sum())} "
+              f"max_abs_err vs plain-path Inpainter {err:.3e} "
+              f"(tol {SERVE_TOL:.0e})", flush=True)
+    if worst > SERVE_TOL:
+        fail(f"{tag}: predictions differ from the plain path by {worst}")
 
 
 def post(url, payload):
@@ -414,11 +529,7 @@ def phase_serving(torch, kmod, model, tmp):
                                      "num_heads": HEADS, "input_size": F_IN})
     inp = Inpainter.from_checkpoint(path, device=DEV)
     oracle = Inpainter.from_checkpoint(path, device=DEV, plain=True)
-    rng = np.random.default_rng(7)
-    lengths = (300, 77, 128)
-    videos = [rng.uniform(0.2, 0.8, (t, 54, 2)).astype(np.float32)
-              for t in lengths]
-    masks = [(rng.random(t) < 0.3).astype(np.float32) for t in lengths]
+    videos, masks = request_videos(7)
     want = oracle.inpaint(videos, masks)
 
     server, batcher = make_server(inp, host="127.0.0.1", port=0)
@@ -455,36 +566,66 @@ def phase_serving(torch, kmod, model, tmp):
         batcher.close()
         server.server_close()
         thread.join(timeout=30)
-    print(f"  launches during the three requests: {launches}", flush=True)
+    print(f"  launches during the three requests (the merged route at T <= "
+          f"256, the per-sublayer one above): {launches}", flush=True)
     if not all(v for n, v in launches.items() if n not in TRAIN_KERNELS):
         fail(f"a kernel of the path was not launched: {launches}")
-    worst = 0.0
-    for i, (v, m, w) in enumerate(zip(videos, masks, want)):
-        got = np.asarray(results[i]["videos"][0], np.float32)
-        if got.shape != v.shape or not np.isfinite(got).all():
-            fail(f"request {i}: shape {got.shape} or non-finite values")
-        if not np.array_equal(got[m == 0], v[m == 0]):
-            fail(f"request {i}: a non-missing frame changed")
-        err = float(np.abs(got[m == 1] - w[m == 1]).max())
-        worst = max(worst, err)
-        print(f"  request {i}: T={len(v)} missing={int(m.sum())} "
-              f"max_abs_err vs plain-path Inpainter {err:.3e} "
-              f"(tol {SERVE_TOL:.0e})", flush=True)
-    if worst > SERVE_TOL:
-        fail(f"served predictions differ from the plain path by {worst}")
+    check_served("request", videos, masks,
+                 [r["videos"][0] for r in results], want)
     print(f"  /statz {stats}", flush=True)
     if stats["requests"] != 3 or stats["videos"] != 3:
         fail(f"/statz counted {stats}, expected 3 requests and 3 videos")
-    return launches, inp, oracle
+    return launches, path, inp, oracle
 
 
-def phase_throughput(torch, inp, oracle, gpu):
-    print("phase 5: Inpainter throughput", flush=True)
+def phase_variants(torch, kmod, tmp, first_path):
+    """The Cycle model over the flagship (its frozen first model) and an
+    Embedding autoencoder, each from a reference .pth, served on the card
+    against the plain-path Inpainter."""
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        Embedding, keypoint_completer_cycle)
+    from keypoints_interpolation_transformer_torch.models.convert import (
+        save_reference_pth)
+    print("phase 5: Cycle and Embedding variants from reference .pth files",
+          flush=True)
+    hyper = {"hidden_dim": D, "num_layers": LAYERS, "num_heads": HEADS,
+             "input_size": F_IN}
+    paths = {v: os.path.join(tmp, f"{v}.pth") for v in ("cycle",
+                                                        "embedding")}
+    save_reference_pth(paths["cycle"], keypoint_completer_cycle(
+        D, LAYERS, HEADS, ff_dim=FF, device=DEV,
+        generator=torch.Generator().manual_seed(1)), hyper)
+    save_reference_pth(paths["embedding"], Embedding(
+        D, F_IN, device=DEV, generator=torch.Generator().manual_seed(2)),
+        hyper)
+    videos, masks = request_videos(8)
+    for variant in ("cycle", "embedding"):
+        kw = dict(variant=variant, device=DEV,
+                  first_checkpoint=first_path if variant == "cycle" else None)
+        want = Inpainter.from_checkpoint(paths[variant], plain=True,
+                                         **kw).inpaint(videos, masks)
+        inp = Inpainter.from_checkpoint(paths[variant], **kw)
+        kmod.reset_launches()
+        got = inp.inpaint(videos, masks)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in kmod.launch_counts().items() if c}
+        print(f"  {variant}: launches {launches}", flush=True)
+        if variant == "cycle" and not (launches.get("enc_layer")
+                                       and launches.get("dec_layer")):
+            fail(f"cycle: the merged kernels were not launched: {launches}")
+        check_served(variant, videos, masks, got, want)
+
+
+def phase_throughput(torch, engines, gpu):
+    print("phase 6: Inpainter throughput", flush=True)
     clean, miss = model_inputs(B_MAIN, T_MAIN, 3)
     videos, masks = list(clean), list(miss)
     fps = {}
-    for name, engine in (("plain", oracle), ("kernel", inp),
-                         ("kernel", inp), ("plain", oracle)):
+    for name in ("plain", "merged", "sublayer", "sublayer", "merged",
+                 "plain"):
+        engine = engines[name]
         engine.inpaint(videos, masks)  # warm
         t0 = time.perf_counter()
         reps = 3
@@ -492,19 +633,36 @@ def phase_throughput(torch, inp, oracle, gpu):
             engine.inpaint(videos, masks)
         dt = (time.perf_counter() - t0) / reps
         fps[name] = max(fps.get(name, 0.0), B_MAIN * T_MAIN / dt)
-    print(f"  Inpainter B={B_MAIN} T={T_MAIN}: kernel path "
-          f"{fps['kernel']:.1f} frames/s, plain path {fps['plain']:.1f} "
+    print(f"  Inpainter B={B_MAIN} T={T_MAIN}: merged route "
+          f"{fps['merged']:.1f} frames/s, per-sublayer route "
+          f"{fps['sublayer']:.1f} frames/s, plain path {fps['plain']:.1f} "
           f"frames/s on {gpu}", flush=True)
+    # one request of one video: what a lone client waits for
+    one_v, one_m = [videos[0]], [masks[0]]
+    lat = {}
+    for name in ("plain", "merged", "sublayer", "sublayer", "merged",
+                 "plain"):
+        engine = engines[name]
+        engine.inpaint(one_v, one_m)  # warm
+        ms = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            engine.inpaint(one_v, one_m)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        lat[name] = min(lat.get(name, float("inf")), float(np.median(ms)))
+    print(f"  one video of {T_MAIN} frames: merged route {lat['merged']:.3f} "
+          f"ms, per-sublayer route {lat['sublayer']:.3f} ms, plain path "
+          f"{lat['plain']:.3f} ms (median of 7, best of 2 turns) on {gpu}",
+          flush=True)
+    return fps
 
 
 def train_setup(torch):
     """Two flagship models from one seed, their train states, the step
     functions of the kernel and the plain path, and a batch."""
     from keypoints_interpolation_transformer_torch.train import state, steps
-    from keypoints_interpolation_transformer_torch.utils.config import (
-        Config, ModelConfig)
-    cfg = Config(model=ModelConfig(hidden_dim=D, num_heads=HEADS,
-                                   num_layers=LAYERS, ff_dim=FF))
+    from keypoints_interpolation_transformer_torch.utils.config import Config
+    cfg = Config(model=model_config())
     runs = {}
     for name, plain in (("kernel", False), ("plain", True)):
         model = steps.build_model(cfg.model, for_training=True, device=DEV,
@@ -520,7 +678,7 @@ def train_setup(torch):
 
 
 def phase_train(torch, kmod, gpu):
-    print(f"phase 6: flagship A1 train step, B={B_TRAIN} T={T_MAIN}, kernel "
+    print(f"phase 7: flagship A1 train step, B={B_TRAIN} T={T_MAIN}, kernel "
           "path vs plain path", flush=True)
     runs, clean, length, weight, lr = train_setup(torch)
     losses = {}
@@ -607,25 +765,24 @@ def kernel_name(ptxas_line):
         ident = mangled[m.end():m.end() + int(m.group())]
         pos = m.end() + len(ident)
         if ident.endswith("_kernel"):
-            t = re.match(r"ILi(\d+)E", mangled[pos:])
-            return ident + (f"<{t.group(1)}>" if t else "")
+            t = re.match(r"I((?:L[a-z]+-?\d+E)+)E", mangled[pos:])
+            args = re.findall(r"L[a-z]+(-?\d+)E", t.group(1)) if t else []
+            return ident + (f"<{', '.join(args)}>" if args else "")
     return mangled
 
 
-def profile_train(torch, kmod, gpu):
-    """Device time of one warm kernel-path train step by kernel, from
-    torch.profiler (CUPTI), and the device's busy share of the step."""
+def device_profile(torch, label, fn, gpu):
+    """Device time by kernel of one call of ``fn`` (warmed twice before),
+    from torch.profiler (CUPTI), and the device's busy share of its wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
-    runs, clean, length, weight, lr = train_setup(torch)
-    _, st, step = runs["kernel"]
-    gen = torch.Generator(device=DEV).manual_seed(7)
     for _ in range(2):
-        step(st, clean, length, weight, gen, lr)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(st, clean, length, weight, gen, lr)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
@@ -639,17 +796,107 @@ def profile_train(torch, kmod, gpu):
             if e.device_type != torch.autograd.DeviceType.CPU
             and self_device_us(e) > 0]
     busy = sum(r[1] for r in rows)
-    print(f"profile: one kernel-path train step, B={B_TRAIN} T={T_MAIN}, "
-          f"{gpu}: wall {wall:.3f} ms (profiler on), device busy "
-          f"{busy:.3f} ms ({100 * busy / wall:.1f} %)", flush=True)
+    print(f"profile: {label}, {gpu}: wall {wall:.3f} ms (profiler on), "
+          f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %)",
+          flush=True)
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:25]:
         print(f"  {ms:9.3f} ms  {n:5d}x  {key[:100]}", flush=True)
+
+
+def profile_paths(torch, gpu):
+    """One warm kernel-path train step, then one merged-route Inpainter
+    call at B=256, T=128 (host arrays in and out, as phase 6 times it)."""
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    runs, clean, length, weight, lr = train_setup(torch)
+    _, st, step = runs["kernel"]
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    device_profile(torch, f"one kernel-path train step, B={B_TRAIN} "
+                   f"T={T_MAIN}", lambda: step(st, clean, length, weight,
+                                               gen, lr), gpu)
+    del runs, st, step
+    model = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
+                              generator=torch.Generator().manual_seed(0))
+    inp = Inpainter(model.state_dict(), model_config(), device=DEV)
+    videos, masks = model_inputs(B_MAIN, T_MAIN, 3)
+    device_profile(torch, f"one merged-route Inpainter call, B={B_MAIN} "
+                   f"T={T_MAIN}", lambda: inp.inpaint(list(videos),
+                                                      list(masks)), gpu)
+
+
+def sweep(torch, kmod, gpu):
+    """Cluster sizes of the whole-layer kernels, then small-batch latency
+    of the three routes."""
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    from keypoints_interpolation_transformer_torch.ops.kernels import (
+        layer_fused as lf)
+    chk = KernelCheck(torch, kmod)
+    o = chk.operands(B_MAIN, T_MAIN)
+    mask, valid = chk.masks(B_MAIN, T_MAIN)
+    attn = (o["wqkv"], o["bqkv"], o["wo"], o["bo"])
+    cattn = (o["cwqkv"], o["cbqkv"], o["cwo"], o["cbo"])
+    ff = (o["w1"], o["b1"], o["w2"], o["b2"], o["g"], o["be"], o["g2"],
+          o["be2"])
+    print(f"sweep: blocks per video of the whole-layer kernels, T={T_MAIN}, "
+          f"{gpu}", flush=True)
+    for B in (256, 64, 8, 1):
+        x, mem = o["x"][:B].contiguous(), o["mem"][:B].contiguous()
+        m, v = mask[:B].contiguous(), valid[:B].contiguous()
+        for cl in (1, 2, 4, 8):
+            enc = timed_ms(lambda: lf._launch_encoder(
+                x, attn, ff, m, v, "repeat-inc", True, HEADS, cluster=cl))
+            dec = timed_ms(lambda: lf._launch_decoder(
+                x, mem, attn, cattn, o["g"], o["be"], ff, m, v, None, v,
+                "repeat-inc", False, "all", False, HEADS, cluster=cl))
+            print(f"  B={B} cluster {cl} (the wrapper picks "
+                  f"{lf.cluster_size(B, x.device)}): enc_layer {enc:.4f} ms "
+                  f"dec_layer {dec:.4f} ms", flush=True)
+    model = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
+                              generator=torch.Generator().manual_seed(0))
+    engines = {name: Inpainter(model.state_dict(), model_config(),
+                               device=DEV, merge_layers=merge, plain=plain)
+               for name, merge, plain in (("merged", True, False),
+                                          ("sublayer", False, False),
+                                          ("plain", True, True))}
+    print(f"sweep: latency of one Inpainter call (median of 7, best of 2 "
+          f"turns), {gpu}", flush=True)
+    for B, T in ((1, 128), (1, 256), (4, 128), (16, 128), (64, 128)):
+        clean, miss = model_inputs(B, T, 5)
+        videos, masks = list(clean), list(miss)
+        lat = {}
+        for name in ("plain", "merged", "sublayer", "sublayer", "merged",
+                     "plain"):
+            engines[name].inpaint(videos, masks)  # warm
+            ms = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                engines[name].inpaint(videos, masks)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            lat[name] = min(lat.get(name, float("inf")),
+                            float(np.median(ms)))
+        print(f"  B={B} T={T}: " + ", ".join(
+            f"{n} {lat[n]:.3f} ms" for n in ("merged", "sublayer", "plain")),
+            flush=True)
+
+
+def model_config():
+    from keypoints_interpolation_transformer_torch.utils.config import (
+        ModelConfig)
+    return ModelConfig(hidden_dim=D, num_heads=HEADS, num_layers=LAYERS,
+                       ff_dim=FF)
 
 
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke runs the port on the card")
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
     from keypoints_interpolation_transformer_torch.models.completer import (
         KeypointCompleter)
     from keypoints_interpolation_transformer_torch.ops import kernels as kmod
@@ -676,7 +923,10 @@ def main():
                           flush=True)
 
     if "--profile" in sys.argv[1:]:
-        profile_train(torch, kmod, gpu)
+        profile_paths(torch, gpu)
+        return 0
+    if "--sweep" in sys.argv[1:]:
+        sweep(torch, kmod, gpu)
         return 0
     max_err, times = phase_kernels(torch, kmod)
 
@@ -686,9 +936,13 @@ def main():
     phase_model(torch, kmod, model)
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches, inp, oracle = phase_serving(torch, kmod, model, tmp)
-    phase_throughput(torch, inp, oracle, gpu)
-    del model, inp, oracle
+        launches, path, inp, oracle = phase_serving(torch, kmod, model, tmp)
+        phase_variants(torch, kmod, tmp, path)
+        sublayer = Inpainter.from_checkpoint(path, device=DEV,
+                                             merge_layers=False)
+    phase_throughput(torch, {"merged": inp, "sublayer": sublayer,
+                             "plain": oracle}, gpu)
+    del model, inp, sublayer, oracle
     train_launches, _ = phase_train(torch, kmod, gpu)
     launches.update({n: train_launches[n] for n in TRAIN_KERNELS})
 

@@ -3,9 +3,13 @@
 Usage:
   python -m keypoints_interpolation_transformer_torch.cli serve \
       --checkpoint model.pth [--device cuda] [--port 8321]
+  python -m keypoints_interpolation_transformer_torch.cli serve \
+      --checkpoint cycle.pth --variant cycle --first_checkpoint first.pth
 
 The model configuration comes from the reference ``.pth`` checkpoint's
-hyperparameters.  ``--device cuda`` (the default) runs the CUDA kernels,
+hyperparameters; ``--variant`` says what it holds (plain: regimes A1 / A4,
+cycle: A2, which needs the frozen first model's ``--first_checkpoint``,
+embedding: the A3 autoencoder).  ``--device cuda`` (the default) runs the CUDA kernels,
 which build from ``csrc/`` at first use; ``--device cpu`` runs their plain
 PyTorch versions.
 """
@@ -29,6 +33,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device the model runs on")
     p.add_argument("--max_seq_len", type=int, default=512)
     p.add_argument("--bucket_multiple", type=int, default=32)
+    p.add_argument("--variant", type=str, default="plain",
+                   choices=["plain", "cycle", "embedding"],
+                   help="checkpoint type: plain=a1/a4, cycle=a2 (needs "
+                        "--first_checkpoint), embedding=a3")
+    p.add_argument("--first_checkpoint", type=str, default=None,
+                   help="the frozen plain model feeding a cycle checkpoint")
     p.add_argument("--log_requests", action="store_true")
     return parser
 
@@ -39,7 +49,9 @@ def main(argv=None) -> int:
         from .eval.serving import Inpainter, serve
         serve(Inpainter.from_checkpoint(a.checkpoint, device=a.device,
                                         max_seq_len=a.max_seq_len,
-                                        bucket_multiple=a.bucket_multiple),
+                                        bucket_multiple=a.bucket_multiple,
+                                        variant=a.variant,
+                                        first_checkpoint=a.first_checkpoint),
               host=a.host, port=a.port, log_requests=a.log_requests)
         return 0
     return 1

@@ -54,6 +54,7 @@
 // Not copied from the TPU kernel: the key-major transposed scores, the
 // exp2 / log2(e) fold, and its T <= 512 cap (keys and queries stream, so T
 // is free).
+#include "attention.cuh"
 #include "common.cuh"
 #include "grad.cuh"
 
@@ -65,16 +66,6 @@ constexpr int QT = 128;  // queries per attention block, one per thread
 constexpr int KT = 64;   // keys per shared tile
 constexpr int KC = 16;   // keys per online-softmax chunk
 constexpr int QC = 64;   // queries per shared tile of the key-major backward
-
-// The additive bias of (query qi, key) from the key's mask and valid
-// values: the same expression in the forward and both backward cores.
-__device__ __forceinline__ float key_bias(int repeat_inc, int add_keypad, int qi, int key,
-                                          float km, float kv) {
-  float bias = (repeat_inc && key > qi && km > 0.f) ? NEG : 0.f;
-  if (add_keypad) bias += km;
-  bias += kv > 0.f ? 0.f : NEG;
-  return bias;
-}
 
 template <int TN>
 __global__ void __launch_bounds__(NT)
@@ -107,8 +98,8 @@ attn_core_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
                  const float* __restrict__ valid, float* __restrict__ out,
                  float* __restrict__ stats, int T, int H, int repeat_inc, int add_keypad,
                  float scale) {
-  __shared__ float Ks[KT][DH];
-  __shared__ float Vs[KT][DH];
+  __shared__ __align__(16) float Ks[KT][DH];
+  __shared__ __align__(16) float Vs[KT][DH];
   __shared__ float km[KT];  // mask[key]
   __shared__ float kv[KT];  // valid[key]
   const int D = H * DH, ld = 3 * D;
@@ -138,35 +129,11 @@ attn_core_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
       kv[j] = (key < T && valid != nullptr) ? valid[(size_t)b * T + key] : 1.f;
     }
     __syncthreads();
-    for (int c0 = 0; c0 < KT; c0 += KC) {
-      float s[KC];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < KC; ++jj) {
-        const int j = c0 + jj, key = k0 + j;
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) dot = fmaf(q[d], Ks[j][d], dot);
-        const float bias = key_bias(repeat_inc, add_keypad, qi, key, km[j], kv[j]);
-        s[jj] = key < T ? fmaf(dot, scale, bias) : -INFINITY;
-        cmax = fmaxf(cmax, s[jj]);
-      }
-      // the chunk at c0 = 0 of the first tile always holds key 0, so m is
-      // finite from then on and no -inf - -inf arises
-      const float mnew = fmaxf(m, cmax);
-      const float corr = expf(m - mnew);
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) o[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < KC; ++jj) {
-        const float p = expf(s[jj] - mnew);
-        l += p;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) o[d] = fmaf(p, Vs[c0 + jj][d], o[d]);
-      }
-      m = mnew;
-    }
+    // the chunk at c0 = 0 of the first tile always holds key 0, so m is
+    // finite from then on
+    for (int c0 = 0; c0 < KT; c0 += KC)
+      softmax_chunk<DH, KC>(q, o, m, l, &Ks[c0][0], &Vs[c0][0], DH, km + c0, kv + c0, qi,
+                            k0 + c0, T, repeat_inc, add_keypad, scale);
     __syncthreads();
   }
   if (qi < T) {

@@ -33,6 +33,11 @@ __host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m -
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
+// Exact-erf GELU, u * Phi(u) (torch's "gelu").
+__device__ __forceinline__ float gelu(float u) {
+  return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

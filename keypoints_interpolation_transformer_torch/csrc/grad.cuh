@@ -18,10 +18,6 @@ __device__ __forceinline__ float gelu_grad(float u) {
   return fmaf(u, pdf, cdf);
 }
 
-__device__ __forceinline__ float gelu(float u) {
-  return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
-}
-
 // The thread's TM x TN values of rows [row0, row0 + BM) (zero for rows >=
 // M) of a row-major matrix with D = 32 * TN columns and row stride ld (a
 // multiple of 4), one 16-byte load per row and column group.

@@ -1,5 +1,7 @@
 """Batch inference API and HTTP serving with dynamic batching (port of
-the JAX ``eval/serving.py``, plain variant).
+the JAX ``eval/serving.py``: the plain, cycle and embedding variants, from
+reference ``.pth`` checkpoints; the JAX package's orbax checkpoints are not
+read here).
 
 An ``Inpainter`` loads a reference ``.pth`` checkpoint, pads and buckets
 incoming ragged sequences, runs the composite-inpainting forward on its
@@ -29,59 +31,76 @@ import numpy as np
 import torch
 
 from ..data.keypoints import NUM_COORDS, NUM_KEYPOINTS
-from ..models.completer import KeypointCompleter
-from ..models.convert import load_reference_pth, state_dict_tensors
+from ..models.convert import (is_embedding_state_dict, load_reference_pth,
+                              state_dict_tensors)
 from ..ops.losses import composite_prediction
-from ..transforms.corruption import add_sos
+from ..train.steps import build_model, completer_forward, cycle_forward
+from ..transforms.corruption import add_sos, zero_missing_frames
 from ..utils.config import ModelConfig
+
+VARIANTS = ("plain", "cycle", "embedding")
 
 
 class Inpainter:
     """Checkpoint-backed masked-frame inpainting with shape bucketing.
 
-    ``device`` is where the model runs, the card unless the caller asks
-    for the CPU: CUDA tensors go through the kernels, CPU tensors through
-    their plain versions.  ``plain=True`` runs the plain versions on any
-    device (the oracle path)."""
+    ``variant`` names what the checkpoint holds: "plain" (a KeypointCompleter
+    of regime A1 or A4), "cycle" (regime A2's Cycle model, whose filled
+    stream the frozen plain model ``first_state_dict`` predicts) or
+    "embedding" (regime A3's autoencoder, which reconstructs the frames
+    with the missing ones zeroed).  ``device`` is where the models run, the
+    card unless the caller asks for the CPU: CUDA tensors go through the
+    kernels, CPU tensors through their plain versions.  ``plain=True`` runs
+    the plain versions on any device (the oracle path); ``merge_layers``
+    False takes the per-sublayer kernels where the merged whole-layer ones
+    would run."""
 
     def __init__(self, state_dict, model_cfg: ModelConfig,
                  bucket_multiple: int = 32, max_seq_len: int = 512,
-                 variant: str = "plain", device="cuda", plain: bool = False):
-        if variant != "plain":
-            raise ValueError(
-                f"variant {variant!r} is not served by the PyTorch port yet "
-                "(only 'plain')")
+                 variant: str = "plain", first_state_dict=None, device="cuda",
+                 plain: bool = False, merge_layers: bool = True):
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}, expected one of "
+                             f"{VARIANTS}")
+        if variant == "cycle" and first_state_dict is None:
+            raise ValueError("the cycle variant needs first_state_dict: the "
+                             "frozen plain model that fills its stream")
         if model_cfg.compute_dtype != "float32" or \
                 model_cfg.matmul_precision != "highest":
             raise ValueError("the PyTorch port serves float32 only "
                              "(compute_dtype='float32', "
                              "matmul_precision='highest')")
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "Inpainter: no CUDA device; pass device='cpu' to run the "
-                "plain versions on the CPU")
-        self.model = KeypointCompleter(
-            model_cfg.hidden_dim, model_cfg.num_layers, model_cfg.num_heads,
-            input_size=model_cfg.input_size, ff_dim=model_cfg.ff_dim,
-            device=self.device)
-        self.model.load_state_dict(state_dict_tensors(state_dict))
-        self.model.eval()
-        self.model.pack_weights()
+
+        def load(v, sd):  # build_model raises on a missing card
+            model = build_model(model_cfg, v, merge_layers=merge_layers,
+                                device=self.device)
+            model.load_state_dict(state_dict_tensors(sd))
+            if v != "embedding":
+                model.pack_weights()
+            return model.eval()
+
+        self.variant = variant
+        self.model = load(variant, state_dict)
+        self.first_model = load("plain", first_state_dict) \
+            if variant == "cycle" else None
         self.plain = plain
         self.bucket = bucket_multiple
         self.max_seq_len = max_seq_len
 
     @classmethod
     def from_checkpoint(cls, path: str,
-                        model_cfg: Optional[ModelConfig] = None, **kw):
-        """Load a reference ``.pth``; its hyperparameters (and the FF width
-        of its first encoder layer) give the model configuration unless
-        ``model_cfg`` is given."""
-        if not path.endswith(".pth"):
-            raise ValueError("the PyTorch port loads reference .pth "
-                             f"checkpoints only, got {path!r}")
-        sd, hyper = load_reference_pth(path)
+                        model_cfg: Optional[ModelConfig] = None,
+                        first_checkpoint: Optional[str] = None, **kw):
+        """Load a reference ``.pth`` (and, for the cycle variant, the first
+        model's ``.pth``); its hyperparameters (and the FF width of its
+        first encoder layer, or an Embedding's widths) give the model
+        configuration unless ``model_cfg`` is given."""
+        sd, hyper = load_reference_pth(_pth(path))
+        if model_cfg is None and is_embedding_state_dict(sd):
+            hidden, size = sd["input_embedding.weight"].shape
+            model_cfg = ModelConfig(hidden_dim=int(hidden),
+                                    input_size=int(size))
         model_cfg = model_cfg or ModelConfig(
             hidden_dim=int(hyper["hidden_dim"]),
             num_layers=int(hyper["num_layers"]),
@@ -89,6 +108,9 @@ class Inpainter:
             input_size=int(hyper.get("input_size", 108)),
             ff_dim=int(sd["transformer.encoder.layers.0.linear1.weight"]
                        .shape[0]))
+        if first_checkpoint is not None:
+            kw["first_state_dict"] = load_reference_pth(
+                _pth(first_checkpoint))[0]
         return cls(sd, model_cfg, **kw)
 
     @torch.inference_mode()
@@ -99,10 +121,17 @@ class Inpainter:
         inputs, mask = add_sos(clean_t, torch.from_numpy(miss).to(dev))
         x, x_no = inputs[:, :-1], inputs[:, 1:]
         x_mask, y_mask = mask[:, :-1], mask[:, 1:]
-        pred = self.model(x, x_no, src_frame_mask=x_mask,
-                          tgt_frame_mask=y_mask,
-                          valid_mask=torch.from_numpy(valid).to(dev),
-                          plain=self.plain)
+        valid_t = torch.from_numpy(valid).to(dev)
+        if self.variant == "embedding":
+            # the autoencoder reconstructs the frame-aligned stream, the
+            # missing frames zeroed first, as regimes A3 / A4 feed it
+            pred = self.model(zero_missing_frames(x_no, y_mask))
+        elif self.variant == "cycle":
+            pred = cycle_forward(self.first_model, self.model, x, x_no,
+                                 x_mask, y_mask, valid_t, self.plain)
+        else:
+            pred = completer_forward(self.model, x, x_no, x_mask, y_mask,
+                                     valid_t, self.plain)
         return composite_prediction(pred, clean_t, y_mask).cpu().numpy()
 
     def inpaint(self, videos: Sequence[np.ndarray],
@@ -132,6 +161,13 @@ class Inpainter:
             for row, i in enumerate(idxs):
                 out[i] = res[row, :min(len(videos[i]), t_pad)]
         return out  # type: ignore[return-value]
+
+
+def _pth(path: str) -> str:
+    if not path.endswith(".pth"):
+        raise ValueError("the PyTorch port loads reference .pth checkpoints "
+                         f"only, got {path!r}")
+    return path
 
 
 class RequestBatcher:

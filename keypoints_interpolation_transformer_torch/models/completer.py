@@ -1,5 +1,6 @@
-"""The flagship KeypointCompleter and its Cycle flags (port of the JAX
-``models/completer.py``), under the reference ``.pth`` state-dict names.
+"""The flagship KeypointCompleter, its Cycle flags and the linear
+autoencoder Embedding (port of the JAX ``models/completer.py``), under the
+reference ``.pth`` state-dict names.
 
 Pipeline: flatten frame -> pre-stream kernel per stream (Linear(108 -> D),
 token_norm [+ token_norm for Cycle], + sinusoidal + learned PE, SwiGLU)
@@ -17,18 +18,25 @@ The attention biases are built inside the sublayer kernels from the 1-D
                            added only with ``use_tgt_key_padding`` (Cycle);
   cross-attention          "all" plus the padding bias.
 
-A stream whose frame mask is not given attends with kind "all".
+A stream whose frame mask is not given attends with kind "all"; otherwise
+``src_mask_kind`` / ``tgt_mask_kind`` name the kind ("repeat-inc", or
+"all" for the Cycle model's second pass, which adds its all-ones pad masks
+as a uniform +1).
 
 Two routes, as the JAX package's ``build_model`` has them:
 
   serving   (``eval()`` mode or no gradient): every kernel, with weights
-            packed once outside the autograd graph;
+            packed once outside the autograd graph; with ``merge_layers``
+            (the default, as in the JAX package) the merged whole-layer
+            kernels where the JAX package's rules take them (see
+            ``models/layers.py``), else per sublayer;
   training  (``train()`` mode with gradients on): the attention and FF
             sublayers through their ``autograd.Function``s (training
             forward and backward kernels); the pre- and post-stream chains
             through their plain versions under autograd, as the JAX
             training path keeps those chains in XLA (``build_model`` with
-            ``for_training``), not as a fallback.
+            ``for_training``), not as a fallback.  ``merge_layers`` is not
+            read there, as the JAX training path sets it off.
 """
 
 from __future__ import annotations
@@ -57,8 +65,8 @@ class KeypointCompleter(nn.Module):
     def __init__(self, hidden_dim: int, num_layers: int, num_heads: int,
                  input_size: int = FRAME_FEATURES, ff_dim: int = 2048,
                  pe_max_len: int = 2048, pe_residual: bool = False,
-                 use_tgt_key_padding: bool = False, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 use_tgt_key_padding: bool = False, merge_layers: bool = True,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         D = hidden_dim
         self.hidden_dim, self.num_layers, self.num_heads = D, num_layers, \
@@ -67,6 +75,7 @@ class KeypointCompleter(nn.Module):
             pe_max_len
         self.pe_residual = pe_residual
         self.use_tgt_key_padding = use_tgt_key_padding
+        self.merge_layers = merge_layers
         self.input_embedding = nn.Linear(input_size, D, device=device)
         self.filled_embedding = nn.Linear(input_size, D, device=device)
         self.learned_input_positional_encoder = nn.Parameter(
@@ -91,18 +100,10 @@ class KeypointCompleter(nn.Module):
         torch initializes these modules: Linear weight and bias
         U(-1/sqrt(in), 1/sqrt(in)); attention in_proj Xavier-uniform with
         zero biases; LayerNorm ones and zeros; learned positions U(0, 1)."""
-        def uniform(p, bound):
-            p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
-                                                  generator=generator))
-
+        uniform = _uniform(generator)
         for name, m in self.named_modules():
             if isinstance(m, nn.Linear):
-                bound = 1.0 / m.in_features ** 0.5
-                uniform(m.weight, bound)
-                if ".out_proj" in name or name.endswith("out_proj"):
-                    m.bias.zero_()
-                else:
-                    uniform(m.bias, bound)
+                _reset_linear(m, uniform, zero_bias=name.endswith("out_proj"))
             elif isinstance(m, MultiHeadAttention):
                 fan_out, fan_in = m.in_proj_weight.shape
                 uniform(m.in_proj_weight, (6.0 / (fan_in + fan_out)) ** 0.5)
@@ -127,11 +128,13 @@ class KeypointCompleter(nn.Module):
                 src_frame_mask: Optional[torch.Tensor] = None,
                 tgt_frame_mask: Optional[torch.Tensor] = None,
                 valid_mask: Optional[torch.Tensor] = None,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, src_mask_kind: str = "repeat-inc",
+                tgt_mask_kind: str = "repeat-inc") -> torch.Tensor:
         """inputs, filled (B, T, K, 2); masks (B, T): frame masks 1 =
-        missing, ``valid_mask`` 1 = real frame.  ``plain=True`` runs the
-        plain PyTorch version of every kernel (the oracle path) whatever
-        the device.  The training route is taken in ``train()`` mode when
+        missing, ``valid_mask`` 1 = real frame; the mask kinds as the JAX
+        ``KeypointCompleter`` takes them.  ``plain=True`` runs the plain
+        PyTorch version of every kernel (the oracle path) whatever the
+        device.  The training route is taken in ``train()`` mode when
         gradients are on (see the module docstring)."""
         B, T = inputs.shape[0], inputs.shape[1]
         if T > self.pe_max_len:
@@ -169,13 +172,13 @@ class KeypointCompleter(nn.Module):
         has_src, has_tgt = src_frame_mask is not None, \
             tgt_frame_mask is not None
         src_spec = AttnSpec(src_frame_mask, valid_mask,
-                            "repeat-inc" if has_src else "all", has_src)
+                            src_mask_kind if has_src else "all", has_src)
         tgt_spec = AttnSpec(tgt_frame_mask, valid_mask,
-                            "repeat-inc" if has_tgt else "all",
+                            tgt_mask_kind if has_tgt else "all",
                             self.use_tgt_key_padding and has_tgt)
         cross_spec = AttnSpec(None, valid_mask, "all", False)
         decoded = self.transformer(src, tgt, src_spec, tgt_spec, cross_spec,
-                                   plain, train)
+                                   plain, train, self.merge_layers)
         out = post(decoded, filled_emb, *swiglu(self.swiGlu_decoded),
                    *linear(self.fc_final))
         return out.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)
@@ -188,3 +191,51 @@ def keypoint_completer_cycle(hidden_dim: int, num_layers: int,
     return KeypointCompleter(hidden_dim, num_layers, num_heads,
                              pe_max_len=512, pe_residual=True,
                              use_tgt_key_padding=True, **kw)
+
+
+class Embedding(nn.Module):
+    """The linear autoencoder over flattened frames (the JAX ``Embedding``,
+    pre-trained by regime A3): output_embedding(input_embedding(x)).  Two
+    plain Linears, no kernel: the JAX package runs them as ``nn.Dense``
+    outside any Pallas kernel too."""
+
+    def __init__(self, hidden_dim: int, input_size: int = FRAME_FEATURES,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden_dim, self.input_size = hidden_dim, input_size
+        self.input_embedding = nn.Linear(input_size, hidden_dim,
+                                         device=device)
+        self.output_embedding = nn.Linear(hidden_dim, input_size,
+                                          device=device)
+        if generator is not None:
+            uniform = _uniform(generator)
+            with torch.no_grad():
+                for m in (self.input_embedding, self.output_embedding):
+                    _reset_linear(m, uniform)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, T, K, 2) -> its reconstruction (B, T, K, 2)."""
+        B, T = x.shape[0], x.shape[1]
+        h = self.output_embedding(self.input_embedding(
+            x.reshape(B, T, -1).to(torch.float32)))
+        return h.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)
+
+
+def _uniform(generator: torch.Generator):
+    """p <- U(-bound, bound) drawn on the CPU from ``generator``."""
+    def uniform(p, bound):
+        p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
+                                              generator=generator))
+    return uniform
+
+
+def _reset_linear(m: nn.Linear, uniform, zero_bias: bool = False) -> None:
+    """torch's Linear initialization, U(-1/sqrt(in), 1/sqrt(in)), weight
+    then bias (a zero bias for attention out-projections, as torch's
+    MultiheadAttention sets it)."""
+    bound = 1.0 / m.in_features ** 0.5
+    uniform(m.weight, bound)
+    if zero_bias:
+        m.bias.zero_()
+    else:
+        uniform(m.bias, bound)

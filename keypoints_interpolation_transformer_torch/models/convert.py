@@ -4,11 +4,15 @@
 of the JAX package: a Flax KeypointCompleter parameter tree (numpy or any
 array with ``__array__``) becomes a state dict under the reference
 ``.pth`` names, which ``KeypointCompleter.load_state_dict`` takes as it
-is.  ``adam_state_from_jax`` does the same for the Adam moments of a JAX
-train state, so a JAX run continues in the port.  ``load_reference_pth`` / ``save_reference_pth`` read and write the
+is; ``embedding_params_from_jax`` does the same for the Embedding
+autoencoder.  ``adam_state_from_jax`` does the same for the Adam moments
+of a JAX train state, so a JAX run continues in the port.
+``load_reference_pth`` / ``save_reference_pth`` read and write the
 reference checkpoint schema
 ``{model_state_dict, optimizer_state_dict, input_size, hidden_dim,
-num_layers, num_heads, loss}``.
+num_layers, num_heads, loss}``; a state dict with no ``transformer.`` key
+is an Embedding's, as the JAX ``load_reference_checkpoint`` tells them
+apart (``is_embedding_state_dict``).
 """
 
 from __future__ import annotations
@@ -80,6 +84,24 @@ def params_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
     return sd
 
 
+def embedding_params_from_jax(params: Mapping) -> Dict[str, np.ndarray]:
+    """Flax Embedding params (with or without the outer ``{"params":
+    ...}``) -> reference-named numpy state dict (the inverse of the JAX
+    ``embedding_params_from_torch``)."""
+    if "params" in params:
+        params = params["params"]
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("input_embedding", "output_embedding"):
+        _linear(sd, name, params[name])
+    return sd
+
+
+def is_embedding_state_dict(sd: Mapping) -> bool:
+    """True for the Embedding autoencoder's state dict (no
+    ``transformer.`` key), False for a KeypointCompleter's."""
+    return not any(k.startswith("transformer.") for k in sd)
+
+
 def adam_state_from_jax(opt_state, names: Sequence[str],
                         lr: float = 0.0) -> Dict:
     """Optax ``ScaleByAdamState(count, mu, nu)`` over a Flax
@@ -112,7 +134,9 @@ def state_dict_tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def load_reference_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
-    """(state dict on the CPU, hyperparameters) of a reference ``.pth``."""
+    """(state dict on the CPU, hyperparameters) of a reference ``.pth``,
+    a KeypointCompleter's or an Embedding's (``is_embedding_state_dict``
+    tells them apart)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     hyper = {k: ckpt[k] for k in HYPER_KEYS if k in ckpt}
     return state_dict_tensors(ckpt["model_state_dict"]), hyper
@@ -121,15 +145,22 @@ def load_reference_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
 def save_reference_pth(path: str, module: torch.nn.Module, hyper: Mapping,
                        loss: float = float("nan")) -> None:
     """Write ``module``'s state dict in the reference ``.pth`` schema;
-    ``hyper`` gives hidden_dim, num_layers, num_heads (and input_size)."""
+    ``hyper`` gives hidden_dim, num_layers, num_heads (and input_size).  An
+    Embedding has no layers or heads: for its state dict they default to
+    0, which the JAX loader reads and its Embedding ignores."""
     sd = {k: v.detach().cpu().contiguous()
           for k, v in module.state_dict().items()}
+    embedding = is_embedding_state_dict(sd)
+
+    def depth(key):
+        return int(hyper.get(key, 0) if embedding else hyper[key])
+
     torch.save({
         "model_state_dict": sd,
         "optimizer_state_dict": {},
         "input_size": int(hyper.get("input_size", 108)),
         "hidden_dim": int(hyper["hidden_dim"]),
-        "num_layers": int(hyper["num_layers"]),
-        "num_heads": int(hyper["num_heads"]),
+        "num_layers": depth("num_layers"),
+        "num_heads": depth("num_heads"),
         "loss": loss,
     }, path)

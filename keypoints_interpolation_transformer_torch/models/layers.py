@@ -14,6 +14,14 @@ gradient route) a sublayer goes through its ``autograd.Function``
 (training forward plus backward kernel), which takes the parameters
 themselves, so every gradient reaches them; with ``plain=True`` as well,
 autograd differentiates the plain version.
+
+Serving with ``merge=True`` (the JAX package's default, ``merge_layers``)
+takes the merged whole-layer kernels where the JAX package takes them
+(``ops/kernels/layer_fused.py`` holds the port's copies of its rules): an
+encoder layer with T <= 256 is one ``fused_encoder_layer``; a decoder layer
+with T <= 512 is one ``fused_decoder_layer``, with its FF tail inside when
+T <= 256 (``decoder_full_supported``) and as the FF sublayer kernel after
+it otherwise.  Everything else, and the training route, runs per sublayer.
 """
 
 from __future__ import annotations
@@ -26,9 +34,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import (AttnSublayerFunction, FFNFunction,
-                           attn_sublayer_plain, ffn_plain,
-                           fused_attn_sublayer, fused_ffn)
+                           attn_sublayer_plain, decoder_layer_plain,
+                           encoder_layer_plain, ffn_plain,
+                           fused_attn_sublayer, fused_decoder_layer,
+                           fused_encoder_layer, fused_ffn)
 from ..ops.kernels.ffn import LN_EPS
+from ..ops.kernels.layer_fused import (decoder_full_supported,
+                                       fused_layer_supported,
+                                       sublayer_supported)
 from ..ops.kernels.pointwise import token_norm
 
 __all__ = ["LN_EPS", "token_norm", "sinusoidal_positional_encoding",
@@ -187,6 +200,12 @@ class FeedForward(nn.Module):
     def forward(self, x):
         return self.linear2(F.gelu(self.linear1(x)))
 
+    def ff_packed(self, norm_in: nn.LayerNorm, norm_out: nn.LayerNorm):
+        """(w1, b1, w2, b2, g_in, be_in, g_out, be_out) for the serving
+        kernels, the FF weights in the Flax layout."""
+        return (*packed_linear(self.linear1), *packed_linear(self.linear2),
+                norm_in.weight, norm_in.bias, norm_out.weight, norm_out.bias)
+
     def ff_sublayer(self, r, norm_in: nn.LayerNorm, norm_out: nn.LayerNorm,
                     plain: bool = False, train: bool = False):
         """norm_out(x1 + FF(x1)) with x1 = norm_in(r), through the FF
@@ -196,8 +215,7 @@ class FeedForward(nn.Module):
                  norm_out.bias, True)
         if not train:
             fn = ffn_plain if plain else fused_ffn
-            return fn(r, *packed_linear(self.linear1),
-                      *packed_linear(self.linear2), *norms)
+            return fn(r, *self.ff_packed(norm_in, norm_out), True)
         if plain:
             return ffn_plain(r, *graph_linear(self.linear1),
                              *graph_linear(self.linear2), *norms)
@@ -216,7 +234,13 @@ class EncoderLayer(FeedForward):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
     def forward(self, x, spec: AttnSpec, plain: bool = False,
-                train: bool = False):
+                train: bool = False, merge: bool = False):
+        D, FF = self.linear1.in_features, self.linear1.out_features
+        if merge and not train and fused_layer_supported(x.shape[1], D, FF):
+            fn = encoder_layer_plain if plain else fused_encoder_layer
+            return fn(x, *self.self_attn.packed(),
+                      *self.ff_packed(self.norm1, self.norm2), *spec,
+                      self.self_attn.num_heads)
         r = self.self_attn.sublayer(x, None, None, spec, plain, train)
         return self.ff_sublayer(r, self.norm1, self.norm2, plain, train)
 
@@ -234,7 +258,25 @@ class DecoderLayer(FeedForward):
         self.norm3 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
     def forward(self, y, memory, self_spec: AttnSpec, cross_spec: AttnSpec,
-                plain: bool = False, train: bool = False):
+                plain: bool = False, train: bool = False,
+                merge: bool = False):
+        D, FF = self.linear1.in_features, self.linear1.out_features
+        T = y.shape[1]
+        if (merge and not train and sublayer_supported(T, D)
+                and memory.shape[1] == T):
+            full = decoder_full_supported(T, D, FF)
+            fn = decoder_layer_plain if plain else fused_decoder_layer
+            r = fn(y, memory, *self.self_attn.packed(),
+                   *self.multihead_attn.packed(), self.norm1.weight,
+                   self.norm1.bias,
+                   self.ff_packed(self.norm2, self.norm3) if full else None,
+                   self_spec.mask, self_spec.valid, cross_spec.mask,
+                   cross_spec.valid, self_spec.kind, self_spec.add_keypad,
+                   cross_spec.kind, cross_spec.add_keypad,
+                   self.self_attn.num_heads)
+            if full:
+                return r
+            return self.ff_sublayer(r, self.norm2, self.norm3, plain)
         y = self.self_attn.sublayer(y, None, self.norm1, self_spec, plain,
                                     train)
         r = self.multihead_attn.sublayer(y, memory, None, cross_spec, plain,
@@ -264,12 +306,12 @@ class TransformerCore(nn.Module):
 
     def forward(self, src, tgt, src_spec: AttnSpec, tgt_spec: AttnSpec,
                 cross_spec: AttnSpec, plain: bool = False,
-                train: bool = False):
+                train: bool = False, merge: bool = False):
         x = src
         for layer in self.encoder.layers:
-            x = layer(x, src_spec, plain, train)
+            x = layer(x, src_spec, plain, train, merge)
         memory = self.encoder.norm(x)  # F.layer_norm, also under autograd
         y = tgt
         for layer in self.decoder.layers:
-            y = layer(y, memory, tgt_spec, cross_spec, plain, train)
+            y = layer(y, memory, tgt_spec, cross_spec, plain, train, merge)
         return self.decoder.norm(y)

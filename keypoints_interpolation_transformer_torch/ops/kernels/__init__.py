@@ -15,6 +15,8 @@ from .attn_sublayer import (AttnSublayerFunction, attn_sublayer_bwd,
                             fused_attn_sublayer_train)
 from .ffn import (FFNFunction, ffn_bwd, ffn_bwd_plain, ffn_plain,
                   ffn_train_plain, fused_ffn, fused_ffn_train)
+from .layer_fused import (decoder_layer_plain, encoder_layer_plain,
+                          fused_decoder_layer, fused_encoder_layer)
 from .pointwise import (fused_post_head, fused_pre_stream_embed,
                         post_head_plain, pre_stream_embed_plain)
 
@@ -46,6 +48,10 @@ KERNELS = (
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215"),
     Kernel("ffn_bwd", ffn_bwd,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:450"),
+    Kernel("enc_layer", fused_encoder_layer,
+           f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:77"),
+    Kernel("dec_layer", fused_decoder_layer,
+           f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:239"),
 )
 
 

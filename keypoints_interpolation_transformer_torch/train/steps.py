@@ -1,16 +1,20 @@
-"""The train step (port of the JAX ``train/steps.py``), regime A1.
+"""The train step (port of the JAX ``train/steps.py``), regime A1, and
+the model builder and regime forwards that serving shares with it.
 
   a1  plain supervised: src = SOS + frames[:-1], tgt = frames shifted by
       one, "repeat-inc" attention masks, the MSE train criterion
       (``torch.nn.MSELoss`` semantics, frame-weighted), torch-semantics
       Adam at a per-step learning rate.
+  a2  (its forward, ``cycle_forward``, serves the Cycle variant): a frozen
+      first model fills the stream the Cycle model then reads with "all"
+      masks and all-ones pad masks.
 
 Corruption and augmentation run on the model's device inside the step,
 batched, from an explicit ``torch.Generator`` there.  The forward and the
 backward go through the training route of ``KeypointCompleter`` (the
 sublayer kernels and their backwards); ``plain=True`` differentiates the
-plain versions instead (the oracle path).  Regimes A2-A4 and the fused
-masked-loss kernel are not ported yet.
+plain versions instead (the oracle path).  The train steps of regimes
+A2-A4 and the fused masked-loss kernel are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ..models.completer import KeypointCompleter, keypoint_completer_cycle
+from ..models.completer import (Embedding, KeypointCompleter,
+                                keypoint_completer_cycle)
 from ..ops import losses
 from ..transforms.augment import random_augment
 from ..transforms.corruption import (DatasetMissingStats, add_sos,
@@ -28,11 +33,14 @@ from .state import TrainState, apply_gradients
 
 
 def build_model(model_cfg, variant: Optional[str] = None, *,
-                for_training: bool = False, device="cuda",
-                generator: Optional[torch.Generator] = None):
-    """The configured model on ``device`` (the card unless the caller asks
-    for the CPU), in ``train()`` mode when ``for_training``.  ``generator``
-    (a CPU generator) initializes the parameters deterministically."""
+                for_training: bool = False, merge_layers: bool = True,
+                device="cuda", generator: Optional[torch.Generator] = None):
+    """The configured model ("plain", "cycle" or "embedding") on
+    ``device`` (the card unless the caller asks for the CPU), in
+    ``train()`` mode when ``for_training``.  ``merge_layers`` selects the
+    merged whole-layer serving kernels (the JAX package's default; the
+    training route does not read it).  ``generator`` (a CPU generator)
+    initializes the parameters deterministically."""
     if model_cfg.compute_dtype != "float32":
         raise ValueError("the PyTorch port computes in float32 only")
     dev = torch.device(device)
@@ -40,8 +48,11 @@ def build_model(model_cfg, variant: Optional[str] = None, *,
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
                            "to run the plain versions on the CPU")
     v = variant or model_cfg.variant
+    if v == "embedding":
+        return Embedding(model_cfg.hidden_dim, model_cfg.input_size,
+                         device=dev, generator=generator).train(for_training)
     kw = dict(input_size=model_cfg.input_size, ff_dim=model_cfg.ff_dim,
-              device=dev, generator=generator)
+              merge_layers=merge_layers, device=dev, generator=generator)
     if v == "plain":
         model = KeypointCompleter(model_cfg.hidden_dim, model_cfg.num_layers,
                                   model_cfg.num_heads, **kw)
@@ -50,7 +61,7 @@ def build_model(model_cfg, variant: Optional[str] = None, *,
                                          model_cfg.num_layers,
                                          model_cfg.num_heads, **kw)
     else:
-        raise ValueError(f"model variant {v!r} is not ported yet")
+        raise ValueError(f"unknown model variant {v!r}")
     return model.train(for_training)
 
 
@@ -100,9 +111,24 @@ def make_train_criterion(regime: str, fused: bool):
 
 
 def completer_forward(model, x, x_no, x_mask, y_mask, valid,
-                      plain: bool = False):
+                      plain: bool = False, mask_kind: str = "repeat-inc"):
     return model(x, x_no, src_frame_mask=x_mask, tgt_frame_mask=y_mask,
-                 valid_mask=valid, plain=plain)
+                 valid_mask=valid, plain=plain, src_mask_kind=mask_kind,
+                 tgt_mask_kind=mask_kind)
+
+
+def cycle_forward(first_model, model, x, x_no, x_mask, y_mask, valid,
+                  plain: bool = False):
+    """A2's forward: the frozen first model fills the stream (repeat-inc
+    masks) and its prediction, detached, is the filled stream of the Cycle
+    model, which reads the frames ``x_no`` with all-ones masks of kind
+    "all" (a uniform +1 on the logits, kept for fidelity)."""
+    pred1 = completer_forward(first_model, x, x_no, x_mask, y_mask, valid,
+                              plain).detach()
+    ones = torch.ones_like(x_mask)
+    return model(x_no, pred1, src_frame_mask=ones, tgt_frame_mask=ones,
+                 valid_mask=valid, plain=plain, src_mask_kind="all",
+                 tgt_mask_kind="all")
 
 
 def _global_norm(tensors):

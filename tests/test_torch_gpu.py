@@ -31,8 +31,9 @@ def test_kernels_match_plain_on_the_card(cuda):
 
 @pytest.mark.gpu
 def test_model_kernel_path_on_the_card(cuda):
-    """A two-layer model: the kernel path agrees with the plain path and
-    launches each kernel as often as the TPU kernel it replaces."""
+    """A two-layer model: the kernel path (the merged route at T=40)
+    agrees with the plain path and launches each kernel as often as the
+    TPU kernel it replaces."""
     from keypoints_interpolation_transformer_torch.models.completer import (
         KeypointCompleter)
     from keypoints_interpolation_transformer_torch.ops import kernels
@@ -52,9 +53,9 @@ def test_model_kernel_path_on_the_card(cuda):
         got = model(x, x, m, m, valid)
         torch.cuda.synchronize()
     assert kernels.launch_counts() == {
-        "pre_stream_embed": 2, "attn_sublayer": 3 * layers,
-        "ffn": 2 * layers, "post_head": 1, "attn_sublayer_train": 0,
-        "attn_sublayer_bwd": 0, "ffn_train": 0, "ffn_bwd": 0}
+        "pre_stream_embed": 2, "attn_sublayer": 0, "ffn": 0, "post_head": 1,
+        "attn_sublayer_train": 0, "attn_sublayer_bwd": 0, "ffn_train": 0,
+        "ffn_bwd": 0, "enc_layer": layers, "dec_layer": layers}
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
@@ -117,5 +118,80 @@ def test_train_step_kernel_path_on_the_card(cuda):
     assert kernels.launch_counts() == {
         "pre_stream_embed": 0, "attn_sublayer": 0, "ffn": 0, "post_head": 0,
         "attn_sublayer_train": 6, "attn_sublayer_bwd": 6, "ffn_train": 4,
-        "ffn_bwd": 4}
+        "ffn_bwd": 4, "enc_layer": 0, "dec_layer": 0}
     assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])
+
+
+@pytest.mark.gpu
+def test_merged_layer_kernels_match_plain_on_the_card(cuda):
+    """The whole-layer kernels with the plain model's and the Cycle model's
+    masks, the decoder with and without its FF tail, at the largest merged
+    bucket and a length that is no multiple of 32, with a padded row."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for T in (40, 256):
+        mask, valid = chk.masks(3, T)
+        for name, variant, kern, plain in chk.layer_calls(
+                chk.operands(3, T), mask, valid):
+            chk.compare(name, variant, kern(), plain())
+
+
+@pytest.mark.gpu
+def test_merged_wrappers_raise_rather_than_fall_back(cuda):
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    B, T, D, FF = 2, 16, 128, 256
+    z = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
+    attn = (z(D, 3 * D), z(3 * D), z(D, D), z(D))
+    ff = (z(D, FF), z(FF), z(FF, D), z(D), z(D) + 1, z(D), z(D) + 1, z(D))
+    x = z(B, T, D)
+    with pytest.raises(TypeError):
+        kernels.fused_encoder_layer(x.double(), *attn, *ff, None, None,
+                                    "all", False, 4)
+    with pytest.raises(ValueError):  # a wrong weight shape
+        kernels.fused_encoder_layer(x, z(D, 2 * D), *attn[1:], *ff, None,
+                                    None, "all", False, 4)
+    with pytest.raises(ValueError):  # a width the kernels do not take
+        kernels.fused_encoder_layer(z(B, T, 64), *attn, *ff, None, None,
+                                    "all", False, 4)
+    with pytest.raises(ValueError):  # weights left on the CPU
+        kernels.fused_decoder_layer(x, x, *attn, *(t.cpu() for t in attn),
+                                    z(D), z(D), None, None, None, None, None,
+                                    "all", False, "all", False, 4)
+    kernels.reset_launches()
+    kernels.fused_encoder_layer(x, *attn, *ff, None, None, "all", False, 4)
+    kernels.fused_decoder_layer(x, x, *attn, *attn, z(D), z(D), None, None,
+                                None, None, None, "all", False, "all",
+                                False, 4)
+    counts = kernels.launch_counts()
+    assert (counts["enc_layer"], counts["dec_layer"]) == (1, 1)
+
+
+@pytest.mark.gpu
+def test_flagship_forward_launches_the_merged_route(cuda):
+    """One flagship forward (6 + 6 layers, D=256, FF=2048) at T=128: the
+    merged route launches 2 / 6 / 6 / 1, the per-sublayer route 2 / 18 /
+    12 / 1, and both agree with the plain path."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    B, T = 2, 128
+    model = KeypointCompleter(256, 6, 8, ff_dim=2048, device=cuda,
+                              generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(0.2, 0.8, (B, T, 54, 2)).astype(
+        np.float32)).to(cuda)
+    m = torch.from_numpy((rng.random((B, T)) < 0.3).astype(np.float32)).to(
+        cuda)
+    valid = torch.ones(B, T, device=cuda)
+    with torch.inference_mode():
+        want = model(x, x, m, m, valid, plain=True)
+        for merge, counts in ((True, chip_smoke.MERGED_COUNTS),
+                              (False, chip_smoke.SUBLAYER_COUNTS)):
+            model.merge_layers = merge
+            kernels.reset_launches()
+            got = model(x, x, m, m, valid)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts() == counts
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

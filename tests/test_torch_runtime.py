@@ -1,6 +1,6 @@
 """The port stands alone at run time: with jax and the JAX package made
 unimportable, a fresh interpreter imports every module of the port and
-``chip_smoke``, and takes a CPU train step."""
+``chip_smoke``, takes a CPU train step and serves a CPU Cycle request."""
 
 import os
 import subprocess
@@ -49,6 +49,19 @@ st, m = steps.make_train_step(model, cfg, None)(
     st, clean, torch.tensor([12, 9]), torch.ones(2),
     torch.Generator().manual_seed(2), 1e-3)
 assert torch.isfinite(m["loss"])
+
+from keypoints_interpolation_transformer_torch.eval.serving import Inpainter
+first, cycle = (steps.build_model(cfg.model, v, device="cpu",
+                                  generator=torch.Generator().manual_seed(s))
+                for s, v in ((3, "plain"), (4, "cycle")))
+inp = Inpainter(cycle.state_dict(), cfg.model, bucket_multiple=16,
+                variant="cycle", first_state_dict=first.state_dict(),
+                device="cpu")
+v = torch.rand(20, 54, 2, generator=torch.Generator().manual_seed(5))
+miss = (torch.arange(20) % 3 == 0).float()
+out = inp.inpaint([v.numpy()], [miss.numpy()])[0]
+assert out.shape == (20, 54, 2) and (out[miss.numpy() == 0]
+                                     == v.numpy()[miss.numpy() == 0]).all()
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 print("IMPORTED", len(names), "LOADED", loaded)
 """
