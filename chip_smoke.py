@@ -15,9 +15,13 @@ Phases (each prints its own lines; any failed check exits non-zero):
      flagship widths (D=256, 8 heads, FF=2048), B=3, T in {128, 40, 256,
      300} with a padded row (the whole-layer kernels with the plain
      model's masks and the Cycle model's, the decoder with and without its
-     FF tail); then at the shapes of the paths (serving B=256, training
-     B=64, T=128), with CUDA-event times of kernel and plain version and
-     the bound of each (the least time the card could take);
+     FF tail, and again at T in {128, 40, 256} with every thread-block
+     cluster size from 1 to 8); then at the shapes of the paths (serving
+     B=256, training B=64, T=128), with CUDA-event times of kernel and
+     plain version, the bound of each (the least time the card could take)
+     and, for the whole layers, of the one PyTorch call that computes the
+     same layer (``torch.nn.TransformerEncoderLayer`` /
+     ``TransformerDecoderLayer``, first held against the plain version);
   3. model: the flagship KeypointCompleter (random weights from a seeded
      torch.Generator) at B=256, T=128 on the merged route (the default:
      launches per forward pre_stream_embed 2, enc_layer 6, dec_layer 6,
@@ -252,24 +256,29 @@ class KernelCheck:
                     lambda a=args: k.post_head_plain(*a)))
         return out + self.layer_calls(o, mask, valid)
 
-    def layer_calls(self, o, mask, valid):
+    def layer_calls(self, o, mask, valid, cluster=None):
         """The whole-layer kernels: the plain model's masks (the encoder
         repeat-inc with the key padding added, the decoder self-attention
         repeat-inc) and the Cycle model's (kind "all", all-ones masks
         added); the decoder with its FF tail and without; cross-attention
-        "all" with the padding bias.  The plain model's come first (they
-        are timed)."""
+        "all" with the padding bias.  ``cluster`` forces the blocks per
+        video (None: the wrapper's choice).  The plain model's come first
+        (they are timed); ``layer_args`` keeps their arguments."""
         k = self.k
         ones = self.torch.ones_like(mask)
         attn = (o["wqkv"], o["bqkv"], o["wo"], o["bo"])
         ff = (o["w1"], o["b1"], o["w2"], o["b2"], o["g"], o["be"], o["g2"],
               o["be2"])
+        tag = "" if cluster is None else f" cluster={cluster}"
+        self.layer_args = {}
         out = []
         for flags, m, kind in (("plain", mask, "repeat-inc"),
                                ("cycle", ones, "all")):
             args = (o["x"], *attn, *ff, m, valid, kind, True, HEADS)
-            out.append(("enc_layer", f"{flags} {kind}+keypad",
-                        lambda a=args: k.fused_encoder_layer(*a),
+            self.layer_args.setdefault("enc_layer", args)
+            out.append(("enc_layer", f"{flags} {kind}+keypad{tag}",
+                        lambda a=args: k.fused_encoder_layer(
+                            *a, cluster=cluster),
                         lambda a=args: k.encoder_layer_plain(*a)))
         for with_ff in (True, False):
             for flags, m, kind, keypad in (
@@ -279,9 +288,11 @@ class KernelCheck:
                         o["cwo"], o["cbo"], o["g"], o["be"],
                         ff if with_ff else None, m, valid, None, valid, kind,
                         keypad, "all", False, HEADS)
+                self.layer_args.setdefault("dec_layer", args)
                 out.append(("dec_layer", f"{flags} self {kind}"
-                            f"{'+keypad' if keypad else ''} ff={with_ff}",
-                            lambda a=args: k.fused_decoder_layer(*a),
+                            f"{'+keypad' if keypad else ''} ff={with_ff}{tag}",
+                            lambda a=args: k.fused_decoder_layer(
+                                *a, cluster=cluster),
                             lambda a=args: k.decoder_layer_plain(*a)))
         return out
 
@@ -366,6 +377,107 @@ def work(name, B, T):
     return flop, elems * f
 
 
+def _layer_mask(torch, mask, valid, T, kind, add_keypad, heads):
+    """The additive bias the kernels build from the 1-D masks, as
+    ``nn.MultiheadAttention``'s float attention mask: (B * heads, T, T),
+    video-major."""
+    from keypoints_interpolation_transformer_torch.ops.kernels.attn_sublayer \
+        import bias_from_masks
+    bias = bias_from_masks(mask, valid, T, kind, add_keypad)
+    return bias.expand(valid.shape[0], T, T).repeat_interleave(
+        heads, dim=0).contiguous()
+
+
+def _load_attention(mha, wqkv, bqkv, wo, bo):
+    mha.in_proj_weight.copy_(wqkv.t())
+    mha.in_proj_bias.copy_(bqkv)
+    mha.out_proj.weight.copy_(wo.t())
+    mha.out_proj.bias.copy_(bo)
+
+
+def _load_ff(layer, w1, b1, w2, b2):
+    layer.linear1.weight.copy_(w1.t())
+    layer.linear1.bias.copy_(b1)
+    layer.linear2.weight.copy_(w2.t())
+    layer.linear2.bias.copy_(b2)
+
+
+def _load_norm(norm, g, be):
+    norm.weight.copy_(g)
+    norm.bias.copy_(be)
+
+
+def _without_fastpath(torch, fn):
+    """``fn`` with the MultiheadAttention fast path off: the encoder layer's
+    fast path does not add a float (B * heads, T, T) mask as the kernels
+    do (with this mask it is 0.24 off the plain version on the CPU), so
+    neither layer takes it."""
+    def call():
+        was = torch.backends.mha.get_fastpath_enabled()
+        torch.backends.mha.set_fastpath_enabled(False)
+        try:
+            return fn()
+        finally:
+            torch.backends.mha.set_fastpath_enabled(was)
+    return call
+
+
+def library_encoder_layer(torch, x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1,
+                          be1, g2, be2, mask, valid, kind, add_keypad, heads):
+    """The one PyTorch call that computes ``fused_encoder_layer`` on these
+    arguments: a post-LN ``nn.TransformerEncoderLayer`` (exact GELU, no
+    dropout) loaded with the same weights, its float mask built once from
+    the same masks, the fast path off.  Returns the call."""
+    from keypoints_interpolation_transformer_torch.ops.kernels.ffn import (
+        LN_EPS)
+    T, D = x.shape[1:]
+    layer = torch.nn.TransformerEncoderLayer(
+        D, heads, w1.shape[1], dropout=0.0, activation="gelu",
+        layer_norm_eps=LN_EPS, batch_first=True, norm_first=False,
+        device=x.device)
+    with torch.no_grad():
+        _load_attention(layer.self_attn, wqkv, bqkv, wo, bo)
+        _load_ff(layer, w1, b1, w2, b2)
+        _load_norm(layer.norm1, g1, be1)
+        _load_norm(layer.norm2, g2, be2)
+    layer.eval().requires_grad_(False)
+    m = _layer_mask(torch, mask, valid, T, kind, add_keypad, heads)
+    return _without_fastpath(torch, lambda: layer(x, src_mask=m))
+
+
+def library_decoder_layer(torch, x, memory, swqkv, sbqkv, swo, sbo, cwqkv,
+                          cbqkv, cwo, cbo, g1, be1, ff, smask, svalid, cmask,
+                          cvalid, skind, sadd_keypad, ckind, cadd_keypad,
+                          heads):
+    """The one PyTorch call that computes ``fused_decoder_layer`` with its
+    FF tail: a post-LN ``nn.TransformerDecoderLayer``, as above."""
+    from keypoints_interpolation_transformer_torch.ops.kernels.ffn import (
+        LN_EPS)
+    T, D = x.shape[1:]
+    w1, b1, w2, b2, g2, be2, g3, be3 = ff
+    layer = torch.nn.TransformerDecoderLayer(
+        D, heads, w1.shape[1], dropout=0.0, activation="gelu",
+        layer_norm_eps=LN_EPS, batch_first=True, norm_first=False,
+        device=x.device)
+    with torch.no_grad():
+        _load_attention(layer.self_attn, swqkv, sbqkv, swo, sbo)
+        _load_attention(layer.multihead_attn, cwqkv, cbqkv, cwo, cbo)
+        _load_ff(layer, w1, b1, w2, b2)
+        _load_norm(layer.norm1, g1, be1)
+        _load_norm(layer.norm2, g2, be2)
+        _load_norm(layer.norm3, g3, be3)
+    layer.eval().requires_grad_(False)
+    sm = _layer_mask(torch, smask, svalid, T, skind, sadd_keypad, heads)
+    cm = _layer_mask(torch, cmask, cvalid, T, ckind, cadd_keypad, heads)
+    return _without_fastpath(
+        torch, lambda: layer(x, memory, tgt_mask=sm, memory_mask=cm))
+
+
+# the kernels whose function one PyTorch call computes
+LIBRARY = {"enc_layer": library_encoder_layer,
+           "dec_layer": library_decoder_layer}
+
+
 def bound(name, B, T):
     """(bound_ms, bound_by): the larger of the FLOP over the float32 FFMA
     peak and the bytes over the memory rate."""
@@ -392,6 +504,14 @@ def phase_kernels(torch, kmod):
     for T in (128, 40, 256, 300):
         for name, variant, kern, plain, grad in all_calls(3, T, 3):
             chk.compare(name, f"B=3 T={T} {variant}", kern(), plain(), grad)
+    # the batch picks the whole-layer kernels' cluster size; serving
+    # batches take every size, so each is held here
+    for T in (128, 40, 256):
+        o, (mask, valid) = chk.operands(3, T), chk.masks(3, T)
+        for cl in range(1, 9):
+            for name, variant, kern, plain in chk.layer_calls(o, mask, valid,
+                                                              cl):
+                chk.compare(name, f"B=3 T={T} {variant}", kern(), plain())
     times, first = {}, {}
     for name, variant, kern, plain, grad in all_calls(B_MAIN, T_MAIN,
                                                       B_TRAIN):
@@ -400,15 +520,22 @@ def phase_kernels(torch, kmod):
                     grad)
         first.setdefault(name, (variant, kern, plain, B))
     for name, (variant, kern, plain, B) in first.items():
+        lib = (LIBRARY[name](torch, *chk.layer_args[name])
+               if name in LIBRARY else None)
+        if lib is not None:
+            chk.compare(f"{name} library", f"B={B} T={T_MAIN} {variant}",
+                        lib(), plain())
         p0 = timed_ms(plain)
         k0 = timed_ms(kern)
+        lib_ms = min(timed_ms(lib), timed_ms(lib)) if lib else None
         k1 = timed_ms(kern)
         p1 = timed_ms(plain)
         b_ms, b_by = bound(name, B, T_MAIN)
-        times[name] = (min(k0, k1), min(p0, p1), b_ms, b_by)
+        times[name] = (min(k0, k1), min(p0, p1), b_ms, b_by, lib_ms)
         print(f"  time {name:19s} {variant:28s} kernel {times[name][0]:.4f} "
               f"ms  plain {times[name][1]:.4f} ms  bound {b_ms:.4f} ms "
-              f"({b_by})  (B={B} T={T_MAIN})", flush=True)
+              f"({b_by})" + (f"  library {lib_ms:.4f} ms" if lib else "")
+              + f"  (B={B} T={T_MAIN})", flush=True)
     return chk.max_err, times
 
 
@@ -833,8 +960,8 @@ def sweep(torch, kmod, gpu):
         Inpainter)
     from keypoints_interpolation_transformer_torch.models.completer import (
         KeypointCompleter)
-    from keypoints_interpolation_transformer_torch.ops.kernels import (
-        layer_fused as lf)
+    from keypoints_interpolation_transformer_torch.ops.kernels.layer_fused \
+        import cluster_size
     chk = KernelCheck(torch, kmod)
     o = chk.operands(B_MAIN, T_MAIN)
     mask, valid = chk.masks(B_MAIN, T_MAIN)
@@ -848,13 +975,13 @@ def sweep(torch, kmod, gpu):
         x, mem = o["x"][:B].contiguous(), o["mem"][:B].contiguous()
         m, v = mask[:B].contiguous(), valid[:B].contiguous()
         for cl in (1, 2, 4, 8):
-            enc = timed_ms(lambda: lf._launch_encoder(
-                x, attn, ff, m, v, "repeat-inc", True, HEADS, cluster=cl))
-            dec = timed_ms(lambda: lf._launch_decoder(
-                x, mem, attn, cattn, o["g"], o["be"], ff, m, v, None, v,
+            enc = timed_ms(lambda: kmod.fused_encoder_layer(
+                x, *attn, *ff, m, v, "repeat-inc", True, HEADS, cluster=cl))
+            dec = timed_ms(lambda: kmod.fused_decoder_layer(
+                x, mem, *attn, *cattn, o["g"], o["be"], ff, m, v, None, v,
                 "repeat-inc", False, "all", False, HEADS, cluster=cl))
             print(f"  B={B} cluster {cl} (the wrapper picks "
-                  f"{lf.cluster_size(B, x.device)}): enc_layer {enc:.4f} ms "
+                  f"{cluster_size(B, x.device)}): enc_layer {enc:.4f} ms "
                   f"dec_layer {dec:.4f} ms", flush=True)
     model = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
                               generator=torch.Generator().manual_seed(0))
@@ -951,7 +1078,7 @@ def main():
          "replaces": k.replaces, "launches": launches[k.name],
          "max_abs_err": max_err[k.name], "ms": times[k.name][0],
          "plain_ms": times[k.name][1], "bound_ms": times[k.name][2],
-         "bound_by": times[k.name][3], "library_ms": None}
+         "bound_by": times[k.name][3], "library_ms": times[k.name][4]}
         for k in kmod.KERNELS]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -86,7 +86,8 @@ def cluster_size(B: int, device: torch.device) -> int:
     block per SM of the card over the batch, from 1 to 8.  On an H100 (132
     SMs) that is 1 at B = 256, 2 at B = 64 and 8 at B <= 16, each the
     fastest of 1, 2, 4 and 8 that `chip_smoke.py --sweep` measures at
-    T = 128."""
+    T = 128; batches between take every size from 2 to 7, and
+    `chip_smoke.py` holds each size against the plain versions."""
     return max(1, min(_MAX_CLUSTER, _sm_count(device.index or 0) // B))
 
 
@@ -150,17 +151,19 @@ def _check_masks(where, x, mask, valid, kind, add_keypad, heads):
 
 def fused_encoder_layer(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
                         be2, mask, valid, kind: str = "repeat-inc",
-                        add_keypad: bool = False, heads: int = 8):
+                        add_keypad: bool = False, heads: int = 8,
+                        cluster: int | None = None):
     """x (B, T, D) -> y (B, T, D): one encoder layer.  ``mask`` is read
     only for "repeat-inc" or ``add_keypad``; ``valid`` None means every key
-    is real."""
+    is real.  ``cluster``, blocks per video from 1 to 8, defaults to
+    ``cluster_size``; the result does not depend on it."""
     if x.device.type == "cpu":
         return encoder_layer_plain(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1,
                                    be1, g2, be2, mask, valid, kind,
                                    add_keypad, heads)
     y = _launch_encoder(x, (wqkv, bqkv, wo, bo),
                         (w1, b1, w2, b2, g1, be1, g2, be2), mask, valid, kind,
-                        add_keypad, heads)
+                        add_keypad, heads, cluster)
     fused_encoder_layer.launches += 1
     return y
 
@@ -168,15 +171,26 @@ def fused_encoder_layer(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
 fused_encoder_layer.launches = 0
 
 
+def _cluster(where, B, device, cluster):
+    """The blocks per video: ``cluster`` if given (1 to 8), else
+    ``cluster_size``."""
+    if cluster is None:
+        return cluster_size(B, device)
+    if not 1 <= cluster <= _MAX_CLUSTER:
+        raise ValueError(f"{where}: cluster must be 1 to {_MAX_CLUSTER}, "
+                         f"got {cluster}")
+    return cluster
+
+
 def _launch_encoder(x, attn, ff, mask, valid, kind, add_keypad, heads,
-                    cluster=None):
+                    cluster):
     where = "fused_encoder_layer"
     _build.check_tensors(where, x.device, x=x)
     _check_weights(where, x, "", _ATTN, attn)
     FF = _check_weights(where, x, "", _FF, ff)
     mask = _check_masks(where, x, mask, valid, kind, add_keypad, heads)
     B, T, D = x.shape
-    cl = cluster or cluster_size(B, x.device)
+    cl = _cluster(where, B, x.device, cluster)
     y = torch.empty_like(x)
     scratch = torch.empty(B * T * 4 * D, device=x.device)
     lib = _build.bind("layer_fused", _SIGS)
@@ -191,11 +205,12 @@ def fused_decoder_layer(x, memory, swqkv, sbqkv, swo, sbo, cwqkv, cbqkv, cwo,
                         cbo, g1, be1, ff, smask, svalid, cmask, cvalid,
                         skind: str = "repeat-inc", sadd_keypad: bool = False,
                         ckind: str = "all", cadd_keypad: bool = False,
-                        heads: int = 8):
+                        heads: int = 8, cluster: int | None = None):
     """x, memory (B, T, D) -> y (B, T, D): one decoder layer.  ``ff`` is
     None (no FF tail: y = x1 + CA(x1, memory)) or (w1, b1, w2, b2, g2, be2,
     g3, be3).  smask/svalid build the self-attention bias, cmask/cvalid the
-    cross-attention one, as ``fused_encoder_layer``'s masks do."""
+    cross-attention one, as ``fused_encoder_layer``'s masks do; ``cluster``
+    as there."""
     if x.device.type == "cpu":
         return decoder_layer_plain(x, memory, swqkv, sbqkv, swo, sbo, cwqkv,
                                    cbqkv, cwo, cbo, g1, be1, ff, smask,
@@ -204,7 +219,7 @@ def fused_decoder_layer(x, memory, swqkv, sbqkv, swo, sbo, cwqkv, cbqkv, cwo,
     y = _launch_decoder(x, memory, (swqkv, sbqkv, swo, sbo),
                         (cwqkv, cbqkv, cwo, cbo), g1, be1, ff, smask, svalid,
                         cmask, cvalid, skind, sadd_keypad, ckind, cadd_keypad,
-                        heads)
+                        heads, cluster)
     fused_decoder_layer.launches += 1
     return y
 
@@ -214,7 +229,7 @@ fused_decoder_layer.launches = 0
 
 def _launch_decoder(x, memory, sattn, cattn, g1, be1, ff, smask, svalid,
                     cmask, cvalid, skind, sadd_keypad, ckind, cadd_keypad,
-                    heads, cluster=None):
+                    heads, cluster):
     where = "fused_decoder_layer"
     B, T, D = x.shape
     _build.check_tensors(where, x.device, x=x, memory=memory, g1=g1, be1=be1)
@@ -227,7 +242,7 @@ def _launch_decoder(x, memory, sattn, cattn, g1, be1, ff, smask, svalid,
     FF = 0 if ff is None else _check_weights(where, x, "", _FF, ff)
     smask = _check_masks(where, x, smask, svalid, skind, sadd_keypad, heads)
     cmask = _check_masks(where, x, cmask, cvalid, ckind, cadd_keypad, heads)
-    cl = cluster or cluster_size(B, x.device)
+    cl = _cluster(where, B, x.device, cluster)
     y = torch.empty_like(x)
     scratch = torch.empty(B * T * 8 * D, device=x.device)
     lib = _build.bind("layer_fused", _SIGS)

@@ -138,6 +138,21 @@ def test_merged_layer_kernels_match_plain_on_the_card(cuda):
 
 
 @pytest.mark.gpu
+def test_merged_layer_kernels_at_every_cluster_size(cuda):
+    """Each thread-block cluster size the batch can pick, 1 to 8 blocks
+    per video, against the plain versions."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for T in (40, 128):
+        o, (mask, valid) = chk.operands(3, T), chk.masks(3, T)
+        for cl in range(1, 9):
+            for name, variant, kern, plain in chk.layer_calls(o, mask, valid,
+                                                              cl):
+                chk.compare(name, variant, kern(), plain())
+
+
+@pytest.mark.gpu
 def test_merged_wrappers_raise_rather_than_fall_back(cuda):
     from keypoints_interpolation_transformer_torch.ops import kernels
     B, T, D, FF = 2, 16, 128, 256
@@ -158,6 +173,9 @@ def test_merged_wrappers_raise_rather_than_fall_back(cuda):
         kernels.fused_decoder_layer(x, x, *attn, *(t.cpu() for t in attn),
                                     z(D), z(D), None, None, None, None, None,
                                     "all", False, "all", False, 4)
+    with pytest.raises(ValueError):  # more blocks per video than 8
+        kernels.fused_encoder_layer(x, *attn, *ff, None, None, "all", False,
+                                    4, cluster=9)
     kernels.reset_launches()
     kernels.fused_encoder_layer(x, *attn, *ff, None, None, "all", False, 4)
     kernels.fused_decoder_layer(x, x, *attn, *attn, z(D), z(D), None, None,

@@ -181,6 +181,48 @@ def test_cluster_size_spreads_a_small_batch(monkeypatch):
                                                1024)] == [8, 8, 4, 2, 1, 1, 1]
 
 
+def test_cluster_override_is_checked(monkeypatch):
+    """A forced cluster size is taken as given from 1 to 8 and refused
+    outside; None takes ``cluster_size``."""
+    monkeypatch.setattr(tlf, "_sm_count", lambda index: 132)
+    dev = torch.device("cuda", 0)
+    assert tlf._cluster("w", 3, dev, None) == 8
+    assert [tlf._cluster("w", 3, dev, c) for c in range(1, 9)] == \
+        list(range(1, 9))
+    for bad in (0, 9):
+        with pytest.raises(ValueError, match="cluster must be 1 to 8"):
+            tlf._cluster("w", 3, dev, bad)
+
+
+@pytest.mark.parametrize("flags", ["plain", "cycle"])
+@pytest.mark.parametrize("name", ["enc_layer", "dec_layer"])
+def test_library_layers_match_plain(rng, name, flags):
+    """The one PyTorch call ``chip_smoke.py`` times beside each whole-layer
+    kernel (``nn.TransformerEncoderLayer`` / ``TransformerDecoderLayer``
+    with the same weights and the masks as a float attention mask)
+    computes the same function as its plain version."""
+    import chip_smoke
+    x = torch.from_numpy(_f32(rng.normal(size=(B, T, D))))
+    mem = torch.from_numpy(_f32(rng.normal(size=(B, T, D))))
+    attn = _t(*_packed(_attn(rng)))
+    cattn = _t(*_packed(_attn(rng)))
+    ff = _t(*_ff(rng))
+    cycle = flags == "cycle"
+    mask, valid = _t(*_masks(rng, cycle))
+    kind = "all" if cycle else "repeat-inc"
+    if name == "enc_layer":
+        args = (x, *attn, *ff, mask, valid, kind, True, H)
+        want = kernels.encoder_layer_plain(*args)
+    else:
+        args = (x, mem, *attn, *cattn, *ff[4:6], tuple(ff),
+                mask, valid, None, valid, kind, cycle, "all", False, H)
+        want = kernels.decoder_layer_plain(*args)
+    with torch.inference_mode():
+        got = chip_smoke.LIBRARY[name](torch, *args)()
+    assert torch.backends.mha.get_fastpath_enabled()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
+
+
 def _model_inputs(rng, Tm, padded):
     x = _f32(rng.uniform(0.2, 0.8, (B, Tm, 54, 2)))
     f = _f32(rng.uniform(0.2, 0.8, (B, Tm, 54, 2)))
