@@ -46,10 +46,31 @@ Phases (each prints its own lines; any failed check exits non-zero):
      three on the plain path: losses within 1e-4 relative, parameters
      after step 1 within 1e-4 of their scale, launch counts per step
      18 / 18 / 12 / 12 (serving kernels 0); then the step time and
-     frames/s of both paths.
+     frames/s of both paths and of the per-op attention route
+     (``attn_sublayer_fusion`` off);
+  8. the training loop (``train.loop.train``) at the flagship width on
+     synthetic videos of 97-128 frames (one bucket of 128), batch 64: a1
+     for 2 epochs on the kernel and the plain route from one seed (epoch
+     losses within 1e-4 relative; launches 18 / 18 / 12 / 12 per step and
+     the per-sublayer serving kernels per eval batch); a1 for 1 epoch with
+     sublayer fusion off and the fused loss (attention 18, attention_bwd
+     18, ffn_train 12, ffn_bwd 12, masked_loss 1 per step); a3, then a4
+     grafted from a3's .pth (the graft bit for bit unchanged); a2 over
+     a1's .pth; a 2-epoch run cut after one epoch and resumed from its
+     full_state.pt (epoch-2 losses within 1e-5 relative of the whole
+     run's); the frames/s of one a1 epoch.
+
+Phase 2 also holds the per-op attention kernels at T in {40, 512, 608,
+2048} (repeat-inc with and without the key padding, "all" with all-ones
+masks, cross-attention, padded keys, a video whose keys are all padded)
+and the masked loss with padded frames; phase 5 also serves one 600-frame
+video (bucket 608, above the sublayer kernel's 512) on the per-op route:
+attention 18, ffn 12, pre_stream_embed 2, post_head 1.
 
 ``--profile`` prints, after the build, the device time by kernel of one
-train step and of one merged-route Inpainter call.  ``--sweep`` prints the
+train step, of one merged-route Inpainter call and of one a1 epoch of the
+loop (with its device idle share and the host work in it).  ``--sweep``
+prints the
 whole-layer kernels' times at T=128 for B in {256, 64, 8, 1} with clusters
 of 1, 2, 4 and 8 blocks per video (and the size the wrapper picks), then
 the latency of one Inpainter call per route at small batches.
@@ -125,20 +146,37 @@ def timed_ms(fn, iters=20, warmup=3):
 
 TRAIN_KERNELS = ("attn_sublayer_train", "attn_sublayer_bwd", "ffn_train",
                  "ffn_bwd")
-_NONE = {"pre_stream_embed": 0, "attn_sublayer": 0, "ffn": 0, "post_head": 0,
-         "attn_sublayer_train": 0, "attn_sublayer_bwd": 0, "ffn_train": 0,
-         "ffn_bwd": 0, "enc_layer": 0, "dec_layer": 0}
+SERVING_KERNELS = ("pre_stream_embed", "attn_sublayer", "ffn", "post_head",
+                   "enc_layer", "dec_layer")
+# the per-op attention kernels and the masked loss: timed at the training
+# batch, like the training kernels
+PER_OP_KERNELS = ("attention", "attention_bwd", "masked_loss")
+ATTN_T = (40, 512, 608, 2048)  # the per-op kernels' lengths in phase 2
+# every kernel of ops/kernels.KERNELS, launched no time
+NO_LAUNCHES = dict.fromkeys(
+    ("pre_stream_embed", "attn_sublayer", "ffn", "post_head",
+     "attn_sublayer_train", "attn_sublayer_bwd", "ffn_train", "ffn_bwd",
+     "enc_layer", "dec_layer", "attention", "attention_bwd", "masked_loss"),
+    0)
 # the training step's launches of each kernel: 18 attention sublayers, 12
 # FF sublayers, forward and backward; none of the serving kernels
-TRAIN_COUNTS = {**_NONE, "attn_sublayer_train": 18, "attn_sublayer_bwd": 18,
+TRAIN_COUNTS = {**NO_LAUNCHES, "attn_sublayer_train": 18,
+                "attn_sublayer_bwd": 18,
                 "ffn_train": 12, "ffn_bwd": 12}
 # one flagship forward at T=128: the merged route (whole layers) and the
 # per-sublayer route (merge_layers off)
-MERGED_COUNTS = {**_NONE, "pre_stream_embed": 2, "enc_layer": LAYERS,
+MERGED_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2, "enc_layer": LAYERS,
                  "dec_layer": LAYERS, "post_head": 1}
-SUBLAYER_COUNTS = {**_NONE, "pre_stream_embed": 2,
+SUBLAYER_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
                    "attn_sublayer": 3 * LAYERS, "ffn": 2 * LAYERS,
                    "post_head": 1}
+# one forward above the sublayer kernel's 512 frames: attention per op
+PER_OP_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
+                 "attention": 3 * LAYERS, "ffn": 2 * LAYERS, "post_head": 1}
+# the per-op training step with the fused loss
+PER_OP_TRAIN_COUNTS = {**NO_LAUNCHES, "attention": 3 * LAYERS,
+                       "attention_bwd": 3 * LAYERS, "ffn_train": 2 * LAYERS,
+                       "ffn_bwd": 2 * LAYERS, "masked_loss": 1}
 # (variant, cross-attention, post-LN, mask kind, add_keypad): the three
 # attention sublayers of the model
 ATTN_VARIANTS = (("enc self repeat-inc+keypad", False, False, "repeat-inc",
@@ -155,6 +193,7 @@ class KernelCheck:
         self.torch, self.k = torch, kmod
         self.g = torch.Generator().manual_seed(1234)
         self.max_err = {}
+        self.layer_args = {}
 
     def rand(self, *shape, scale=1.0, lo=None, hi=None):
         t = self.torch
@@ -333,13 +372,64 @@ class KernelCheck:
         return out
 
 
+    def per_op_calls(self, B, T, blocked=True):
+        """(kernel name, variant, wrapper call, plain call, is a gradient)
+        of the per-op attention kernels and the masked loss at (B, T): the
+        encoder's masks (repeat-inc with the key padding added), the
+        decoder's (repeat-inc), the Cycle model's (kind "all", all-ones
+        masks added) and cross-attention ("all", padding only); keys padded
+        in the second video and, with ``blocked`` and B > 2, every key of
+        the third (its rows average uniformly).  The library calls are
+        timed on a batch without such a row: in float32, the backward of
+        ``scaled_dot_product_attention`` scales its gradients by the row's
+        key count there, as its log-sum-exp m + log(l) rounds log(l) away
+        at m = -1e9."""
+        t, k = self.torch, self.k
+        dh = D // HEADS
+        q, kk, v, g = (self.rand(B, T, HEADS, dh) for _ in range(4))
+        mask, valid = self.masks(B, T)
+        if blocked and B > 2:
+            valid[2] = 0.0
+        ones = t.ones_like(mask)
+        out = []
+        for variant, m, kind, keypad in (
+                ("enc repeat-inc+keypad", mask, "repeat-inc", True),
+                ("dec repeat-inc", mask, "repeat-inc", False),
+                ("cycle all+keypad", ones, "all", True),
+                ("cross all", None, "all", False)):
+            args = (q, kk, v, m, valid, kind, keypad)
+            if not blocked:
+                self.layer_args.setdefault("attention", args)
+                self.layer_args.setdefault(
+                    "attention_bwd", (q, kk, v, g, m, valid, kind, keypad))
+            out.append(("attention", variant,
+                        lambda a=args: k.fused_attention(*a),
+                        lambda a=args: k.attention_plain(*a), False))
+            bargs = (q, kk, v, g, m, valid, kind, keypad)
+            out.append(("attention_bwd", variant,
+                        lambda a=bargs: k.attention_bwd(*a),
+                        lambda a=bargs: k.attention_bwd_plain(*a), True))
+        pred = self.rand(B, T, 54, 2, lo=0.2, hi=0.8)
+        tgt = self.rand(B, T, 54, 2, lo=0.2, hi=0.8)
+        w = valid.clone()
+        w[0, T // 2:] = 0.5
+        args = (pred, tgt, w)
+        out.append(("masked_loss", "padded frames, a video of weight 0"
+                    if blocked and B > 2 else "padded frames",
+                    lambda a=args: k.fused_masked_loss(*a),
+                    lambda a=args: k.masked_loss_plain(*a), False))
+        return out
+
+
 def work(name, B, T):
     """(FLOP, bytes) the timed variant of kernel ``name`` must do and move
     at (B, T) and the model's widths: every input read once, every output
     written once.  The attention variant timed is the encoder's
     self-attention (repeat-inc, key padding, no LayerNorm); the FF one has
     LN1.  The backward's attention core counts the scores it must rebuild
-    (5 products of B H T^2 dh, against the forward's 2)."""
+    (5 products of B H T^2 dh, against the forward's 2); so does the
+    per-op attention backward.  The masked loss counts its 108 values per
+    frame."""
     N, f, dh = B * T, 4, D // HEADS
     core = 4 * B * HEADS * T * T * dh
     attn_in = N * D + 2 * B * T + 4 * D * D + 4 * D
@@ -348,6 +438,9 @@ def work(name, B, T):
     # decoder's FF tail: x (and memory), the mask and valid rows (the
     # decoder's cross-attention reads the same valid row), the weights
     enc_in = attn_in + 2 * D * FF + FF + 5 * D
+    # per-op attention: 4 B H T^2 dh FLOP forward (q k^T, p v); the least
+    # backward is 10 (the scores, g v^T, and the products of dq, dk, dv)
+    head_core = 4 * B * HEADS * T * T * dh
     dec_in = 2 * N * D + 2 * B * T + 8 * D * D + 8 * D + 2 * D + 2 * D * FF \
         + FF + 5 * D
     table = {
@@ -372,6 +465,10 @@ def work(name, B, T):
         "enc_layer": (2 * N * D * (4 * D + 2 * FF) + core, enc_in + N * D),
         "dec_layer": (2 * N * D * (8 * D + 2 * FF) + 2 * core,
                       dec_in + N * D),
+        "attention": (head_core, 4 * N * D + 2 * B * T),
+        "attention_bwd": (head_core * 5 // 2, 7 * N * D + 2 * B * T),
+        # the difference, its square and the weighted sum per value
+        "masked_loss": (3 * N * F_IN + 2 * N, 2 * N * F_IN + N + B),
     }
     flop, elems = table[name]
     return flop, elems * f
@@ -473,9 +570,52 @@ def library_decoder_layer(torch, x, memory, swqkv, sbqkv, swo, sbo, cwqkv,
         torch, lambda: layer(x, memory, tgt_mask=sm, memory_mask=cm))
 
 
-# the kernels whose function one PyTorch call computes
+def _sdpa_operands(torch, q, k, v, mask, valid, kind, add_keypad):
+    """q, k, v in ``scaled_dot_product_attention``'s (B, H, T, dh) layout
+    and the bias the kernels build, as its float mask (B, 1, T, T)."""
+    from keypoints_interpolation_transformer_torch.ops.kernels.attn_sublayer \
+        import bias_from_masks
+    B, T = q.shape[:2]
+    bias = bias_from_masks(mask, valid, T, kind, add_keypad)
+    if bias is not None:
+        bias = bias.expand(B, T, T)[:, None].contiguous()
+    return [x.transpose(1, 2).contiguous() for x in (q, k, v)], bias
+
+
+def library_attention(torch, q, k, v, mask, valid, kind, add_keypad):
+    """The one PyTorch call that computes ``fused_attention``:
+    ``F.scaled_dot_product_attention`` with the bias as a float mask, built
+    outside the timing; its output viewed back as (B, T, H, dh)."""
+    F = torch.nn.functional
+    (qh, kh, vh), bias = _sdpa_operands(torch, q, k, v, mask, valid, kind,
+                                        add_keypad)
+    return lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=bias).transpose(1, 2)
+
+
+def library_attention_bwd(torch, q, k, v, g, mask, valid, kind, add_keypad):
+    """``torch.autograd.grad`` through the same call: (dq, dk, dv)."""
+    F = torch.nn.functional
+    (qh, kh, vh), bias = _sdpa_operands(torch, q, k, v, mask, valid, kind,
+                                        add_keypad)
+    gh = g.transpose(1, 2).contiguous()
+    for x in (qh, kh, vh):
+        x.requires_grad_(True)
+
+    def call():
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+        return tuple(d.transpose(1, 2) for d in torch.autograd.grad(
+            out, (qh, kh, vh), gh))
+    return call
+
+
+# the kernels whose function one PyTorch call computes; the masked loss has
+# none (it takes a weighted squared difference and two reductions: no one
+# call of torch.nn.functional weights frames and divides per video)
 LIBRARY = {"enc_layer": library_encoder_layer,
-           "dec_layer": library_decoder_layer}
+           "dec_layer": library_decoder_layer,
+           "attention": library_attention,
+           "attention_bwd": library_attention_bwd}
 
 
 def bound(name, B, T):
@@ -497,13 +637,21 @@ def phase_kernels(torch, kmod):
           "per-tensor scale", flush=True)
     chk = KernelCheck(torch, kmod)
 
-    def all_calls(B, T, b_train):
+    def all_calls(B, T, b_train, blocked=True):
         return ([(*c, False) for c in chk.calls(B, T)]
-                + chk.train_calls(b_train, T))
+                + chk.train_calls(b_train, T)
+                + chk.per_op_calls(b_train, T, blocked))
 
     for T in (128, 40, 256, 300):
         for name, variant, kern, plain, grad in all_calls(3, T, 3):
             chk.compare(name, f"B=3 T={T} {variant}", kern(), plain(), grad)
+    # the per-op kernels at the lengths they carry: above the sublayer
+    # kernel's 512 frames up to the positional table's 2048
+    for T in ATTN_T:
+        B = 2 if T == 2048 else 3
+        for name, variant, kern, plain, grad in chk.per_op_calls(B, T):
+            chk.compare(name, f"B={B} T={T} {variant}", kern(), plain(),
+                        grad)
     # the batch picks the whole-layer kernels' cluster size; serving
     # batches take every size, so each is held here
     for T in (128, 40, 256):
@@ -514,17 +662,20 @@ def phase_kernels(torch, kmod):
                 chk.compare(name, f"B=3 T={T} {variant}", kern(), plain())
     times, first = {}, {}
     for name, variant, kern, plain, grad in all_calls(B_MAIN, T_MAIN,
-                                                      B_TRAIN):
-        B = B_TRAIN if name in TRAIN_KERNELS else B_MAIN
+                                                      B_TRAIN, False):
+        B = B_TRAIN if name in TRAIN_KERNELS + PER_OP_KERNELS else B_MAIN
         chk.compare(name, f"B={B} T={T_MAIN} {variant}", kern(), plain(),
                     grad)
-        first.setdefault(name, (variant, kern, plain, B))
-    for name, (variant, kern, plain, B) in first.items():
+        first.setdefault(name, (variant, kern, plain, B, grad))
+    for name, (variant, kern, plain, B, grad) in first.items():
         lib = (LIBRARY[name](torch, *chk.layer_args[name])
                if name in LIBRARY else None)
         if lib is not None:
             chk.compare(f"{name} library", f"B={B} T={T_MAIN} {variant}",
-                        lib(), plain())
+                        lib(), plain(), grad)
+        if name == "masked_loss":
+            print("  masked_loss library: none; no one PyTorch call weights "
+                  "frames and divides per video", flush=True)
         p0 = timed_ms(plain)
         k0 = timed_ms(kern)
         lib_ms = min(timed_ms(lib), timed_ms(lib)) if lib else None
@@ -695,7 +846,7 @@ def phase_serving(torch, kmod, model, tmp):
         thread.join(timeout=30)
     print(f"  launches during the three requests (the merged route at T <= "
           f"256, the per-sublayer one above): {launches}", flush=True)
-    if not all(v for n, v in launches.items() if n not in TRAIN_KERNELS):
+    if not all(launches[n] for n in SERVING_KERNELS):
         fail(f"a kernel of the path was not launched: {launches}")
     check_served("request", videos, masks,
                  [r["videos"][0] for r in results], want)
@@ -745,6 +896,51 @@ def phase_variants(torch, kmod, tmp, first_path):
         check_served(variant, videos, masks, got, want)
 
 
+def phase_long_request(torch, kmod, path, gpu):
+    """One request of one 600-frame video with ``max_seq_len=640``: its
+    bucket of 608 frames is above the sublayer kernel's 512, so attention
+    goes per op (``fused_attention``), as the JAX package routes it; held
+    against the plain-path Inpainter and timed beside it."""
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    print("phase 5: one 600-frame request on the per-op route", flush=True)
+    rng = np.random.default_rng(12)
+    video = [rng.uniform(0.2, 0.8, (600, 54, 2)).astype(np.float32)]
+    miss = [(rng.random(600) < 0.3).astype(np.float32)]
+    engines = {plain: Inpainter.from_checkpoint(path, device=DEV,
+                                                max_seq_len=640, plain=plain)
+               for plain in (False, True)}
+    want = engines[True].inpaint(video, miss)
+    kmod.reset_launches()
+    got = engines[False].inpaint(video, miss)
+    torch.cuda.synchronize()
+    launches = kmod.launch_counts()
+    print(f"  600-frame request (bucket 608): launches {launches}",
+          flush=True)
+    if launches != PER_OP_COUNTS:
+        fail(f"600-frame request launches {launches} != {PER_OP_COUNTS}")
+    check_served("608 bucket", video, miss, got, want)
+    delta = masked_mpjpe_delta(np.asarray(got), np.asarray(want),
+                               miss[0][None])
+    print(f"  608 bucket: masked MPJPE delta vs plain {delta:.3e} (gate "
+          f"{MPJPE_TOL:.0e})", flush=True)
+    if not delta < MPJPE_TOL:
+        fail(f"608 bucket: masked MPJPE delta {delta:.3e} >= {MPJPE_TOL}")
+    lat = {}
+    for plain in (True, False, False, True):
+        engines[plain].inpaint(video, miss)  # warm
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            engines[plain].inpaint(video, miss)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        lat[plain] = min(lat.get(plain, float("inf")), float(np.median(ms)))
+    print(f"  one 600-frame request: per-op route {lat[False]:.3f} ms, plain "
+          f"path {lat[True]:.3f} ms (median of 5, best of 2 turns) on {gpu}",
+          flush=True)
+    return launches
+
+
 def phase_throughput(torch, engines, gpu):
     print("phase 6: Inpainter throughput", flush=True)
     clean, miss = model_inputs(B_MAIN, T_MAIN, 3)
@@ -785,13 +981,17 @@ def phase_throughput(torch, engines, gpu):
 
 
 def train_setup(torch):
-    """Two flagship models from one seed, their train states, the step
-    functions of the kernel and the plain path, and a batch."""
+    """Three flagship models from one seed, their train states, the step
+    functions of the kernel path, the plain path and the per-op attention
+    route (sublayer fusion off), and a batch."""
     from keypoints_interpolation_transformer_torch.train import state, steps
     from keypoints_interpolation_transformer_torch.utils.config import Config
     cfg = Config(model=model_config())
     runs = {}
-    for name, plain in (("kernel", False), ("plain", True)):
+    for name, plain, fusion in (("kernel", False, "auto"),
+                                ("plain", True, "auto"),
+                                ("per-op", False, "off")):
+        cfg.model.attn_sublayer_fusion = fusion
         model = steps.build_model(cfg.model, for_training=True, device=DEV,
                                   generator=torch.Generator().manual_seed(0))
         runs[name] = (model, state.TrainState.create(model, cfg.train.lr),
@@ -854,10 +1054,17 @@ def phase_train(torch, kmod, gpu):
                  f"{LOSS_RTOL:.0e} relative")
 
     step_ms = {}
-    for name in ("plain", "kernel", "kernel", "plain"):
+    for name in ("plain", "kernel", "per-op", "per-op", "kernel", "plain"):
         model, st, step = runs[name]
         gen = torch.Generator(device=DEV).manual_seed(7)
+        kmod.reset_launches()
         step(st, clean, length, weight, gen, lr)  # warm
+        torch.cuda.synchronize()
+        counts = kmod.launch_counts()
+        want = {"plain": NO_LAUNCHES, "kernel": TRAIN_COUNTS,
+                "per-op": {**PER_OP_TRAIN_COUNTS, "masked_loss": 0}}[name]
+        if counts != want:
+            fail(f"{name} step launch counts {counts} != {want}")
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -871,7 +1078,7 @@ def phase_train(torch, kmod, gpu):
         step_ms[name] = min(step_ms.get(name, ms), ms)
     flop = sum(work(n, B_TRAIN, T_MAIN)[0] * c
                for n, c in TRAIN_COUNTS.items() if c)
-    for name in ("kernel", "plain"):
+    for name in ("kernel", "per-op", "plain"):
         print(f"  train step {name} path: {step_ms[name]:.3f} ms, "
               f"{B_TRAIN * T_MAIN / step_ms[name] * 1e3:.1f} frames/s "
               f"(mean of 5 warm steps, best of 2 turns) on {gpu}",
@@ -880,6 +1087,158 @@ def phase_train(torch, kmod, gpu):
           f"{flop / PEAK_FLOPS * 1e3:.3f} ms at the float32 FFMA peak",
           flush=True)
     return totals, step_ms
+
+
+# the loop phase: 400 synthetic videos of 97-128 frames, one bucket of 128:
+# 320 for training (5 batches of 64), 80 for validation (2 batches)
+LOOP_VIDEOS, LOOP_LR = 400, 1e-4
+# epoch losses of the kernel and the plain route from one seed: the train
+# step's tolerance, over the steps of one or two epochs
+LOOP_RTOL = 1e-4
+# a resumed run against the uninterrupted one: the same kernels on the same
+# state (no atomics), float32 noise only
+RESUME_RTOL = 1e-5
+
+
+def nonzero(counts):
+    return {k: c for k, c in counts.items() if c}
+
+
+def loop_config(tmp, name, regime="a1", epochs=1, fusion="auto", **train):
+    """The loop phase's configuration: the flagship model, batch 64, lr
+    1e-4, checkpoints and metrics under ``tmp``."""
+    from keypoints_interpolation_transformer_torch.utils.config import (
+        Config, DataConfig, TrainConfig)
+    mc = model_config()
+    mc.attn_sublayer_fusion = fusion
+    return Config(
+        model=mc,
+        data=DataConfig(batch_size=B_TRAIN, max_seq_len=T_MAIN,
+                        bucket_multiple=32, synthetic_num_videos=LOOP_VIDEOS,
+                        synthetic_min_len=T_MAIN - 31,
+                        synthetic_max_len=T_MAIN,
+                        seed=0),
+        train=TrainConfig(regime=regime, lr=LOOP_LR, epochs=epochs,
+                          experiment_name=name, log_every=0,
+                          checkpoint_dir=os.path.join(tmp, "ckpt"),
+                          results_dir=os.path.join(tmp, "results"), **train))
+
+
+def epoch_records(cfg):
+    """The per-epoch lines of a run's metrics JSONL."""
+    path = os.path.join(cfg.train.results_dir,
+                        f"{cfg.train.experiment_name}.metrics.jsonl")
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if "epoch" in r]
+
+
+def phase_loop(torch, kmod, gpu, tmp):
+    from keypoints_interpolation_transformer_torch.models.convert import (
+        load_reference_pth)
+    from keypoints_interpolation_transformer_torch.train.checkpoint import (
+        FULL_STATE)
+    from keypoints_interpolation_transformer_torch.train.loop import (
+        build_datasets, train)
+    print(f"phase 8: the training loop, {LOOP_VIDEOS} synthetic videos of "
+          f"{T_MAIN - 31}-{T_MAIN} frames, batch {B_TRAIN}, flagship width",
+          flush=True)
+    train_ds, val_ds = build_datasets(loop_config(tmp, "data"))
+    n_train, n_val = (ds.num_batches(B_TRAIN) for ds in (train_ds, val_ds))
+    print(f"  {len(train_ds)} training videos ({n_train} batches), "
+          f"{len(val_ds)} validation videos ({n_val} batches)", flush=True)
+
+    def run(cfg, plain=False):
+        kmod.reset_launches()
+        res = train(cfg, train_ds, val_ds, device=DEV, plain=plain)
+        torch.cuda.synchronize()
+        counts = kmod.launch_counts()
+        if not all(np.isfinite(res.train_losses + res.val_losses)):
+            fail(f"{cfg.train.experiment_name}: non-finite losses {res}")
+        print(f"  {cfg.train.experiment_name}: train {res.train_losses} val "
+              f"{res.val_losses}", flush=True)
+        return res, counts
+
+    def expect(tag, counts, epochs, per_step, per_eval):
+        want = dict(NO_LAUNCHES)
+        for table, n in ((per_step, n_train), (per_eval, n_val)):
+            for k, c in table.items():
+                want[k] += c * n * epochs
+        print(f"  {tag}: launches {counts} (per step {per_step}, per eval "
+              f"batch {per_eval})", flush=True)
+        if counts != want:
+            fail(f"{tag}: launches {counts} != {want}")
+
+    def agree(tag, got, want, rtol, skip=0):
+        """Epoch losses of ``got`` against those of ``want`` from its epoch
+        ``skip`` on."""
+        for what, a, b in (("train", got.train_losses,
+                            want.train_losses[skip:]),
+                           ("val", got.val_losses, want.val_losses[skip:])):
+            rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+            print(f"  {tag}: {what} losses rel {rel:.3e} (tol {rtol:.0e})",
+                  flush=True)
+            if len(a) != len(b) or rel > rtol:
+                fail(f"{tag}: {what} losses {a} vs {b}")
+
+    # the loop's eval forwards take the per-sublayer serving route (or the
+    # per-op one with sublayer fusion off)
+    step, evals = nonzero(TRAIN_COUNTS), nonzero(SUBLAYER_COUNTS)
+    a1, counts = run(loop_config(tmp, "a1", epochs=2))
+    expect("a1 kernel route", counts, 2, step, evals)
+    a1_plain, counts = run(loop_config(tmp, "a1-plain", epochs=2,
+                                       save_checkpoints=False), plain=True)
+    if any(counts.values()):
+        fail(f"the plain route launched kernels: {counts}")
+    agree("a1 kernel vs plain route", a1, a1_plain, LOOP_RTOL)
+
+    off_cfg = loop_config(tmp, "a1-per-op", fusion="off", fused_loss=True,
+                          save_checkpoints=False)
+    off, per_op_counts = run(off_cfg)
+    expect("a1 per-op route + fused loss", per_op_counts, 1,
+           nonzero(PER_OP_TRAIN_COUNTS), nonzero(PER_OP_COUNTS))
+    off_plain, _ = run(loop_config(tmp, "a1-per-op-plain", fusion="off",
+                                   fused_loss=True, save_checkpoints=False),
+                       plain=True)
+    agree("a1 per-op kernel vs plain route", off, off_plain, LOOP_RTOL)
+
+    a3, _ = run(loop_config(tmp, "a3", "a3"))
+    a4, counts = run(loop_config(tmp, "a4", "a4",
+                                 upload_general_model=a1.checkpoint_path,
+                                 upload_embedding_model=a3.checkpoint_path))
+    expect("a4", counts, 1, step, evals)
+    emb, _ = load_reference_pth(a3.checkpoint_path)
+    got, _ = load_reference_pth(a4.checkpoint_path)
+    for dst, src in (("input_embedding", "input_embedding"),
+                     ("filled_embedding", "input_embedding"),
+                     ("fc_final", "output_embedding")):
+        for p in ("weight", "bias"):
+            if not torch.equal(got[f"{dst}.{p}"], emb[f"{src}.{p}"]):
+                fail(f"a4 moved the grafted {dst}.{p}")
+    print("  a4: the grafted embeddings and head are bit for bit a3's",
+          flush=True)
+    a2, counts = run(loop_config(tmp, "a2", "a2",
+                                 upload_model=a1.checkpoint_path,
+                                 save_checkpoints=False))
+    print(f"  a2 over a1's .pth: launches {counts}", flush=True)
+    if counts["attn_sublayer_train"] != 3 * LAYERS * n_train:
+        fail(f"a2 launches {counts}")
+
+    cut, _ = run(loop_config(tmp, "a1-cut", epochs=2, max_epochs_this_run=1))
+    state = os.path.join(os.path.dirname(cut.checkpoint_path), FULL_STATE)
+    rest, _ = run(loop_config(tmp, "a1-resumed", epochs=2,
+                              resume_from=state, save_checkpoints=False))
+    agree("resumed epoch 2 vs the uninterrupted run", rest, a1, RESUME_RTOL,
+          skip=1)
+
+    for name, cfg in (("kernel", loop_config(tmp, "a1")),
+                      ("plain", loop_config(tmp, "a1-plain")),
+                      ("per-op", off_cfg)):
+        rec = epoch_records(cfg)[-1]
+        print(f"  one a1 epoch ({name} route, epoch {rec['epoch']}): "
+              f"{rec['train_frames'] / rec['train_seconds']:.1f} frames/s "
+              f"({rec['train_frames']} frames, padding included, in "
+              f"{rec['train_seconds']:.3f} s) on {gpu}", flush=True)
+    return per_op_counts
 
 
 def kernel_name(ptxas_line):
@@ -917,10 +1276,12 @@ def device_profile(torch, label, fn, gpu):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
     # kernels and copies only: an autograd node also reports the device
-    # time of the kernels it launched
+    # time of the kernels it launched, and a span (record_function, the
+    # optimizer's step) the device time between its first and last kernel
     rows = [(e.key, self_device_us(e) / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU
+            and not getattr(e, "is_user_annotation", False)
             and self_device_us(e) > 0]
     busy = sum(r[1] for r in rows)
     print(f"profile: {label}, {gpu}: wall {wall:.3f} ms (profiler on), "
@@ -931,18 +1292,20 @@ def device_profile(torch, label, fn, gpu):
 
 
 def profile_paths(torch, gpu):
-    """One warm kernel-path train step, then one merged-route Inpainter
-    call at B=256, T=128 (host arrays in and out, as phase 6 times it)."""
+    """One warm train step on the kernel path and on the per-op attention
+    route, then one merged-route Inpainter call at B=256, T=128 (host
+    arrays in and out, as phase 6 times it)."""
     from keypoints_interpolation_transformer_torch.eval.serving import (
         Inpainter)
     from keypoints_interpolation_transformer_torch.models.completer import (
         KeypointCompleter)
     runs, clean, length, weight, lr = train_setup(torch)
-    _, st, step = runs["kernel"]
-    gen = torch.Generator(device=DEV).manual_seed(7)
-    device_profile(torch, f"one kernel-path train step, B={B_TRAIN} "
-                   f"T={T_MAIN}", lambda: step(st, clean, length, weight,
-                                               gen, lr), gpu)
+    for name in ("kernel", "per-op"):
+        _, st, step = runs[name]
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        device_profile(torch, f"one {name}-path train step, B={B_TRAIN} "
+                       f"T={T_MAIN}", lambda: step(st, clean, length,
+                                                   weight, gen, lr), gpu)
     del runs, st, step
     model = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
                               generator=torch.Generator().manual_seed(0))
@@ -951,6 +1314,66 @@ def profile_paths(torch, gpu):
     device_profile(torch, f"one merged-route Inpainter call, B={B_MAIN} "
                    f"T={T_MAIN}", lambda: inp.inpaint(list(videos),
                                                       list(masks)), gpu)
+
+
+# the spans train/loop.py marks for the profiler
+LOOP_SPANS = ("train_step", "eval_step", "cubic_baseline", "checkpoint")
+
+
+def profile_loop_epoch(torch, gpu):
+    """One a1 epoch of the loop at the loop phase's shapes (after a warm
+    run), without the cubic baseline and checkpoints: the device's busy
+    share from the first train step to the last device work of the eval,
+    and the host work inside that window by name (the spans the loop
+    marks: train_step, eval_step)."""
+    from torch.profiler import ProfilerActivity, profile
+    from keypoints_interpolation_transformer_torch.train.loop import (
+        build_datasets, train)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = loop_config(tmp, "profile", save_checkpoints=False,
+                          epoch0_cubic_baseline=False)
+        data = build_datasets(cfg)
+        train(cfg, *data, device=DEV)  # warm
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            train(cfg, *data, device=DEV)
+            torch.cuda.synchronize()
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    spans = [e for e in events if e.device_type == cpu
+             and e.name in LOOP_SPANS[:2]]
+    # kernels and copies; the spans also appear on the device's timeline
+    # (as annotations covering their kernels), which are not device work
+    device = [e for e in events if e.device_type != cpu
+              and not getattr(e, "is_user_annotation", False)
+              and e.name not in LOOP_SPANS
+              and not e.name.startswith("Optimizer.")]
+    if not spans or not device:
+        fail(f"profile: {len(spans)} loop spans, {len(device)} device "
+             "events; the trace shows no device work")
+    lo = min(e.time_range.start for e in spans)
+    hi = max(max(e.time_range.end for e in spans),
+             max(e.time_range.end for e in device))
+    busy, end = 0.0, lo
+    for a, b in sorted((max(e.time_range.start, lo), e.time_range.end)
+                       for e in device if e.time_range.end > lo):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = hi - lo
+    print(f"profile: one a1 epoch of the loop (B={B_TRAIN}, T={T_MAIN}, "
+          f"{sum(e.name == 'train_step' for e in spans)} train steps, "
+          f"{sum(e.name == 'eval_step' for e in spans)} eval batches), "
+          f"{gpu}: window {window / 1e3:.3f} ms (profiler on), device busy "
+          f"{busy / 1e3:.3f} ms, idle {100 * (1 - busy / window):.1f} %",
+          flush=True)
+    host = {}
+    for e in events:
+        if e.device_type == cpu and lo <= e.time_range.start <= hi:
+            host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total
+    print("  host self time in the window by name:", flush=True)
+    for name, us in sorted(host.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {us / 1e3:9.3f} ms  {name[:90]}", flush=True)
 
 
 def sweep(torch, kmod, gpu):
@@ -1051,6 +1474,7 @@ def main():
 
     if "--profile" in sys.argv[1:]:
         profile_paths(torch, gpu)
+        profile_loop_epoch(torch, gpu)
         return 0
     if "--sweep" in sys.argv[1:]:
         sweep(torch, kmod, gpu)
@@ -1065,6 +1489,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches, path, inp, oracle = phase_serving(torch, kmod, model, tmp)
         phase_variants(torch, kmod, tmp, path)
+        phase_long_request(torch, kmod, path, gpu)
         sublayer = Inpainter.from_checkpoint(path, device=DEV,
                                              merge_layers=False)
     phase_throughput(torch, {"merged": inp, "sublayer": sublayer,
@@ -1072,6 +1497,9 @@ def main():
     del model, inp, sublayer, oracle
     train_launches, _ = phase_train(torch, kmod, gpu)
     launches.update({n: train_launches[n] for n in TRAIN_KERNELS})
+    with tempfile.TemporaryDirectory() as tmp:
+        loop_launches = phase_loop(torch, kmod, gpu, tmp)
+    launches.update({n: loop_launches[n] for n in PER_OP_KERNELS})
 
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -22,7 +22,8 @@
 //   1. qkv_proj: one product of the block's 32 rows against the packed
 //      [Wq | Wk | Wv] (D, 3D) weight, one D-wide column block per grid.y;
 //      writes qkv (B*T, 3D).
-//   2. attn_core: one block per (query tile of 128, head, batch row), one
+//   2. attn_fwd_kernel (attention.cuh, shared with the per-op attention
+//      kernel): one block per (query tile of 128, head, batch row), one
 //      query per thread with q and the output in registers; keys and values
 //      stream through shared memory in tiles of 64 with an online softmax,
 //      so no (T, T) score tensor is ever written; writes a (B*T, D) and, in
@@ -62,11 +63,6 @@ using namespace kit;
 
 namespace {
 
-constexpr int QT = 128;  // queries per attention block, one per thread
-constexpr int KT = 64;   // keys per shared tile
-constexpr int KC = 16;   // keys per online-softmax chunk
-constexpr int QC = 64;   // queries per shared tile of the key-major backward
-
 template <int TN>
 __global__ void __launch_bounds__(NT)
 qkv_proj_kernel(const float* __restrict__ x, const float* __restrict__ mem, int M,
@@ -90,63 +86,6 @@ qkv_proj_kernel(const float* __restrict__ x, const float* __restrict__ mem, int 
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] += __ldg(bqkv + part * D + col_of(j));
   store_rows<TN>(qkv + part * D, 3 * D, D, row0, M, acc);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(QT)
-attn_core_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
-                 const float* __restrict__ valid, float* __restrict__ out,
-                 float* __restrict__ stats, int T, int H, int repeat_inc, int add_keypad,
-                 float scale) {
-  __shared__ __align__(16) float Ks[KT][DH];
-  __shared__ __align__(16) float Vs[KT][DH];
-  __shared__ float km[KT];  // mask[key]
-  __shared__ float kv[KT];  // valid[key]
-  const int D = H * DH, ld = 3 * D;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int qi = blockIdx.x * QT + threadIdx.x;
-  const float* base = qkv + (size_t)b * T * ld;
-
-  float q[DH], o[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    q[d] = qi < T ? base[(size_t)qi * ld + h * DH + d] : 0.f;
-    o[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += KT) {
-    for (int idx = threadIdx.x; idx < KT * DH; idx += QT) {
-      int j = idx / DH, d = idx - j * DH;
-      int key = k0 + j;
-      bool in = key < T;
-      Ks[j][d] = in ? base[(size_t)key * ld + D + h * DH + d] : 0.f;
-      Vs[j][d] = in ? base[(size_t)key * ld + 2 * D + h * DH + d] : 0.f;
-    }
-    for (int j = threadIdx.x; j < KT; j += QT) {
-      int key = k0 + j;
-      km[j] = (key < T && mask != nullptr) ? mask[(size_t)b * T + key] : 0.f;
-      kv[j] = (key < T && valid != nullptr) ? valid[(size_t)b * T + key] : 1.f;
-    }
-    __syncthreads();
-    // the chunk at c0 = 0 of the first tile always holds key 0, so m is
-    // finite from then on
-    for (int c0 = 0; c0 < KT; c0 += KC)
-      softmax_chunk<DH, KC>(q, o, m, l, &Ks[c0][0], &Vs[c0][0], DH, km + c0, kv + c0, qi,
-                            k0 + c0, T, repeat_inc, add_keypad, scale);
-    __syncthreads();
-  }
-  if (qi < T) {
-    const float inv = 1.f / l;
-    float* dst = out + ((size_t)b * T + qi) * D + h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) dst[d] = o[d] * inv;
-    if (stats != nullptr) {
-      float* st = stats + (((size_t)b * H + h) * T + qi) * 2;
-      st[0] = m;
-      st[1] = l;
-    }
-  }
 }
 
 template <int TN>
@@ -185,175 +124,12 @@ out_proj_kernel(const float* __restrict__ a, const float* __restrict__ x, int M,
   store_rows<TN>(y, D, D, row0, M, r);
 }
 
-// Backward, query-major: one query per thread, keys streamed.  dq (scaled)
-// into dqkv[:, h*DH ...] and delta = da . a per (row, head).
-template <int DH>
-__global__ void __launch_bounds__(QT)
-attn_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ da,
-                   const float* __restrict__ a, const float* __restrict__ stats,
-                   const float* __restrict__ mask, const float* __restrict__ valid, int T, int H,
-                   int repeat_inc, int add_keypad, float scale, float* __restrict__ dqkv,
-                   float* __restrict__ delta) {
-  __shared__ float Ks[KT][DH];
-  __shared__ float Vs[KT][DH];
-  __shared__ float km[KT];
-  __shared__ float kv[KT];
-  const int D = H * DH, ld = 3 * D;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int qi = blockIdx.x * QT + threadIdx.x;
-  const bool in_q = qi < T;
-  const size_t row = (size_t)b * T + qi;
-  const float* base = qkv + (size_t)b * T * ld;
-
-  float q[DH], g[DH], dq[DH];
-  float dl = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    q[d] = in_q ? base[(size_t)qi * ld + h * DH + d] : 0.f;
-    g[d] = in_q ? da[row * D + h * DH + d] : 0.f;
-    dl = fmaf(g[d], in_q ? a[row * D + h * DH + d] : 0.f, dl);
-    dq[d] = 0.f;
-  }
-  float m = 0.f, inv_l = 0.f;
-  if (in_q) {
-    const float* st = stats + (((size_t)b * H + h) * T + qi) * 2;
-    m = st[0];
-    inv_l = 1.f / st[1];
-  }
-
-  for (int k0 = 0; k0 < T; k0 += KT) {
-    for (int idx = threadIdx.x; idx < KT * DH; idx += QT) {
-      int j = idx / DH, d = idx - j * DH;
-      int key = k0 + j;
-      bool in = key < T;
-      Ks[j][d] = in ? base[(size_t)key * ld + D + h * DH + d] : 0.f;
-      Vs[j][d] = in ? base[(size_t)key * ld + 2 * D + h * DH + d] : 0.f;
-    }
-    for (int j = threadIdx.x; j < KT; j += QT) {
-      int key = k0 + j;
-      km[j] = (key < T && mask != nullptr) ? mask[(size_t)b * T + key] : 0.f;
-      kv[j] = (key < T && valid != nullptr) ? valid[(size_t)b * T + key] : 1.f;
-    }
-    __syncthreads();
-    const int nk = min(KT, T - k0);
-    for (int j = 0; j < nk; ++j) {
-      float dot = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dot = fmaf(q[d], Ks[j][d], dot);
-        dp = fmaf(g[d], Vs[j][d], dp);
-      }
-      const float s = fmaf(dot, scale, key_bias(repeat_inc, add_keypad, qi, k0 + j, km[j], kv[j]));
-      const float p = expf(s - m) * inv_l;
-      const float ds = p * (dp - dl);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) dq[d] = fmaf(ds, Ks[j][d], dq[d]);
-    }
-    __syncthreads();
-  }
-  if (in_q) {
-    float* dst = dqkv + row * ld + h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) dst[d] = dq[d] * scale;
-    delta[((size_t)b * H + h) * T + qi] = dl;
-  }
-}
-
-// Backward, key-major: one key per thread, queries streamed.  dk (scaled)
-// and dv into dqkv[:, D + h*DH ...] and dqkv[:, 2D + h*DH ...].
-template <int DH>
-__global__ void __launch_bounds__(QT)
-attn_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ da,
-                    const float* __restrict__ stats, const float* __restrict__ delta,
-                    const float* __restrict__ mask, const float* __restrict__ valid, int T, int H,
-                    int repeat_inc, int add_keypad, float scale, float* __restrict__ dqkv) {
-  __shared__ float Qs[QC][DH];
-  __shared__ float Gs[QC][DH];
-  __shared__ float qm[QC], qil[QC], qd[QC];  // row max, 1 / row sum, delta
-  const int D = H * DH, ld = 3 * D;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int kj = blockIdx.x * QT + threadIdx.x;
-  const bool in_k = kj < T;
-  const float* base = qkv + (size_t)b * T * ld;
-  const float kmj = (in_k && mask != nullptr) ? mask[(size_t)b * T + kj] : 0.f;
-  const float kvj = (in_k && valid != nullptr) ? valid[(size_t)b * T + kj] : 1.f;
-
-  float k[DH], v[DH], dk[DH], dv[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    k[d] = in_k ? base[(size_t)kj * ld + D + h * DH + d] : 0.f;
-    v[d] = in_k ? base[(size_t)kj * ld + 2 * D + h * DH + d] : 0.f;
-    dk[d] = 0.f;
-    dv[d] = 0.f;
-  }
-  const size_t head = ((size_t)b * H + h) * T;
-  for (int q0 = 0; q0 < T; q0 += QC) {
-    for (int idx = threadIdx.x; idx < QC * DH; idx += QT) {
-      int i = idx / DH, d = idx - i * DH;
-      int qi = q0 + i;
-      bool in = qi < T;
-      Qs[i][d] = in ? base[(size_t)qi * ld + h * DH + d] : 0.f;
-      Gs[i][d] = in ? da[((size_t)b * T + qi) * D + h * DH + d] : 0.f;
-    }
-    for (int i = threadIdx.x; i < QC; i += QT) {
-      int qi = q0 + i;
-      bool in = qi < T;
-      qm[i] = in ? stats[(head + qi) * 2] : 0.f;
-      qil[i] = in ? 1.f / stats[(head + qi) * 2 + 1] : 0.f;
-      qd[i] = in ? delta[head + qi] : 0.f;
-    }
-    __syncthreads();
-    const int nq = min(QC, T - q0);
-    for (int i = 0; i < nq; ++i) {
-      float dot = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dot = fmaf(Qs[i][d], k[d], dot);
-        dp = fmaf(Gs[i][d], v[d], dp);
-      }
-      const float s = fmaf(dot, scale, key_bias(repeat_inc, add_keypad, q0 + i, kj, kmj, kvj));
-      const float p = expf(s - qm[i]) * qil[i];
-      const float ds = p * (dp - qd[i]);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dv[d] = fmaf(p, Gs[i][d], dv[d]);
-        dk[d] = fmaf(ds, Qs[i][d], dk[d]);
-      }
-    }
-    __syncthreads();
-  }
-  if (in_k) {
-    float* dst = dqkv + ((size_t)b * T + kj) * ld + h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      dst[D + d] = dk[d] * scale;
-      dst[2 * D + d] = dv[d];
-    }
-  }
-}
-
-template <int DH>
-int launch_core(const float* qkv, const float* mask, const float* valid, float* a, float* stats,
-                int B, int T, int H, int repeat_inc, int add_keypad, cudaStream_t st) {
-  dim3 grid((T + QT - 1) / QT, H, B);
-  attn_core_kernel<DH><<<grid, QT, 0, st>>>(qkv, mask, valid, a, stats, T, H, repeat_inc,
-                                            add_keypad, 1.f / sqrtf((float)DH));
-  return (int)cudaGetLastError();
-}
-
-template <int DH>
-int launch_core_bwd(const float* qkv, const float* da, const float* a, const float* stats,
-                    const float* mask, const float* valid, int B, int T, int H, int repeat_inc,
-                    int add_keypad, float* dqkv, float* delta, cudaStream_t st) {
-  dim3 grid((T + QT - 1) / QT, H, B);
-  const float scale = 1.f / sqrtf((float)DH);
-  attn_bwd_dq_kernel<DH><<<grid, QT, 0, st>>>(qkv, da, a, stats, mask, valid, T, H, repeat_inc,
-                                              add_keypad, scale, dqkv, delta);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  attn_bwd_dkv_kernel<DH><<<grid, QT, 0, st>>>(qkv, da, stats, delta, mask, valid, T, H,
-                                               repeat_inc, add_keypad, scale, dqkv);
-  return (int)cudaGetLastError();
+// The attention core's view of the packed qkv (B*T, 3D) rows and the
+// attention output a (B*T, D).
+AttnArgs core_args(const float* qkv, int D, const float* mask, const float* valid, float* a,
+                   float* stats, int B, int T, int H, int repeat_inc, int add_keypad) {
+  return {qkv, qkv + D, qkv + 2 * D, 3 * D, mask, valid, a, D, stats, B, T, H, repeat_inc,
+          add_keypad};
 }
 
 template <int TN>
@@ -375,12 +151,8 @@ int launch_rows(const float* x, const float* mem, int M, const float* wqkv, cons
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
 
-  switch (D / H) {
-    case 16: rc = launch_core<16>(qkv, mask, valid, a, stats, B, T, H, repeat_inc, add_keypad, st); break;
-    case 32: rc = launch_core<32>(qkv, mask, valid, a, stats, B, T, H, repeat_inc, add_keypad, st); break;
-    case 64: rc = launch_core<64>(qkv, mask, valid, a, stats, B, T, H, repeat_inc, add_keypad, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  rc = attn_fwd(core_args(qkv, D, mask, valid, a, stats, B, T, H, repeat_inc, add_keypad), D / H,
+                st);
   if (rc) return rc;
 
   out_proj_kernel<TN><<<blocks, NT, smem, st>>>(a, x, M, wo, bo, gamma, beta, y, r_out);
@@ -419,13 +191,11 @@ int launch_bwd(const float* dy, const float* x, const float* mem, const float* q
     dr = dr_buf;
   }
   KIT_CHECK(rows_matmul<TN>(dr, D, D, w_out, D, nullptr, M, da, st));  // da = dr Wo^T
-  switch (D / H) {
-    case 16: rc = launch_core_bwd<16>(qkv, da, a, stats, mask, valid, B, T, H, repeat_inc, add_keypad, dqkv, delta, st); break;
-    case 32: rc = launch_core_bwd<32>(qkv, da, a, stats, mask, valid, B, T, H, repeat_inc, add_keypad, dqkv, delta, st); break;
-    case 64: rc = launch_core_bwd<64>(qkv, da, a, stats, mask, valid, B, T, H, repeat_inc, add_keypad, dqkv, delta, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  KIT_CHECK(rc);
+  // the attention core's gradients: dq, dk, dv into dqkv's three parts (the
+  // backward only reads a and stats)
+  KIT_CHECK(attn_bwd(core_args(qkv, D, mask, valid, const_cast<float*>(a),
+                               const_cast<float*>(stats), B, T, H, repeat_inc, add_keypad),
+                     D / H, da, dqkv, 3 * D, dqkv + D, dqkv + 2 * D, 3 * D, delta, st));
   // weight gradients in torch's layout: dW_in[j, i] = sum_r dqkv[r, j] m[r, i]
   KIT_CHECK(atb<false>(dqkv, 3 * D, x, D, M, D, D, s_w, p_wq, dw_in, st));
   KIT_CHECK(atb<false>(dqkv + D, 3 * D, m, D, M, 2 * D, D, s_w, p_wkv, dw_in + (size_t)D * D,

@@ -37,6 +37,10 @@ Two routes, as the JAX package's ``build_model`` has them:
             training path keeps those chains in XLA (``build_model`` with
             ``for_training``), not as a fallback.  ``merge_layers`` is not
             read there, as the JAX training path sets it off.
+
+On both routes ``attn_sublayer_fusion`` off, or a length the sublayer
+kernel does not take (T > 512 or T % 8 != 0), sends attention per op
+(``fused_attention``; see ``models/layers.py``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -66,7 +70,8 @@ class KeypointCompleter(nn.Module):
                  input_size: int = FRAME_FEATURES, ff_dim: int = 2048,
                  pe_max_len: int = 2048, pe_residual: bool = False,
                  use_tgt_key_padding: bool = False, merge_layers: bool = True,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 attn_sublayer_fusion: bool = True, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         D = hidden_dim
         self.hidden_dim, self.num_layers, self.num_heads = D, num_layers, \
@@ -76,6 +81,7 @@ class KeypointCompleter(nn.Module):
         self.pe_residual = pe_residual
         self.use_tgt_key_padding = use_tgt_key_padding
         self.merge_layers = merge_layers
+        self.attn_sublayer_fusion = attn_sublayer_fusion
         self.input_embedding = nn.Linear(input_size, D, device=device)
         self.filled_embedding = nn.Linear(input_size, D, device=device)
         self.learned_input_positional_encoder = nn.Parameter(
@@ -178,7 +184,8 @@ class KeypointCompleter(nn.Module):
                             self.use_tgt_key_padding and has_tgt)
         cross_spec = AttnSpec(None, valid_mask, "all", False)
         decoded = self.transformer(src, tgt, src_spec, tgt_spec, cross_spec,
-                                   plain, train, self.merge_layers)
+                                   plain, train, self.merge_layers,
+                                   self.attn_sublayer_fusion)
         out = post(decoded, filled_emb, *swiglu(self.swiGlu_decoded),
                    *linear(self.fc_final))
         return out.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)

@@ -142,14 +142,15 @@ def load_reference_pth(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
     return state_dict_tensors(ckpt["model_state_dict"]), hyper
 
 
-def save_reference_pth(path: str, module: torch.nn.Module, hyper: Mapping,
+def save_reference_pth(path: str, module, hyper: Mapping,
                        loss: float = float("nan")) -> None:
-    """Write ``module``'s state dict in the reference ``.pth`` schema;
-    ``hyper`` gives hidden_dim, num_layers, num_heads (and input_size).  An
-    Embedding has no layers or heads: for its state dict they default to
-    0, which the JAX loader reads and its Embedding ignores."""
-    sd = {k: v.detach().cpu().contiguous()
-          for k, v in module.state_dict().items()}
+    """Write ``module``'s state dict (or ``module`` itself when it is a
+    state dict) in the reference ``.pth`` schema; ``hyper`` gives
+    hidden_dim, num_layers, num_heads (and input_size).  An Embedding has
+    no layers or heads: for its state dict they default to 0, which the JAX
+    loader reads and its Embedding ignores."""
+    sd = module if isinstance(module, Mapping) else module.state_dict()
+    sd = {k: v.detach().cpu().contiguous() for k, v in sd.items()}
     embedding = is_embedding_state_dict(sd)
 
     def depth(key):

@@ -22,6 +22,16 @@ encoder layer with T <= 256 is one ``fused_encoder_layer``; a decoder layer
 with T <= 512 is one ``fused_decoder_layer``, with its FF tail inside when
 T <= 256 (``decoder_full_supported``) and as the FF sublayer kernel after
 it otherwise.  Everything else, and the training route, runs per sublayer.
+
+The attention sublayer kernel runs where the JAX ``_use_sublayer_kernel``
+takes it (``use_sublayer_kernel``): with ``fuse`` (``attn_sublayer_fusion``)
+on and ``sublayer_supported(T, D)`` (T <= 512, T % 8 == 0); so do the
+merged kernels.  Elsewhere attention goes per op, as the JAX
+``MultiHeadAttention`` does with a fused spec: q / k / v projections and
+the out-projection as library matmuls (XLA products there), the core
+through ``fused_attention`` (``AttentionFunction`` under ``train``), the
+residual and the decoder's self-attention LN1 as plain ops; the FF sublayer
+still goes through its kernel.
 """
 
 from __future__ import annotations
@@ -33,15 +43,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import (AttnSublayerFunction, FFNFunction,
-                           attn_sublayer_plain, decoder_layer_plain,
-                           encoder_layer_plain, ffn_plain,
-                           fused_attn_sublayer, fused_decoder_layer,
-                           fused_encoder_layer, fused_ffn)
+from ..ops.kernels import (AttentionFunction, AttnSublayerFunction,
+                           FFNFunction, attention_plain, attn_sublayer_plain,
+                           decoder_layer_plain, encoder_layer_plain,
+                           ffn_plain, fused_attention, fused_attn_sublayer,
+                           fused_decoder_layer, fused_encoder_layer,
+                           fused_ffn)
 from ..ops.kernels.ffn import LN_EPS
 from ..ops.kernels.layer_fused import (decoder_full_supported,
                                        fused_layer_supported,
-                                       sublayer_supported)
+                                       use_sublayer_kernel)
 from ..ops.kernels.pointwise import token_norm
 
 __all__ = ["LN_EPS", "token_norm", "sinusoidal_positional_encoding",
@@ -139,22 +150,44 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim, device=device)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q_in, kv_in, bias=None):
-        B, Tq, D = q_in.shape
-        H, dh = self.num_heads, D // self.num_heads
+    def project(self, q_in, kv_in):
+        """q = q_in Wq + bq, k and v from kv_in, each (B, T, H, dh)."""
+        B, D = q_in.shape[0], q_in.shape[-1]
+        H = self.num_heads
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
 
         def heads(t, w, b):
-            return F.linear(t, w, b).reshape(B, -1, H, dh).transpose(1, 2)
+            return F.linear(t, w, b).reshape(B, -1, H, D // H)
 
-        q, k, v = heads(q_in, wq, bq), heads(kv_in, wk, bk), \
+        return heads(q_in, wq, bq), heads(kv_in, wk, bk), \
             heads(kv_in, wv, bv)
-        logits = (q @ k.transpose(-1, -2)) / math.sqrt(dh)
+
+    def forward(self, q_in, kv_in, bias=None):
+        B, Tq, D = q_in.shape
+        q, k, v = (t.transpose(1, 2) for t in self.project(q_in, kv_in))
+        logits = (q @ k.transpose(-1, -2)) / math.sqrt(D // self.num_heads)
         if bias is not None:
             logits = logits + bias
         out = (torch.softmax(logits, -1) @ v).transpose(1, 2).reshape(B, Tq, D)
         return self.out_proj(out)
+
+    def attend(self, x, memory, spec: AttnSpec, plain: bool = False,
+               train: bool = False):
+        """attention(x, memory or x) on the per-op route (no residual):
+        the projections by ``F.linear``, the core through
+        ``fused_attention`` (``AttentionFunction`` under ``train``) or its
+        plain version."""
+        B, T, D = x.shape
+        q, k, v = self.project(x, x if memory is None else memory)
+        masks = (spec.mask, spec.valid, spec.kind, spec.add_keypad)
+        if plain:
+            a = attention_plain(q, k, v, *masks)
+        elif train:
+            a = AttentionFunction.apply(q, k, v, *masks)
+        else:
+            a = fused_attention(q, k, v, *masks)
+        return self.out_proj(a.reshape(B, T, D))
 
     def packed(self):
         """(wqkv = [Wq | Wk | Wv] (D, 3D), bqkv, wo (D, D), bo)."""
@@ -234,14 +267,19 @@ class EncoderLayer(FeedForward):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
     def forward(self, x, spec: AttnSpec, plain: bool = False,
-                train: bool = False, merge: bool = False):
+                train: bool = False, merge: bool = False, fuse: bool = True):
         D, FF = self.linear1.in_features, self.linear1.out_features
-        if merge and not train and fused_layer_supported(x.shape[1], D, FF):
+        T = x.shape[1]
+        sub = use_sublayer_kernel(fuse, T, D)
+        if sub and merge and not train and fused_layer_supported(T, D, FF):
             fn = encoder_layer_plain if plain else fused_encoder_layer
             return fn(x, *self.self_attn.packed(),
                       *self.ff_packed(self.norm1, self.norm2), *spec,
                       self.self_attn.num_heads)
-        r = self.self_attn.sublayer(x, None, None, spec, plain, train)
+        if sub:
+            r = self.self_attn.sublayer(x, None, None, spec, plain, train)
+        else:
+            r = x + self.self_attn.attend(x, None, spec, plain, train)
         return self.ff_sublayer(r, self.norm1, self.norm2, plain, train)
 
 
@@ -259,11 +297,11 @@ class DecoderLayer(FeedForward):
 
     def forward(self, y, memory, self_spec: AttnSpec, cross_spec: AttnSpec,
                 plain: bool = False, train: bool = False,
-                merge: bool = False):
+                merge: bool = False, fuse: bool = True):
         D, FF = self.linear1.in_features, self.linear1.out_features
         T = y.shape[1]
-        if (merge and not train and sublayer_supported(T, D)
-                and memory.shape[1] == T):
+        sub = use_sublayer_kernel(fuse, T, D)
+        if sub and merge and not train and memory.shape[1] == T:
             full = decoder_full_supported(T, D, FF)
             fn = decoder_layer_plain if plain else fused_decoder_layer
             r = fn(y, memory, *self.self_attn.packed(),
@@ -277,10 +315,16 @@ class DecoderLayer(FeedForward):
             if full:
                 return r
             return self.ff_sublayer(r, self.norm2, self.norm3, plain)
-        y = self.self_attn.sublayer(y, None, self.norm1, self_spec, plain,
-                                    train)
-        r = self.multihead_attn.sublayer(y, memory, None, cross_spec, plain,
-                                         train)
+        if sub:
+            y = self.self_attn.sublayer(y, None, self.norm1, self_spec,
+                                        plain, train)
+            r = self.multihead_attn.sublayer(y, memory, None, cross_spec,
+                                             plain, train)
+        else:
+            y = self.norm1(y + self.self_attn.attend(y, None, self_spec,
+                                                     plain, train))
+            r = y + self.multihead_attn.attend(y, memory, cross_spec, plain,
+                                               train)
         return self.ff_sublayer(r, self.norm2, self.norm3, plain, train)
 
 
@@ -306,12 +350,13 @@ class TransformerCore(nn.Module):
 
     def forward(self, src, tgt, src_spec: AttnSpec, tgt_spec: AttnSpec,
                 cross_spec: AttnSpec, plain: bool = False,
-                train: bool = False, merge: bool = False):
+                train: bool = False, merge: bool = False, fuse: bool = True):
         x = src
         for layer in self.encoder.layers:
-            x = layer(x, src_spec, plain, train, merge)
+            x = layer(x, src_spec, plain, train, merge, fuse)
         memory = self.encoder.norm(x)  # F.layer_norm, also under autograd
         y = tgt
         for layer in self.decoder.layers:
-            y = layer(y, memory, tgt_spec, cross_spec, plain, train, merge)
+            y = layer(y, memory, tgt_spec, cross_spec, plain, train, merge,
+                      fuse)
         return self.decoder.norm(y)

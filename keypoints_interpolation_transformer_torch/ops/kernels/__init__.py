@@ -9,6 +9,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+from .attention import (AttentionFunction, attention_bwd,
+                        attention_bwd_plain, attention_plain,
+                        fused_attention)
 from .attn_sublayer import (AttnSublayerFunction, attn_sublayer_bwd,
                             attn_sublayer_bwd_plain, attn_sublayer_plain,
                             attn_sublayer_train_plain, fused_attn_sublayer,
@@ -17,6 +20,8 @@ from .ffn import (FFNFunction, ffn_bwd, ffn_bwd_plain, ffn_plain,
                   ffn_train_plain, fused_ffn, fused_ffn_train)
 from .layer_fused import (decoder_layer_plain, encoder_layer_plain,
                           fused_decoder_layer, fused_encoder_layer)
+from .masked_loss import (FusedEuclideanLoss, fused_euclidean_loss,
+                          fused_masked_loss, masked_loss_plain)
 from .pointwise import (fused_post_head, fused_pre_stream_embed,
                         post_head_plain, pre_stream_embed_plain)
 
@@ -52,6 +57,12 @@ KERNELS = (
            f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:77"),
     Kernel("dec_layer", fused_decoder_layer,
            f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:239"),
+    Kernel("attention", fused_attention,
+           f"{_SRC}/attention.cu", f"{_TPU}/attention.py:317"),
+    Kernel("attention_bwd", attention_bwd,
+           f"{_SRC}/attention.cu", f"{_TPU}/attention.py:409"),
+    Kernel("masked_loss", fused_masked_loss,
+           f"{_SRC}/masked_loss.cu", f"{_TPU}/masked_loss.py:28"),
 )
 
 

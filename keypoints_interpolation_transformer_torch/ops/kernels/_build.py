@@ -27,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pointwise", "attn_sublayer", "ffn", "layer_fused")
+SOURCES = ("pointwise", "attn_sublayer", "ffn", "layer_fused", "attention",
+           "masked_loss")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -26,9 +26,10 @@ B = 256, T = 128, D = 256, FF = 2048); see the source note in
 ``csrc/layer_fused.cu``.
 
 The routing predicates are the port's copies of the JAX package's rules
-(``fused_layer_supported``, ``decoder_full_supported`` and the sublayer
-kernel's ``fused_attn_sublayer_supported``), so a configuration runs the
-counterparts of the same TPU kernels in both packages.
+(``fused_layer_supported``, ``decoder_full_supported``, the sublayer
+kernel's ``fused_attn_sublayer_supported`` and the model's
+``_use_sublayer_kernel``), so a configuration runs the counterparts of the
+same TPU kernels in both packages.
 
 Weights in the Flax layout, as ``MultiHeadAttention.packed()`` and
 ``packed_linear`` build them.  A wrapper takes its plain version for CPU
@@ -60,6 +61,13 @@ def sublayer_supported(T: int, D: int) -> bool:
     """The JAX ``fused_attn_sublayer_supported``: T <= 512, T % 8 == 0,
     D <= 512."""
     return T <= _SUBLAYER_MAX_T and T % 8 == 0 and D <= 512
+
+
+def use_sublayer_kernel(fuse: bool, T: int, D: int) -> bool:
+    """The JAX ``_use_sublayer_kernel``: the attention-sublayer kernel (and
+    the merged kernels built on it) with sublayer fusion on and a length
+    it takes; per-op attention otherwise."""
+    return fuse and sublayer_supported(T, D)
 
 
 def fused_layer_supported(T: int, D: int, ff_dim: int) -> bool:

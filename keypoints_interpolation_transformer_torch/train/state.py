@@ -63,3 +63,14 @@ def step_drop_lrs(lr: float, epochs: int, drop_epoch: int = 80,
     if drop_epoch + 1 < epochs:
         out[drop_epoch + 1:] = lr / factor
     return out
+
+
+GRAFTED = ("input_embedding", "filled_embedding", "fc_final")
+
+
+def freeze_for_graft(model: nn.Module) -> list:
+    """Names of the parameters the A4 embedding graft freezes: those of
+    input_embedding, filled_embedding and fc_final (JAX
+    ``freeze_mask_for_graft``)."""
+    return [n for n, _ in model.named_parameters()
+            if n.split(".")[0] in GRAFTED]

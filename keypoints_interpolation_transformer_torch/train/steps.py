@@ -1,20 +1,24 @@
-"""The train step (port of the JAX ``train/steps.py``), regime A1, and
-the model builder and regime forwards that serving shares with it.
+"""Train and eval steps for the four regimes (port of the JAX
+``train/steps.py``), and the model builder and regime forwards that serving
+shares with them.
 
   a1  plain supervised: src = SOS + frames[:-1], tgt = frames shifted by
       one, "repeat-inc" attention masks, the MSE train criterion
-      (``torch.nn.MSELoss`` semantics, frame-weighted), torch-semantics
-      Adam at a per-step learning rate.
-  a2  (its forward, ``cycle_forward``, serves the Cycle variant): a frozen
-      first model fills the stream the Cycle model then reads with "all"
-      masks and all-ones pad masks.
+      (``torch.nn.MSELoss`` semantics, frame-weighted), EuclideanLoss on
+      the masked composite at eval.
+  a2  cycle: a frozen first model fills the stream the Cycle model then
+      reads with "all" masks and all-ones pad masks (``cycle_forward``).
+  a3  embedding autoencoder: missing frames zeroed with p = 0.95 per video,
+      identity reconstruction, EuclideanLoss both ways.
+  a4  fine-tune: masked input frames zeroed, EuclideanLoss train /
+      EuclideanDistanceLoss eval, optional embedding graft and freeze.
 
 Corruption and augmentation run on the model's device inside the step,
 batched, from an explicit ``torch.Generator`` there.  The forward and the
 backward go through the training route of ``KeypointCompleter`` (the
-sublayer kernels and their backwards); ``plain=True`` differentiates the
-plain versions instead (the oracle path).  The train steps of regimes
-A2-A4 and the fused masked-loss kernel are not ported yet.
+sublayer kernels and their backwards, or the per-op attention kernels);
+``plain=True`` differentiates the plain versions instead (the oracle path).
+Torch-semantics Adam at a per-step learning rate closes each step.
 """
 
 from __future__ import annotations
@@ -26,10 +30,15 @@ import torch
 from ..models.completer import (Embedding, KeypointCompleter,
                                 keypoint_completer_cycle)
 from ..ops import losses
+from ..ops.kernels import fused_euclidean_loss, masked_loss_plain
 from ..transforms.augment import random_augment
 from ..transforms.corruption import (DatasetMissingStats, add_sos,
-                                     put_missing_frames)
+                                     put_missing_frames, zero_missing_frames)
+from ..utils.device import resolve_device
 from .state import TrainState, apply_gradients
+
+REGIMES = ("a1", "a2", "a3", "a4")
+FUSION = ("auto", "on", "off")
 
 
 def build_model(model_cfg, variant: Optional[str] = None, *,
@@ -37,22 +46,34 @@ def build_model(model_cfg, variant: Optional[str] = None, *,
                 device="cuda", generator: Optional[torch.Generator] = None):
     """The configured model ("plain", "cycle" or "embedding") on
     ``device`` (the card unless the caller asks for the CPU), in
-    ``train()`` mode when ``for_training``.  ``merge_layers`` selects the
-    merged whole-layer serving kernels (the JAX package's default; the
-    training route does not read it).  ``generator`` (a CPU generator)
-    initializes the parameters deterministically."""
+    ``train()`` mode when ``for_training``.  ``generator`` (a CPU
+    generator) initializes the parameters deterministically.
+
+    ``merge_layers`` selects the merged whole-layer serving kernels (the
+    JAX package's default); ``for_training`` sets it off, as the JAX
+    package builds the loop's model (``steps.py:82``), so the loop's eval
+    forwards run per sublayer.  ``attn_sublayer_fusion``: "off" sends
+    attention per op (``fused_attention``); "on" and "auto" take the
+    attention-sublayer kernel wherever it applies, for serving and for
+    training.  The JAX package resolves "auto" off for training at
+    "highest" (``steps.py:63-82``) only to keep XLA's gradient numerics on
+    the TPU; the port computes in float32 throughout, and its sublayer
+    kernels and their backwards match the plain versions there, so it
+    keeps its sublayer route."""
     if model_cfg.compute_dtype != "float32":
         raise ValueError("the PyTorch port computes in float32 only")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
-                           "to run the plain versions on the CPU")
+    if model_cfg.attn_sublayer_fusion not in FUSION:
+        raise ValueError(f"attn_sublayer_fusion must be one of {FUSION}, "
+                         f"got {model_cfg.attn_sublayer_fusion!r}")
+    dev = resolve_device(device, "build_model")
     v = variant or model_cfg.variant
     if v == "embedding":
         return Embedding(model_cfg.hidden_dim, model_cfg.input_size,
                          device=dev, generator=generator).train(for_training)
     kw = dict(input_size=model_cfg.input_size, ff_dim=model_cfg.ff_dim,
-              merge_layers=merge_layers, device=dev, generator=generator)
+              merge_layers=merge_layers and not for_training,
+              attn_sublayer_fusion=model_cfg.attn_sublayer_fusion != "off",
+              device=dev, generator=generator)
     if v == "plain":
         model = KeypointCompleter(model_cfg.hidden_dim, model_cfg.num_layers,
                                   model_cfg.num_heads, **kw)
@@ -99,12 +120,16 @@ def _weighted_mean(per_video, weight):
     return (per_video * weight).sum() / weight.sum().clamp_min(1.0)
 
 
-def make_train_criterion(regime: str, fused: bool):
+def make_train_criterion(regime: str, fused: bool, plain: bool = False):
     """Per-video train criterion (pred, target, valid) -> (B,): MSE for
-    a1 / a2, EuclideanLoss for a3 / a4."""
+    a1 / a2, EuclideanLoss for a3 / a4.  ``fused`` takes the masked-loss
+    kernel (its plain version under ``plain``): half of it for a1 / a2,
+    as MSE is euclidean / 2."""
     if fused:
-        raise NotImplementedError(
-            "the fused masked-loss kernel is not ported yet")
+        loss = masked_loss_plain if plain else fused_euclidean_loss
+        if regime in ("a1", "a2"):
+            return lambda p, y, v: 0.5 * loss(p, y, v)
+        return loss
     if regime in ("a1", "a2"):
         return lambda p, y, v: losses.mse_loss(p, y, frame_weight=v)
     return lambda p, y, v: losses.euclidean_loss(p, y, frame_weight=v)
@@ -120,11 +145,12 @@ def completer_forward(model, x, x_no, x_mask, y_mask, valid,
 def cycle_forward(first_model, model, x, x_no, x_mask, y_mask, valid,
                   plain: bool = False):
     """A2's forward: the frozen first model fills the stream (repeat-inc
-    masks) and its prediction, detached, is the filled stream of the Cycle
-    model, which reads the frames ``x_no`` with all-ones masks of kind
-    "all" (a uniform +1 on the logits, kept for fidelity)."""
-    pred1 = completer_forward(first_model, x, x_no, x_mask, y_mask, valid,
-                              plain).detach()
+    masks) and its prediction, with no gradient, is the filled stream of
+    the Cycle model, which reads the frames ``x_no`` with all-ones masks
+    of kind "all" (a uniform +1 on the logits, kept for fidelity)."""
+    with torch.no_grad():
+        pred1 = completer_forward(first_model, x, x_no, x_mask, y_mask,
+                                  valid, plain)
     ones = torch.ones_like(x_mask)
     return model(x_no, pred1, src_frame_mask=ones, tgt_frame_mask=ones,
                  valid_mask=valid, plain=plain, src_mask_kind="all",
@@ -136,41 +162,72 @@ def _global_norm(tensors):
     return torch.cat([t.detach().reshape(-1) for t in tensors]).norm()
 
 
-def a1_loss(model, y, inputs, mask, length, weight, criterion,
-            plain: bool = False):
-    """(weighted mean loss, per-video losses) of the A1 forward on an
-    already corrupted batch."""
+def regime_loss(regime: str, model, first_model, y, inputs, mask, length,
+                weight, criterion, plain: bool = False, zero_gate=None):
+    """(weighted mean loss, per-video losses) of ``regime``'s forward on an
+    already corrupted batch (JAX ``steps.py:257-318``).  ``zero_gate``
+    (B,) bool: A3's per-video choice to zero the missing frames."""
     x, x_no, x_mask, y_mask, valid = shift_streams(inputs, mask, length)
-    pred = completer_forward(model, x, x_no, x_mask, y_mask, valid, plain)
+    if regime == "a2":
+        pred = cycle_forward(first_model, model, x, x_no, x_mask, y_mask,
+                             valid, plain)
+    elif regime == "a3":
+        zeroed = zero_missing_frames(x, x_mask)
+        x = torch.where(zero_gate[:, None, None, None], zeroed, x)
+        y = x
+        pred = model(x)
+    else:
+        if regime == "a4":
+            x = zero_missing_frames(x, x_mask)
+        pred = completer_forward(model, x, x_no, x_mask, y_mask, valid,
+                                 plain)
     per_video = criterion(pred, y, valid)
     return _weighted_mean(per_video, weight), per_video
 
 
+def a1_loss(model, y, inputs, mask, length, weight, criterion,
+            plain: bool = False):
+    """(weighted mean loss, per-video losses) of the A1 forward on an
+    already corrupted batch."""
+    return regime_loss("a1", model, None, y, inputs, mask, length, weight,
+                       criterion, plain)
+
+
 def make_train_step(model, cfg, stats: Optional[DatasetMissingStats],
+                    first_model=None, freeze=None,
                     plain: bool = False) -> Callable:
-    """The per-batch train step of ``cfg.train.regime`` (a1):
+    """The per-batch train step of ``cfg.train.regime``:
 
         step(state, clean, length, weight, generator, lr) -> (state, metrics)
 
     ``clean`` (B, T, 54, 2), ``length`` (B,) and ``weight`` (B,) on the
     model's device, ``generator`` a ``torch.Generator`` there.  metrics
     holds the loss, the per-video losses and, under ``watch_norms``, the
-    global gradient and parameter norms.  ``state`` holds ``model`` and its
-    optimizer (``TrainState.create(model)``).  ``step.on_corrupted(state, y,
-    inputs, mask, length, weight, lr)`` takes the step from an already
-    corrupted batch.  ``plain=True`` differentiates the plain versions."""
+    global gradient norm (before the freeze, as in JAX) and parameter
+    norm, all on the device.  ``state`` holds ``model`` and its optimizer
+    (``TrainState.create(model)``).  a2 needs ``first_model`` (the frozen
+    plain model); ``freeze`` names the parameters a4 keeps (the graft).
+    ``step.on_corrupted(state, y, inputs, mask, length, weight, lr,
+    zero_gate=None)`` takes the step from an already corrupted batch (and,
+    for a3, the per-video zero gate).  ``plain=True`` differentiates the
+    plain versions."""
     regime = cfg.train.regime
-    if regime != "a1":
-        raise NotImplementedError(
-            f"regime {regime!r} is not ported yet (only 'a1')")
+    if regime not in REGIMES:
+        raise ValueError(f"unknown regime {regime!r}")
+    if regime == "a2" and first_model is None:
+        raise ValueError("a2 needs first_model, the frozen plain model")
     d = cfg.data
-    criterion = make_train_criterion(regime, cfg.train.fused_loss)
+    criterion = make_train_criterion(regime, cfg.train.fused_loss, plain)
     watch = cfg.train.watch_norms
 
-    def on_corrupted(state: TrainState, y, inputs, mask, length, weight, lr):
+    def on_corrupted(state: TrainState, y, inputs, mask, length, weight, lr,
+                     zero_gate=None):
+        if regime == "a3" and zero_gate is None:
+            raise ValueError("a3 needs the per-video zero gate")
         model.train()
-        loss, per_video = a1_loss(model, y, inputs, mask, length, weight,
-                                  criterion, plain)
+        loss, per_video = regime_loss(regime, model, first_model, y, inputs,
+                                      mask, length, weight, criterion, plain,
+                                      zero_gate)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         metrics = {"loss": loss.detach(), "per_video": per_video.detach()}
@@ -178,7 +235,7 @@ def make_train_step(model, cfg, stats: Optional[DatasetMissingStats],
         if watch:
             metrics["grad_norm"] = _global_norm(
                 p.grad for p in params if p.grad is not None)
-        state = apply_gradients(state, lr)
+        state = apply_gradients(state, lr, freeze)
         if watch:
             metrics["param_norm"] = _global_norm(params)
         return state, metrics
@@ -191,7 +248,55 @@ def make_train_step(model, cfg, stats: Optional[DatasetMissingStats],
                 is_random_missing=d.is_random_missing,
                 dataset_name=d.dataset_name if stats is not None else "all",
                 stats=stats, double_hand_rotation=d.double_hand_rotation)
-        return on_corrupted(state, y, inputs, mask, length, weight, lr)
+            gate = None
+            if regime == "a3":  # zero the missing frames with p = 0.95
+                gate = torch.rand(clean.shape[0], generator=generator,
+                                  device=clean.device) >= 0.05
+        return on_corrupted(state, y, inputs, mask, length, weight, lr, gate)
 
     step.on_corrupted = on_corrupted
     return step
+
+
+def make_eval_step(model, cfg, first_model=None,
+                   plain: bool = False) -> Callable:
+    """Eval on precorrupted batches (the validation corruption is computed
+    once, as in the reference):
+
+        eval_step(inputs, mask, clean, length) -> (per_video, baseline)
+
+    per-video losses of the model and of the freeze-frame baseline (the
+    corrupted frames themselves), both (B,).  A4 scores with the
+    euclidean distance, the rest with the euclidean loss; every regime but
+    A3 scores the composite (the model's output on missing frames only).
+    Runs without autograd, so the model takes its serving route, per
+    sublayer (``build_model(for_training=True)`` sets ``merge_layers``
+    off, as the JAX loop's model has it)."""
+    regime = cfg.train.regime
+
+    def criterion(pred, y, valid):
+        if regime == "a4":
+            return losses.euclidean_distance_loss(pred, y, frame_weight=valid)
+        return losses.euclidean_loss(pred, y, frame_weight=valid)
+
+    @torch.no_grad()
+    def eval_step(inputs, mask, clean, length):
+        x, x_no, x_mask, y_mask, valid = shift_streams(inputs, mask, length)
+        if regime == "a3":
+            x = zero_missing_frames(x, x_mask)  # always zeroed at eval
+            pred = model(x)
+            return (losses.euclidean_loss(pred, x, frame_weight=valid),
+                    losses.euclidean_loss(x, x, frame_weight=valid))
+        y = clean
+        if regime == "a2":
+            pred = cycle_forward(first_model, model, x, x_no, x_mask, y_mask,
+                                 valid, plain)
+        else:
+            if regime == "a4":
+                x = zero_missing_frames(x, x_mask)
+            pred = completer_forward(model, x, x_no, x_mask, y_mask, valid,
+                                     plain)
+        pred = losses.composite_prediction(pred, y, y_mask)
+        return criterion(pred, y, valid), criterion(x_no, y, valid)
+
+    return eval_step

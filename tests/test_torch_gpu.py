@@ -34,6 +34,7 @@ def test_model_kernel_path_on_the_card(cuda):
     """A two-layer model: the kernel path (the merged route at T=40)
     agrees with the plain path and launches each kernel as often as the
     TPU kernel it replaces."""
+    import chip_smoke
     from keypoints_interpolation_transformer_torch.models.completer import (
         KeypointCompleter)
     from keypoints_interpolation_transformer_torch.ops import kernels
@@ -53,9 +54,8 @@ def test_model_kernel_path_on_the_card(cuda):
         got = model(x, x, m, m, valid)
         torch.cuda.synchronize()
     assert kernels.launch_counts() == {
-        "pre_stream_embed": 2, "attn_sublayer": 0, "ffn": 0, "post_head": 1,
-        "attn_sublayer_train": 0, "attn_sublayer_bwd": 0, "ffn_train": 0,
-        "ffn_bwd": 0, "enc_layer": layers, "dec_layer": layers}
+        **chip_smoke.NO_LAUNCHES, "pre_stream_embed": 2, "post_head": 1,
+        "enc_layer": layers, "dec_layer": layers}
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
@@ -94,6 +94,7 @@ def test_train_step_kernel_path_on_the_card(cuda):
     """Two layers, one A1 step on each path from the same parameters and
     corruption: the same loss, and each training kernel launched once per
     sublayer."""
+    import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     from keypoints_interpolation_transformer_torch.train import state, steps
     from keypoints_interpolation_transformer_torch.utils.config import (
@@ -116,9 +117,8 @@ def test_train_step_kernel_path_on_the_card(cuda):
         torch.cuda.synchronize()
         losses[plain] = float(m["loss"])
     assert kernels.launch_counts() == {
-        "pre_stream_embed": 0, "attn_sublayer": 0, "ffn": 0, "post_head": 0,
-        "attn_sublayer_train": 6, "attn_sublayer_bwd": 6, "ffn_train": 4,
-        "ffn_bwd": 4, "enc_layer": 0, "dec_layer": 0}
+        **chip_smoke.NO_LAUNCHES, "attn_sublayer_train": 6,
+        "attn_sublayer_bwd": 6, "ffn_train": 4, "ffn_bwd": 4}
     assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])
 
 
@@ -213,3 +213,98 @@ def test_flagship_forward_launches_the_merged_route(cuda):
             torch.cuda.synchronize()
             assert kernels.launch_counts() == counts
             torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_per_op_kernels_match_plain_on_the_card(cuda):
+    """The per-op attention forward and backward (every mask kind, padded
+    keys, a video whose keys are all padded) and the masked loss against
+    their plain versions, at a ragged length and above 512."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for T in (40, 608):
+        for name, variant, kern, plain, grad in chk.per_op_calls(3, T):
+            chk.compare(name, variant, kern(), plain(), grad)
+
+
+@pytest.mark.gpu
+def test_per_op_wrappers_raise_rather_than_fall_back(cuda):
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    q = torch.zeros(2, 16, 4, 32, device=cuda)
+    m = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(ValueError):  # Tq != Tk
+        kernels.fused_attention(q, q[:, :8].contiguous(), q, m, None)
+    with pytest.raises(ValueError):  # a head width the kernels do not take
+        kernels.fused_attention(q[..., :8].contiguous(),
+                                q[..., :8].contiguous(),
+                                q[..., :8].contiguous(), m, None)
+    with pytest.raises(TypeError):
+        kernels.fused_masked_loss(torch.zeros(2, 4, 54, 2, device=cuda,
+                                              dtype=torch.float64),
+                                  torch.zeros(2, 4, 54, 2, device=cuda),
+                                  torch.ones(2, 4, device=cuda))
+    kernels.reset_launches()
+    kernels.fused_attention(q, q, q, m, None)
+    kernels.attention_bwd(q, q, q, q, m, None)
+    kernels.fused_masked_loss(torch.zeros(2, 4, 54, 2, device=cuda),
+                              torch.zeros(2, 4, 54, 2, device=cuda),
+                              torch.ones(2, 4, device=cuda))
+    counts = kernels.launch_counts()
+    assert (counts["attention"], counts["attention_bwd"],
+            counts["masked_loss"]) == (1, 1, 1)
+
+
+@pytest.mark.gpu
+def test_long_bucket_takes_the_per_op_route(cuda):
+    """A two-layer model at T=520 (above the sublayer kernel's 512): one
+    forward launches attention per op and agrees with the plain path; so
+    does a training step with sublayer fusion off at T=40."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.train import state, steps
+    from keypoints_interpolation_transformer_torch.utils.config import (
+        Config, ModelConfig, TrainConfig)
+    B, T, layers = 2, 520, 2
+    model = KeypointCompleter(128, layers, 4, ff_dim=256, device=cuda,
+                              generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.uniform(0.2, 0.8, (B, T, 54, 2)).astype(
+        np.float32)).to(cuda)
+    m = torch.from_numpy((rng.random((B, T)) < 0.3).astype(np.float32)).to(
+        cuda)
+    valid = torch.ones(B, T, device=cuda)
+    valid[1, 400:] = 0.0
+    with torch.inference_mode():
+        want = model(x, x, m, m, valid, plain=True)
+        kernels.reset_launches()
+        got = model(x, x, m, m, valid)
+        torch.cuda.synchronize()
+    assert kernels.launch_counts() == {
+        **chip_smoke.NO_LAUNCHES, "pre_stream_embed": 2,
+        "attention": 3 * layers, "ffn": 2 * layers, "post_head": 1}
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    cfg = Config(model=ModelConfig(hidden_dim=128, num_heads=4,
+                                   num_layers=layers, ff_dim=256,
+                                   attn_sublayer_fusion="off"),
+                 train=TrainConfig(fused_loss=True))
+    clean = x[:, :40].contiguous()
+    length = torch.tensor([40, 33], device=cuda)
+    losses = {}
+    for plain in (True, False):
+        net = steps.build_model(cfg.model, for_training=True,
+                                generator=torch.Generator().manual_seed(0))
+        kernels.reset_launches()
+        _, out = steps.make_train_step(net, cfg, None, plain=plain)(
+            state.TrainState.create(net, 1e-3), clean, length,
+            torch.ones(B, device=cuda),
+            torch.Generator(device=cuda).manual_seed(1), 1e-3)
+        torch.cuda.synchronize()
+        losses[plain] = float(out["loss"])
+    assert kernels.launch_counts() == {
+        **chip_smoke.NO_LAUNCHES, "attention": 3 * layers,
+        "attention_bwd": 3 * layers, "ffn_train": 2 * layers,
+        "ffn_bwd": 2 * layers, "masked_loss": 1}
+    assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])

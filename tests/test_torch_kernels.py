@@ -262,7 +262,8 @@ def test_kernel_table_and_counters():
     names = [k.name for k in kernels.KERNELS]
     assert names == ["pre_stream_embed", "attn_sublayer", "ffn",
                      "post_head", "attn_sublayer_train", "attn_sublayer_bwd",
-                     "ffn_train", "ffn_bwd", "enc_layer", "dec_layer"]
+                     "ffn_train", "ffn_bwd", "enc_layer", "dec_layer",
+                     "attention", "attention_bwd", "masked_loss"]
     for k in kernels.KERNELS:
         assert k.source.endswith(".cu") and ".py:" in k.replaces
     kernels.reset_launches()

@@ -1,6 +1,9 @@
 """The port stands alone at run time: with jax and the JAX package made
 unimportable, a fresh interpreter imports every module of the port and
-``chip_smoke``, takes a CPU train step and serves a CPU Cycle request."""
+``chip_smoke``, takes a CPU train step, serves a CPU Cycle request and
+runs ``cli train`` on the CPU on the sublayer route and on the per-op
+route with the fused loss.  The training entry points default to the
+card and raise without one."""
 
 import os
 import subprocess
@@ -62,6 +65,28 @@ miss = (torch.arange(20) % 3 == 0).float()
 out = inp.inpaint([v.numpy()], [miss.numpy()])[0]
 assert out.shape == (20, 54, 2) and (out[miss.numpy() == 0]
                                      == v.numpy()[miss.numpy() == 0]).all()
+import contextlib
+import io
+import json
+import os
+import tempfile
+
+from keypoints_interpolation_transformer_torch import cli
+
+tiny = ["--device", "cpu", "--regime", "a1", "--synthetic", "12",
+        "--epochs", "1", "--hidden_dim", "32", "--num_heads", "4",
+        "--num_layers", "1", "--synthetic_max_len", "40", "--max_seq_len",
+        "48"]
+here = os.getcwd()
+with tempfile.TemporaryDirectory() as tmp:
+    os.chdir(tmp)
+    for extra in ([], ["--attn_sublayer_fusion", "off", "--fused_loss"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["train", *tiny, *extra]) == 0
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        assert res["epochs_run"] == 1 and os.path.isfile(res["checkpoint"])
+    os.chdir(here)
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 print("IMPORTED", len(names), "LOADED", loaded)
 """
@@ -78,3 +103,31 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "LOADED []" in r.stdout
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
     assert n >= 20  # every module of the port was walked
+
+
+def test_training_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """Without a card, ``train()``, ``cli train`` and
+    ``KeypointDataset.device_buckets`` refuse to run on the CPU unless
+    asked to."""
+    import pytest
+    import torch
+
+    from keypoints_interpolation_transformer_torch import cli
+    from keypoints_interpolation_transformer_torch.data.pipeline import (
+        KeypointDataset)
+    from keypoints_interpolation_transformer_torch.data.synthetic import (
+        synthetic_dataset)
+    from keypoints_interpolation_transformer_torch.train.loop import train
+    from keypoints_interpolation_transformer_torch.utils.config import (
+        Config, DataConfig)
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(Config(data=DataConfig(synthetic_num_videos=4)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["train", "--synthetic", "4", "--epochs", "1"])
+    ds = KeypointDataset(videos=synthetic_dataset(3, 12, 20))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ds.device_buckets()
+    assert set(ds.device_buckets(device="cpu")) == {32}

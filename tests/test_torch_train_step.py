@@ -190,7 +190,7 @@ def test_full_step_runs_and_every_parameter_learns():
     st, m2 = plain(st, clean, length, torch.ones(B),
                    torch.Generator().manual_seed(5), LR)
     assert st.step == 2 and np.isfinite(float(m2["loss"]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="first_model"):
         steps.make_train_step(model, Config(model=cfg.model,
                                             train=type(cfg.train)(
                                                 regime="a2")), None)
