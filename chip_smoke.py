@@ -58,9 +58,31 @@ Phases (each prints its own lines; any failed check exits non-zero):
      grafted from a3's .pth (the graft bit for bit unchanged); a2 over
      a1's .pth; a 2-epoch run cut after one epoch and resumed from its
      full_state.pt (epoch-2 losses within 1e-5 relative of the whole
-     run's); the frames/s of one a1 epoch.
+     run's); the frames/s of one a1 epoch;
+  9. int8 serving (run after phase 5, from its .pth files):
+     ``Inpainter(quantize="int8")`` at B=256, T=128 on the merged route
+     (launches per forward pre_stream_embed 2, enc_layer_int8 6, dec_layer
+     6 without its FF tail, ffn_int8 6, post_head 1) and the per-sublayer
+     route (2 / attn_sublayer 18 / ffn_int8 12 / 1), each against the
+     plain int8 path (masked MPJPE within twice the plain int8 path's own
+     drift on inputs one ulp away, and at least 1e-3: see INT8_DRIFT), int8
+     against float32 (masked MPJPE < 0.1, also by
+     ``eval.quantize.quantization_error``), frames/s
+     and one-video latency beside the float32 merged route; one 600-frame
+     request on the per-op route (int8_dense 42, attention 18, ffn_int8
+     12); the Cycle pair and the Embedding int8; an HTTP round trip through
+     a ``cli serve --quantize int8`` child process;
+ 10. widths: every kernel at D in {32, 128, 384, 512} with head widths 8,
+     64 and 128 against its plain version (B=3, T in {40, 128}), then a
+     two-layer model at each serving float32 and int8 and taking an A1
+     train step, each against its plain path, with its launch counts.
 
-Phase 2 also holds the per-op attention kernels at T in {40, 512, 608,
+Phase 2 also holds the int8 kernels (int8_dense at the Embedding's
+Linear, 108 -> 256, and at a q / k / v projection, 256 -> 768, also at the
+600-frame request's 608 rows; ffn_int8 with LN1; enc_layer_int8 with both
+models' masks) against their plain versions and against ``torch._int_mm``
+with the plain quantize and dequantize steps (their library time), the
+per-op attention kernels at T in {40, 512, 608,
 2048} (repeat-inc with and without the key padding, "all" with all-ones
 masks, cross-attention, padded keys, a video whose keys are all padded)
 and the masked loss with padded frames; phase 5 also serves one 600-frame
@@ -73,7 +95,8 @@ loop (with its device idle share and the host work in it).  ``--sweep``
 prints the
 whole-layer kernels' times at T=128 for B in {256, 64, 8, 1} with clusters
 of 1, 2, 4 and 8 blocks per video (and the size the wrapper picks), then
-the latency of one Inpainter call per route at small batches.
+the latency of one Inpainter call per route (the int8 merged route too)
+at small batches.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card it exits 1 and prints
@@ -96,8 +119,9 @@ import numpy as np
 B_MAIN, T_MAIN = 256, 128
 B_TRAIN = 64
 D, HEADS, FF, LAYERS, F_IN = 256, 8, 2048, 6, 108
-# the card's peaks (NVIDIA H100 SXM data sheet): float32 FFMA, HBM3
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): float32 FFMA, int8
+# tensor-core operations, HBM3
+PEAK_FLOPS, PEAK_INT8, PEAK_BYTES = 67e12, 1979e12, 3.35e12
 # f32 FFMA kernels against cuBLAS f32: the same products summed in another
 # order (over contraction depths up to 2048) differ by a few ulp of the
 # partial sums; 1e-4 of the output's scale leaves an order of magnitude of
@@ -111,6 +135,30 @@ GRAD_TOL = 1e-4
 # differences above compounded (float32 noise in the loss is ~1e-6)
 LOSS_RTOL = 1e-4
 MPJPE_TOL = 1e-4  # bench.py's gate
+# int8 kernels against their plain versions: the same int8 values and exact
+# int32 sums on both sides, except where the float32 value being quantized
+# (a LayerNorm or GELU output, summed in another order by the two) lies
+# within an ulp of a rounding boundary: it then quantizes one step the other
+# way (some 3e-6 of the values; a row of 2048 GELU outputs holds one in
+# about 0.6 % of rows), moving the outputs that read it by about 1/127 of
+# its row's absmax times a weight, some 1e-3.  So no output may move by
+# more than INT8_TOL of max(1, scale), and the mean by no more than
+# INT8_MEAN_TOL: a wrong kernel misses both by orders of magnitude.
+INT8_TOL = 1e-2
+INT8_MEAN_TOL = 1e-5
+# served int8 predictions against the plain int8 path (masked MPJPE).
+# Through 6 + 6 layers the flips above cascade: a value moved by a step
+# moves the next layer's inputs by about 1e-3 of their scale, which flips
+# more of its quantizations, so two int8 routes whose float32 arithmetic
+# differs in the last bit drift apart by about the int8 error itself.  The
+# plain int8 path on inputs moved by one ulp measures that drift (its
+# floor) in each run; a route passes within INT8_DRIFT times the floor, or
+# within INT8_MPJPE_TOL where the floor is below half of it.
+INT8_MPJPE_TOL = 1e-3
+INT8_DRIFT = 2.0
+# int8 against float32 served predictions (masked MPJPE): the JAX serving
+# test's bound (tests/test_eval.py)
+INT8_VS_F32 = 0.1
 # served predictions through 6+6 layers: the per-kernel differences above,
 # compounded; no coordinate may move by more than this
 SERVE_TOL = 1e-3
@@ -152,12 +200,14 @@ SERVING_KERNELS = ("pre_stream_embed", "attn_sublayer", "ffn", "post_head",
 # batch, like the training kernels
 PER_OP_KERNELS = ("attention", "attention_bwd", "masked_loss")
 ATTN_T = (40, 512, 608, 2048)  # the per-op kernels' lengths in phase 2
+# the int8 serving kernels: timed at the serving batch
+INT8_KERNELS = ("int8_dense", "ffn_int8", "enc_layer_int8")
 # every kernel of ops/kernels.KERNELS, launched no time
 NO_LAUNCHES = dict.fromkeys(
     ("pre_stream_embed", "attn_sublayer", "ffn", "post_head",
      "attn_sublayer_train", "attn_sublayer_bwd", "ffn_train", "ffn_bwd",
-     "enc_layer", "dec_layer", "attention", "attention_bwd", "masked_loss"),
-    0)
+     "enc_layer", "dec_layer", "attention", "attention_bwd", "masked_loss",
+     *INT8_KERNELS), 0)
 # the training step's launches of each kernel: 18 attention sublayers, 12
 # FF sublayers, forward and backward; none of the serving kernels
 TRAIN_COUNTS = {**NO_LAUNCHES, "attn_sublayer_train": 18,
@@ -173,6 +223,21 @@ SUBLAYER_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
 # one forward above the sublayer kernel's 512 frames: attention per op
 PER_OP_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
                  "attention": 3 * LAYERS, "ffn": 2 * LAYERS, "post_head": 1}
+# int8 serving (``Inpainter(quantize="int8")``), one flagship forward: the
+# merged route at T=128 (the encoder layer with its FF int8; the decoder
+# layer without its FF tail, then the int8 FF sublayer; the pointwise
+# kernels float, as on the TPU), the per-sublayer route, and the per-op
+# route above 512 frames (q / k / v, out projections int8: 2 per
+# self-attention, 3 for cross-attention, whose q and k / v inputs differ)
+INT8_MERGED_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
+                      "enc_layer_int8": LAYERS, "dec_layer": LAYERS,
+                      "ffn_int8": LAYERS, "post_head": 1}
+INT8_SUBLAYER_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
+                        "attn_sublayer": 3 * LAYERS, "ffn_int8": 2 * LAYERS,
+                        "post_head": 1}
+INT8_PER_OP_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
+                      "attention": 3 * LAYERS, "int8_dense": 7 * LAYERS,
+                      "ffn_int8": 2 * LAYERS, "post_head": 1}
 # the per-op training step with the fused loss
 PER_OP_TRAIN_COUNTS = {**NO_LAUNCHES, "attention": 3 * LAYERS,
                        "attention_bwd": 3 * LAYERS, "ffn_train": 2 * LAYERS,
@@ -189,8 +254,9 @@ ATTN_VARIANTS = (("enc self repeat-inc+keypad", False, False, "repeat-inc",
 class KernelCheck:
     """Runs every kernel variant against its plain version on the card."""
 
-    def __init__(self, torch, kmod):
+    def __init__(self, torch, kmod, d=D, heads=HEADS, ff=FF):
         self.torch, self.k = torch, kmod
+        self.d, self.heads, self.ff = d, heads, ff
         self.g = torch.Generator().manual_seed(1234)
         self.max_err = {}
         self.layer_args = {}
@@ -217,7 +283,8 @@ class KernelCheck:
     def compare(self, name, variant, got, want, grad=False):
         """Each output within REL_TOL of max(1, its scale), or, for
         gradients (``grad``), within GRAD_TOL of the largest gradient of
-        the call."""
+        the call; an int8 kernel's (``name`` in INT8_KERNELS) within
+        INT8_TOL of max(1, its scale) and INT8_MEAN_TOL of it on average."""
         t = self.torch
         t.cuda.synchronize()
         gots = got if isinstance(got, tuple) else (got,)
@@ -235,16 +302,25 @@ class KernelCheck:
             if not bool(t.isfinite(g_).all()):
                 fail(f"{name} {variant}: non-finite output")
             err = float((g_ - w_).abs().max())
-            tol = (GRAD_TOL * gscale if grad
-                   else REL_TOL * max(1.0, float(w_.abs().max())))
+            scale = max(1.0, float(w_.abs().max()))
+            tol = GRAD_TOL * gscale if grad else REL_TOL * scale
+            mean = ""
+            if name.split()[0] in INT8_KERNELS:
+                tol = INT8_TOL * scale
+                avg = float((g_ - w_).abs().mean())
+                mean = (f" mean {avg:.3e} (tol {INT8_MEAN_TOL * scale:.2e}; "
+                        f"{int(((g_ - w_).abs() > REL_TOL * scale).sum())} "
+                        f"of {g_.numel()} beyond {REL_TOL * scale:.2e})")
+                if avg > INT8_MEAN_TOL * scale:
+                    fail(f"{name} {variant}: mean abs err {avg:.3e}")
             self.max_err[name] = max(self.max_err.get(name, 0.0), err)
             print(f"  {name:16s} {variant:34s} max_abs_err {err:.3e} "
-                  f"(tol {tol:.2e})", flush=True)
+                  f"(tol {tol:.2e}){mean}", flush=True)
             if err > tol:
                 fail(f"{name} {variant}: max_abs_err {err:.3e} > {tol:.2e}")
 
     def operands(self, B, T):
-        w = self.weight
+        w, D, FF = self.weight, self.d, self.ff
         return {
             "x_in": self.rand(B, T, F_IN, lo=0.2, hi=0.8),
             "wemb": w(F_IN, D), "bemb": self.rand(D, scale=0.05),
@@ -269,7 +345,9 @@ class KernelCheck:
         k, o = self.k, self.operands(B, T)
         mask, valid = self.masks(B, T)
         out = []
-        for pe_res in (False, True):
+        # the pointwise kernels take D % 128 == 0 (narrower models take the
+        # plain chains, as the JAX package's XLA chains)
+        for pe_res in (False, True) if self.d % 128 == 0 else ():
             for want_emb in (False, True):
                 args = (o["x_in"], o["wemb"], o["bemb"], o["pe"], o["w12"],
                         o["b12"], o["w3"], o["b3"], pe_res, want_emb)
@@ -281,7 +359,8 @@ class KernelCheck:
         for variant, mem, ln, kind, keypad in ATTN_VARIANTS:
             mem = o["mem"] if mem else None
             ln = (o["g"], o["be"]) if ln else (None, None)
-            args = (o["x"], mem, *w, *ln, mask, valid, kind, keypad, HEADS)
+            args = (o["x"], mem, *w, *ln, mask, valid, kind, keypad,
+                    self.heads)
             out.append(("attn_sublayer", variant,
                         lambda a=args: k.fused_attn_sublayer(*a),
                         lambda a=args: k.attn_sublayer_plain(*a)))
@@ -291,9 +370,53 @@ class KernelCheck:
                     lambda a=args: k.ffn_plain(*a)))
         args = (o["x"], o["mem"], o["w12"], o["b12"], o["w3"], o["b3"],
                 o["wh"], o["bh"])
-        out.append(("post_head", "", lambda a=args: k.fused_post_head(*a),
-                    lambda a=args: k.post_head_plain(*a)))
+        if self.d % 128 == 0:
+            out.append(("post_head", "", lambda a=args: k.fused_post_head(*a),
+                        lambda a=args: k.post_head_plain(*a)))
         return out + self.layer_calls(o, mask, valid)
+
+    def int8_calls(self, B, T):
+        """(kernel name, variant, wrapper call, plain call) of the int8
+        serving kernels at (B, T), their weights quantized as the model
+        packs them (``int8_matmul.quantize_weight``): the int8 dense layer
+        at the Embedding variant's first Linear (B T rows, 108 -> D) and at
+        a per-op route's q / k / v projection (B T rows, D -> 3D); the int8
+        FF sublayer with LN1; the merged encoder
+        layer with its FF tail int8, with the plain model's and the Cycle
+        model's masks.  The first of each is timed in phase 2;
+        ``layer_args`` keeps its arguments."""
+        from keypoints_interpolation_transformer_torch.ops.kernels \
+            .int8_matmul import quantize_weight
+        k, o = self.k, self.operands(B, T)
+        mask, valid = self.masks(B, T)
+
+        def q(w, form):  # an (in, out) weight in torch's Linear layout
+            return quantize_weight(w.t().contiguous(), form)
+
+        out = []
+        for variant, x, w, b in (
+                ("embedding", o["x_in"], o["wemb"], o["bemb"]),
+                ("qkv projection", o["x"], o["wqkv"], o["bqkv"])):
+            args = (x, *q(w, "dense"), b)
+            self.layer_args.setdefault("int8_dense", args)
+            out.append(("int8_dense", f"{variant} {x.shape[-1]}->"
+                        f"{w.shape[1]}", lambda a=args: k.fused_int8_dense(*a),
+                        lambda a=args: k.int8_dense_plain(*a)))
+        ff8 = (*q(o["w1"], "ff"), o["b1"], *q(o["w2"], "ff"), o["b2"])
+        args = (o["x"], *ff8, o["g"], o["be"], o["g2"], o["be2"], True)
+        self.layer_args["ffn_int8"] = args
+        out.append(("ffn_int8", "pre_ln", lambda a=args: k.fused_ffn_int8(*a),
+                    lambda a=args: k.ffn_int8_plain(*a)))
+        attn = (o["wqkv"], o["bqkv"], o["wo"], o["bo"])
+        for flags, m, kind in (("plain", mask, "repeat-inc"),
+                               ("cycle", self.torch.ones_like(mask), "all")):
+            args = (o["x"], *attn, *ff8, o["g"], o["be"], o["g2"], o["be2"],
+                    m, valid, kind, True, self.heads)
+            self.layer_args.setdefault("enc_layer_int8", args)
+            out.append(("enc_layer_int8", f"{flags} {kind}+keypad",
+                        lambda a=args: k.fused_encoder_layer_int8(*a),
+                        lambda a=args: k.encoder_layer_int8_plain(*a)))
+        return out
 
     def layer_calls(self, o, mask, valid, cluster=None):
         """The whole-layer kernels: the plain model's masks (the encoder
@@ -313,7 +436,7 @@ class KernelCheck:
         out = []
         for flags, m, kind in (("plain", mask, "repeat-inc"),
                                ("cycle", ones, "all")):
-            args = (o["x"], *attn, *ff, m, valid, kind, True, HEADS)
+            args = (o["x"], *attn, *ff, m, valid, kind, True, self.heads)
             self.layer_args.setdefault("enc_layer", args)
             out.append(("enc_layer", f"{flags} {kind}+keypad{tag}",
                         lambda a=args: k.fused_encoder_layer(
@@ -326,7 +449,7 @@ class KernelCheck:
                 args = (o["x"], o["mem"], *attn, o["cwqkv"], o["cbqkv"],
                         o["cwo"], o["cbo"], o["g"], o["be"],
                         ff if with_ff else None, m, valid, None, valid, kind,
-                        keypad, "all", False, HEADS)
+                        keypad, "all", False, self.heads)
                 self.layer_args.setdefault("dec_layer", args)
                 out.append(("dec_layer", f"{flags} self {kind}"
                             f"{'+keypad' if keypad else ''} ff={with_ff}{tag}",
@@ -341,7 +464,7 @@ class KernelCheck:
         training forward's residuals on both sides."""
         k, o = self.k, self.operands(B, T)
         mask, valid = self.masks(B, T)
-        dy = self.rand(B, T, D)
+        dy = self.rand(B, T, self.d)
         out = []
         w_in = o["wqkv"].t().contiguous()
         w_out = o["wo"].t().contiguous()
@@ -349,14 +472,14 @@ class KernelCheck:
             mem = o["mem"] if mem else None
             ln = (o["g"], o["be"]) if ln else (None, None)
             args = (o["x"], mem, o["wqkv"], o["bqkv"], o["wo"], o["bo"], *ln,
-                    mask, valid, kind, keypad, HEADS)
+                    mask, valid, kind, keypad, self.heads)
             out.append(("attn_sublayer_train", variant,
                         lambda a=args: k.fused_attn_sublayer_train(*a),
                         lambda a=args: k.attn_sublayer_train_plain(*a),
                         False))
             _, qkv, a, stats, r = k.attn_sublayer_train_plain(*args)
             bargs = (dy, o["x"], mem, qkv, a, stats, r, w_in, w_out, ln[0],
-                     mask, valid, kind, keypad, HEADS)
+                     mask, valid, kind, keypad, self.heads)
             out.append(("attn_sublayer_bwd", variant,
                         lambda a=bargs: k.attn_sublayer_bwd(*a),
                         lambda a=bargs: k.attn_sublayer_bwd_plain(*a), True))
@@ -385,8 +508,8 @@ class KernelCheck:
         key count there, as its log-sum-exp m + log(l) rounds log(l) away
         at m = -1e9."""
         t, k = self.torch, self.k
-        dh = D // HEADS
-        q, kk, v, g = (self.rand(B, T, HEADS, dh) for _ in range(4))
+        dh = self.d // self.heads
+        q, kk, v, g = (self.rand(B, T, self.heads, dh) for _ in range(4))
         mask, valid = self.masks(B, T)
         if blocked and B > 2:
             valid[2] = 0.0
@@ -421,10 +544,31 @@ class KernelCheck:
         return out
 
 
+def int8_work(name, B, T):
+    """(float32 FLOP, int8 operations, bytes) of the int8 kernels' timed
+    variants at (B, T): float32 activations in and out, int8 weights (one
+    byte each) with float32 scales and biases; an M x K by K x N product is
+    2 M K N int8 operations (the quantization, dequantization, LayerNorms
+    and GELU are not counted).  ``int8_dense`` is timed at the Embedding's
+    Linear (108 -> D); ``enc_layer_int8`` adds its float32 attention."""
+    N = B * T
+    if name == "int8_dense":
+        return 0, 2 * N * F_IN * D, 4 * N * F_IN + F_IN * D + 8 * D \
+            + 4 * N * D
+    # the FF weights, their scales and biases, four LayerNorm vectors
+    ff = 2 * D * FF + 8 * (FF + D) + 16 * D
+    if name == "ffn_int8":
+        return 0, 4 * N * D * FF, 8 * N * D + ff
+    return (8 * N * D * D + 4 * B * HEADS * T * T * (D // HEADS),
+            4 * N * D * FF,
+            4 * (2 * N * D + 2 * B * T + 4 * D * D + 4 * D) + ff)
+
+
 def work(name, B, T):
-    """(FLOP, bytes) the timed variant of kernel ``name`` must do and move
-    at (B, T) and the model's widths: every input read once, every output
-    written once.  The attention variant timed is the encoder's
+    """(float32 FLOP, int8 operations, bytes) the timed variant of kernel
+    ``name`` must do and move at (B, T) and the model's widths: every input
+    read once, every output written once (``int8_work`` for the int8
+    kernels).  The attention variant timed is the encoder's
     self-attention (repeat-inc, key padding, no LayerNorm); the FF one has
     LN1.  The backward's attention core counts the scores it must rebuild
     (5 products of B H T^2 dh, against the forward's 2); so does the
@@ -470,8 +614,10 @@ def work(name, B, T):
         # the difference, its square and the weighted sum per value
         "masked_loss": (3 * N * F_IN + 2 * N, 2 * N * F_IN + N + B),
     }
+    if name in INT8_KERNELS:
+        return int8_work(name, B, T)
     flop, elems = table[name]
-    return flop, elems * f
+    return flop, 0, elems * f
 
 
 def _layer_mask(torch, mask, valid, T, kind, add_keypad, heads):
@@ -609,20 +755,97 @@ def library_attention_bwd(torch, q, k, v, g, mask, valid, kind, add_keypad):
     return call
 
 
+def _library_int8_matmul(torch, wq, w_scale):
+    """x -> float(int8(x) Wq^T) * s * w_scale with ``torch._int_mm``
+    (cuBLASLt's int8 x int8 -> int32 product) on the int8 operands: the
+    weight quantized once, as the model packs it, padded with zeros to a
+    multiple of 8 along K (the call's rule; the sums do not change); the
+    rows quantized by the plain steps (``int8_matmul.quantize_rows``)."""
+    from keypoints_interpolation_transformer_torch.ops.kernels.int8_matmul \
+        import quantize_rows
+    F = torch.nn.functional
+    K = wq.shape[1]
+    pad = (-K) % 8
+    wt = F.pad(wq, (0, pad)).t()  # (K, N), column-major
+
+    def mm(x):
+        xq, s = quantize_rows(x.reshape(-1, K))
+        acc = torch._int_mm(F.pad(xq.to(torch.int8), (0, pad)), wt)
+        return (acc.to(torch.float32) * s * w_scale).reshape(
+            *x.shape[:-1], wq.shape[0])
+    return mm
+
+
+def library_int8_dense(torch, x, wq, w_scale, bias):
+    """The int8 dense layer with ``torch._int_mm`` for its product and the
+    plain quantize and dequantize steps around it."""
+    mm = _library_int8_matmul(torch, wq, w_scale)
+    return lambda: mm(x) + bias
+
+
+def _library_ff_int8(torch, w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2, be2,
+                     pre_ln):
+    """r -> the int8 FF sublayer with ``torch._int_mm`` for both products,
+    the float steps between them as the plain version takes them."""
+    from keypoints_interpolation_transformer_torch.ops.kernels.ffn import (
+        LN_EPS)
+    F = torch.nn.functional
+    mm1 = _library_int8_matmul(torch, w1q, w1s)
+    mm2 = _library_int8_matmul(torch, w2q, w2s)
+
+    def ff(r):
+        D = r.shape[-1]
+        x1 = F.layer_norm(r, (D,), g1, be1, LN_EPS) if pre_ln else r
+        h = F.gelu(mm1(x1) + b1)
+        return F.layer_norm((x1 + mm2(h)) + b2, (D,), g2, be2, LN_EPS)
+    return ff
+
+
+def library_ffn_int8(torch, r, *weights):
+    ff = _library_ff_int8(torch, *weights)
+    return lambda: ff(r)
+
+
+def library_encoder_layer_int8(torch, x, wqkv, bqkv, wo, bo, w1q, w1s, b1,
+                               w2q, w2s, b2, g1, be1, g2, be2, mask, valid,
+                               kind, add_keypad, heads):
+    """``nn.MultiheadAttention`` (float32, its float mask built once, the
+    fast path off) plus the residual, then the int8 FF sublayer with
+    ``torch._int_mm`` (``_library_ff_int8``)."""
+    T, D = x.shape[1:]
+    mha = torch.nn.MultiheadAttention(D, heads, batch_first=True,
+                                      device=x.device)
+    with torch.no_grad():
+        _load_attention(mha, wqkv, bqkv, wo, bo)
+    mha.eval().requires_grad_(False)
+    m = _layer_mask(torch, mask, valid, T, kind, add_keypad, heads)
+    ff = _library_ff_int8(torch, w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2,
+                          be2, True)
+    return _without_fastpath(torch, lambda: ff(
+        x + mha(x, x, x, attn_mask=m, need_weights=False)[0]))
+
+
 # the kernels whose function one PyTorch call computes; the masked loss has
 # none (it takes a weighted squared difference and two reductions: no one
-# call of torch.nn.functional weights frames and divides per video)
+# call of torch.nn.functional weights frames and divides per video).  The
+# int8 kernels have none either: their library time is ``torch._int_mm``
+# (cuBLASLt) on the int8 operands plus the plain quantize and dequantize
+# steps and the float ops around them, labelled so where it is printed.
 LIBRARY = {"enc_layer": library_encoder_layer,
            "dec_layer": library_decoder_layer,
            "attention": library_attention,
-           "attention_bwd": library_attention_bwd}
+           "attention_bwd": library_attention_bwd,
+           "int8_dense": library_int8_dense,
+           "ffn_int8": library_ffn_int8,
+           "enc_layer_int8": library_encoder_layer_int8}
 
 
 def bound(name, B, T):
-    """(bound_ms, bound_by): the larger of the FLOP over the float32 FFMA
-    peak and the bytes over the memory rate."""
-    flop, byts = work(name, B, T)
-    t_op, t_mem = flop / PEAK_FLOPS, byts / PEAK_BYTES
+    """(bound_ms, bound_by): the larger of the operations over the peak for
+    their type (float32 FLOP over the FFMA peak plus int8 operations over
+    the int8 tensor-core peak) and the bytes over the memory rate."""
+    flop, int8, byts = work(name, B, T)
+    t_op, t_mem = flop / PEAK_FLOPS + int8 / PEAK_INT8, byts / PEAK_BYTES
     return max(t_op, t_mem) * 1e3, "operations" if t_op >= t_mem else "bytes"
 
 
@@ -640,7 +863,8 @@ def phase_kernels(torch, kmod):
     def all_calls(B, T, b_train, blocked=True):
         return ([(*c, False) for c in chk.calls(B, T)]
                 + chk.train_calls(b_train, T)
-                + chk.per_op_calls(b_train, T, blocked))
+                + chk.per_op_calls(b_train, T, blocked)
+                + [(*c, False) for c in chk.int8_calls(B, T)])
 
     for T in (128, 40, 256, 300):
         for name, variant, kern, plain, grad in all_calls(3, T, 3):
@@ -676,6 +900,10 @@ def phase_kernels(torch, kmod):
         if name == "masked_loss":
             print("  masked_loss library: none; no one PyTorch call weights "
                   "frames and divides per video", flush=True)
+        if name in INT8_KERNELS:
+            print(f"  {name} library: torch._int_mm (cuBLASLt int8) on the "
+                  "int8 operands with the plain quantize and dequantize "
+                  "steps and float ops around it", flush=True)
         p0 = timed_ms(plain)
         k0 = timed_ms(kern)
         lib_ms = min(timed_ms(lib), timed_ms(lib)) if lib else None
@@ -687,6 +915,35 @@ def phase_kernels(torch, kmod):
               f"ms  plain {times[name][1]:.4f} ms  bound {b_ms:.4f} ms "
               f"({b_by})" + (f"  library {lib_ms:.4f} ms" if lib else "")
               + f"  (B={B} T={T_MAIN})", flush=True)
+    # the int8 dense layer at the q / k / v projection of the 600-frame
+    # request's per-op route (608 rows, D -> 3D), timed beside its plain
+    # version and the library call (printed; the JSON line keeps the
+    # Embedding's shape above)
+    # the decoder layer without its FF tail, as the int8 route runs it
+    # (then ffn_int8): timed for the route's breakdown (PERF.md §5)
+    args = list(chk.layer_args["dec_layer"])
+    args[12] = None  # ff
+    ms = [min(timed_ms(f), timed_ms(f)) for f in (
+        lambda: kmod.fused_decoder_layer(*args),
+        lambda: kmod.decoder_layer_plain(*args))]
+    print(f"  time {'dec_layer':19s} {'plain self repeat-inc ff=False':28s} "
+          f"kernel {ms[0]:.4f} ms  plain {ms[1]:.4f} ms  (B={B_MAIN} "
+          f"T={T_MAIN})", flush=True)
+    from keypoints_interpolation_transformer_torch.ops.kernels.int8_matmul \
+        import quantize_weight
+    o = chk.operands(1, 608)
+    args = (o["x"], *quantize_weight(o["wqkv"].t().contiguous(), "dense"),
+            o["bqkv"])
+    variant = f"qkv projection {D}->{3 * D}"
+    kern = lambda: kmod.fused_int8_dense(*args)  # noqa: E731
+    plain = lambda: kmod.int8_dense_plain(*args)  # noqa: E731
+    lib = library_int8_dense(torch, *args)
+    chk.compare("int8_dense", f"B=1 T=608 {variant}", kern(), plain())
+    chk.compare("int8_dense library", f"B=1 T=608 {variant}", lib(), plain())
+    ms = [min(timed_ms(f), timed_ms(f)) for f in (kern, plain, lib)]
+    print(f"  time {'int8_dense':19s} {variant:28s} kernel {ms[0]:.4f} ms  "
+          f"plain {ms[1]:.4f} ms  library {ms[2]:.4f} ms  (608 rows)",
+          flush=True)
     return chk.max_err, times
 
 
@@ -894,6 +1151,7 @@ def phase_variants(torch, kmod, tmp, first_path):
                                        and launches.get("dec_layer")):
             fail(f"cycle: the merged kernels were not launched: {launches}")
         check_served(variant, videos, masks, got, want)
+    return paths
 
 
 def phase_long_request(torch, kmod, path, gpu):
@@ -978,6 +1236,243 @@ def phase_throughput(torch, engines, gpu):
           f"{lat['plain']:.3f} ms (median of 7, best of 2 turns) on {gpu}",
           flush=True)
     return fps
+
+
+def pooled_mpjpe(tag, videos, masks, got, want):
+    """(masked MPJPE over all the missing frames of the videos, the worst
+    video's); each served video's shape, finite values and non-missing
+    frames (bit for bit the input) checked on the way."""
+    err = weight = worst = 0.0
+    for i, (v, m, g, w) in enumerate(zip(videos, masks, got, want)):
+        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+        if g.shape != v.shape or not np.isfinite(g).all():
+            fail(f"{tag} {i}: shape {g.shape} or non-finite values")
+        if not np.array_equal(g[m == 0], v[m == 0]):
+            fail(f"{tag} {i}: a non-missing frame changed")
+        d = np.sqrt(((g - w) ** 2).sum(-1))  # (T, K)
+        err += float((d * m[:, None]).sum())
+        weight += float(m.sum()) * d.shape[-1]
+        worst = max(worst, masked_mpjpe_delta(g[None], w[None], m[None]))
+    return err / max(weight, 1.0), worst
+
+
+def int8_tolerance(tag, plain_engine, videos, masks, want):
+    """The tolerance of an int8 route against the plain int8 path's
+    predictions ``want`` on these videos: INT8_DRIFT times the drift of
+    the plain int8 path itself when its inputs move by one ulp, and at
+    least INT8_MPJPE_TOL."""
+    nudged = [np.nextafter(v, np.float32(2.0)) for v in videos]
+    floor, _ = pooled_mpjpe(f"{tag} nudged", nudged, masks,
+                            plain_engine.inpaint(nudged, masks), want)
+    tol = max(INT8_MPJPE_TOL, INT8_DRIFT * floor)
+    print(f"  {tag}: the plain int8 path on inputs one ulp away drifts by "
+          f"masked MPJPE {floor:.3e}; tolerance {tol:.3e}", flush=True)
+    return tol
+
+
+def check_int8_served(tag, videos, masks, got, want, tol=INT8_MPJPE_TOL):
+    """Videos served int8 against the plain int8 path's ``want``: the
+    masked MPJPE over all their missing frames within ``tol`` (see
+    ``int8_tolerance``), the worst video's printed beside it."""
+    delta, worst = pooled_mpjpe(tag, videos, masks, got, want)
+    print(f"  {tag}: {len(videos)} videos, masked MPJPE vs the plain int8 "
+          f"path {delta:.3e} (tol {tol:.3e}; worst video {worst:.3e})",
+          flush=True)
+    if not delta < tol:
+        fail(f"{tag}: masked MPJPE {delta:.3e} >= {tol:.3e}")
+
+
+def serve_over_cli(args, videos, masks):
+    """Start ``cli serve`` with ``args`` in a child process on a free port
+    of 127.0.0.1, post one /inpaint request, stop the child; returns the
+    served videos."""
+    import select
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "keypoints_interpolation_transformer_torch.cli",
+         "serve", *args, "--port", "0"], cwd=repo, env=env,
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline, url, lines = time.time() + 300, None, []
+        while url is None and time.time() < deadline:
+            if not select.select([proc.stdout], [], [], 5)[0]:
+                if proc.poll() is not None:
+                    break
+                continue
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if line.startswith("serving on "):
+                url = line.split()[-1]
+        if url is None:
+            fail(f"cli serve {args} did not start: {''.join(lines)[-2000:]}")
+        if get(f"{url}/healthz") != {"ok": True}:
+            fail("cli serve: /healthz")
+        res = post(f"{url}/inpaint", {"videos": [v.tolist() for v in videos],
+                                      "masks": [m.tolist() for m in masks]})
+        return [np.asarray(v, np.float32) for v in res["videos"]]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def phase_int8(torch, kmod, path, variant_paths, gpu):
+    """Int8 serving (``Inpainter(quantize="int8")``) from the flagship's
+    reference .pth, against the plain int8 path and the float32 route."""
+    from keypoints_interpolation_transformer_torch.eval.quantize import (
+        quantization_error)
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.transforms.corruption \
+        import add_sos
+    print(f"phase 9: int8 serving from a reference .pth, B={B_MAIN} "
+          f"T={T_MAIN}", flush=True)
+    clean, miss = model_inputs(B_MAIN, T_MAIN, 4)
+    videos, masks = list(clean), list(miss)
+    engines = {name: Inpainter.from_checkpoint(
+        path, device=DEV, quantize=q, plain=plain, merge_layers=merge)
+        for name, q, plain, merge in (
+            ("int8 plain", "int8", True, True),
+            ("int8 merged", "int8", False, True),
+            ("int8 sublayer", "int8", False, False),
+            ("float merged", None, False, True))}
+    outs, route_counts = {}, {}
+    for name, want in (("int8 plain", NO_LAUNCHES),
+                       ("int8 merged", INT8_MERGED_COUNTS),
+                       ("int8 sublayer", INT8_SUBLAYER_COUNTS),
+                       ("float merged", MERGED_COUNTS)):
+        kmod.reset_launches()
+        out = engines[name].inpaint(videos, masks)
+        torch.cuda.synchronize()
+        counts = kmod.launch_counts()
+        print(f"  {name}: launches in one forward {nonzero(counts)}",
+              flush=True)
+        if counts != want:
+            fail(f"{name}: launch counts {counts} != {want}")
+        outs[name], route_counts[name] = out, counts
+    tol = int8_tolerance("flagship int8", engines["int8 plain"], videos,
+                         masks, outs["int8 plain"])
+    for name in ("int8 merged", "int8 sublayer"):
+        check_int8_served(name, videos, masks, outs[name],
+                          outs["int8 plain"], tol)
+    delta = masked_mpjpe_delta(np.stack(outs["int8 merged"]),
+                               np.stack(outs["float merged"]), miss)
+    print(f"  int8 vs float32 (merged routes): masked MPJPE {delta:.3e} "
+          f"(gate {INT8_VS_F32})", flush=True)
+    if not 0.0 < delta < INT8_VS_F32:
+        fail(f"int8 vs float32 masked MPJPE {delta:.3e}")
+    # eval.quantize.quantization_error on the float model, as a deployment
+    # gates on it
+    model = engines["float merged"].model
+    x = torch.from_numpy(clean[:16]).to(DEV)
+    inputs, mask = add_sos(x, torch.from_numpy(miss[:16]).to(DEV))
+    err = quantization_error(
+        model, (inputs[:, :-1], inputs[:, 1:], mask[:, :-1], mask[:, 1:]),
+        frame_mask=mask[:, 1:])
+    print(f"  quantization_error (16 videos, model forward, masked frames) "
+          f"{err:.3e} (gate {INT8_VS_F32})", flush=True)
+    if not 0.0 < err < INT8_VS_F32:
+        fail(f"quantization_error {err}")
+
+    fps = {}
+    for name in ("int8 plain", "float merged", "int8 merged", "int8 merged",
+                 "float merged", "int8 plain"):
+        engine = engines[name]
+        engine.inpaint(videos, masks)  # warm
+        t0 = time.perf_counter()
+        for _ in range(3):
+            engine.inpaint(videos, masks)
+        dt = (time.perf_counter() - t0) / 3
+        fps[name] = max(fps.get(name, 0.0), B_MAIN * T_MAIN / dt)
+    print(f"  Inpainter B={B_MAIN} T={T_MAIN}: int8 merged route "
+          f"{fps['int8 merged']:.1f} frames/s, float32 merged route "
+          f"{fps['float merged']:.1f} frames/s, int8 plain path "
+          f"{fps['int8 plain']:.1f} frames/s on {gpu}", flush=True)
+    lat = {}
+    for name in ("float merged", "int8 merged", "int8 merged",
+                 "float merged"):
+        engines[name].inpaint(videos[:1], masks[:1])  # warm
+        ms = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            engines[name].inpaint(videos[:1], masks[:1])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        lat[name] = min(lat.get(name, float("inf")), float(np.median(ms)))
+    print(f"  one video of {T_MAIN} frames: int8 merged route "
+          f"{lat['int8 merged']:.3f} ms, float32 merged route "
+          f"{lat['float merged']:.3f} ms (median of 7, best of 2 turns) on "
+          f"{gpu}", flush=True)
+    del engines
+
+    # one 600-frame request: bucket 608, attention per op
+    rng = np.random.default_rng(13)
+    video = [rng.uniform(0.2, 0.8, (600, 54, 2)).astype(np.float32)]
+    vmiss = [(rng.random(600) < 0.3).astype(np.float32)]
+    long = {plain: Inpainter.from_checkpoint(path, device=DEV,
+                                             max_seq_len=640, quantize="int8",
+                                             plain=plain)
+            for plain in (True, False)}
+    want = long[True].inpaint(video, vmiss)
+    kmod.reset_launches()
+    got = long[False].inpaint(video, vmiss)
+    torch.cuda.synchronize()
+    launches = kmod.launch_counts()
+    print(f"  600-frame request (bucket 608, per-op route): launches "
+          f"{nonzero(launches)}", flush=True)
+    if launches != INT8_PER_OP_COUNTS:
+        fail(f"600-frame int8 launches {launches} != {INT8_PER_OP_COUNTS}")
+    check_int8_served("608 bucket", video, vmiss, got, want,
+                      int8_tolerance("608 bucket", long[True], video, vmiss,
+                                     want))
+    del long
+
+    # the Cycle pair and the Embedding autoencoder, int8
+    vids, vmasks = request_videos(9)
+    for variant in ("cycle", "embedding"):
+        kw = dict(variant=variant, device=DEV, quantize="int8",
+                  first_checkpoint=path if variant == "cycle" else None)
+        oracle = Inpainter.from_checkpoint(variant_paths[variant],
+                                           plain=True, **kw)
+        want = oracle.inpaint(vids, vmasks)
+        inp = Inpainter.from_checkpoint(variant_paths[variant], **kw)
+        kmod.reset_launches()
+        got = inp.inpaint(vids, vmasks)
+        torch.cuda.synchronize()
+        counts = nonzero(kmod.launch_counts())
+        print(f"  {variant} int8: launches {counts}", flush=True)
+        need = ("enc_layer_int8", "ffn_int8") if variant == "cycle" \
+            else ("int8_dense",)
+        if not all(counts.get(n) for n in need) or (
+                variant == "embedding" and set(counts) != {"int8_dense"}):
+            fail(f"{variant} int8: launches {counts}")
+        check_int8_served(f"{variant} int8", vids, vmasks, got, want,
+                          int8_tolerance(f"{variant} int8", oracle, vids,
+                                         vmasks, want))
+
+    # an HTTP round trip through ``cli serve --quantize int8``
+    oracle = Inpainter.from_checkpoint(path, device=DEV, quantize="int8",
+                                       plain=True)
+    want = oracle.inpaint(vids, vmasks)
+    got = serve_over_cli(["--checkpoint", path, "--quantize", "int8",
+                          "--device", DEV], vids, vmasks)
+    check_int8_served("cli serve --quantize int8 over HTTP", vids, vmasks,
+                      got, want, int8_tolerance("cli serve", oracle, vids,
+                                                vmasks, want))
+    # each int8 kernel's launches on its route: the merged route's encoder
+    # layers and FF sublayers, the per-op route's projections
+    merged = route_counts["int8 merged"]
+    return {"enc_layer_int8": merged["enc_layer_int8"],
+            "ffn_int8": merged["ffn_int8"],
+            "int8_dense": launches["int8_dense"]}
 
 
 def train_setup(torch):
@@ -1409,18 +1904,21 @@ def sweep(torch, kmod, gpu):
     model = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
                               generator=torch.Generator().manual_seed(0))
     engines = {name: Inpainter(model.state_dict(), model_config(),
-                               device=DEV, merge_layers=merge, plain=plain)
-               for name, merge, plain in (("merged", True, False),
-                                          ("sublayer", False, False),
-                                          ("plain", True, True))}
+                               device=DEV, merge_layers=merge, plain=plain,
+                               quantize=q)
+               for name, merge, plain, q in (
+                   ("merged", True, False, None),
+                   ("sublayer", False, False, None),
+                   ("plain", True, True, None),
+                   ("int8 merged", True, False, "int8"))}
     print(f"sweep: latency of one Inpainter call (median of 7, best of 2 "
           f"turns), {gpu}", flush=True)
     for B, T in ((1, 128), (1, 256), (4, 128), (16, 128), (64, 128)):
         clean, miss = model_inputs(B, T, 5)
         videos, masks = list(clean), list(miss)
         lat = {}
-        for name in ("plain", "merged", "sublayer", "sublayer", "merged",
-                     "plain"):
+        for name in ("plain", "merged", "sublayer", "int8 merged",
+                     "int8 merged", "sublayer", "merged", "plain"):
             engines[name].inpaint(videos, masks)  # warm
             ms = []
             for _ in range(7):
@@ -1430,8 +1928,89 @@ def sweep(torch, kmod, gpu):
             lat[name] = min(lat.get(name, float("inf")),
                             float(np.median(ms)))
         print(f"  B={B} T={T}: " + ", ".join(
-            f"{n} {lat[n]:.3f} ms" for n in ("merged", "sublayer", "plain")),
-            flush=True)
+            f"{n} {lat[n]:.3f} ms" for n in ("merged", "sublayer", "plain",
+                                             "int8 merged")), flush=True)
+
+
+# the widths phase: (D, heads) at D in {32, 128, 384, 512} and head widths
+# 8, 64 and 128, FF = 4 D, two layers
+WIDTH_CASES = ((32, 4), (128, 2), (384, 3), (512, 8))
+WIDTH_LAYERS = 2
+
+
+def phase_widths(torch, kmod):
+    """Every kernel at the widths the JAX package's kernels take besides the
+    flagship's, against its plain version; then a two-layer model at each
+    width serves (float32 and int8, kernel route against plain) and takes
+    an A1 train step (kernel path against plain path)."""
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.train import state, steps
+    from keypoints_interpolation_transformer_torch.utils.config import (
+        Config, ModelConfig)
+    print("phase 10: widths D in {32, 128, 384, 512}, head widths 8, 64, "
+          "128", flush=True)
+    for d, heads in WIDTH_CASES:
+        ff = 4 * d
+        tag = f"D={d} H={heads} dh={d // heads} FF={ff}"
+        chk = KernelCheck(torch, kmod, d, heads, ff)
+        for T in (40, 128):
+            calls = ([(*c, False) for c in chk.calls(3, T)]
+                     + chk.train_calls(3, T) + chk.per_op_calls(3, T)
+                     + [(*c, False) for c in chk.int8_calls(3, T)])
+            for name, variant, kern, plain, grad in calls:
+                chk.compare(name, f"{tag} T={T} {variant}", kern(), plain(),
+                            grad)
+        cfg = Config(model=ModelConfig(hidden_dim=d, num_heads=heads,
+                                       num_layers=WIDTH_LAYERS, ff_dim=ff))
+        model = steps.build_model(cfg.model, device=DEV,
+                                  generator=torch.Generator().manual_seed(d))
+        clean, miss = model_inputs(4, T_MAIN, d)
+        videos, masks = list(clean), list(miss)
+        videos[1], masks[1] = videos[1][:97], masks[1][:97]
+        for q in (None, "int8"):
+            engines = [Inpainter(model.state_dict(), cfg.model, device=DEV,
+                                 quantize=q, plain=plain)
+                       for plain in (True, False)]
+            want = engines[0].inpaint(videos, masks)
+            kmod.reset_launches()
+            got = engines[1].inpaint(videos, masks)
+            torch.cuda.synchronize()
+            counts = nonzero(kmod.launch_counts())
+            print(f"  {tag} serving {q or 'float32'}: launches {counts}",
+                  flush=True)
+            if not counts:
+                fail(f"{tag}: serving launched no kernel")
+            if q is None:
+                check_served(f"{tag} float32", videos, masks, got, want)
+            else:
+                check_int8_served(f"{tag} int8", videos, masks, got, want,
+                                  int8_tolerance(f"{tag} int8", engines[0],
+                                                 videos, masks, want))
+        rng = np.random.default_rng(d)
+        x = torch.from_numpy(rng.uniform(0.2, 0.8, (4, T_MAIN, 54, 2))
+                             .astype(np.float32)).to(DEV)
+        length = torch.tensor([T_MAIN, 97, T_MAIN, 60], device=DEV)
+        losses = {}
+        for plain in (True, False):
+            net = steps.build_model(cfg.model, for_training=True, device=DEV,
+                                    generator=torch.Generator().manual_seed(0))
+            kmod.reset_launches()
+            _, m = steps.make_train_step(net, cfg, None, plain=plain)(
+                state.TrainState.create(net, 1e-3), x, length,
+                torch.ones(4, device=DEV),
+                torch.Generator(device=DEV).manual_seed(1), 1e-3)
+            torch.cuda.synchronize()
+            losses[plain] = float(m["loss"])
+            counts = nonzero(kmod.launch_counts())
+            if plain and counts:
+                fail(f"{tag}: the plain train step launched {counts}")
+        rel = abs(losses[False] - losses[True]) / abs(losses[True])
+        print(f"  {tag} train step: loss kernel {losses[False]:.7f} plain "
+              f"{losses[True]:.7f} rel {rel:.3e} (tol {LOSS_RTOL:.0e}); "
+              f"launches {counts}", flush=True)
+        if not counts or rel > LOSS_RTOL:
+            fail(f"{tag}: train step rel {rel:.3e}, launches {counts}")
 
 
 def model_config():
@@ -1459,8 +2038,9 @@ def main():
             torch.backends.cudnn.allow_tf32:
         fail("TF32 is on: the plain versions would not be f32 oracles")
     secs = _build.build()
-    print(f"  nvcc build {max(secs.values()):.1f} s "
-          f"({', '.join(_build.SOURCES)})", flush=True)
+    print(f"  nvcc build {max(secs.values()):.1f} s, the sources in parallel "
+          f"({', '.join(f'{n} {t:.1f} s' for n, t in secs.items())})",
+          flush=True)
     for name in _build.SOURCES:
         log = _build.BUILD_DIR / f"{name}.log"
         if log.is_file():
@@ -1488,8 +2068,9 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         launches, path, inp, oracle = phase_serving(torch, kmod, model, tmp)
-        phase_variants(torch, kmod, tmp, path)
+        variant_paths = phase_variants(torch, kmod, tmp, path)
         phase_long_request(torch, kmod, path, gpu)
+        int8_launches = phase_int8(torch, kmod, path, variant_paths, gpu)
         sublayer = Inpainter.from_checkpoint(path, device=DEV,
                                              merge_layers=False)
     phase_throughput(torch, {"merged": inp, "sublayer": sublayer,
@@ -1500,6 +2081,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         loop_launches = phase_loop(torch, kmod, gpu, tmp)
     launches.update({n: loop_launches[n] for n in PER_OP_KERNELS})
+    launches.update(int8_launches)
+    phase_widths(torch, kmod)
 
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -9,6 +9,8 @@ Usage:
       --checkpoint model.pth [--device cuda] [--port 8321]
   python -m keypoints_interpolation_transformer_torch.cli serve \
       --checkpoint cycle.pth --variant cycle --first_checkpoint first.pth
+  python -m keypoints_interpolation_transformer_torch.cli serve \
+      --checkpoint model.pth --quantize int8
 
 ``train`` takes the JAX package's ``train`` flags that the port honours,
 under the same names and defaults, and prints the same JSON line when it
@@ -148,6 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--first_checkpoint), embedding=a3")
     p.add_argument("--first_checkpoint", type=str, default=None,
                    help="the frozen plain model feeding a cycle checkpoint")
+    p.add_argument("--quantize", type=str, default=None, choices=["int8"],
+                   help="int8 weight and activation matmuls (the int8 FF "
+                        "and dense kernels; see eval/serving.Inpainter)")
     p.add_argument("--log_requests", action="store_true")
     return parser
 
@@ -170,7 +175,8 @@ def main(argv=None) -> int:
                                         max_seq_len=a.max_seq_len,
                                         bucket_multiple=a.bucket_multiple,
                                         variant=a.variant,
-                                        first_checkpoint=a.first_checkpoint),
+                                        first_checkpoint=a.first_checkpoint,
+                                        quantize=a.quantize),
               host=a.host, port=a.port, log_requests=a.log_requests)
         return 0
     return 1

@@ -90,7 +90,7 @@ qkv_proj_kernel(const float* __restrict__ x, const float* __restrict__ mem, int 
 
 template <int TN>
 __global__ void __launch_bounds__(NT)
-out_proj_kernel(const float* __restrict__ a, const float* __restrict__ x, int M,
+out_proj_kernel(const float* __restrict__ a, const float* __restrict__ x, int M, int n,
                 const float* __restrict__ wo, const float* __restrict__ bo,
                 const float* __restrict__ gamma, const float* __restrict__ beta,
                 float* __restrict__ y, float* __restrict__ r_out) {
@@ -119,7 +119,7 @@ out_proj_kernel(const float* __restrict__ a, const float* __restrict__ x, int M,
   }
   if (gamma != nullptr) {
     if (r_out != nullptr) store_rows<TN>(r_out, D, D, row0, M, r);
-    layer_norm<TN>(r, gamma, beta);
+    layer_norm<TN>(r, gamma, beta, n);
   }
   store_rows<TN>(y, D, D, row0, M, r);
 }
@@ -132,12 +132,13 @@ AttnArgs core_args(const float* qkv, int D, const float* mask, const float* vali
           add_keypad};
 }
 
+// n: the model's true width (<= D; see common.cuh), n / H the head width.
 template <int TN>
-int launch_rows(const float* x, const float* mem, int M, const float* wqkv, const float* bqkv,
-                const float* wo, const float* bo, const float* gamma, const float* beta,
-                float* qkv, float* a, float* y, float* stats, float* r_out, int B, int T, int H,
-                int repeat_inc, int add_keypad, const float* mask, const float* valid,
-                cudaStream_t st) {
+int launch_rows(const float* x, const float* mem, int M, int n, const float* wqkv,
+                const float* bqkv, const float* wo, const float* bo, const float* gamma,
+                const float* beta, float* qkv, float* a, float* y, float* stats, float* r_out,
+                int B, int T, int H, int repeat_inc, int add_keypad, const float* mask,
+                const float* valid, cudaStream_t st) {
   constexpr int D = 32 * TN;
   const int smem = (D * LDT + BK * D) * sizeof(float);
   static bool ready_qkv = false, ready_out = false;
@@ -151,16 +152,16 @@ int launch_rows(const float* x, const float* mem, int M, const float* wqkv, cons
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
 
-  rc = attn_fwd(core_args(qkv, D, mask, valid, a, stats, B, T, H, repeat_inc, add_keypad), D / H,
+  rc = attn_fwd(core_args(qkv, D, mask, valid, a, stats, B, T, H, repeat_inc, add_keypad), n / H,
                 st);
   if (rc) return rc;
 
-  out_proj_kernel<TN><<<blocks, NT, smem, st>>>(a, x, M, wo, bo, gamma, beta, y, r_out);
+  out_proj_kernel<TN><<<blocks, NT, smem, st>>>(a, x, M, n, wo, bo, gamma, beta, y, r_out);
   return (int)cudaGetLastError();
 }
 
 template <int TN>
-int launch_bwd(const float* dy, const float* x, const float* mem, const float* qkv,
+int launch_bwd(int n, const float* dy, const float* x, const float* mem, const float* qkv,
                const float* a, const float* stats, const float* r, const float* w_in,
                const float* w_out, const float* gamma, const float* mask, const float* valid,
                int B, int T, int H, int repeat_inc, int add_keypad, int s_w, int s_vec, float* dx,
@@ -185,7 +186,7 @@ int launch_bwd(const float* dy, const float* x, const float* mem, const float* q
   if ((rc = (x)) != 0) return rc
   const float* dr = dy;
   if (gamma != nullptr) {
-    ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dy, r, gamma, M, dr_buf, p_ln);
+    ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dy, r, gamma, M, n, dr_buf, p_ln);
     KIT_CHECK((int)cudaGetLastError());
     KIT_CHECK(sum_parts(p_ln, blocks, 2 * D, ln_out, st));
     dr = dr_buf;
@@ -195,7 +196,7 @@ int launch_bwd(const float* dy, const float* x, const float* mem, const float* q
   // backward only reads a and stats)
   KIT_CHECK(attn_bwd(core_args(qkv, D, mask, valid, const_cast<float*>(a),
                                const_cast<float*>(stats), B, T, H, repeat_inc, add_keypad),
-                     D / H, da, dqkv, 3 * D, dqkv + D, dqkv + 2 * D, 3 * D, delta, st));
+                     n / H, da, dqkv, 3 * D, dqkv + D, dqkv + 2 * D, 3 * D, delta, st));
   // weight gradients in torch's layout: dW_in[j, i] = sum_r dqkv[r, j] m[r, i]
   KIT_CHECK(atb<false>(dqkv, 3 * D, x, D, M, D, D, s_w, p_wq, dw_in, st));
   KIT_CHECK(atb<false>(dqkv + D, 3 * D, m, D, M, 2 * D, D, s_w, p_wkv, dw_in + (size_t)D * D,
@@ -221,9 +222,12 @@ int launch_bwd(const float* dy, const float* x, const float* mem, const float* q
 // (B, T) may be null (no keypad / repeat-inc term, all keys valid); gamma,
 // beta null means no LayerNorm.  stats (B, H, T, 2) and r_out (B*T, D), when
 // not null, receive each (row, head)'s softmax max and sum and the pre-LN
-// sum.  D is 128 or 256 and D / H is 16, 32 or 64.
-extern "C" int kit_attn_sublayer(const void* x, const void* mem, int B, int T, int D, int H,
-                                 const void* wqkv, const void* bqkv, const void* wo,
+// sum.  D is 128, 256, 384 or 512; n <= D is the model's true width (the
+// operands zero-padded from n to D; see common.cuh) and n / H, the head
+// width, a multiple of 4 up to 128.  a must hold zeros in columns H * (n /
+// H) and up when n < D.
+extern "C" int kit_attn_sublayer(const void* x, const void* mem, int B, int T, int D, int n,
+                                 int H, const void* wqkv, const void* bqkv, const void* wo,
                                  const void* bo, const void* gamma, const void* beta,
                                  const void* mask, const void* valid, int repeat_inc,
                                  int add_keypad, void* qkv, void* a, void* y, void* stats,
@@ -231,19 +235,13 @@ extern "C" int kit_attn_sublayer(const void* x, const void* mem, int B, int T, i
   auto st = (cudaStream_t)stream;
   auto p = [](const void* v) { return (const float*)v; };
   auto o = [](void* v) { return (float*)v; };
-  const int M = B * T;
-  switch (D) {
-    case 128:
-      return launch_rows<4>(p(x), p(mem), M, p(wqkv), p(bqkv), p(wo), p(bo), p(gamma), p(beta),
-                            o(qkv), o(a), o(y), o(stats), o(r_out), B, T, H, repeat_inc,
-                            add_keypad, p(mask), p(valid), st);
-    case 256:
-      return launch_rows<8>(p(x), p(mem), M, p(wqkv), p(bqkv), p(wo), p(bo), p(gamma), p(beta),
-                            o(qkv), o(a), o(y), o(stats), o(r_out), B, T, H, repeat_inc,
-                            add_keypad, p(mask), p(valid), st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (H <= 0 || n > D || n % H) return (int)cudaErrorInvalidValue;
+  return by_width(D, [&](auto tn) {
+    return launch_rows<decltype(tn)::value>(p(x), p(mem), B * T, n, p(wqkv), p(bqkv), p(wo),
+                                            p(bo), p(gamma), p(beta), o(qkv), o(a), o(y),
+                                            o(stats), o(r_out), B, T, H, repeat_inc, add_keypad,
+                                            p(mask), p(valid), st);
+  });
 }
 
 // Gradients of kit_attn_sublayer's y given dy = dL/dy (B*T, D), the
@@ -253,30 +251,24 @@ extern "C" int kit_attn_sublayer(const void* x, const void* mem, int B, int T, i
 // weights).  Writes dx, dmem, dw_in (3D, D), db_in (3D), dw_out (D, D),
 // db_out (D) and, with gamma, ln_out = [dgamma | dbeta].  scratch holds
 // 5 M D + B H T (rounded up to 4) + blocks * 2 D + s_w * 4 D^2 +
-// s_vec * 4 D floats, M = B*T, blocks = ceil(M / 32).
+// s_vec * 4 D floats, M = B*T, blocks = ceil(M / 32).  D and n as
+// kit_attn_sublayer takes them.
 extern "C" int kit_attn_sublayer_bwd(const void* dy, const void* x, const void* mem,
                                      const void* qkv, const void* a, const void* stats,
                                      const void* r, const void* w_in, const void* w_out,
                                      const void* gamma, const void* mask, const void* valid,
-                                     int B, int T, int D, int H, int repeat_inc, int add_keypad,
-                                     int s_w, int s_vec, void* dx, void* dmem, void* dw_in,
-                                     void* db_in, void* dw_out, void* db_out, void* ln_out,
-                                     void* scratch, void* stream) {
+                                     int B, int T, int D, int n, int H, int repeat_inc,
+                                     int add_keypad, int s_w, int s_vec, void* dx, void* dmem,
+                                     void* dw_in, void* db_in, void* dw_out, void* db_out,
+                                     void* ln_out, void* scratch, void* stream) {
   auto st = (cudaStream_t)stream;
   auto p = [](const void* v) { return (const float*)v; };
   auto o = [](void* v) { return (float*)v; };
-  switch (D) {
-    case 128:
-      return launch_bwd<4>(p(dy), p(x), p(mem), p(qkv), p(a), p(stats), p(r), p(w_in), p(w_out),
-                           p(gamma), p(mask), p(valid), B, T, H, repeat_inc, add_keypad, s_w,
-                           s_vec, o(dx), o(dmem), o(dw_in), o(db_in), o(dw_out), o(db_out),
-                           o(ln_out), o(scratch), st);
-    case 256:
-      return launch_bwd<8>(p(dy), p(x), p(mem), p(qkv), p(a), p(stats), p(r), p(w_in), p(w_out),
-                           p(gamma), p(mask), p(valid), B, T, H, repeat_inc, add_keypad, s_w,
-                           s_vec, o(dx), o(dmem), o(dw_in), o(db_in), o(dw_out), o(db_out),
-                           o(ln_out), o(scratch), st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (H <= 0 || n > D || n % H) return (int)cudaErrorInvalidValue;
+  return by_width(D, [&](auto tn) {
+    return launch_bwd<decltype(tn)::value>(
+        n, p(dy), p(x), p(mem), p(qkv), p(a), p(stats), p(r), p(w_in), p(w_out), p(gamma),
+        p(mask), p(valid), B, T, H, repeat_inc, add_keypad, s_w, s_vec, o(dx), o(dmem),
+        o(dw_in), o(db_in), o(dw_out), o(db_out), o(ln_out), o(scratch), st);
+  });
 }

@@ -14,10 +14,19 @@
 // columns of B, and 4 * TN FFMAs: the loads issue at a quarter of the FFMA
 // rate, so fewer, wider loads keep the FFMA pipe fed.  Weights are (K, N)
 // row-major, the Flax layout, transposed once when the model packs them.
+//
+// Widths: the kernels are built for D = 32 * TN with TN = 4, 8, 12 or 16
+// (D = 128 to 512; by_width dispatches).  A narrower model runs zero-padded
+// to the next of these by its wrapper, with every weight, bias and
+// LayerNorm parameter padded with zeros; the LayerNorms take the true width
+// n and keep their statistics over it, and write 0 to the padded columns,
+// so the padding never enters a mean and stays zero through every layer.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace kit {
 
@@ -116,34 +125,36 @@ __device__ __forceinline__ void mma_rows(float (&acc)[TM][TN], const float* AT, 
   }
 }
 
-// Normalize each of the thread's TM rows (width 32 * TN, one warp per row)
-// to zero mean and unit variance: (x - m) * rsqrt(mean((x - m)^2) + eps).
+// Normalize each of the thread's TM rows (one warp per row) over its first
+// n <= 32 * TN columns to zero mean and unit variance: (x - m) *
+// rsqrt(mean((x - m)^2) + eps); columns >= n become 0.
 template <int TN>
-__device__ __forceinline__ void row_norm(float (&v)[TM][TN]) {
-  constexpr float inv_n = 1.f / (32 * TN);
+__device__ __forceinline__ void row_norm(float (&v)[TM][TN], int n = 32 * TN) {
+  const float inv_n = 1.f / n;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) s += v[i][j];
+    for (int j = 0; j < TN; ++j) s += col_of(j) < n ? v[i][j] : 0.f;
     float mean = warp_sum(s) * inv_n;
     float ss = 0.f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      float d = v[i][j] - mean;
+      float d = col_of(j) < n ? v[i][j] - mean : 0.f;
       ss += d * d;
     }
     float inv = rsqrtf(warp_sum(ss) * inv_n + LN_EPS);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) v[i][j] = (v[i][j] - mean) * inv;
+    for (int j = 0; j < TN; ++j) v[i][j] = col_of(j) < n ? (v[i][j] - mean) * inv : 0.f;
   }
 }
 
-// LayerNorm with affine parameters over the rows held in registers.
+// LayerNorm with affine parameters over the rows held in registers, its
+// statistics over the first n columns (gamma and beta zero beyond them).
 template <int TN>
 __device__ __forceinline__ void layer_norm(float (&v)[TM][TN], const float* __restrict__ gamma,
-                                           const float* __restrict__ beta) {
-  row_norm<TN>(v);
+                                           const float* __restrict__ beta, int n = 32 * TN) {
+  row_norm<TN>(v, n);
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -203,6 +214,19 @@ inline cudaError_t allow_smem(Kernel k, int bytes, bool& done) {
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   done = (e == cudaSuccess);
   return e;
+}
+
+// f(std::integral_constant<int, TN>) for the kernel width D = 32 * TN
+// (128, 256, 384 or 512); cudaErrorInvalidValue for any other D.
+template <typename F>
+inline int by_width(int D, F&& f) {
+  switch (D) {
+    case 128: return f(std::integral_constant<int, 4>{});
+    case 256: return f(std::integral_constant<int, 8>{});
+    case 384: return f(std::integral_constant<int, 12>{});
+    case 512: return f(std::integral_constant<int, 16>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace kit

@@ -2,7 +2,7 @@
 // backward.
 //
 // Replaces keypoints_interpolation_transformer_tpu/ops/pallas/ffn.py (the
-// float32 mode):
+// float32 and int8 modes):
 //   * _kernel_single (with want_residuals for training):
 //         x1 = LN1(r) if pre_ln else r
 //         u  = x1 W1 + b1;  h = gelu(u) (exact erf);  z = x1 + (h W2 + b2)
@@ -11,6 +11,8 @@
 //         dz = LN2'(g);  dW2 = h^T dz;  db2 = sum dz;  du = (dz W2^T) gelu'(u)
 //         dW1 = x1^T du;  db1 = sum du;  dx1 = du W1^T + dz;  dr = LN1'(dx1)
 //     and the LayerNorm gradients.
+//   * _kernel_int8 (serving int8): both products int8 x int8 -> int32 with
+//     per-row activation scales found in the kernel (int8.cuh::ff_int8_rows).
 //
 // What bounds it on an H100: float32 FFMA work.  Forward 2 * 2 * D * FF =
 // 2.1 MFLOP per token at D = 256, FF = 2048 (17.2 GFLOP per call at B = 64,
@@ -53,6 +55,7 @@
 // which is also the layout of the weights the row pass multiplies by.
 #include "common.cuh"
 #include "grad.cuh"
+#include "int8.cuh"
 
 using namespace kit;
 
@@ -60,7 +63,7 @@ namespace {
 
 template <int TN>
 __global__ void __launch_bounds__(NT)
-ffn_kernel(const float* __restrict__ r, int M, int FF, const float* __restrict__ w1,
+ffn_kernel(const float* __restrict__ r, int M, int n, int FF, const float* __restrict__ w1,
            const float* __restrict__ b1, const float* __restrict__ w2,
            const float* __restrict__ b2, const float* __restrict__ g1,
            const float* __restrict__ be1, const float* __restrict__ g2,
@@ -78,7 +81,7 @@ ffn_kernel(const float* __restrict__ r, int M, int FF, const float* __restrict__
   float v[TM][TN];
   if (g1 != nullptr) {
     get_rows<TN>(v, Xs);
-    layer_norm<TN>(v, g1, be1);
+    layer_norm<TN>(v, g1, be1, n);
     put_rows<TN>(Xs, v);  // each thread rewrites only what it read
     __syncthreads();
   }
@@ -117,8 +120,36 @@ ffn_kernel(const float* __restrict__ r, int M, int FF, const float* __restrict__
 #pragma unroll
     for (int j = 0; j < TN; ++j) z[i][j] = v[i][j] + (z[i][j] + __ldg(b2 + col_of(j)));
   if (z_out != nullptr) store_rows<TN>(z_out, D, D, row0, M, z);
-  layer_norm<TN>(z, g2, be2);
+  layer_norm<TN>(z, g2, be2, n);
   store_rows<TN>(y, D, D, row0, M, z);
+}
+
+// The int8 forward: x1 = LN1(r) (with g1), z = ff_int8_rows(x1), y =
+// LN2(z); h (M, f.n) is the scratch ff_int8_rows keeps each row's GELU
+// output in.
+template <int TN>
+__global__ void __launch_bounds__(NT)
+ffn_int8_kernel(const float* __restrict__ r, int M, int n, const FFInt8 f,
+                const float* __restrict__ g1, const float* __restrict__ be1,
+                const float* __restrict__ g2, const float* __restrict__ be2,
+                float* __restrict__ y, float* h) {
+  constexpr int D = 32 * TN;
+  extern __shared__ __align__(16) float smem[];
+  float* Xs = smem;            // D x LDT
+  float* Hs = smem + D * LDT;  // D x LDT
+  const int row0 = blockIdx.x * BM;
+  stage_rows(Xs, r, D, row0, M, D);
+  __syncthreads();
+  float v[TM][TN];
+  get_rows<TN>(v, Xs);
+  if (g1 != nullptr) {
+    layer_norm<TN>(v, g1, be1, n);
+    put_rows<TN>(Xs, v);  // each thread rewrites only what it read
+  }
+  ff_int8_rows<TN>(Xs, Hs, f, h + (size_t)row0 * f.n, f.n, min(BM, M - row0));
+  get_rows<TN>(v, Xs);
+  layer_norm<TN>(v, g2, be2, n);
+  store_rows<TN>(y, D, D, row0, M, v);
 }
 
 // Backward row pass: dx1 = dz + (dz W2^T * gelu'(u)) W1^T over 32-row
@@ -248,21 +279,34 @@ ffn_bwd_dw1_kernel(const float* __restrict__ dz, const float* __restrict__ x1,
 }
 
 template <int TN>
-int launch(const float* r, int M, int FF, const float* w1, const float* b1, const float* w2,
-           const float* b2, const float* g1, const float* be1, const float* g2, const float* be2,
-           float* y, float* u, float* z, cudaStream_t st) {
+int launch(const float* r, int M, int n, int FF, const float* w1, const float* b1,
+           const float* w2, const float* b2, const float* g1, const float* be1, const float* g2,
+           const float* be2, float* y, float* u, float* z, cudaStream_t st) {
   constexpr int D = 32 * TN;
   const int smem = (2 * D * LDT + BK * D) * sizeof(float);
   static bool ready = false;
   cudaError_t e = allow_smem(ffn_kernel<TN>, smem, ready);
   if (e != cudaSuccess) return (int)e;
-  ffn_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(r, M, FF, w1, b1, w2, b2, g1, be1, g2, be2,
-                                                      y, u, z);
+  ffn_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(r, M, n, FF, w1, b1, w2, b2, g1, be1, g2,
+                                                      be2, y, u, z);
   return (int)cudaGetLastError();
 }
 
 template <int TN>
-int launch_bwd(const float* g, const float* r, const float* u, const float* z, const float* w1t,
+int launch_int8(const float* r, int M, int n, const FFInt8& f, const float* g1, const float* be1,
+                const float* g2, const float* be2, float* y, float* h, cudaStream_t st) {
+  constexpr int D = 32 * TN;
+  const int smem = 2 * D * LDT * sizeof(float);
+  static bool ready = false;
+  cudaError_t e = allow_smem(ffn_int8_kernel<TN>, smem, ready);
+  if (e != cudaSuccess) return (int)e;
+  ffn_int8_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(r, M, n, f, g1, be1, g2, be2, y, h);
+  return (int)cudaGetLastError();
+}
+
+template <int TN>
+int launch_bwd(int n, const float* g, const float* r, const float* u, const float* z,
+               const float* w1t,
                const float* w2t, const float* g1, const float* be1, int M, int FF, int s_dw1,
                int s_dw2, int s_vec, const float* g2, float* x1, float* dz, float* dr,
                float* dw1t, float* db1, float* dw2t, float* db2, float* ln_out, float* scratch,
@@ -285,15 +329,15 @@ int launch_bwd(const float* g, const float* r, const float* u, const float* z, c
   int rc;
 #define KIT_CHECK(x) \
   if ((rc = (x)) != 0) return rc
-  ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(g, z, g2, M, dz, p_ln2);
+  ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(g, z, g2, M, n, dz, p_ln2);
   KIT_CHECK((int)cudaGetLastError());
   ffn_bwd_rows_kernel<TN><<<blocks, NT, smem_rows, st>>>(dz, u, M, FF, w1t, w2t, dr, p_db1);
   KIT_CHECK((int)cudaGetLastError());
   const float* x1r = r;
   if (pre_ln) {
-    ln_fwd_kernel<TN><<<blocks, NT, 0, st>>>(r, g1, be1, M, x1);
+    ln_fwd_kernel<TN><<<blocks, NT, 0, st>>>(r, g1, be1, M, n, x1);
     KIT_CHECK((int)cudaGetLastError());
-    ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dr, r, g1, M, dr, p_ln1);  // in place
+    ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dr, r, g1, M, n, dr, p_ln1);  // in place
     KIT_CHECK((int)cudaGetLastError());
     KIT_CHECK(sum_parts(p_ln1, blocks, 2 * D, ln_out + 2 * D, st));
     x1r = x1;
@@ -314,24 +358,37 @@ int launch_bwd(const float* g, const float* r, const float* u, const float* z, c
 
 // r (M, D) -> y (M, D); w1 (D, FF), w2 (FF, D).  g1, be1 null means no LN1;
 // u (M, FF) and z (M, D), when not null, receive the training residuals.
-// D is 128 or 256.
-extern "C" int kit_ffn(const void* r, int M, int D, int FF, const void* w1, const void* b1,
-                       const void* w2, const void* b2, const void* g1, const void* be1,
-                       const void* g2, const void* be2, void* y, void* u, void* z,
-                       void* stream) {
+// D is 128, 256, 384 or 512; n <= D the model's true width (the operands
+// zero-padded from n to D; see common.cuh); FF a multiple of 4.
+extern "C" int kit_ffn(const void* r, int M, int D, int n, int FF, const void* w1,
+                       const void* b1, const void* w2, const void* b2, const void* g1,
+                       const void* be1, const void* g2, const void* be2, void* y, void* u,
+                       void* z, void* stream) {
   auto st = (cudaStream_t)stream;
   auto p = [](const void* v) { return (const float*)v; };
   auto o = [](void* v) { return (float*)v; };
-  switch (D) {
-    case 128:
-      return launch<4>(p(r), M, FF, p(w1), p(b1), p(w2), p(b2), p(g1), p(be1), p(g2), p(be2),
-                       o(y), o(u), o(z), st);
-    case 256:
-      return launch<8>(p(r), M, FF, p(w1), p(b1), p(w2), p(b2), p(g1), p(be1), p(g2), p(be2),
-                       o(y), o(u), o(z), st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (n > D || FF % 4) return (int)cudaErrorInvalidValue;
+  return by_width(D, [&](auto tn) {
+    return launch<decltype(tn)::value>(p(r), M, n, FF, p(w1), p(b1), p(w2), p(b2), p(g1),
+                                       p(be1), p(g2), p(be2), o(y), o(u), o(z), st);
+  });
+}
+
+// The int8 forward: r (M, D) -> y (M, D).  w1q (FF, D) and w2q (D, FF) int8
+// in torch's Linear layout with per-row scales w1s (FF) and w2s (D); g1,
+// be1 null means no LN1; h (M, FF) is scratch.  D and n as kit_ffn takes
+// them, FF a multiple of 4.
+extern "C" int kit_ffn_int8(const void* r, int M, int D, int n, int FF, const void* w1q,
+                            const void* w1s, const void* b1, const void* w2q, const void* w2s,
+                            const void* b2, const void* g1, const void* be1, const void* g2,
+                            const void* be2, void* y, void* h, void* stream) {
+  auto p = [](const void* v) { return (const float*)v; };
+  if (n > D || FF % 4) return (int)cudaErrorInvalidValue;
+  const FFInt8 f{(const int8_t*)w1q, p(w1s), p(b1), (const int8_t*)w2q, p(w2s), p(b2), FF};
+  return by_width(D, [&](auto tn) {
+    return launch_int8<decltype(tn)::value>(p(r), M, n, f, p(g1), p(be1), p(g2), p(be2),
+                                            (float*)y, (float*)h, (cudaStream_t)stream);
+  });
 }
 
 // Gradients of kit_ffn's y given g = dL/dy (M, D), the forward's input r and
@@ -340,26 +397,21 @@ extern "C" int kit_ffn(const void* r, int M, int D, int FF, const void* w1, cons
 // Writes dz (M, D, scratch), dr, dw1t (FF, D), db1, dw2t (D, FF), db2 and
 // ln_out = [dg2 | dbe2 | dg1 | dbe1] (4 D).  scratch holds the partial sums:
 // blocks * (4 D + FF) + s_dw1 * FF * D + s_dw2 * D * FF + s_vec * D floats,
-// blocks = ceil(M / 32).  D is 128 or 256, FF a multiple of 128.
+// blocks = ceil(M / 32).  D and n as kit_ffn takes them, FF a multiple of
+// 128.
 extern "C" int kit_ffn_bwd(const void* g, const void* r, const void* u, const void* z,
                            const void* w1t, const void* w2t, const void* g1, const void* be1,
-                           int M, int D, int FF, int s_dw1, int s_dw2, int s_vec, const void* g2,
-                           void* x1, void* dz, void* dr, void* dw1t, void* db1, void* dw2t,
-                           void* db2, void* ln_out, void* scratch, void* stream) {
+                           int M, int D, int n, int FF, int s_dw1, int s_dw2, int s_vec,
+                           const void* g2, void* x1, void* dz, void* dr, void* dw1t, void* db1,
+                           void* dw2t, void* db2, void* ln_out, void* scratch, void* stream) {
   auto st = (cudaStream_t)stream;
   auto p = [](const void* v) { return (const float*)v; };
   auto o = [](void* v) { return (float*)v; };
-  if (FF % FT) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 128:
-      return launch_bwd<4>(p(g), p(r), p(u), p(z), p(w1t), p(w2t), p(g1), p(be1), M, FF, s_dw1,
-                           s_dw2, s_vec, p(g2), o(x1), o(dz), o(dr), o(dw1t), o(db1), o(dw2t),
-                           o(db2), o(ln_out), o(scratch), st);
-    case 256:
-      return launch_bwd<8>(p(g), p(r), p(u), p(z), p(w1t), p(w2t), p(g1), p(be1), M, FF, s_dw1,
-                           s_dw2, s_vec, p(g2), o(x1), o(dz), o(dr), o(dw1t), o(db1), o(dw2t),
-                           o(db2), o(ln_out), o(scratch), st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (FF % FT || n > D) return (int)cudaErrorInvalidValue;
+  return by_width(D, [&](auto tn) {
+    return launch_bwd<decltype(tn)::value>(n, p(g), p(r), p(u), p(z), p(w1t), p(w2t), p(g1),
+                                           p(be1), M, FF, s_dw1, s_dw2, s_vec, p(g2), o(x1),
+                                           o(dz), o(dr), o(dw1t), o(db1), o(dw2t), o(db2),
+                                           o(ln_out), o(scratch), st);
+  });
 }

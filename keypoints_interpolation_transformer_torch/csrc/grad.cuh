@@ -63,29 +63,31 @@ __device__ __forceinline__ void block_colsum(const float (&v)[TM][TN], float* re
   __syncthreads();
 }
 
-// LayerNorm over rows [0, M) of width D = 32 * TN (one warp per row):
-// out = norm(x) * gamma + beta.
+// LayerNorm over rows [0, M) of width D = 32 * TN (one warp per row), its
+// statistics over the first nw columns (see common.cuh): out = norm(x) *
+// gamma + beta.
 template <int TN>
 __global__ void __launch_bounds__(NT)
 ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, int M, float* __restrict__ out) {
+              const float* __restrict__ beta, int M, int nw, float* __restrict__ out) {
   constexpr int D = 32 * TN;
   float v[TM][TN];
   load_rows<TN>(v, x, D, blockIdx.x * BM, M);
-  layer_norm<TN>(v, gamma, beta);
+  layer_norm<TN>(v, gamma, beta, nw);
   store_rows<TN>(out, D, D, blockIdx.x * BM, M, v);
 }
 
 // Backward of y = norm(x) * gamma + beta over rows [0, M) of width D =
-// 32 * TN, given dy: dx, and the block's partial sums of dy * norm(x)
-// (part[0, D)) and of dy (part[D, 2D)) at part + blockIdx.x * 2D.  dx may
-// be dy: each thread reads all its values before it writes them.
+// 32 * TN (statistics over the first nw columns, dx 0 beyond them), given
+// dy: dx, and the block's partial sums of dy * norm(x) (part[0, D)) and of
+// dy (part[D, 2D)) at part + blockIdx.x * 2D.  dx may be dy: each thread
+// reads all its values before it writes them.
 template <int TN>
 __global__ void __launch_bounds__(NT)
 ln_bwd_kernel(const float* dy, const float* __restrict__ x, const float* __restrict__ gamma,
-              int M, float* dx, float* __restrict__ part) {
+              int M, int nw, float* dx, float* __restrict__ part) {
   constexpr int D = 32 * TN;
-  constexpr float inv_n = 1.f / D;
+  const float inv_n = 1.f / nw;
   __shared__ float red[8 * D];
   const int row0 = blockIdx.x * BM;
   float n[TM][TN], g[TM][TN];
@@ -96,12 +98,12 @@ ln_bwd_kernel(const float* dy, const float* __restrict__ x, const float* __restr
   for (int i = 0; i < TM; ++i) {
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) s += n[i][j];
+    for (int j = 0; j < TN; ++j) s += col_of(j) < nw ? n[i][j] : 0.f;
     const float mean = warp_sum(s) * inv_n;
     float ss = 0.f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      n[i][j] -= mean;
+      n[i][j] = col_of(j) < nw ? n[i][j] - mean : 0.f;
       ss += n[i][j] * n[i][j];
     }
     inv[i] = rsqrtf(warp_sum(ss) * inv_n + LN_EPS);
@@ -128,25 +130,25 @@ ln_bwd_kernel(const float* dy, const float* __restrict__ x, const float* __restr
     }
     const float m1 = warp_sum(s1) * inv_n, m2 = warp_sum(s2) * inv_n;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) t[i][j] = (t[i][j] - m1 - n[i][j] * m2) * inv[i];
+    for (int j = 0; j < TN; ++j)
+      t[i][j] = col_of(j) < nw ? (t[i][j] - m1 - n[i][j] * m2) * inv[i] : 0.f;
   }
   store_rows<TN>(dx, D, D, row0, M, t);
 }
 
 // out[r, :] = A[r, :K] W[K, D] (+ add[r, :]) over rows [0, M), D = 32 * TN:
-// the block's rows of A (row stride lda) staged k-major once, W (row
-// stride ldw) streamed.  Dynamic shared memory (K * LDT + BK * D) floats.
+// the block's rows of A (row stride lda) staged k-major D columns at a
+// time, W (row stride ldw) streamed.  Dynamic shared memory (D * LDT +
+// BK * D) floats.  add may be out: each thread reads its values first.
 template <int TN>
 __global__ void __launch_bounds__(NT)
 rows_matmul_kernel(const float* __restrict__ A, int lda, int K, const float* __restrict__ W,
-                   int ldw, const float* __restrict__ add, int M, float* __restrict__ out) {
+                   int ldw, const float* add, int M, float* out) {
   constexpr int D = 32 * TN;
   extern __shared__ __align__(16) float smem[];
   float* AT = smem;
-  float* Ws = smem + round_up(K, BK) * LDT;
+  float* Ws = smem + D * LDT;
   const int row0 = blockIdx.x * BM;
-  stage_rows(AT, A, lda, row0, M, K);
-  __syncthreads();
   float acc[TM][TN];
   if (add != nullptr) {
     load_rows<TN>(acc, add, D, row0, M);
@@ -156,7 +158,13 @@ rows_matmul_kernel(const float* __restrict__ A, int lda, int K, const float* __r
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   }
-  mma_rows<TN>(acc, AT, K, W, ldw, D, Ws);
+  // the k-steps in order, as one pass over K would take them
+  for (int k0 = 0; k0 < K; k0 += D) {
+    const int kc = min(D, K - k0);
+    stage_rows(AT, A + k0, lda, row0, M, kc);
+    __syncthreads();
+    mma_rows<TN>(acc, AT, kc, W + (size_t)k0 * ldw, ldw, D, Ws);
+  }
   store_rows<TN>(out, D, D, row0, M, acc);
 }
 
@@ -262,16 +270,15 @@ inline int atb(const float* A, int lda, const float* B, int ldb, int K, int NA, 
   return rc ? rc : sum_parts(part, splits, NA * NB, out, st);
 }
 
-// out = A[:, :K] W (+ add), rows [0, M), D = 32 * TN.  K <= 3 D.
+// out = A[:, :K] W (+ add), rows [0, M), D = 32 * TN.
 template <int TN>
 inline int rows_matmul(const float* A, int lda, int K, const float* W, int ldw, const float* add,
                        int M, float* out, cudaStream_t st) {
   constexpr int D = 32 * TN;
+  constexpr int smem = (D * LDT + BK * D) * (int)sizeof(float);
   static bool ready = false;
-  cudaError_t e = allow_smem(rows_matmul_kernel<TN>, (3 * D * LDT + BK * D) * (int)sizeof(float),
-                             ready);
+  cudaError_t e = allow_smem(rows_matmul_kernel<TN>, smem, ready);
   if (e != cudaSuccess) return (int)e;
-  const int smem = (round_up(K, BK) * LDT + BK * D) * (int)sizeof(float);
   rows_matmul_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(A, lda, K, W, ldw, add, M, out);
   return (int)cudaGetLastError();
 }

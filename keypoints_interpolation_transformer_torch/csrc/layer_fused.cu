@@ -3,9 +3,13 @@
 // when asked).
 //
 // Replaces keypoints_interpolation_transformer_tpu/ops/pallas/layer_fused.py
-// (the float32 mode):
+// (the float32 mode, and the encoder's ff_int8 mode):
 //   * _enc_kernel (fused_encoder_layer):
 //         r = x + MHA(x);  x1 = LN1(r);  y = LN2(x1 + gelu(x1 W1 + b1) W2 + b2)
+//     and with ff_int8 (fused_encoder_layer_int8) the FF tail int8 x int8 ->
+//     int32 as ffn.cu's int8 kernel runs it (int8.cuh::ff_int8_rows; its GELU
+//     rows in per-video scratch); the attention stays float32, as it does
+//     in the TPU kernel unless attn_int8 is asked for (not ported).
 //   * _dec_kernel (fused_decoder_selfcross):
 //         x1 = LN1(x + SA(x));  r = x1 + CA(x1, memory)
 //         y = LN3(x2 + gelu(x2 W1 + b1) W2 + b2), x2 = LN2(r)   (with the FF tail)
@@ -58,6 +62,7 @@
 
 #include "attention.cuh"
 #include "common.cuh"
+#include "int8.cuh"
 
 using namespace kit;
 
@@ -83,6 +88,8 @@ struct FeedFwd {      // LN_out(x1 + gelu(x1 W1 + b1) W2 + b2), x1 = LN_in(r)
   const float *w1, *b1, *w2, *b2;  // (D, n), (n), (n, D), (D)
   const float *g_in, *be_in, *g_out, *be_out;
   int n;
+  FFInt8 q;  // q.w1q not null: the int8 tail (w1, w2 unused)
+  float* h;  // int8 tail: (B, T, n) scratch for the GELU rows
 };
 
 struct LayerArgs {
@@ -91,6 +98,7 @@ struct LayerArgs {
   float* y;          // (B, T, D)
   float* scratch;    // per video: 4 T D floats (encoder), 8 T D (decoder)
   int T, H;
+  int n;             // the model's true width (see common.cuh); n / H the head width
   int cl;            // blocks per video: the cluster size
   Attn self, cross;
   const float *g1, *be1;  // the decoder's LN1
@@ -157,34 +165,39 @@ __device__ void project(float* Xs, float* Ws, const float* src, int T, const flo
   }
 }
 
-// out[qi, h dh ..] = softmax(q k^T / sqrt(dh) + bias) v for this block's
+// out[qi, h hd ..] = softmax(q k^T / sqrt(hd) + bias) v for this block's
 // share of the (head h, query qi) pairs of video b (a contiguous run of
 // item = h T + qi); q, k, v rows of the video with strides ldq and ldkv,
-// out (T, D).  Only the heads of the block's items are staged.
-template <int TN, int DH>
+// out (T, D).  Only the heads of the block's items are staged.  The head
+// width hd is DH when EXACT, else dh (see attention.cuh).
+template <int TN, int DH, bool EXACT>
 __device__ void attend(float* smem, const float* q, int ldq, const float* k, const float* v,
-                       int ldkv, Bias bias, int b, int T, int H, float* out, int rank, int cl) {
+                       int ldkv, Bias bias, int b, int T, int H, int dh, float* out, int rank,
+                       int cl) {
   constexpr int D = 32 * TN;
   float* Ks = smem;         // KT x D
   float* Vs = Ks + KT * D;  // KT x D
   float* km = Vs + KT * D;  // KT: mask[key]
   float* kv = km + KT;      // KT: valid[key]
+  const int hd = EXACT ? DH : dh;
   const float* mask = bias.mask == nullptr ? nullptr : bias.mask + (size_t)b * T;
   const float* valid = bias.valid == nullptr ? nullptr : bias.valid + (size_t)b * T;
-  const float scale = 1.f / sqrtf((float)DH);
+  const float scale = 1.f / sqrtf((float)hd);
   const int per = (H * T + cl - 1) / cl;
   const int lo = rank * per, items = min(H * T, lo + per);
   for (int i0 = lo; i0 < items; i0 += NT) {
     const int item = i0 + threadIdx.x;
     const bool active = item < items;
-    // the columns of the heads this round's items touch
-    const int c_lo = i0 / T * DH, c_hi = (min(items, i0 + NT) - 1) / T * DH + DH;
-    const int h = active ? item / T : c_lo / DH;
+    // the columns of the heads this round's items touch, in whole float4
+    // groups
+    const int c_lo = i0 / T * hd / 4 * 4;
+    const int c_hi = round_up((min(items, i0 + NT) - 1) / T * hd + hd, 4);
+    const int h = active ? item / T : i0 / T;
     const int qi = active ? item - h * T : 0;
     float qv[DH], o[DH];
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      qv[d] = active ? __ldcg(q + (size_t)qi * ldq + h * DH + d) : 0.f;
+#pragma unroll (EXACT ? DH : 1)
+    for (int d = 0; d < hd; ++d) {
+      qv[d] = active ? __ldcg(q + (size_t)qi * ldq + h * hd + d) : 0.f;
       o[d] = 0.f;
     }
     float m = -INFINITY, l = 0.f;
@@ -211,17 +224,22 @@ __device__ void attend(float* smem, const float* q, int ldq, const float* k, con
       // every chunk started holds a key < T, so m is finite after the first
       const int nk = min(KT, T - k0);
       for (int c0 = 0; c0 < nk; c0 += KC)
-        softmax_chunk<DH, KC>(qv, o, m, l, Ks + c0 * D + h * DH, Vs + c0 * D + h * DH, D,
-                              km + c0, kv + c0, qi, k0 + c0, T, bias.repeat_inc,
-                              bias.add_keypad, scale);
+        softmax_chunk<DH, KC, EXACT>(qv, o, m, l, Ks + c0 * D + h * hd, Vs + c0 * D + h * hd,
+                                     D, km + c0, kv + c0, qi, k0 + c0, T, bias.repeat_inc,
+                                     bias.add_keypad, scale, hd);
     }
     if (active) {
       const float inv = 1.f / l;
-      float* dst = out + (size_t)qi * D + h * DH;
+      float* dst = out + (size_t)qi * D + h * hd;
+      if constexpr (EXACT) {
 #pragma unroll
-      for (int d = 0; d < DH; d += 4)
-        *reinterpret_cast<float4*>(dst + d) =
-            make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv, o[d + 3] * inv);
+        for (int d = 0; d < DH; d += 4)
+          *reinterpret_cast<float4*>(dst + d) =
+              make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv, o[d + 3] * inv);
+      } else {
+#pragma unroll 1
+        for (int d = 0; d < hd; ++d) dst[d] = o[d] * inv;
+      }
     }
   }
 }
@@ -253,8 +271,9 @@ __device__ __forceinline__ void out_proj(float (&r)[TM][TN], float* Xs, float* W
 // v = LN_out(v + gelu(v W1 + b1) W2 + b2) for the tile whose rows v holds
 // (already LN_in-normalized), as ffn.cu's kernel: v through Xs, the FF axis
 // in D-wide chunks, each chunk's GELU output in Hs.  Xs and Hs must be free.
+// n: the true width LN_out takes its statistics over.
 template <int TN>
-__device__ void ff_tile(float (&v)[TM][TN], float* Xs, float* Hs, float* Ws, FeedFwd ff) {
+__device__ void ff_tile(float (&v)[TM][TN], float* Xs, float* Hs, float* Ws, FeedFwd ff, int n) {
   constexpr int D = 32 * TN;
   put_rows<TN>(Xs, v);
   __syncthreads();
@@ -280,12 +299,28 @@ __device__ void ff_tile(float (&v)[TM][TN], float* Xs, float* Hs, float* Ws, Fee
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) v[i][j] = v[i][j] + (z[i][j] + __ldg(ff.b2 + col_of(j)));
-  layer_norm<TN>(v, ff.g_out, ff.be_out);
+  layer_norm<TN>(v, ff.g_out, ff.be_out, n);
+}
+
+// The FF tail of one tile (v = LN_in(r) on entry): the float32 one, or the
+// int8 one when ff.q.w1q is set; rows [row0, row0 + BM) of video b.
+template <int TN>
+__device__ __forceinline__ void ff_tail(float (&v)[TM][TN], float* Xs, float* Hs, float* Ws,
+                                        const FeedFwd& ff, int n, int b, int T, int row0) {
+  if (ff.q.w1q != nullptr) {
+    put_rows<TN>(Xs, v);
+    ff_int8_rows<TN>(Xs, Hs, ff.q, ff.h + ((size_t)b * T + row0) * ff.q.n, ff.q.n,
+                     min(BM, T - row0));
+    get_rows<TN>(v, Xs);
+    layer_norm<TN>(v, ff.g_out, ff.be_out, n);
+  } else {
+    ff_tile<TN>(v, Xs, Hs, Ws, ff, n);
+  }
 }
 
 // One encoder layer per cluster of p.cl blocks (one cluster per video).
 // Scratch per video: qkv (T, 3D), then a (T, D).
-template <int TN, int DH>
+template <int TN, int DH, bool EXACT>
 __global__ void __launch_bounds__(NT, 2) enc_layer_kernel(const LayerArgs p) {
   constexpr int D = 32 * TN;
   extern __shared__ __align__(16) float smem[];
@@ -300,15 +335,15 @@ __global__ void __launch_bounds__(NT, 2) enc_layer_kernel(const LayerArgs p) {
 
   project<TN>(Xs, Ws, x, T, p.self.wqkv, 3 * D, p.self.bqkv, 3, qkv, 3 * D, rank, p.cl);
   phase_sync(p.cl);
-  attend<TN, DH>(smem, qkv, 3 * D, qkv + D, qkv + 2 * D, 3 * D, p.sbias, b, T, p.H, a, rank,
-                 p.cl);
+  attend<TN, DH, EXACT>(smem, qkv, 3 * D, qkv + D, qkv + 2 * D, 3 * D, p.sbias, b, T, p.H,
+                        p.n / p.H, a, rank, p.cl);
   phase_sync(p.cl);
   for (int row0 = rank * BM; row0 < T; row0 += p.cl * BM) {
     __syncthreads();  // Xs and Hs are free
     float v[TM][TN];
     out_proj<TN>(v, Xs, Ws, a, x, row0, T, p.self.wo, p.self.bo);
-    layer_norm<TN>(v, p.ff.g_in, p.ff.be_in);  // LN1
-    ff_tile<TN>(v, Xs, Hs, Ws, p.ff);          // LN2(x1 + FF(x1))
+    layer_norm<TN>(v, p.ff.g_in, p.ff.be_in, p.n);          // LN1
+    ff_tail<TN>(v, Xs, Hs, Ws, p.ff, p.n, b, T, row0);      // LN2(x1 + FF(x1))
     store_rows<TN>(p.y + vid, D, D, row0, T, v);
   }
 }
@@ -317,7 +352,7 @@ __global__ void __launch_bounds__(NT, 2) enc_layer_kernel(const LayerArgs p) {
 // self q, k, v (T, 3D), the cross k, v of the memory (T, 2D), a (T, D; the
 // self, then the cross attention output), x1 (T, D) and the cross q
 // (T, D).
-template <int TN, int DH>
+template <int TN, int DH, bool EXACT>
 __global__ void __launch_bounds__(NT, 2) dec_layer_kernel(const LayerArgs p) {
   constexpr int D = 32 * TN;
   extern __shared__ __align__(16) float smem[];
@@ -337,14 +372,14 @@ __global__ void __launch_bounds__(NT, 2) dec_layer_kernel(const LayerArgs p) {
   project<TN>(Xs, Ws, p.mem + vid, T, p.cross.wqkv + D, 3 * D, p.cross.bqkv + D, 2, ckv, 2 * D,
               rank, p.cl);
   phase_sync(p.cl);
-  attend<TN, DH>(smem, sqkv, 3 * D, sqkv + D, sqkv + 2 * D, 3 * D, p.sbias, b, T, p.H, a, rank,
-                 p.cl);
+  attend<TN, DH, EXACT>(smem, sqkv, 3 * D, sqkv + D, sqkv + 2 * D, 3 * D, p.sbias, b, T,
+                        p.H, p.n / p.H, a, rank, p.cl);
   phase_sync(p.cl);
   for (int row0 = rank * BM; row0 < T; row0 += p.cl * BM) {
     __syncthreads();
     float v[TM][TN];
     out_proj<TN>(v, Xs, Ws, a, x, row0, T, p.self.wo, p.self.bo);
-    layer_norm<TN>(v, p.g1, p.be1);  // x1 = LN1(x + SA(x))
+    layer_norm<TN>(v, p.g1, p.be1, p.n);  // x1 = LN1(x + SA(x))
     store_rows<TN>(x1, D, D, row0, T, v);
     put_rows<TN>(Xs, v);
     __syncthreads();
@@ -357,27 +392,28 @@ __global__ void __launch_bounds__(NT, 2) dec_layer_kernel(const LayerArgs p) {
     store_rows<TN>(q2, D, D, row0, T, v);
   }
   phase_sync(p.cl);  // q2 and x1 are complete, a is read
-  attend<TN, DH>(smem, q2, D, ckv, ckv + D, 2 * D, p.cbias, b, T, p.H, a, rank, p.cl);
+  attend<TN, DH, EXACT>(smem, q2, D, ckv, ckv + D, 2 * D, p.cbias, b, T, p.H, p.n / p.H, a,
+                        rank, p.cl);
   phase_sync(p.cl);
   for (int row0 = rank * BM; row0 < T; row0 += p.cl * BM) {
     __syncthreads();
     float v[TM][TN];
     out_proj<TN>(v, Xs, Ws, a, x1, row0, T, p.cross.wo, p.cross.bo);  // r = x1 + CA
     if (p.ff.w1 != nullptr) {
-      layer_norm<TN>(v, p.ff.g_in, p.ff.be_in);  // x2 = LN2(r)
-      ff_tile<TN>(v, Xs, Hs, Ws, p.ff);          // LN3(x2 + FF(x2))
+      layer_norm<TN>(v, p.ff.g_in, p.ff.be_in, p.n);  // x2 = LN2(r)
+      ff_tile<TN>(v, Xs, Hs, Ws, p.ff, p.n);          // LN3(x2 + FF(x2))
     }
     store_rows<TN>(p.y + vid, D, D, row0, T, v);
   }
 }
 
-template <int TN, int DH>
+template <int TN, int DH, bool EXACT>
 int launch(const LayerArgs& p, int B, bool decoder, cudaStream_t st) {
   constexpr int D = 32 * TN;
   constexpr int rows = 2 * D * LDT + BK * D, keys = 2 * KT * D + 2 * KT;
   constexpr int smem = (rows > keys ? rows : keys) * (int)sizeof(float);
   static bool ready_enc = false, ready_dec = false;
-  auto kernel = decoder ? dec_layer_kernel<TN, DH> : enc_layer_kernel<TN, DH>;
+  auto kernel = decoder ? dec_layer_kernel<TN, DH, EXACT> : enc_layer_kernel<TN, DH, EXACT>;
   cudaError_t e = allow_smem(kernel, smem, decoder ? ready_dec : ready_enc);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
@@ -397,39 +433,25 @@ int launch(const LayerArgs& p, int B, bool decoder, cudaStream_t st) {
 }
 
 int dispatch(const LayerArgs& p, int B, int D, bool decoder, cudaStream_t st) {
-  if (p.H <= 0 || D % p.H || p.ff.n % 4 || p.cl < 1 || p.cl > 8)
+  if (p.H <= 0 || p.n > D || p.n % p.H || p.ff.n % 4 || p.cl < 1 || p.cl > 8)
     return (int)cudaErrorInvalidValue;
-  const int dh = D / p.H;
-#define KIT_CASE(d, tn, h) \
-  if (D == d && dh == h) return launch<tn, h>(p, B, decoder, st)
-  KIT_CASE(128, 4, 16);
-  KIT_CASE(128, 4, 32);
-  KIT_CASE(128, 4, 64);
-  KIT_CASE(256, 8, 16);
-  KIT_CASE(256, 8, 32);
-  KIT_CASE(256, 8, 64);
-#undef KIT_CASE
-  return (int)cudaErrorInvalidValue;
+  return by_width(D, [&](auto tn) {
+    return by_head(p.n / p.H, [&](auto hb) {
+      using HB = decltype(hb);
+      return launch<decltype(tn)::value, HB::DH, HB::EXACT>(p, B, decoder, st);
+    });
+  });
 }
 
 Bias bias_of(const void* mask, const void* valid, int repeat_inc, int add_keypad) {
   return Bias{(const float*)mask, (const float*)valid, repeat_inc, add_keypad};
 }
 
-}  // namespace
-
-// x (B, T, D) -> y (B, T, D): one encoder layer, a cluster of cl (1 to 8)
-// blocks per video.  Weights in the Flax layout: wqkv (D, 3D), wo (D, D),
-// w1 (D, FF), w2 (FF, D); g1/be1 LN1, g2/be2 LN2.  mask, valid (B, T) may
-// be null (no mask term / every key valid).  scratch holds 4 B T D floats.
-// D is 128 or 256, D / H is 16, 32 or 64, FF a multiple of 4.
-extern "C" int kit_enc_layer(const void* x, int B, int T, int D, int H, int FF, int cl,
-                             const void* wqkv,
-                             const void* bqkv, const void* wo, const void* bo, const void* w1,
-                             const void* b1, const void* w2, const void* b2, const void* g1,
-                             const void* be1, const void* g2, const void* be2, const void* mask,
-                             const void* valid, int repeat_inc, int add_keypad, void* y,
-                             void* scratch, void* stream) {
+// The encoder layer's arguments but its FF tail.
+LayerArgs encoder_args(const void* x, int T, int n, int H, int cl, const void* wqkv,
+                       const void* bqkv, const void* wo, const void* bo, const void* mask,
+                       const void* valid, int repeat_inc, int add_keypad, void* y,
+                       void* scratch) {
   auto f = [](const void* v) { return (const float*)v; };
   LayerArgs p{};
   p.x = f(x);
@@ -437,10 +459,54 @@ extern "C" int kit_enc_layer(const void* x, int B, int T, int D, int H, int FF, 
   p.scratch = (float*)scratch;
   p.T = T;
   p.H = H;
+  p.n = n;
   p.cl = cl;
   p.self = Attn{f(wqkv), f(bqkv), f(wo), f(bo)};
   p.sbias = bias_of(mask, valid, repeat_inc, add_keypad);
-  p.ff = FeedFwd{f(w1), f(b1), f(w2), f(b2), f(g1), f(be1), f(g2), f(be2), FF};
+  return p;
+}
+
+}  // namespace
+
+// x (B, T, D) -> y (B, T, D): one encoder layer, a cluster of cl (1 to 8)
+// blocks per video.  Weights in the Flax layout: wqkv (D, 3D), wo (D, D),
+// w1 (D, FF), w2 (FF, D); g1/be1 LN1, g2/be2 LN2.  mask, valid (B, T) may
+// be null (no mask term / every key valid).  scratch holds 4 B T D floats,
+// zero in its attention-output columns H * (n / H) and up when n < D.  D is
+// 128, 256, 384 or 512; n <= D the model's true width (the operands
+// zero-padded from n to D; see common.cuh), n / H a multiple of 4 up to
+// 128; FF a multiple of 4.
+extern "C" int kit_enc_layer(const void* x, int B, int T, int D, int n, int H, int FF, int cl,
+                             const void* wqkv, const void* bqkv, const void* wo, const void* bo,
+                             const void* w1, const void* b1, const void* w2, const void* b2,
+                             const void* g1, const void* be1, const void* g2, const void* be2,
+                             const void* mask, const void* valid, int repeat_inc,
+                             int add_keypad, void* y, void* scratch, void* stream) {
+  auto f = [](const void* v) { return (const float*)v; };
+  LayerArgs p = encoder_args(x, T, n, H, cl, wqkv, bqkv, wo, bo, mask, valid, repeat_inc,
+                             add_keypad, y, scratch);
+  p.ff = FeedFwd{f(w1), f(b1), f(w2), f(b2), f(g1), f(be1), f(g2), f(be2), FF, FFInt8{},
+                 nullptr};
+  return dispatch(p, B, D, false, (cudaStream_t)stream);
+}
+
+// kit_enc_layer with its FF tail int8: w1q (FF, D) and w2q (D, FF) int8 in
+// torch's Linear layout with per-row scales w1s (FF) and w2s (D); h holds
+// B T FF floats of scratch.
+extern "C" int kit_enc_layer_int8(const void* x, int B, int T, int D, int n, int H, int FF,
+                                  int cl, const void* wqkv, const void* bqkv, const void* wo,
+                                  const void* bo, const void* w1q, const void* w1s,
+                                  const void* b1, const void* w2q, const void* w2s,
+                                  const void* b2, const void* g1, const void* be1,
+                                  const void* g2, const void* be2, const void* mask,
+                                  const void* valid, int repeat_inc, int add_keypad, void* y,
+                                  void* scratch, void* h, void* stream) {
+  auto f = [](const void* v) { return (const float*)v; };
+  LayerArgs p = encoder_args(x, T, n, H, cl, wqkv, bqkv, wo, bo, mask, valid, repeat_inc,
+                             add_keypad, y, scratch);
+  p.ff = FeedFwd{nullptr, f(b1), nullptr, f(b2), f(g1), f(be1), f(g2), f(be2), FF,
+                 FFInt8{(const int8_t*)w1q, f(w1s), f(b1), (const int8_t*)w2q, f(w2s), f(b2), FF},
+                 (float*)h};
   return dispatch(p, B, D, false, (cudaStream_t)stream);
 }
 
@@ -449,9 +515,10 @@ extern "C" int kit_enc_layer(const void* x, int B, int T, int D, int H, int FF, 
 // above), g1/be1 LN1.  w1 null means no FF tail (y = x1 + CA(x1, mem)); else w1,
 // b1, w2, b2 with g2/be2 LN2 and g3/be3 LN3.  smask/svalid and
 // cmask/cvalid (B, T) build the self and cross bias and may be null.
-// scratch holds 8 B T D floats.
-extern "C" int kit_dec_layer(const void* x, const void* mem, int B, int T, int D, int H, int FF,
-                             int cl, const void* swqkv, const void* sbqkv, const void* swo,
+// scratch holds 8 B T D floats, zero in its attention-output columns as
+// kit_enc_layer's.  D, n and H as kit_enc_layer takes them.
+extern "C" int kit_dec_layer(const void* x, const void* mem, int B, int T, int D, int n, int H,
+                             int FF, int cl, const void* swqkv, const void* sbqkv, const void* swo,
                              const void* sbo, const void* cwqkv, const void* cbqkv,
                              const void* cwo, const void* cbo, const void* g1, const void* be1,
                              const void* w1, const void* b1, const void* w2, const void* b2,
@@ -468,6 +535,7 @@ extern "C" int kit_dec_layer(const void* x, const void* mem, int B, int T, int D
   p.scratch = (float*)scratch;
   p.T = T;
   p.H = H;
+  p.n = n;
   p.cl = cl;
   p.self = Attn{f(swqkv), f(sbqkv), f(swo), f(sbo)};
   p.cross = Attn{f(cwqkv), f(cbqkv), f(cwo), f(cbo)};

@@ -187,39 +187,26 @@ int launch_post(const float* d, const float* f, int M, const float* w12, const f
 
 // x (M, F) -> out (M, D) [and emb (M, D) when emb is not null]; pe (T, D)
 // holds the sinusoidal table plus the learned position vector; row m is
-// position m % T.  D is 128 or 256; F <= D is a multiple of 4.
+// position m % T.  D is 128, 256, 384 or 512; F <= D is a multiple of 4.
 extern "C" int kit_pre_embed(const void* x, int M, int T, int F, int D, const void* wemb,
                              const void* bemb, const void* pe, const void* w12, const void* b12,
                              const void* w3, const void* b3, void* out, void* emb,
                              int pe_residual, void* stream) {
-  auto st = (cudaStream_t)stream;
   auto p = [](const void* v) { return (const float*)v; };
-  switch (D) {
-    case 128:
-      return launch_pre<4>(p(x), M, T, F, p(wemb), p(bemb), p(pe), p(w12), p(b12), p(w3), p(b3),
-                           (float*)out, (float*)emb, pe_residual, st);
-    case 256:
-      return launch_pre<8>(p(x), M, T, F, p(wemb), p(bemb), p(pe), p(w12), p(b12), p(w3), p(b3),
-                           (float*)out, (float*)emb, pe_residual, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return by_width(D, [&](auto tn) {
+    return launch_pre<decltype(tn)::value>(p(x), M, T, F, p(wemb), p(bemb), p(pe), p(w12),
+                                           p(b12), p(w3), p(b3), (float*)out, (float*)emb,
+                                           pe_residual, (cudaStream_t)stream);
+  });
 }
 
 // d, f (M, D) -> out (M, F); F <= D is a multiple of 4.
 extern "C" int kit_post_head(const void* d, const void* f, int M, int D, const void* w12,
                              const void* b12, const void* w3, const void* b3, const void* wh,
                              const void* bh, int F, void* out, void* stream) {
-  auto st = (cudaStream_t)stream;
   auto p = [](const void* v) { return (const float*)v; };
-  switch (D) {
-    case 128:
-      return launch_post<4>(p(d), p(f), M, p(w12), p(b12), p(w3), p(b3), p(wh), p(bh), F,
-                            (float*)out, st);
-    case 256:
-      return launch_post<8>(p(d), p(f), M, p(w12), p(b12), p(w3), p(b3), p(wh), p(bh), F,
-                            (float*)out, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return by_width(D, [&](auto tn) {
+    return launch_post<decltype(tn)::value>(p(d), p(f), M, p(w12), p(b12), p(w3), p(b3), p(wh),
+                                            p(bh), F, (float*)out, (cudaStream_t)stream);
+  });
 }

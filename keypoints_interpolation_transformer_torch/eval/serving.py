@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..data.keypoints import NUM_COORDS, NUM_KEYPOINTS
+from ..models.completer import check_quantize
 from ..models.convert import (is_embedding_state_dict, load_reference_pth,
                               state_dict_tensors)
 from ..ops.losses import composite_prediction
@@ -53,12 +54,24 @@ class Inpainter:
     kernels, CPU tensors through their plain versions.  ``plain=True`` runs
     the plain versions on any device (the oracle path); ``merge_layers``
     False takes the per-sublayer kernels where the merged whole-layer ones
-    would run."""
+    would run.
+
+    ``quantize="int8"`` serves int8 as the JAX package's Inpainter does on
+    the TPU: the FF sublayers through the int8 FF kernels (the merged
+    encoder layer in its int8-FF mode), every matmul that runs as a JAX
+    ``nn.Dense`` there (the per-op attention projections, the pointwise
+    chains off their kernels, the Embedding variant's two Linears) through
+    the int8 dense layer, the rest in float32; both models of the Cycle
+    variant.  The weights are quantized once, when the models are packed
+    (``KeypointCompleter.pack_weights``); ``eval.quantize.
+    quantization_error`` measures what int8 costs against float32."""
 
     def __init__(self, state_dict, model_cfg: ModelConfig,
                  bucket_multiple: int = 32, max_seq_len: int = 512,
                  variant: str = "plain", first_state_dict=None, device="cuda",
-                 plain: bool = False, merge_layers: bool = True):
+                 plain: bool = False, merge_layers: bool = True,
+                 quantize: Optional[str] = None):
+        quantize = check_quantize(quantize)
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}, expected one of "
                              f"{VARIANTS}")
@@ -76,8 +89,7 @@ class Inpainter:
             model = build_model(model_cfg, v, merge_layers=merge_layers,
                                 device=self.device)
             model.load_state_dict(state_dict_tensors(sd))
-            if v != "embedding":
-                model.pack_weights()
+            model.pack_weights(quantize)
             return model.eval()
 
         self.variant = variant
@@ -125,7 +137,7 @@ class Inpainter:
         if self.variant == "embedding":
             # the autoencoder reconstructs the frame-aligned stream, the
             # missing frames zeroed first, as regimes A3 / A4 feed it
-            pred = self.model(zero_missing_frames(x_no, y_mask))
+            pred = self.model(zero_missing_frames(x_no, y_mask), self.plain)
         elif self.variant == "cycle":
             pred = cycle_forward(self.first_model, self.model, x, x_no,
                                  x_mask, y_mask, valid_t, self.plain)

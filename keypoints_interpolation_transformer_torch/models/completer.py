@@ -53,9 +53,24 @@ from torch import nn
 from ..data.keypoints import FRAME_FEATURES, NUM_COORDS, NUM_KEYPOINTS
 from ..ops.kernels import (fused_post_head, fused_pre_stream_embed,
                            post_head_plain, pre_stream_embed_plain)
-from .layers import (AttnSpec, MultiHeadAttention, SwiGLU, TransformerCore,
-                     graph_linear, packed_linear,
+from ..ops.kernels.ffn import ffn_supported
+from ..ops.kernels.pointwise import pointwise_supported, token_norm
+from .layers import (AttnSpec, FeedForward, MultiHeadAttention, SwiGLU,
+                     TransformerCore, graph_linear, int8_dense,
+                     int8_linear, packed_linear,
                      sinusoidal_positional_encoding)
+
+QUANTIZE = (None, "int8")
+
+
+def check_quantize(quantize):
+    """``quantize`` as the JAX ``Inpainter`` takes it (None, "none" or
+    "int8"); returns None or "int8"."""
+    if quantize in (None, "none"):
+        return None
+    if quantize != "int8":
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    return quantize
 
 
 class KeypointCompleter(nn.Module):
@@ -82,6 +97,7 @@ class KeypointCompleter(nn.Module):
         self.use_tgt_key_padding = use_tgt_key_padding
         self.merge_layers = merge_layers
         self.attn_sublayer_fusion = attn_sublayer_fusion
+        self.int8 = False  # int8 serving: see pack_weights
         self.input_embedding = nn.Linear(input_size, D, device=device)
         self.filled_embedding = nn.Linear(input_size, D, device=device)
         self.learned_input_positional_encoder = nn.Parameter(
@@ -121,14 +137,31 @@ class KeypointCompleter(nn.Module):
                   self.learned_filled_positional_encoder):
             p.copy_(torch.rand(p.shape, generator=generator))
 
-    def pack_weights(self) -> None:
+    def pack_weights(self, quantize: Optional[str] = None) -> None:
         """Build every sublayer's kernel-layout weights now (they are built
-        on first use otherwise, and again after a parameter changes)."""
+        on first use otherwise, and again after a parameter changes).
+
+        ``quantize="int8"`` makes the serving forwards int8 (see
+        ``forward``) and quantizes, once, every weight an int8 route reads:
+        the FF weights in the FF kernels' scale form (or the Dense one
+        where ``ffn_supported`` sends them to the plain chain), the
+        attention projections, embeddings, SwiGLUs and head in the Dense
+        table's form (``int8_matmul.quantize_weight``)."""
+        self.int8 = check_quantize(quantize) == "int8"
         for m in self.modules():
             if isinstance(m, (SwiGLU, MultiHeadAttention)):
                 m.packed()
+                if self.int8:
+                    m.int8_packed()
             elif isinstance(m, nn.Linear):
                 packed_linear(m)
+                if self.int8:
+                    int8_linear(m)
+            if self.int8 and isinstance(m, FeedForward):
+                D, FF = m.linear1.in_features, m.linear1.out_features
+                if ffn_supported(D, FF, int8=True):
+                    int8_linear(m.linear1, "ff")
+                    int8_linear(m.linear2, "ff")
 
     def forward(self, inputs: torch.Tensor, filled: torch.Tensor,
                 src_frame_mask: Optional[torch.Tensor] = None,
@@ -141,7 +174,8 @@ class KeypointCompleter(nn.Module):
         ``KeypointCompleter`` takes them.  ``plain=True`` runs the plain
         PyTorch version of every kernel (the oracle path) whatever the
         device.  The training route is taken in ``train()`` mode when
-        gradients are on (see the module docstring)."""
+        gradients are on (see the module docstring); int8 serving after
+        ``pack_weights("int8")`` otherwise."""
         B, T = inputs.shape[0], inputs.shape[1]
         if T > self.pe_max_len:
             raise ValueError(
@@ -156,19 +190,35 @@ class KeypointCompleter(nn.Module):
         src_frame_mask, tgt_frame_mask, valid_mask = (
             f32(src_frame_mask), f32(tgt_frame_mask), f32(valid_mask))
         train = self.training and torch.is_grad_enabled()
+        int8 = self.int8 and not train
+        # the pointwise kernels where the JAX package takes its own
+        # (``pointwise_supported``); its XLA chains, here the plain ones,
+        # elsewhere, their Linears int8 under int8 serving
+        kernel = pointwise_supported(self.hidden_dim, T) and not plain
+        int8_chains = int8 and not pointwise_supported(self.hidden_dim, T)
         if train:
             pre, post = pre_stream_embed_plain, post_head_plain
             linear = graph_linear
             swiglu = SwiGLU.graph_packed
+        elif int8_chains:
+            dense = int8_dense(plain)
+            pre, post = _int8_chains(dense)
+            linear = int8_linear
+            swiglu = SwiGLU.int8_packed
         else:
-            pre = pre_stream_embed_plain if plain else fused_pre_stream_embed
-            post = post_head_plain if plain else fused_post_head
+            pre = fused_pre_stream_embed if kernel else pre_stream_embed_plain
+            post = fused_post_head if kernel else post_head_plain
             linear = packed_linear
             swiglu = SwiGLU.packed
 
         pe = self.pe[:T]
-        pe_in = (pe + self.learned_input_positional_encoder[0]).contiguous()
-        pe_fill = (pe + self.learned_filled_positional_encoder[0]).contiguous()
+        learned_in = self.learned_input_positional_encoder[0]
+        learned_fill = self.learned_filled_positional_encoder[0]
+        if int8_chains:  # added in the JAX XLA chain's order (_int8_chains)
+            pe_in, pe_fill = (pe, learned_in), (pe, learned_fill)
+        else:
+            pe_in = (pe + learned_in).contiguous()
+            pe_fill = (pe + learned_fill).contiguous()
         src = pre(x, *linear(self.input_embedding), pe_in,
                   *swiglu(self.swiGlu_input_prev), self.pe_residual, False)
         tgt, filled_emb = pre(f, *linear(self.filled_embedding),
@@ -185,10 +235,39 @@ class KeypointCompleter(nn.Module):
         cross_spec = AttnSpec(None, valid_mask, "all", False)
         decoded = self.transformer(src, tgt, src_spec, tgt_spec, cross_spec,
                                    plain, train, self.merge_layers,
-                                   self.attn_sublayer_fusion)
+                                   self.attn_sublayer_fusion, int8)
         out = post(decoded, filled_emb, *swiglu(self.swiGlu_decoded),
                    *linear(self.fc_final))
         return out.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)
+
+
+def _int8_chains(dense):
+    """(pre, post): the pre-stream and post-head chains with every Linear
+    through the int8 dense layer ``dense`` (kernel or plain version), the
+    JAX XLA chains under its int8 interceptor, in the order of
+    ``pre_stream_embed_plain`` and ``post_head_plain``; the weights as
+    ``int8_linear`` and ``SwiGLU.int8_packed`` give them."""
+    def swiglu(n, w12q, s12, b12, w3q, s3, b3):
+        x1, x2 = dense(n, w12q, s12, b12).chunk(2, dim=-1)
+        return dense(x1 * torch.sigmoid(x2), w3q, s3, b3)
+
+    def pre(x, wq, ws, b, pe_learned, w12q, s12, b12, w3q, s3, b3,
+            pe_residual, want_emb):
+        # (pe, learned): added as the JAX XLA chain adds them, since the
+        # int8 quantization that follows can turn an ulp into a step
+        pe, learned = pe_learned
+        e = dense(x, wq, ws, b)
+        n = token_norm(e)
+        n = ((n + (n + pe)) if pe_residual else (n + pe)) + learned
+        s = swiglu(n, w12q, s12, b12, w3q, s3, b3)
+        return (s, e) if want_emb else s
+
+    def post(decoded, filled_emb, w12q, s12, b12, w3q, s3, b3, whq, whs, bh):
+        z = token_norm(swiglu(decoded, w12q, s12, b12, w3q, s3, b3)
+                       + filled_emb)
+        return dense(z * torch.sigmoid(z), whq, whs, bh)
+
+    return pre, post
 
 
 def keypoint_completer_cycle(hidden_dim: int, num_layers: int,
@@ -220,11 +299,29 @@ class Embedding(nn.Module):
                 for m in (self.input_embedding, self.output_embedding):
                     _reset_linear(m, uniform)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, T, K, 2) -> its reconstruction (B, T, K, 2)."""
+    int8 = False
+
+    def pack_weights(self, quantize: Optional[str] = None) -> None:
+        """With ``quantize="int8"``, quantize both Linears once (the Dense
+        table's form) and serve them through the int8 dense layer, as the
+        JAX package's int8 interceptor does."""
+        self.int8 = check_quantize(quantize) == "int8"
+        if self.int8:
+            for m in (self.input_embedding, self.output_embedding):
+                int8_linear(m)
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """x (B, T, K, 2) -> its reconstruction (B, T, K, 2); int8 after
+        ``pack_weights("int8")`` unless gradients are taken in ``train()``
+        mode (``plain`` then selects the int8 layer's plain version)."""
         B, T = x.shape[0], x.shape[1]
-        h = self.output_embedding(self.input_embedding(
-            x.reshape(B, T, -1).to(torch.float32)))
+        h = x.reshape(B, T, -1).to(torch.float32)
+        if self.int8 and not (self.training and torch.is_grad_enabled()):
+            dense = int8_dense(plain)
+            for m in (self.input_embedding, self.output_embedding):
+                h = dense(h, *int8_linear(m))
+        else:
+            h = self.output_embedding(self.input_embedding(h))
         return h.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)
 
 

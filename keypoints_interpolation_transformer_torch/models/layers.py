@@ -45,11 +45,14 @@ from torch import nn
 
 from ..ops.kernels import (AttentionFunction, AttnSublayerFunction,
                            FFNFunction, attention_plain, attn_sublayer_plain,
-                           decoder_layer_plain, encoder_layer_plain,
-                           ffn_plain, fused_attention, fused_attn_sublayer,
+                           decoder_layer_plain, encoder_layer_int8_plain,
+                           encoder_layer_plain, ffn_int8_plain, ffn_plain,
+                           fused_attention, fused_attn_sublayer,
                            fused_decoder_layer, fused_encoder_layer,
-                           fused_ffn)
-from ..ops.kernels.ffn import LN_EPS
+                           fused_encoder_layer_int8, fused_ffn,
+                           fused_ffn_int8, fused_int8_dense, int8_dense_plain)
+from ..ops.kernels.ffn import LN_EPS, ffn_supported
+from ..ops.kernels.int8_matmul import quantize_weight
 from ..ops.kernels.layer_fused import (decoder_full_supported,
                                        fused_layer_supported,
                                        use_sublayer_kernel)
@@ -96,6 +99,19 @@ def graph_linear(lin: nn.Linear):
     return lin.weight.t(), lin.bias
 
 
+def int8_linear(lin: nn.Linear, form: str = "dense"):
+    """(wq (out, in) int8, scale (out,), bias) of a Linear, its weight
+    quantized in ``form`` (``int8_matmul.quantize_weight``)."""
+    return _cached(lin, f"_int8_{form}", (lin.weight, lin.bias),
+                   lambda: (*quantize_weight(lin.weight, form),
+                            lin.bias.detach()))
+
+
+def int8_dense(plain: bool):
+    """The int8 dense layer: its kernel, or its plain version."""
+    return int8_dense_plain if plain else fused_int8_dense
+
+
 class AttnSpec(NamedTuple):
     """What an attention sublayer's bias is built from: the (B, T) frame
     mask (1 = missing) and valid mask (1 = real frame), both optional."""
@@ -126,6 +142,17 @@ class SwiGLU(nn.Module):
                     self.fc3.weight.t().contiguous(), self.fc3.bias.detach())
         return _cached(self, "_packed", list(self.parameters()), build)
 
+    def int8_packed(self):
+        """(w12q = [W1; W2] int8 (2D, D), its scales, b12, w3q int8 (D, D),
+        its scales, b3): the weights in torch's layout, quantized in the
+        Dense table's form, for the int8 dense layer."""
+        def build():
+            w12q, s12 = quantize_weight(torch.cat([self.fc1.weight,
+                                                   self.fc2.weight]))
+            return (w12q, s12, torch.cat([self.fc1.bias, self.fc2.bias]),
+                    *quantize_weight(self.fc3.weight), self.fc3.bias.detach())
+        return _cached(self, "_int8", list(self.parameters()), build)
+
     def graph_packed(self):
         """``packed()`` built inside the autograd graph, for training."""
         return (torch.cat([self.fc1.weight.t(), self.fc2.weight.t()], 1),
@@ -150,18 +177,41 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim, device=device)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def project(self, q_in, kv_in):
-        """q = q_in Wq + bq, k and v from kv_in, each (B, T, H, dh)."""
+    def project(self, q_in, kv_in, int8: bool = False, plain: bool = False):
+        """q = q_in Wq + bq, k and v from kv_in, each (B, T, H, dh); with
+        ``int8`` through the int8 dense layer (``int8_packed``), as the JAX
+        package's int8 interceptor runs the q/k/v ``nn.Dense``: one call over
+        the packed weight equals three, its scales being per output column
+        and x's per row."""
         B, D = q_in.shape[0], q_in.shape[-1]
         H = self.num_heads
+
+        def heads(t):
+            return t.reshape(B, -1, H, D // H).contiguous()
+
+        if int8:
+            dense = int8_dense(plain)
+            wq, ws, b = self.int8_packed()[:3]
+            if q_in is kv_in:
+                return tuple(heads(t) for t in
+                             dense(q_in, wq, ws, b).split(D, -1))
+            q = dense(q_in, wq[:D], ws[:D], b[:D])
+            k, v = dense(kv_in, wq[D:], ws[D:], b[D:]).split(D, -1)
+            return heads(q), heads(k), heads(v)
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
+        return heads(F.linear(q_in, wq, bq)), heads(F.linear(kv_in, wk, bk)), \
+            heads(F.linear(kv_in, wv, bv))
 
-        def heads(t, w, b):
-            return F.linear(t, w, b).reshape(B, -1, H, D // H)
-
-        return heads(q_in, wq, bq), heads(kv_in, wk, bk), \
-            heads(kv_in, wv, bv)
+    def int8_packed(self):
+        """(in_proj int8 (3D, D), its scales, in_proj_bias, out_proj int8
+        (D, D), its scales, out_proj bias), the "dense" scale form."""
+        def build():
+            return (*quantize_weight(self.in_proj_weight),
+                    self.in_proj_bias.detach(),
+                    *quantize_weight(self.out_proj.weight),
+                    self.out_proj.bias.detach())
+        return _cached(self, "_int8", list(self.parameters()), build)
 
     def forward(self, q_in, kv_in, bias=None):
         B, Tq, D = q_in.shape
@@ -173,13 +223,14 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out)
 
     def attend(self, x, memory, spec: AttnSpec, plain: bool = False,
-               train: bool = False):
+               train: bool = False, int8: bool = False):
         """attention(x, memory or x) on the per-op route (no residual):
-        the projections by ``F.linear``, the core through
-        ``fused_attention`` (``AttentionFunction`` under ``train``) or its
-        plain version."""
+        the projections by ``F.linear`` (with ``int8``, serving only, by the
+        int8 dense layer), the core through ``fused_attention``
+        (``AttentionFunction`` under ``train``) or its plain version."""
         B, T, D = x.shape
-        q, k, v = self.project(x, x if memory is None else memory)
+        q, k, v = self.project(x, x if memory is None else memory, int8,
+                               plain)
         masks = (spec.mask, spec.valid, spec.kind, spec.add_keypad)
         if plain:
             a = attention_plain(q, k, v, *masks)
@@ -187,7 +238,10 @@ class MultiHeadAttention(nn.Module):
             a = AttentionFunction.apply(q, k, v, *masks)
         else:
             a = fused_attention(q, k, v, *masks)
-        return self.out_proj(a.reshape(B, T, D))
+        a = a.reshape(B, T, D)
+        if int8:
+            return int8_dense(plain)(a, *self.int8_packed()[3:])
+        return self.out_proj(a)
 
     def packed(self):
         """(wqkv = [Wq | Wk | Wv] (D, 3D), bqkv, wo (D, D), bo)."""
@@ -239,17 +293,38 @@ class FeedForward(nn.Module):
         return (*packed_linear(self.linear1), *packed_linear(self.linear2),
                 norm_in.weight, norm_in.bias, norm_out.weight, norm_out.bias)
 
+    def ff_int8_packed(self, norm_in: nn.LayerNorm, norm_out: nn.LayerNorm,
+                       form: str = "ff"):
+        """(w1q, w1s, b1, w2q, w2s, b2, g_in, be_in, g_out, be_out): the FF
+        weights int8 in torch's layout, their scales in ``form``."""
+        return (*int8_linear(self.linear1, form),
+                *int8_linear(self.linear2, form), norm_in.weight,
+                norm_in.bias, norm_out.weight, norm_out.bias)
+
     def ff_sublayer(self, r, norm_in: nn.LayerNorm, norm_out: nn.LayerNorm,
-                    plain: bool = False, train: bool = False):
+                    plain: bool = False, train: bool = False,
+                    int8: bool = False):
         """norm_out(x1 + FF(x1)) with x1 = norm_in(r), through the FF
-        kernel (or its plain version); ``train`` takes the gradient
-        route."""
+        kernel (or its plain version); ``train`` takes the gradient route,
+        ``int8`` (serving) the int8 FF kernel.  Where the JAX package's FF
+        kernel refuses the weights (``ffn_supported``), its plain chain
+        runs, as the JAX package runs XLA ops there (int8: its chain of
+        ``_int8_dense_xla``)."""
+        D, FF = self.linear1.in_features, self.linear1.out_features
+        kernel = ffn_supported(D, FF, int8)
+        if int8:
+            if not kernel:
+                return ffn_int8_plain(
+                    r, *self.ff_int8_packed(norm_in, norm_out, "dense"),
+                    xla=True)
+            fn = ffn_int8_plain if plain else fused_ffn_int8
+            return fn(r, *self.ff_int8_packed(norm_in, norm_out))
         norms = (norm_in.weight, norm_in.bias, norm_out.weight,
                  norm_out.bias, True)
         if not train:
-            fn = ffn_plain if plain else fused_ffn
+            fn = ffn_plain if plain or not kernel else fused_ffn
             return fn(r, *self.ff_packed(norm_in, norm_out), True)
-        if plain:
+        if plain or not kernel:
             return ffn_plain(r, *graph_linear(self.linear1),
                              *graph_linear(self.linear2), *norms)
         return FFNFunction.apply(r, self.linear1.weight, self.linear1.bias,
@@ -267,20 +342,26 @@ class EncoderLayer(FeedForward):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
     def forward(self, x, spec: AttnSpec, plain: bool = False,
-                train: bool = False, merge: bool = False, fuse: bool = True):
+                train: bool = False, merge: bool = False, fuse: bool = True,
+                int8: bool = False):
         D, FF = self.linear1.in_features, self.linear1.out_features
         T = x.shape[1]
         sub = use_sublayer_kernel(fuse, T, D)
         if sub and merge and not train and fused_layer_supported(T, D, FF):
-            fn = encoder_layer_plain if plain else fused_encoder_layer
-            return fn(x, *self.self_attn.packed(),
-                      *self.ff_packed(self.norm1, self.norm2), *spec,
+            if int8:
+                fn = encoder_layer_int8_plain if plain else \
+                    fused_encoder_layer_int8
+                ff = self.ff_int8_packed(self.norm1, self.norm2)
+            else:
+                fn = encoder_layer_plain if plain else fused_encoder_layer
+                ff = self.ff_packed(self.norm1, self.norm2)
+            return fn(x, *self.self_attn.packed(), *ff, *spec,
                       self.self_attn.num_heads)
         if sub:
             r = self.self_attn.sublayer(x, None, None, spec, plain, train)
         else:
-            r = x + self.self_attn.attend(x, None, spec, plain, train)
-        return self.ff_sublayer(r, self.norm1, self.norm2, plain, train)
+            r = x + self.self_attn.attend(x, None, spec, plain, train, int8)
+        return self.ff_sublayer(r, self.norm1, self.norm2, plain, train, int8)
 
 
 class DecoderLayer(FeedForward):
@@ -297,12 +378,14 @@ class DecoderLayer(FeedForward):
 
     def forward(self, y, memory, self_spec: AttnSpec, cross_spec: AttnSpec,
                 plain: bool = False, train: bool = False,
-                merge: bool = False, fuse: bool = True):
+                merge: bool = False, fuse: bool = True, int8: bool = False):
         D, FF = self.linear1.in_features, self.linear1.out_features
         T = y.shape[1]
         sub = use_sublayer_kernel(fuse, T, D)
         if sub and merge and not train and memory.shape[1] == T:
-            full = decoder_full_supported(T, D, FF)
+            # the FF tail stays out of the merged kernel under int8, as
+            # the JAX package's ``full`` holds for its float kernel only
+            full = decoder_full_supported(T, D, FF) and not int8
             fn = decoder_layer_plain if plain else fused_decoder_layer
             r = fn(y, memory, *self.self_attn.packed(),
                    *self.multihead_attn.packed(), self.norm1.weight,
@@ -314,7 +397,8 @@ class DecoderLayer(FeedForward):
                    self.self_attn.num_heads)
             if full:
                 return r
-            return self.ff_sublayer(r, self.norm2, self.norm3, plain)
+            return self.ff_sublayer(r, self.norm2, self.norm3, plain,
+                                    int8=int8)
         if sub:
             y = self.self_attn.sublayer(y, None, self.norm1, self_spec,
                                         plain, train)
@@ -322,10 +406,11 @@ class DecoderLayer(FeedForward):
                                              plain, train)
         else:
             y = self.norm1(y + self.self_attn.attend(y, None, self_spec,
-                                                     plain, train))
+                                                     plain, train, int8))
             r = y + self.multihead_attn.attend(y, memory, cross_spec, plain,
-                                               train)
-        return self.ff_sublayer(r, self.norm2, self.norm3, plain, train)
+                                               train, int8)
+        return self.ff_sublayer(r, self.norm2, self.norm3, plain, train,
+                                int8)
 
 
 class _Stack(nn.Module):
@@ -350,13 +435,14 @@ class TransformerCore(nn.Module):
 
     def forward(self, src, tgt, src_spec: AttnSpec, tgt_spec: AttnSpec,
                 cross_spec: AttnSpec, plain: bool = False,
-                train: bool = False, merge: bool = False, fuse: bool = True):
+                train: bool = False, merge: bool = False, fuse: bool = True,
+                int8: bool = False):
         x = src
         for layer in self.encoder.layers:
-            x = layer(x, src_spec, plain, train, merge, fuse)
+            x = layer(x, src_spec, plain, train, merge, fuse, int8)
         memory = self.encoder.norm(x)  # F.layer_norm, also under autograd
         y = tgt
         for layer in self.decoder.layers:
             y = layer(y, memory, tgt_spec, cross_spec, plain, train, merge,
-                      fuse)
+                      fuse, int8)
         return self.decoder.norm(y)

@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels of the serving and training paths, each beside
-its plain PyTorch version, and the table that names them.
+"""Hand-written CUDA kernels of the serving (float32 and int8) and training
+paths, each beside its plain PyTorch version, and the table that names
+them.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors, counting those calls in ``wrapper.launches``.
@@ -16,10 +17,13 @@ from .attn_sublayer import (AttnSublayerFunction, attn_sublayer_bwd,
                             attn_sublayer_bwd_plain, attn_sublayer_plain,
                             attn_sublayer_train_plain, fused_attn_sublayer,
                             fused_attn_sublayer_train)
-from .ffn import (FFNFunction, ffn_bwd, ffn_bwd_plain, ffn_plain,
-                  ffn_train_plain, fused_ffn, fused_ffn_train)
-from .layer_fused import (decoder_layer_plain, encoder_layer_plain,
-                          fused_decoder_layer, fused_encoder_layer)
+from .ffn import (FFNFunction, ffn_bwd, ffn_bwd_plain, ffn_int8_plain,
+                  ffn_plain, ffn_train_plain, fused_ffn, fused_ffn_int8,
+                  fused_ffn_train)
+from .int8_matmul import fused_int8_dense, int8_dense_plain
+from .layer_fused import (decoder_layer_plain, encoder_layer_int8_plain,
+                          encoder_layer_plain, fused_decoder_layer,
+                          fused_encoder_layer, fused_encoder_layer_int8)
 from .masked_loss import (FusedEuclideanLoss, fused_euclidean_loss,
                           fused_masked_loss, masked_loss_plain)
 from .pointwise import (fused_post_head, fused_pre_stream_embed,
@@ -63,6 +67,12 @@ KERNELS = (
            f"{_SRC}/attention.cu", f"{_TPU}/attention.py:409"),
     Kernel("masked_loss", fused_masked_loss,
            f"{_SRC}/masked_loss.cu", f"{_TPU}/masked_loss.py:28"),
+    Kernel("int8_dense", fused_int8_dense,
+           f"{_SRC}/int8_matmul.cu", f"{_TPU}/int8_matmul.py:34"),
+    Kernel("ffn_int8", fused_ffn_int8,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:248"),
+    Kernel("enc_layer_int8", fused_encoder_layer_int8,
+           f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:77"),
 )
 
 

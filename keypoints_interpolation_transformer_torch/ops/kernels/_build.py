@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("pointwise", "attn_sublayer", "ffn", "layer_fused", "attention",
-           "masked_loss")
+           "masked_loss", "int8_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,34 +56,42 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every stale library among ``names``, all at once; returns the
-    wall seconds of the whole build per compiled source (0.0 when cached).
-    The compiler's resource report goes to ``_build/<name>.log``."""
+    """Compile every stale library among ``names``, all at once; returns
+    each source's seconds from the start of the build to the end of its
+    ``nvcc`` (0.0 when cached).  The compiler's resource report goes to
+    ``_build/<name>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     stale = {n: library_path(n) for n in names
              if not library_path(n).is_file()}
+    secs = {n: 0.0 for n in names}
     if not stale:
-        return {n: 0.0 for n in names}
+        return secs
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
     for n, out in stale.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        with open(BUILD_DIR / f"{n}.log", "w") as log:
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                stdout=log, stderr=subprocess.STDOUT))
+    pending = set(procs)
+    while pending:
+        for n in [n for n in pending if procs[n][1].poll() is not None]:
+            secs[n] = time.perf_counter() - t0
+            pending.discard(n)
+        if pending:
+            time.sleep(0.2)
     failed = []
     for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        (BUILD_DIR / f"{n}.log").write_text(log)
         if proc.returncode != 0:
+            log = (BUILD_DIR / f"{n}.log").read_text()
             failed.append(f"{n}.cu (exit {proc.returncode}):\n{log[-4000:]}")
         else:
             os.replace(tmp, stale[n])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    dt = time.perf_counter() - t0
-    return {n: (dt if n in stale else 0.0) for n in names}
+    return secs
 
 
 def bind(name: str, signatures: Dict[str, str]) -> ctypes.CDLL:

@@ -34,11 +34,11 @@ import torch
 
 from . import _build
 from .attn_sublayer import KINDS, bias_from_masks
+from .widths import MAX_HEAD
 
 # one letter per C argument, the stream last: p pointer, i int
 _SIGS = {"kit_attention": "p" * 5 + "i" * 6 + "pp",
          "kit_attention_bwd": "p" * 6 + "i" * 6 + "p" * 5}
-_HEAD_DIMS = (16, 32, 64)
 
 
 def _probabilities(q, k, mask, valid, kind, add_keypad):
@@ -81,8 +81,9 @@ def _check(where, q, tensors, mask, valid, kind, add_keypad):
         raise ValueError(f"{where}: q must be (B, T, H, dh), got "
                          f"{tuple(q.shape)}")
     B, T, H, dh = q.shape
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"{where}: head width {dh} not in {_HEAD_DIMS}")
+    if not 1 <= dh <= MAX_HEAD:
+        raise ValueError(f"{where}: needs a head width of 1 to {MAX_HEAD}, "
+                         f"got {dh}")
     uses_mask = kind == "repeat-inc" or add_keypad
     if uses_mask and mask is None:
         raise ValueError(f"{where}: kind {kind!r} / add_keypad needs mask")

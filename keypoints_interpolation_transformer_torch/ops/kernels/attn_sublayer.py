@@ -53,12 +53,12 @@ import torch.nn.functional as F
 from ..masks import NEG
 from . import _build
 from .ffn import LN_EPS, _ln_bwd_plain, row_splits
+from .widths import check_heads, cut, cut_blocks, kernel_width, pad, \
+    pad_blocks
 
 # one letter per C argument, the stream last: p pointer, i int
-_SIGS = {"kit_attn_sublayer": "pp" + "i" * 4 + "p" * 8 + "ii" + "p" * 6,
-         "kit_attn_sublayer_bwd": "p" * 12 + "i" * 8 + "p" * 9}
-_WIDTHS = (128, 256)
-_HEAD_DIMS = (16, 32, 64)
+_SIGS = {"kit_attn_sublayer": "pp" + "i" * 5 + "p" * 8 + "ii" + "p" * 6,
+         "kit_attn_sublayer_bwd": "p" * 12 + "i" * 9 + "p" * 9}
 KINDS = ("repeat-inc", "all")
 
 
@@ -113,10 +113,8 @@ def _check_config(where, x, mask, kind, add_keypad, heads):
     where the kind does not read it)."""
     if kind not in KINDS:
         raise ValueError(f"{where}: unsupported mask kind {kind!r}")
-    D = x.shape[-1]
-    if D not in _WIDTHS or D % heads or D // heads not in _HEAD_DIMS:
-        raise ValueError(f"{where}: needs D in {_WIDTHS} and D / heads in "
-                         f"{_HEAD_DIMS}, got D={D}, heads={heads}")
+    kernel_width(where, x.shape[-1])
+    check_heads(where, x.shape[-1], heads)
     uses_mask = kind == "repeat-inc" or add_keypad
     if uses_mask and mask is None:
         raise ValueError(f"{where}: kind {kind!r} / add_keypad needs mask")
@@ -145,17 +143,33 @@ def _check_forward(where, x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b, mask,
 
 
 def _launch_forward(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b, mask, valid,
-                    kind, add_keypad, heads, stats=None, r=None):
-    B, T, D = x.shape
-    qkv = torch.empty(B, T, 3 * D, device=x.device)
-    a = torch.empty(B, T, D, device=x.device)
+                    kind, add_keypad, heads, train=False):
+    """(y, qkv, a, stats, r) at the model's width n; stats and r only
+    with ``train`` (r only with a LayerNorm).  Runs at the kernel width D,
+    the operands zero-padded from n (``widths``)."""
+    B, T, n = x.shape
+    D = kernel_width("fused_attn_sublayer", n)
+    x, memory, wo, bo, ln_w, ln_b = (
+        pad(t, D) for t in (x, memory, wo, bo, ln_w, ln_b))
+    wo = pad(wo, D, D)
+    wqkv = pad(pad_blocks(wqkv, n, D, 1), D, 3 * D)
+    bqkv = pad_blocks(bqkv, n, D, 0)
+    dev = x.device
+    qkv = torch.empty(B, T, 3 * D, device=dev)
+    # the columns from H * dh on are not written, and the padded wo reads
+    # them as 0 * a: they must hold zeros, not NaNs
+    a = (torch.empty if n == D else torch.zeros)(B, T, D, device=dev)
     y = torch.empty_like(x)
+    stats = torch.empty(B, heads, T, 2, device=dev) if train else None
+    r = torch.empty_like(x) if train and ln_w is not None else None
     lib = _build.bind("attn_sublayer", _SIGS)
-    _build.call(lib, "kit_attn_sublayer", x.device, x,
-                x if memory is None else memory, B, T, D, heads, wqkv, bqkv,
-                wo, bo, ln_w, ln_b, mask, valid, int(kind == "repeat-inc"),
-                int(add_keypad), qkv, a, y, stats, r)
-    return y, qkv, a
+    _build.call(lib, "kit_attn_sublayer", dev, x,
+                x if memory is None else memory, B, T, D, n, heads, wqkv,
+                bqkv, wo, bo, ln_w, ln_b, mask, valid,
+                int(kind == "repeat-inc"), int(add_keypad), qkv, a, y, stats,
+                r)
+    return (cut(y, n), cut_blocks(qkv, n, D, -1), cut(a, n), stats,
+            cut(r, n))
 
 
 def fused_attn_sublayer(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b, mask,
@@ -220,11 +234,9 @@ def fused_attn_sublayer_train(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b,
     mask = _check_forward("fused_attn_sublayer_train", x, memory, wqkv,
                           bqkv, wo, bo, ln_w, ln_b, mask, valid, kind,
                           add_keypad, heads)
-    B, T, D = x.shape
-    stats = torch.empty(B, heads, T, 2, device=x.device)
-    r = None if ln_w is None else torch.empty_like(x)
-    y, qkv, a = _launch_forward(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b,
-                                mask, valid, kind, add_keypad, heads, stats, r)
+    y, qkv, a, stats, r = _launch_forward(x, memory, wqkv, bqkv, wo, bo,
+                                          ln_w, ln_b, mask, valid, kind,
+                                          add_keypad, heads, train=True)
     fused_attn_sublayer_train.launches += 1
     return y, qkv, a, stats, r
 
@@ -316,6 +328,13 @@ def attn_sublayer_bwd(dy, x, memory, qkv, a, stats, r, w_in, w_out, ln_w,
     _build.check_aligned(where, **{k: t for k, t in (
         ("dy", dy), ("x", x), ("memory", memory), ("qkv", qkv), ("a", a),
         ("r", r), ("w_in", w_in), ("w_out", w_out)) if t is not None})
+    # at the kernel width, the operands zero-padded (see ``widths``)
+    n, D = D, kernel_width(where, D)
+    dy, x, memory, a, r, ln_w = (pad(t, D) for t in (dy, x, memory, a, r,
+                                                     ln_w))
+    qkv = pad_blocks(qkv, n, D, -1)
+    w_in = pad(pad_blocks(w_in, n, D, 0), 3 * D, D)
+    w_out = pad(w_out, D, D)
     M = B * T
     dev = dy.device
     empty = lambda *s: torch.empty(*s, device=dev)  # noqa: E731
@@ -332,12 +351,15 @@ def attn_sublayer_bwd(dy, x, memory, qkv, a, stats, r, w_in, w_out, ln_w,
                     + s_w * 4 * D * D + s_vec * 4 * D)
     lib = _build.bind("attn_sublayer", _SIGS)
     _build.call(lib, "kit_attn_sublayer_bwd", dev, dy, x, memory, qkv, a,
-                stats, r, w_in, w_out, ln_w, mask, valid, B, T, D, heads,
+                stats, r, w_in, w_out, ln_w, mask, valid, B, T, D, n, heads,
                 int(kind == "repeat-inc"), int(add_keypad), s_w, s_vec, dx,
                 dmem, dw_in, db_in, dw_out, db_out, ln_out, scratch)
     attn_sublayer_bwd.launches += 1
-    dg, dbe = (None, None) if ln_w is None else (ln_out[0], ln_out[1])
-    return dx, dmem, dw_in, db_in, dw_out, db_out, dg, dbe
+    dg, dbe = (None, None) if ln_w is None else (cut(ln_out[0], n),
+                                                 cut(ln_out[1], n))
+    return (cut(dx, n), cut(dmem, n), cut(cut_blocks(dw_in, n, D, 0), n),
+            cut_blocks(db_in, n, D, 0), cut(dw_out, n, n), cut(db_out, n),
+            dg, dbe)
 
 
 attn_sublayer_bwd.launches = 0

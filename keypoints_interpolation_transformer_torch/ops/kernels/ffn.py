@@ -37,12 +37,29 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .int8_matmul import int8_dense_plain
+from .widths import cut, kernel_width, pad
 
 LN_EPS = 1e-5
 # one letter per C argument, the stream last: p pointer, i int
-_SIGS = {"kit_ffn": "p" + "i" * 3 + "p" * 12,
-         "kit_ffn_bwd": "p" * 8 + "i" * 6 + "p" * 11}
-_WIDTHS = (128, 256)
+_SIGS = {"kit_ffn": "p" + "i" * 4 + "p" * 12,
+         "kit_ffn_bwd": "p" * 8 + "i" * 7 + "p" * 11,
+         "kit_ffn_int8": "p" + "i" * 4 + "p" * 13}
+_FF_STEP = 4        # the forward kernels take FF in steps of 4 ...
+_FF_STEP_BWD = 128  # ... the backward in steps of 128 (zero-padded to them)
+
+
+def ff_kernel_width(FF: int, step: int = _FF_STEP) -> int:
+    """The FF width a kernel runs at: FF rounded up to ``step``, the
+    weights zero-padded there (``widths``)."""
+    return -(-FF // step) * step
+
+
+def ffn_supported(D: int, FF: int, int8: bool = False) -> bool:
+    """The JAX ``_ffn_fwd_pallas`` rule: the FF kernel while its weights
+    (8 bytes per D x FF element in float32, 2.5 in int8, double-buffered
+    on the TPU) stay within 8 MB; the plain chain above it."""
+    return (2.5 if int8 else 8) * D * FF <= (8 << 20)
 
 
 def ffn_plain(r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln: bool = False):
@@ -65,9 +82,7 @@ def ffn_train_plain(r, w1, b1, w2, b2, g1, be1, g2, be2,
 def _check_forward(where, r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln):
     D = r.shape[-1]
     FF = w1.shape[1]
-    if D not in _WIDTHS or FF % 4:
-        raise ValueError(f"{where}: needs D in {_WIDTHS} and FF a multiple "
-                         f"of 4, got D={D}, FF={FF}")
+    kernel_width(where, D)
     if not pre_ln:
         g1 = be1 = None
     _build.check_tensors(where, r.device, r=r, w1=w1, b1=b1, w2=w2, b2=b2,
@@ -81,13 +96,25 @@ def _check_forward(where, r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln):
     return D, FF, g1, be1
 
 
-def _launch_forward(r, w1, b1, w2, b2, g1, be1, g2, be2, u, z):
-    D = r.shape[-1]
+def _launch_forward(r, w1, b1, w2, b2, g1, be1, g2, be2, train):
+    """(y, u, z) at the model's widths n and FF, u and z only with
+    ``train``.  Runs at the kernel width D and FF rounded up to a
+    multiple of 4, the operands zero-padded (``widths``)."""
+    n, FF = w1.shape
+    N = r.numel() // n
+    D = kernel_width("fused_ffn", n)
+    F4 = ff_kernel_width(FF)
+    r = pad(r, D)
+    w1, b1, w2 = pad(w1, D, F4), pad(b1, F4), pad(w2, F4, D)
+    b2, g1, be1, g2, be2 = (pad(t, D) for t in (b2, g1, be1, g2, be2))
+    dev = r.device
     y = torch.empty_like(r)
+    u = torch.empty(N, F4, device=dev) if train else None
+    z = torch.empty(N, D, device=dev) if train else None
     lib = _build.bind("ffn", _SIGS)
-    _build.call(lib, "kit_ffn", r.device, r, r.numel() // D, D, w1.shape[1],
-                w1, b1, w2, b2, g1, be1, g2, be2, y, u, z)
-    return y
+    _build.call(lib, "kit_ffn", dev, r, N, D, n, F4, w1, b1, w2, b2, g1, be1,
+                g2, be2, y, u, z)
+    return cut(y, n), cut(u, FF), cut(z, n)
 
 
 def fused_ffn(r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln: bool = False):
@@ -96,7 +123,7 @@ def fused_ffn(r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln: bool = False):
         return ffn_plain(r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln)
     _, _, g1, be1 = _check_forward("fused_ffn", r, w1, b1, w2, b2, g1, be1,
                                    g2, be2, pre_ln)
-    y = _launch_forward(r, w1, b1, w2, b2, g1, be1, g2, be2, None, None)
+    y = _launch_forward(r, w1, b1, w2, b2, g1, be1, g2, be2, False)[0]
     fused_ffn.launches += 1
     return y
 
@@ -110,17 +137,89 @@ def fused_ffn_train(r, w1, b1, w2, b2, g1, be1, g2, be2,
     the forward plus the residuals its backward reads."""
     if r.device.type == "cpu":
         return ffn_train_plain(r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln)
-    D, FF, g1, be1 = _check_forward("fused_ffn_train", r, w1, b1, w2, b2, g1,
-                                    be1, g2, be2, pre_ln)
-    N = r.numel() // D
-    u = torch.empty(N, FF, device=r.device)
-    z = torch.empty(N, D, device=r.device)
-    y = _launch_forward(r, w1, b1, w2, b2, g1, be1, g2, be2, u, z)
+    _, _, g1, be1 = _check_forward("fused_ffn_train", r, w1, b1, w2, b2, g1,
+                                   be1, g2, be2, pre_ln)
+    y, u, z = _launch_forward(r, w1, b1, w2, b2, g1, be1, g2, be2, True)
     fused_ffn_train.launches += 1
     return y, u, z
 
 
 fused_ffn_train.launches = 0
+
+
+def ffn_int8_plain(r, w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2, be2,
+                   pre_ln: bool = True, xla: bool = False):
+    """Plain PyTorch version of ``fused_ffn_int8``; with ``xla`` the JAX
+    package's int8 chain for weights over the kernel's budget
+    (``ffn_supported``): ``_int8_dense_xla`` with the bias inside, on
+    weights quantized in the "dense" form."""
+    D = r.shape[-1]
+    x1 = F.layer_norm(r, (D,), g1, be1, LN_EPS) if pre_ln else r
+    h = F.gelu(int8_dense_plain(x1, w1q, w1s, b1, xla))  # exact erf
+    if xla:
+        z = x1 + int8_dense_plain(h, w2q, w2s, b2, xla)
+    else:
+        z = (x1 + int8_dense_plain(h, w2q, w2s)) + b2
+    return F.layer_norm(z, (D,), g2, be2, LN_EPS)
+
+
+def check_int8_ff(where, D, w1q, w1s, b1, w2q, w2s, b2):
+    """The int8 FF weights in torch's layout, w1q (FF, D) and w2q (D, FF)
+    int8 with their scales (FF,) and (D,); returns FF."""
+    FF = w1q.shape[0]
+    for name, t, shape in (("w1q", w1q, (FF, D)), ("w2q", w2q, (D, FF))):
+        if t.dtype != torch.int8 or t.device != w1s.device or \
+                not t.is_contiguous():
+            raise ValueError(f"{where}: {name} must be a contiguous int8 "
+                             f"tensor on {w1s.device}")
+        _build.check_shape(where, name, t, shape)
+    for name, t, shape in (("w1s", w1s, (FF,)), ("b1", b1, (FF,)),
+                           ("w2s", w2s, (D,)), ("b2", b2, (D,))):
+        _build.check_shape(where, name, t, shape)
+    _build.check_aligned(where, w1q=w1q, w2q=w2q)
+    return FF
+
+
+def pad_int8_ff(w1q, w1s, b1, w2q, w2s, b2, D: int, F4: int):
+    """The int8 FF weights zero-padded to the kernel width D and FF width
+    F4 (``widths``)."""
+    return (pad(w1q, F4, D), pad(w1s, F4), pad(b1, F4), pad(w2q, D, F4),
+            pad(w2s, D), pad(b2, D))
+
+
+def fused_ffn_int8(r, w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2, be2,
+                   pre_ln: bool = True):
+    """r (..., D) -> y (..., D): the FF sublayer with both products int8
+    (``_kernel_int8``), g1/be1 read only when ``pre_ln``; the weights
+    quantized in the "ff" form (``int8_matmul.quantize_weight``)."""
+    if r.device.type == "cpu":
+        return ffn_int8_plain(r, w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2,
+                              be2, pre_ln)
+    where = "fused_ffn_int8"
+    n = r.shape[-1]
+    D = kernel_width(where, n)
+    if not pre_ln:
+        g1 = be1 = None
+    _build.check_tensors(where, r.device, r=r, w1s=w1s, b1=b1, w2s=w2s,
+                         b2=b2, g1=g1, be1=be1, g2=g2, be2=be2)
+    FF = check_int8_ff(where, n, w1q, w1s, b1, w2q, w2s, b2)
+    for name, t in (("g1", g1), ("be1", be1), ("g2", g2), ("be2", be2)):
+        _build.check_shape(where, name, t, (n,))
+    F4 = ff_kernel_width(FF)
+    w = pad_int8_ff(w1q, w1s, b1, w2q, w2s, b2, D, F4)
+    g1, be1, g2, be2 = (pad(t, D) for t in (g1, be1, g2, be2))
+    x = pad(r, D)
+    N = x.numel() // D
+    y = torch.empty_like(x)
+    h = torch.empty(N, F4, device=r.device)  # each row's GELU output
+    lib = _build.bind("ffn", _SIGS)
+    _build.call(lib, "kit_ffn_int8", r.device, x, N, D, n, F4, *w, g1, be1,
+                g2, be2, y, h)
+    fused_ffn_int8.launches += 1
+    return cut(y, n)
+
+
+fused_ffn_int8.launches = 0
 
 
 def _ln_bwd_plain(dy, x, gamma):
@@ -183,9 +282,7 @@ def ffn_bwd(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False):
     D = r.shape[-1]
     FF = w1t.shape[0]
     N = r.numel() // D
-    if D not in _WIDTHS or FF % 128:
-        raise ValueError(f"{where}: needs D in {_WIDTHS} and FF a multiple "
-                         f"of 128, got D={D}, FF={FF}")
+    kernel_width(where, D)
     if not pre_ln:
         g1 = be1 = None
     _build.check_tensors(where, g.device, g=g, r=r, u=u, z=z, w1t=w1t,
@@ -196,6 +293,12 @@ def ffn_bwd(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False):
                            ("be1", be1, (D,)), ("g2", g2, (D,))):
         _build.check_shape(where, name, t, shape)
     _build.check_aligned(where, g=g, r=r, u=u, z=z, w1t=w1t, w2t=w2t)
+    # at the kernel width and FF a multiple of 128, zero-padded (``widths``)
+    n, nf = D, FF
+    D = kernel_width(where, n)
+    FF = ff_kernel_width(nf, _FF_STEP_BWD)
+    g, r, z, g1, be1, g2 = (pad(t, D) for t in (g, r, z, g1, be1, g2))
+    u, w1t, w2t = pad(u, FF), pad(w1t, FF, D), pad(w2t, D, FF)
     dev = g.device
     empty = lambda *s: torch.empty(*s, device=dev)  # noqa: E731
     blocks = -(-N // 32)
@@ -212,11 +315,13 @@ def ffn_bwd(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False):
                     + s_dw2 * D * FF + s_vec * D)
     lib = _build.bind("ffn", _SIGS)
     _build.call(lib, "kit_ffn_bwd", dev, g, r, u, z, w1t, w2t, g1, be1,
-                N, D, FF, s_dw1, s_dw2, s_vec, g2, x1, dz, dr, dw1t, db1,
+                N, D, n, FF, s_dw1, s_dw2, s_vec, g2, x1, dz, dr, dw1t, db1,
                 dw2t, db2, ln_out, scratch)
     ffn_bwd.launches += 1
+    ln_out = cut(ln_out, n)
     dg1, dbe1 = (ln_out[2], ln_out[3]) if pre_ln else (None, None)
-    return dr, dw1t, db1, dw2t, db2, dg1, dbe1, ln_out[0], ln_out[1]
+    return (cut(dr, n), cut(dw1t, nf, n), cut(db1, nf), cut(dw2t, n, nf),
+            cut(db2, n), dg1, dbe1, ln_out[0], ln_out[1])
 
 
 ffn_bwd.launches = 0

@@ -45,11 +45,14 @@ import torch
 
 from . import _build
 from .attn_sublayer import _check_config, attn_sublayer_plain
-from .ffn import ffn_plain
+from .ffn import (check_int8_ff, ff_kernel_width, ffn_int8_plain, ffn_plain,
+                  pad_int8_ff)
+from .widths import cut, kernel_width, pad, pad_blocks
 
 # one letter per C argument, the stream last: p pointer, i int
-_SIGS = {"kit_enc_layer": "p" + "i" * 6 + "p" * 14 + "ii" + "p" * 3,
-         "kit_dec_layer": "pp" + "i" * 6 + "p" * 20 + "ii" + "pp" + "ii"
+_SIGS = {"kit_enc_layer": "p" + "i" * 7 + "p" * 14 + "ii" + "p" * 3,
+         "kit_enc_layer_int8": "p" + "i" * 7 + "p" * 16 + "ii" + "p" * 4,
+         "kit_dec_layer": "pp" + "i" * 7 + "p" * 20 + "ii" + "pp" + "ii"
                           + "p" * 3}
 _MAX_CLUSTER = 8  # the portable thread-block cluster size
 
@@ -109,6 +112,16 @@ def encoder_layer_plain(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
     return ffn_plain(r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln=True)
 
 
+def encoder_layer_int8_plain(x, wqkv, bqkv, wo, bo, w1q, w1s, b1, w2q, w2s,
+                             b2, g1, be1, g2, be2, mask, valid, kind: str,
+                             add_keypad: bool, heads: int):
+    """Plain PyTorch version of ``fused_encoder_layer_int8``: the float
+    attention sublayer, then the int8 FF sublayer with LN1 before it."""
+    r = attn_sublayer_plain(x, None, wqkv, bqkv, wo, bo, None, None, mask,
+                            valid, kind, add_keypad, heads)
+    return ffn_int8_plain(r, w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2, be2)
+
+
 def decoder_layer_plain(x, memory, swqkv, sbqkv, swo, sbo, cwqkv, cbqkv, cwo,
                         cbo, g1, be1, ff, smask, svalid, cmask, cvalid,
                         skind: str, sadd_keypad: bool, ckind: str,
@@ -134,8 +147,6 @@ def _check_weights(where, x, prefix, names, tensors):
     named = {prefix + n: t for n, t in zip(names, tensors)}
     _build.check_tensors(where, x.device, **named)
     FF = tensors[0].shape[1] if names is _FF else 0
-    if FF % 4:
-        raise ValueError(f"{where}: needs FF a multiple of 4, got {FF}")
     shapes = ((D, 3 * D), (3 * D,), (D, D), (D,)) if names is _ATTN else \
         ((D, FF), (FF,), (FF, D), (D,)) + ((D,),) * 4
     for (name, t), shape in zip(named.items(), shapes):
@@ -190,23 +201,94 @@ def _cluster(where, B, device, cluster):
     return cluster
 
 
+def _pad_attn(attn, n, D):
+    """One attention sublayer's weights (``_ATTN``) zero-padded from the
+    model's width n to the kernel width D (``widths``)."""
+    wqkv, bqkv, wo, bo = attn
+    return (pad(pad_blocks(wqkv, n, D, 1), D, 3 * D),
+            pad_blocks(bqkv, n, D, 0), pad(wo, D, D), pad(bo, D))
+
+
+def _pad_ff(ff, n, D):
+    """The FF tail's weights (``_FF``) zero-padded to the kernel width D and
+    FF to a multiple of 4."""
+    w1, b1, w2, b2, *norms = ff
+    F4 = ff_kernel_width(w1.shape[1])
+    return (pad(w1, D, F4), pad(b1, F4), pad(w2, F4, D), pad(b2, D),
+            *(pad(t, D) for t in norms))
+
+
+def _scratch(floats, n, D, device):
+    """The layer kernels' scratch; zero where n < D, since the padded
+    columns of the attention output are not written and the padded out-
+    projection reads them as 0 * a."""
+    return (torch.empty if n == D else torch.zeros)(floats, device=device)
+
+
 def _launch_encoder(x, attn, ff, mask, valid, kind, add_keypad, heads,
-                    cluster):
-    where = "fused_encoder_layer"
+                    cluster, int8=False):
+    """The merged encoder layer at the kernel width, the operands
+    zero-padded from the model's width (``widths``); with ``int8`` the FF
+    weights are ``fused_encoder_layer_int8``'s."""
+    where = "fused_encoder_layer_int8" if int8 else "fused_encoder_layer"
     _build.check_tensors(where, x.device, x=x)
     _check_weights(where, x, "", _ATTN, attn)
-    FF = _check_weights(where, x, "", _FF, ff)
     mask = _check_masks(where, x, mask, valid, kind, add_keypad, heads)
-    B, T, D = x.shape
+    B, T, n = x.shape
+    D = kernel_width(where, n)
     cl = _cluster(where, B, x.device, cluster)
+    attn = _pad_attn(attn, n, D)
+    if int8:
+        w1q, w1s, b1, w2q, w2s, b2, *norms = ff
+        _build.check_tensors(where, x.device, w1s=w1s, b1=b1, w2s=w2s, b2=b2,
+                             **dict(zip(_FF[4:], norms)))
+        FF = check_int8_ff(where, n, w1q, w1s, b1, w2q, w2s, b2)
+        for name, t in zip(_FF[4:], norms):
+            _build.check_shape(where, name, t, (n,))
+        F4 = ff_kernel_width(FF)
+        ff = (*pad_int8_ff(w1q, w1s, b1, w2q, w2s, b2, D, F4),
+              *(pad(t, D) for t in norms))
+    else:
+        FF = _check_weights(where, x, "", _FF, ff)
+        F4 = ff_kernel_width(FF)
+        ff = _pad_ff(ff, n, D)
+    x = pad(x, D)
     y = torch.empty_like(x)
-    scratch = torch.empty(B * T * 4 * D, device=x.device)
+    scratch = _scratch(B * T * 4 * D, n, D, x.device)
     lib = _build.bind("layer_fused", _SIGS)
-    _build.call(lib, "kit_enc_layer", x.device, x, B, T, D, heads, FF, cl,
-                *attn,
-                *ff, mask, valid, int(kind == "repeat-inc"), int(add_keypad),
-                y, scratch)
+    if int8:  # each row's GELU output over the whole FF width
+        h = torch.empty(B * T * F4, device=x.device)
+        _build.call(lib, "kit_enc_layer_int8", x.device, x, B, T, D, n,
+                    heads, F4, cl, *attn, *ff, mask, valid,
+                    int(kind == "repeat-inc"), int(add_keypad), y, scratch, h)
+    else:
+        _build.call(lib, "kit_enc_layer", x.device, x, B, T, D, n, heads, F4,
+                    cl, *attn, *ff, mask, valid, int(kind == "repeat-inc"),
+                    int(add_keypad), y, scratch)
+    return cut(y, n)
+
+
+def fused_encoder_layer_int8(x, wqkv, bqkv, wo, bo, w1q, w1s, b1, w2q, w2s,
+                             b2, g1, be1, g2, be2, mask, valid,
+                             kind: str = "repeat-inc",
+                             add_keypad: bool = False, heads: int = 8,
+                             cluster: int | None = None):
+    """``fused_encoder_layer`` with its FF tail int8 (``_enc_kernel`` in its
+    ``ff_int8`` mode): w1q (FF, D) and w2q (D, FF) int8 in torch's layout
+    with their "ff"-form scales (``int8_matmul.quantize_weight``); the
+    attention stays float32."""
+    if x.device.type == "cpu":
+        return encoder_layer_int8_plain(x, wqkv, bqkv, wo, bo, w1q, w1s, b1,
+                                        w2q, w2s, b2, g1, be1, g2, be2, mask,
+                                        valid, kind, add_keypad, heads)
+    y = _launch_encoder(x, (wqkv, bqkv, wo, bo),
+                        (w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2, be2), mask,
+                        valid, kind, add_keypad, heads, cluster, int8=True)
+    fused_encoder_layer_int8.launches += 1
     return y
+
+
+fused_encoder_layer_int8.launches = 0
 
 
 def fused_decoder_layer(x, memory, swqkv, sbqkv, swo, sbo, cwqkv, cbqkv, cwo,
@@ -251,13 +333,17 @@ def _launch_decoder(x, memory, sattn, cattn, g1, be1, ff, smask, svalid,
     smask = _check_masks(where, x, smask, svalid, skind, sadd_keypad, heads)
     cmask = _check_masks(where, x, cmask, cvalid, ckind, cadd_keypad, heads)
     cl = _cluster(where, B, x.device, cluster)
+    # at the kernel width, the operands zero-padded (``widths``)
+    n, D = D, kernel_width(where, D)
+    sattn, cattn = _pad_attn(sattn, n, D), _pad_attn(cattn, n, D)
+    ff = (None,) * 8 if ff is None else _pad_ff(ff, n, D)
+    FF = 0 if ff[0] is None else ff[0].shape[1]
+    x, memory, g1, be1 = (pad(t, D) for t in (x, memory, g1, be1))
     y = torch.empty_like(x)
-    scratch = torch.empty(B * T * 8 * D, device=x.device)
+    scratch = _scratch(B * T * 8 * D, n, D, x.device)
     lib = _build.bind("layer_fused", _SIGS)
-    _build.call(lib, "kit_dec_layer", x.device, x, memory, B, T, D, heads,
-                FF, cl, *sattn, *cattn, g1, be1,
-                *(ff if ff is not None else (None,) * 8),
-                smask, svalid, int(skind == "repeat-inc"), int(sadd_keypad),
-                cmask, cvalid, int(ckind == "repeat-inc"), int(cadd_keypad),
-                y, scratch)
-    return y
+    _build.call(lib, "kit_dec_layer", x.device, x, memory, B, T, D, n, heads,
+                FF, cl, *sattn, *cattn, g1, be1, *ff, smask, svalid,
+                int(skind == "repeat-inc"), int(sadd_keypad), cmask, cvalid,
+                int(ckind == "repeat-inc"), int(cadd_keypad), y, scratch)
+    return cut(y, n)

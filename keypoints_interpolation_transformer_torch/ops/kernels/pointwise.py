@@ -26,10 +26,17 @@ import torch
 
 from . import _build
 from .ffn import LN_EPS
+from .widths import KERNEL_WIDTHS
 
 _SIGS = {"kit_pre_embed": "piiiipppppppppip",
          "kit_post_head": "ppiippppppipp"}
-_WIDTHS = (128, 256)
+
+
+def pointwise_supported(D: int, T: int) -> bool:
+    """The JAX ``KeypointCompleter``'s rule for its pointwise kernels: D a
+    multiple of 128 up to 512 and T a multiple of 8; its XLA chains (here
+    the plain ones) elsewhere."""
+    return D % 128 == 0 and T % 8 == 0 and D <= 512
 
 
 def token_norm(x: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
@@ -79,8 +86,8 @@ def fused_pre_stream_embed(x, wemb, bemb, pe_learned, w12, b12, w3, b3,
     where = "fused_pre_stream_embed"
     B, T, F = x.shape
     D = wemb.shape[1]
-    if D not in _WIDTHS or F > D or F % 4:
-        raise ValueError(f"{where}: needs D in {_WIDTHS} and F <= D a "
+    if D not in KERNEL_WIDTHS or F > D or F % 4:
+        raise ValueError(f"{where}: needs D in {KERNEL_WIDTHS} and F <= D a "
                          f"multiple of 4, got D={D}, F={F}")
     _build.check_tensors(where, x.device, x=x, wemb=wemb, bemb=bemb,
                          pe_learned=pe_learned, w12=w12, b12=b12, w3=w3,
@@ -110,8 +117,8 @@ def fused_post_head(decoded, filled_emb, w12, b12, w3, b3, wh, bh):
     where = "fused_post_head"
     B, T, D = decoded.shape
     F = wh.shape[1]
-    if D not in _WIDTHS or F > D or F % 4:
-        raise ValueError(f"{where}: needs D in {_WIDTHS} and F <= D a "
+    if D not in KERNEL_WIDTHS or F > D or F % 4:
+        raise ValueError(f"{where}: needs D in {KERNEL_WIDTHS} and F <= D a "
                          f"multiple of 4, got D={D}, F={F}")
     _build.check_tensors(where, decoded.device, decoded=decoded,
                          filled_emb=filled_emb, w12=w12, b12=b12, w3=w3,

@@ -26,6 +26,10 @@ from keypoints_interpolation_transformer_torch.transforms import (
     filters, normalize)
 from keypoints_interpolation_transformer_torch.utils import registry
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("kw", [dict(motion="smooth"),
                                 dict(motion="gestures", vocab=3)])

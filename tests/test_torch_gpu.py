@@ -167,8 +167,11 @@ def test_merged_wrappers_raise_rather_than_fall_back(cuda):
         kernels.fused_encoder_layer(x, z(D, 2 * D), *attn[1:], *ff, None,
                                     None, "all", False, 4)
     with pytest.raises(ValueError):  # a width the kernels do not take
-        kernels.fused_encoder_layer(z(B, T, 64), *attn, *ff, None, None,
-                                    "all", False, 4)
+        w = 640
+        kernels.fused_encoder_layer(
+            z(B, T, w), z(w, 3 * w), z(3 * w), z(w, w), z(w), z(w, FF), z(FF),
+            z(FF, w), z(w), z(w) + 1, z(w), z(w) + 1, z(w), None, None, "all",
+            False, 4)
     with pytest.raises(ValueError):  # weights left on the CPU
         kernels.fused_decoder_layer(x, x, *attn, *(t.cpu() for t in attn),
                                     z(D), z(D), None, None, None, None, None,
@@ -236,9 +239,8 @@ def test_per_op_wrappers_raise_rather_than_fall_back(cuda):
     with pytest.raises(ValueError):  # Tq != Tk
         kernels.fused_attention(q, q[:, :8].contiguous(), q, m, None)
     with pytest.raises(ValueError):  # a head width the kernels do not take
-        kernels.fused_attention(q[..., :8].contiguous(),
-                                q[..., :8].contiguous(),
-                                q[..., :8].contiguous(), m, None)
+        wide = torch.zeros(2, 16, 1, 136, device=cuda)
+        kernels.fused_attention(wide, wide, wide, m, None)
     with pytest.raises(TypeError):
         kernels.fused_masked_loss(torch.zeros(2, 4, 54, 2, device=cuda,
                                               dtype=torch.float64),
@@ -308,3 +310,80 @@ def test_long_bucket_takes_the_per_op_route(cuda):
         "attention_bwd": 3 * layers, "ffn_train": 2 * layers,
         "ffn_bwd": 2 * layers, "masked_loss": 1}
     assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])
+
+
+@pytest.mark.gpu
+def test_int8_kernels_match_plain_on_the_card(cuda):
+    """The int8 dense layer, the int8 FF sublayer and the merged encoder
+    layer with its FF int8 against their plain versions (chip_smoke's
+    int8 tolerance: a value at a rounding boundary may quantize one step
+    the other way), on an aligned and a ragged length."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for T in (40, 128):
+        for name, variant, kern, plain in chk.int8_calls(3, T):
+            chk.compare(name, variant, kern(), plain())
+
+
+@pytest.mark.gpu
+def test_int8_inpainter_routes_on_the_card(cuda):
+    """A two-layer int8 model at D=128: the merged route launches the int8
+    encoder layer, the decoder layer without its FF tail and the int8 FF
+    sublayer once per layer, and agrees with the plain int8 path."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    layers = 2
+    model = KeypointCompleter(128, layers, 4, ff_dim=256, device=cuda,
+                              generator=torch.Generator().manual_seed(0))
+    model.eval().pack_weights("int8")
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(0.2, 0.8, (2, 40, 54, 2)).astype(
+        np.float32)).to(cuda)
+    m = torch.from_numpy((rng.random((2, 40)) < 0.3).astype(np.float32)).to(
+        cuda)
+    with torch.inference_mode():
+        want = model(x, x, m, m, plain=True)
+        kernels.reset_launches()
+        got = model(x, x, m, m)
+        torch.cuda.synchronize()
+    assert kernels.launch_counts() == {
+        **chip_smoke.NO_LAUNCHES, "pre_stream_embed": 2, "post_head": 1,
+        "enc_layer_int8": layers, "dec_layer": layers, "ffn_int8": layers}
+    d = torch.linalg.vector_norm(got - want, dim=-1).mean()
+    assert float(d) < chip_smoke.INT8_MPJPE_TOL
+
+
+@pytest.mark.gpu
+def test_int8_wrappers_raise_rather_than_fall_back(cuda):
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    x = torch.zeros(4, 64, device=cuda)
+    wq = torch.zeros(32, 64, dtype=torch.int8, device=cuda)
+    ws, b = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError):  # a float weight
+        kernels.fused_int8_dense(x, wq.float(), ws, b)
+    with pytest.raises(ValueError):  # the weight left on the CPU
+        kernels.fused_int8_dense(x, wq.cpu(), ws, b)
+    with pytest.raises(ValueError):  # a wrong weight shape
+        kernels.fused_int8_dense(x, wq[:, :32].contiguous(), ws, b)
+    kernels.reset_launches()
+    kernels.fused_int8_dense(x, wq, ws, b)
+    assert kernels.launch_counts()["int8_dense"] == 1
+
+
+@pytest.mark.gpu
+def test_kernels_at_every_width_on_the_card(cuda):
+    """Every kernel (the pointwise ones where D % 128 == 0) at D = 32, 128,
+    384 and 512 with head widths 8, 64 and 128 against its plain
+    version."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, heads in chip_smoke.WIDTH_CASES:
+        chk = chip_smoke.KernelCheck(torch, kernels, d, heads, 4 * d)
+        calls = ([(*c, False) for c in chk.calls(3, 40)]
+                 + chk.train_calls(3, 40) + chk.per_op_calls(3, 40)
+                 + [(*c, False) for c in chk.int8_calls(3, 40)])
+        for name, variant, kern, plain, grad in calls:
+            chk.compare(name, f"D={d} {variant}", kern(), plain(), grad)

@@ -25,6 +25,10 @@ from keypoints_interpolation_transformer_torch.ops.kernels import (
     _build, attn_sublayer as tasl, ffn as tffn, pointwise as tpw)
 from keypoints_interpolation_transformer_torch.ops.masks import NEG
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 
 def _t(*arrays):
     return [None if a is None else torch.from_numpy(np.asarray(a))
@@ -263,7 +267,8 @@ def test_kernel_table_and_counters():
     assert names == ["pre_stream_embed", "attn_sublayer", "ffn",
                      "post_head", "attn_sublayer_train", "attn_sublayer_bwd",
                      "ffn_train", "ffn_bwd", "enc_layer", "dec_layer",
-                     "attention", "attention_bwd", "masked_loss"]
+                     "attention", "attention_bwd", "masked_loss",
+                     "int8_dense", "ffn_int8", "enc_layer_int8"]
     for k in kernels.KERNELS:
         assert k.source.endswith(".cu") and ".py:" in k.replaces
     kernels.reset_launches()

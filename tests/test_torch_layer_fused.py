@@ -33,6 +33,10 @@ from keypoints_interpolation_transformer_torch.ops import kernels
 from keypoints_interpolation_transformer_torch.ops.kernels import (
     layer_fused as tlf)
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 B, T, D, H, FF = 2, 32, 64, 4, 128
 TOL = 2e-5  # the JAX kernel tests' f32 forward tolerance
 

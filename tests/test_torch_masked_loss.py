@@ -18,6 +18,10 @@ from keypoints_interpolation_transformer_tpu.train import steps as jsteps
 from keypoints_interpolation_transformer_torch.ops import kernels, losses
 from keypoints_interpolation_transformer_torch.train import steps
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 
 
@@ -78,7 +82,8 @@ def test_closed_form_gradient_gradcheck():
                     for a in _inputs(3, B=4, T=4))
     pred.requires_grad_()
     assert torch.autograd.gradcheck(
-        lambda p: kernels.FusedEuclideanLoss.apply(p, tgt, w), (pred,))
+        lambda p: kernels.FusedEuclideanLoss.apply(p, tgt, w), (pred,),
+        fast_mode=True)
 
 
 @pytest.mark.parametrize("regime", ["a1", "a2", "a3", "a4"])

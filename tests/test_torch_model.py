@@ -25,6 +25,10 @@ from keypoints_interpolation_transformer_torch.models.layers import (
 from keypoints_interpolation_transformer_torch.ops import losses, masks
 from keypoints_interpolation_transformer_torch.transforms import corruption
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 B, T, D, LAYERS, HEADS, FF = 3, 24, 32, 2, 4, 64
 
 

@@ -1,9 +1,9 @@
 """The port stands alone at run time: with jax and the JAX package made
 unimportable, a fresh interpreter imports every module of the port and
-``chip_smoke``, takes a CPU train step, serves a CPU Cycle request and
-runs ``cli train`` on the CPU on the sublayer route and on the per-op
-route with the fused loss.  The training entry points default to the
-card and raise without one."""
+``chip_smoke``, takes a CPU train step, serves a CPU Cycle request and an
+int8 one (``Inpainter(quantize="int8")``) and runs ``cli train`` on the
+CPU on the sublayer route and on the per-op route with the fused loss.
+The training entry points default to the card and raise without one."""
 
 import os
 import subprocess
@@ -30,6 +30,7 @@ class Block(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Block())
 import torch
+torch.set_num_threads(1)  # the suite's other workers share the cores
 import keypoints_interpolation_transformer_torch as pkg
 
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -65,6 +66,13 @@ miss = (torch.arange(20) % 3 == 0).float()
 out = inp.inpaint([v.numpy()], [miss.numpy()])[0]
 assert out.shape == (20, 54, 2) and (out[miss.numpy() == 0]
                                      == v.numpy()[miss.numpy() == 0]).all()
+# int8 serving: the int8 dense, FF and merged-layer modules' plain versions
+from keypoints_interpolation_transformer_torch.eval import quantize  # noqa
+q8 = Inpainter(first.state_dict(), cfg.model, bucket_multiple=16,
+               device="cpu", quantize="int8")
+out8 = q8.inpaint([v.numpy()], [miss.numpy()])[0]
+assert q8.model.int8 and out8.shape == (20, 54, 2)
+assert (out8[miss.numpy() == 0] == v.numpy()[miss.numpy() == 0]).all()
 import contextlib
 import io
 import json

@@ -27,6 +27,10 @@ from keypoints_interpolation_transformer_torch.eval import serving
 from keypoints_interpolation_transformer_torch.models.convert import (
     load_reference_pth, params_from_jax, save_reference_pth)
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MC = ModelConfig(hidden_dim=32, num_layers=1, num_heads=4, ff_dim=64)
 

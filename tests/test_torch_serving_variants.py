@@ -24,6 +24,10 @@ from keypoints_interpolation_transformer_torch.models.convert import (
     save_reference_pth)
 from keypoints_interpolation_transformer_torch.train import steps
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 MC = ModelConfig(hidden_dim=32, num_layers=1, num_heads=4, ff_dim=64)
 HYPER = {"hidden_dim": 32, "num_layers": 1, "num_heads": 4}
 KW = dict(bucket_multiple=16, max_seq_len=64)

@@ -20,6 +20,10 @@ from keypoints_interpolation_transformer_torch.ops import kernels
 from keypoints_interpolation_transformer_torch.ops.kernels import (
     attn_sublayer as tasl, ffn as tffn)
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 T_, D_, H_, FF_ = 16, 32, 4, 64
 
 
@@ -244,10 +248,13 @@ def _ffn_params(rng, D, FF, dtype):
 
 @pytest.mark.parametrize("pre_ln", [False, True])
 def test_ffn_function_gradcheck_and_plain_autograd(rng, pre_ln):
-    p64 = _ffn_params(rng, 8, 16, torch.float64)
-    r64 = torch.tensor(rng.normal(size=(2, 3, 8)), requires_grad=True)
+    # one video of 3 tokens at D = 4, FF = 8: a float64 gradcheck in well
+    # under a second
+    p64 = _ffn_params(rng, 4, 8, torch.float64)
+    r64 = torch.tensor(rng.normal(size=(1, 3, 4)), requires_grad=True)
     fn = lambda r, *p: kernels.FFNFunction.apply(r, *p, pre_ln)  # noqa
-    assert torch.autograd.gradcheck(fn, (r64, *p64), eps=1e-6, atol=1e-5)
+    assert torch.autograd.gradcheck(fn, (r64, *p64), eps=1e-6, atol=1e-5,
+                                    fast_mode=True)
 
     p32 = _ffn_params(rng, D_, FF_, torch.float32)
     r32 = torch.tensor(rng.normal(size=(2, 5, D_)), dtype=torch.float32,
@@ -266,11 +273,11 @@ def test_ffn_function_gradcheck_and_plain_autograd(rng, pre_ln):
         torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4)
 
 
-def _attn_leaves(rng, D, T, dtype, post_ln):
+def _attn_leaves(rng, D, T, dtype, post_ln, videos=2):
     def t(*shape, scale=0.3, shift=0.0):
         return torch.tensor(rng.normal(size=shape) * scale + shift,
                             dtype=dtype, requires_grad=True)
-    x, mem = t(2, T, D, scale=1.0), t(2, T, D, scale=1.0)
+    x, mem = t(videos, T, D, scale=1.0), t(videos, T, D, scale=1.0)
     ln = (t(D, shift=1.0, scale=0.1), t(D, scale=0.1)) if post_ln \
         else (None, None)
     return x, mem, (t(3 * D, D), t(3 * D, scale=0.05), t(D, D),
@@ -282,19 +289,19 @@ def _attn_leaves(rng, D, T, dtype, post_ln):
 def test_attn_function_gradcheck_and_plain_autograd(rng, self_attn, kind,
                                                     keypad, post_ln,
                                                     all_padded):
+    # one video of 5 frames, 2 heads of 4, its last two keys padded
     T = 5
-    mask = torch.tensor([[0, 1, 0, 1, 1], [1, 0, 0, 1, 0]],
-                        dtype=torch.float64)
-    valid = torch.tensor([[1, 1, 1, 1, 1], [1, 1, 1, 0, 0]],
-                         dtype=torch.float64)
-    x, mem, p = _attn_leaves(rng, 8, T, torch.float64, post_ln)
+    mask = torch.tensor([[0, 1, 0, 1, 1]], dtype=torch.float64)
+    valid = torch.tensor([[1, 1, 1, 0, 0]], dtype=torch.float64)
+    x, mem, p = _attn_leaves(rng, 8, T, torch.float64, post_ln, videos=1)
     memory = None if self_attn else mem
 
     def fn(x_, m_, *p_):
         return kernels.AttnSublayerFunction.apply(
             x_, m_, *p_, mask, valid, kind, keypad, 2)
     leaves = (x, memory, *p)
-    assert torch.autograd.gradcheck(fn, leaves, eps=1e-6, atol=1e-5)
+    assert torch.autograd.gradcheck(fn, leaves, eps=1e-6, atol=1e-5,
+                                    fast_mode=True)
 
     x, mem, p = _attn_leaves(rng, D_, T_, torch.float32, post_ln)
     memory = None if self_attn else mem

@@ -29,6 +29,10 @@ from keypoints_interpolation_transformer_torch.train.checkpoint import (
 from keypoints_interpolation_transformer_torch.utils.config import (
     UNSUPPORTED, Config, DataConfig, ModelConfig, TrainConfig)
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 D, HEADS, LAYERS, FF = 32, 4, 1, 64
 
 

@@ -26,6 +26,10 @@ from keypoints_interpolation_transformer_torch.train import state, steps
 from keypoints_interpolation_transformer_torch.utils.config import (
     Config, ModelConfig, TrainConfig)
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 B, T, D, LAYERS, HEADS, FF = 4, 16, 32, 1, 4, 64
 LR = 1e-3
 VARIANT = {"a1": "plain", "a2": "cycle", "a3": "embedding", "a4": "plain"}
@@ -118,7 +122,7 @@ def jax_step(request):
         return jsteps._weighted_mean(per_video, weight)
 
     with jax.default_matmul_precision("highest"):
-        loss, grads = jax.value_and_grad(loss_fn)(params)
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
         after = jstate.apply_gradients(jstate.TrainState.create(params),
                                        grads, LR, freeze).params
     return dict(regime=regime, params=params, after=after, grads=grads,

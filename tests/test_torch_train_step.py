@@ -23,6 +23,10 @@ from keypoints_interpolation_transformer_torch.train import state, steps
 from keypoints_interpolation_transformer_torch.utils.config import (
     Config, ModelConfig)
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 B, T, D, LAYERS, HEADS, FF = 4, 16, 32, 2, 4, 64
 LR = 1e-3
 
@@ -56,14 +60,16 @@ def jax_run():
            "params": [params], "batches": [], "loss": [], "grads": []}
     st = jstate.TrainState.create(params)
     with jax.default_matmul_precision("highest"):
+        # compiled once: the eager JAX ops are what takes the time here
+        grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        corrupt = jax.jit(lambda key: jsteps.corrupt_batch(
+            key, clean, length, augment=True, aug_prob=0.5,
+            is_random_missing=False, dataset_name="all", stats=None))
+        adam = jax.jit(lambda s, g: jstate.apply_gradients(s, g, LR))
         for k in (11, 12):
-            batch = jsteps.corrupt_batch(
-                jax.random.key(k), clean, length, augment=True,
-                aug_prob=0.5, is_random_missing=False, dataset_name="all",
-                stats=None)
-            (loss, _), grads = jax.value_and_grad(loss_fn, has_aux=True)(
-                st.params, *batch)
-            st = jstate.apply_gradients(st, grads, LR)
+            batch = corrupt(jax.random.key(k))
+            (loss, _), grads = grad_fn(st.params, *batch)
+            st = adam(st, grads)
             out["batches"].append(batch)
             out["loss"].append(float(loss))
             out["grads"].append(grads)

@@ -17,6 +17,10 @@ from keypoints_interpolation_transformer_torch.data.keypoints import body_map
 from keypoints_interpolation_transformer_torch.transforms import (
     augment, corruption)
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
 DEG = math.pi / 180.0
 
 
