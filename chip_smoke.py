@@ -7,6 +7,8 @@ and hold every hand-written kernel against its plain PyTorch version.
                                        # breakdowns (see below)
     python3 chip_smoke.py --sweep      # build, then cluster sizes and
                                        # small-batch latency
+    python3 chip_smoke.py --ab DIR     # build, then this tree against the
+                                       # tree unpacked in DIR, in turns
 
 Phases (each prints its own lines; any failed check exits non-zero):
   1. device and build: the card's name and power limit, then the nvcc build
@@ -73,11 +75,37 @@ Phases (each prints its own lines; any failed check exits non-zero):
      12); the Cycle pair and the Embedding int8; an HTTP round trip through
      a ``cli serve --quantize int8`` child process;
  10. widths: every kernel at D in {32, 128, 384, 512} with head widths 8,
-     64 and 128 against its plain version (B=3, T in {40, 128}), then a
-     two-layer model at each serving float32 and int8 and taking an A1
-     train step, each against its plain path, with its launch counts.
+     64 and 128, and at D in {384, 512} with one and two heads (head widths
+     192 to 512, the attention cores' wide build), against its plain
+     version (B=3, T in {40, 128}), then a two-layer model at each serving
+     float32 and int8 and taking an A1 train step, each against its plain
+     path, with its launch counts;
+ 11. precision modes (run after phase 8): the per-sublayer Inpainter at
+     B=256, T=128 at "highest", "high" (bf16x3) and "default" (one bf16
+     pass): launches (ffn_high / ffn_default 12 in place of ffn), masked
+     MPJPE against "highest" (< 1e-4 for "high", the run fails otherwise;
+     "default" printed), frames/s in turns; the merged route at "high"
+     (no FF kernel runs: the whole layers stay float32); the flagship A1
+     step at "high" and "default", kernel route against the plain route in
+     the same mode (loss and gradient norm within 1e-4 relative; each
+     parameter's gradient of the first step within HIGH_MODE_TOL /
+     DEFAULT_MODE_TOL of its own largest value and MODE_SEPARATION times
+     nearer than the route one mode down), its
+     launches (attn_sublayer_train 18, attn_sublayer_bwd 18, ffn_train_high
+     12, ffn_bwd_split_high 12, ffn_bwd 0), step time beside the float32
+     step, loss against it; one epoch of ``cli train --precision high``; an
+     HTTP request through a ``cli serve --precision high`` child process
+     (a 300-frame video, so the FF sublayers run in the mode: ffn_high 12)
+     against the plain path in the mode.
 
-Phase 2 also holds the int8 kernels (int8_dense at the Embedding's
+Phase 2 also holds the precision modes' kernels (``ffn`` and
+``ffn_train`` in "high" and "default" at B=256 and B=64, ``ffn_bwd_split``
+in all three modes and in float32 against the monolith ``ffn_bwd``,
+``pre_stream`` with and without the Cycle residual) against their plain
+versions in the same mode, each output against its own largest value and
+each mode kernel nearer its own mode than the one below it (see
+HIGH_MODE_TOL), each bound at its mode's peak (bf16 tensor
+cores, three passes for "high"), and the int8 kernels (int8_dense at the Embedding's
 Linear, 108 -> 256, and at a q / k / v projection, 256 -> 768, also at the
 600-frame request's 608 rows; ffn_int8 with LN1; enc_layer_int8 with both
 models' masks) against their plain versions and against ``torch._int_mm``
@@ -90,13 +118,18 @@ video (bucket 608, above the sublayer kernel's 512) on the per-op route:
 attention 18, ffn 12, pre_stream_embed 2, post_head 1.
 
 ``--profile`` prints, after the build, the device time by kernel of one
-train step, of one merged-route Inpainter call and of one a1 epoch of the
-loop (with its device idle share and the host work in it).  ``--sweep``
-prints the
+train step (float32, per op, and at "high"), of one merged-route and one
+per-sublayer "high" Inpainter call and of one a1 epoch of the loop (with
+its device idle share and the host work in it).  ``--sweep`` prints the
 whole-layer kernels' times at T=128 for B in {256, 64, 8, 1} with clusters
 of 1, 2, 4 and 8 blocks per video (and the size the wrapper picks), then
 the latency of one Inpainter call per route (the int8 merged route too)
-at small batches.
+at small batches.  ``--ab DIR`` builds this tree's and DIR's kernels at
+once, then measures each tree in a fresh process in turns (DIR, this,
+this, DIR): the merged Inpainter's frames/s at B=256, its latency at 1 /
+4 / 16 / 64 videos and the A1 step time, with the merged output's sum and
+the step's loss, which equal bit for bit where the float32 kernels are
+unchanged.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card it exits 1 and prints
@@ -120,8 +153,9 @@ B_MAIN, T_MAIN = 256, 128
 B_TRAIN = 64
 D, HEADS, FF, LAYERS, F_IN = 256, 8, 2048, 6, 108
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): float32 FFMA, int8
-# tensor-core operations, HBM3
+# tensor-core operations, HBM3, bf16 tensor cores
 PEAK_FLOPS, PEAK_INT8, PEAK_BYTES = 67e12, 1979e12, 3.35e12
+PEAK_BF16 = 989e12
 # f32 FFMA kernels against cuBLAS f32: the same products summed in another
 # order (over contraction depths up to 2048) differ by a few ulp of the
 # partial sums; 1e-4 of the output's scale leaves an order of magnitude of
@@ -135,6 +169,41 @@ GRAD_TOL = 1e-4
 # differences above compounded (float32 noise in the loss is ~1e-6)
 LOSS_RTOL = 1e-4
 MPJPE_TOL = 1e-4  # bench.py's gate
+# the FF kernels of the precision modes against their plain versions in the
+# same mode, each output against its own largest value (no output of the FF
+# sublayer or of its backward is zero in exact arithmetic).  Each limit lies
+# between the sound reading (the kernel against its own mode) and the
+# reading of the wrong mode (the kernel against the plain version one mode
+# down: one bf16 pass for "high", float32 for "default"); on an H100 the
+# worst over phase 2's shapes (PERF.md §6):
+# - "high" (bf16x3): its lo parts carry what a hi rounded the other way
+#   loses, so what is left is float32 summation order plus the dropped
+#   lo*lo term, some 2^-16 of a product.  Largest error 6.5e-6 sound, at
+#   least 5.6e-4 in the wrong mode on every output the mode moves;
+# - "default" (one bf16 pass): an operand the kernel and its plain version
+#   compute in another float32 order (a LayerNorm output, u summed over D,
+#   GELU of it) can fall on the other side of a bf16 rounding boundary and
+#   move its product by one bf16 step (2^-8 of the term).  Largest error
+#   4.2e-4 sound against 5.6e-4 wrong, too close for a limit, so the
+#   largest is held under a cap and the mean decides: such flips are rare,
+#   while a kernel off its mode misses every output.  Mean error 3.4e-6
+#   sound, at least 8.7e-5 wrong.
+HIGH_MODE_TOL = 1e-4
+DEFAULT_MODE_TOL = 2e-3
+DEFAULT_MEAN_TOL = 1.5e-5
+# and each mode kernel is nearer its own mode's plain version than the
+# wrong mode's by this factor, over the worst output of the call: a kernel
+# that runs the wrong number of passes, or skips the bf16 rounding, fails
+MODE_SEPARATION = 2.0
+WRONG_MODE = {"bf16x3": "bf16", "bf16": "f32"}
+# the FF kernels held per output as above; the float32 split backward at
+# GRAD_TOL of each output's own largest value
+FF_MODE_TOL = {"ffn_high": HIGH_MODE_TOL, "ffn_train_high": HIGH_MODE_TOL,
+               "ffn_bwd_split_high": HIGH_MODE_TOL,
+               "ffn_default": DEFAULT_MODE_TOL,
+               "ffn_train_default": DEFAULT_MODE_TOL,
+               "ffn_bwd_split_default": DEFAULT_MODE_TOL,
+               "ffn_bwd_split": GRAD_TOL}
 # int8 kernels against their plain versions: the same int8 values and exact
 # int32 sums on both sides, except where the float32 value being quantized
 # (a LayerNorm or GELU output, summed in another order by the two) lies
@@ -202,12 +271,19 @@ PER_OP_KERNELS = ("attention", "attention_bwd", "masked_loss")
 ATTN_T = (40, 512, 608, 2048)  # the per-op kernels' lengths in phase 2
 # the int8 serving kernels: timed at the serving batch
 INT8_KERNELS = ("int8_dense", "ffn_int8", "enc_layer_int8")
+# the precision modes' kernels ("high": bf16x3, "default": one bf16 pass;
+# the float32 split backward, timed beside the monolith) and the
+# pre-stream chain on an embedding: serving ones timed at the serving
+# batch, training ones at the training batch
+MODE_SERVE_KERNELS = ("ffn_high", "ffn_default", "pre_stream")
+MODE_TRAIN_KERNELS = ("ffn_train_high", "ffn_train_default", "ffn_bwd_split",
+                      "ffn_bwd_split_high", "ffn_bwd_split_default")
 # every kernel of ops/kernels.KERNELS, launched no time
 NO_LAUNCHES = dict.fromkeys(
     ("pre_stream_embed", "attn_sublayer", "ffn", "post_head",
      "attn_sublayer_train", "attn_sublayer_bwd", "ffn_train", "ffn_bwd",
      "enc_layer", "dec_layer", "attention", "attention_bwd", "masked_loss",
-     *INT8_KERNELS), 0)
+     *INT8_KERNELS, *MODE_SERVE_KERNELS, *MODE_TRAIN_KERNELS), 0)
 # the training step's launches of each kernel: 18 attention sublayers, 12
 # FF sublayers, forward and backward; none of the serving kernels
 TRAIN_COUNTS = {**NO_LAUNCHES, "attn_sublayer_train": 18,
@@ -280,21 +356,29 @@ class KernelCheck:
         valid[1, T - max(T // 5, 1):] = 0.0  # a padded row
         return mask.to(DEV).contiguous(), valid.to(DEV).contiguous()
 
-    def compare(self, name, variant, got, want, grad=False):
+    def compare(self, name, variant, got, want, grad=False, wrong=None):
         """Each output within REL_TOL of max(1, its scale), or, for
         gradients (``grad``), within GRAD_TOL of the largest gradient of
         the call; an int8 kernel's (``name`` in INT8_KERNELS) within
-        INT8_TOL of max(1, its scale) and INT8_MEAN_TOL of it on average."""
+        INT8_TOL of max(1, its scale) and INT8_MEAN_TOL of it on average;
+        an FF kernel of the precision modes (``name`` in FF_MODE_TOL)
+        within its mode's limit of each output's own largest value and,
+        given ``wrong`` (the plain version's outputs in the wrong mode),
+        MODE_SEPARATION times nearer ``want`` than ``wrong``."""
         t = self.torch
         t.cuda.synchronize()
         gots = got if isinstance(got, tuple) else (got,)
         wants = want if isinstance(want, tuple) else (want,)
         if len(gots) != len(wants):
             fail(f"{name} {variant}: {len(gots)} outputs != {len(wants)}")
-        pairs = [(g_, w_) for g_, w_ in zip(gots, wants)
+        wrongs = ((wrong if isinstance(wrong, tuple) else (wrong,))
+                  if wrong is not None else (None,) * len(wants))
+        pairs = [(g_, w_, x_) for g_, w_, x_ in zip(gots, wants, wrongs)
                  if not (g_ is None and w_ is None)]
-        gscale = max(float(w_.abs().max()) for _, w_ in pairs)
-        for g_, w_ in pairs:
+        gscale = max(float(w_.abs().max()) for _, w_, _ in pairs)
+        mode_tol = FF_MODE_TOL.get(name.split()[0])
+        worst = [0.0, 0.0]  # normalized: own mode, wrong mode
+        for g_, w_, x_ in pairs:
             if g_ is None or w_ is None or g_.shape != w_.shape:
                 shapes = [None if t_ is None else tuple(t_.shape)
                           for t_ in (g_, w_)]
@@ -305,6 +389,22 @@ class KernelCheck:
             scale = max(1.0, float(w_.abs().max()))
             tol = GRAD_TOL * gscale if grad else REL_TOL * scale
             mean = ""
+            if mode_tol is not None:
+                own = float(w_.abs().max()) or 1.0
+                tol = mode_tol * own
+                avg = float((g_ - w_).abs().mean()) / own
+                worst[0] = max(worst[0], err / own)
+                mean = (f" = {err / own:.3e} of its max {own:.3e}, mean "
+                        f"{avg:.3e}")
+                if x_ is not None:
+                    werr = float((g_ - x_).abs().max()) / own
+                    worst[1] = max(worst[1], werr)
+                    mean += (f"; wrong mode {werr:.3e}, mean "
+                             f"{float((g_ - x_).abs().mean()) / own:.3e}")
+                if name.split()[0].endswith("_default") and \
+                        avg > DEFAULT_MEAN_TOL:
+                    fail(f"{name} {variant}: mean abs err {avg:.3e} of its "
+                         f"max > {DEFAULT_MEAN_TOL:.1e}")
             if name.split()[0] in INT8_KERNELS:
                 tol = INT8_TOL * scale
                 avg = float((g_ - w_).abs().mean())
@@ -318,6 +418,14 @@ class KernelCheck:
                   f"(tol {tol:.2e}){mean}", flush=True)
             if err > tol:
                 fail(f"{name} {variant}: max_abs_err {err:.3e} > {tol:.2e}")
+        if wrong is not None:
+            print(f"  {name:16s} {variant:34s} worst of the call: own mode "
+                  f"{worst[0]:.3e}, wrong mode {worst[1]:.3e} (at least "
+                  f"{MODE_SEPARATION:g} x further)", flush=True)
+            if not worst[0] * MODE_SEPARATION < worst[1]:
+                fail(f"{name} {variant}: no nearer its own mode's plain "
+                     f"version ({worst[0]:.3e}) than the wrong mode's "
+                     f"({worst[1]:.3e})")
 
     def operands(self, B, T):
         w, D, FF = self.weight, self.d, self.ff
@@ -495,6 +603,69 @@ class KernelCheck:
         return out
 
 
+    def precision_calls(self, B, b_train, T):
+        """(kernel name, variant, wrapper call, plain call, is a gradient,
+        plain call in the wrong mode or None) of the precision modes'
+        kernels, each against its plain version in the same mode: the FF
+        forward at (B, T) and the training forward at (b_train, T) in
+        "high" and "default" (their weights split into bf16 planes once,
+        as a packed model keeps them); the split backward at (b_train, T)
+        in all three modes, per call as the training route runs it, and in
+        float32 against the monolith ``ffn_bwd``; the pre-stream chain on
+        an embedding at (B, T) without and with the Cycle residual.  The
+        wrong mode of "high" is one bf16 pass, that of "default" float32
+        (WRONG_MODE)."""
+        from keypoints_interpolation_transformer_torch.ops.kernels.ffn \
+            import ff_weight_planes
+        k, out = self.k, []
+        modes = (("bf16x3", "high"), ("bf16", "default"))
+        o = self.operands(B, T)
+        args = (o["x"], o["w1"], o["b1"], o["w2"], o["b2"], o["g"], o["be"],
+                o["g2"], o["be2"], True)
+        for mode, tag in modes:
+            p = ff_weight_planes(o["w1"].t(), o["w2"].t(), mode)
+            out.append((f"ffn_{tag}", "pre_ln",
+                        lambda a=args, m=mode, p=p: k.fused_ffn(*a, m, p),
+                        lambda a=args, m=mode: k.ffn_plain(*a, m), False,
+                        lambda a=args, m=WRONG_MODE[mode]: k.ffn_plain(
+                            *a, m)))
+        ot = self.operands(b_train, T)
+        targs = (ot["x"], ot["w1"], ot["b1"], ot["w2"], ot["b2"], ot["g"],
+                 ot["be"], ot["g2"], ot["be2"], True)
+        for mode, tag in modes:
+            p = ff_weight_planes(ot["w1"].t(), ot["w2"].t(), mode)
+            out.append((f"ffn_train_{tag}", "pre_ln",
+                        lambda a=targs, m=mode, p=p: k.fused_ffn_train(
+                            *a, m, p),
+                        lambda a=targs, m=mode: k.ffn_train_plain(*a, m),
+                        False,
+                        lambda a=targs, m=WRONG_MODE[mode]: k.ffn_train_plain(
+                            *a, m)))
+        _, u, z = k.ffn_train_plain(*targs)
+        bargs = (self.rand(b_train, T, self.d), ot["x"], u, z,
+                 ot["w1"].t().contiguous(), ot["w2"].t().contiguous(),
+                 ot["g"], ot["be"], ot["g2"], True)
+        for mode, name in (("f32", "ffn_bwd_split"),
+                           ("bf16x3", "ffn_bwd_split_high"),
+                           ("bf16", "ffn_bwd_split_default")):
+            out.append((name, "pre_ln",
+                        lambda a=bargs, m=mode: k.ffn_bwd_split(*a, m),
+                        lambda a=bargs, m=mode: k.ffn_bwd_split_plain(*a, m),
+                        True,
+                        None if mode == "f32" else
+                        lambda a=bargs, m=WRONG_MODE[mode]:
+                        k.ffn_bwd_split_plain(*a, m)))
+        out.append(("ffn_bwd_split", "pre_ln against the monolith ffn_bwd",
+                    lambda a=bargs: k.ffn_bwd_split(*a),
+                    lambda a=bargs: k.ffn_bwd(*a), True, None))
+        for res in (False, True) if self.d % 128 == 0 else ():
+            args = (o["x"], o["pe"], o["w12"], o["b12"], o["w3"], o["b3"],
+                    res)
+            out.append(("pre_stream", f"pe_residual={res}",
+                        lambda a=args: k.fused_pre_stream(*a),
+                        lambda a=args: k.pre_stream_plain(*a), False, None))
+        return out
+
     def per_op_calls(self, B, T, blocked=True):
         """(kernel name, variant, wrapper call, plain call, is a gradient)
         of the per-op attention kernels and the masked loss at (B, T): the
@@ -614,9 +785,15 @@ def work(name, B, T):
         # the difference, its square and the weighted sum per value
         "masked_loss": (3 * N * F_IN + 2 * N, 2 * N * F_IN + N + B),
     }
+    # the precision modes do the float32 kernels' work; the split backward
+    # moves what the monolith moves (du is its own hand-off, not an input
+    # or an output); the pre-stream chain is the embed kernel's second half
+    table["pre_stream"] = (2 * N * 3 * D * D,
+                           2 * N * D + T * D + 3 * D * D + 3 * D)
     if name in INT8_KERNELS:
         return int8_work(name, B, T)
-    flop, elems = table[name]
+    base = name.replace("_high", "").replace("_default", "")
+    flop, elems = table["ffn_bwd" if base == "ffn_bwd_split" else base]
     return flop, 0, elems * f
 
 
@@ -842,10 +1019,17 @@ LIBRARY = {"enc_layer": library_encoder_layer,
 
 def bound(name, B, T):
     """(bound_ms, bound_by): the larger of the operations over the peak for
-    their type (float32 FLOP over the FFMA peak plus int8 operations over
-    the int8 tensor-core peak) and the bytes over the memory rate."""
+    their type (float32 FLOP over the FFMA peak, or in the precision modes
+    over the bf16 tensor-core peak, three times for "high"; int8
+    operations over the int8 tensor-core peak) and the bytes over the
+    memory rate."""
     flop, int8, byts = work(name, B, T)
-    t_op, t_mem = flop / PEAK_FLOPS + int8 / PEAK_INT8, byts / PEAK_BYTES
+    peak = PEAK_FLOPS
+    if name.endswith("_high"):
+        flop, peak = 3 * flop, PEAK_BF16
+    elif name.endswith("_default"):
+        peak = PEAK_BF16
+    t_op, t_mem = flop / peak + int8 / PEAK_INT8, byts / PEAK_BYTES
     return max(t_op, t_mem) * 1e3, "operations" if t_op >= t_mem else "bytes"
 
 
@@ -858,17 +1042,28 @@ def phase_kernels(torch, kmod):
           "gradient: the same, summed over up to 8192 rows; some gradients "
           "(the k-bias) are exactly zero in exact arithmetic, so no "
           "per-tensor scale", flush=True)
+    print(f"  precision modes' FF kernels: each output within "
+          f"{HIGH_MODE_TOL:.0e} ('high') / {DEFAULT_MODE_TOL:.0e} "
+          f"('default') / {GRAD_TOL:.0e} (float32 split) of its own max "
+          f"|plain|, and {MODE_SEPARATION:g} x nearer the plain version in "
+          "its mode than in the wrong one (one bf16 pass for 'high', "
+          "float32 for 'default')", flush=True)
     chk = KernelCheck(torch, kmod)
 
     def all_calls(B, T, b_train, blocked=True):
-        return ([(*c, False) for c in chk.calls(B, T)]
-                + chk.train_calls(b_train, T)
-                + chk.per_op_calls(b_train, T, blocked)
-                + [(*c, False) for c in chk.int8_calls(B, T)])
+        return ([(*c, False, None) for c in chk.calls(B, T)]
+                + [(*c, None) for c in chk.train_calls(b_train, T)
+                   + chk.per_op_calls(b_train, T, blocked)]
+                + [(*c, False, None) for c in chk.int8_calls(B, T)]
+                + chk.precision_calls(B, b_train, T))
+
+    def held(fn):
+        return None if fn is None else fn()
 
     for T in (128, 40, 256, 300):
-        for name, variant, kern, plain, grad in all_calls(3, T, 3):
-            chk.compare(name, f"B=3 T={T} {variant}", kern(), plain(), grad)
+        for name, variant, kern, plain, grad, wrong in all_calls(3, T, 3):
+            chk.compare(name, f"B=3 T={T} {variant}", kern(), plain(), grad,
+                        held(wrong))
     # the per-op kernels at the lengths they carry: above the sublayer
     # kernel's 512 frames up to the positional table's 2048
     for T in ATTN_T:
@@ -885,11 +1080,12 @@ def phase_kernels(torch, kmod):
                                                               cl):
                 chk.compare(name, f"B=3 T={T} {variant}", kern(), plain())
     times, first = {}, {}
-    for name, variant, kern, plain, grad in all_calls(B_MAIN, T_MAIN,
-                                                      B_TRAIN, False):
-        B = B_TRAIN if name in TRAIN_KERNELS + PER_OP_KERNELS else B_MAIN
+    for name, variant, kern, plain, grad, wrong in all_calls(
+            B_MAIN, T_MAIN, B_TRAIN, False):
+        B = B_TRAIN if name in TRAIN_KERNELS + PER_OP_KERNELS \
+            + MODE_TRAIN_KERNELS else B_MAIN
         chk.compare(name, f"B={B} T={T_MAIN} {variant}", kern(), plain(),
-                    grad)
+                    grad, held(wrong))
         first.setdefault(name, (variant, kern, plain, B, grad))
     for name, (variant, kern, plain, B, grad) in first.items():
         lib = (LIBRARY[name](torch, *chk.layer_args[name])
@@ -904,6 +1100,10 @@ def phase_kernels(torch, kmod):
             print(f"  {name} library: torch._int_mm (cuBLASLt int8) on the "
                   "int8 operands with the plain quantize and dequantize "
                   "steps and float ops around it", flush=True)
+        if name in MODE_SERVE_KERNELS + MODE_TRAIN_KERNELS:
+            print(f"  {name} library: none; no one PyTorch call computes "
+                  "the fused sublayer, and none rounds float32 operands "
+                  "to bf16 hi / lo parts", flush=True)
         p0 = timed_ms(plain)
         k0 = timed_ms(kern)
         lib_ms = min(timed_ms(lib), timed_ms(lib)) if lib else None
@@ -1787,9 +1987,10 @@ def device_profile(torch, label, fn, gpu):
 
 
 def profile_paths(torch, gpu):
-    """One warm train step on the kernel path and on the per-op attention
-    route, then one merged-route Inpainter call at B=256, T=128 (host
-    arrays in and out, as phase 6 times it)."""
+    """One warm train step on the kernel path, on the per-op attention
+    route and at "high", then one merged-route and one per-sublayer "high"
+    Inpainter call at B=256, T=128 (host arrays in and out, as phase 6
+    times it)."""
     from keypoints_interpolation_transformer_torch.eval.serving import (
         Inpainter)
     from keypoints_interpolation_transformer_torch.models.completer import (
@@ -1802,13 +2003,31 @@ def profile_paths(torch, gpu):
                        f"T={T_MAIN}", lambda: step(st, clean, length,
                                                    weight, gen, lr), gpu)
     del runs, st, step
+    import dataclasses
+    from keypoints_interpolation_transformer_torch.train import state, steps
+    from keypoints_interpolation_transformer_torch.utils.config import Config
+    cfg = Config(model=dataclasses.replace(model_config(),
+                                           matmul_precision="high"))
+    model = steps.build_model(cfg.model, for_training=True, device=DEV,
+                              generator=torch.Generator().manual_seed(0))
+    st = state.TrainState.create(model, lr)
+    step = steps.make_train_step(model, cfg, None)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    device_profile(torch, f"one \"high\" train step, B={B_TRAIN} "
+                   f"T={T_MAIN}", lambda: step(st, clean, length, weight,
+                                               gen, lr), gpu)
+    del model, st, step
     model = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
                               generator=torch.Generator().manual_seed(0))
-    inp = Inpainter(model.state_dict(), model_config(), device=DEV)
     videos, masks = model_inputs(B_MAIN, T_MAIN, 3)
-    device_profile(torch, f"one merged-route Inpainter call, B={B_MAIN} "
-                   f"T={T_MAIN}", lambda: inp.inpaint(list(videos),
-                                                      list(masks)), gpu)
+    for label, mc, merge in (
+            ("merged-route", model_config(), True),
+            ("per-sublayer \"high\"", cfg.model, False)):
+        inp = Inpainter(model.state_dict(), mc, device=DEV,
+                        merge_layers=merge)
+        device_profile(torch, f"one {label} Inpainter call, B={B_MAIN} "
+                       f"T={T_MAIN}", lambda: inp.inpaint(list(videos),
+                                                          list(masks)), gpu)
 
 
 # the spans train/loop.py marks for the profiler
@@ -1932,9 +2151,275 @@ def sweep(torch, kmod, gpu):
                                              "int8 merged")), flush=True)
 
 
+# the precision phase: per-sublayer serving and the A1 step at "high" and
+# "default" (their FF sublayers on the bf16 tensor cores, the rest float32)
+PRECISIONS = ("highest", "high", "default")
+MODE_TAG = {"high": "_high", "default": "_default"}
+
+
+def mode_counts(counts, prec):
+    """``counts`` with each FF kernel's launches moved to the precision's
+    own kernel (the float32 forward and backward of "highest" become the
+    mode's forward and split backward)."""
+    if prec == "highest":
+        return dict(counts)
+    tag, out = MODE_TAG[prec], dict(counts)
+    for name, mode_name in (("ffn", f"ffn{tag}"),
+                            ("ffn_train", f"ffn_train{tag}"),
+                            ("ffn_bwd", f"ffn_bwd_split{tag}")):
+        out[mode_name], out[name] = out[name], 0
+    return out
+
+
+def phase_precision(torch, kmod, gpu, tmp):
+    """Serving per sublayer at B=256 in the three precisions (launches,
+    masked MPJPE against "highest": "high" gated at bench.py's 1e-4,
+    "default" printed; frames/s in turns); the merged route at "high"
+    (no FF kernel: the whole layers stay float32); the flagship A1 step at
+    "high" and "default", kernel route against the plain route in the same
+    mode, its launches, step time and loss against the float32 step; one
+    epoch of ``cli train --precision high``.  Returns the mode kernels'
+    launches on these paths."""
+    import contextlib
+    import dataclasses
+    import io
+    from keypoints_interpolation_transformer_torch import cli
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    from keypoints_interpolation_transformer_torch.train import state, steps
+    from keypoints_interpolation_transformer_torch.utils.config import Config
+    print("phase 11: precision modes: per-sublayer serving and the A1 step "
+          "at \"high\" (bf16x3) and \"default\" (one bf16 pass)",
+          flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the plain mode versions would round twice")
+    launches = dict.fromkeys(MODE_SERVE_KERNELS + MODE_TRAIN_KERNELS, 0)
+    net = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
+                            generator=torch.Generator().manual_seed(0))
+    sd = net.state_dict()
+    engines = {prec: Inpainter(sd, dataclasses.replace(
+        model_config(), matmul_precision=prec), device=DEV,
+        merge_layers=False) for prec in PRECISIONS}
+    clean, miss = model_inputs(B_MAIN, T_MAIN, 3)
+    videos, masks = list(clean), list(miss)
+    outs = {}
+    for prec in PRECISIONS:
+        kmod.reset_launches()
+        outs[prec] = np.stack(engines[prec].inpaint(videos, masks))
+        torch.cuda.synchronize()
+        counts, want = kmod.launch_counts(), mode_counts(SUBLAYER_COUNTS,
+                                                         prec)
+        if counts != want:
+            fail(f"{prec} per-sublayer serving launches {counts} != {want}")
+        got = outs[prec]
+        if got.shape != (B_MAIN, T_MAIN, 54, 2) or not np.isfinite(got).all():
+            fail(f"{prec} serving: shape {got.shape} or non-finite values")
+        if not np.array_equal(got[miss == 0], clean[miss == 0]):
+            fail(f"{prec} serving changed a non-missing frame")
+        if prec != "highest":
+            launches[f"ffn{MODE_TAG[prec]}"] = counts[f"ffn{MODE_TAG[prec]}"]
+            delta = masked_mpjpe_delta(got, outs["highest"], miss)
+            gate = prec == "high"
+            print(f"  {prec}: per-sublayer serving B={B_MAIN} T={T_MAIN}, "
+                  f"masked MPJPE against \"highest\" {delta:.3e}"
+                  + (f" (gate {MPJPE_TOL:.0e})" if gate else " (not gated)")
+                  + f"; max abs {np.abs(got - outs['highest']).max():.3e}; "
+                  f"launches {nonzero(counts)}", flush=True)
+            if gate and not delta < MPJPE_TOL:
+                fail(f"{prec}: masked MPJPE {delta:.3e} >= {MPJPE_TOL}")
+    merged = Inpainter(sd, dataclasses.replace(model_config(),
+                                               matmul_precision="high"),
+                       device=DEV)
+    kmod.reset_launches()
+    merged.inpaint(videos[:8], masks[:8])
+    torch.cuda.synchronize()
+    if kmod.launch_counts() != MERGED_COUNTS:
+        fail(f"merged route at \"high\": {kmod.launch_counts()} != "
+             f"{MERGED_COUNTS}")
+    print("  merged route at \"high\": the float32 whole-layer kernels, no "
+          f"FF kernel ({nonzero(MERGED_COUNTS)})", flush=True)
+    del merged
+    fps = {}
+    for prec in PRECISIONS + PRECISIONS[::-1]:
+        engines[prec].inpaint(videos, masks)  # warm
+        t0 = time.perf_counter()
+        for _ in range(3):
+            engines[prec].inpaint(videos, masks)
+        dt = (time.perf_counter() - t0) / 3
+        fps[prec] = max(fps.get(prec, 0.0), B_MAIN * T_MAIN / dt)
+    print(f"  Inpainter per sublayer B={B_MAIN} T={T_MAIN}: " + ", ".join(
+        f"{p} {fps[p]:.1f} frames/s" for p in PRECISIONS)
+        + f" (mean of 3, best of 2 turns) on {gpu}", flush=True)
+    del engines
+
+    rng = np.random.default_rng(11)  # phase 7's batch and seeds
+    x = torch.from_numpy(rng.uniform(0.2, 0.8, (B_TRAIN, T_MAIN, 54, 2))
+                         .astype(np.float32)).to(DEV)
+    length = torch.full((B_TRAIN,), T_MAIN, device=DEV)
+    weight = torch.ones(B_TRAIN, device=DEV)
+    first_grads = {}  # (precision, route) -> the first step's gradients
+
+    def keep_first_grads(st, key):
+        adam = st.optimizer.step
+
+        def step(*a, **k):
+            first_grads.setdefault(key, {
+                n: p.grad.clone() for n, p in st.model.named_parameters()})
+            return adam(*a, **k)
+        st.optimizer.step = step
+
+    for prec in ("high", "default"):
+        cfg = Config(model=dataclasses.replace(model_config(),
+                                               matmul_precision=prec))
+        runs = {}
+        for name, mc, plain in (("kernel", cfg.model, False),
+                                ("plain", cfg.model, True),
+                                ("highest", model_config(), False)):
+            c = Config(model=mc)
+            model = steps.build_model(mc, for_training=True, device=DEV,
+                                      generator=torch.Generator().manual_seed(
+                                          0))
+            st = state.TrainState.create(model, c.train.lr)
+            keep_first_grads(st, (prec, name))
+            runs[name] = (model, st,
+                          steps.make_train_step(model, c, None, plain=plain))
+        lr = cfg.train.lr
+        want = mode_counts(TRAIN_COUNTS, prec)
+        for i in range(2):
+            res = {}
+            for name in ("plain", "kernel", "highest"):
+                _, st, step = runs[name]
+                gen = torch.Generator(device=DEV).manual_seed(100 + i)
+                kmod.reset_launches()
+                _, m = step(st, x, length, weight, gen, lr)
+                torch.cuda.synchronize()
+                counts = kmod.launch_counts()
+                res[name] = (float(m["loss"]), float(m["grad_norm"]))
+                if not np.isfinite(res[name][0]):
+                    fail(f"{prec} {name} step {i}: loss {res[name][0]}")
+                if name == "plain" and any(counts.values()):
+                    fail(f"{prec} plain step launched kernels: {counts}")
+                if name == "kernel":
+                    if counts != want:
+                        fail(f"{prec} step {i} launches {counts} != {want}")
+                    for n in MODE_TRAIN_KERNELS:
+                        launches[n] = max(launches[n], counts[n])
+                    kernel_counts = nonzero(counts)
+            (lk, gk), (lp, gp), (lf, _) = (res[n] for n in
+                                           ("kernel", "plain", "highest"))
+            rel, grel = abs(lk - lp) / abs(lp), abs(gk - gp) / gp
+            print(f"  {prec} A1 step {i}: loss kernel {lk:.7f} plain "
+                  f"{lp:.7f} rel {rel:.3e}; grad norm rel {grel:.3e} (tol "
+                  f"{LOSS_RTOL:.0e}); against the float32 step's loss "
+                  f"{lf:.7f}: rel {abs(lk - lf) / abs(lf):.3e}; kernel route "
+                  f"launches {kernel_counts}", flush=True)
+            if rel > LOSS_RTOL or grel > LOSS_RTOL:
+                fail(f"{prec} step {i}: kernel and plain route differ")
+        step_ms = {}
+        for name in ("plain", "kernel", "highest", "highest", "kernel",
+                     "plain"):
+            _, st, step = runs[name]
+            gen = torch.Generator(device=DEV).manual_seed(7)
+            step(st, x, length, weight, gen, lr)  # warm
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(5):
+                step(st, x, length, weight, gen, lr)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 5
+            step_ms[name] = min(step_ms.get(name, ms), ms)
+        print(f"  {prec} A1 step B={B_TRAIN} T={T_MAIN}: kernel route "
+              f"{step_ms['kernel']:.3f} ms, plain route "
+              f"{step_ms['plain']:.3f} ms, \"highest\" kernel route "
+              f"{step_ms['highest']:.3f} ms (mean of 5 warm steps, best of "
+              f"2 turns) on {gpu}", flush=True)
+        del runs
+    # each parameter's gradient of the first step (the same parameters and
+    # batch on every route), kernel route against the plain route in its
+    # mode and against the route one mode down (float32 for "default"),
+    # each against its own largest value, at the mode's limit and
+    # MODE_SEPARATION
+    wrong = {"high": ("default", "plain"), "default": ("default", "highest")}
+    tols = {"high": HIGH_MODE_TOL, "default": DEFAULT_MODE_TOL}
+    for prec in ("high", "default"):
+        k = first_grads[(prec, "kernel")]
+        gap = [max(float((k[n] - w[n]).abs().max())
+                   / (float(w[n].abs().max()) or 1.0) for n in k)
+               for w in (first_grads[(prec, "plain")],
+                         first_grads[wrong[prec]])]
+        print(f"  {prec} A1 step 0: each parameter's gradient, kernel route "
+              f"against the plain route in its mode, worst {gap[0]:.3e} of "
+              f"its own max; against the route one mode down "
+              f"{gap[1]:.3e} (tol {tols[prec]:.0e}, at least "
+              f"{MODE_SEPARATION:g} x further)", flush=True)
+        if not (gap[0] <= tols[prec] and gap[0] * MODE_SEPARATION < gap[1]):
+            fail(f"{prec} step gradients: {gap[0]:.3e} from the plain route "
+                 f"in the mode, {gap[1]:.3e} from one mode down")
+
+    args = ["train", "--device", DEV, "--precision", "high", "--regime",
+            "a1", "--synthetic", "160", "--synthetic_min_len", "97",
+            "--synthetic_max_len", "128", "--max_seq_len", "128",
+            "--batch_size", str(B_TRAIN), "--epochs", "1", "--num_layers",
+            "2", "--lr", str(LOOP_LR), "--experiment_name", "high",
+            "--results_dir", os.path.join(tmp, "results"),
+            "--checkpoint_dir", os.path.join(tmp, "ckpt")]
+    kmod.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = nonzero(kmod.launch_counts())
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"  cli train --precision high (2 layers, 1 epoch of 160 synthetic "
+          f"videos): rc {rc}, {res}, {secs:.1f} s; launches {counts}",
+          flush=True)
+    if rc != 0 or res["epochs_run"] != 1 or not np.isfinite(
+            res["best_val_loss"]):
+        fail("cli train --precision high did not run its epoch")
+    if not (counts.get("ffn_train_high") and counts.get("ffn_bwd_split_high")
+            and counts.get("ffn_high")) or \
+            any(counts.get(n) for n in ("ffn", "ffn_train", "ffn_bwd")):
+        fail(f"cli train --precision high launched {counts}")
+
+    # ``cli serve --precision high`` over HTTP: a 300-frame video's bucket
+    # of 320 runs the FF sublayers on their own (in the mode) on the
+    # default route, against the plain path in the same mode
+    from keypoints_interpolation_transformer_torch.models.convert import (
+        save_reference_pth)
+    path = os.path.join(tmp, "precision.pth")
+    save_reference_pth(path, net, {"hidden_dim": D, "num_layers": LAYERS,
+                                   "num_heads": HEADS, "input_size": F_IN})
+    videos, masks = request_videos(9)
+    want = Inpainter.from_checkpoint(path, device=DEV, plain=True,
+                                     precision="high").inpaint(videos, masks)
+    kmod.reset_launches()
+    Inpainter.from_checkpoint(path, device=DEV, precision="high").inpaint(
+        videos, masks)
+    torch.cuda.synchronize()
+    counts = nonzero(kmod.launch_counts())
+    if counts.get("ffn_high") != 2 * LAYERS or counts.get("ffn"):
+        fail(f"serving at \"high\": launches {counts}")
+    got = serve_over_cli(["--checkpoint", path, "--precision", "high"],
+                         videos, masks)
+    check_served("cli serve --precision high", videos, masks, got, want)
+    print(f"  cli serve --precision high: 3 videos (300, 77, 128 frames) "
+          f"over HTTP; in process the same request launches {counts}",
+          flush=True)
+    return launches
+
+
 # the widths phase: (D, heads) at D in {32, 128, 384, 512} and head widths
-# 8, 64 and 128, FF = 4 D, two layers
-WIDTH_CASES = ((32, 4), (128, 2), (384, 3), (512, 8))
+# 8, 64 and 128, then the heads above 128 (dh 384, 192, 512, 256: the
+# cores' wide build), FF = 4 D, two layers
+WIDTH_CASES = ((32, 4), (128, 2), (384, 3), (512, 8), (384, 1), (384, 2),
+               (512, 1), (512, 2))
 WIDTH_LAYERS = 2
 
 
@@ -1949,7 +2434,7 @@ def phase_widths(torch, kmod):
     from keypoints_interpolation_transformer_torch.utils.config import (
         Config, ModelConfig)
     print("phase 10: widths D in {32, 128, 384, 512}, head widths 8, 64, "
-          "128", flush=True)
+          "128, 192, 256, 384, 512", flush=True)
     for d, heads in WIDTH_CASES:
         ff = 4 * d
         tag = f"D={d} H={heads} dh={d // heads} FF={ff}"
@@ -2013,6 +2498,112 @@ def phase_widths(torch, kmod):
             fail(f"{tag}: train step rel {rel:.3e}, launches {counts}")
 
 
+def ab_measure(torch, gpu):
+    """One tree's float32 numbers for ``--ab``, from the public entry points
+    that every tree of the port has: the merged-route Inpainter's frames/s
+    at B=256 (phase 6's method), its latency at 1 / 4 / 16 / 64 videos
+    (``--sweep``'s), the A1 step time of the kernel route (phase 7's), and
+    the merged forward's output sum and the step's loss, which equal bit
+    for bit where the float32 kernels are unchanged."""
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    from keypoints_interpolation_transformer_torch.train import state, steps
+    from keypoints_interpolation_transformer_torch.utils.config import Config
+    sd = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
+                           generator=torch.Generator().manual_seed(0)
+                           ).state_dict()
+    inp = Inpainter(sd, model_config(), device=DEV)
+    clean, miss = model_inputs(B_MAIN, T_MAIN, 3)
+    videos, masks = list(clean), list(miss)
+    out = {"gpu": gpu, "checksum": float(np.stack(
+        inp.inpaint(videos, masks)).astype(np.float64).sum())}
+    fps, lat = 0.0, {}
+    for _ in range(2):
+        inp.inpaint(videos, masks)  # warm
+        t0 = time.perf_counter()
+        for _ in range(3):
+            inp.inpaint(videos, masks)
+        fps = max(fps, B_MAIN * T_MAIN / ((time.perf_counter() - t0) / 3))
+        for B in (1, 4, 16, 64):
+            v, m = list(clean[:B]), list(miss[:B])
+            inp.inpaint(v, m)  # warm
+            ms = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                inp.inpaint(v, m)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            lat[B] = min(lat.get(B, float("inf")), float(np.median(ms)))
+    out.update(fps=fps, latency_ms=lat)
+    del inp
+    cfg = Config(model=model_config())
+    model = steps.build_model(cfg.model, for_training=True, device=DEV,
+                              generator=torch.Generator().manual_seed(0))
+    st = state.TrainState.create(model, cfg.train.lr)
+    step = steps.make_train_step(model, cfg, None)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.uniform(0.2, 0.8, (B_TRAIN, T_MAIN, 54, 2))
+                         .astype(np.float32)).to(DEV)
+    length = torch.full((B_TRAIN,), T_MAIN, device=DEV)
+    weight = torch.ones(B_TRAIN, device=DEV)
+    _, m = step(st, x, length, weight, torch.Generator(device=DEV).manual_seed(
+        100), cfg.train.lr)
+    out["loss"] = float(m["loss"])
+    step_ms = float("inf")
+    for _ in range(2):
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        step(st, x, length, weight, gen, cfg.train.lr)  # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(5):
+            step(st, x, length, weight, gen, cfg.train.lr)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = min(step_ms, start.elapsed_time(end) / 5)
+    out["step_ms"] = step_ms
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def ab(other, gpu):
+    """``--ab DIR``: this tree against the tree unpacked in DIR (the
+    parent), in turns: parent, this, this, parent; each turn a fresh
+    process that imports its tree's package and measures
+    ``ab_measure``'s numbers.  Both trees' kernels are built first, at
+    once."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(other), "change": here}
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " from keypoints_interpolation_transformer_torch.ops.kernels "
+         "import _build; _build.build()", t], cwd=t) for t in trees.values()]
+    if any(b.wait() != 0 for b in builds):
+        fail("a tree's kernels did not build")
+    rows = []
+    for name in ("parent", "change", "change", "parent"):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--ab-measure", trees[name]], cwd=trees[name],
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            fail(f"{name}: {r.stdout[-2000:]} {r.stderr[-4000:]}")
+        row = json.loads(r.stdout.strip().splitlines()[-1])
+        rows.append((name, row))
+        print(f"  ab {name}: Inpainter merged {row['fps']:.1f} frames/s; "
+              "latency " + " / ".join(f"{v:.3f}" for v in
+                                      row["latency_ms"].values())
+              + f" ms at 1 / 4 / 16 / 64 videos; A1 step {row['step_ms']:.3f}"
+              f" ms; merged output sum {row['checksum']!r}, step loss "
+              f"{row['loss']!r} on {row['gpu']}", flush=True)
+    same = {k: len({json.dumps(r[k]) for _, r in rows}) == 1
+            for k in ("checksum", "loss")}
+    print(f"  ab: the float32 outputs equal bit for bit across the trees: "
+          f"{same}", flush=True)
+    return 0
+
+
 def model_config():
     from keypoints_interpolation_transformer_torch.utils.config import (
         ModelConfig)
@@ -2024,6 +2615,10 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke runs the port on the card")
+    if "--ab-measure" in sys.argv[1:]:  # the tree under test goes first
+        tree = sys.argv[sys.argv.index("--ab-measure") + 1]
+        sys.path.insert(0, os.path.abspath(tree))
+        return ab_measure(torch, gpu_line())
     from keypoints_interpolation_transformer_torch.eval.serving import (
         Inpainter)
     from keypoints_interpolation_transformer_torch.models.completer import (
@@ -2059,6 +2654,8 @@ def main():
     if "--sweep" in sys.argv[1:]:
         sweep(torch, kmod, gpu)
         return 0
+    if "--ab" in sys.argv[1:]:
+        return ab(sys.argv[sys.argv.index("--ab") + 1], gpu)
     max_err, times = phase_kernels(torch, kmod)
 
     model = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF, device=DEV,
@@ -2080,6 +2677,7 @@ def main():
     launches.update({n: train_launches[n] for n in TRAIN_KERNELS})
     with tempfile.TemporaryDirectory() as tmp:
         loop_launches = phase_loop(torch, kmod, gpu, tmp)
+        launches.update(phase_precision(torch, kmod, gpu, tmp))
     launches.update({n: loop_launches[n] for n in PER_OP_KERNELS})
     launches.update(int8_launches)
     phase_widths(torch, kmod)

@@ -11,6 +11,8 @@ Usage:
       --checkpoint cycle.pth --variant cycle --first_checkpoint first.pth
   python -m keypoints_interpolation_transformer_torch.cli serve \
       --checkpoint model.pth --quantize int8
+  python -m keypoints_interpolation_transformer_torch.cli train \
+      --regime a1 --synthetic 64 --precision high   # or serve --precision
 
 ``train`` takes the JAX package's ``train`` flags that the port honours,
 under the same names and defaults, and prints the same JSON line when it
@@ -29,6 +31,14 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _add_precision(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--precision", type=str, default="highest",
+                   choices=["highest", "high", "default"],
+                   help="the FF sublayers' matmul precision: float32, "
+                        "bf16x3 or one bf16 pass on the tensor cores (the "
+                        "rest of the model stays float32)")
 
 
 def _add_train(p: argparse.ArgumentParser) -> None:
@@ -59,10 +69,7 @@ def _add_train(p: argparse.ArgumentParser) -> None:
                         "(dataset_config.json schema)")
     p.add_argument("--dataset_name", type=str, default=None,
                    help="the corruption statistics to use (default 'all')")
-    p.add_argument("--precision", type=str, default="highest",
-                   choices=["highest"],
-                   help="float32 throughout (the precision modes are not "
-                        "ported)")
+    _add_precision(p)
     p.add_argument("--is_random_missing", action="store_true",
                    help="60%% random-frame corruption mode")
     p.add_argument("--augmentation", action=B, default=True)
@@ -153,6 +160,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize", type=str, default=None, choices=["int8"],
                    help="int8 weight and activation matmuls (the int8 FF "
                         "and dense kernels; see eval/serving.Inpainter)")
+    _add_precision(p)
     p.add_argument("--log_requests", action="store_true")
     return parser
 
@@ -176,7 +184,8 @@ def main(argv=None) -> int:
                                         bucket_multiple=a.bucket_multiple,
                                         variant=a.variant,
                                         first_checkpoint=a.first_checkpoint,
-                                        quantize=a.quantize),
+                                        quantize=a.quantize,
+                                        precision=a.precision),
               host=a.host, port=a.port, log_requests=a.log_requests)
         return 0
     return 1

@@ -37,7 +37,7 @@ using namespace kit;
 
 // q, k, v, out (B*T, H*DH) rows; mask, valid (B, T), either null where not
 // read (mask: kind "all" without keypad; valid: every key real).  DH, the
-// head width, is 1 to 128.
+// head width, is 1 to 512.
 extern "C" int kit_attention(const void* q, const void* k, const void* v, const void* mask,
                              const void* valid, int B, int T, int H, int DH, int repeat_inc,
                              int add_keypad, void* out, void* stream) {

@@ -25,10 +25,15 @@ __device__ __forceinline__ float key_bias(int repeat_inc, int add_keypad, int qi
 }
 
 // Head widths: the kernels are built for dh = 16, 32 and 64 exactly (EXACT:
-// loops unrolled, rows read as float4, as the flagship's dh = 32 runs) and
-// once more for any other dh up to 128 (DH = 128, not EXACT: loops over the
-// dh columns not unrolled, rows read as scalars), so that a rare width costs
-// one build, not one per width.  by_head picks the build.
+// loops unrolled, rows read as float4, as the flagship's dh = 32 runs), once
+// more for any other dh up to 128 (DH = 128, not EXACT: loops over the dh
+// columns not unrolled, rows read as scalars), and once for 128 < dh <= 512
+// (DH = 512, not EXACT), so that a rare width costs one build, not one per
+// width.  by_head picks the build.  In the builds that are not EXACT a
+// thread's query row and output (and, backward, its gradient rows) are
+// arrays indexed at run time: they live in the thread's local memory (L1
+// cached), not in registers; at DH = 512 that is 4-8 KB a thread, so the
+// wide build is slow, and right.
 
 // Fold keys key0 .. key0 + KC - 1 into one query's online softmax: s =
 // q . k * scale + bias (keys >= T count as -inf), then the running max m,
@@ -95,13 +100,14 @@ __device__ __forceinline__ void softmax_chunk(const float (&q)[DH], float (&o)[D
 }
 
 constexpr int ATT_QT = 128;  // queries (keys in the dk / dv pass) per block, one per thread
-constexpr int ATT_KC = 16;   // keys per online-softmax chunk
+constexpr int ATT_KC = 16;   // keys per online-softmax chunk (at most one tile)
 // keys per shared tile, and queries per shared tile of the key-major
-// backward: 64, or 32 at DH = 128 (the static shared-memory limit is 48 KB)
+// backward: 64, or 4096 / DH above DH = 64 (32 at 128, 8 at 512), as two
+// tiles of DH floats must fit the 48 KB of static shared memory
 template <int DH>
-__host__ __device__ constexpr int att_tile() { return DH > 64 ? 32 : 64; }
+__host__ __device__ constexpr int att_tile() { return DH > 64 ? 4096 / DH : 64; }
 
-constexpr int MAX_HEAD = 128;  // the widest head the kernels take
+constexpr int MAX_HEAD = 512;  // the widest head the kernels take (the widest D)
 
 // A build of the head-width kernels: DH columns per query, EXACT or not
 // (see softmax_chunk).
@@ -156,6 +162,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 float* __restrict__ stats, int T, int H, int repeat_inc, int add_keypad,
                 float scale, int dh) {
   constexpr int KT = att_tile<DH>();
+  constexpr int KC = KT < ATT_KC ? KT : ATT_KC;
   __shared__ __align__(16) float Ks[KT][DH];
   __shared__ __align__(16) float Vs[KT][DH];
   __shared__ float km[KT];  // mask[key]
@@ -182,8 +189,8 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     // the chunk at c0 = 0 of the first tile always holds key 0, so m is
     // finite from then on
-    for (int c0 = 0; c0 < KT && k0 + c0 < T; c0 += ATT_KC)
-      softmax_chunk<DH, ATT_KC, EXACT>(qr, o, m, l, &Ks[c0][0], &Vs[c0][0], DH, km + c0,
+    for (int c0 = 0; c0 < KT && k0 + c0 < T; c0 += KC)
+      softmax_chunk<DH, KC, EXACT>(qr, o, m, l, &Ks[c0][0], &Vs[c0][0], DH, km + c0,
                                        kv + c0, qi, k0 + c0, T, repeat_inc, add_keypad, scale,
                                        hd);
     __syncthreads();
@@ -387,16 +394,22 @@ int launch_attn_bwd(const AttnArgs& a, int dh, const float* g, float* dq, int ld
 }
 
 // f(HeadBuild<DH, EXACT>{}) for the build that takes head width dh (see
-// softmax_chunk); cudaErrorInvalidValue above MAX_HEAD.
-template <typename F>
+// softmax_chunk); cudaErrorInvalidValue above LIMIT (at most MAX_HEAD).  A
+// caller whose heads cannot be wider than 128 (a layer of width D = 128)
+// passes LIMIT = 128, and the wide build is not instantiated for it.
+template <int LIMIT = MAX_HEAD, typename F>
 inline int by_head(int dh, F&& f) {
+  static_assert(LIMIT <= MAX_HEAD, "no build is wider than MAX_HEAD");
   switch (dh) {
     case 16: return f(HeadBuild<16, true>{});
     case 32: return f(HeadBuild<32, true>{});
     case 64: return f(HeadBuild<64, true>{});
     default:
-      if (dh < 1 || dh > MAX_HEAD) return (int)cudaErrorInvalidValue;
-      return f(HeadBuild<MAX_HEAD, false>{});
+      if (dh < 1 || dh > LIMIT) return (int)cudaErrorInvalidValue;
+      if constexpr (LIMIT > 128) {
+        if (dh > 128) return f(HeadBuild<MAX_HEAD, false>{});
+      }
+      return f(HeadBuild<128, false>{});
   }
 }
 

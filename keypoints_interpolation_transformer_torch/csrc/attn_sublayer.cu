@@ -224,7 +224,7 @@ int launch_bwd(int n, const float* dy, const float* x, const float* mem, const f
 // not null, receive each (row, head)'s softmax max and sum and the pre-LN
 // sum.  D is 128, 256, 384 or 512; n <= D is the model's true width (the
 // operands zero-padded from n to D; see common.cuh) and n / H, the head
-// width, a multiple of 4 up to 128.  a must hold zeros in columns H * (n /
+// width, a multiple of 4 up to 512.  a must hold zeros in columns H * (n /
 // H) and up when n < D.
 extern "C" int kit_attn_sublayer(const void* x, const void* mem, int B, int T, int D, int n,
                                  int H, const void* wqkv, const void* bqkv, const void* wo,

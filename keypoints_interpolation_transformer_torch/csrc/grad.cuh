@@ -270,10 +270,14 @@ inline int atb(const float* A, int lda, const float* B, int ldb, int K, int NA, 
   return rc ? rc : sum_parts(part, splits, NA * NB, out, st);
 }
 
-// out = A[:, :K] W (+ add), rows [0, M), D = 32 * TN.
+// out = A[:, :K] W (+ add), rows [0, M), D = 32 * TN.  Internal linkage:
+// its flag that the shared-memory ceiling is set must be one per shared
+// library, as each library has its own CUDA runtime to set it in (the
+// static local of an inline function with external linkage is one object
+// for the whole process).
 template <int TN>
-inline int rows_matmul(const float* A, int lda, int K, const float* W, int ldw, const float* add,
-                       int M, float* out, cudaStream_t st) {
+static int rows_matmul(const float* A, int lda, int K, const float* W, int ldw,
+                       const float* add, int M, float* out, cudaStream_t st) {
   constexpr int D = 32 * TN;
   constexpr int smem = (D * LDT + BK * D) * (int)sizeof(float);
   static bool ready = false;

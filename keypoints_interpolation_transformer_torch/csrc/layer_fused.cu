@@ -436,7 +436,7 @@ int dispatch(const LayerArgs& p, int B, int D, bool decoder, cudaStream_t st) {
   if (p.H <= 0 || p.n > D || p.n % p.H || p.ff.n % 4 || p.cl < 1 || p.cl > 8)
     return (int)cudaErrorInvalidValue;
   return by_width(D, [&](auto tn) {
-    return by_head(p.n / p.H, [&](auto hb) {
+    return by_head<32 * decltype(tn)::value>(p.n / p.H, [&](auto hb) {
       using HB = decltype(hb);
       return launch<decltype(tn)::value, HB::DH, HB::EXACT>(p, B, decoder, st);
     });
@@ -475,7 +475,7 @@ LayerArgs encoder_args(const void* x, int T, int n, int H, int cl, const void* w
 // zero in its attention-output columns H * (n / H) and up when n < D.  D is
 // 128, 256, 384 or 512; n <= D the model's true width (the operands
 // zero-padded from n to D; see common.cuh), n / H a multiple of 4 up to
-// 128; FF a multiple of 4.
+// 512; FF a multiple of 4.
 extern "C" int kit_enc_layer(const void* x, int B, int T, int D, int n, int H, int FF, int cl,
                              const void* wqkv, const void* bqkv, const void* wo, const void* bo,
                              const void* w1, const void* b1, const void* w2, const void* b2,

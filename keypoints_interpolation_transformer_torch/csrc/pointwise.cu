@@ -1,6 +1,11 @@
-// Pre-stream embed and post head of the KeypointCompleter, one launch each.
+// Pre-stream chains and post head of the KeypointCompleter, one launch each.
 //
 // Replaces keypoints_interpolation_transformer_tpu/ops/pallas/pointwise.py:
+//   _pre_kernel        n = token_norm(e) [+ token_norm(e)] + (pe + learned);
+//                      s = fc3(fc1(n) * sigmoid(fc2(n))), from an embedding
+//                      e that is already computed (the JAX package reaches
+//                      it only with its embedding kernel switched off; no
+//                      route of the port's model takes it)
 //   _pre_embed_kernel  e = x Wemb + bemb;  n = token_norm(e) [+ token_norm(e)]
 //                      + (pe + learned);  s = fc3(fc1(n) * sigmoid(fc2(n)))
 //                      (optionally also emits e, the filled stream's
@@ -108,6 +113,41 @@ pre_embed_kernel(const float* __restrict__ x, int M, int T, int F,
   store_rows<TN>(out, D, D, row0, M, s);
 }
 
+// The pre-stream chain from the embedding e (M, D): the second half of
+// pre_embed_kernel.
+template <int TN>
+__global__ void __launch_bounds__(NT)
+pre_stream_kernel(const float* __restrict__ e_in, int M, int T, const float* __restrict__ pe,
+                  const float* __restrict__ w12, const float* __restrict__ b12,
+                  const float* __restrict__ w3, const float* __restrict__ b3,
+                  float* __restrict__ out, int pe_residual) {
+  constexpr int D = 32 * TN;
+  extern __shared__ __align__(16) float smem[];
+  float* AT = smem;            // D x LDT, k-major rows
+  float* Ws = smem + D * LDT;  // BK x 2D
+  const int row0 = blockIdx.x * BM;
+
+  stage_rows(AT, e_in, D, row0, M, D);
+  __syncthreads();
+  float e[TM][TN];
+  get_rows<TN>(e, AT);
+  row_norm<TN>(e);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    int t = (row0 + row_of(i)) % T;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      float p = __ldg(pe + (size_t)t * D + col_of(j));
+      e[i][j] = pe_residual ? (e[i][j] + e[i][j]) + p : e[i][j] + p;
+    }
+  }
+  put_rows<TN>(AT, e);  // each thread rewrites only what it read
+  __syncthreads();
+  float s[TM][TN];
+  swiglu_rows<TN>(s, AT, Ws, w12, b12, w3, b3);
+  store_rows<TN>(out, D, D, row0, M, s);
+}
+
 template <int TN>
 __global__ void __launch_bounds__(NT)
 post_head_kernel(const float* __restrict__ d, const float* __restrict__ f, int M,
@@ -170,6 +210,20 @@ int launch_pre(const float* x, int M, int T, int F, const float* wemb, const flo
 }
 
 template <int TN>
+int launch_pre_stream(const float* e, int M, int T, const float* pe, const float* w12,
+                      const float* b12, const float* w3, const float* b3, float* out,
+                      int pe_residual, cudaStream_t st) {
+  constexpr int D = 32 * TN;
+  const int smem = (D * LDT + BK * 2 * D) * sizeof(float);
+  static bool ready = false;
+  cudaError_t err = allow_smem(pre_stream_kernel<TN>, smem, ready);
+  if (err != cudaSuccess) return (int)err;
+  pre_stream_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(e, M, T, pe, w12, b12, w3, b3, out,
+                                                            pe_residual);
+  return (int)cudaGetLastError();
+}
+
+template <int TN>
 int launch_post(const float* d, const float* f, int M, const float* w12, const float* b12,
                 const float* w3, const float* b3, const float* wh, const float* bh, int F,
                 float* out, cudaStream_t st) {
@@ -197,6 +251,19 @@ extern "C" int kit_pre_embed(const void* x, int M, int T, int F, int D, const vo
     return launch_pre<decltype(tn)::value>(p(x), M, T, F, p(wemb), p(bemb), p(pe), p(w12),
                                            p(b12), p(w3), p(b3), (float*)out, (float*)emb,
                                            pe_residual, (cudaStream_t)stream);
+  });
+}
+
+// e (M, D) -> out (M, D): the pre-stream chain on an embedding; pe as
+// kit_pre_embed takes it.  D is 128, 256, 384 or 512.
+extern "C" int kit_pre_stream(const void* e, int M, int T, int D, const void* pe,
+                              const void* w12, const void* b12, const void* w3, const void* b3,
+                              void* out, int pe_residual, void* stream) {
+  auto p = [](const void* v) { return (const float*)v; };
+  return by_width(D, [&](auto tn) {
+    return launch_pre_stream<decltype(tn)::value>(p(e), M, T, p(pe), p(w12), p(b12), p(w3),
+                                                  p(b3), (float*)out, pe_residual,
+                                                  (cudaStream_t)stream);
   });
 }
 

@@ -19,6 +19,7 @@ GET /statz   -> request, video and batch counts
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import queue
 import signal
@@ -37,7 +38,7 @@ from ..models.convert import (is_embedding_state_dict, load_reference_pth,
 from ..ops.losses import composite_prediction
 from ..train.steps import build_model, completer_forward, cycle_forward
 from ..transforms.corruption import add_sos, zero_missing_frames
-from ..utils.config import ModelConfig
+from ..utils.config import ModelConfig, resolve_precision
 
 VARIANTS = ("plain", "cycle", "embedding")
 
@@ -55,6 +56,14 @@ class Inpainter:
     the plain versions on any device (the oracle path); ``merge_layers``
     False takes the per-sublayer kernels where the merged whole-layer ones
     would run.
+
+    ``model_cfg.matmul_precision`` ("highest", "high", "default" or an
+    alias) is the models' precision: the FF sublayers that run on their own
+    (``merge_layers=False``, or a bucket the merged encoder layer does not
+    take: T > 256) run in its mode, the rest in float32.  On the merged
+    route at T <= 256 no FF kernel runs (the FF tails are inside the
+    whole-layer kernels, float32 at every precision), so there the
+    precision changes nothing.
 
     ``quantize="int8"`` serves int8 as the JAX package's Inpainter does on
     the TPU: the FF sublayers through the int8 FF kernels (the merged
@@ -78,11 +87,10 @@ class Inpainter:
         if variant == "cycle" and first_state_dict is None:
             raise ValueError("the cycle variant needs first_state_dict: the "
                              "frozen plain model that fills its stream")
-        if model_cfg.compute_dtype != "float32" or \
-                model_cfg.matmul_precision != "highest":
+        if model_cfg.compute_dtype != "float32":
             raise ValueError("the PyTorch port serves float32 only "
-                             "(compute_dtype='float32', "
-                             "matmul_precision='highest')")
+                             "(compute_dtype='float32')")
+        resolve_precision(model_cfg.matmul_precision)
         self.device = torch.device(device)
 
         def load(v, sd):  # build_model raises on a missing card
@@ -103,11 +111,13 @@ class Inpainter:
     @classmethod
     def from_checkpoint(cls, path: str,
                         model_cfg: Optional[ModelConfig] = None,
-                        first_checkpoint: Optional[str] = None, **kw):
+                        first_checkpoint: Optional[str] = None,
+                        precision: Optional[str] = None, **kw):
         """Load a reference ``.pth`` (and, for the cycle variant, the first
         model's ``.pth``); its hyperparameters (and the FF width of its
         first encoder layer, or an Embedding's widths) give the model
-        configuration unless ``model_cfg`` is given."""
+        configuration unless ``model_cfg`` is given.  ``precision``, when
+        given, is its ``matmul_precision``."""
         sd, hyper = load_reference_pth(_pth(path))
         if model_cfg is None and is_embedding_state_dict(sd):
             hidden, size = sd["input_embedding.weight"].shape
@@ -120,6 +130,9 @@ class Inpainter:
             input_size=int(hyper.get("input_size", 108)),
             ff_dim=int(sd["transformer.encoder.layers.0.linear1.weight"]
                        .shape[0]))
+        if precision is not None:
+            model_cfg = dataclasses.replace(model_cfg,
+                                            matmul_precision=precision)
         if first_checkpoint is not None:
             kw["first_state_dict"] = load_reference_pth(
                 _pth(first_checkpoint))[0]

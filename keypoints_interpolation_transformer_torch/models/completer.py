@@ -38,6 +38,11 @@ Two routes, as the JAX package's ``build_model`` has them:
             ``for_training``), not as a fallback.  ``merge_layers`` is not
             read there, as the JAX training path sets it off.
 
+``precision`` (the JAX ``matmul_precision`` names: "highest", "high",
+"default" and their aliases; ``utils/config.resolve_precision``) is set at
+construction and read by every forward: the FF sublayers run in its mode
+on both routes, everything else in float32 (see ``models/layers.py``).
+
 On both routes ``attn_sublayer_fusion`` off, or a length the sublayer
 kernel does not take (T > 512 or T % 8 != 0), sends attention per op
 (``fused_attention``; see ``models/layers.py``), as the JAX package does.
@@ -55,8 +60,9 @@ from ..ops.kernels import (fused_post_head, fused_pre_stream_embed,
                            post_head_plain, pre_stream_embed_plain)
 from ..ops.kernels.ffn import ffn_supported
 from ..ops.kernels.pointwise import pointwise_supported, token_norm
+from ..utils.config import resolve_precision
 from .layers import (AttnSpec, FeedForward, MultiHeadAttention, SwiGLU,
-                     TransformerCore, graph_linear, int8_dense,
+                     TransformerCore, ff_planes, graph_linear, int8_dense,
                      int8_linear, packed_linear,
                      sinusoidal_positional_encoding)
 
@@ -86,8 +92,11 @@ class KeypointCompleter(nn.Module):
                  pe_max_len: int = 2048, pe_residual: bool = False,
                  use_tgt_key_padding: bool = False, merge_layers: bool = True,
                  attn_sublayer_fusion: bool = True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 precision: str = "highest"):
         super().__init__()
+        resolve_precision(precision)  # raises on an unknown name
+        self.precision = precision
         D = hidden_dim
         self.hidden_dim, self.num_layers, self.num_heads = D, num_layers, \
             num_heads
@@ -115,6 +124,12 @@ class KeypointCompleter(nn.Module):
             persistent=False)
         if generator is not None:
             self.reset_parameters(generator)
+
+    @property
+    def mode(self) -> str:
+        """The precision mode of the FF sublayers: "f32", "bf16x3" or
+        "bf16"."""
+        return resolve_precision(self.precision)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -146,8 +161,11 @@ class KeypointCompleter(nn.Module):
         the FF weights in the FF kernels' scale form (or the Dense one
         where ``ffn_supported`` sends them to the plain chain), the
         attention projections, embeddings, SwiGLUs and head in the Dense
-        table's form (``int8_matmul.quantize_weight``)."""
+        table's form (``int8_matmul.quantize_weight``).  Otherwise, in the
+        precision modes "high" and "default", the FF weights are split into
+        the bf16 planes their kernels read (``ff_planes``)."""
         self.int8 = check_quantize(quantize) == "int8"
+        mode = self.mode
         for m in self.modules():
             if isinstance(m, (SwiGLU, MultiHeadAttention)):
                 m.packed()
@@ -157,6 +175,10 @@ class KeypointCompleter(nn.Module):
                 packed_linear(m)
                 if self.int8:
                     int8_linear(m)
+            if isinstance(m, FeedForward) and mode != "f32" and \
+                    not self.int8 and ffn_supported(m.linear1.in_features,
+                                  m.linear1.out_features, mode=mode):
+                ff_planes(m, mode)
             if self.int8 and isinstance(m, FeedForward):
                 D, FF = m.linear1.in_features, m.linear1.out_features
                 if ffn_supported(D, FF, int8=True):
@@ -235,7 +257,8 @@ class KeypointCompleter(nn.Module):
         cross_spec = AttnSpec(None, valid_mask, "all", False)
         decoded = self.transformer(src, tgt, src_spec, tgt_spec, cross_spec,
                                    plain, train, self.merge_layers,
-                                   self.attn_sublayer_fusion, int8)
+                                   self.attn_sublayer_fusion, int8,
+                                   self.mode)
         out = post(decoded, filled_emb, *swiglu(self.swiGlu_decoded),
                    *linear(self.fc_final))
         return out.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)
@@ -283,11 +306,16 @@ class Embedding(nn.Module):
     """The linear autoencoder over flattened frames (the JAX ``Embedding``,
     pre-trained by regime A3): output_embedding(input_embedding(x)).  Two
     plain Linears, no kernel: the JAX package runs them as ``nn.Dense``
-    outside any Pallas kernel too."""
+    outside any Pallas kernel too.  It has no FF sublayer, so ``precision``
+    (checked and kept, as every model of the port carries one) changes
+    nothing."""
 
     def __init__(self, hidden_dim: int, input_size: int = FRAME_FEATURES,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 precision: str = "highest"):
         super().__init__()
+        resolve_precision(precision)
+        self.precision = precision
         self.hidden_dim, self.input_size = hidden_dim, input_size
         self.input_embedding = nn.Linear(input_size, hidden_dim,
                                          device=device)

@@ -15,6 +15,14 @@ gradient route) a sublayer goes through its ``autograd.Function``
 themselves, so every gradient reaches them; with ``plain=True`` as well,
 autograd differentiates the plain version.
 
+The FF sublayer runs in the model's precision mode ``mode`` ("f32",
+"bf16x3" or "bf16"; ``ops/kernels/precision.py``): its kernels in that
+mode (the training route's backward through ``ffn_bwd_split`` outside
+"f32"), its plain chain with the products in that mode.  Everything else
+stays float32 in every mode, the merged whole-layer kernels included, so on
+the merged route a precision mode changes only the FF sublayers that run
+on their own.
+
 Serving with ``merge=True`` (the JAX package's default, ``merge_layers``)
 takes the merged whole-layer kernels where the JAX package takes them
 (``ops/kernels/layer_fused.py`` holds the port's copies of its rules): an
@@ -51,7 +59,7 @@ from ..ops.kernels import (AttentionFunction, AttnSublayerFunction,
                            fused_decoder_layer, fused_encoder_layer,
                            fused_encoder_layer_int8, fused_ffn,
                            fused_ffn_int8, fused_int8_dense, int8_dense_plain)
-from ..ops.kernels.ffn import LN_EPS, ffn_supported
+from ..ops.kernels.ffn import LN_EPS, ff_weight_planes, ffn_supported
 from ..ops.kernels.int8_matmul import quantize_weight
 from ..ops.kernels.layer_fused import (decoder_full_supported,
                                        fused_layer_supported,
@@ -97,6 +105,15 @@ def packed_linear(lin: nn.Linear):
 def graph_linear(lin: nn.Linear):
     """(weight^T (in, out), bias) of a Linear inside the autograd graph."""
     return lin.weight.t(), lin.bias
+
+
+def ff_planes(ff: "FeedForward", mode: str):
+    """The FF weights as the tensor-core kernels read them in ``mode``
+    (``ffn.ff_weight_planes``), built once per state of the weights."""
+    return _cached(ff, f"_planes_{mode}", (ff.linear1.weight,
+                                           ff.linear2.weight),
+                   lambda: ff_weight_planes(ff.linear1.weight.detach(),
+                                            ff.linear2.weight.detach(), mode))
 
 
 def int8_linear(lin: nn.Linear, form: str = "dense"):
@@ -303,15 +320,16 @@ class FeedForward(nn.Module):
 
     def ff_sublayer(self, r, norm_in: nn.LayerNorm, norm_out: nn.LayerNorm,
                     plain: bool = False, train: bool = False,
-                    int8: bool = False):
+                    int8: bool = False, mode: str = "f32"):
         """norm_out(x1 + FF(x1)) with x1 = norm_in(r), through the FF
-        kernel (or its plain version); ``train`` takes the gradient route,
-        ``int8`` (serving) the int8 FF kernel.  Where the JAX package's FF
-        kernel refuses the weights (``ffn_supported``), its plain chain
-        runs, as the JAX package runs XLA ops there (int8: its chain of
+        kernel (or its plain version) in precision ``mode``; ``train``
+        takes the gradient route, ``int8`` (serving) the int8 FF kernel,
+        whatever the mode.  Where the JAX package's FF kernel refuses the
+        weights (``ffn_supported``), its plain chain runs, as the JAX
+        package runs XLA ops there (int8: its chain of
         ``_int8_dense_xla``)."""
         D, FF = self.linear1.in_features, self.linear1.out_features
-        kernel = ffn_supported(D, FF, int8)
+        kernel = ffn_supported(D, FF, int8, mode)
         if int8:
             if not kernel:
                 return ffn_int8_plain(
@@ -322,14 +340,18 @@ class FeedForward(nn.Module):
         norms = (norm_in.weight, norm_in.bias, norm_out.weight,
                  norm_out.bias, True)
         if not train:
-            fn = ffn_plain if plain or not kernel else fused_ffn
-            return fn(r, *self.ff_packed(norm_in, norm_out), True)
+            if plain or not kernel:
+                return ffn_plain(r, *self.ff_packed(norm_in, norm_out), True,
+                                 mode)
+            planes = None if mode == "f32" else ff_planes(self, mode)
+            return fused_ffn(r, *self.ff_packed(norm_in, norm_out), True,
+                             mode, planes)
         if plain or not kernel:
             return ffn_plain(r, *graph_linear(self.linear1),
-                             *graph_linear(self.linear2), *norms)
+                             *graph_linear(self.linear2), *norms, mode)
         return FFNFunction.apply(r, self.linear1.weight, self.linear1.bias,
                                  self.linear2.weight, self.linear2.bias,
-                                 *norms)
+                                 *norms, mode)
 
 
 class EncoderLayer(FeedForward):
@@ -343,7 +365,7 @@ class EncoderLayer(FeedForward):
 
     def forward(self, x, spec: AttnSpec, plain: bool = False,
                 train: bool = False, merge: bool = False, fuse: bool = True,
-                int8: bool = False):
+                int8: bool = False, mode: str = "f32"):
         D, FF = self.linear1.in_features, self.linear1.out_features
         T = x.shape[1]
         sub = use_sublayer_kernel(fuse, T, D)
@@ -361,7 +383,8 @@ class EncoderLayer(FeedForward):
             r = self.self_attn.sublayer(x, None, None, spec, plain, train)
         else:
             r = x + self.self_attn.attend(x, None, spec, plain, train, int8)
-        return self.ff_sublayer(r, self.norm1, self.norm2, plain, train, int8)
+        return self.ff_sublayer(r, self.norm1, self.norm2, plain, train, int8,
+                                mode)
 
 
 class DecoderLayer(FeedForward):
@@ -378,7 +401,8 @@ class DecoderLayer(FeedForward):
 
     def forward(self, y, memory, self_spec: AttnSpec, cross_spec: AttnSpec,
                 plain: bool = False, train: bool = False,
-                merge: bool = False, fuse: bool = True, int8: bool = False):
+                merge: bool = False, fuse: bool = True, int8: bool = False,
+                mode: str = "f32"):
         D, FF = self.linear1.in_features, self.linear1.out_features
         T = y.shape[1]
         sub = use_sublayer_kernel(fuse, T, D)
@@ -398,7 +422,7 @@ class DecoderLayer(FeedForward):
             if full:
                 return r
             return self.ff_sublayer(r, self.norm2, self.norm3, plain,
-                                    int8=int8)
+                                    int8=int8, mode=mode)
         if sub:
             y = self.self_attn.sublayer(y, None, self.norm1, self_spec,
                                         plain, train)
@@ -410,7 +434,7 @@ class DecoderLayer(FeedForward):
             r = y + self.multihead_attn.attend(y, memory, cross_spec, plain,
                                                train, int8)
         return self.ff_sublayer(r, self.norm2, self.norm3, plain, train,
-                                int8)
+                                int8, mode)
 
 
 class _Stack(nn.Module):
@@ -436,13 +460,13 @@ class TransformerCore(nn.Module):
     def forward(self, src, tgt, src_spec: AttnSpec, tgt_spec: AttnSpec,
                 cross_spec: AttnSpec, plain: bool = False,
                 train: bool = False, merge: bool = False, fuse: bool = True,
-                int8: bool = False):
+                int8: bool = False, mode: str = "f32"):
         x = src
         for layer in self.encoder.layers:
-            x = layer(x, src_spec, plain, train, merge, fuse, int8)
+            x = layer(x, src_spec, plain, train, merge, fuse, int8, mode)
         memory = self.encoder.norm(x)  # F.layer_norm, also under autograd
         y = tgt
         for layer in self.decoder.layers:
             y = layer(y, memory, tgt_spec, cross_spec, plain, train, merge,
-                      fuse, int8)
+                      fuse, int8, mode)
         return self.decoder.norm(y)

@@ -3,12 +3,15 @@ paths, each beside its plain PyTorch version, and the table that names
 them.
 
 Each wrapper takes its plain version for CPU tensors and launches its
-kernel for CUDA tensors, counting those calls in ``wrapper.launches``.
+kernel for CUDA tensors, counting those calls in ``wrapper.launches``; a
+wrapper that takes a precision mode counts per mode
+(``wrapper.launches[mode]``), and the table names each mode's kernel
+apart.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 from .attention import (AttentionFunction, attention_bwd,
                         attention_bwd_plain, attention_plain,
@@ -17,7 +20,8 @@ from .attn_sublayer import (AttnSublayerFunction, attn_sublayer_bwd,
                             attn_sublayer_bwd_plain, attn_sublayer_plain,
                             attn_sublayer_train_plain, fused_attn_sublayer,
                             fused_attn_sublayer_train)
-from .ffn import (FFNFunction, ffn_bwd, ffn_bwd_plain, ffn_int8_plain,
+from .ffn import (FFNFunction, ff_weight_planes, ffn_bwd, ffn_bwd_plain,
+                  ffn_bwd_split, ffn_bwd_split_plain, ffn_int8_plain,
                   ffn_plain, ffn_train_plain, fused_ffn, fused_ffn_int8,
                   fused_ffn_train)
 from .int8_matmul import fused_int8_dense, int8_dense_plain
@@ -26,8 +30,9 @@ from .layer_fused import (decoder_layer_plain, encoder_layer_int8_plain,
                           fused_encoder_layer, fused_encoder_layer_int8)
 from .masked_loss import (FusedEuclideanLoss, fused_euclidean_loss,
                           fused_masked_loss, masked_loss_plain)
-from .pointwise import (fused_post_head, fused_pre_stream_embed,
-                        post_head_plain, pre_stream_embed_plain)
+from .pointwise import (fused_post_head, fused_pre_stream,
+                        fused_pre_stream_embed, post_head_plain,
+                        pre_stream_embed_plain, pre_stream_plain)
 
 
 class Kernel(NamedTuple):
@@ -35,6 +40,7 @@ class Kernel(NamedTuple):
     wrapper: object
     source: str    # path in the repository
     replaces: str  # the TPU kernel, file:line
+    mode: Optional[str] = None  # the precision mode counted, if it takes one
 
 
 _TPU = "keypoints_interpolation_transformer_tpu/ops/pallas"
@@ -46,7 +52,7 @@ KERNELS = (
     Kernel("attn_sublayer", fused_attn_sublayer,
            f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:135"),
     Kernel("ffn", fused_ffn,
-           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215"),
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215", "f32"),
     Kernel("post_head", fused_post_head,
            f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:90"),
     Kernel("attn_sublayer_train", fused_attn_sublayer_train,
@@ -54,7 +60,7 @@ KERNELS = (
     Kernel("attn_sublayer_bwd", attn_sublayer_bwd,
            f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:410"),
     Kernel("ffn_train", fused_ffn_train,
-           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215"),
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215", "f32"),
     Kernel("ffn_bwd", ffn_bwd,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:450"),
     Kernel("enc_layer", fused_encoder_layer,
@@ -73,13 +79,34 @@ KERNELS = (
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:248"),
     Kernel("enc_layer_int8", fused_encoder_layer_int8,
            f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:77"),
+    # the precision modes: "high" (bf16x3) and "default" (one bf16 pass)
+    Kernel("ffn_high", fused_ffn,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:200", "bf16x3"),
+    Kernel("ffn_default", fused_ffn,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215", "bf16"),
+    Kernel("ffn_train_high", fused_ffn_train,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:200", "bf16x3"),
+    Kernel("ffn_train_default", fused_ffn_train,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215", "bf16"),
+    Kernel("ffn_bwd_split", ffn_bwd_split,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:646,679", "f32"),
+    Kernel("ffn_bwd_split_high", ffn_bwd_split,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:646,679", "bf16x3"),
+    Kernel("ffn_bwd_split_default", ffn_bwd_split,
+           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:646,679", "bf16"),
+    Kernel("pre_stream", fused_pre_stream,
+           f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:77"),
 )
 
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.wrapper.launches = 0
+        if k.mode is None:
+            k.wrapper.launches = 0
+        else:
+            k.wrapper.launches[k.mode] = 0
 
 
 def launch_counts() -> dict:
-    return {k.name: k.wrapper.launches for k in KERNELS}
+    return {k.name: k.wrapper.launches if k.mode is None
+            else k.wrapper.launches[k.mode] for k in KERNELS}

@@ -1,4 +1,4 @@
-"""Pre-stream embed and post head of the KeypointCompleter.
+"""Pre-stream chains and post head of the KeypointCompleter.
 
 Kernels (``csrc/pointwise.cu``), replacing
 ``keypoints_interpolation_transformer_tpu/ops/pallas/pointwise.py``:
@@ -6,6 +6,10 @@ Kernels (``csrc/pointwise.cu``), replacing
   * ``fused_pre_stream_embed`` <- ``_pre_embed_kernel``: Linear(F -> D),
     token_norm [doubled for Cycle], + (pe + learned), SwiGLU; optionally
     also returns the embedding.
+  * ``fused_pre_stream`` <- ``_pre_kernel``: the same chain from an
+    embedding that is already computed.  The JAX package reaches its kernel
+    only with its embedding kernel switched off (``KIT_PW_EMBED=0``,
+    ``completer.py:170,192``), and no route of the port's model takes it.
   * ``fused_post_head`` <- ``_post_kernel``: SwiGLU, token_norm(+ filled
     embedding), swish, Linear(D -> F).
 
@@ -29,6 +33,7 @@ from .ffn import LN_EPS
 from .widths import KERNEL_WIDTHS
 
 _SIGS = {"kit_pre_embed": "piiiipppppppppip",
+         "kit_pre_stream": "piii" + "p" * 6 + "ip",
          "kit_post_head": "ppiippppppipp"}
 
 
@@ -60,6 +65,14 @@ def pre_stream_embed_plain(x, wemb, bemb, pe_learned, w12, b12, w3, b3,
     n = (n + n + pe_learned) if pe_residual else (n + pe_learned)
     s = swiglu_plain(n, w12, b12, w3, b3)
     return (s, e) if want_emb else s
+
+
+def pre_stream_plain(e, pe_learned, w12, b12, w3, b3,
+                     pe_residual: bool = False):
+    """Plain PyTorch version of ``fused_pre_stream``."""
+    n = token_norm(e)
+    n = (n + n + pe_learned) if pe_residual else (n + pe_learned)
+    return swiglu_plain(n, w12, b12, w3, b3)
 
 
 def post_head_plain(decoded, filled_emb, w12, b12, w3, b3, wh, bh):
@@ -108,6 +121,32 @@ def fused_pre_stream_embed(x, wemb, bemb, pe_learned, w12, b12, w3, b3,
 
 
 fused_pre_stream_embed.launches = 0
+
+
+def fused_pre_stream(e, pe_learned, w12, b12, w3, b3,
+                     pe_residual: bool = False):
+    """e (B, T, D) -> s (B, T, D): token_norm(e) [+ token_norm(e)] +
+    ``pe_learned`` (T, D), then SwiGLU."""
+    if e.device.type == "cpu":
+        return pre_stream_plain(e, pe_learned, w12, b12, w3, b3, pe_residual)
+    where = "fused_pre_stream"
+    B, T, D = e.shape
+    if D not in KERNEL_WIDTHS:
+        raise ValueError(f"{where}: needs D in {KERNEL_WIDTHS}, got D={D}")
+    _build.check_tensors(where, e.device, e=e, pe_learned=pe_learned,
+                         w12=w12, b12=b12, w3=w3, b3=b3)
+    _build.check_shape(where, "pe_learned", pe_learned, (T, D))
+    _check_swiglu(where, D, w12, b12, w3, b3)
+    _build.check_aligned(where, w12=w12, w3=w3)
+    out = torch.empty(B, T, D, device=e.device)
+    lib = _build.bind("pointwise", _SIGS)
+    _build.call(lib, "kit_pre_stream", e.device, e, B * T, T, D, pe_learned,
+                w12, b12, w3, b3, out, int(pe_residual))
+    fused_pre_stream.launches += 1
+    return out
+
+
+fused_pre_stream.launches = 0
 
 
 def fused_post_head(decoded, filled_emb, w12, b12, w3, b3, wh, bh):

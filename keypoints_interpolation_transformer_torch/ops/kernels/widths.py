@@ -9,7 +9,8 @@ zeros from n to D, passes n to the kernel, which keeps every LayerNorm's
 statistics over the first n columns and writes 0 beyond them, and cuts the
 results back to n.  The padded columns hold 0 through every product, so the
 result is the unpadded model's.  The attention cores take any head width
-dh = n / H up to ``MAX_HEAD`` (their head stride is dh, not a padded one).
+dh = n / H up to ``MAX_HEAD`` = 512, the widest D (their head stride is
+dh, not a padded one; ``csrc/attention.cuh`` ``by_head``).
 
 Packed weights keep their blocks: [Wq | Wk | Wv] (n, 3n) becomes
 [Wq' | Wk' | Wv'] (D, 3D), each block padded on its own (``pad_blocks``).
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 KERNEL_WIDTHS = (128, 256, 384, 512)
-MAX_HEAD = 128
+MAX_HEAD = 512
 
 
 def kernel_width(where: str, n: int) -> int:

@@ -59,7 +59,10 @@ def build_model(model_cfg, variant: Optional[str] = None, *,
     "highest" (``steps.py:63-82``) only to keep XLA's gradient numerics on
     the TPU; the port computes in float32 throughout, and its sublayer
     kernels and their backwards match the plain versions there, so it
-    keeps its sublayer route."""
+    keeps its sublayer route.  ``model_cfg.matmul_precision`` becomes the
+    model's ``precision``: its FF sublayers run in that mode on every route
+    (at "high" and "default" the JAX package's FF kernel with its native
+    backward)."""
     if model_cfg.compute_dtype != "float32":
         raise ValueError("the PyTorch port computes in float32 only")
     if model_cfg.attn_sublayer_fusion not in FUSION:
@@ -69,11 +72,14 @@ def build_model(model_cfg, variant: Optional[str] = None, *,
     v = variant or model_cfg.variant
     if v == "embedding":
         return Embedding(model_cfg.hidden_dim, model_cfg.input_size,
-                         device=dev, generator=generator).train(for_training)
+                         device=dev, generator=generator,
+                         precision=model_cfg.matmul_precision
+                         ).train(for_training)
     kw = dict(input_size=model_cfg.input_size, ff_dim=model_cfg.ff_dim,
               merge_layers=merge_layers and not for_training,
               attn_sublayer_fusion=model_cfg.attn_sublayer_fusion != "off",
-              device=dev, generator=generator)
+              device=dev, generator=generator,
+              precision=model_cfg.matmul_precision)
     if v == "plain":
         model = KeypointCompleter(model_cfg.hidden_dim, model_cfg.num_layers,
                                   model_cfg.num_heads, **kw)

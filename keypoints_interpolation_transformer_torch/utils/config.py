@@ -30,7 +30,9 @@ class ModelConfig:
     input_size: int = 108          # 54 keypoints x 2
     ff_dim: int = 2048             # torch nn.Transformer default
     variant: str = "plain"         # "plain" | "cycle" | "embedding"
-    # the port computes in float32 only, matmuls at full float32
+    # "highest" (float32), "high" (bf16x3) or "default" (one bf16 pass),
+    # and the JAX aliases (ops/kernels/precision.py): the mode of the FF
+    # sublayers; the rest of the model stays float32
     matmul_precision: str = "highest"
     compute_dtype: str = "float32"
     # kernel routing of the JAX package: the port takes "auto" only (its
@@ -125,10 +127,28 @@ class TrainConfig:
         return self.early_stop
 
 
+# the JAX package's matmul precision names and their modes
+# (ops/pallas/ffn.py ``_precision_mode``, attention.py ``_mxu_mode``):
+# "f32" float32 products, "bf16x3" three bf16 passes over hi / lo splits,
+# "bf16" one bf16 pass (ops/kernels/precision.py)
+PRECISIONS = {"highest": "f32", "float32": "f32",
+              "high": "bf16x3", "tensorfloat32": "bf16x3",
+              "bfloat16_3x": "bf16x3",
+              "default": "bf16", "bfloat16": "bf16", "fastest": "bf16"}
+
+
+def resolve_precision(name: str) -> str:
+    """The mode ("f32", "bf16x3" or "bf16") of a precision name, aliases
+    included; raises ValueError on any other name."""
+    try:
+        return PRECISIONS[name]
+    except (KeyError, TypeError):
+        raise ValueError(f"unknown matmul_precision {name!r}; expected one "
+                         f"of {sorted(PRECISIONS)}") from None
+
+
 # (section, field, the value the port takes, why another one is refused)
 UNSUPPORTED = (
-    ("model", "matmul_precision", "highest",
-     "the port computes in float32 only; the precision modes are not ported"),
     ("model", "attention_impl", "auto",
      "the port routes attention as the JAX package's 'auto' does"),
     ("model", "ff_impl", "auto",
@@ -178,7 +198,8 @@ class Config:
 
     def check_supported(self) -> None:
         """Raise ValueError on the first field that asks for what the port
-        does not do yet (``UNSUPPORTED``)."""
+        does not do yet (``UNSUPPORTED``), or on an unknown precision."""
+        resolve_precision(self.model.matmul_precision)
         for section, name, ok, why in UNSUPPORTED:
             value = getattr(getattr(self, section), name)
             if value != ok:

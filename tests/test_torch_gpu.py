@@ -239,7 +239,7 @@ def test_per_op_wrappers_raise_rather_than_fall_back(cuda):
     with pytest.raises(ValueError):  # Tq != Tk
         kernels.fused_attention(q, q[:, :8].contiguous(), q, m, None)
     with pytest.raises(ValueError):  # a head width the kernels do not take
-        wide = torch.zeros(2, 16, 1, 136, device=cuda)
+        wide = torch.zeros(2, 16, 1, 513, device=cuda)
         kernels.fused_attention(wide, wide, wide, m, None)
     with pytest.raises(TypeError):
         kernels.fused_masked_loss(torch.zeros(2, 4, 54, 2, device=cuda,
@@ -376,8 +376,9 @@ def test_int8_wrappers_raise_rather_than_fall_back(cuda):
 @pytest.mark.gpu
 def test_kernels_at_every_width_on_the_card(cuda):
     """Every kernel (the pointwise ones where D % 128 == 0) at D = 32, 128,
-    384 and 512 with head widths 8, 64 and 128 against its plain
-    version."""
+    384 and 512 with head widths 8, 64 and 128, and at D = 384 and 512
+    with one and two heads (head widths 192 to 512, the attention cores'
+    wide build), against its plain version."""
     import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     for d, heads in chip_smoke.WIDTH_CASES:
@@ -387,3 +388,92 @@ def test_kernels_at_every_width_on_the_card(cuda):
                  + [(*c, False) for c in chk.int8_calls(3, 40)])
         for name, variant, kern, plain, grad in calls:
             chk.compare(name, f"D={d} {variant}", kern(), plain(), grad)
+
+
+@pytest.mark.gpu
+def test_precision_kernels_match_plain_on_the_card(cuda):
+    """The FF forward and training forward in "high" and "default", the
+    split backward in all three modes (and in float32 against the
+    monolith) and the pre-stream chain, each against its plain version in
+    the same mode, on an aligned and a ragged length; each mode kernel
+    also nearer its own mode's plain version than the wrong mode's."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for T in (40, 128):
+        for name, variant, kern, plain, grad, wrong in chk.precision_calls(
+                3, 3, T):
+            chk.compare(name, variant, kern(), plain(), grad,
+                        None if wrong is None else wrong())
+
+
+@pytest.mark.gpu
+def test_train_step_at_high_on_the_card(cuda):
+    """Two layers at "high": one A1 step on the kernel and the plain route
+    in that mode from the same parameters and corruption, the same loss
+    and the same gradients (each parameter's within HIGH_MODE_TOL of its
+    own largest value, as the optimizer receives them), and the FF
+    sublayers through the "high" kernels (the bf16x3 forward and the split
+    backward, not the float32 monolith)."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.train import state, steps
+    from keypoints_interpolation_transformer_torch.utils.config import (
+        Config, ModelConfig)
+    cfg = Config(model=ModelConfig(hidden_dim=128, num_heads=4, num_layers=2,
+                                   ff_dim=256, matmul_precision="high"))
+    rng = np.random.default_rng(0)
+    clean = torch.from_numpy(rng.uniform(0.2, 0.8, (4, 40, 54, 2)).astype(
+        np.float32)).to(cuda)
+    length = torch.tensor([40, 33, 40, 21], device=cuda)
+    losses, grads = {}, {}
+    for plain in (True, False):
+        model = steps.build_model(cfg.model, for_training=True,
+                                  generator=torch.Generator().manual_seed(0))
+        st = state.TrainState.create(model, 1e-3)
+        adam = st.optimizer.step
+
+        def keep_grads(*a, plain=plain, model=model, adam=adam, **k):
+            grads[plain] = {n: p.grad.clone()
+                            for n, p in model.named_parameters()}
+            return adam(*a, **k)
+
+        st.optimizer.step = keep_grads
+        kernels.reset_launches()
+        _, m = steps.make_train_step(model, cfg, None, plain=plain)(
+            st, clean, length, torch.ones(4, device=cuda),
+            torch.Generator(device=cuda).manual_seed(1), 1e-3)
+        torch.cuda.synchronize()
+        losses[plain] = float(m["loss"])
+    assert kernels.launch_counts() == {
+        **chip_smoke.NO_LAUNCHES, "attn_sublayer_train": 6,
+        "attn_sublayer_bwd": 6, "ffn_train_high": 4,
+        "ffn_bwd_split_high": 4}
+    assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])
+    assert grads[True].keys() == grads[False].keys()
+    for n, want in grads[True].items():
+        scale = float(want.abs().max())
+        err = float((grads[False][n] - want).abs().max())
+        assert err <= chip_smoke.HIGH_MODE_TOL * scale, (n, err, scale)
+
+
+@pytest.mark.gpu
+def test_precision_wrappers_raise_rather_than_fall_back(cuda):
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    r = torch.zeros(4, 128, device=cuda)
+    w1 = torch.zeros(128, 256, device=cuda)
+    args = (w1, torch.zeros(256, device=cuda), w1.t().contiguous(),
+            torch.zeros(128, device=cuda), None, None,
+            torch.ones(128, device=cuda), torch.zeros(128, device=cuda))
+    planes = kernels.ff_weight_planes(w1.t(), w1, "bf16x3")
+    with pytest.raises(ValueError, match="lo planes"):
+        kernels.fused_ffn(r, *args, False, "bf16", planes)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernels.fused_ffn(r, *args, False, "bf16x3",
+                          tuple(p.float() for p in planes))
+    with pytest.raises(ValueError, match="precision mode"):
+        kernels.fused_ffn(r, *args, False, "high")
+    kernels.reset_launches()
+    kernels.fused_ffn(r, *args, False, "bf16x3", planes)
+    assert kernels.launch_counts()["ffn_high"] == 1
+    assert kernels.launch_counts()["ffn"] == 0

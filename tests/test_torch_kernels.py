@@ -268,7 +268,16 @@ def test_kernel_table_and_counters():
                      "post_head", "attn_sublayer_train", "attn_sublayer_bwd",
                      "ffn_train", "ffn_bwd", "enc_layer", "dec_layer",
                      "attention", "attention_bwd", "masked_loss",
-                     "int8_dense", "ffn_int8", "enc_layer_int8"]
+                     "int8_dense", "ffn_int8", "enc_layer_int8",
+                     "ffn_high", "ffn_default", "ffn_train_high",
+                     "ffn_train_default", "ffn_bwd_split",
+                     "ffn_bwd_split_high", "ffn_bwd_split_default",
+                     "pre_stream"]
+    # the precision modes count apart, under their wrapper's mode
+    modes = {k.name: k.mode for k in kernels.KERNELS if k.mode}
+    assert modes["ffn"] == modes["ffn_train"] == "f32"
+    assert modes["ffn_high"] == modes["ffn_bwd_split_high"] == "bf16x3"
+    assert modes["ffn_train_default"] == "bf16"
     for k in kernels.KERNELS:
         assert k.source.endswith(".cu") and ".py:" in k.replaces
     kernels.reset_launches()

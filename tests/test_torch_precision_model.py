@@ -1,0 +1,244 @@
+"""The precision mode "high" through the model, the train step, the loop,
+the CLI and the Inpainter, against the JAX package on the CPU: the model
+forward at "high" against the JAX model whose FF alone runs Pallas (in
+interpret mode under ambient "high"), one A1 step's loss and gradients,
+and the entry points that take the precision (``cli train`` / ``serve
+--precision``, ``Inpainter``, every variant's ``build_model``).  The FF
+sublayer's arithmetic itself is held in ``test_torch_precision.py``."""
+
+import contextlib
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from keypoints_interpolation_transformer_tpu.models import completer as jc
+from keypoints_interpolation_transformer_tpu.ops import masks as jmasks
+from keypoints_interpolation_transformer_tpu.train import steps as jsteps
+from keypoints_interpolation_transformer_tpu.utils import config as jconfig
+from keypoints_interpolation_transformer_torch import cli
+from keypoints_interpolation_transformer_torch.models.completer import (
+    Embedding, KeypointCompleter, keypoint_completer_cycle)
+from keypoints_interpolation_transformer_torch.models.convert import (
+    params_from_jax, state_dict_tensors)
+from keypoints_interpolation_transformer_torch.train import steps
+from keypoints_interpolation_transformer_torch.utils.config import (
+    Config, ModelConfig)
+
+# one intra-op thread per test process: the suite runs in parallel
+# workers, and more threads only contend for the cores
+torch.set_num_threads(1)
+
+D_, FF_ = 32, 64
+# the FF sublayer at "high" against JAX's (test_torch_precision.py): the
+# same exact bf16 products summed in float32 in another order
+HIGH_TOL = 2e-5
+# "default" against "highest" through a whole model: the bf16 error itself
+DEFAULT_TOL = 2e-3
+
+
+@contextlib.contextmanager
+def _interpret(prec):
+    """The Pallas kernels as the JAX kernel tests run them on the CPU,
+    under the ambient precision ``prec``."""
+    with pltpu.force_tpu_interpret_mode(), \
+            jax.default_matmul_precision(prec):
+        yield
+
+
+# ---------------------------------------------------------------------------
+# the model and the A1 step
+# ---------------------------------------------------------------------------
+
+B, T, LAYERS, HEADS = 3, 24, 2, 4
+
+
+def _inputs(rng):
+    x = rng.uniform(0.2, 0.8, (B, T, 54, 2)).astype(np.float32)
+    f = rng.uniform(0.2, 0.8, (B, T, 54, 2)).astype(np.float32)
+    sm = (rng.random((B, T)) < 0.3).astype(np.float32)
+    tm = (rng.random((B, T)) < 0.3).astype(np.float32)
+    valid = np.ones((B, T), np.float32)
+    valid[1, 17:] = 0.0  # a padded row
+    return x, f, sm, tm, valid
+
+
+@pytest.mark.parametrize("cycle", [False, True])
+def test_model_forward_at_high_matches_jax(rng, cycle):
+    """The model at "high" (its FF sublayers bf16x3, the rest float32)
+    against the JAX KeypointCompleter whose FF alone runs Pallas
+    (``ff_impl="pallas"``, attention and pointwise chains in XLA, no
+    sublayer fusion, no merged layers) in interpret mode under ambient
+    "high": the XLA ops run in float32 on the CPU, so both split the work
+    the same way.  A float32 port model is further away the mode's rounding is what closes the gap."""
+    x, f, sm, tm, valid = _inputs(rng)
+    kw = dict(hidden_dim=D_, num_layers=LAYERS, num_heads=HEADS, ff_dim=FF_,
+              attention_impl="xla", ff_impl="pallas", pointwise_impl="xla",
+              attn_sublayer_fusion=False, merge_layers=False)
+    jm = (jc.keypoint_completer_cycle if cycle else jc.KeypointCompleter)(
+        **kw)
+    with _interpret("high"):
+        params = jm.init(jax.random.key(1), jnp.asarray(x[:1]),
+                         jnp.asarray(f[:1]))
+        want = np.asarray(jax.jit(lambda p: jm.apply(
+            p, jnp.asarray(x), jnp.asarray(f),
+            src_frame_mask=jnp.asarray(sm), tgt_frame_mask=jnp.asarray(tm),
+            src_bias=jmasks.attention_bias("repeat-inc", jnp.asarray(sm), T),
+            tgt_bias=jmasks.attention_bias("repeat-inc", jnp.asarray(tm), T),
+            valid_mask=jnp.asarray(valid)))(params))
+    make = keypoint_completer_cycle if cycle else KeypointCompleter
+    real = valid > 0
+    outs = {}
+    for prec in ("high", "highest"):
+        model = make(D_, LAYERS, HEADS, ff_dim=FF_, precision=prec,
+                     merge_layers=False)
+        model.load_state_dict(state_dict_tensors(params_from_jax(params)))
+        with torch.no_grad():
+            outs[prec] = model.eval()(*(torch.from_numpy(a) for a in
+                                        (x, f, sm, tm, valid))).numpy()
+    assert model.mode == "f32"
+    np.testing.assert_allclose(outs["high"][real], want[real], atol=HIGH_TOL)
+    err = {k: np.abs(v[real] - want[real]).max() for k, v in outs.items()}
+    assert err["high"] < err["highest"], err
+
+
+def test_a1_step_at_high_matches_jax():
+    """One A1 step at "high" against ``jax.value_and_grad`` of the JAX A1
+    loss with ``ff_impl="pallas"`` under ambient "high" in interpret mode,
+    on the same corrupted batch.  The loss takes the same bf16x3 forward
+    on both sides (within float32 noise); on the CPU the JAX package
+    differentiates its FF kernel through its float32 XLA reference
+    (its native backward needs the TPU), while the port's backward runs
+    bf16x3, so the gradients agree to the bf16x3-against-float32 distance,
+    about 2^-16 of the largest gradient, given a factor of 10."""
+    Bq, Tq = 4, 16
+    mc = jconfig.ModelConfig(hidden_dim=D_, num_heads=HEADS,
+                             num_layers=LAYERS, ff_dim=FF_, ff_impl="pallas",
+                             matmul_precision="high")
+    model_j = jsteps.build_model(mc, "plain", for_training=True)
+    rng = np.random.default_rng(0)
+    clean = jnp.asarray(rng.uniform(0.2, 0.8, (Bq, Tq, 54, 2)).astype(
+        np.float32))
+    length = jnp.asarray([Tq, 12, 9, Tq], jnp.int32)
+    weight = jnp.asarray([1.0, 1.0, 0.5, 1.0], jnp.float32)
+    with _interpret("high"):
+        params = model_j.init(jax.random.key(0), clean, clean)["params"]
+    criterion = jsteps.make_train_criterion("a1", False)
+
+    def loss_fn(p, y, inputs, mask):
+        x, x_no, x_mask, y_mask, valid = jsteps.shift_streams(inputs, mask,
+                                                              length)
+        pred = jsteps.completer_forward(model_j, p, x, x_no, x_mask, y_mask,
+                                        valid)
+        return jsteps._weighted_mean(criterion(pred, y, valid), weight)
+
+    with _interpret("high"):
+        batch = jax.jit(lambda key: jsteps.corrupt_batch(
+            key, clean, length, augment=True, aug_prob=0.5,
+            is_random_missing=False, dataset_name="all", stats=None))(
+                jax.random.key(11))
+        loss_j, grads_j = jax.jit(jax.value_and_grad(loss_fn))(params,
+                                                              *batch)
+    cfg = Config(model=ModelConfig(hidden_dim=D_, num_heads=HEADS,
+                                   num_layers=LAYERS, ff_dim=FF_,
+                                   matmul_precision="high"))
+    model = steps.build_model(cfg.model, for_training=True, device="cpu")
+    assert model.precision == "high"
+    model.load_state_dict(state_dict_tensors(params_from_jax(params)))
+    y, inputs, mask = (torch.from_numpy(np.array(a)) for a in batch)
+    crit = steps.make_train_criterion("a1", False)
+    loss, _ = steps.a1_loss(model, y, inputs, mask,
+                            torch.from_numpy(np.array(length)),
+                            torch.from_numpy(np.array(weight)), crit)
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=2e-5)
+    loss.backward()
+    want = params_from_jax(grads_j)
+    gscale = max(float(np.abs(w).max()) for w in want.values())
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy() / gscale,
+                                   want[name] / gscale, atol=2e-4,
+                                   err_msg=name)
+
+
+def test_precision_reaches_every_model_and_the_cli(tmp_path):
+    """``matmul_precision`` becomes each built model's ``precision``
+    (plain, Cycle, the Embedding, which keeps it and has no FF), and the
+    CLI takes the three names for ``train`` and ``serve``."""
+    for prec in ("highest", "high", "default", "bfloat16_3x"):
+        mc = ModelConfig(hidden_dim=32, num_heads=4, num_layers=1,
+                         ff_dim=64, matmul_precision=prec)
+        for variant in ("plain", "cycle", "embedding"):
+            m = steps.build_model(mc, variant, device="cpu")
+            assert m.precision == prec
+    assert Embedding(32, precision="default").precision == "default"
+    p = cli.build_parser()
+    for cmd in (["train"], ["serve", "--checkpoint", "x.pth"]):
+        for prec in ("highest", "high", "default"):
+            assert p.parse_args(cmd + ["--precision", prec]).precision == \
+                prec
+        with pytest.raises(SystemExit):
+            p.parse_args(cmd + ["--precision", "float32"])
+
+
+def test_loop_cli_and_inpainter_take_the_modes(tmp_path, monkeypatch):
+    """``cli train --precision high`` runs the loop on the CPU with its
+    model at "high" (steps and eval forwards); ``Inpainter`` and ``cli
+    serve`` take the precision (``from_checkpoint(precision=...)``), and a
+    per-sublayer Inpainter at "high" / "default" serves within the mode's
+    distance of "highest", its non-missing frames untouched."""
+    import json
+    import contextlib
+    import io
+
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.models.convert import (
+        save_reference_pth)
+    from keypoints_interpolation_transformer_torch.train import loop
+
+    monkeypatch.chdir(tmp_path)
+    built = []
+    real_build = loop.build_model
+
+    def spy(*a, **k):
+        built.append(real_build(*a, **k))
+        return built[-1]
+
+    monkeypatch.setattr(loop, "build_model", spy)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["train", "--device", "cpu", "--regime", "a1",
+                         "--synthetic", "12", "--epochs", "1",
+                         "--hidden_dim", "32", "--num_heads", "4",
+                         "--num_layers", "1", "--synthetic_max_len", "40",
+                         "--max_seq_len", "48", "--precision", "high"]) == 0
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert res["epochs_run"] == 1 and built[0].mode == "bf16x3"
+
+    model = KeypointCompleter(32, 1, 4, ff_dim=64,
+                              generator=torch.Generator().manual_seed(0))
+    path = str(tmp_path / "m.pth")
+    save_reference_pth(path, model, {"hidden_dim": 32, "num_layers": 1,
+                                     "num_heads": 4})
+    rng = np.random.default_rng(4)
+    videos = [rng.uniform(0.2, 0.8, (t, 54, 2)).astype(np.float32)
+              for t in (20, 29)]
+    masks = [(rng.random(len(v)) < 0.3).astype(np.float32) for v in videos]
+    outs = {}
+    for prec in ("highest", "high", "default"):
+        inp = Inpainter.from_checkpoint(path, device="cpu", precision=prec,
+                                        bucket_multiple=16,
+                                        merge_layers=False)
+        assert inp.model.precision == prec
+        outs[prec] = inp.inpaint(videos, masks)
+        for v, m, o in zip(videos, masks, outs[prec]):
+            np.testing.assert_array_equal(o[m == 0], v[m == 0])
+    for prec, tol in (("high", HIGH_TOL), ("default", 20 * DEFAULT_TOL)):
+        for a, b in zip(outs[prec], outs["highest"]):
+            np.testing.assert_allclose(a, b, atol=tol, rtol=0)
+    args = cli.build_parser().parse_args(
+        ["serve", "--checkpoint", path, "--precision", "default"])
+    assert args.precision == "default"

@@ -1,6 +1,7 @@
 """The port stands alone at run time: with jax and the JAX package made
 unimportable, a fresh interpreter imports every module of the port and
-``chip_smoke``, takes a CPU train step, serves a CPU Cycle request and an
+``chip_smoke``, takes a CPU train step (and one at the precision "high"),
+serves a CPU Cycle request and an
 int8 one (``Inpainter(quantize="int8")``) and runs ``cli train`` on the
 CPU on the sublayer route and on the per-op route with the fused loss.
 The training entry points default to the card and raise without one."""
@@ -52,6 +53,16 @@ clean = torch.rand(2, 12, 54, 2, generator=torch.Generator().manual_seed(1))
 st, m = steps.make_train_step(model, cfg, None)(
     st, clean, torch.tensor([12, 9]), torch.ones(2),
     torch.Generator().manual_seed(2), 1e-3)
+assert torch.isfinite(m["loss"])
+# and one step at "high": the FF sublayers bf16x3 (their plain versions)
+hcfg = Config(model=ModelConfig(hidden_dim=32, num_heads=4, num_layers=1,
+                                ff_dim=64, matmul_precision="high"))
+hmodel = steps.build_model(hcfg.model, for_training=True, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+assert hmodel.mode == "bf16x3"
+st, m = steps.make_train_step(hmodel, hcfg, None)(
+    state.TrainState.create(hmodel, 1e-3), clean, torch.tensor([12, 9]),
+    torch.ones(2), torch.Generator().manual_seed(2), 1e-3)
 assert torch.isfinite(m["loss"])
 
 from keypoints_interpolation_transformer_torch.eval.serving import Inpainter

@@ -95,7 +95,7 @@ def test_inpainter_rejects_what_the_port_does_not_serve(jax_params):
     with pytest.raises(ValueError):
         serving.Inpainter(sd, ModelConfig(hidden_dim=32, num_layers=1,
                                           num_heads=4, ff_dim=64,
-                                          matmul_precision="default"),
+                                          matmul_precision="fp8"),
                           device="cpu")
     with pytest.raises(ValueError):
         serving.Inpainter.from_checkpoint("orbax_dir")

@@ -2,7 +2,7 @@
 JAX package's predicates on the CPU.
 
 The CUDA kernels are built for D = 128, 256, 384 and 512 and any head
-width up to 128; a narrower model runs zero-padded to the next of these
+width up to 512; a narrower model runs zero-padded to the next of these
 (``ops/kernels/widths.py``).  Where the JAX package routes a shape to XLA
 (the pointwise chains off D % 128 == 0, T % 8 == 0, D <= 512; the FF
 sublayer above its weight budget; attention per op above 512 frames or
@@ -30,7 +30,8 @@ from keypoints_interpolation_transformer_torch.models import (
     completer as tc)
 from keypoints_interpolation_transformer_torch.ops.kernels import (
     layer_fused as tlf)
-from keypoints_interpolation_transformer_torch.ops.kernels import widths
+from keypoints_interpolation_transformer_torch.ops.kernels import (
+    attention, widths)
 from keypoints_interpolation_transformer_torch.ops.kernels.ffn import (
     ffn_supported)
 from keypoints_interpolation_transformer_torch.ops.kernels.pointwise import (
@@ -122,6 +123,23 @@ def test_routing_predicates_match_jax(D):
             assert ffn_supported(D, FF, int8) == _jax_ffn_kernel(D, FF, int8)
 
 
+@pytest.mark.parametrize("n,heads", [(384, 1), (384, 2), (512, 1),
+                                     (512, 2), (200, 1)])
+def test_check_heads_takes_head_widths_to_512(n, heads):
+    """Head widths above 128 (the JAX attention kernels take any): the
+    cores' wide build takes 128 < dh <= 512 (``csrc/attention.cuh``
+    ``by_head``), so the wrappers let them through; wider heads than any
+    kernel width are still refused, by every attention entry point."""
+    assert widths.check_heads("f", n, heads) == n // heads
+    assert widths.MAX_HEAD == 512
+    for bad_n, bad_h in ((1024, 1), (1026, 2)):
+        with pytest.raises(ValueError, match="head width"):
+            widths.check_heads("f", bad_n, bad_h)
+    q = torch.zeros(1, 8, 1, 513)
+    with pytest.raises(ValueError, match="head width"):
+        attention._check("fused_attention", q, {}, None, None, "all", False)
+
+
 def test_kernel_widths_and_padding():
     """The widths a model runs at on the card, and the zero padding that
     takes it there: each block of a packed weight padded on its own, and
@@ -133,7 +151,7 @@ def test_kernel_widths_and_padding():
         widths.kernel_width("f", 513)
     assert widths.check_heads("f", 384, 3) == 128
     assert widths.check_heads("f", 32, 4) == 8
-    for n, h in ((512, 2), (30, 4), (32, 0)):
+    for n, h in ((1026, 2), (30, 4), (32, 0)):
         with pytest.raises(ValueError, match="head width"):
             widths.check_heads("f", n, h)
     g = torch.Generator().manual_seed(0)
