@@ -17,13 +17,16 @@ Phases (each prints its own lines; any failed check exits non-zero):
      flagship widths (D=256, 8 heads, FF=2048), B=3, T in {128, 40, 256,
      300} with a padded row (the whole-layer kernels with the plain
      model's masks and the Cycle model's, the decoder with and without its
-     FF tail, and again at T in {128, 40, 256} with every thread-block
-     cluster size from 1 to 8); then at the shapes of the paths (serving
-     B=256, training B=64, T=128), with CUDA-event times of kernel and
-     plain version, the bound of each (the least time the card could take)
-     and, for the whole layers, of the one PyTorch call that computes the
-     same layer (``torch.nn.TransformerEncoderLayer`` /
-     ``TransformerDecoderLayer``, first held against the plain version);
+     FF tail, and again at T in {128, 40, 256, 300} with every
+     thread-block cluster size from 1 to 8, the int8 encoder layer too:
+     padded row tiles and the FF split over 2 to 8 blocks a tile); then at
+     the shapes of the paths (serving B=256, training B=64, T=128), with
+     CUDA-event times of kernel and plain version, the bound of each (the
+     least time the card could take) and the kernel's share of it, and,
+     for the whole layers, their rate of work and the time of the one
+     PyTorch call that computes the same layer
+     (``torch.nn.TransformerEncoderLayer`` / ``TransformerDecoderLayer``,
+     first held against the plain version);
   3. model: the flagship KeypointCompleter (random weights from a seeded
      torch.Generator) at B=256, T=128 on the merged route (the default:
      launches per forward pre_stream_embed 2, enc_layer 6, dec_layer 6,
@@ -124,12 +127,13 @@ its device idle share and the host work in it).  ``--sweep`` prints the
 whole-layer kernels' times at T=128 for B in {256, 64, 8, 1} with clusters
 of 1, 2, 4 and 8 blocks per video (and the size the wrapper picks), then
 the latency of one Inpainter call per route (the int8 merged route too)
-at small batches.  ``--ab DIR`` builds this tree's and DIR's kernels at
-once, then measures each tree in a fresh process in turns (DIR, this,
-this, DIR): the merged Inpainter's frames/s at B=256, its latency at 1 /
-4 / 16 / 64 videos and the A1 step time, with the merged output's sum and
-the step's loss, which equal bit for bit where the float32 kernels are
-unchanged.
+at small batches and the merged and per-sublayer frames/s at B=256.
+``--ab DIR`` builds this tree's and DIR's kernels at once, then measures
+each tree in a fresh process in turns (DIR, this, this, DIR): the merged
+Inpainter's frames/s at B=256, the merged and per-sublayer latency at 1 /
+4 / 16 / 64 videos and the A1 step time, with both routes' output sums
+and the step's loss, which equal bit for bit where the float32 kernels
+are unchanged, and the merged outputs' difference between the trees.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card it exits 1 and prints
@@ -268,6 +272,9 @@ SERVING_KERNELS = ("pre_stream_embed", "attn_sublayer", "ffn", "post_head",
 # the per-op attention kernels and the masked loss: timed at the training
 # batch, like the training kernels
 PER_OP_KERNELS = ("attention", "attention_bwd", "masked_loss")
+# the whole-layer kernels: phase 2 prints their rate of work beside their
+# bound and library time
+LAYER_KERNELS = ("enc_layer", "dec_layer", "enc_layer_int8")
 ATTN_T = (40, 512, 608, 2048)  # the per-op kernels' lengths in phase 2
 # the int8 serving kernels: timed at the serving batch
 INT8_KERNELS = ("int8_dense", "ffn_int8", "enc_layer_int8")
@@ -515,14 +522,31 @@ class KernelCheck:
         self.layer_args["ffn_int8"] = args
         out.append(("ffn_int8", "pre_ln", lambda a=args: k.fused_ffn_int8(*a),
                     lambda a=args: k.ffn_int8_plain(*a)))
+        return out + self.int8_layer_calls(o, mask, valid)
+
+    def int8_layer_calls(self, o, mask, valid, cluster=None):
+        """The merged encoder layer with its FF tail int8, with the plain
+        model's and the Cycle model's masks; ``cluster`` as in
+        ``layer_calls``."""
+        from keypoints_interpolation_transformer_torch.ops.kernels \
+            .int8_matmul import quantize_weight
+        k = self.k
+
+        def q(w):  # an (in, out) weight in torch's Linear layout
+            return quantize_weight(w.t().contiguous(), "ff")
+
+        ff8 = (*q(o["w1"]), o["b1"], *q(o["w2"]), o["b2"])
         attn = (o["wqkv"], o["bqkv"], o["wo"], o["bo"])
+        tag = "" if cluster is None else f" cluster={cluster}"
+        out = []
         for flags, m, kind in (("plain", mask, "repeat-inc"),
                                ("cycle", self.torch.ones_like(mask), "all")):
             args = (o["x"], *attn, *ff8, o["g"], o["be"], o["g2"], o["be2"],
                     m, valid, kind, True, self.heads)
             self.layer_args.setdefault("enc_layer_int8", args)
-            out.append(("enc_layer_int8", f"{flags} {kind}+keypad",
-                        lambda a=args: k.fused_encoder_layer_int8(*a),
+            out.append(("enc_layer_int8", f"{flags} {kind}+keypad{tag}",
+                        lambda a=args: k.fused_encoder_layer_int8(
+                            *a, cluster=cluster),
                         lambda a=args: k.encoder_layer_int8_plain(*a)))
         return out
 
@@ -1072,12 +1096,15 @@ def phase_kernels(torch, kmod):
             chk.compare(name, f"B={B} T={T} {variant}", kern(), plain(),
                         grad)
     # the batch picks the whole-layer kernels' cluster size; serving
-    # batches take every size, so each is held here
-    for T in (128, 40, 256):
+    # batches take every size, so each is held here, at lengths that fill
+    # the row tiles, leave a padded tail (40, 300) and split the FF chunks
+    # over 2 to 8 blocks a tile (ff_parts)
+    for T in (128, 40, 256, 300):
         o, (mask, valid) = chk.operands(3, T), chk.masks(3, T)
         for cl in range(1, 9):
-            for name, variant, kern, plain in chk.layer_calls(o, mask, valid,
-                                                              cl):
+            for name, variant, kern, plain in (
+                    chk.layer_calls(o, mask, valid, cl)
+                    + chk.int8_layer_calls(o, mask, valid, cl)):
                 chk.compare(name, f"B=3 T={T} {variant}", kern(), plain())
     times, first = {}, {}
     for name, variant, kern, plain, grad, wrong in all_calls(
@@ -1111,9 +1138,16 @@ def phase_kernels(torch, kmod):
         p1 = timed_ms(plain)
         b_ms, b_by = bound(name, B, T_MAIN)
         times[name] = (min(k0, k1), min(p0, p1), b_ms, b_by, lib_ms)
+        rate = ""
+        if name in LAYER_KERNELS:  # the work each does, over its time
+            flop, int8, _ = work(name, B, T_MAIN)
+            rate = f"  {flop / times[name][0] / 1e9:.1f} TFLOP/s" + (
+                f" + {int8 / times[name][0] / 1e9:.1f} int8 TOP/s"
+                if int8 else "")
         print(f"  time {name:19s} {variant:28s} kernel {times[name][0]:.4f} "
               f"ms  plain {times[name][1]:.4f} ms  bound {b_ms:.4f} ms "
-              f"({b_by})" + (f"  library {lib_ms:.4f} ms" if lib else "")
+              f"({b_by}; the kernel at {b_ms / times[name][0]:.1%} of it)"
+              + (f"  library {lib_ms:.4f} ms" if lib else "") + rate
               + f"  (B={B} T={T_MAIN})", flush=True)
     # the int8 dense layer at the q / k / v projection of the 600-frame
     # request's per-op route (608 rows, D -> 3D), timed beside its plain
@@ -1406,14 +1440,8 @@ def phase_throughput(torch, engines, gpu):
     fps = {}
     for name in ("plain", "merged", "sublayer", "sublayer", "merged",
                  "plain"):
-        engine = engines[name]
-        engine.inpaint(videos, masks)  # warm
-        t0 = time.perf_counter()
-        reps = 3
-        for _ in range(reps):
-            engine.inpaint(videos, masks)
-        dt = (time.perf_counter() - t0) / reps
-        fps[name] = max(fps.get(name, 0.0), B_MAIN * T_MAIN / dt)
+        fps[name] = max(fps.get(name, 0.0),
+                        frames_per_s(engines[name], videos, masks))
     print(f"  Inpainter B={B_MAIN} T={T_MAIN}: merged route "
           f"{fps['merged']:.1f} frames/s, per-sublayer route "
           f"{fps['sublayer']:.1f} frames/s, plain path {fps['plain']:.1f} "
@@ -1586,13 +1614,8 @@ def phase_int8(torch, kmod, path, variant_paths, gpu):
     fps = {}
     for name in ("int8 plain", "float merged", "int8 merged", "int8 merged",
                  "float merged", "int8 plain"):
-        engine = engines[name]
-        engine.inpaint(videos, masks)  # warm
-        t0 = time.perf_counter()
-        for _ in range(3):
-            engine.inpaint(videos, masks)
-        dt = (time.perf_counter() - t0) / 3
-        fps[name] = max(fps.get(name, 0.0), B_MAIN * T_MAIN / dt)
+        fps[name] = max(fps.get(name, 0.0),
+                        frames_per_s(engines[name], videos, masks))
     print(f"  Inpainter B={B_MAIN} T={T_MAIN}: int8 merged route "
           f"{fps['int8 merged']:.1f} frames/s, float32 merged route "
           f"{fps['float merged']:.1f} frames/s, int8 plain path "
@@ -1937,16 +1960,22 @@ def phase_loop(torch, kmod, gpu, tmp):
 
 
 def kernel_name(ptxas_line):
-    """``name<N>`` of the kernel a ptxas "Compiling entry function" line
-    names, read from its mangled name's length-prefixed identifiers."""
-    mangled = ptxas_line.split("'")[1]
+    """``name<N>`` of the function a ptxas "Compiling entry function" or
+    "Function properties for" line names (a kernel, or a device function
+    that is not inlined), read from its mangled name's length-prefixed
+    identifiers: the first one that ends in ``_kernel`` or is followed by
+    template arguments."""
+    if "'" in ptxas_line:
+        mangled = ptxas_line.split("'")[1]
+    else:
+        mangled = ptxas_line.split("Function properties for", 1)[1].strip()
     digits = re.compile(r"\d+")
     pos = 0
     while (m := digits.search(mangled, pos)) is not None:
         ident = mangled[m.end():m.end() + int(m.group())]
         pos = m.end() + len(ident)
-        if ident.endswith("_kernel"):
-            t = re.match(r"I((?:L[a-z]+-?\d+E)+)E", mangled[pos:])
+        t = re.match(r"I((?:L[a-z]+-?\d+E)+)E", mangled[pos:])
+        if ident.endswith("_kernel") or t:
             args = re.findall(r"L[a-z]+(-?\d+)E", t.group(1)) if t else []
             return ident + (f"<{', '.join(args)}>" if args else "")
     return mangled
@@ -2149,6 +2178,25 @@ def sweep(torch, kmod, gpu):
         print(f"  B={B} T={T}: " + ", ".join(
             f"{n} {lat[n]:.3f} ms" for n in ("merged", "sublayer", "plain",
                                              "int8 merged")), flush=True)
+    clean, miss = model_inputs(B_MAIN, T_MAIN, 3)
+    fps = {}
+    for name in ("merged", "sublayer", "sublayer", "merged"):
+        fps[name] = max(fps.get(name, 0.0), frames_per_s(
+            engines[name], list(clean), list(miss)))
+    print(f"sweep: Inpainter B={B_MAIN} T={T_MAIN}: merged "
+          f"{fps['merged']:.1f} frames/s, per-sublayer {fps['sublayer']:.1f} "
+          f"frames/s (best of 2 turns), {gpu}", flush=True)
+
+
+def frames_per_s(engine, videos, masks, reps=3):
+    """Inpainter frames/s on ``videos``: the mean of ``reps`` calls after a
+    warm one (phase 6's method)."""
+    engine.inpaint(videos, masks)  # warm
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine.inpaint(videos, masks)
+    dt = (time.perf_counter() - t0) / reps
+    return sum(len(v) for v in videos) / dt
 
 
 # the precision phase: per-sublayer serving and the A1 step at "high" and
@@ -2498,13 +2546,15 @@ def phase_widths(torch, kmod):
             fail(f"{tag}: train step rel {rel:.3e}, launches {counts}")
 
 
-def ab_measure(torch, gpu):
+def ab_measure(torch, gpu, out_path):
     """One tree's float32 numbers for ``--ab``, from the public entry points
     that every tree of the port has: the merged-route Inpainter's frames/s
-    at B=256 (phase 6's method), its latency at 1 / 4 / 16 / 64 videos
-    (``--sweep``'s), the A1 step time of the kernel route (phase 7's), and
-    the merged forward's output sum and the step's loss, which equal bit
-    for bit where the float32 kernels are unchanged."""
+    at B=256 (phase 6's method), the merged and the per-sublayer route's
+    latency at 1 / 4 / 16 / 64 videos (``--sweep``'s), the A1 step time of
+    the kernel route (phase 7's), and each route's output sum and the
+    step's loss, which equal bit for bit where the float32 kernels are
+    unchanged.  The merged route's B=256 outputs go to ``out_path`` (.npy)
+    for ``ab`` to compare across the trees."""
     from keypoints_interpolation_transformer_torch.eval.serving import (
         Inpainter)
     from keypoints_interpolation_transformer_torch.models.completer import (
@@ -2514,29 +2564,33 @@ def ab_measure(torch, gpu):
     sd = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
                            generator=torch.Generator().manual_seed(0)
                            ).state_dict()
-    inp = Inpainter(sd, model_config(), device=DEV)
+    routes = {"merged": Inpainter(sd, model_config(), device=DEV),
+              "sublayer": Inpainter(sd, model_config(), device=DEV,
+                                    merge_layers=False)}
     clean, miss = model_inputs(B_MAIN, T_MAIN, 3)
     videos, masks = list(clean), list(miss)
-    out = {"gpu": gpu, "checksum": float(np.stack(
-        inp.inpaint(videos, masks)).astype(np.float64).sum())}
-    fps, lat = 0.0, {}
+    out = {"gpu": gpu}
+    for name, inp in routes.items():
+        pred = np.stack(inp.inpaint(videos, masks))
+        if name == "merged":
+            np.save(out_path, pred)
+        out[f"{name}_sum"] = float(pred.astype(np.float64).sum())
+    fps, lat = 0.0, {name: {} for name in routes}
     for _ in range(2):
-        inp.inpaint(videos, masks)  # warm
-        t0 = time.perf_counter()
-        for _ in range(3):
-            inp.inpaint(videos, masks)
-        fps = max(fps, B_MAIN * T_MAIN / ((time.perf_counter() - t0) / 3))
-        for B in (1, 4, 16, 64):
-            v, m = list(clean[:B]), list(miss[:B])
-            inp.inpaint(v, m)  # warm
-            ms = []
-            for _ in range(7):
-                t0 = time.perf_counter()
-                inp.inpaint(v, m)
-                ms.append((time.perf_counter() - t0) * 1e3)
-            lat[B] = min(lat.get(B, float("inf")), float(np.median(ms)))
+        fps = max(fps, frames_per_s(routes["merged"], videos, masks))
+        for name, inp in routes.items():
+            for B in (1, 4, 16, 64):
+                v, m = list(clean[:B]), list(miss[:B])
+                inp.inpaint(v, m)  # warm
+                ms = []
+                for _ in range(7):
+                    t0 = time.perf_counter()
+                    inp.inpaint(v, m)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                lat[name][B] = min(lat[name].get(B, float("inf")),
+                                   float(np.median(ms)))
     out.update(fps=fps, latency_ms=lat)
-    del inp
+    del routes
     cfg = Config(model=model_config())
     model = steps.build_model(cfg.model, for_training=True, device=DEV,
                               generator=torch.Generator().manual_seed(0))
@@ -2573,7 +2627,8 @@ def ab(other, gpu):
     parent), in turns: parent, this, this, parent; each turn a fresh
     process that imports its tree's package and measures
     ``ab_measure``'s numbers.  Both trees' kernels are built first, at
-    once."""
+    once.  Then the merged route's outputs of the two trees are compared:
+    the largest coordinate difference and the masked MPJPE between them."""
     here = os.path.dirname(os.path.abspath(__file__))
     trees = {"parent": os.path.abspath(other), "change": here}
     builds = [subprocess.Popen(
@@ -2583,24 +2638,39 @@ def ab(other, gpu):
     if any(b.wait() != 0 for b in builds):
         fail("a tree's kernels did not build")
     rows = []
-    for name in ("parent", "change", "change", "parent"):
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--ab-measure", trees[name]], cwd=trees[name],
-                           capture_output=True, text=True, timeout=900)
-        if r.returncode != 0:
-            fail(f"{name}: {r.stdout[-2000:]} {r.stderr[-4000:]}")
-        row = json.loads(r.stdout.strip().splitlines()[-1])
-        rows.append((name, row))
-        print(f"  ab {name}: Inpainter merged {row['fps']:.1f} frames/s; "
-              "latency " + " / ".join(f"{v:.3f}" for v in
-                                      row["latency_ms"].values())
-              + f" ms at 1 / 4 / 16 / 64 videos; A1 step {row['step_ms']:.3f}"
-              f" ms; merged output sum {row['checksum']!r}, step loss "
-              f"{row['loss']!r} on {row['gpu']}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for turn, name in enumerate(("parent", "change", "change", "parent")):
+            npy = os.path.join(tmp, f"{turn}_{name}.npy")
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--ab-measure", trees[name], npy],
+                               cwd=trees[name], capture_output=True, text=True,
+                               timeout=900)
+            if r.returncode != 0:
+                fail(f"{name}: {r.stdout[-2000:]} {r.stderr[-4000:]}")
+            row = json.loads(r.stdout.strip().splitlines()[-1])
+            rows.append((name, row))
+            lat = row["latency_ms"]
+            print(f"  ab {name}: Inpainter merged {row['fps']:.1f} frames/s; "
+                  "latency merged " + " / ".join(
+                      f"{v:.3f}" for v in lat["merged"].values())
+                  + " ms, per-sublayer " + " / ".join(
+                      f"{v:.3f}" for v in lat["sublayer"].values())
+                  + f" ms at 1 / 4 / 16 / 64 videos; A1 step "
+                  f"{row['step_ms']:.3f} ms; output sum merged "
+                  f"{row['merged_sum']!r}, per-sublayer "
+                  f"{row['sublayer_sum']!r}; step loss {row['loss']!r} on "
+                  f"{row['gpu']}", flush=True)
+        parent, change = (np.load(os.path.join(tmp, f)) for f in
+                          ("0_parent.npy", "1_change.npy"))
+    _, miss = model_inputs(B_MAIN, T_MAIN, 3)
+    delta = masked_mpjpe_delta(change, parent, miss)
+    print(f"  ab: merged outputs, change against parent: largest coordinate "
+          f"difference {float(np.abs(change - parent).max()):.3e}, masked "
+          f"MPJPE {delta:.3e} (the route's gate against the plain path: "
+          f"{MPJPE_TOL:.0e})", flush=True)
     same = {k: len({json.dumps(r[k]) for _, r in rows}) == 1
-            for k in ("checksum", "loss")}
-    print(f"  ab: the float32 outputs equal bit for bit across the trees: "
-          f"{same}", flush=True)
+            for k in ("merged_sum", "sublayer_sum", "loss")}
+    print(f"  ab: bit for bit equal across the trees: {same}", flush=True)
     return 0
 
 
@@ -2618,7 +2688,7 @@ def main():
     if "--ab-measure" in sys.argv[1:]:  # the tree under test goes first
         tree = sys.argv[sys.argv.index("--ab-measure") + 1]
         sys.path.insert(0, os.path.abspath(tree))
-        return ab_measure(torch, gpu_line())
+        return ab_measure(torch, gpu_line(), sys.argv[-1])
     from keypoints_interpolation_transformer_torch.eval.serving import (
         Inpainter)
     from keypoints_interpolation_transformer_torch.models.completer import (
@@ -2641,7 +2711,8 @@ def main():
         if log.is_file():
             entry = ""
             for line in log.read_text().splitlines():
-                if "Compiling entry function" in line:
+                if "Compiling entry function" in line or \
+                        "Function properties for" in line:
                     entry = kernel_name(line)
                 elif "registers" in line or "spill" in line:
                     print(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}",

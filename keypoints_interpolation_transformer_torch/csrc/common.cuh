@@ -1,7 +1,9 @@
 // Shared building blocks of the port's hand-written Hopper kernels.
 //
-// Every kernel here works on blocks of BM = 32 token rows with NT = 256
-// threads (8 warps).  Warp w owns rows 4w .. 4w + 3 of the block; lane l
+// Every kernel works on blocks of NT = 256 threads (8 warps), most on BM =
+// 32 token rows (the whole-layer kernels on 64-row tiles, with sgemm.cuh's
+// product; the row helpers below take their rows per warp, RM, and row
+// stride).  Warp w owns rows 4w .. 4w + 3 of the block; lane l
 // owns columns 4l + e + 128 g (e < 4, g < TN / 4), so a row that is
 // D = 32 * TN wide lives in ONE warp and a row reduction (LayerNorm,
 // token_norm) is a warp shuffle, with no shared memory and no barrier.
@@ -14,6 +16,11 @@
 // columns of B, and 4 * TN FFMAs: the loads issue at a quarter of the FFMA
 // rate, so fewer, wider loads keep the FFMA pipe fed.  Weights are (K, N)
 // row-major, the Flax layout, transposed once when the model packs them.
+// On an H100 this product is bound by shared memory: 12 floats read a step
+// for 32 FFMAs, where an SM reads 32 floats a cycle and FFMAs 128, so it
+// runs near 30 TFLOP/s; sgemm.cuh's 8 x 8 tile is the core the FF and
+// sublayer kernels move to next (ROADMAP B 5), and mma_tile / mma_rows
+// then go.
 //
 // Widths: the kernels are built for D = 32 * TN with TN = 4, 8, 12 or 16
 // (D = 128 to 512; by_width dispatches).  A narrower model runs zero-padded
@@ -53,8 +60,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The block row and the column that value (i, j) of this thread holds.
-__device__ __forceinline__ int row_of(int i) { return 4 * (threadIdx.x >> 5) + i; }
+// The block row and the column that value (i, j) of this thread holds; a
+// tile of 8 RM rows gives each warp RM of them (RM = TM = 4 in a BM-row
+// block; the whole-layer kernels' 64-row tiles take RM = 8).
+template <int RM = TM>
+__device__ __forceinline__ int row_of(int i) { return RM * (threadIdx.x >> 5) + i; }
 __device__ __forceinline__ int col_of(int j) {
   return 4 * (threadIdx.x & 31) + (j & 3) + 128 * (j >> 2);
 }
@@ -128,11 +138,11 @@ __device__ __forceinline__ void mma_rows(float (&acc)[TM][TN], const float* AT, 
 // Normalize each of the thread's TM rows (one warp per row) over its first
 // n <= 32 * TN columns to zero mean and unit variance: (x - m) *
 // rsqrt(mean((x - m)^2) + eps); columns >= n become 0.
-template <int TN>
-__device__ __forceinline__ void row_norm(float (&v)[TM][TN], int n = 32 * TN) {
+template <int TN, int RM>
+__device__ __forceinline__ void row_norm(float (&v)[RM][TN], int n = 32 * TN) {
   const float inv_n = 1.f / n;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+  for (int i = 0; i < RM; ++i) {
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) s += col_of(j) < n ? v[i][j] : 0.f;
@@ -151,12 +161,12 @@ __device__ __forceinline__ void row_norm(float (&v)[TM][TN], int n = 32 * TN) {
 
 // LayerNorm with affine parameters over the rows held in registers, its
 // statistics over the first n columns (gamma and beta zero beyond them).
-template <int TN>
-__device__ __forceinline__ void layer_norm(float (&v)[TM][TN], const float* __restrict__ gamma,
+template <int TN, int RM>
+__device__ __forceinline__ void layer_norm(float (&v)[RM][TN], const float* __restrict__ gamma,
                                            const float* __restrict__ beta, int n = 32 * TN) {
   row_norm<TN>(v, n);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       int c = col_of(j);
@@ -164,38 +174,42 @@ __device__ __forceinline__ void layer_norm(float (&v)[TM][TN], const float* __re
     }
 }
 
-// Write the thread's TM x TN values into the block's k-major shared rows.
-template <int TN>
-__device__ __forceinline__ void put_rows(float* AT, const float (&v)[TM][TN]) {
+// Write the thread's RM x TN values into the block's k-major shared rows
+// (row stride LD).
+template <int TN, int LD = LDT, int RM>
+__device__ __forceinline__ void put_rows(float* AT, const float (&v)[RM][TN]) {
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    float4 r4 = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-    *reinterpret_cast<float4*>(AT + col_of(j) * LDT + row_of(0)) = r4;
-  }
+  for (int j = 0; j < TN; ++j)
+#pragma unroll
+    for (int g = 0; g < RM; g += 4)
+      *reinterpret_cast<float4*>(AT + col_of(j) * LD + row_of<RM>(g)) =
+          make_float4(v[g][j], v[g + 1][j], v[g + 2][j], v[g + 3][j]);
 }
 
 // Read back what put_rows (or stage_rows) left for this thread.
-template <int TN>
-__device__ __forceinline__ void get_rows(float (&v)[TM][TN], const float* AT) {
+template <int TN, int LD = LDT, int RM>
+__device__ __forceinline__ void get_rows(float (&v)[RM][TN], const float* AT) {
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    float4 r4 = *reinterpret_cast<const float4*>(AT + col_of(j) * LDT + row_of(0));
-    v[0][j] = r4.x;
-    v[1][j] = r4.y;
-    v[2][j] = r4.z;
-    v[3][j] = r4.w;
-  }
+  for (int j = 0; j < TN; ++j)
+#pragma unroll
+    for (int g = 0; g < RM; g += 4) {
+      const float4 r4 = *reinterpret_cast<const float4*>(AT + col_of(j) * LD + row_of<RM>(g));
+      v[g][j] = r4.x;
+      v[g + 1][j] = r4.y;
+      v[g + 2][j] = r4.z;
+      v[g + 3][j] = r4.w;
+    }
 }
 
 // Store the thread's values of rows < M and columns < ncols to global
 // memory (row stride ldo, a multiple of 4, as is ncols): one 16-byte
 // store per row and column group.
-template <int TN>
+template <int TN, int RM>
 __device__ __forceinline__ void store_rows(float* out, int ldo, int ncols, int row0, int M,
-                                           const float (&v)[TM][TN]) {
+                                           const float (&v)[RM][TN]) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int row = row0 + row_of(i);
+  for (int i = 0; i < RM; ++i) {
+    int row = row0 + row_of<RM>(i);
     if (row >= M) continue;
 #pragma unroll
     for (int g = 0; g < TN / 4; ++g) {

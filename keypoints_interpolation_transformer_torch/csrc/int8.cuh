@@ -46,14 +46,16 @@ __device__ __forceinline__ float dequant(int acc, float s, float ws) {
   return __fmul_rn(__fmul_rn((float)acc, s), ws);
 }
 
-// Quantize the thread's TM rows (one warp per row, columns as common.cuh
-// lays them out) into A, k-major words: A[w * LDT + row] holds k = 4w ..
-// 4w + 3 of the block's row.  s[i] receives row i's scale.
-template <int TN>
-__device__ __forceinline__ void quant_rows(const float (&v)[TM][TN], int* A, float (&s)[TM]) {
+// Quantize the thread's RM rows (one warp per row, columns as common.cuh
+// lays them out) into A, k-major words: A[w * LD + row] holds k = 4w ..
+// 4w + 3 of the block's row.  s[i] receives row i's scale.  RM and LD:
+// rows a warp and the words' row stride, TM and LDT in a 32-row block,
+// 8 and 68 in the whole-layer kernels' 64-row tiles.
+template <int TN, int RM = TM, int LD = LDT>
+__device__ __forceinline__ void quant_rows(const float (&v)[RM][TN], int* A, float (&s)[RM]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+  for (int i = 0; i < RM; ++i) {
     float a = 0.f;
 #pragma unroll
     for (int j = 0; j < TN; ++j) a = fmaxf(a, fabsf(v[i][j]));
@@ -61,22 +63,29 @@ __device__ __forceinline__ void quant_rows(const float (&v)[TM][TN], int* A, flo
     const float inv = 1.f / s[i];
 #pragma unroll
     for (int g = 0; g < TN / 4; ++g)
-      A[(lane + 32 * g) * LDT + row_of(i)] =
+      A[(lane + 32 * g) * LD + row_of<RM>(i)] =
           pack4(v[i][4 * g], v[i][4 * g + 1], v[i][4 * g + 2], v[i][4 * g + 3], inv);
   }
 }
 
-// acc[i][j] += sum over words w < nw of dp4a(A[w * LDT + row_of(i)],
+// acc[i][j] += sum over words w < nw of dp4a(A[w * LD + row_of<RM>(i)],
 // Ws[w * ldw + col_of(j)]): the block's quantized rows against a staged
 // weight tile, both k-major in shared memory (ldw a multiple of 4).
-template <int TN>
-__device__ __forceinline__ void imma_tile(int (&acc)[TM][TN], const int* A, const int* Ws, int ldw,
-                                          int nw) {
+template <int TN, int RM = TM, int LD = LDT>
+__device__ __forceinline__ void imma_tile(int (&acc)[RM][TN], const int* A, const int* Ws,
+                                          int ldw, int nw) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll 4
   for (int w = 0; w < nw; ++w) {
-    const int4 a4 = *reinterpret_cast<const int4*>(A + w * LDT + 4 * warp);
-    const int a[TM] = {a4.x, a4.y, a4.z, a4.w};
+    int a[RM];
+#pragma unroll
+    for (int q = 0; q < RM; q += 4) {
+      const int4 a4 = *reinterpret_cast<const int4*>(A + w * LD + RM * warp + q);
+      a[q] = a4.x;
+      a[q + 1] = a4.y;
+      a[q + 2] = a4.z;
+      a[q + 3] = a4.w;
+    }
     int b[TN];
 #pragma unroll
     for (int g = 0; g < TN / 4; ++g) {
@@ -87,7 +96,7 @@ __device__ __forceinline__ void imma_tile(int (&acc)[TM][TN], const int* A, cons
       b[4 * g + 3] = b4.w;
     }
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
   }
@@ -98,25 +107,39 @@ __device__ __forceinline__ void imma_tile(int (&acc)[TM][TN], const int* A, cons
 // writes them.  Wq: (ncols, ldw) int8 in device memory, one row per output
 // column, 4-byte aligned; ldw and K multiples of 4; columns >= ncols read
 // as 0.  Ws: shared scratch of KW * (32 TN + 4) words (the padding keeps
-// the staging stores off one bank).  Ends with a barrier.
-template <int TN>
-__device__ __forceinline__ void imma_rows(int (&acc)[TM][TN], const int* A, int K,
+// the staging stores off one bank).  Ends with a barrier.  RM, LD as
+// quant_rows takes them.
+template <int TN, int RM = TM, int LD = LDT>
+__device__ __forceinline__ void imma_rows(int (&acc)[RM][TN], const int* A, int K,
                                           const int8_t* __restrict__ Wq, int ldw, int ncols,
                                           int* Ws) {
-  constexpr int N = 32 * TN, LDW = N + 4;
+  constexpr int N = 32 * TN, LDW = N + 4, PER = KW * N / NT;
+  static_assert(KW * N % NT == 0, "whole words a thread");
   const int words = K / 4;
-  for (int w0 = 0; w0 < words; w0 += KW) {
+  // a column's words next to each other: one row of Wq read in one go.
+  // The next tile's words are loaded into registers while this one is
+  // multiplied, so a block does not wait on its loads.
+  int val[PER];
+  auto load = [&](int w0) {
     const int nw = min(KW, words - w0);
-    // a column's words next to each other: one row of Wq read in one go
-    for (int idx = threadIdx.x; idx < KW * N; idx += NT) {
-      const int c = idx / KW, w = idx - c * KW;
-      int val = 0;
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int idx = threadIdx.x + u * NT, c = idx / KW, w = idx - c * KW;
+      val[u] = 0;
       if (c < ncols && w < nw)
-        val = __ldg(reinterpret_cast<const int*>(Wq + (size_t)c * ldw) + w0 + w);
-      Ws[w * LDW + c] = val;
+        val[u] = __ldg(reinterpret_cast<const int*>(Wq + (size_t)c * ldw) + w0 + w);
+    }
+  };
+  if (words > 0) load(0);
+  for (int w0 = 0; w0 < words; w0 += KW) {
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int idx = threadIdx.x + u * NT, c = idx / KW, w = idx - c * KW;
+      Ws[w * LDW + c] = val[u];
     }
     __syncthreads();
-    imma_tile<TN>(acc, A + w0 * LDT, Ws, LDW, nw);
+    if (w0 + KW < words) load(w0 + KW);
+    imma_tile<TN, RM, LD>(acc, A + w0 * LD, Ws, LDW, min(KW, words - w0));
     __syncthreads();
   }
 }
@@ -134,7 +157,7 @@ struct FFInt8 {
 };
 
 // The body of ops/pallas/ffn.py::_kernel_int8 after its LN1, for one tile
-// of BM rows in the common.cuh layout:
+// of rows in the common.cuh layout:
 //     u = int8(x1) W1q * s1 * w1s + b1;  h = gelu(u)  (exact erf)
 //     z = (x1 + int8(h) W2q * s2 * w2s) + b2          (s1, s2 per row)
 // Xs holds x1 on entry (as put_rows leaves it) and z (before LN2) on exit,
@@ -145,32 +168,36 @@ struct FFInt8 {
 // tracks each row's absmax; the second reads back the values the same
 // thread wrote (plain loads, in program order), quantizes them one D-wide
 // chunk at a time into shared memory and runs the product.  Hs: free
-// shared D x LDT floats.  Not inlined: the float kernels that also take
-// this path keep their own code and registers.
-template <int TN>
+// shared D x LD floats (D / 2 x LD + KW x (D + 4) words are used).  The
+// tile is 8 RM rows, k-major with row stride LD in Xs and Hs (RM = TM and
+// LD = LDT: a 32-row block).  Not inlined: the float kernels that also
+// take this path keep their own code and registers.
+template <int TN, int RM = TM, int LD = LDT>
 __device__ __noinline__ void ff_int8_rows(float* Xs, float* Hs, const FFInt8 f, float* h_out,
                                           int ldh, int rows) {
   constexpr int D = 32 * TN;
   const int lane = threadIdx.x & 31;
-  int* Aq = reinterpret_cast<int*>(Hs);  // D / 4 x LDT words: int8(x1)
-  int* Hq = Aq + D / 4 * LDT;            // D / 4 x LDT words: int8(h), one chunk
-  int* Wi = Hq + D / 4 * LDT;            // KW x (D + 4) words: a weight tile
-  float v[TM][TN];
-  get_rows<TN>(v, Xs);  // x1, kept in Xs for the residual
-  float s1[TM];
-  quant_rows<TN>(v, Aq, s1);
+  int* Aq = reinterpret_cast<int*>(Hs);  // D / 4 x LD words: int8(x1)
+  int* Hq = Aq + D / 4 * LD;             // D / 4 x LD words: int8(h), one chunk
+  int* Wi = Hq + D / 4 * LD;             // KW x (D + 4) words: a weight tile
+  float v[RM][TN];
+  get_rows<TN, LD>(v, Xs);  // x1, kept in Xs for the residual
+  float s1[RM];
+  quant_rows<TN, RM, LD>(v, Aq, s1);
   __syncthreads();
-  float amax[TM] = {0.f, 0.f, 0.f, 0.f};
-  int acc[TM][TN];
+  float amax[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) amax[i] = 0.f;
+  int acc[RM][TN];
   for (int f0 = 0; f0 < f.n; f0 += D) {
     const int fc = min(D, f.n - f0);
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-    imma_rows<TN>(acc, Aq, D, f.w1q + (size_t)f0 * D, D, fc, Wi);
+    imma_rows<TN, RM, LD>(acc, Aq, D, f.w1q + (size_t)f0 * D, D, fc, Wi);
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int c = col_of(j);
@@ -183,43 +210,43 @@ __device__ __noinline__ void ff_int8_rows(float* Xs, float* Hs, const FFInt8 f, 
       }
     store_rows<TN>(h_out + f0, ldh, fc, 0, rows, v);
   }
-  float s2[TM], inv2[TM];
+  float s2[RM], inv2[RM];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
+  for (int i = 0; i < RM; ++i) {
     s2[i] = row_scale(warp_max(amax[i]));
     inv2[i] = 1.f / s2[i];
   }
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0;
   for (int f0 = 0; f0 < f.n; f0 += D) {
     const int fc = min(D, f.n - f0);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = row_of(i);
+    for (int i = 0; i < RM; ++i) {
+      const int row = row_of<RM>(i);
 #pragma unroll
       for (int g = 0; g < TN / 4; ++g) {
         const int c = col_of(4 * g);
         float4 hv = make_float4(0.f, 0.f, 0.f, 0.f);
         if (row < rows && c < fc)
           hv = *reinterpret_cast<const float4*>(h_out + (size_t)row * ldh + f0 + c);
-        Hq[(lane + 32 * g) * LDT + row] = pack4(hv.x, hv.y, hv.z, hv.w, inv2[i]);
+        Hq[(lane + 32 * g) * LD + row] = pack4(hv.x, hv.y, hv.z, hv.w, inv2[i]);
       }
     }
     __syncthreads();
-    imma_rows<TN>(acc, Hq, fc, f.w2q + f0, f.n, D, Wi);
+    imma_rows<TN, RM, LD>(acc, Hq, fc, f.w2q + f0, f.n, D, Wi);
   }
-  get_rows<TN>(v, Xs);
+  get_rows<TN, LD>(v, Xs);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int c = col_of(j);
       v[i][j] = __fadd_rn(__fadd_rn(v[i][j], dequant(acc[i][j], s2[i], __ldg(f.w2s + c))),
                           __ldg(f.b2 + c));
     }
-  put_rows<TN>(Xs, v);
+  put_rows<TN, LD>(Xs, v);
 }
 
 }  // namespace kit

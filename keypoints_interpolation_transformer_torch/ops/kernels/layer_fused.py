@@ -19,11 +19,13 @@ float32 mode):
 The attention biases are built in-kernel from the 1-D (B, T) masks, as the
 sublayer kernels build them (``attn_sublayer.bias_from_masks``).  One
 thread-block cluster of 1 to 8 blocks per video (``cluster_size``) walks
-the phases of the layer; the intermediates live in scratch the wrapper
-allocates and never return to PyTorch between the sublayers.
+the phases of the layer in row tiles (``row_tile``), the FF chunks of a
+tile split over several blocks where the cluster has them to spare
+(``ff_parts``); the intermediates live in scratch the wrapper allocates
+(``scratch_floats``) and never return to PyTorch between the sublayers.
 Bound on an H100 by float32 FFMA work (90 GFLOP per encoder layer at
-B = 256, T = 128, D = 256, FF = 2048); see the source note in
-``csrc/layer_fused.cu``.
+B = 256, T = 128, D = 256, FF = 2048); see the source notes in
+``csrc/layer_fused.cu`` and ``csrc/sgemm.cuh``.
 
 The routing predicates are the port's copies of the JAX package's rules
 (``fused_layer_supported``, ``decoder_full_supported``, the sublayer
@@ -50,9 +52,9 @@ from .ffn import (check_int8_ff, ff_kernel_width, ffn_int8_plain, ffn_plain,
 from .widths import cut, kernel_width, pad, pad_blocks
 
 # one letter per C argument, the stream last: p pointer, i int
-_SIGS = {"kit_enc_layer": "p" + "i" * 7 + "p" * 14 + "ii" + "p" * 3,
-         "kit_enc_layer_int8": "p" + "i" * 7 + "p" * 16 + "ii" + "p" * 4,
-         "kit_dec_layer": "pp" + "i" * 7 + "p" * 20 + "ii" + "pp" + "ii"
+_SIGS = {"kit_enc_layer": "p" + "i" * 8 + "p" * 14 + "ii" + "p" * 3,
+         "kit_enc_layer_int8": "p" + "i" * 8 + "p" * 16 + "ii" + "p" * 4,
+         "kit_dec_layer": "pp" + "i" * 8 + "p" * 20 + "ii" + "pp" + "ii"
                           + "p" * 3}
 _MAX_CLUSTER = 8  # the portable thread-block cluster size
 
@@ -100,6 +102,35 @@ def cluster_size(B: int, device: torch.device) -> int:
     T = 128; batches between take every size from 2 to 7, and
     `chip_smoke.py` holds each size against the plain versions."""
     return max(1, min(_MAX_CLUSTER, _sm_count(device.index or 0) // B))
+
+
+def row_tile(D: int) -> int:
+    """Token rows per tile of the kernels' block product at the kernel
+    width D (``csrc/sgemm.cuh`` ``row_tile``): 64 up to D = 256, 32 at 384
+    and 512, where two 64-row accumulator tiles and their shared tiles do
+    not fit one SM."""
+    return 64 if D <= 256 else 32
+
+
+def ff_parts(T: int, D: int, FF: int, cluster: int) -> int:
+    """Blocks that share one row tile's FF chunks (``csrc/layer_fused.cu``,
+    the FF split): as many as the cluster has for each of the video's row
+    tiles, at most one per D-wide chunk of the FF width; 1 (no split) when
+    a tile has fewer than two blocks or there is no FF tail (FF = 0).  The
+    int8 encoder layer takes 1: its tail works on whole tiles."""
+    if FF == 0:
+        return 1
+    tiles = -(-T // row_tile(D))
+    return max(1, min(cluster // tiles, -(-FF // D)))
+
+
+def scratch_floats(B: int, T: int, D: int, decoder: bool, parts: int) -> int:
+    """The layer kernels' per-call scratch (``scratch_per_video`` of
+    ``csrc/layer_fused.cu``, times B): q / k / v and the attention output
+    (4 T D a video; the decoder's 8 T D add the memory's k / v, x1 and the
+    cross q), and with the FF split one T x D partial sum per part."""
+    base = 8 if decoder else 4
+    return B * T * D * (base + (parts if parts > 1 else 0))
 
 
 def encoder_layer_plain(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
@@ -175,7 +206,8 @@ def fused_encoder_layer(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
     """x (B, T, D) -> y (B, T, D): one encoder layer.  ``mask`` is read
     only for "repeat-inc" or ``add_keypad``; ``valid`` None means every key
     is real.  ``cluster``, blocks per video from 1 to 8, defaults to
-    ``cluster_size``; the result does not depend on it."""
+    ``cluster_size``; it changes the result only through the order in
+    which the FF split (``ff_parts``) adds the FF sums."""
     if x.device.type == "cpu":
         return encoder_layer_plain(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1,
                                    be1, g2, be2, mask, valid, kind,
@@ -254,17 +286,18 @@ def _launch_encoder(x, attn, ff, mask, valid, kind, add_keypad, heads,
         ff = _pad_ff(ff, n, D)
     x = pad(x, D)
     y = torch.empty_like(x)
-    scratch = _scratch(B * T * 4 * D, n, D, x.device)
+    parts = 1 if int8 else ff_parts(T, D, F4, cl)
+    scratch = _scratch(scratch_floats(B, T, D, False, parts), n, D, x.device)
     lib = _build.bind("layer_fused", _SIGS)
     if int8:  # each row's GELU output over the whole FF width
         h = torch.empty(B * T * F4, device=x.device)
         _build.call(lib, "kit_enc_layer_int8", x.device, x, B, T, D, n,
-                    heads, F4, cl, *attn, *ff, mask, valid,
+                    heads, F4, cl, parts, *attn, *ff, mask, valid,
                     int(kind == "repeat-inc"), int(add_keypad), y, scratch, h)
     else:
         _build.call(lib, "kit_enc_layer", x.device, x, B, T, D, n, heads, F4,
-                    cl, *attn, *ff, mask, valid, int(kind == "repeat-inc"),
-                    int(add_keypad), y, scratch)
+                    cl, parts, *attn, *ff, mask, valid,
+                    int(kind == "repeat-inc"), int(add_keypad), y, scratch)
     return cut(y, n)
 
 
@@ -340,10 +373,11 @@ def _launch_decoder(x, memory, sattn, cattn, g1, be1, ff, smask, svalid,
     FF = 0 if ff[0] is None else ff[0].shape[1]
     x, memory, g1, be1 = (pad(t, D) for t in (x, memory, g1, be1))
     y = torch.empty_like(x)
-    scratch = _scratch(B * T * 8 * D, n, D, x.device)
+    parts = ff_parts(T, D, FF, cl)
+    scratch = _scratch(scratch_floats(B, T, D, True, parts), n, D, x.device)
     lib = _build.bind("layer_fused", _SIGS)
     _build.call(lib, "kit_dec_layer", x.device, x, memory, B, T, D, n, heads,
-                FF, cl, *sattn, *cattn, g1, be1, *ff, smask, svalid,
+                FF, cl, parts, *sattn, *cattn, g1, be1, *ff, smask, svalid,
                 int(skind == "repeat-inc"), int(sadd_keypad), cmask, cvalid,
                 int(ckind == "repeat-inc"), int(cadd_keypad), y, scratch)
     return cut(y, n)

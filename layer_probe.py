@@ -1,0 +1,246 @@
+#!/usr/bin/env python3
+"""Where the merged layer kernels' time goes, on one CUDA card.
+
+    python3 layer_probe.py phases [DIR]     # cycles per phase of a block
+    python3 layer_probe.py times TREE...    # layer kernel times, in turns
+
+``phases`` copies ``keypoints_interpolation_transformer_torch`` into DIR
+(default ``scratch_tree/layer_probe``, git-ignored), adds ``clock64()``
+counters to its ``csrc/layer_fused.cu`` (thread 0 of every block adds the
+cycles of each phase into a ``__device__`` array; each phase ends in a
+barrier, so thread 0's time is the block's), builds that source alone and
+runs ``enc_layer``, ``dec_layer`` (with and without its FF tail) and
+``enc_layer_int8`` at B = 256 and 16, T = 128, the flagship widths,
+printing the time of each call (counters on) and its cycles per block by
+phase.  The counters change the code the compiler schedules, so the times
+differ from ``chip_smoke.py``'s by a few per cent either way; the split
+between the phases is what this is for.
+
+``times`` takes trees that each hold a copy of the package (a git
+checkout, ``git archive`` of another commit, or an edited copy under
+``scratch_tree/``), builds their ``layer_fused.cu`` at once and times the
+layer kernels of each (B = 256 and 16, T = 128, each held against its
+plain version first) and the library layers at B = 256, in turns: the
+trees in order, then in reverse, each turn in a fresh process.
+"""
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PKG = "keypoints_interpolation_transformer_torch"
+
+# (counter, phase) in the order the kernels run them
+PHASES = {0: "project", 1: "attend", 2: "tails", 3: "out-proj",
+          4: "LN_in", 5: "W1", 6: "GELU", 7: "W2", 8: "LN_out",
+          9: "int8 tail", 12: "dec projects", 13: "dec attend self",
+          14: "dec self tail", 15: "dec attend cross", 16: "dec tails"}
+
+# (text of csrc/layer_fused.cu, the same with counters): PROF0 starts a
+# clock, PROF(i) adds the cycles since to counter i and restarts it
+PATCHES = (
+    ("using namespace kit;\n",
+     "using namespace kit;\n"
+     "__device__ unsigned long long kit_prof[32];\n"
+     "#define PROF0 long long _t = clock64();\n"
+     "#define PROF(i) do { if (threadIdx.x == 0) atomicAdd(&kit_prof[i], "
+     "(unsigned long long)(clock64() - _t)); _t = clock64(); } while (0)\n"),
+    ("  project<TN>(smem, x, T, p.self.wqkv, 3 * D, p.self.bqkv, 3, qkv, "
+     "3 * D, rank, p.cl);\n  phase_sync(p.cl);\n",
+     "  PROF0\n  project<TN>(smem, x, T, p.self.wqkv, 3 * D, p.self.bqkv, 3, "
+     "qkv, 3 * D, rank, p.cl);\n  phase_sync(p.cl);\n  PROF(0);\n"),
+    ("                        p.n / p.H, a, rank, p.cl);\n  phase_sync(p.cl);\n"
+     "  tails<TN>(smem, p, a, x, p.self, a + (size_t)T * D, h, p.y + vid, "
+     "rank);\n",
+     "                        p.n / p.H, a, rank, p.cl);\n  phase_sync(p.cl);\n"
+     "  PROF(1);\n  tails<TN>(smem, p, a, x, p.self, a + (size_t)T * D, h, "
+     "p.y + vid, rank);\n  PROF(2);\n"),
+    ("  project<TN>(smem, x, T, p.self.wqkv, 3 * D, p.self.bqkv, 3, sqkv, "
+     "3 * D, rank, p.cl);\n",
+     "  PROF0\n  project<TN>(smem, x, T, p.self.wqkv, 3 * D, p.self.bqkv, 3, "
+     "sqkv, 3 * D, rank, p.cl);\n"),
+    ("              rank, p.cl);\n  phase_sync(p.cl);\n",
+     "              rank, p.cl);\n  phase_sync(p.cl);\n  PROF(12);\n"),
+    ("  dec_self_tail<TN>(", "  PROF(13);\n  dec_self_tail<TN>("),
+    ("  phase_sync(p.cl);  // q2 and x1 are complete, a is read\n",
+     "  phase_sync(p.cl);  // q2 and x1 are complete, a is read\n  PROF(14);\n"),
+    ("  tails<TN>(smem, p, a, x1, p.cross, q2 + (size_t)T * D, nullptr, "
+     "p.y + vid, rank);\n",
+     "  PROF(15);\n  tails<TN>(smem, p, a, x1, p.cross, q2 + (size_t)T * D, "
+     "nullptr, p.y + vid, rank);\n  PROF(16);\n"),
+    ("  __syncthreads();  // Xs, Hs and the ring are free\n  typename G::Acc r;\n"
+     "  bool primed = out_proj<TN>(r, Xs, ring, a, res, row0, T, wo, bo, "
+     "w1(c_lo));\n",
+     "  __syncthreads();  // Xs, Hs and the ring are free\n  PROF0\n"
+     "  typename G::Acc r;\n  bool primed = out_proj<TN>(r, Xs, ring, a, "
+     "res, row0, T, wo, bo, w1(c_lo));\n  PROF(3);\n"),
+    ("    ff_int8_tile<TN>(smem, r, ff, n, T, row0, h, y);\n",
+     "    ff_int8_tile<TN>(smem, r, ff, n, T, row0, h, y);\n    PROF(9);\n"),
+    ("    put_rows<TN, G::LDA>(Xs, v);\n  }\n  __syncthreads();\n",
+     "    put_rows<TN, G::LDA>(Xs, v);\n  }\n  __syncthreads();\n  PROF(4);\n"),
+    ("    primed = mma<TN>(r, Xs, w1(c), w2(c), ring, primed);\n",
+     "    primed = mma<TN>(r, Xs, w1(c), w2(c), ring, primed);\n    PROF(5);\n"),
+    ("    gelu_tile<TN>(Hs);\n", "    gelu_tile<TN>(Hs);\n    PROF(6);\n"),
+    ("    primed = mma<TN>(z, Hs, w2(c), w1(c + 1), ring, primed);\n  }\n",
+     "    primed = mma<TN>(z, Hs, w2(c), w1(c + 1), ring, primed);\n"
+     "    PROF(7);\n  }\n"),
+    ("  layer_norm<TN>(v, ff.g_out, ff.be_out, n);\n  store_rows<TN>(y, D, D, "
+     "row0, T, v);\n}\n\n// The FF split's end",
+     "  layer_norm<TN>(v, ff.g_out, ff.be_out, n);\n  store_rows<TN>(y, D, D, "
+     "row0, T, v);\n  PROF(8);\n}\n\n// The FF split's end"),
+)
+
+READ_COUNTERS = """
+extern "C" int kit_prof_get(void* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, kit_prof, sizeof(kit_prof));
+  static const unsigned long long zero[32] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(kit_prof, zero, sizeof(kit_prof));
+  return (int)e;
+}
+"""
+
+
+def load_smoke():
+    """chip_smoke.py of this tree, for its kernel operands and checks."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def use_tree(tree):
+    """Import the package from ``tree`` and let it build only
+    ``layer_fused.cu`` (all these calls need)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from keypoints_interpolation_transformer_torch.ops.kernels import _build
+    if not str(_build.CSRC).startswith(os.path.abspath(tree)):
+        sys.exit(f"{PKG} imported from {_build.CSRC}, not from {tree}")
+    _build.SOURCES = ("layer_fused",)
+    return _build
+
+
+def layer_calls(cs, torch, kmod, B):
+    """The first (plain-mask) variant of each layer kernel at (B, 128),
+    the decoder with and without its FF tail."""
+    chk = cs.KernelCheck(torch, kmod)
+    o, (mask, valid) = chk.operands(B, cs.T_MAIN), chk.masks(B, cs.T_MAIN)
+    seen, out = set(), []
+    for name, variant, kern, plain in (chk.layer_calls(o, mask, valid)
+                                       + chk.int8_layer_calls(o, mask,
+                                                              valid)):
+        key = (name, "ff=False" in variant)
+        if key not in seen and "cycle" not in variant:
+            seen.add(key)
+            out.append((name, variant, kern, plain))
+    return chk, out
+
+
+def phases(out_dir):
+    import ctypes
+
+    import numpy as np
+    import torch
+    tree = os.path.abspath(out_dir)
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, PKG), os.path.join(tree, PKG),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    cu = os.path.join(tree, PKG, "csrc", "layer_fused.cu")
+    with open(cu) as f:
+        src = f.read()
+    for old, new in PATCHES:
+        if old not in src:
+            sys.exit(f"layer_probe: no longer in layer_fused.cu: {old!r}")
+        src = src.replace(old, new, 1)
+    with open(cu, "w") as f:
+        f.write(src + READ_COUNTERS)
+    cs = load_smoke()
+    _build = use_tree(tree)
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    from keypoints_interpolation_transformer_torch.ops.kernels.layer_fused \
+        import cluster_size
+    print(cs.gpu_line(), flush=True)
+    print(f"  nvcc layer_fused.cu (counters on) "
+          f"{_build.build(['layer_fused'])['layer_fused']:.1f} s", flush=True)
+    lib = _build.bind("layer_fused", {})
+    lib.kit_prof_get.argtypes = [ctypes.c_void_p]
+    buf = np.zeros(32, dtype=np.uint64)
+    for B in (256, 16):
+        blocks = B * cluster_size(B, torch.device(cs.DEV))
+        chk, calls = layer_calls(cs, torch, kmod, B)
+        for name, variant, kern, plain in calls:
+            chk.compare(name, f"B={B} {variant}", kern(), plain())
+            ms = min(cs.timed_ms(kern) for _ in range(2))
+            lib.kit_prof_get(buf.ctypes.data)  # reset
+            kern()
+            torch.cuda.synchronize()
+            lib.kit_prof_get(buf.ctypes.data)
+            cyc = {PHASES[i]: int(buf[i]) // blocks for i in PHASES if buf[i]}
+            print(f"  B={B} {name} {variant}: {ms:.4f} ms (counters on); "
+                  f"cycles a block {json.dumps(cyc)}", flush=True)
+
+
+def times_one(tree):
+    import torch
+    cs = load_smoke()
+    use_tree(tree)
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    out = {}
+    for B in (256, 16):
+        chk, calls = layer_calls(cs, torch, kmod, B)
+        for name, variant, kern, plain in calls:
+            if "ff=False" in variant:
+                continue
+            chk.compare(name, f"B={B} {variant}", kern(), plain())
+            out[f"{name} B={B}"] = min(cs.timed_ms(kern) for _ in range(3))
+            if B == cs.B_MAIN and name in ("enc_layer", "dec_layer"):
+                lib = cs.LIBRARY[name](torch, *chk.layer_args[name])
+                out[f"{name} library"] = min(cs.timed_ms(lib)
+                                             for _ in range(3))
+    print(json.dumps(out), flush=True)
+
+
+def times(trees):
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
+            f"{PKG}.ops.kernels import _build; print(_build.build("
+            "['layer_fused']))")
+    builds = [subprocess.Popen([sys.executable, "-c", code, t])
+              for t in trees]
+    if any(b.wait() != 0 for b in builds):
+        sys.exit("layer_probe: a tree did not build")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    for tree in list(trees) + list(reversed(trees)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "times-one", tree], capture_output=True,
+                           text=True, timeout=900)
+        if r.returncode != 0:
+            sys.exit(f"{tree}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+        print(f"  {tree}: {r.stdout.strip().splitlines()[-1]}", flush=True)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("layer_probe: no CUDA device")
+    mode, args = sys.argv[1], sys.argv[2:]
+    if mode == "phases":
+        phases(args[0] if args else os.path.join(ROOT, "scratch_tree",
+                                                 "layer_probe"))
+    elif mode == "times":
+        times(args)
+    elif mode == "times-one":
+        times_one(args[0])
+    else:
+        sys.exit(__doc__)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

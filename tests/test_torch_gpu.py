@@ -140,21 +140,26 @@ def test_merged_layer_kernels_match_plain_on_the_card(cuda):
 @pytest.mark.gpu
 def test_merged_layer_kernels_at_every_cluster_size(cuda):
     """Each thread-block cluster size the batch can pick, 1 to 8 blocks
-    per video, against the plain versions."""
+    per video, against the plain versions, the int8 encoder layer too: one
+    64-row tile and a padded tail (T = 40, the FF split over up to 8
+    blocks), two full tiles (128) and five with a padded tail (300)."""
     import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     chk = chip_smoke.KernelCheck(torch, kernels)
-    for T in (40, 128):
+    for T in (40, 128, 300):
         o, (mask, valid) = chk.operands(3, T), chk.masks(3, T)
         for cl in range(1, 9):
-            for name, variant, kern, plain in chk.layer_calls(o, mask, valid,
-                                                              cl):
+            for name, variant, kern, plain in (
+                    chk.layer_calls(o, mask, valid, cl)
+                    + chk.int8_layer_calls(o, mask, valid, cl)):
                 chk.compare(name, variant, kern(), plain())
 
 
 @pytest.mark.gpu
-def test_merged_wrappers_raise_rather_than_fall_back(cuda):
+def test_merged_wrappers_raise_rather_than_fall_back(cuda, monkeypatch):
     from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.ops.kernels import (
+        layer_fused)
     B, T, D, FF = 2, 16, 128, 256
     z = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
     attn = (z(D, 3 * D), z(3 * D), z(D, D), z(D))
@@ -179,6 +184,11 @@ def test_merged_wrappers_raise_rather_than_fall_back(cuda):
     with pytest.raises(ValueError):  # more blocks per video than 8
         kernels.fused_encoder_layer(x, *attn, *ff, None, None, "all", False,
                                     4, cluster=9)
+    with monkeypatch.context() as m:  # an FF split the cluster cannot hold
+        m.setattr(layer_fused, "ff_parts", lambda T, D, FF, cl: cl + 1)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernels.fused_encoder_layer(x, *attn, *ff, None, None, "all",
+                                        False, 4, cluster=2)
     kernels.reset_launches()
     kernels.fused_encoder_layer(x, *attn, *ff, None, None, "all", False, 4)
     kernels.fused_decoder_layer(x, x, *attn, *attn, z(D), z(D), None, None,

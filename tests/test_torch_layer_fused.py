@@ -11,6 +11,8 @@ kernels themselves run only on the card (``chip_smoke.py`` and
 """
 
 import contextlib
+import re
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -196,6 +198,112 @@ def test_cluster_override_is_checked(monkeypatch):
     for bad in (0, 9):
         with pytest.raises(ValueError, match="cluster must be 1 to 8"):
             tlf._cluster("w", 3, dev, bad)
+
+
+_WIDTHS = (128, 256, 384, 512)  # the kernel widths (csrc/common.cuh)
+
+
+def _c_rule(name):
+    """(limit, then, else) of a ``name(int D) { return D <= limit ? then :
+    else; }`` rule in ``csrc/sgemm.cuh``, as the CUDA build reads it."""
+    src = (Path(tlf.__file__).resolve().parents[2] / "csrc" /
+           "sgemm.cuh").read_text()
+    m = re.search(name + r"\(int D\) \{ return D <= (\d+) \? (\d+) : "
+                  r"(\d+); \}", src)
+    assert m, name
+    return tuple(int(g) for g in m.groups())
+
+
+@pytest.mark.parametrize("D", _WIDTHS)
+def test_row_tile_is_the_builds_and_fits_an_sm(D):
+    """``row_tile`` is the CUDA build's rule, and at each width the
+    kernel's shared memory fits the 232448 bytes an H100 block may have:
+    two D x (rows + 4) k-major tiles and the ring of 16-deep weight tiles
+    (``Geo`` in csrc/layer_fused.cu), or the attention phase's key and
+    value tiles; the FF tail's two accumulator tiles, rows x D each over
+    256 threads, leave room under 255 registers."""
+    limit, tall, short = _c_rule("row_tile")
+    bm = tlf.row_tile(D)
+    assert bm == (tall if D <= limit else short)
+    assert bm % 16 == 0 and (bm // 8) % 4 == 0  # 16-row staging, float4 rows
+    s_limit, s_many, s_few = _c_rule("ring_stages")
+    stages = s_many if D <= s_limit else s_few
+    assert stages >= 2
+    floats = max(2 * D * (bm + 4) + stages * 16 * D, 2 * 32 * D + 2 * 32)
+    assert floats * 4 <= 232448
+    assert 2 * bm * D // 256 <= 128
+
+
+@pytest.mark.parametrize("T", (1, 40, 128, 256, 300, 512))
+def test_ff_split_fits_the_cluster(T):
+    """At every width and cluster size: no split without a float FF tail;
+    a split takes a block of the cluster for every part of every row tile
+    and at most one part per D-wide FF chunk (the kernel refuses anything
+    else), takes every block it can, and its parts' chunk ranges (the
+    kernel's q chunks / parts) cover the chunks once, in order, none
+    empty."""
+    for D in _WIDTHS:
+        tiles = -(-T // tlf.row_tile(D))
+        for FF in (0, 4, D, 2048, 8 * D + 4):
+            chunks = -(-FF // D)
+            for cl in range(1, 9):
+                parts = tlf.ff_parts(T, D, FF, cl)
+                if FF == 0 or cl < 2 * tiles:
+                    assert parts == 1, (D, FF, cl)
+                    continue
+                assert parts == min(cl // tiles, chunks)
+                assert parts * tiles <= cl and parts <= chunks
+                bounds = [q * chunks // parts for q in range(parts + 1)]
+                assert bounds[0] == 0 and bounds[-1] == chunks
+                assert all(a < b for a, b in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("T, cl, int8, decoder, parts", [
+    (128, 8, False, False, 4), (40, 8, False, True, 4), (300, 8, False,
+                                                       True, 1),
+    (128, 1, False, False, 1), (128, 8, True, False, 1)])
+def test_wrapper_passes_the_split_and_its_scratch(monkeypatch, T, cl, int8,
+                                                  decoder, parts):
+    """The wrappers hand the C entry its signature's arguments, the FF
+    split ``ff_parts`` picks right after the cluster size (1 for the int8
+    tail) and scratch of ``scratch_floats`` for it (D = 128 kernel width
+    from a 64-wide model, FF 512: four D-wide chunks)."""
+    calls = []
+    monkeypatch.setattr(tlf._build, "bind", lambda name, sigs: None)
+    monkeypatch.setattr(tlf._build, "call", lambda lib, fn, device, *a:
+                        calls.append((fn, a)))
+    g = torch.Generator().manual_seed(0)
+    n, F, b = 64, 512, 2
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+    x = r(b, T, n)
+    attn = (r(n, 3 * n), r(3 * n), r(n, n), r(n))
+    norms = (r(n), r(n), r(n), r(n))
+    mask, valid = torch.zeros(b, T), torch.ones(b, T)
+    if decoder:
+        tlf._launch_decoder(x, r(b, T, n), attn, attn, r(n), r(n),
+                            (r(n, F), r(F), r(F, n), r(n), *norms), mask,
+                            valid, None, valid, "repeat-inc", False, "all",
+                            False, 4, cl)
+    elif int8:
+        from keypoints_interpolation_transformer_torch.ops.kernels \
+            .int8_matmul import quantize_weight
+        ff8 = (*quantize_weight(r(F, n), "ff"), r(F),
+               *quantize_weight(r(n, F), "ff"), r(n))
+        tlf._launch_encoder(x, attn, (*ff8, *norms), mask, valid,
+                            "repeat-inc", True, 4, cl, int8=True)
+    else:
+        tlf._launch_encoder(x, attn, (r(n, F), r(F), r(F, n), r(n), *norms),
+                            mask, valid, "repeat-inc", True, 4, cl)
+    (fn, args), = calls
+    assert len(args) + 1 == len(tlf._SIGS[fn])  # and the stream
+    first = 2 if decoder else 1  # B, T, D, n, heads, FF, cl, parts follow
+    assert args[first:first + 8] == (b, T, 128, n, 4, F, cl, parts)
+    assert parts == (1 if int8 else tlf.ff_parts(T, 128, F, cl))
+    scratch = args[-2 if int8 else -1]
+    assert scratch.numel() == tlf.scratch_floats(b, T, 128, decoder, parts)
+    assert bool((scratch == 0).all())  # n < D: the padded columns read 0
 
 
 @pytest.mark.parametrize("flags", ["plain", "cycle"])
