@@ -19,7 +19,9 @@ Phases (each prints its own lines; any failed check exits non-zero):
      model's masks and the Cycle model's, the decoder with and without its
      FF tail, and again at T in {128, 40, 256, 300} with every
      thread-block cluster size from 1 to 8, the int8 encoder layer too:
-     padded row tiles and the FF split over 2 to 8 blocks a tile); then at
+     padded row tiles and the FF split over 2 to 8 blocks a tile), and the
+     training kernels again at T=512 (four key tiles of the backward's
+     attention core) with a video whose keys are all padded; then at
      the shapes of the paths (serving B=256, training B=64, T=128), with
      CUDA-event times of kernel and plain version, the bound of each (the
      least time the card could take) and the kernel's share of it, and,
@@ -78,7 +80,7 @@ Phases (each prints its own lines; any failed check exits non-zero):
      12); the Cycle pair and the Embedding int8; an HTTP round trip through
      a ``cli serve --quantize int8`` child process;
  10. widths: every kernel at D in {32, 128, 384, 512} with head widths 8,
-     64 and 128, and at D in {384, 512} with one and two heads (head widths
+     16, 64 and 128, and at D in {384, 512} with one and two heads (head widths
      192 to 512, the attention cores' wide build), against its plain
      version (B=3, T in {40, 128}), then a two-layer model at each serving
      float32 and int8 and taking an A1 train step, each against its plain
@@ -103,8 +105,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
 
 Phase 2 also holds the precision modes' kernels (``ffn`` and
 ``ffn_train`` in "high" and "default" at B=256 and B=64, ``ffn_bwd_split``
-in all three modes and in float32 against the monolith ``ffn_bwd``,
-``pre_stream`` with and without the Cycle residual) against their plain
+in "high" and "default", ``pre_stream`` with and without the Cycle
+residual) against their plain
 versions in the same mode, each output against its own largest value and
 each mode kernel nearer its own mode than the one below it (see
 HIGH_MODE_TOL), each bound at its mode's peak (bf16 tensor
@@ -200,14 +202,12 @@ DEFAULT_MEAN_TOL = 1.5e-5
 # that runs the wrong number of passes, or skips the bf16 rounding, fails
 MODE_SEPARATION = 2.0
 WRONG_MODE = {"bf16x3": "bf16", "bf16": "f32"}
-# the FF kernels held per output as above; the float32 split backward at
-# GRAD_TOL of each output's own largest value
+# the FF kernels held per output as above
 FF_MODE_TOL = {"ffn_high": HIGH_MODE_TOL, "ffn_train_high": HIGH_MODE_TOL,
                "ffn_bwd_split_high": HIGH_MODE_TOL,
                "ffn_default": DEFAULT_MODE_TOL,
                "ffn_train_default": DEFAULT_MODE_TOL,
-               "ffn_bwd_split_default": DEFAULT_MODE_TOL,
-               "ffn_bwd_split": GRAD_TOL}
+               "ffn_bwd_split_default": DEFAULT_MODE_TOL}
 # int8 kernels against their plain versions: the same int8 values and exact
 # int32 sums on both sides, except where the float32 value being quantized
 # (a LayerNorm or GELU output, summed in another order by the two) lies
@@ -278,12 +278,11 @@ LAYER_KERNELS = ("enc_layer", "dec_layer", "enc_layer_int8")
 ATTN_T = (40, 512, 608, 2048)  # the per-op kernels' lengths in phase 2
 # the int8 serving kernels: timed at the serving batch
 INT8_KERNELS = ("int8_dense", "ffn_int8", "enc_layer_int8")
-# the precision modes' kernels ("high": bf16x3, "default": one bf16 pass;
-# the float32 split backward, timed beside the monolith) and the
-# pre-stream chain on an embedding: serving ones timed at the serving
-# batch, training ones at the training batch
+# the precision modes' kernels ("high": bf16x3, "default": one bf16 pass)
+# and the pre-stream chain on an embedding: serving ones timed at the
+# serving batch, training ones at the training batch
 MODE_SERVE_KERNELS = ("ffn_high", "ffn_default", "pre_stream")
-MODE_TRAIN_KERNELS = ("ffn_train_high", "ffn_train_default", "ffn_bwd_split",
+MODE_TRAIN_KERNELS = ("ffn_train_high", "ffn_train_default",
                       "ffn_bwd_split_high", "ffn_bwd_split_default")
 # every kernel of ops/kernels.KERNELS, launched no time
 NO_LAUNCHES = dict.fromkeys(
@@ -590,12 +589,16 @@ class KernelCheck:
                             lambda a=args: k.decoder_layer_plain(*a)))
         return out
 
-    def train_calls(self, B, T):
+    def train_calls(self, B, T, blocked=False):
         """(kernel name, variant, wrapper call, plain call, is a gradient)
-        of the training kernels at (B, T); each backward gets the plain
-        training forward's residuals on both sides."""
+        of the training kernels at (B, T), the FF sublayer with and without
+        LN1; each backward gets the plain training forward's residuals on
+        both sides.  Keys padded in the second video and, with ``blocked``
+        and B > 2, every key of the third."""
         k, o = self.k, self.operands(B, T)
         mask, valid = self.masks(B, T)
+        if blocked and B > 2:
+            valid[2] = 0.0
         dy = self.rand(B, T, self.d)
         out = []
         w_in = o["wqkv"].t().contiguous()
@@ -615,15 +618,19 @@ class KernelCheck:
             out.append(("attn_sublayer_bwd", variant,
                         lambda a=bargs: k.attn_sublayer_bwd(*a),
                         lambda a=bargs: k.attn_sublayer_bwd_plain(*a), True))
-        args = (o["x"], o["w1"], o["b1"], o["w2"], o["b2"], o["g"], o["be"],
-                o["g"], o["be"], True)
-        out.append(("ffn_train", "pre_ln", lambda a=args: k.fused_ffn_train(*a),
-                    lambda a=args: k.ffn_train_plain(*a), False))
-        _, u, z = k.ffn_train_plain(*args)
-        bargs = (dy, o["x"], u, z, o["w1"].t().contiguous(),
-                 o["w2"].t().contiguous(), o["g"], o["be"], o["g"], True)
-        out.append(("ffn_bwd", "pre_ln", lambda a=bargs: k.ffn_bwd(*a),
-                    lambda a=bargs: k.ffn_bwd_plain(*a), True))
+        for pre_ln in (True, False):
+            variant = "pre_ln" if pre_ln else "post-LN only"
+            args = (o["x"], o["w1"], o["b1"], o["w2"], o["b2"], o["g"],
+                    o["be"], o["g"], o["be"], pre_ln)
+            out.append(("ffn_train", variant,
+                        lambda a=args: k.fused_ffn_train(*a),
+                        lambda a=args: k.ffn_train_plain(*a), False))
+            _, u, z = k.ffn_train_plain(*args)
+            bargs = (dy, o["x"], u, z, o["w1"].t().contiguous(),
+                     o["w2"].t().contiguous(), o["g"], o["be"], o["g"],
+                     pre_ln)
+            out.append(("ffn_bwd", variant, lambda a=bargs: k.ffn_bwd(*a),
+                        lambda a=bargs: k.ffn_bwd_plain(*a), True))
         return out
 
 
@@ -634,11 +641,10 @@ class KernelCheck:
         forward at (B, T) and the training forward at (b_train, T) in
         "high" and "default" (their weights split into bf16 planes once,
         as a packed model keeps them); the split backward at (b_train, T)
-        in all three modes, per call as the training route runs it, and in
-        float32 against the monolith ``ffn_bwd``; the pre-stream chain on
-        an embedding at (B, T) without and with the Cycle residual.  The
-        wrong mode of "high" is one bf16 pass, that of "default" float32
-        (WRONG_MODE)."""
+        in both modes, per call as the training route runs it; the
+        pre-stream chain on an embedding at (B, T) without and with the
+        Cycle residual.  The wrong mode of "high" is one bf16 pass, that of
+        "default" float32 (WRONG_MODE)."""
         from keypoints_interpolation_transformer_torch.ops.kernels.ffn \
             import ff_weight_planes
         k, out = self.k, []
@@ -669,19 +675,14 @@ class KernelCheck:
         bargs = (self.rand(b_train, T, self.d), ot["x"], u, z,
                  ot["w1"].t().contiguous(), ot["w2"].t().contiguous(),
                  ot["g"], ot["be"], ot["g2"], True)
-        for mode, name in (("f32", "ffn_bwd_split"),
-                           ("bf16x3", "ffn_bwd_split_high"),
+        for mode, name in (("bf16x3", "ffn_bwd_split_high"),
                            ("bf16", "ffn_bwd_split_default")):
             out.append((name, "pre_ln",
                         lambda a=bargs, m=mode: k.ffn_bwd_split(*a, m),
                         lambda a=bargs, m=mode: k.ffn_bwd_split_plain(*a, m),
                         True,
-                        None if mode == "f32" else
                         lambda a=bargs, m=WRONG_MODE[mode]:
                         k.ffn_bwd_split_plain(*a, m)))
-        out.append(("ffn_bwd_split", "pre_ln against the monolith ffn_bwd",
-                    lambda a=bargs: k.ffn_bwd_split(*a),
-                    lambda a=bargs: k.ffn_bwd(*a), True, None))
         for res in (False, True) if self.d % 128 == 0 else ():
             args = (o["x"], o["pe"], o["w12"], o["b12"], o["w3"], o["b3"],
                     res)
@@ -810,7 +811,7 @@ def work(name, B, T):
         "masked_loss": (3 * N * F_IN + 2 * N, 2 * N * F_IN + N + B),
     }
     # the precision modes do the float32 kernels' work; the split backward
-    # moves what the monolith moves (du is its own hand-off, not an input
+    # moves what ffn_bwd moves (du is its own hand-off, not an input
     # or an output); the pre-stream chain is the embed kernel's second half
     table["pre_stream"] = (2 * N * 3 * D * D,
                            2 * N * D + T * D + 3 * D * D + 3 * D)
@@ -1068,7 +1069,7 @@ def phase_kernels(torch, kmod):
           "per-tensor scale", flush=True)
     print(f"  precision modes' FF kernels: each output within "
           f"{HIGH_MODE_TOL:.0e} ('high') / {DEFAULT_MODE_TOL:.0e} "
-          f"('default') / {GRAD_TOL:.0e} (float32 split) of its own max "
+          f"('default') of its own max "
           f"|plain|, and {MODE_SEPARATION:g} x nearer the plain version in "
           "its mode than in the wrong one (one bf16 pass for 'high', "
           "float32 for 'default')", flush=True)
@@ -1095,6 +1096,12 @@ def phase_kernels(torch, kmod):
         for name, variant, kern, plain, grad in chk.per_op_calls(B, T):
             chk.compare(name, f"B={B} T={T} {variant}", kern(), plain(),
                         grad)
+    # the training kernels at the sublayer kernel's longest length: four
+    # key tiles of the backward's attention core, their dq parts added in
+    # order, and a video whose keys are all padded
+    for name, variant, kern, plain, grad in chk.train_calls(3, 512, True):
+        chk.compare(name, f"B=3 T=512 {variant}, video 3 all padded", kern(),
+                    plain(), grad)
     # the batch picks the whole-layer kernels' cluster size; serving
     # batches take every size, so each is held here, at lengths that fill
     # the row tiles, leave a padded tail (40, 300) and split the FF chunks
@@ -2466,8 +2473,8 @@ def phase_precision(torch, kmod, gpu, tmp):
 # the widths phase: (D, heads) at D in {32, 128, 384, 512} and head widths
 # 8, 64 and 128, then the heads above 128 (dh 384, 192, 512, 256: the
 # cores' wide build), FF = 4 D, two layers
-WIDTH_CASES = ((32, 4), (128, 2), (384, 3), (512, 8), (384, 1), (384, 2),
-               (512, 1), (512, 2))
+WIDTH_CASES = ((32, 4), (128, 2), (128, 8), (384, 3), (512, 8), (384, 1),
+               (384, 2), (512, 1), (512, 2))
 WIDTH_LAYERS = 2
 
 
@@ -2481,8 +2488,8 @@ def phase_widths(torch, kmod):
     from keypoints_interpolation_transformer_torch.train import state, steps
     from keypoints_interpolation_transformer_torch.utils.config import (
         Config, ModelConfig)
-    print("phase 10: widths D in {32, 128, 384, 512}, head widths 8, 64, "
-          "128, 192, 256, 384, 512", flush=True)
+    print("phase 10: widths D in {32, 128, 384, 512}, head widths 8, 16, "
+          "64, 128, 192, 256, 384, 512", flush=True)
     for d, heads in WIDTH_CASES:
         ff = 4 * d
         tag = f"D={d} H={heads} dh={d // heads} FF={ff}"

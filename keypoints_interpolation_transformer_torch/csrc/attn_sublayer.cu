@@ -39,25 +39,30 @@
 // Backward design (the TPU kernel keeps a (T, H*T) probability residual
 // when it fits VMEM and otherwise rebuilds it; here every probability is
 // rebuilt from q, k, the bias and the stats, so no (T, T) tensor is stored
-// at any T):
+// at any T).  Its products, 16 M D^2 FLOP (8.6 GFLOP at the flagship's B =
+// 64, T = 128), run on sgemm.cuh's 8 x 8 core with both operands streamed
+// (sgemm_grad.cuh), the attention core's 5 B H T^2 dh on attention_grad.cuh's
+// one-pass core:
 //   1. with post_ln, dr = LN'(dy) (ln_bwd, one warp per row), else dr = dy;
-//   2. da = dr Wo^T (rows_matmul);
-//   3. attn_bwd_dq: one query per thread, keys streamed: delta = da . a per
-//      (row, head), p rebuilt, dp = da . v, ds = p (dp - delta), dq = scale
-//      sum ds k; writes dq into dqkv (B*T, 3D) and delta;
-//   4. attn_bwd_dkv: one key per thread, queries streamed: dv = sum p da,
-//      dk = scale sum ds q; writes dk, dv into dqkv;
-//   5. the weight gradients dWqkv^T = dqkv^T [x | m], dWo^T = dr^T a and the
-//      bias gradients (column sums) by the shared products of grad.cuh,
-//      per row range then summed in a fixed order (no atomics);
-//   6. dx = dr + dqkv Wqkv^T (self), or dx = dr + dq Wq^T and dmem = [dk dv]
-//      [Wk Wv]^T (cross), by rows_matmul.
+//   2. da = dr Wo^T (nn);
+//   3. one pass over each (video, head, 128 keys): delta = da . a, P
+//      rebuilt, dP, dS, dv, dk and dq (attention_grad.cuh: head widths 16,
+//      32, 64; other widths keep attention.cuh's two passes), written into
+//      dqkv (M, 3D);
+//   4. [dWqkv^T | dWo^T] = [dqkv^T [x | m] | dr^T a] in one launch (tn) per
+//      row range, with the bias gradients (dqkv's and dr's column sums) on
+//      the way, the ranges added in a fixed order (sum_split);
+//   5. dx = dr + dqkv Wqkv^T (self), or dx = dr + dq Wq^T and dmem = [dk dv]
+//      [Wk Wv]^T (cross) (nn).
+// No sum uses atomics: the gradients have the same bits from run to run.
 // Not copied from the TPU kernel: the key-major transposed scores, the
 // exp2 / log2(e) fold, and its T <= 512 cap (keys and queries stream, so T
 // is free).
 #include "attention.cuh"
+#include "attention_grad.cuh"
 #include "common.cuh"
 #include "grad.cuh"
+#include "sgemm_grad.cuh"
 
 using namespace kit;
 
@@ -160,14 +165,16 @@ int launch_rows(const float* x, const float* mem, int M, int n, const float* wqk
   return (int)cudaGetLastError();
 }
 
+// The backward (see the note at the top); scratch as kit_attn_sublayer_bwd
+// lays it out.
 template <int TN>
 int launch_bwd(int n, const float* dy, const float* x, const float* mem, const float* qkv,
                const float* a, const float* stats, const float* r, const float* w_in,
                const float* w_out, const float* gamma, const float* mask, const float* valid,
-               int B, int T, int H, int repeat_inc, int add_keypad, int s_w, int s_vec, float* dx,
+               int B, int T, int H, int repeat_inc, int add_keypad, int s_w, float* dx,
                float* dmem, float* dw_in, float* db_in, float* dw_out, float* db_out,
                float* ln_out, float* scratch, cudaStream_t st) {
-  constexpr int D = 32 * TN;
+  constexpr int D = 32 * TN, BR = row_tile(D);
   const int M = B * T, blocks = (M + BM - 1) / BM;
   const bool self = mem == nullptr;
   const float* m = self ? x : mem;
@@ -176,11 +183,8 @@ int launch_bwd(int n, const float* dy, const float* x, const float* mem, const f
   float* dqkv = da + (size_t)M * D;                      // M x 3D
   float* delta = dqkv + (size_t)M * 3 * D;               // B x H x T
   float* p_ln = delta + round_up(B * H * T, 4);          // blocks x 2D
-  float* p_wq = p_ln + (size_t)blocks * 2 * D;           // s_w x D x D
-  float* p_wkv = p_wq + (size_t)s_w * D * D;             // s_w x 2D x D
-  float* p_wo = p_wkv + (size_t)s_w * 2 * D * D;         // s_w x D x D
-  float* p_bin = p_wo + (size_t)s_w * D * D;             // s_vec x 3D
-  float* p_bo = p_bin + (size_t)s_vec * 3 * D;           // s_vec x D
+  float* p_w = p_ln + (size_t)blocks * 2 * D;            // s_w x (4 D^2 + 4 D)
+  float* dq_part = p_w + (size_t)s_w * (4 * D * D + 4 * D);  // key_tiles(T) x M x D, if > 1
   int rc;
 #define KIT_CHECK(x) \
   if ((rc = (x)) != 0) return rc
@@ -188,28 +192,48 @@ int launch_bwd(int n, const float* dy, const float* x, const float* mem, const f
   if (gamma != nullptr) {
     ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dy, r, gamma, M, n, dr_buf, p_ln);
     KIT_CHECK((int)cudaGetLastError());
-    KIT_CHECK(sum_parts(p_ln, blocks, 2 * D, ln_out, st));
+    KIT_CHECK(sum_split(p_ln, blocks, 2 * D, 2 * D, ln_out, st));
     dr = dr_buf;
   }
-  KIT_CHECK(rows_matmul<TN>(dr, D, D, w_out, D, nullptr, M, da, st));  // da = dr Wo^T
-  // the attention core's gradients: dq, dk, dv into dqkv's three parts (the
-  // backward only reads a and stats)
-  KIT_CHECK(attn_bwd(core_args(qkv, D, mask, valid, const_cast<float*>(a),
-                               const_cast<float*>(stats), B, T, H, repeat_inc, add_keypad),
-                     n / H, da, dqkv, 3 * D, dqkv + D, dqkv + 2 * D, 3 * D, delta, st));
-  // weight gradients in torch's layout: dW_in[j, i] = sum_r dqkv[r, j] m[r, i]
-  KIT_CHECK(atb<false>(dqkv, 3 * D, x, D, M, D, D, s_w, p_wq, dw_in, st));
-  KIT_CHECK(atb<false>(dqkv + D, 3 * D, m, D, M, 2 * D, D, s_w, p_wkv, dw_in + (size_t)D * D,
-                       st));
-  KIT_CHECK(atb<false>(dr, D, a, D, M, D, D, s_w, p_wo, dw_out, st));
-  KIT_CHECK(colsum(dqkv, 3 * D, M, 3 * D, s_vec, p_bin, db_in, st));
-  KIT_CHECK(colsum(dr, D, M, D, s_vec, p_bo, db_out, st));
+  // da = dr Wo^T (w_out in torch's layout: rows o, columns i)
+  KIT_CHECK((nn<BR, D>(NNArgs{dr, D, M, D, w_out, D, D, da, D, nullptr, 0, nullptr, 0}, st)));
+  // the attention core's gradients into dqkv's three parts; a narrower
+  // model (n < D) leaves each part's columns from n on unwritten, and the
+  // products below read them (times zero weights): zero them first
+  if (n < D) KIT_CHECK((int)cudaMemsetAsync(dqkv, 0, (size_t)M * 3 * D * sizeof(float), st));
+  KIT_CHECK(attn_grad(core_args(qkv, D, mask, valid, const_cast<float*>(a),
+                                const_cast<float*>(stats), B, T, H, repeat_inc, add_keypad),
+                      n / H, da, dqkv, 3 * D, dqkv + D, dqkv + 2 * D, 3 * D, delta, dq_part, st));
+  // [dW_in^T | dW_out^T | db_in | db_out]: dW_in[j, i] = sum_r dqkv[r, j]
+  // m[r, i] (q from x), dW_out[o, i] = sum_r dr[r, o] a[r, i], the bias
+  // gradients the column sums of dqkv and dr
+  const size_t DD = (size_t)D * D;
+  TNArgs w{};
+  int np = 0;
   if (self) {
-    KIT_CHECK(rows_matmul<TN>(dqkv, 3 * D, 3 * D, w_in, D, dr, M, dx, st));
+    w.p[np++] = TNProduct{dqkv, 3 * D, 3 * D, x, D, 0, 0, 1, 0, 4 * DD, D};
   } else {
-    KIT_CHECK(rows_matmul<TN>(dqkv, 3 * D, D, w_in, D, dr, M, dx, st));
-    KIT_CHECK(rows_matmul<TN>(dqkv + D, 3 * D, 2 * D, w_in + (size_t)D * D, D, nullptr, M, dmem,
-                              st));
+    w.p[np++] = TNProduct{dqkv, 3 * D, D, x, D, 0, 0, 1, 0, 4 * DD, D};
+    w.p[np++] = TNProduct{dqkv + D, 3 * D, 2 * D, m, D, 0, 0, 1, DD, 4 * DD + D, D};
+  }
+  w.p[np++] = TNProduct{dr, D, D, a, D, 0, 0, 1, 3 * DD, 4 * DD + 3 * D, D};
+  w.np = np;
+  w.K = M;
+  w.ncols = D;
+  w.part = p_w;
+  w.split = 4 * DD + 4 * D;
+  KIT_CHECK((tn<BR, D>(w, s_w, st)));
+  KIT_CHECK(sum_split(p_w, s_w, w.split, 3 * D * D, dw_in, st));
+  KIT_CHECK(sum_split(p_w + 3 * DD, s_w, w.split, D * D, dw_out, st));
+  KIT_CHECK(sum_split(p_w + 4 * DD, s_w, w.split, 3 * D, db_in, st));
+  KIT_CHECK(sum_split(p_w + 4 * DD + 3 * D, s_w, w.split, D, db_out, st));
+  // dx = dr + dqkv W_in (self: K = 3D), or dr + dq W_q and dmem = [dk dv] W_kv
+  const NNArgs dxa{dqkv, 3 * D, M, self ? 3 * D : D, w_in, D, D, dx, D, dr, D, nullptr, 0};
+  KIT_CHECK((nn<BR, D>(dxa, st)));
+  if (!self) {
+    const NNArgs dma{dqkv + D, 3 * D, M, 2 * D, w_in + DD, D, D, dmem, D, nullptr, 0, nullptr,
+                     0};
+    KIT_CHECK((nn<BR, D>(dma, st)));
   }
 #undef KIT_CHECK
   return 0;
@@ -250,25 +274,27 @@ extern "C" int kit_attn_sublayer(const void* x, const void* mem, int B, int T, i
 // w_in (3D, D) and w_out (D, D) are in torch's layout (W^T of the Flax
 // weights).  Writes dx, dmem, dw_in (3D, D), db_in (3D), dw_out (D, D),
 // db_out (D) and, with gamma, ln_out = [dgamma | dbeta].  scratch holds
-// 5 M D + B H T (rounded up to 4) + blocks * 2 D + s_w * 4 D^2 +
-// s_vec * 4 D floats, M = B*T, blocks = ceil(M / 32).  D and n as
+// 5 M D + B H T (rounded up to 4) + blocks * 2 D + s_w * (4 D^2 + 4 D)
+// floats, and key_tiles(T) M D more where the head width takes the
+// one-pass core (tiled_head) and T > AB_KT; M = B*T, blocks = ceil(M /
+// 32); the weight and bias gradients sum over s_w row ranges.  D and n as
 // kit_attn_sublayer takes them.
 extern "C" int kit_attn_sublayer_bwd(const void* dy, const void* x, const void* mem,
                                      const void* qkv, const void* a, const void* stats,
                                      const void* r, const void* w_in, const void* w_out,
                                      const void* gamma, const void* mask, const void* valid,
                                      int B, int T, int D, int n, int H, int repeat_inc,
-                                     int add_keypad, int s_w, int s_vec, void* dx, void* dmem,
+                                     int add_keypad, int s_w, void* dx, void* dmem,
                                      void* dw_in, void* db_in, void* dw_out, void* db_out,
                                      void* ln_out, void* scratch, void* stream) {
   auto st = (cudaStream_t)stream;
   auto p = [](const void* v) { return (const float*)v; };
   auto o = [](void* v) { return (float*)v; };
-  if (H <= 0 || n > D || n % H) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || n > D || n % H || s_w < 1) return (int)cudaErrorInvalidValue;
   return by_width(D, [&](auto tn) {
     return launch_bwd<decltype(tn)::value>(
         n, p(dy), p(x), p(mem), p(qkv), p(a), p(stats), p(r), p(w_in), p(w_out), p(gamma),
-        p(mask), p(valid), B, T, H, repeat_inc, add_keypad, s_w, s_vec, o(dx), o(dmem),
+        p(mask), p(valid), B, T, H, repeat_inc, add_keypad, s_w, o(dx), o(dmem),
         o(dw_in), o(db_in), o(dw_out), o(db_out), o(ln_out), o(scratch), st);
   });
 }

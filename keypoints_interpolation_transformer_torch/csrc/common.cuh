@@ -18,9 +18,9 @@
 // row-major, the Flax layout, transposed once when the model packs them.
 // On an H100 this product is bound by shared memory: 12 floats read a step
 // for 32 FFMAs, where an SM reads 32 floats a cycle and FFMAs 128, so it
-// runs near 30 TFLOP/s; sgemm.cuh's 8 x 8 tile is the core the FF and
-// sublayer kernels move to next (ROADMAP B 5), and mma_tile / mma_rows
-// then go.
+// runs near 30 TFLOP/s; sgemm.cuh's 8 x 8 tile is the core of the merged
+// layers and the training backwards, the forwards move to it next (ROADMAP
+// B 5), and mma_tile / mma_rows then go.
 //
 // Widths: the kernels are built for D = 32 * TN with TN = 4, 8, 12 or 16
 // (D = 128 to 512; by_width dispatches).  A narrower model runs zero-padded

@@ -27,32 +27,30 @@
 // erff: the rational erf of the TPU kernel exists only because Mosaic has
 // no erf.
 //
-// Backward design.  The TPU kernel walks row cells in order and keeps the
-// (D, FF) weight-gradient sums in VMEM from one cell to the next; blocks on
-// Hopper run in parallel and a block's 227 KB cannot hold a 2 MB sum.  The
-// two consumers of du also contract over different axes: dx1 over FF (a
-// row block's own reduction) and dW1 over the rows.  So the backward runs
-// as row passes and weight passes, and du, like dh, never reaches device
-// memory:
-//   1. ln_bwd: dz from g and z (one warp per row); per-block sums of g * n2
-//      and g.
-//   2. ffn_bwd_rows: per 32-row block, dh = dz W2^T and du = dh gelu'(u) for
-//      one D-wide FF chunk at a time in registers and a shared tile, dx1 +=
-//      du W1^T accumulated in registers; per-block column sums of du (db1).
-//   3. with pre_ln, x1 = LN1(r) and dr = LN1'(dx1) (in place).
-//   4. ffn_bwd_dw1: per 128 rows of dW1^T (all D columns) and row range,
-//      du is rebuilt for 32 rows at a time (the dz tile times a 128-wide
-//      slice of W2^T, then gelu'(u)) and the 128 x D sums += du^T x1 in
-//      registers.  The rebuild costs 2 D FLOP per (row, FF) element (8.6
-//      GFLOP per call at D = 256): the price of keeping du off device
-//      memory.
-//   5. dW2^T = dz^T gelu(u) by the shared weight-gradient product, u read
-//      through the GELU.
-//   6. db2 = column sums of dz; every per-block or per-range partial sum is
-//      added in a fixed order by sum_parts (no atomics: the same bits from
-//      run to run).
-// Gradients come out in torch's Linear layout (dW1^T (FF, D), dW2^T (D, FF)),
-// which is also the layout of the weights the row pass multiplies by.
+// Backward design (float32).  The TPU kernel walks row cells in order and
+// keeps the (D, FF) weight-gradient sums in VMEM from one cell to the
+// next; blocks on Hopper run in parallel and a block's 227 KB cannot hold
+// a 2 MB sum.  The two consumers of du also contract over different axes:
+// dx1 over FF (a row's own reduction) and dW1 over the rows.  So du is
+// written once (N x FF, 67 MB at the flagship: about 0.04 ms of traffic
+// against 0.5 ms of products) and the backward runs its four products on
+// sgemm.cuh's 8 x 8 core (sgemm_grad.cuh), with no work beyond the
+// function's own:
+//   A. ln_bwd: dz from g and z (one warp per row), per-block sums of g n2
+//      and g; du = (dz W2^T) gelu'(u) (nnr: a 64-row tile of dz stays in
+//      shared memory while W2^T's column tiles stream, each with its tile
+//      of u landing for the epilogue), and dz's column sums (db2) from the
+//      same tile;
+//   B. with pre_ln, x1 = LN1(r); [dW1^T | dW2^T] = [du^T x1 | gelu(u)^T
+//      dz] in one launch (tn, over row ranges; gelu(u) as its tile is
+//      staged, the dW2 sums stored transposed, du's column sums, db1, on
+//      the way); dx1 = du W1^T + dz (nn); with pre_ln, dr = LN1'(dx1) in
+//      place.
+// Every partial sum (row ranges, row tiles, the LayerNorms' 32-row blocks)
+// is added in a fixed order (sum_split): no atomics, so every gradient has
+// the same bits from run to run.  Gradients come out in torch's Linear
+// layout (dW1^T (FF, D), dW2^T (D, FF)), which is also the layout of the
+// weights the products read.
 //
 // The precision modes (mma_bf16.cuh for the arithmetic):
 //   * _kernel_split ("high", bf16x3) and _kernel_single's bf16 mode
@@ -72,18 +70,17 @@
 //   * _ffn_bwd_kernel_a / _ffn_bwd_kernel_b (the two-kernel backward) ->
 //     kit_ffn_bwd_split: phase A, LN2 backward (ln_bwd), du = (dz W2^T)
 //     gelu'(u) written to device memory, dW2^T = dz^T gelu(u), db2; phase
-//     B, dW1^T = du^T x1, dx1 = du W1^T + dz, LN1 backward, db1.  du is
-//     written once (N x FF float32) where the monolith above rebuilds it.
-//     In "high" and "default" the four products run through tc_gemm_kernel
-//     (one 64 x 128 tile per block, operands split as they are staged; the
-//     weight gradients over row ranges summed by sum_parts in a fixed
-//     order, no atomics); in float32 through the FFMA core (ffn_bwd_du,
-//     atb, rows_matmul), so that the split and the monolith can be timed on
-//     the same arithmetic.
+//     B, dW1^T = du^T x1, dx1 = du W1^T + dz, LN1 backward, db1; du
+//     written once (N x FF float32).  The four products run through
+//     tc_gemm_kernel (one 64 x 128 tile per block, operands split as they
+//     are staged; the weight gradients over row ranges summed by sum_parts
+//     in a fixed order, no atomics).  In float32 the same phases are the
+//     backward above.
 #include "common.cuh"
 #include "grad.cuh"
 #include "int8.cuh"
 #include "mma_bf16.cuh"
+#include "sgemm_grad.cuh"
 
 using namespace kit;
 
@@ -180,132 +177,6 @@ ffn_int8_kernel(const float* __restrict__ r, int M, int n, const FFInt8 f,
   store_rows<TN>(y, D, D, row0, M, v);
 }
 
-// Backward row pass: dx1 = dz + (dz W2^T * gelu'(u)) W1^T over 32-row
-// blocks; part_db1[blockIdx.x * FF + f] = the block's sum of du[:, f].
-// w2t = W2^T (D, FF), w1t = W1^T (FF, D), both row-major.
-template <int TN>
-__global__ void __launch_bounds__(NT)
-ffn_bwd_rows_kernel(const float* __restrict__ dz, const float* __restrict__ u, int M, int FF,
-                    const float* __restrict__ w1t, const float* __restrict__ w2t,
-                    float* __restrict__ dx1, float* __restrict__ part_db1) {
-  constexpr int D = 32 * TN;
-  extern __shared__ __align__(16) float smem[];
-  float* Zs = smem;                // D x LDT: dz, k-major
-  float* Hs = smem + D * LDT;      // D x LDT: du of one FF chunk
-  float* Ws = smem + 2 * D * LDT;  // BK x D
-  float* red = Ws + BK * D;        // 8 x D
-  const int row0 = blockIdx.x * BM;
-  stage_rows(Zs, dz, D, row0, M, D);
-  __syncthreads();
-  float acc[TM][TN], v[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  for (int f0 = 0; f0 < FF; f0 += D) {
-    const int fc = min(D, FF - f0);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) v[i][j] = 0.f;
-    mma_rows<TN>(v, Zs, D, w2t + f0, FF, fc, Ws);  // dh = dz W2^T
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = row0 + row_of(i);
-#pragma unroll
-      for (int g = 0; g < TN / 4; ++g) {
-        const int c = col_of(4 * g);
-        float4 uu = make_float4(0.f, 0.f, 0.f, 0.f);
-        const bool in = row < M && c < fc;
-        if (in) uu = __ldg(reinterpret_cast<const float4*>(u + (size_t)row * FF + f0 + c));
-        v[i][4 * g] = in ? v[i][4 * g] * gelu_grad(uu.x) : 0.f;
-        v[i][4 * g + 1] = in ? v[i][4 * g + 1] * gelu_grad(uu.y) : 0.f;
-        v[i][4 * g + 2] = in ? v[i][4 * g + 2] * gelu_grad(uu.z) : 0.f;
-        v[i][4 * g + 3] = in ? v[i][4 * g + 3] * gelu_grad(uu.w) : 0.f;
-      }
-    }
-    block_colsum<TN>(v, red, part_db1 + (size_t)blockIdx.x * FF + f0, fc);
-    put_rows<TN>(Hs, v);
-    __syncthreads();
-    mma_rows<TN>(acc, Hs, fc, w1t + (size_t)f0 * D, D, D, Ws);  // dx1 += du W1^T
-  }
-  get_rows<TN>(v, Zs);
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] += v[i][j];
-  store_rows<TN>(dx1, D, D, row0, M, acc);
-}
-
-// Backward weight pass for W1: part[blockIdx.y] holds rows [f0, f0 + FT)
-// of dW1^T = du^T x1 over the block's row range, du rebuilt in shared
-// memory 32 rows at a time (dh = dz W2^T[:, f0 : f0 + FT] by the block
-// product, then gelu'(u)).  Grid (FF / FT, splits).  Each block holds the
-// FT x D sums, four 32-row groups of TM x TN per thread.
-constexpr int FT = 128, LDU = FT + 4;
-
-template <int TN>
-__global__ void __launch_bounds__(NT)
-ffn_bwd_dw1_kernel(const float* __restrict__ dz, const float* __restrict__ x1,
-                   const float* __restrict__ u, const float* __restrict__ w2t, int M, int FF,
-                   int rows, float* __restrict__ part) {
-  constexpr int D = 32 * TN;
-  extern __shared__ __align__(16) float smem[];
-  float* Zs = smem;            // D x LDT: dz of the row tile, k-major
-  float* Us = Zs + D * LDT;    // BM x LDU: du[row][f] (k = row)
-  float* Ws = Us + BM * LDU;   // BK x D (w2t slices, then x1 rows)
-  const int f0 = blockIdx.x * FT;
-  const int r_begin = blockIdx.y * rows, r_end = min(M, r_begin + rows);
-  float acc[4][TM][TN];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[q][i][j] = 0.f;
-  for (int r0 = r_begin; r0 < r_end; r0 += BM) {
-    const int n = min(BM, r_end - r0);
-    stage_rows(Zs, dz, D, r0, r_end, D);
-    __syncthreads();
-    float h[TM][4];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) h[i][j] = 0.f;
-    mma_rows<4>(h, Zs, D, w2t + f0, FF, FT, Ws);  // dh[row][f], f < FT
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = row_of(i), c = col_of(0);
-      float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < n) {
-        const float4 uu =
-            __ldg(reinterpret_cast<const float4*>(u + (size_t)(r0 + r) * FF + f0 + c));
-        g = make_float4(h[i][0] * gelu_grad(uu.x), h[i][1] * gelu_grad(uu.y),
-                        h[i][2] * gelu_grad(uu.z), h[i][3] * gelu_grad(uu.w));
-      }
-      *reinterpret_cast<float4*>(Us + r * LDU + c) = g;
-    }
-    __syncthreads();
-    // dW1^T[f][d] += sum_row du[row][f] x1[row][d]
-    for (int k0 = 0; k0 < n; k0 += BK) {
-      for (int idx = threadIdx.x; idx < BK * D / 4; idx += NT) {
-        const int kk = idx / (D / 4), c = 4 * (idx - kk * (D / 4));
-        const int k = k0 + kk;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k < n) v = __ldg(reinterpret_cast<const float4*>(x1 + (size_t)(r0 + k) * D + c));
-        *reinterpret_cast<float4*>(Ws + kk * D + c) = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < 4; ++q) mma_tile<TN, LDU>(acc[q], Us + k0 * LDU + 32 * q, Ws);
-      __syncthreads();
-    }
-  }
-  float* out = part + (size_t)blockIdx.y * FF * D + (size_t)f0 * D;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) store_rows<TN>(out + (size_t)32 * q * D, D, D, 0, BM, acc[q]);
-}
-
 template <int TN>
 int launch(const float* r, int M, int n, int FF, const float* w1, const float* b1,
            const float* w2, const float* b2, const float* g1, const float* be1, const float* g2,
@@ -332,52 +203,58 @@ int launch_int8(const float* r, int M, int n, const FFInt8& f, const float* g1, 
   return (int)cudaGetLastError();
 }
 
+// The float32 backward (see the note at the top).  w1t = W1^T (FF, D), w2t
+// = W2^T (D, FF); scratch: blocks x 2 D (LN2 sums), blocks x 2 D (LN1),
+// splits x (2 FF D + FF) ([dW1^T | dW2^T | db1] parts), ceil(M /
+// resident_rows(D)) x D (db2 parts), blocks = ceil(M / 32).
 template <int TN>
 int launch_bwd(int n, const float* g, const float* r, const float* u, const float* z,
-               const float* w1t,
-               const float* w2t, const float* g1, const float* be1, int M, int FF, int s_dw1,
-               int s_dw2, int s_vec, const float* g2, float* x1, float* dz, float* dr,
-               float* dw1t, float* db1, float* dw2t, float* db2, float* ln_out, float* scratch,
-               cudaStream_t st) {
-  constexpr int D = 32 * TN;
-  const int blocks = (M + BM - 1) / BM;
-  float* p_ln2 = scratch;                          // blocks x 2D
-  float* p_db1 = p_ln2 + (size_t)blocks * 2 * D;   // blocks x FF
-  float* p_ln1 = p_db1 + (size_t)blocks * FF;      // blocks x 2D
-  float* p_dw1 = p_ln1 + (size_t)blocks * 2 * D;   // s_dw1 x FF x D
-  float* p_dw2 = p_dw1 + (size_t)s_dw1 * FF * D;   // s_dw2 x D x FF
-  float* p_db2 = p_dw2 + (size_t)s_dw2 * D * FF;   // s_vec x D
-  const bool pre_ln = g1 != nullptr;
-  const int smem_rows = (2 * D * LDT + BK * D + 8 * D) * sizeof(float);
-  const int smem_dw1 = (D * LDT + BM * LDU + BK * D) * sizeof(float);
-  static bool ready_rows = false, ready_dw1 = false;
-  cudaError_t e = allow_smem(ffn_bwd_rows_kernel<TN>, smem_rows, ready_rows);
-  if (e == cudaSuccess) e = allow_smem(ffn_bwd_dw1_kernel<TN>, smem_dw1, ready_dw1);
-  if (e != cudaSuccess) return (int)e;
+               const float* w1t, const float* w2t, const float* g1, const float* be1,
+               const float* g2, int M, int FF, int splits, float* x1, float* dz, float* du,
+               float* dr, float* dw1t, float* db1, float* dw2t, float* db2, float* ln_out,
+               float* scratch, cudaStream_t st) {
+  constexpr int D = 32 * TN, BR = row_tile(D);
+  const int blocks = (M + BM - 1) / BM, tiles = (M + resident_rows(D) - 1) / resident_rows(D);
+  const size_t FD = (size_t)FF * D;
+  float* p_ln2 = scratch;                         // blocks x 2D
+  float* p_ln1 = p_ln2 + (size_t)blocks * 2 * D;  // blocks x 2D
+  float* p_w = p_ln1 + (size_t)blocks * 2 * D;    // splits x (2 FF D + FF)
+  float* p_db2 = p_w + splits * (2 * FD + FF);    // tiles x D
   int rc;
 #define KIT_CHECK(x) \
   if ((rc = (x)) != 0) return rc
+  // A: dz = LN2'(g); du = (dz W2^T) gelu'(u), dz's column sums (db2)
   ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(g, z, g2, M, n, dz, p_ln2);
   KIT_CHECK((int)cudaGetLastError());
-  ffn_bwd_rows_kernel<TN><<<blocks, NT, smem_rows, st>>>(dz, u, M, FF, w1t, w2t, dr, p_db1);
-  KIT_CHECK((int)cudaGetLastError());
+  KIT_CHECK(sum_split(p_ln2, blocks, 2 * D, 2 * D, ln_out, st));
+  KIT_CHECK((nnr<resident_rows(D), 256, D>(
+      NNArgs{dz, D, M, D, w2t, FF, FF, du, FF, nullptr, 0, u, FF}, p_db2, st)));
+  KIT_CHECK(sum_split(p_db2, tiles, D, D, db2, st));
+  // B: [dW1^T | dW2^T | db1] over the rows, dx1 = du W1^T + dz, LN1'
   const float* x1r = r;
-  if (pre_ln) {
+  if (g1 != nullptr) {
     ln_fwd_kernel<TN><<<blocks, NT, 0, st>>>(r, g1, be1, M, n, x1);
     KIT_CHECK((int)cudaGetLastError());
-    ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dr, r, g1, M, n, dr, p_ln1);  // in place
-    KIT_CHECK((int)cudaGetLastError());
-    KIT_CHECK(sum_parts(p_ln1, blocks, 2 * D, ln_out + 2 * D, st));
     x1r = x1;
   }
-  ffn_bwd_dw1_kernel<TN><<<dim3(FF / FT, s_dw1), NT, smem_dw1, st>>>(
-      dz, x1r, u, w2t, M, FF, rows_per_split(M, s_dw1), p_dw1);
-  KIT_CHECK((int)cudaGetLastError());
-  KIT_CHECK(sum_parts(p_dw1, s_dw1, FF * D, dw1t, st));
-  KIT_CHECK(atb<true>(dz, D, u, FF, M, D, FF, s_dw2, p_dw2, dw2t, st));
-  KIT_CHECK(colsum(dz, D, M, D, s_vec, p_db2, db2, st));
-  KIT_CHECK(sum_parts(p_db1, blocks, FF, db1, st));
-  KIT_CHECK(sum_parts(p_ln2, blocks, 2 * D, ln_out, st));
+  TNArgs w{};
+  w.p[0] = TNProduct{du, FF, FF, x1r, D, 0, 0, 1, 0, 2 * FD, D};
+  w.p[1] = TNProduct{u, FF, FF, dz, D, 1, 1, 0, FD, 0, FF};
+  w.np = 2;
+  w.K = M;
+  w.ncols = D;
+  w.part = p_w;
+  w.split = 2 * FD + FF;
+  KIT_CHECK((tn<BR, D>(w, splits, st)));
+  KIT_CHECK(sum_split(p_w, splits, w.split, (int)FD, dw1t, st));
+  KIT_CHECK(sum_split(p_w + FD, splits, w.split, (int)FD, dw2t, st));
+  KIT_CHECK(sum_split(p_w + 2 * FD, splits, w.split, FF, db1, st));
+  KIT_CHECK((nn<BR, D>(NNArgs{du, FF, M, FF, w1t, D, D, dr, D, dz, D, nullptr, 0}, st)));
+  if (g1 != nullptr) {
+    ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dr, r, g1, M, n, dr, p_ln1);  // in place
+    KIT_CHECK((int)cudaGetLastError());
+    KIT_CHECK(sum_split(p_ln1, blocks, 2 * D, 2 * D, ln_out + 2 * D, st));
+  }
 #undef KIT_CHECK
   return 0;
 }
@@ -636,53 +513,10 @@ int tc_gemm(int passes, const LA& a, const LB& b, int M, int N, int K, int split
   return (int)cudaGetLastError();
 }
 
-// The float32 split backward's du: du = (dz W2^T) * gelu'(u) over 32-row
-// blocks, FF in D-wide chunks (the first half of ffn_bwd_rows_kernel, du
-// stored).  w2t = W2^T (D, FF).
-template <int TN>
-__global__ void __launch_bounds__(NT)
-ffn_bwd_du_kernel(const float* __restrict__ dz, const float* __restrict__ u, int M, int FF,
-                  const float* __restrict__ w2t, float* __restrict__ du) {
-  constexpr int D = 32 * TN;
-  extern __shared__ __align__(16) float smem[];
-  float* Zs = smem;            // D x LDT: dz, k-major
-  float* Ws = smem + D * LDT;  // BK x D
-  const int row0 = blockIdx.x * BM;
-  stage_rows(Zs, dz, D, row0, M, D);
-  __syncthreads();
-  float v[TM][TN];
-  for (int f0 = 0; f0 < FF; f0 += D) {
-    const int fc = min(D, FF - f0);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) v[i][j] = 0.f;
-    mma_rows<TN>(v, Zs, D, w2t + f0, FF, fc, Ws);  // dh = dz W2^T
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = row0 + row_of(i);
-#pragma unroll
-      for (int g = 0; g < TN / 4; ++g) {
-        const int c = col_of(4 * g);
-        if (row < M && c < fc) {
-          const float4 uu = __ldg(reinterpret_cast<const float4*>(u + (size_t)row * FF + f0 + c));
-          v[i][4 * g] *= gelu_grad(uu.x);
-          v[i][4 * g + 1] *= gelu_grad(uu.y);
-          v[i][4 * g + 2] *= gelu_grad(uu.z);
-          v[i][4 * g + 3] *= gelu_grad(uu.w);
-        }
-      }
-    }
-    store_rows<TN>(du + f0, FF, fc, row0, M, v);
-  }
-}
-
-// The split backward (see the note at the top): passes 0 is float32 on the
-// FFMA core (weights w1t = W1^T (FF, D), w2t = W2^T (D, FF)), 3 and 1 the
-// tensor-core modes (weights as bf16 planes in the Flax layout: w1 (D, FF),
-// w2 (FF, D); the lo planes only for 3).
+// The split backward in the tensor-core modes (see the note at the top):
+// passes 3 or 1, the weights as bf16 planes in the Flax layout: w1 (D, FF),
+// w2 (FF, D) (the lo planes only for 3).
 struct SplitWeights {
-  const float *w1t, *w2t;
   const bf16 *w1h, *w1l, *w2h, *w2l;
 };
 
@@ -698,27 +532,18 @@ int launch_bwd_split(int passes, int n, const float* g, const float* r, const fl
   float* p_ln1 = p_ln2 + (size_t)blocks * 2 * D;  // blocks x 2D
   float* p_w1 = p_ln1 + (size_t)blocks * 2 * D;   // s_w1 x FF x D
   float* p_w2 = p_w1 + (size_t)s_w1 * FF * D;     // s_w2 x D x FF
-  float* p_vec = p_w2 + (size_t)s_w2 * D * FF;    // s_vec x FF
+  float* p_vec = p_w2 + (size_t)s_w2 * D * FF;    // s_vec x max(D, FF)
   int rc;
 #define KIT_CHECK(x) \
   if ((rc = (x)) != 0) return rc
   // phase A (_ffn_bwd_kernel_a): dz, du, dW2^T, db2, dg2 / dbe2
   ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(g, z, g2, M, n, dz, p_ln2);
   KIT_CHECK((int)cudaGetLastError());
-  if (passes == 0) {
-    const int smem = (D * LDT + BK * D) * sizeof(float);
-    static bool ready = false;
-    KIT_CHECK((int)allow_smem(ffn_bwd_du_kernel<TN>, smem, ready));
-    ffn_bwd_du_kernel<TN><<<blocks, NT, smem, st>>>(dz, u, M, FF, w.w2t, du);
-    KIT_CHECK((int)cudaGetLastError());
-    KIT_CHECK(atb<true>(dz, D, u, FF, M, D, FF, s_w2, p_w2, dw2t, st));
-  } else {
-    KIT_CHECK(tc_gemm(passes, F32Rows{dz, D}, SplitRows{w.w2h, w.w2l, D}, M, FF, D, 1,
-                      Epilogue{du, FF, 0, nullptr, 0, u, FF}, st));
-    KIT_CHECK(tc_gemm(passes, F32Cols<false>{dz, D}, F32Cols<true>{u, FF}, D, FF, M, s_w2,
-                      Epilogue{p_w2, FF, (size_t)D * FF, nullptr, 0, nullptr, 0}, st));
-    KIT_CHECK(sum_parts(p_w2, s_w2, D * FF, dw2t, st));
-  }
+  KIT_CHECK(tc_gemm(passes, F32Rows{dz, D}, SplitRows{w.w2h, w.w2l, D}, M, FF, D, 1,
+                    Epilogue{du, FF, 0, nullptr, 0, u, FF}, st));
+  KIT_CHECK(tc_gemm(passes, F32Cols<false>{dz, D}, F32Cols<true>{u, FF}, D, FF, M, s_w2,
+                    Epilogue{p_w2, FF, (size_t)D * FF, nullptr, 0, nullptr, 0}, st));
+  KIT_CHECK(sum_parts(p_w2, s_w2, D * FF, dw2t, st));
   KIT_CHECK(colsum(dz, D, M, D, s_vec, p_vec, db2, st));
   KIT_CHECK(sum_parts(p_ln2, blocks, 2 * D, ln_out, st));
   // phase B (_ffn_bwd_kernel_b): dW1^T, db1, dx1 and the LN1 backward
@@ -728,16 +553,11 @@ int launch_bwd_split(int passes, int n, const float* g, const float* r, const fl
     KIT_CHECK((int)cudaGetLastError());
     x1r = x1;
   }
-  if (passes == 0) {
-    KIT_CHECK(atb<false>(du, FF, x1r, D, M, FF, D, s_w1, p_w1, dw1t, st));
-    KIT_CHECK(rows_matmul<TN>(du, FF, FF, w.w1t, D, dz, M, dr, st));
-  } else {
-    KIT_CHECK(tc_gemm(passes, F32Cols<false>{du, FF}, F32Cols<false>{x1r, D}, FF, D, M, s_w1,
-                      Epilogue{p_w1, D, (size_t)FF * D, nullptr, 0, nullptr, 0}, st));
-    KIT_CHECK(sum_parts(p_w1, s_w1, FF * D, dw1t, st));
-    KIT_CHECK(tc_gemm(passes, F32Rows{du, FF}, SplitRows{w.w1h, w.w1l, FF}, M, D, FF, 1,
-                      Epilogue{dr, D, 0, dz, D, nullptr, 0}, st));
-  }
+  KIT_CHECK(tc_gemm(passes, F32Cols<false>{du, FF}, F32Cols<false>{x1r, D}, FF, D, M, s_w1,
+                    Epilogue{p_w1, D, (size_t)FF * D, nullptr, 0, nullptr, 0}, st));
+  KIT_CHECK(sum_parts(p_w1, s_w1, FF * D, dw1t, st));
+  KIT_CHECK(tc_gemm(passes, F32Rows{du, FF}, SplitRows{w.w1h, w.w1l, FF}, M, D, FF, 1,
+                    Epilogue{dr, D, 0, dz, D, nullptr, 0}, st));
   KIT_CHECK(colsum(du, FF, M, FF, s_vec, p_vec, db1, st));
   if (g1 != nullptr) {
     ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dr, r, g1, M, n, dr, p_ln1);  // in place
@@ -788,25 +608,26 @@ extern "C" int kit_ffn_int8(const void* r, int M, int D, int n, int FF, const vo
 // Gradients of kit_ffn's y given g = dL/dy (M, D), the forward's input r and
 // its residuals u, z; w1t = W1^T (FF, D), w2t = W2^T (D, FF).  g1, be1 null
 // means no LN1 (x1 may then be null; with LN1 it is (M, D) scratch for x1).
-// Writes dz (M, D, scratch), dr, dw1t (FF, D), db1, dw2t (D, FF), db2 and
-// ln_out = [dg2 | dbe2 | dg1 | dbe1] (4 D).  scratch holds the partial sums:
-// blocks * (4 D + FF) + s_dw1 * FF * D + s_dw2 * D * FF + s_vec * D floats,
-// blocks = ceil(M / 32).  D and n as kit_ffn takes them, FF a multiple of
-// 128.
+// Writes dz (M, D) and du (M, FF) (scratch), dr, dw1t (FF, D), db1, dw2t
+// (D, FF), db2 and ln_out = [dg2 | dbe2 | dg1 | dbe1] (4 D).  scratch holds
+// the partial sums: blocks * 4 D + splits * (2 FF D + FF) + ceil(M /
+// resident_rows(D)) * D floats, blocks = ceil(M / 32); the weight
+// gradients sum over `splits` row ranges.  D and n as kit_ffn takes them,
+// FF a multiple of 4.
 extern "C" int kit_ffn_bwd(const void* g, const void* r, const void* u, const void* z,
                            const void* w1t, const void* w2t, const void* g1, const void* be1,
-                           int M, int D, int n, int FF, int s_dw1, int s_dw2, int s_vec,
-                           const void* g2, void* x1, void* dz, void* dr, void* dw1t, void* db1,
-                           void* dw2t, void* db2, void* ln_out, void* scratch, void* stream) {
+                           int M, int D, int n, int FF, int splits, const void* g2, void* x1,
+                           void* dz, void* du, void* dr, void* dw1t, void* db1, void* dw2t,
+                           void* db2, void* ln_out, void* scratch, void* stream) {
   auto st = (cudaStream_t)stream;
   auto p = [](const void* v) { return (const float*)v; };
   auto o = [](void* v) { return (float*)v; };
-  if (FF % FT || n > D) return (int)cudaErrorInvalidValue;
+  if (FF % 4 || FF <= 0 || n > D || splits < 1) return (int)cudaErrorInvalidValue;
   return by_width(D, [&](auto tn) {
     return launch_bwd<decltype(tn)::value>(n, p(g), p(r), p(u), p(z), p(w1t), p(w2t), p(g1),
-                                           p(be1), M, FF, s_dw1, s_dw2, s_vec, p(g2), o(x1),
-                                           o(dz), o(dr), o(dw1t), o(db1), o(dw2t), o(db2),
-                                           o(ln_out), o(scratch), st);
+                                           p(be1), p(g2), M, FF, splits, o(x1), o(dz), o(du),
+                                           o(dr), o(dw1t), o(db1), o(dw2t), o(db2), o(ln_out),
+                                           o(scratch), st);
   });
 }
 
@@ -833,16 +654,15 @@ extern "C" int kit_ffn_tc(int passes, const void* r, int M, int D, int n, int FF
   });
 }
 
-// The two-phase backward of kit_ffn / kit_ffn_tc's y in mode passes (0
-// float32, 3 "high", 1 "default"), from g = dL/dy, the forward's input r and
-// its residuals u, z.  passes 0: w1 = W1^T (FF, D), w2 = W2^T (D, FF)
-// float32, w1l and w2l unused; otherwise w1 / w1l = W1 (D, FF) and w2 / w2l
-// = W2 (FF, D), bf16 hi / lo planes (lo null with passes 1).  Writes dz (M,
-// D) and du (M, FF) (phase A's hand-off), dr, dw1t (FF, D), db1, dw2t (D,
-// FF), db2 and ln_out = [dg2 | dbe2 | dg1 | dbe1]; g1, be1 null means no LN1
-// (x1 may then be null; with LN1 it is (M, D) scratch).  scratch: blocks *
-// 4 D + s_w1 * FF * D + s_w2 * D * FF + s_vec * FF floats, blocks = ceil(M
-// / 32).  D and n as kit_ffn takes them, FF a multiple of 16.
+// The two-phase backward of kit_ffn_tc's y in mode passes (3 "high", 1
+// "default"; float32 is kit_ffn_bwd), from g = dL/dy, the forward's input r
+// and its residuals u, z: w1 / w1l = W1 (D, FF) and w2 / w2l = W2 (FF, D),
+// bf16 hi / lo planes (lo null with passes 1).  Writes dz (M, D) and du (M,
+// FF) (phase A's hand-off), dr, dw1t (FF, D), db1, dw2t (D, FF), db2 and
+// ln_out = [dg2 | dbe2 | dg1 | dbe1]; g1, be1 null means no LN1 (x1 may
+// then be null; with LN1 it is (M, D) scratch).  scratch: blocks * 4 D +
+// s_w1 * FF * D + s_w2 * D * FF + s_vec * max(D, FF) floats, blocks =
+// ceil(M / 32).  D and n as kit_ffn takes them, FF a multiple of 16.
 extern "C" int kit_ffn_bwd_split(int passes, const void* g, const void* r, const void* u,
                                  const void* z, const void* w1, const void* w1l, const void* w2,
                                  const void* w2l, const void* g1, const void* be1, int M, int D,
@@ -853,11 +673,9 @@ extern "C" int kit_ffn_bwd_split(int passes, const void* g, const void* r, const
   auto p = [](const void* v) { return (const float*)v; };
   auto h = [](const void* v) { return (const bf16*)v; };
   auto o = [](void* v) { return (float*)v; };
-  if (n > D || FF % 16 || !(passes == 0 || passes == 1 || (passes == 3 && w1l && w2l)))
+  if (n > D || FF % 16 || !(passes == 1 || (passes == 3 && w1l && w2l)))
     return (int)cudaErrorInvalidValue;
-  const SplitWeights w = passes == 0
-                             ? SplitWeights{p(w1), p(w2), nullptr, nullptr, nullptr, nullptr}
-                             : SplitWeights{nullptr, nullptr, h(w1), h(w1l), h(w2), h(w2l)};
+  const SplitWeights w{h(w1), h(w1l), h(w2), h(w2l)};
   return by_width(D, [&](auto tn) {
     return launch_bwd_split<decltype(tn)::value>(
         passes, n, p(g), p(r), p(u), p(z), w, p(g1), p(be1), p(g2), M, FF, s_w1, s_w2, s_vec,

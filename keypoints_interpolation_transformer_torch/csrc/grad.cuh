@@ -1,5 +1,7 @@
 // Building blocks of the port's backward kernels (included by ffn.cu and
-// attn_sublayer.cu), on the block layout of common.cuh.
+// attn_sublayer.cu), on the block layout of common.cuh: the GELU's
+// derivative, the LayerNorm forward and backward over rows, and the column
+// and partial sums of the tensor-core split backward.
 //
 // Reductions across rows never use atomics: a kernel writes one partial
 // sum per block (or per row split) into scratch the wrapper allocates, and
@@ -136,84 +138,6 @@ ln_bwd_kernel(const float* dy, const float* __restrict__ x, const float* __restr
   store_rows<TN>(dx, D, D, row0, M, t);
 }
 
-// out[r, :] = A[r, :K] W[K, D] (+ add[r, :]) over rows [0, M), D = 32 * TN:
-// the block's rows of A (row stride lda) staged k-major D columns at a
-// time, W (row stride ldw) streamed.  Dynamic shared memory (D * LDT +
-// BK * D) floats.  add may be out: each thread reads its values first.
-template <int TN>
-__global__ void __launch_bounds__(NT)
-rows_matmul_kernel(const float* __restrict__ A, int lda, int K, const float* __restrict__ W,
-                   int ldw, const float* add, int M, float* out) {
-  constexpr int D = 32 * TN;
-  extern __shared__ __align__(16) float smem[];
-  float* AT = smem;
-  float* Ws = smem + D * LDT;
-  const int row0 = blockIdx.x * BM;
-  float acc[TM][TN];
-  if (add != nullptr) {
-    load_rows<TN>(acc, add, D, row0, M);
-  } else {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  }
-  // the k-steps in order, as one pass over K would take them
-  for (int k0 = 0; k0 < K; k0 += D) {
-    const int kc = min(D, K - k0);
-    stage_rows(AT, A + k0, lda, row0, M, kc);
-    __syncthreads();
-    mma_rows<TN>(acc, AT, kc, W + (size_t)k0 * ldw, ldw, D, Ws);
-  }
-  store_rows<TN>(out, D, D, row0, M, acc);
-}
-
-// The weight-gradient product C = A^T B' over a range of rows: part[z][i][j]
-// = sum over rows k of split z of A[k * lda + i] * B'[k, j], i < NA, j < NB,
-// with B' = gelu(B) when GELU_B.  Grid (ceil(NA / BM), ceil(NB / (32 TN)),
-// splits); split z covers rows [z * rows, min(K, (z + 1) * rows)).  Both
-// operands stream through shared memory in BK-row tiles.  NA, NB, lda and
-// ldb are multiples of 4 and A, B 16-byte aligned.
-template <int TN, bool GELU_B>
-__global__ void __launch_bounds__(NT)
-atb_kernel(const float* __restrict__ A, int lda, const float* __restrict__ B, int ldb, int K,
-           int NA, int NB, int rows, float* __restrict__ part) {
-  constexpr int N = 32 * TN, N4 = N / 4;
-  __shared__ __align__(16) float As[BK * LDT];
-  __shared__ __align__(16) float Bs[BK * N];
-  const int i0 = blockIdx.x * BM, j0 = blockIdx.y * N;
-  const int k_begin = blockIdx.z * rows, k_end = min(K, k_begin + rows);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int idx = threadIdx.x; idx < BK * BM / 4; idx += NT) {
-      const int kk = idx / (BM / 4), c = 4 * (idx - kk * (BM / 4));
-      const int k = k0 + kk;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k < k_end && i0 + c < NA)
-        v = __ldg(reinterpret_cast<const float4*>(A + (size_t)k * lda + i0 + c));
-      *reinterpret_cast<float4*>(As + kk * LDT + c) = v;
-    }
-    for (int idx = threadIdx.x; idx < BK * N4; idx += NT) {
-      const int kk = idx / N4, c = 4 * (idx - kk * N4);
-      const int k = k0 + kk;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k < k_end && j0 + c < NB) {
-        v = __ldg(reinterpret_cast<const float4*>(B + (size_t)k * ldb + j0 + c));
-        if (GELU_B) v = make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
-      }
-      *reinterpret_cast<float4*>(Bs + kk * N + c) = v;
-    }
-    __syncthreads();
-    mma_tile<TN>(acc, As, Bs);
-    __syncthreads();
-  }
-  store_rows<TN>(part + (size_t)blockIdx.z * NA * NB + j0, NB, NB - j0, i0, NA, acc);
-}
-
 // part[z * N + j] = sum of X[r * ld + j] over rows r of split z
 // ([z * rows, min(M, (z + 1) * rows))), j < N, in row order.
 __global__ void colsum_kernel(const float* __restrict__ X, int ld, int M, int N, int rows,
@@ -257,34 +181,6 @@ inline int colsum(const float* X, int ld, int M, int N, int splits, float* part,
                                                               rows_per_split(M, splits), part);
   int rc = (int)cudaGetLastError();
   return rc ? rc : sum_parts(part, splits, N, out, st);
-}
-
-// out (NA, NB) = A^T B' over K rows, split over `splits` row ranges.
-template <bool GELU_B>
-inline int atb(const float* A, int lda, const float* B, int ldb, int K, int NA, int NB,
-               int splits, float* part, float* out, cudaStream_t st) {
-  dim3 grid((NA + BM - 1) / BM, (NB + 255) / 256, splits);
-  atb_kernel<8, GELU_B><<<grid, NT, 0, st>>>(A, lda, B, ldb, K, NA, NB,
-                                             rows_per_split(K, splits), part);
-  int rc = (int)cudaGetLastError();
-  return rc ? rc : sum_parts(part, splits, NA * NB, out, st);
-}
-
-// out = A[:, :K] W (+ add), rows [0, M), D = 32 * TN.  Internal linkage:
-// its flag that the shared-memory ceiling is set must be one per shared
-// library, as each library has its own CUDA runtime to set it in (the
-// static local of an inline function with external linkage is one object
-// for the whole process).
-template <int TN>
-static int rows_matmul(const float* A, int lda, int K, const float* W, int ldw,
-                       const float* add, int M, float* out, cudaStream_t st) {
-  constexpr int D = 32 * TN;
-  constexpr int smem = (D * LDT + BK * D) * (int)sizeof(float);
-  static bool ready = false;
-  cudaError_t e = allow_smem(rows_matmul_kernel<TN>, smem, ready);
-  if (e != cudaSuccess) return (int)e;
-  rows_matmul_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(A, lda, K, W, ldw, add, M, out);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace kit

@@ -1,5 +1,7 @@
 // The float32 block product of the whole-layer kernels (layer_fused.cu): a
-// tile of BM token rows times an N-wide slice of a weight, on FFMA.
+// tile of BM token rows times an N-wide slice of a weight, on FFMA.  Its
+// thread tile (Mma, mma_depth) also runs the training backwards'
+// products (sgemm_grad.cuh).
 //
 // What bounds such a product on an H100, and what this core does about it:
 //   * Shared-memory bandwidth.  An SM's shared memory delivers 32 floats a
@@ -179,6 +181,51 @@ struct Ring {
   }
 };
 
+// acc[i][j] += sum_{kk < DEPTH} A[kk * LDA + 16 (i / 4) + i % 4] *
+// B[kk * N + 32 (j / 4) + j % 4]: one DEPTH-deep step of the thread's sums,
+// with A and B the k-major operand tiles in shared memory at the thread's
+// first row and column (Mma::row(0), Mma::col(0)).  The operands of depth
+// kk + 1 are read while depth kk is multiplied.
+template <int BM, int N, int LDA, int DEPTH>
+__device__ __forceinline__ void mma_depth(float (&acc)[BM / 8][N / 32], const float* A,
+                                          const float* B) {
+  constexpr int RT = BM / 8, CT = N / 32;
+  static_assert(DEPTH % 2 == 0, "depths in pairs");
+  float a[2][RT], b[2][CT];
+  auto read = [&](int kk, float(&ak)[RT], float(&bk)[CT]) {
+#pragma unroll
+    for (int g = 0; g < RT / 4; ++g) {
+      const float4 a4 = *reinterpret_cast<const float4*>(A + kk * LDA + 16 * g);
+      ak[4 * g] = a4.x;
+      ak[4 * g + 1] = a4.y;
+      ak[4 * g + 2] = a4.z;
+      ak[4 * g + 3] = a4.w;
+    }
+#pragma unroll
+    for (int h = 0; h < CT / 4; ++h) {
+      const float4 b4 = *reinterpret_cast<const float4*>(B + kk * N + 32 * h);
+      bk[4 * h] = b4.x;
+      bk[4 * h + 1] = b4.y;
+      bk[4 * h + 2] = b4.z;
+      bk[4 * h + 3] = b4.w;
+    }
+  };
+  auto fma_step = [&](const float(&ak)[RT], const float(&bk)[CT]) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(ak[i], bk[j], acc[i][j]);
+  };
+  read(0, a[0], b[0]);
+#pragma unroll(MMA_UNROLL)
+  for (int kk = 0; kk < DEPTH; kk += 2) {
+    read(kk + 1, a[1], b[1]);
+    fma_step(a[0], b[0]);
+    if (kk + 2 < DEPTH) read(kk + 2, a[0], b[0]);
+    fma_step(a[1], b[1]);
+  }
+}
+
 // acc[i][j] += sum_{k < cur.K} AT[k * LDA + row(i)] * cur.W[k * ldw +
 // col(j)], with cur's first tiles in flight (ring.start, or the product
 // before named cur as its next).  AT: the tile's rows k-major in shared
@@ -192,9 +239,7 @@ __device__ __forceinline__ void block_mma(float (&acc)[BM / 8][N / 32], const fl
                                           const Wt& cur, const Wt& next,
                                           Ring<N, DEPTH, STAGES>& ring) {
   using L = Mma<BM, N>;
-  constexpr int RT = L::RT, CT = L::CT;
   static_assert(STAGES >= 2, "a tile in flight while one is multiplied");
-  static_assert(DEPTH % 2 == 0, "depths in pairs");
   const int steps = ring.steps(cur);
   const int r0 = L::row(0), c0 = L::col(0);
   for (int s = 0; s < steps; ++s) {
@@ -202,42 +247,8 @@ __device__ __forceinline__ void block_mma(float (&acc)[BM / 8][N / 32], const fl
     __syncthreads();              // ... and every thread's; tile s - 1 is consumed
     ring.fetch(cur, next, s + STAGES - 1);
     cp_async_commit();
-    const float* A = AT + s * DEPTH * LDA + r0;
-    const float* B = ring.buf + ((ring.pos + s) % STAGES) * ring.TILE + c0;
-    // the operands of depth kk + 1 are read while depth kk is multiplied
-    float a[2][RT], b[2][CT];
-    auto read = [&](int kk, float(&ak)[RT], float(&bk)[CT]) {
-#pragma unroll
-      for (int g = 0; g < RT / 4; ++g) {
-        const float4 a4 = *reinterpret_cast<const float4*>(A + kk * LDA + 16 * g);
-        ak[4 * g] = a4.x;
-        ak[4 * g + 1] = a4.y;
-        ak[4 * g + 2] = a4.z;
-        ak[4 * g + 3] = a4.w;
-      }
-#pragma unroll
-      for (int h = 0; h < CT / 4; ++h) {
-        const float4 b4 = *reinterpret_cast<const float4*>(B + kk * N + 32 * h);
-        bk[4 * h] = b4.x;
-        bk[4 * h + 1] = b4.y;
-        bk[4 * h + 2] = b4.z;
-        bk[4 * h + 3] = b4.w;
-      }
-    };
-    auto fma_step = [&](const float(&ak)[RT], const float(&bk)[CT]) {
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(ak[i], bk[j], acc[i][j]);
-    };
-    read(0, a[0], b[0]);
-#pragma unroll(MMA_UNROLL)
-    for (int kk = 0; kk < DEPTH; kk += 2) {
-      read(kk + 1, a[1], b[1]);
-      fma_step(a[0], b[0]);
-      if (kk + 2 < DEPTH) read(kk + 2, a[0], b[0]);
-      fma_step(a[1], b[1]);
-    }
+    mma_depth<BM, N, LDA, DEPTH>(acc, AT + s * DEPTH * LDA + r0,
+                                 ring.buf + ((ring.pos + s) % STAGES) * ring.TILE + c0);
   }
   ring.pos += steps;
   __syncthreads();

@@ -88,8 +88,6 @@ KERNELS = (
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:200", "bf16x3"),
     Kernel("ffn_train_default", fused_ffn_train,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215", "bf16"),
-    Kernel("ffn_bwd_split", ffn_bwd_split,
-           f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:646,679", "f32"),
     Kernel("ffn_bwd_split_high", ffn_bwd_split,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:646,679", "bf16x3"),
     Kernel("ffn_bwd_split_default", ffn_bwd_split,

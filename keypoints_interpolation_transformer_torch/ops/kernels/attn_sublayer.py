@@ -20,7 +20,11 @@ Kernels (``csrc/attn_sublayer.cu``), replacing
     dbo / da, the per-head softmax backward with each probability rebuilt
     from q, k, the in-kernel bias and the saved statistics (no (T, T)
     tensor is stored), dq / dk / dv, dWq / dWk / dWv and their biases, dx,
-    and dmem for cross-attention.
+    and dmem for cross-attention.  Its products stream through
+    ``csrc/sgemm.cuh``'s 8 x 8 FFMA core; its attention core is one
+    deterministic pass over each (video, head, ``KEY_TILE`` keys) at the
+    head widths ``TILED_HEADS`` (``csrc/attention_grad.cuh``), two passes
+    at the others.
 
 The bias is built in-kernel from the 1-D (B, T) masks (the contract of
 ``ops/pallas/attention.py::_bias_terms``): ``NEG`` where ``kind`` is
@@ -31,7 +35,8 @@ causal term.
 Bound on an H100 by float32 FFMA work in the projections (0.52 MFLOP per
 token forward at D = 256, twice that backward); the attention cores stream
 keys (or queries) through shared memory, so no (T, T) tensor reaches
-device memory.  See the source note in ``csrc/attn_sublayer.cu``.
+device memory.  See the source notes in ``csrc/attn_sublayer.cu`` and
+``csrc/attention_grad.cuh``.
 
 Weights: the forward kernels take the Flax layout, q/k/v packed, wqkv =
 [Wq | Wk | Wv] (D, 3D) with bqkv (3D,), wo (D, D); the backward takes
@@ -52,14 +57,19 @@ import torch.nn.functional as F
 
 from ..masks import NEG
 from . import _build
-from .ffn import LN_EPS, _ln_bwd_plain, row_splits
+from .ffn import LN_EPS, _ln_bwd_plain, wave_splits
 from .widths import check_heads, cut, cut_blocks, kernel_width, pad, \
-    pad_blocks
+    pad_blocks, row_tile
 
 # one letter per C argument, the stream last: p pointer, i int
 _SIGS = {"kit_attn_sublayer": "pp" + "i" * 5 + "p" * 8 + "ii" + "p" * 6,
-         "kit_attn_sublayer_bwd": "p" * 12 + "i" * 9 + "p" * 9}
+         "kit_attn_sublayer_bwd": "p" * 12 + "i" * 8 + "p" * 9}
 KINDS = ("repeat-inc", "all")
+# the backward's one-pass attention core (``csrc/attention_grad.cuh``):
+# the keys a block owns (``AB_KT``) and the head widths it is built for
+# (``tiled_head``)
+KEY_TILE = 128
+TILED_HEADS = (16, 32, 64)
 
 
 def bias_from_masks(mask, valid, T: int, kind: str, add_keypad: bool):
@@ -244,23 +254,15 @@ def fused_attn_sublayer_train(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b,
 fused_attn_sublayer_train.launches = 0
 
 
-def attn_sublayer_bwd_plain(dy, x, memory, qkv, a, stats, r, w_in, w_out,
-                            ln_w, mask, valid, kind: str, add_keypad: bool,
-                            heads: int):
-    """Plain PyTorch version of ``attn_sublayer_bwd``, written out step by
-    step: each probability rebuilt from q, k, the bias and the saved
-    (row max, row sum)."""
-    B, T, D = x.shape
+def attn_core_bwd_plain(da, qkv, a, stats, mask, valid, kind: str,
+                        add_keypad: bool, heads: int):
+    """The attention core's part of ``attn_sublayer_bwd_plain``: (dq, dk,
+    dv), each (B, T, D), from dA = dL/da (B, T, D), the training forward's
+    qkv, a and stats, each probability rebuilt from q, k, the bias and the
+    saved (row max, row sum)."""
+    B, T, D = a.shape
     dh = D // heads
     scale = 1.0 / math.sqrt(dh)
-    g = dy.reshape(-1, D)
-    dg = dbe = None
-    if ln_w is not None:
-        g, dg, dbe = _ln_bwd_plain(g, r.reshape(-1, D), ln_w)
-    dr = g                                               # (M, D)
-    dw_out = dr.t() @ a.reshape(-1, D)                   # [o, i]
-    db_out = dr.sum(0)
-    da = dr @ w_out                                      # (M, D)
 
     def heads_of(t):
         return t.reshape(B, T, heads, dh).transpose(1, 2)
@@ -279,9 +281,29 @@ def attn_sublayer_bwd_plain(dy, x, memory, qkv, a, stats, r, w_in, w_out,
     dk = (ds.transpose(-1, -2) @ q) * scale
 
     def rows(t):
-        return t.transpose(1, 2).reshape(-1, D)
+        return t.transpose(1, 2).reshape(B, T, D)
 
-    dqkv = torch.cat([rows(dq), rows(dk), rows(dv)], -1)  # (M, 3D)
+    return rows(dq), rows(dk), rows(dv)
+
+
+def attn_sublayer_bwd_plain(dy, x, memory, qkv, a, stats, r, w_in, w_out,
+                            ln_w, mask, valid, kind: str, add_keypad: bool,
+                            heads: int):
+    """Plain PyTorch version of ``attn_sublayer_bwd``, written out step by
+    step: each probability rebuilt from q, k, the bias and the saved
+    (row max, row sum) (``attn_core_bwd_plain``)."""
+    B, T, D = x.shape
+    g = dy.reshape(-1, D)
+    dg = dbe = None
+    if ln_w is not None:
+        g, dg, dbe = _ln_bwd_plain(g, r.reshape(-1, D), ln_w)
+    dr = g                                               # (M, D)
+    dw_out = dr.t() @ a.reshape(-1, D)                   # [o, i]
+    db_out = dr.sum(0)
+    da = dr @ w_out                                      # (M, D)
+    dq, dk, dv = attn_core_bwd_plain(da.reshape(B, T, D), qkv, a, stats,
+                                     mask, valid, kind, add_keypad, heads)
+    dqkv = torch.cat([dq, dk, dv], -1).reshape(-1, 3 * D)  # (M, 3D)
     db_in = dqkv.sum(0)
     xf = x.reshape(-1, D)
     mf = xf if memory is None else memory.reshape(-1, D)
@@ -295,6 +317,27 @@ def attn_sublayer_bwd_plain(dy, x, memory, qkv, a, stats, r, w_in, w_out,
         dmem = dkv_in.reshape(x.shape)
     return (dx.reshape(x.shape), dmem, dw_in, db_in, dw_out, db_out, dg,
             dbe)
+
+
+def bwd_splits(M: int, D: int) -> int:
+    """The row ranges of ``attn_sublayer_bwd``'s weight-gradient launch at
+    M = B T rows and kernel width D: with the row tiles of [dW_in^T |
+    dW_out^T], 4 D / ``row_tile(D)``, they fill one wave of the card."""
+    return wave_splits(M, 4 * D // row_tile(D))
+
+
+def bwd_scratch_floats(B: int, T: int, D: int, heads: int, dh: int) -> int:
+    """The scratch ``kit_attn_sublayer_bwd`` lays out (``csrc/
+    attn_sublayer.cu``) at kernel width D and head width dh: dr, da and
+    dqkv (5 M D), delta (B H T, rounded up to 4), the LayerNorm's sums per
+    32-row block, the weight and bias gradients' per row range and, where
+    the head width takes the one-pass core and there is more than one key
+    tile, each key tile's dq part (M D)."""
+    M = B * T
+    tiles = -(-T // KEY_TILE)
+    parts = tiles * M * D if dh in TILED_HEADS and tiles > 1 else 0
+    return (5 * M * D + -(-B * heads * T // 4) * 4 + -(-M // 32) * 2 * D
+            + bwd_splits(M, D) * (4 * D * D + 4 * D) + parts)
 
 
 def attn_sublayer_bwd(dy, x, memory, qkv, a, stats, r, w_in, w_out, ln_w,
@@ -328,33 +371,38 @@ def attn_sublayer_bwd(dy, x, memory, qkv, a, stats, r, w_in, w_out, ln_w,
     _build.check_aligned(where, **{k: t for k, t in (
         ("dy", dy), ("x", x), ("memory", memory), ("qkv", qkv), ("a", a),
         ("r", r), ("w_in", w_in), ("w_out", w_out)) if t is not None})
-    # at the kernel width, the operands zero-padded (see ``widths``)
-    n, D = D, kernel_width(where, D)
+    grads = _launch_backward(dy, x, memory, qkv, a, stats, r, w_in, w_out,
+                             ln_w, mask, valid, kind, add_keypad, heads)
+    attn_sublayer_bwd.launches += 1
+    return grads
+
+
+def _launch_backward(dy, x, memory, qkv, a, stats, r, w_in, w_out, ln_w,
+                     mask, valid, kind, add_keypad, heads):
+    """``attn_sublayer_bwd``'s gradients from its checked operands, at the
+    model's width n.  Runs at the kernel width D, the operands zero-padded
+    from n (``widths``)."""
+    B, T, n = x.shape
+    D = kernel_width("attn_sublayer_bwd", n)
     dy, x, memory, a, r, ln_w = (pad(t, D) for t in (dy, x, memory, a, r,
                                                      ln_w))
     qkv = pad_blocks(qkv, n, D, -1)
     w_in = pad(pad_blocks(w_in, n, D, 0), 3 * D, D)
     w_out = pad(w_out, D, D)
-    M = B * T
     dev = dy.device
     empty = lambda *s: torch.empty(*s, device=dev)  # noqa: E731
-    s_w = row_splits(M, D // 32)
-    s_vec = row_splits(M, -(-3 * D // 128))
-    blocks = -(-M // 32)
+    s_w = bwd_splits(B * T, D)
     dx = empty(B, T, D)
     dmem = None if memory is None else empty(B, T, D)
     dw_in, db_in = empty(3 * D, D), empty(3 * D)
     dw_out, db_out = empty(D, D), empty(D)
     ln_out = empty(2, D)
-    # dr, da, dqkv, delta, then partial sums reduced in fixed order
-    scratch = empty(M * D * 5 + -(-B * heads * T // 4) * 4 + blocks * 2 * D
-                    + s_w * 4 * D * D + s_vec * 4 * D)
+    scratch = empty(bwd_scratch_floats(B, T, D, heads, n // heads))
     lib = _build.bind("attn_sublayer", _SIGS)
     _build.call(lib, "kit_attn_sublayer_bwd", dev, dy, x, memory, qkv, a,
                 stats, r, w_in, w_out, ln_w, mask, valid, B, T, D, n, heads,
-                int(kind == "repeat-inc"), int(add_keypad), s_w, s_vec, dx,
+                int(kind == "repeat-inc"), int(add_keypad), s_w, dx,
                 dmem, dw_in, db_in, dw_out, db_out, ln_out, scratch)
-    attn_sublayer_bwd.launches += 1
     dg, dbe = (None, None) if ln_w is None else (cut(ln_out[0], n),
                                                  cut(ln_out[1], n))
     return (cut(dx, n), cut(dmem, n), cut(cut_blocks(dw_in, n, D, 0), n),

@@ -15,17 +15,17 @@ Kernels (``csrc/ffn.cu``), replacing
   * ``ffn_bwd`` <- ``_ffn_bwd_kernel`` (``has_uz``): from (r, g, u, z) and
     the weights, LN2 backward, dW2 / db2, the GELU backward, dW1 / db1,
     dx1 + dz, LN1 backward, dr and the LayerNorm gradients (float32: the
-    "highest" route);
+    "highest" route), in two phases with du (N, FF) written once, its
+    products streamed through ``csrc/sgemm.cuh``'s 8 x 8 FFMA core;
   * ``ffn_bwd_split`` <- ``_ffn_bwd_kernel_a`` and ``_ffn_bwd_kernel_b``:
-    the same gradients in two phases with du (N, FF) handed from the first
-    to the second through device memory, in every mode (the "high" and
-    "default" routes; float32 to time it beside the monolith).
+    the same two phases with the products on the bf16 tensor cores, the
+    "high" and "default" routes; in "f32" it is ``ffn_bwd``.
 
 Bound on an H100: 2.1 MFLOP per token forward and 4.2 backward at D = 256,
 FF = 2048, float32 FFMA work at "highest", bf16 tensor-core work (three
 passes at "bf16x3") otherwise.  The forward keeps each FF chunk's GELU
-output on chip; the monolithic backward keeps the (rows, FF) dh and du on
-chip too (see the source note in ``csrc/ffn.cu``).  In the tensor-core
+output on chip; the backward writes du once (see the source note in
+``csrc/ffn.cu``).  In the tensor-core
 modes the float32 weights are split into bf16 hi / lo planes in torch's
 layout (``ff_weight_planes``): once per packed model for serving, per call
 in training.
@@ -49,22 +49,20 @@ import torch.nn.functional as F
 from . import _build
 from .int8_matmul import int8_dense_plain
 from .precision import MODES, check_mode, mode_matmul, weight_planes
-from .widths import cut, kernel_width, pad
+from .widths import cut, kernel_width, pad, row_tile
 
 LN_EPS = 1e-5
 # one letter per C argument, the stream last: p pointer, i int
 _SIGS = {"kit_ffn": "p" + "i" * 4 + "p" * 12,
-         "kit_ffn_bwd": "p" * 8 + "i" * 7 + "p" * 11,
+         "kit_ffn_bwd": "p" * 8 + "i" * 5 + "p" * 12,
          "kit_ffn_int8": "p" + "i" * 4 + "p" * 13,
          "kit_ffn_tc": "ip" + "i" * 4 + "p" * 14,
          "kit_ffn_bwd_split": "i" + "p" * 10 + "i" * 7 + "p" * 12}
-# the FF widths the kernels take, zero-padded to them: the float32
-# forwards in steps of 4, the tensor-core forwards and the split backward
-# in steps of 16 (the k of m16n8k16), the monolithic backward of 128
+# the FF widths the kernels take, zero-padded to them: the float32 kernels
+# in steps of 4, the tensor-core ones in steps of 16 (the k of m16n8k16)
 _FF_STEP = 4
 _FF_STEP_TC = 16
-_FF_STEP_BWD = 128
-_PASSES = {"f32": 0, "bf16x3": 3, "bf16": 1}  # bf16 products per product
+_PASSES = {"bf16x3": 3, "bf16": 1}  # bf16 products per product
 
 
 def ff_kernel_width(FF: int, step: int = _FF_STEP) -> int:
@@ -355,6 +353,35 @@ def row_splits(rows: int, tiles: int) -> int:
     return max(1, min(want, rows // 256))
 
 
+def wave_splits(rows: int, tiles: int) -> int:
+    """How many row ranges a weight-gradient launch over ``rows`` is cut
+    into so that ``tiles`` output tiles times the ranges fill one wave of
+    the card's 132 SMs, a block each (``csrc/sgemm_grad.cuh``); each range
+    keeps at least 256 rows."""
+    return max(1, min(132 // max(tiles, 1), rows // 256))
+
+
+def bwd_splits(N: int, D: int, FF: int) -> int:
+    """The row ranges of ``ffn_bwd``'s weight-gradient launch at N rows,
+    kernel width D and FF: with its row tiles, [dW1^T | dW2^T] over 2 FF /
+    ``row_tile(D)``, they fill one wave of the card."""
+    return wave_splits(N, 2 * -(-FF // row_tile(D)))
+
+
+def du_rows(D: int) -> int:
+    """The row tile of ``ffn_bwd``'s du product at kernel width D
+    (``csrc/sgemm_grad.cuh`` ``resident_rows``): 64, 32 at D = 512."""
+    return 64 if D <= 384 else 32
+
+
+def bwd_scratch_floats(N: int, D: int, FF: int) -> int:
+    """The partial sums ``kit_ffn_bwd`` keeps (``csrc/ffn.cu``): the two
+    LayerNorms' per 32-row block, [dW1^T | dW2^T | db1] per row range,
+    db2 per row tile of the du product."""
+    return (-(-N // 32) * 4 * D + bwd_splits(N, D, FF) * (2 * FF * D + FF)
+            + -(-N // du_rows(D)) * D)
+
+
 def _check_backward(where, g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln):
     D = r.shape[-1]
     FF = w1t.shape[0]
@@ -383,32 +410,34 @@ def ffn_bwd(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False):
     where = "ffn_bwd"
     g1, be1 = _check_backward(where, g, r, u, z, w1t, w2t, g1, be1, g2,
                               pre_ln)
-    # at the kernel width and FF a multiple of 128, zero-padded (``widths``)
+    grads = _launch_backward(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln)
+    ffn_bwd.launches += 1
+    return grads
+
+
+def _launch_backward(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln):
+    """``ffn_bwd``'s gradients from its checked operands, at the model's
+    widths n and FF.  Runs at the kernel width D and FF rounded up to 4,
+    the operands zero-padded (``widths``)."""
     n, nf = r.shape[-1], w1t.shape[0]
     N = r.numel() // n
-    D = kernel_width(where, n)
-    FF = ff_kernel_width(nf, _FF_STEP_BWD)
+    D = kernel_width("ffn_bwd", n)
+    FF = ff_kernel_width(nf)
     g, r, z, g1, be1, g2 = (pad(t, D) for t in (g, r, z, g1, be1, g2))
     u, w1t, w2t = pad(u, FF), pad(w1t, FF, D), pad(w2t, D, FF)
     dev = g.device
     empty = lambda *s: torch.empty(*s, device=dev)  # noqa: E731
-    blocks = -(-N // 32)
-    s_dw1 = row_splits(N, FF // 128)
-    s_dw2 = row_splits(N, (D // 32) * -(-FF // 256))
-    s_vec = row_splits(N, -(-D // 128))
-    dr, dz = empty(r.shape), empty(N, D)
+    splits = bwd_splits(N, D, FF)
+    dr, dz, du = empty(r.shape), empty(N, D), empty(N, FF)
     x1 = empty(N, D) if pre_ln else None
     dw1t, dw2t = empty(FF, D), empty(D, FF)
     db1, db2 = empty(FF), empty(D)
     ln_out = empty(4, D)  # dg2, dbe2, dg1, dbe1
-    # scratch: per-block / per-split partial sums, reduced in fixed order
-    scratch = empty(blocks * (2 * D + FF + 2 * D) + s_dw1 * FF * D
-                    + s_dw2 * D * FF + s_vec * D)
+    scratch = empty(bwd_scratch_floats(N, D, FF))
     lib = _build.bind("ffn", _SIGS)
     _build.call(lib, "kit_ffn_bwd", dev, g, r, u, z, w1t, w2t, g1, be1,
-                N, D, n, FF, s_dw1, s_dw2, s_vec, g2, x1, dz, dr, dw1t, db1,
+                N, D, n, FF, splits, g2, x1, dz, du, dr, dw1t, db1,
                 dw2t, db2, ln_out, scratch)
-    ffn_bwd.launches += 1
     ln_out = cut(ln_out, n)
     dg1, dbe1 = (ln_out[2], ln_out[3]) if pre_ln else (None, None)
     return (cut(dr, n), cut(dw1t, nf, n), cut(db1, nf), cut(dw2t, n, nf),
@@ -424,11 +453,13 @@ def ffn_bwd_split(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False,
     db2; B: dW1^T, db1, dx1, LN1 backward), the products in ``mode``; the
     arguments and results as ``ffn_bwd`` takes and returns them.  In
     "bf16x3" and "bf16" the weights are split into bf16 planes here, per
-    call."""
+    call; in "f32" this is ``ffn_bwd`` (and counts as its launch)."""
     check_mode(mode)
     if g.device.type == "cpu":
         return ffn_bwd_split_plain(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln,
                                    mode)
+    if mode == "f32":
+        return ffn_bwd(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln)
     where = "ffn_bwd_split"
     g1, be1 = _check_backward(where, g, r, u, z, w1t, w2t, g1, be1, g2,
                               pre_ln)
@@ -439,15 +470,10 @@ def ffn_bwd_split(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False,
     FF = ff_kernel_width(nf, _FF_STEP_TC)
     g, r, z, g1, be1, g2 = (pad(t, D) for t in (g, r, z, g1, be1, g2))
     u, w1t, w2t = pad(u, FF), pad(w1t, FF, D), pad(w2t, D, FF)
-    if mode == "f32":  # the FFMA core, weights in torch's layout
-        w1, w1l, w2, w2l = w1t, None, w2t, None
-        s_w1 = row_splits(N, (FF // 32) * -(-D // 256))
-        s_w2 = row_splits(N, (D // 32) * -(-FF // 256))
-    else:  # the tensor cores, weights as planes in the Flax layout
-        (w1, w1l), (w2, w2l) = (weight_planes(w.t(), mode)
-                                for w in (w1t, w2t))
-        s_w1 = row_splits(N, -(-FF // 64) * -(-D // 128))
-        s_w2 = row_splits(N, -(-D // 64) * -(-FF // 128))
+    # the tensor cores, weights as planes in the Flax layout
+    (w1, w1l), (w2, w2l) = (weight_planes(w.t(), mode) for w in (w1t, w2t))
+    s_w1 = row_splits(N, -(-FF // 64) * -(-D // 128))
+    s_w2 = row_splits(N, -(-D // 64) * -(-FF // 128))
     s_vec = row_splits(N, -(-D // 128))
     dev = g.device
     empty = lambda *s: torch.empty(*s, device=dev)  # noqa: E731
@@ -459,7 +485,7 @@ def ffn_bwd_split(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False,
     ln_out = empty(4, D)  # dg2, dbe2, dg1, dbe1
     # scratch: per-block / per-split partial sums, reduced in fixed order
     scratch = empty(blocks * 4 * D + s_w1 * FF * D + s_w2 * D * FF
-                    + s_vec * FF)
+                    + s_vec * max(D, FF))
     lib = _build.bind("ffn", _SIGS)
     _build.call(lib, "kit_ffn_bwd_split", dev, _PASSES[mode], g, r, u, z,
                 w1, w1l, w2, w2l, g1, be1, N, D, n, FF, s_w1, s_w2, s_vec,
@@ -471,7 +497,7 @@ def ffn_bwd_split(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False,
             cut(db2, n), dg1, dbe1, ln_out[0], ln_out[1])
 
 
-ffn_bwd_split.launches = dict.fromkeys(MODES, 0)
+ffn_bwd_split.launches = dict.fromkeys(_PASSES, 0)
 
 
 class FFNFunction(torch.autograd.Function):

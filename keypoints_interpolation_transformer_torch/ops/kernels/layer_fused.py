@@ -49,7 +49,7 @@ from . import _build
 from .attn_sublayer import _check_config, attn_sublayer_plain
 from .ffn import (check_int8_ff, ff_kernel_width, ffn_int8_plain, ffn_plain,
                   pad_int8_ff)
-from .widths import cut, kernel_width, pad, pad_blocks
+from .widths import cut, kernel_width, pad, pad_blocks, row_tile
 
 # one letter per C argument, the stream last: p pointer, i int
 _SIGS = {"kit_enc_layer": "p" + "i" * 8 + "p" * 14 + "ii" + "p" * 3,
@@ -102,14 +102,6 @@ def cluster_size(B: int, device: torch.device) -> int:
     T = 128; batches between take every size from 2 to 7, and
     `chip_smoke.py` holds each size against the plain versions."""
     return max(1, min(_MAX_CLUSTER, _sm_count(device.index or 0) // B))
-
-
-def row_tile(D: int) -> int:
-    """Token rows per tile of the kernels' block product at the kernel
-    width D (``csrc/sgemm.cuh`` ``row_tile``): 64 up to D = 256, 32 at 384
-    and 512, where two 64-row accumulator tiles and their shared tiles do
-    not fit one SM."""
-    return 64 if D <= 256 else 32
 
 
 def ff_parts(T: int, D: int, FF: int, cluster: int) -> int:

@@ -34,6 +34,14 @@ def kernel_width(where: str, n: int) -> int:
                      f"{KERNEL_WIDTHS[-1]}, got {n}")
 
 
+def row_tile(D: int) -> int:
+    """Token rows per tile of the kernels' float32 block product at the
+    kernel width D (``csrc/sgemm.cuh`` ``row_tile``): 64 up to D = 256, 32
+    at 384 and 512, where two 64-row accumulator tiles and their shared
+    tiles do not fit one SM."""
+    return 64 if D <= 256 else 32
+
+
 def check_heads(where: str, n: int, heads: int) -> int:
     """The head width n / heads; raises unless it is whole and at most
     ``MAX_HEAD``."""

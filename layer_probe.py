@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the merged layer kernels' time goes, on one CUDA card.
+"""Where the merged layer kernels' and the training backwards' time goes,
+on one CUDA card.
 
     python3 layer_probe.py phases [DIR]     # cycles per phase of a block
     python3 layer_probe.py times TREE...    # layer kernel times, in turns
+    python3 layer_probe.py backward TREE... # backward kernel times, in turns
 
 ``phases`` copies ``keypoints_interpolation_transformer_torch`` into DIR
 (default ``scratch_tree/layer_probe``, git-ignored), adds ``clock64()``
@@ -22,6 +24,13 @@ checkout, ``git archive`` of another commit, or an edited copy under
 layer kernels of each (B = 256 and 16, T = 128, each held against its
 plain version first) and the library layers at B = 256, in turns: the
 trees in order, then in reverse, each turn in a fresh process.
+
+``backward`` does the same for the training backwards (``ffn.cu`` and
+``attn_sublayer.cu``): ``ffn_bwd``, ``ffn_bwd_split`` in "f32" (a tree's
+own float32 split where it has one, else the same C path as ``ffn_bwd``)
+and ``attn_sublayer_bwd`` at the A1 step's B = 64, T = 128, each held
+against its plain version, then its CUDA-event time and one call's
+device time by kernel (``torch.profiler``).
 """
 
 import json
@@ -114,14 +123,14 @@ def load_smoke():
     return cs
 
 
-def use_tree(tree):
-    """Import the package from ``tree`` and let it build only
-    ``layer_fused.cu`` (all these calls need)."""
+def use_tree(tree, sources=("layer_fused",)):
+    """Import the package from ``tree`` and let it build only ``sources``
+    (all these calls need)."""
     sys.path.insert(0, os.path.abspath(tree))
     from keypoints_interpolation_transformer_torch.ops.kernels import _build
     if not str(_build.CSRC).startswith(os.path.abspath(tree)):
         sys.exit(f"{PKG} imported from {_build.CSRC}, not from {tree}")
-    _build.SOURCES = ("layer_fused",)
+    _build.SOURCES = tuple(sources)
     return _build
 
 
@@ -205,10 +214,50 @@ def times_one(tree):
     print(json.dumps(out), flush=True)
 
 
-def times(trees):
+BACKWARD_SOURCES = ("ffn", "attn_sublayer")
+
+
+def backward_one(tree):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cs = load_smoke()
+    use_tree(tree, BACKWARD_SOURCES)
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    chk = cs.KernelCheck(torch, kmod)
+    calls = {}
+    for name, variant, kern, plain, grad in chk.train_calls(cs.B_TRAIN,
+                                                            cs.T_MAIN):
+        if name in ("ffn_bwd", "attn_sublayer_bwd") and name not in calls:
+            calls[name] = (variant, kern, plain)
+    # the same arguments (bound as the lambda's default) through the split
+    args = calls["ffn_bwd"][1].__defaults__[0]
+    calls["ffn_bwd_split f32"] = (
+        calls["ffn_bwd"][0], lambda: kmod.ffn_bwd_split(*args, "f32"),
+        calls["ffn_bwd"][2])
+    out = {}
+    for key, (variant, kern, plain) in calls.items():
+        chk.compare(key, f"B={cs.B_TRAIN} T={cs.T_MAIN} {variant}", kern(),
+                    plain(), True)
+        ms = min(cs.timed_ms(kern) for _ in range(3))
+        plain_ms = min(cs.timed_ms(plain) for _ in range(2))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kern()
+            torch.cuda.synchronize()
+        rows = sorted(((e.key[:48], e.count, round(getattr(
+            e, "self_device_time_total", 0) / 1e3, 4))
+            for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0),
+            key=lambda r: -r[2])
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "kernels": rows[:8]}
+    print(json.dumps(out), flush=True)
+
+
+def in_turns(trees, sources, mode):
+    """Build ``sources`` of every tree at once, then run ``mode`` on each
+    tree in a fresh process: the trees in order, then in reverse."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
             f"{PKG}.ops.kernels import _build; print(_build.build("
-            "['layer_fused']))")
+            f"{list(sources)!r}))")
     builds = [subprocess.Popen([sys.executable, "-c", code, t])
               for t in trees]
     if any(b.wait() != 0 for b in builds):
@@ -218,7 +267,7 @@ def times(trees):
                          text=True).stdout.strip(), flush=True)
     for tree in list(trees) + list(reversed(trees)):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "times-one", tree], capture_output=True,
+                            mode, tree], capture_output=True,
                            text=True, timeout=900)
         if r.returncode != 0:
             sys.exit(f"{tree}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
@@ -234,9 +283,13 @@ def main():
         phases(args[0] if args else os.path.join(ROOT, "scratch_tree",
                                                  "layer_probe"))
     elif mode == "times":
-        times(args)
+        in_turns(args, ("layer_fused",), "times-one")
     elif mode == "times-one":
         times_one(args[0])
+    elif mode == "backward":
+        in_turns(args, BACKWARD_SOURCES, "backward-one")
+    elif mode == "backward-one":
+        backward_one(args[0])
     else:
         sys.exit(__doc__)
     return 0

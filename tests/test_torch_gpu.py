@@ -386,7 +386,7 @@ def test_int8_wrappers_raise_rather_than_fall_back(cuda):
 @pytest.mark.gpu
 def test_kernels_at_every_width_on_the_card(cuda):
     """Every kernel (the pointwise ones where D % 128 == 0) at D = 32, 128,
-    384 and 512 with head widths 8, 64 and 128, and at D = 384 and 512
+    384 and 512 with head widths 8, 16, 64 and 128, and at D = 384 and 512
     with one and two heads (head widths 192 to 512, the attention cores'
     wide build), against its plain version."""
     import chip_smoke
@@ -403,10 +403,10 @@ def test_kernels_at_every_width_on_the_card(cuda):
 @pytest.mark.gpu
 def test_precision_kernels_match_plain_on_the_card(cuda):
     """The FF forward and training forward in "high" and "default", the
-    split backward in all three modes (and in float32 against the
-    monolith) and the pre-stream chain, each against its plain version in
-    the same mode, on an aligned and a ragged length; each mode kernel
-    also nearer its own mode's plain version than the wrong mode's."""
+    split backward in both modes and the pre-stream chain, each against
+    its plain version in the same mode, on an aligned and a ragged length;
+    each mode kernel also nearer its own mode's plain version than the
+    wrong mode's."""
     import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     chk = chip_smoke.KernelCheck(torch, kernels)
@@ -424,7 +424,7 @@ def test_train_step_at_high_on_the_card(cuda):
     and the same gradients (each parameter's within HIGH_MODE_TOL of its
     own largest value, as the optimizer receives them), and the FF
     sublayers through the "high" kernels (the bf16x3 forward and the split
-    backward, not the float32 monolith)."""
+    backward, not the float32 ffn_bwd)."""
     import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     from keypoints_interpolation_transformer_torch.train import state, steps
@@ -487,3 +487,91 @@ def test_precision_wrappers_raise_rather_than_fall_back(cuda):
     kernels.fused_ffn(r, *args, False, "bf16x3", planes)
     assert kernels.launch_counts()["ffn_high"] == 1
     assert kernels.launch_counts()["ffn"] == 0
+
+
+@pytest.mark.gpu
+def test_training_backwards_match_plain_at_every_length(cuda):
+    """``ffn_bwd`` and ``attn_sublayer_bwd`` against their plain versions
+    at T = 40, 128, 300 and 512 (one to four key tiles of the backward's
+    attention core): self-attention with and without its LayerNorm,
+    cross-attention, the FF sublayer with and without LN1, keys padded in
+    one video and every key of another; then at head widths 16 and 64, the
+    core's other builds."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, heads, lengths in ((256, 8, (40, 128, 300, 512)),
+                              (256, 16, (40, 300)), (128, 2, (128, 300))):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, heads, 4 * d)
+        for T in lengths:
+            for name, variant, kern, plain, grad in chk.train_calls(
+                    3, T, blocked=True):
+                if name in ("attn_sublayer_bwd", "ffn_bwd"):
+                    chk.compare(name, f"D={d} H={heads} T={T} {variant}",
+                                kern(), plain(), grad)
+
+
+@pytest.mark.gpu
+def test_training_backwards_are_deterministic(cuda):
+    """The same inputs twice give the same bits: the weight gradients'
+    row ranges and the dq parts of the key tiles are added in a fixed
+    order, with no atomics."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for T in (128, 300):
+        for name, variant, kern, _, _ in chk.train_calls(64 if T == 128
+                                                         else 8, T):
+            if name not in ("attn_sublayer_bwd", "ffn_bwd"):
+                continue
+            first, second = kern(), kern()
+            torch.cuda.synchronize()
+            for a, b in zip(first, second):
+                assert (a is None) == (b is None)
+                assert a is None or torch.equal(a, b), (name, variant, T)
+
+
+@pytest.mark.gpu
+def test_training_backward_wrappers_raise_rather_than_fall_back(cuda):
+    """On a CUDA tensor the backward wrappers launch their kernels or
+    raise: on type, device, shape, contiguity and alignment."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    g = torch.Generator().manual_seed(0)
+
+    def r(*s):
+        return torch.randn(*s, generator=g).to(cuda)
+    N, D, F = 40, 128, 256
+    x, u, z = r(2, N // 2, D), r(N, F), r(N, D)
+    w1t, w2t, v = r(F, D), r(D, F), r(D)
+    args = (r(2, N // 2, D), x, u, z, w1t, w2t, v, v, v, True)
+    with pytest.raises(TypeError):
+        kernels.ffn_bwd(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="is on"):
+        kernels.ffn_bwd(*args[:2], u.cpu(), *args[3:])
+    with pytest.raises(ValueError, match="shape"):
+        kernels.ffn_bwd(*args[:2], u[:, :F - 4].contiguous(), *args[3:])
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.ffn_bwd(*args[:4], torch.zeros(F * D + 1, device=cuda)[1:]
+                        .view(F, D), *args[5:])
+    B, T, H = 2, 20, 4
+    mask, valid = torch.zeros(B, T, device=cuda), torch.ones(B, T,
+                                                             device=cuda)
+    xa = r(B, T, D)
+    _, qkv, a, stats, _ = kernels.attn_sublayer_train_plain(
+        xa, None, r(D, 3 * D), r(3 * D), r(D, D), r(D), None, None, mask,
+        valid, "repeat-inc", True, H)
+    bargs = [r(B, T, D), xa, None, qkv.contiguous(), a.contiguous(),
+             stats.contiguous(), None, r(3 * D, D), r(D, D), None, mask,
+             valid, "repeat-inc", True, H]
+    with pytest.raises(TypeError):
+        kernels.attn_sublayer_bwd(bargs[0].double(), *bargs[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.attn_sublayer_bwd(*bargs[:3], qkv.transpose(0, 1)
+                                  .contiguous().transpose(0, 1), *bargs[4:])
+    with pytest.raises(ValueError, match="head width"):
+        kernels.attn_sublayer_bwd(*bargs[:-1], 3)
+    kernels.reset_launches()
+    kernels.ffn_bwd(*args)
+    kernels.attn_sublayer_bwd(*bargs)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["ffn_bwd"] == 1 and counts["attn_sublayer_bwd"] == 1

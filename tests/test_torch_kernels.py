@@ -270,7 +270,7 @@ def test_kernel_table_and_counters():
                      "attention", "attention_bwd", "masked_loss",
                      "int8_dense", "ffn_int8", "enc_layer_int8",
                      "ffn_high", "ffn_default", "ffn_train_high",
-                     "ffn_train_default", "ffn_bwd_split",
+                     "ffn_train_default",
                      "ffn_bwd_split_high", "ffn_bwd_split_default",
                      "pre_stream"]
     # the precision modes count apart, under their wrapper's mode
