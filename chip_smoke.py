@@ -49,12 +49,13 @@ Phases (each prints its own lines; any failed check exits non-zero):
      of one request of one 128-frame video on each;
   7. training: the flagship A1 train step (``train.steps.build_model`` and
      ``make_train_step``) at B=64, T=128 from the same seeded parameters
-     and the same on-device corruption, three steps on the kernel path and
-     three on the plain path: losses within 1e-4 relative, parameters
-     after step 1 within 1e-4 of their scale, launch counts per step
-     18 / 18 / 12 / 12 (serving kernels 0); then the step time and
-     frames/s of both paths and of the per-op attention route
-     (``attn_sublayer_fusion`` off);
+     and the same on-device corruption, three steps on the kernel path,
+     three on the per-op attention route (``attn_sublayer_fusion`` off,
+     the JAX package's training route at "highest") and three on the
+     plain path: losses within 1e-4 relative, parameters after step 1
+     within 1e-4 of their scale, launch counts per step 18 / 18 / 12 / 12
+     (serving kernels 0; per op attention 18, attention_bwd 18, ffn_train
+     12, ffn_bwd 12); then the step time and frames/s of the three;
   8. the training loop (``train.loop.train``) at the flagship width on
      synthetic videos of 97-128 frames (one bucket of 128), batch 64: a1
      for 2 epochs on the kernel and the plain route from one seed (epoch
@@ -117,8 +118,12 @@ models' masks) against their plain versions and against ``torch._int_mm``
 with the plain quantize and dequantize steps (their library time), the
 per-op attention kernels at T in {40, 512, 608,
 2048} (repeat-inc with and without the key padding, "all" with all-ones
-masks, cross-attention, padded keys, a video whose keys are all padded)
-and the masked loss with padded frames; phase 5 also serves one 600-frame
+masks, cross-attention, padded keys, a video whose keys are all padded;
+``attention_bwd`` standalone, which runs the forward first as
+``scaled_dot_product_attention``'s autograd call does, and given the
+forward's out and stats, as the training route calls it: that form's
+time is printed beside the standalone row) and the masked loss with
+padded frames; phase 5 also serves one 600-frame
 video (bucket 608, above the sublayer kernel's 512) on the per-op route:
 attention 18, ffn 12, pre_stream_embed 2, post_head 1.
 
@@ -133,9 +138,11 @@ at small batches and the merged and per-sublayer frames/s at B=256.
 ``--ab DIR`` builds this tree's and DIR's kernels at once, then measures
 each tree in a fresh process in turns (DIR, this, this, DIR): the merged
 Inpainter's frames/s at B=256, the merged and per-sublayer latency at 1 /
-4 / 16 / 64 videos and the A1 step time, with both routes' output sums
-and the step's loss, which equal bit for bit where the float32 kernels
-are unchanged, and the merged outputs' difference between the trees.
+4 / 16 / 64 videos, the latency of phase 5's 600-frame request (per op)
+in float32 and int8, and the A1 step time on the default route and with
+sublayer fusion off, with the routes' output sums and the steps' first
+losses, which equal bit for bit where the kernels they run are
+unchanged, and the merged outputs' difference between the trees.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card it exits 1 and prints
@@ -276,6 +283,9 @@ PER_OP_KERNELS = ("attention", "attention_bwd", "masked_loss")
 # bound and library time
 LAYER_KERNELS = ("enc_layer", "dec_layer", "enc_layer_int8")
 ATTN_T = (40, 512, 608, 2048)  # the per-op kernels' lengths in phase 2
+# the variant of attention_bwd given the forward's out and stats (the
+# training route's form); the standalone form runs the forward first
+RESIDUAL_FORM = "given out and stats"
 # the int8 serving kernels: timed at the serving batch
 INT8_KERNELS = ("int8_dense", "ffn_int8", "enc_layer_int8")
 # the precision modes' kernels ("high": bf16x3, "default": one bf16 pass)
@@ -359,7 +369,7 @@ class KernelCheck:
         t = self.torch
         mask = (t.rand(B, T, generator=self.g) < 0.3).float()
         valid = t.ones(B, T)
-        valid[1, T - max(T // 5, 1):] = 0.0  # a padded row
+        valid[min(1, B - 1), T - max(T // 5, 1):] = 0.0  # a padded row
         return mask.to(DEV).contiguous(), valid.to(DEV).contiguous()
 
     def compare(self, name, variant, got, want, grad=False, wrong=None):
@@ -691,18 +701,21 @@ class KernelCheck:
                         lambda a=args: k.pre_stream_plain(*a), False, None))
         return out
 
-    def per_op_calls(self, B, T, blocked=True):
+    def per_op_calls(self, B, T, blocked=True, residuals=True):
         """(kernel name, variant, wrapper call, plain call, is a gradient)
         of the per-op attention kernels and the masked loss at (B, T): the
         encoder's masks (repeat-inc with the key padding added), the
         decoder's (repeat-inc), the Cycle model's (kind "all", all-ones
         masks added) and cross-attention ("all", padding only); keys padded
         in the second video and, with ``blocked`` and B > 2, every key of
-        the third (its rows average uniformly).  The library calls are
-        timed on a batch without such a row: in float32, the backward of
-        ``scaled_dot_product_attention`` scales its gradients by the row's
-        key count there, as its log-sum-exp m + log(l) rounds log(l) away
-        at m = -1e9."""
+        the third (its rows average uniformly).  ``attention_bwd`` comes
+        in two forms: standalone, and (with ``residuals``) given the
+        forward's out and stats, the kernel's from ``fused_attention(...,
+        stats=True)`` and the plain version's from ``attention_plain``'s.
+        The library calls are timed on a batch without a blocked row: in
+        float32, the backward of ``scaled_dot_product_attention`` scales its
+        gradients by the row's key count there, as its log-sum-exp m +
+        log(l) rounds log(l) away at m = -1e9."""
         t, k = self.torch, self.k
         dh = self.d // self.heads
         q, kk, v, g = (self.rand(B, T, self.heads, dh) for _ in range(4))
@@ -728,6 +741,13 @@ class KernelCheck:
             out.append(("attention_bwd", variant,
                         lambda a=bargs: k.attention_bwd(*a),
                         lambda a=bargs: k.attention_bwd_plain(*a), True))
+            if residuals:
+                res = k.fused_attention(*args, stats=True)
+                res_plain = k.attention_plain(*args, stats=True)
+                out.append(("attention_bwd", f"{variant}, {RESIDUAL_FORM}",
+                            lambda a=bargs, r=res: k.attention_bwd(*a, *r),
+                            lambda a=bargs, r=res_plain:
+                            k.attention_bwd_plain(*a, *r), True))
         pred = self.rand(B, T, 54, 2, lo=0.2, hi=0.8)
         tgt = self.rand(B, T, 54, 2, lo=0.2, hi=0.8)
         w = valid.clone()
@@ -807,6 +827,9 @@ def work(name, B, T):
                       dec_in + N * D),
         "attention": (head_core, 4 * N * D + 2 * B * T),
         "attention_bwd": (head_core * 5 // 2, 7 * N * D + 2 * B * T),
+        # given the forward's out and stats: reads them too
+        "attention_bwd_given": (head_core * 5 // 2,
+                                8 * N * D + 2 * B * HEADS * T + 2 * B * T),
         # the difference, its square and the weighted sum per value
         "masked_loss": (3 * N * F_IN + 2 * N, 2 * N * F_IN + N + B),
     }
@@ -1113,14 +1136,17 @@ def phase_kernels(torch, kmod):
                     chk.layer_calls(o, mask, valid, cl)
                     + chk.int8_layer_calls(o, mask, valid, cl)):
                 chk.compare(name, f"B=3 T={T} {variant}", kern(), plain())
-    times, first = {}, {}
+    times, first, given = {}, {}, {}
     for name, variant, kern, plain, grad, wrong in all_calls(
             B_MAIN, T_MAIN, B_TRAIN, False):
         B = B_TRAIN if name in TRAIN_KERNELS + PER_OP_KERNELS \
             + MODE_TRAIN_KERNELS else B_MAIN
         chk.compare(name, f"B={B} T={T_MAIN} {variant}", kern(), plain(),
                     grad, held(wrong))
-        first.setdefault(name, (variant, kern, plain, B, grad))
+        if RESIDUAL_FORM in variant:
+            given.setdefault(name, (variant, kern, plain))
+        else:
+            first.setdefault(name, (variant, kern, plain, B, grad))
     for name, (variant, kern, plain, B, grad) in first.items():
         lib = (LIBRARY[name](torch, *chk.layer_args[name])
                if name in LIBRARY else None)
@@ -1156,6 +1182,16 @@ def phase_kernels(torch, kmod):
               f"({b_by}; the kernel at {b_ms / times[name][0]:.1%} of it)"
               + (f"  library {lib_ms:.4f} ms" if lib else "") + rate
               + f"  (B={B} T={T_MAIN})", flush=True)
+        if name in given:  # the training route's form, beside the row
+            gvariant, gkern, gplain = given[name]
+            g_ms = min(timed_ms(gkern), timed_ms(gkern))
+            gp_ms = min(timed_ms(gplain), timed_ms(gplain))
+            gb_ms, gb_by = bound(f"{name}_given", B, T_MAIN)
+            print(f"  time {name:19s} {gvariant:28s} kernel {g_ms:.4f} ms  "
+                  f"plain {gp_ms:.4f} ms  bound {gb_ms:.4f} ms ({gb_by}; the "
+                  f"kernel at {gb_ms / g_ms:.1%} of it)  (B={B} T={T_MAIN}; "
+                  "the row above runs the forward first, as the library "
+                  "call does)", flush=True)
     # the int8 dense layer at the q / k / v projection of the 600-frame
     # request's per-op route (608 rows, D -> 3D), timed beside its plain
     # version and the library call (printed; the JSON line keeps the
@@ -1735,8 +1771,10 @@ def phase_train(torch, kmod, gpu):
     runs, clean, length, weight, lr = train_setup(torch)
     losses = {}
     totals = {n: 0 for n in TRAIN_COUNTS}
+    # the per-op route's launches a step (no fused loss here)
+    per_op = {**PER_OP_TRAIN_COUNTS, "masked_loss": 0}
     for i in range(3):
-        for name in ("plain", "kernel"):
+        for name in ("plain", "kernel", "per-op"):
             model, st, step = runs[name]
             gen = torch.Generator(device=DEV).manual_seed(100 + i)
             kmod.reset_launches()
@@ -1747,11 +1785,11 @@ def phase_train(torch, kmod, gpu):
             if not np.isfinite(loss):
                 fail(f"{name} path step {i}: loss {loss}")
             losses[name, i] = (loss, float(m["grad_norm"]))
-            if name == "plain" and any(counts.values()):
-                fail(f"plain path launched kernels: {counts}")
+            want = {"plain": NO_LAUNCHES, "kernel": TRAIN_COUNTS,
+                    "per-op": per_op}[name]
+            if counts != want:
+                fail(f"{name} step {i} launch counts {counts} != {want}")
             if name == "kernel":
-                if counts != TRAIN_COUNTS:
-                    fail(f"step {i} launch counts {counts} != {TRAIN_COUNTS}")
                 for n, c in counts.items():
                     totals[n] += c
         if i == 0:
@@ -1759,24 +1797,29 @@ def phase_train(torch, kmod, gpu):
             # moves a parameter whose gradient is float noise (the k-bias)
             # by up to lr either way on either path
             with torch.no_grad():
-                pk = [p for p in runs["kernel"][0].parameters()]
                 pp = [p for p in runs["plain"][0].parameters()]
                 scale = max(float(p.abs().max()) for p in pp)
-                worst = max(float((a - b).abs().max())
-                            for a, b in zip(pk, pp)) / scale
-            print(f"  parameters after step 1: max |kernel - plain| / "
-                  f"max |plain| {worst:.3e} (tol {REL_TOL:.0e})", flush=True)
-            if worst > REL_TOL:
-                fail(f"parameters after step 1 differ by {worst:.3e}")
-        (lk, gk), (lp, gp) = losses["kernel", i], losses["plain", i]
-        rel = abs(lk - lp) / abs(lp)
-        print(f"  step {i}: loss kernel {lk:.7f} plain {lp:.7f} rel "
-              f"{rel:.3e}; grad norm kernel {gk:.6e} plain {gp:.6e} rel "
-              f"{abs(gk - gp) / gp:.3e} (tol {LOSS_RTOL:.0e}); launches "
-              f"{counts}", flush=True)
-        if rel > LOSS_RTOL or abs(gk - gp) > LOSS_RTOL * gp:
-            fail(f"step {i}: loss or gradient norm differ beyond "
-                 f"{LOSS_RTOL:.0e} relative")
+                for name in ("kernel", "per-op"):
+                    pk = [p for p in runs[name][0].parameters()]
+                    worst = max(float((a - b).abs().max())
+                                for a, b in zip(pk, pp)) / scale
+                    print(f"  parameters after step 1: max |{name} - plain|"
+                          f" / max |plain| {worst:.3e} (tol {REL_TOL:.0e})",
+                          flush=True)
+                    if worst > REL_TOL:
+                        fail(f"{name} parameters after step 1 differ by "
+                             f"{worst:.3e}")
+        lp, gp = losses["plain", i]
+        for name in ("kernel", "per-op"):
+            lk, gk = losses[name, i]
+            rel = abs(lk - lp) / abs(lp)
+            print(f"  step {i}: loss {name} {lk:.7f} plain {lp:.7f} rel "
+                  f"{rel:.3e}; grad norm {name} {gk:.6e} plain {gp:.6e} rel "
+                  f"{abs(gk - gp) / gp:.3e} (tol {LOSS_RTOL:.0e})",
+                  flush=True)
+            if rel > LOSS_RTOL or abs(gk - gp) > LOSS_RTOL * gp:
+                fail(f"step {i}: {name} loss or gradient norm differ beyond "
+                     f"{LOSS_RTOL:.0e} relative")
 
     step_ms = {}
     for name in ("plain", "kernel", "per-op", "per-op", "kernel", "plain"):
@@ -1787,7 +1830,7 @@ def phase_train(torch, kmod, gpu):
         torch.cuda.synchronize()
         counts = kmod.launch_counts()
         want = {"plain": NO_LAUNCHES, "kernel": TRAIN_COUNTS,
-                "per-op": {**PER_OP_TRAIN_COUNTS, "masked_loss": 0}}[name]
+                "per-op": per_op}[name]
         if counts != want:
             fail(f"{name} step launch counts {counts} != {want}")
         start = torch.cuda.Event(enable_timing=True)
@@ -2554,14 +2597,16 @@ def phase_widths(torch, kmod):
 
 
 def ab_measure(torch, gpu, out_path):
-    """One tree's float32 numbers for ``--ab``, from the public entry points
+    """One tree's numbers for ``--ab``, from the public entry points
     that every tree of the port has: the merged-route Inpainter's frames/s
     at B=256 (phase 6's method), the merged and the per-sublayer route's
-    latency at 1 / 4 / 16 / 64 videos (``--sweep``'s), the A1 step time of
-    the kernel route (phase 7's), and each route's output sum and the
-    step's loss, which equal bit for bit where the float32 kernels are
-    unchanged.  The merged route's B=256 outputs go to ``out_path`` (.npy)
-    for ``ab`` to compare across the trees."""
+    latency at 1 / 4 / 16 / 64 videos (``--sweep``'s), one 600-frame
+    request's latency in float32 and int8 (phase 5's, per op), the A1 step
+    time of the default route and of the per-op route (phase 7's), and
+    each route's output sum and each step's first loss, which equal bit for
+    bit where the kernels they run are unchanged.  The merged route's B=256
+    outputs go to ``out_path`` (.npy) for ``ab`` to compare across the
+    trees."""
     from keypoints_interpolation_transformer_torch.eval.serving import (
         Inpainter)
     from keypoints_interpolation_transformer_torch.models.completer import (
@@ -2598,33 +2643,60 @@ def ab_measure(torch, gpu, out_path):
                                    float(np.median(ms)))
     out.update(fps=fps, latency_ms=lat)
     del routes
-    cfg = Config(model=model_config())
-    model = steps.build_model(cfg.model, for_training=True, device=DEV,
-                              generator=torch.Generator().manual_seed(0))
-    st = state.TrainState.create(model, cfg.train.lr)
-    step = steps.make_train_step(model, cfg, None)
+    # phase 5's 600-frame request (bucket 608, attention per op), float32
+    # and int8: its output sum and latency, median of 7, best of 2 rounds
+    rng = np.random.default_rng(12)
+    video = [rng.uniform(0.2, 0.8, (600, 54, 2)).astype(np.float32)]
+    vmiss = [(rng.random(600) < 0.3).astype(np.float32)]
+    out["long_ms"] = {}
+    for quant in (None, "int8"):
+        tag = quant or "float32"
+        inp = Inpainter(sd, model_config(), device=DEV, max_seq_len=640,
+                        quantize=quant)
+        pred = inp.inpaint(video, vmiss)[0]
+        out[f"long_{tag}_sum"] = float(pred.astype(np.float64).sum())
+        best = float("inf")
+        for _ in range(2):
+            ms = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                inp.inpaint(video, vmiss)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            best = min(best, float(np.median(ms)))
+        out["long_ms"][tag] = best
+        del inp
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.uniform(0.2, 0.8, (B_TRAIN, T_MAIN, 54, 2))
                          .astype(np.float32)).to(DEV)
     length = torch.full((B_TRAIN,), T_MAIN, device=DEV)
     weight = torch.ones(B_TRAIN, device=DEV)
-    _, m = step(st, x, length, weight, torch.Generator(device=DEV).manual_seed(
-        100), cfg.train.lr)
-    out["loss"] = float(m["loss"])
-    step_ms = float("inf")
-    for _ in range(2):
-        gen = torch.Generator(device=DEV).manual_seed(7)
-        step(st, x, length, weight, gen, cfg.train.lr)  # warm
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(5):
-            step(st, x, length, weight, gen, cfg.train.lr)
-        end.record()
-        torch.cuda.synchronize()
-        step_ms = min(step_ms, start.elapsed_time(end) / 5)
-    out["step_ms"] = step_ms
+    # the A1 step on the default route and on the per-op attention route
+    # (sublayer fusion off): the first step's loss, then the step time
+    for key, fusion in (("", "auto"), ("per_op_", "off")):
+        cfg = Config(model=model_config())
+        cfg.model.attn_sublayer_fusion = fusion
+        model = steps.build_model(cfg.model, for_training=True, device=DEV,
+                                  generator=torch.Generator().manual_seed(0))
+        st = state.TrainState.create(model, cfg.train.lr)
+        step = steps.make_train_step(model, cfg, None)
+        _, m = step(st, x, length, weight, torch.Generator(
+            device=DEV).manual_seed(100), cfg.train.lr)
+        out[f"{key}loss"] = float(m["loss"])
+        step_ms = float("inf")
+        for _ in range(2):
+            gen = torch.Generator(device=DEV).manual_seed(7)
+            step(st, x, length, weight, gen, cfg.train.lr)  # warm
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(5):
+                step(st, x, length, weight, gen, cfg.train.lr)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms = min(step_ms, start.elapsed_time(end) / 5)
+        out[f"{key}step_ms"] = step_ms
+        del model, st, step
     print(json.dumps(out), flush=True)
     return 0
 
@@ -2663,10 +2735,15 @@ def ab(other, gpu):
                   + " ms, per-sublayer " + " / ".join(
                       f"{v:.3f}" for v in lat["sublayer"].values())
                   + f" ms at 1 / 4 / 16 / 64 videos; A1 step "
-                  f"{row['step_ms']:.3f} ms; output sum merged "
+                  f"{row['step_ms']:.3f} ms, per op (fusion off) "
+                  f"{row['per_op_step_ms']:.3f} ms; one 600-frame request "
+                  f"{row['long_ms']['float32']:.3f} ms float32, "
+                  f"{row['long_ms']['int8']:.3f} ms int8; output sum merged "
                   f"{row['merged_sum']!r}, per-sublayer "
-                  f"{row['sublayer_sum']!r}; step loss {row['loss']!r} on "
-                  f"{row['gpu']}", flush=True)
+                  f"{row['sublayer_sum']!r}, 600 frames "
+                  f"{row['long_float32_sum']!r} / {row['long_int8_sum']!r}; "
+                  f"step loss {row['loss']!r}, per op "
+                  f"{row['per_op_loss']!r} on {row['gpu']}", flush=True)
         parent, change = (np.load(os.path.join(tmp, f)) for f in
                           ("0_parent.npy", "1_change.npy"))
     _, miss = model_inputs(B_MAIN, T_MAIN, 3)
@@ -2676,7 +2753,8 @@ def ab(other, gpu):
           f"MPJPE {delta:.3e} (the route's gate against the plain path: "
           f"{MPJPE_TOL:.0e})", flush=True)
     same = {k: len({json.dumps(r[k]) for _, r in rows}) == 1
-            for k in ("merged_sum", "sublayer_sum", "loss")}
+            for k in ("merged_sum", "sublayer_sum", "loss", "per_op_loss",
+                      "long_float32_sum", "long_int8_sum")}
     print(f"  ab: bit for bit equal across the trees: {same}", flush=True)
     return 0
 

@@ -5,6 +5,7 @@ on one CUDA card.
     python3 layer_probe.py phases [DIR]     # cycles per phase of a block
     python3 layer_probe.py times TREE...    # layer kernel times, in turns
     python3 layer_probe.py backward TREE... # backward kernel times, in turns
+    python3 layer_probe.py attention TREE...  # per-op attention, in turns
 
 ``phases`` copies ``keypoints_interpolation_transformer_torch`` into DIR
 (default ``scratch_tree/layer_probe``, git-ignored), adds ``clock64()``
@@ -24,6 +25,14 @@ checkout, ``git archive`` of another commit, or an edited copy under
 layer kernels of each (B = 256 and 16, T = 128, each held against its
 plain version first) and the library layers at B = 256, in turns: the
 trees in order, then in reverse, each turn in a fresh process.
+
+``attention`` does the same for the per-op attention kernels
+(``attention.cu``): ``attention`` and the standalone ``attention_bwd`` at
+the A1 step's B = 64, T = 128 and at the 600-frame request's B = 1, T =
+608, each held against its plain version, then its CUDA-event time, the
+library call's (``F.scaled_dot_product_attention``, and its autograd
+forward and backward), ``attention_bwd`` given the forward's out and stats
+where the tree has that form, and one call's device time by kernel.
 
 ``backward`` does the same for the training backwards (``ffn.cu`` and
 ``attn_sublayer.cu``): ``ffn_bwd``, ``ffn_bwd_split`` in "f32" (a tree's
@@ -219,7 +228,6 @@ BACKWARD_SOURCES = ("ffn", "attn_sublayer")
 
 def backward_one(tree):
     import torch
-    from torch.profiler import ProfilerActivity, profile
     cs = load_smoke()
     use_tree(tree, BACKWARD_SOURCES)
     from keypoints_interpolation_transformer_torch.ops import kernels as kmod
@@ -240,15 +248,53 @@ def backward_one(tree):
                     plain(), True)
         ms = min(cs.timed_ms(kern) for _ in range(3))
         plain_ms = min(cs.timed_ms(plain) for _ in range(2))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            kern()
-            torch.cuda.synchronize()
-        rows = sorted(((e.key[:48], e.count, round(getattr(
-            e, "self_device_time_total", 0) / 1e3, 4))
-            for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0) > 0),
-            key=lambda r: -r[2])
-        out[key] = {"ms": ms, "plain_ms": plain_ms, "kernels": rows[:8]}
+        out[key] = {"ms": ms, "plain_ms": plain_ms,
+                    "kernels": by_kernel(torch, kern)}
+    print(json.dumps(out), flush=True)
+
+
+def by_kernel(torch, fn):
+    """One call's device time by kernel: (name, count, ms), longest
+    first."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.key[:48], e.count, round(getattr(
+        e, "self_device_time_total", 0) / 1e3, 4))
+        for e in prof.key_averages()
+        if getattr(e, "self_device_time_total", 0) > 0),
+        key=lambda r: -r[2])[:8]
+
+
+ATTENTION_SOURCES = ("attention",)
+
+
+def attention_one(tree):
+    import inspect
+
+    import torch
+    cs = load_smoke()
+    use_tree(tree, ATTENTION_SOURCES)
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    residuals = "stats" in inspect.signature(kmod.fused_attention).parameters
+    out = {}
+    for B, T in ((cs.B_TRAIN, cs.T_MAIN), (1, 608)):
+        chk = cs.KernelCheck(torch, kmod)
+        calls = {}
+        for name, variant, kern, plain, grad in chk.per_op_calls(
+                B, T, blocked=False, residuals=residuals):
+            key = name + (" given" if cs.RESIDUAL_FORM in variant else "")
+            if name != "masked_loss" and key not in calls:
+                calls[key] = (name, variant, kern, plain, grad)
+        for key, (name, variant, kern, plain, grad) in calls.items():
+            chk.compare(key, f"B={B} T={T} {variant}", kern(), plain(), grad)
+            row = {"ms": min(cs.timed_ms(kern) for _ in range(3)),
+                   "kernels": by_kernel(torch, kern)}
+            if key in cs.LIBRARY:
+                lib = cs.LIBRARY[name](torch, *chk.layer_args[name])
+                row["library_ms"] = min(cs.timed_ms(lib) for _ in range(3))
+            out[f"{key} B={B} T={T}"] = row
     print(json.dumps(out), flush=True)
 
 
@@ -286,6 +332,10 @@ def main():
         in_turns(args, ("layer_fused",), "times-one")
     elif mode == "times-one":
         times_one(args[0])
+    elif mode == "attention":
+        in_turns(args, ATTENTION_SOURCES, "attention-one")
+    elif mode == "attention-one":
+        attention_one(args[0])
     elif mode == "backward":
         in_turns(args, BACKWARD_SOURCES, "backward-one")
     elif mode == "backward-one":

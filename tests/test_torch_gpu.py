@@ -256,6 +256,28 @@ def test_per_op_wrappers_raise_rather_than_fall_back(cuda):
                                               dtype=torch.float64),
                                   torch.zeros(2, 4, 54, 2, device=cuda),
                                   torch.ones(2, 4, device=cuda))
+    # the forward's residuals: both or neither, of the queries' shape,
+    # float32, contiguous, on the card, 16-byte aligned at head width 32
+    out, st = kernels.fused_attention(q, q, q, m, None, stats=True)
+    assert tuple(st.shape) == (2, 4, 16, 2)
+    with pytest.raises(ValueError, match="together"):
+        kernels.attention_bwd(q, q, q, q, m, None, out=out)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.attention_bwd(q, q, q, q, m, None, out=out,
+                              stats=st[:, :2].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        kernels.attention_bwd(q, q, q, q, m, None, out=out[:, :8].contiguous(),
+                              stats=st)
+    with pytest.raises(ValueError, match="is on"):
+        kernels.attention_bwd(q, q, q, q, m, None, out=out, stats=st.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.attention_bwd(q, q, q, q, m, None, out=out, stats=st.transpose(
+            2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(TypeError):
+        kernels.attention_bwd(q, q, q, q, m, None, out=out.double(), stats=st)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.attention_bwd(q, q, q, q, m, None, out=torch.zeros(
+            out.numel() + 1, device=cuda)[1:].view(out.shape), stats=st)
     kernels.reset_launches()
     kernels.fused_attention(q, q, q, m, None)
     kernels.attention_bwd(q, q, q, q, m, None)
@@ -265,6 +287,54 @@ def test_per_op_wrappers_raise_rather_than_fall_back(cuda):
     counts = kernels.launch_counts()
     assert (counts["attention"], counts["attention_bwd"],
             counts["masked_loss"]) == (1, 1, 1)
+
+
+# the per-op kernels' head widths on the card: 32 (the flagship), 16 and
+# 64 (the register-tiled forward and the one-pass backward), and 48, a
+# width of attention.cuh's general build (one query a thread, two passes)
+PER_OP_WIDTHS = ((256, 8), (256, 16), (256, 4), (96, 2))
+
+
+@pytest.mark.gpu
+def test_per_op_kernels_at_every_length_and_head_width(cuda):
+    """``attention`` and both forms of ``attention_bwd`` (standalone, and
+    given the forward's out and stats) against their plain versions at
+    T = 128 (one key tile), 129 (two), and every length of
+    ``chip_smoke.ATTN_T``, at each of ``PER_OP_WIDTHS``: every mask
+    variant, keys padded in one video and, at B = 3, every key of
+    another."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, heads in PER_OP_WIDTHS:
+        chk = chip_smoke.KernelCheck(torch, kernels, d, heads, 4 * d)
+        for T in (128, 129) + chip_smoke.ATTN_T:
+            B = 2 if T == 2048 else 3
+            for name, variant, kern, plain, grad in chk.per_op_calls(B, T):
+                if name != "masked_loss":
+                    chk.compare(name, f"D={d} H={heads} B={B} T={T} "
+                                f"{variant}", kern(), plain(), grad)
+
+
+@pytest.mark.gpu
+def test_attention_bwd_forms_give_the_same_bits(cuda):
+    """The standalone backward runs the same forward into scratch that
+    ``fused_attention(..., stats=True)`` runs, then the same backward: its
+    gradients equal the residual form's bit for bit."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, heads in PER_OP_WIDTHS:
+        chk = chip_smoke.KernelCheck(torch, kernels, d, heads, 4 * d)
+        for T in (128, 608):
+            calls = [c for c in chk.per_op_calls(3, T)
+                     if c[0] == "attention_bwd"]
+            alone = [c for c in calls if chip_smoke.RESIDUAL_FORM not in c[1]]
+            given = [c for c in calls if chip_smoke.RESIDUAL_FORM in c[1]]
+            assert len(alone) == len(given) == 4
+            for a, b in zip(alone, given):
+                first, second = a[2](), b[2]()
+                torch.cuda.synchronize()
+                for x, y in zip(first, second):
+                    assert torch.equal(x, y), (d, heads, T, a[1])
 
 
 @pytest.mark.gpu
@@ -514,14 +584,16 @@ def test_training_backwards_match_plain_at_every_length(cuda):
 def test_training_backwards_are_deterministic(cuda):
     """The same inputs twice give the same bits: the weight gradients'
     row ranges and the dq parts of the key tiles are added in a fixed
-    order, with no atomics."""
+    order, with no atomics; so for the per-op ``attention_bwd`` in both of
+    its forms."""
     import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     chk = chip_smoke.KernelCheck(torch, kernels)
     for T in (128, 300):
-        for name, variant, kern, _, _ in chk.train_calls(64 if T == 128
-                                                         else 8, T):
-            if name not in ("attn_sublayer_bwd", "ffn_bwd"):
+        B = 64 if T == 128 else 8
+        for name, variant, kern, _, _ in (chk.train_calls(B, T)
+                                          + chk.per_op_calls(B, T)):
+            if name not in ("attn_sublayer_bwd", "ffn_bwd", "attention_bwd"):
                 continue
             first, second = kern(), kern()
             torch.cuda.synchronize()
