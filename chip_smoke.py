@@ -499,6 +499,40 @@ class KernelCheck:
                         lambda a=args: k.post_head_plain(*a)))
         return out + self.layer_calls(o, mask, valid)
 
+    def forward_calls(self, B, T, every=False):
+        """(kernel name, variant, wrapper call, plain call) of the four
+        float32 sublayer forwards at (B, T): the FF sublayer with LN1 (and
+        without it, with ``every``) and the encoder's self-attention (every
+        attention sublayer of the model, with ``every``); the attention
+        sublayers only up to 512 frames, their route's limit."""
+        k, o = self.k, self.operands(B, T)
+        mask, valid = self.masks(B, T)
+        out = []
+        for pre_ln in (True, False) if every else (True,):
+            args = (o["x"], o["w1"], o["b1"], o["w2"], o["b2"], o["g"],
+                    o["be"], o["g2"], o["be2"], pre_ln)
+            variant = "pre_ln" if pre_ln else "post-LN only"
+            out += [("ffn", variant, lambda a=args: k.fused_ffn(*a),
+                     lambda a=args: k.ffn_plain(*a)),
+                    ("ffn_train", variant,
+                     lambda a=args: k.fused_ffn_train(*a),
+                     lambda a=args: k.ffn_train_plain(*a))]
+        if T > 512:
+            return out
+        for variant, mem, ln, kind, keypad in (ATTN_VARIANTS if every
+                                               else ATTN_VARIANTS[:1]):
+            mem = o["mem"] if mem else None
+            ln = (o["g"], o["be"]) if ln else (None, None)
+            args = (o["x"], mem, o["wqkv"], o["bqkv"], o["wo"], o["bo"], *ln,
+                    mask, valid, kind, keypad, self.heads)
+            out += [("attn_sublayer", variant,
+                     lambda a=args: k.fused_attn_sublayer(*a),
+                     lambda a=args: k.attn_sublayer_plain(*a)),
+                    ("attn_sublayer_train", variant,
+                     lambda a=args: k.fused_attn_sublayer_train(*a),
+                     lambda a=args: k.attn_sublayer_train_plain(*a))]
+        return out
+
     def int8_calls(self, B, T):
         """(kernel name, variant, wrapper call, plain call) of the int8
         serving kernels at (B, T), their weights quantized as the model
@@ -1081,6 +1115,38 @@ def bound(name, B, T):
     return max(t_op, t_mem) * 1e3, "operations" if t_op >= t_mem else "bytes"
 
 
+# the sublayer forwards, whose launches phase 2 prints apart
+FORWARD_KERNELS = ("ffn", "ffn_train", "attn_sublayer", "attn_sublayer_train")
+# one 128-frame video and the 600-frame request's bucket: the FF split and
+# the projections' narrow tiles (attention runs per op at 608)
+SMALL_SHAPES = ((1, T_MAIN), (1, 608))
+
+
+def kernel_key(name):
+    """A profiler kernel name without its return type, namespace and
+    arguments: ``ffn_kernel<8, 64, 256>``."""
+    name = re.sub(r"^void |\(anonymous namespace\)::|kit::", "", name)
+    return name.split("(")[0][:48]
+
+
+def launch_ms(torch, fn):
+    """One call's device time by CUDA kernel (torch.profiler), in launch
+    order: "name ms, ..."."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            rows.append(f"{kernel_key(e.name)} {us / 1e3:.4f}")
+    return ", ".join(rows)
+
+
 def phase_kernels(torch, kmod):
     print("phase 2: kernels against their plain versions", flush=True)
     print(f"  tolerance {REL_TOL:.0e} x max(1, max |plain|): float32 FFMA "
@@ -1182,6 +1248,8 @@ def phase_kernels(torch, kmod):
               f"({b_by}; the kernel at {b_ms / times[name][0]:.1%} of it)"
               + (f"  library {lib_ms:.4f} ms" if lib else "") + rate
               + f"  (B={B} T={T_MAIN})", flush=True)
+        if name in FORWARD_KERNELS:
+            print(f"  launches {name}: {launch_ms(torch, kern)} ms", flush=True)
         if name in given:  # the training route's form, beside the row
             gvariant, gkern, gplain = given[name]
             g_ms = min(timed_ms(gkern), timed_ms(gkern))
@@ -1192,6 +1260,18 @@ def phase_kernels(torch, kmod):
                   f"kernel at {gb_ms / g_ms:.1%} of it)  (B={B} T={T_MAIN}; "
                   "the row above runs the forward first, as the library "
                   "call does)", flush=True)
+    # the forwards at one 128-frame video and at the 600-frame request's
+    # bucket: the FF split (ff_parts) and the projections' narrow tiles
+    for B, T in SMALL_SHAPES:
+        for name, variant, kern, plain in chk.forward_calls(B, T):
+            chk.compare(name, f"B={B} T={T} {variant}", kern(), plain())
+            k_ms = min(timed_ms(kern), timed_ms(kern))
+            p_ms = min(timed_ms(plain), timed_ms(plain))
+            b_ms, b_by = bound(name, B, T)
+            print(f"  time {name:19s} {variant:28s} kernel {k_ms:.4f} ms  "
+                  f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; the "
+                  f"kernel at {b_ms / k_ms:.1%} of it)  (B={B} T={T}); "
+                  f"launches {launch_ms(torch, kern)} ms", flush=True)
     # the int8 dense layer at the q / k / v projection of the 600-frame
     # request's per-op route (608 rows, D -> 3D), timed beside its plain
     # version and the library call (printed; the JSON line keeps the
@@ -2101,6 +2181,7 @@ def profile_paths(torch, gpu):
     videos, masks = model_inputs(B_MAIN, T_MAIN, 3)
     for label, mc, merge in (
             ("merged-route", model_config(), True),
+            ("per-sublayer", model_config(), False),
             ("per-sublayer \"high\"", cfg.model, False)):
         inp = Inpainter(model.state_dict(), mc, device=DEV,
                         merge_layers=merge)
@@ -2544,6 +2625,12 @@ def phase_widths(torch, kmod):
             for name, variant, kern, plain, grad in calls:
                 chk.compare(name, f"{tag} T={T} {variant}", kern(), plain(),
                             grad)
+        # B=40 (5120 rows) fills half the card with row tiles at every
+        # width: the forwards' row-tile builds (B=3 above takes the narrow
+        # ones and the FF split)
+        for name, variant, kern, plain in chk.forward_calls(40, T_MAIN, True):
+            chk.compare(name, f"{tag} B=40 T={T_MAIN} {variant}", kern(),
+                        plain())
         cfg = Config(model=ModelConfig(hidden_dim=d, num_heads=heads,
                                        num_layers=WIDTH_LAYERS, ff_dim=ff))
         model = steps.build_model(cfg.model, device=DEV,
@@ -2604,7 +2691,9 @@ def ab_measure(torch, gpu, out_path):
     request's latency in float32 and int8 (phase 5's, per op), the A1 step
     time of the default route and of the per-op route (phase 7's), and
     each route's output sum and each step's first loss, which equal bit for
-    bit where the kernels they run are unchanged.  The merged route's B=256
+    bit where the kernels they run are unchanged; so do the int8 merged
+    route's outputs and those of every int8 and precision-mode kernel on
+    phase 2's seeded operands.  The merged route's B=256
     outputs go to ``out_path`` (.npy) for ``ab`` to compare across the
     trees."""
     from keypoints_interpolation_transformer_torch.eval.serving import (
@@ -2665,6 +2754,23 @@ def ab_measure(torch, gpu, out_path):
             best = min(best, float(np.median(ms)))
         out["long_ms"][tag] = best
         del inp
+    # the int8 merged route (16 videos) and, on seeded operands, every
+    # int8 and precision-mode kernel: output sums, which a change to the
+    # float32 kernels must not move
+    inp = Inpainter(sd, model_config(), device=DEV, quantize="int8")
+    out["int8_merged_sum"] = float(np.stack(inp.inpaint(
+        videos[:16], masks[:16])).astype(np.float64).sum())
+    del inp
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    chk = KernelCheck(torch, kmod)
+    sums = {}
+    for name, variant, kern, *_ in (chk.int8_calls(3, T_MAIN)
+                                    + chk.precision_calls(3, 3, T_MAIN)):
+        got = kern()
+        sums[f"{name} {variant}"] = sum(
+            float(t.double().sum()) for t in
+            (got if isinstance(got, tuple) else (got,)) if t is not None)
+    out["kernel_sums"] = sums
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.uniform(0.2, 0.8, (B_TRAIN, T_MAIN, 54, 2))
                          .astype(np.float32)).to(DEV)
@@ -2754,8 +2860,13 @@ def ab(other, gpu):
           f"{MPJPE_TOL:.0e})", flush=True)
     same = {k: len({json.dumps(r[k]) for _, r in rows}) == 1
             for k in ("merged_sum", "sublayer_sum", "loss", "per_op_loss",
-                      "long_float32_sum", "long_int8_sum")}
+                      "long_float32_sum", "long_int8_sum", "int8_merged_sum",
+                      "kernel_sums")}
     print(f"  ab: bit for bit equal across the trees: {same}", flush=True)
+    moved = sorted(k for k in rows[0][1]["kernel_sums"]
+                   if len({r["kernel_sums"].get(k) for _, r in rows}) > 1)
+    print(f"  ab: int8 and mode kernels whose outputs moved: {moved}",
+          flush=True)
     return 0
 
 

@@ -17,20 +17,35 @@
 // are 0.52 MFLOP per token of float32 FFMA work and the attention core
 // 0.13 MFLOP per token at T = 128 (the backward about twice each); the
 // (B, H, T, T) scores would be 34 MB per sublayer at B = 64, T = 128 if
-// they were written.  Forward design, and what passes through device
-// memory between the launches:
-//   1. qkv_proj: one product of the block's 32 rows against the packed
-//      [Wq | Wk | Wv] (D, 3D) weight, one D-wide column block per grid.y;
-//      writes qkv (B*T, 3D).
-//   2. attn_fwd_kernel (attention.cuh, shared with the per-op attention
-//      kernel): one block per (query tile of 128, head, batch row), one
-//      query per thread with q and the output in registers; keys and values
-//      stream through shared memory in tiles of 64 with an online softmax,
-//      so no (T, T) score tensor is ever written; writes a (B*T, D) and, in
-//      training, each (row, head)'s softmax max and sum (stats).
-//   3. out_proj: a Wo + bo + x, then the optional LayerNorm over the full
-//      D-wide row (one warp per row) in the same block; writes y and, in
-//      training, the pre-LN r.
+// they were written.  Forward design, three launches, and what passes
+// through device memory between them:
+//   1. qkv_proj: a row tile's products against the packed [Wq | Wk | Wv]
+//      (D, 3D) weight on sgemm.cuh's 8 x 8 core, rows k-major in shared
+//      memory, the bias in the epilogue, q from x and k, v from m; writes
+//      qkv (B*T, 3D).  Where row_tile(D) tiles fill the card (rows_fill)
+//      a block runs its tile's three D-wide parts, staging the rows once
+//      per source and the weights chained through the cp.async ring from
+//      one part into the next (one product a block ran at 28 TFLOP/s, the
+//      staging and the ring's fill exposed): bound by the core's
+//      shared-memory reads.  Below that (one 128-frame video, M = 128) the
+//      grid bounds it, so the tiles narrow to PROJ_ROWS x PROJ_COLS, one
+//      a block: 24 blocks at M = 128 where 64-row tiles would give 2;
+//   2. the attention core, attention_forward (attention_fwd.cuh, shared
+//      with the per-op attention kernel): at head widths 16, 32 and 64 the
+//      register-tiled core, one block per (64 queries, head, video), keys
+//      and values streamed through a cp.async ring, q k^T and P V as
+//      register-tiled products, an online softmax in warp shuffles (bound
+//      by its shared-memory reads and the exps); other head widths
+//      attention.cuh's one-query-a-thread core.  No (T, T) tensor is
+//      written; writes a (B*T, D) and, in training, each (row, head)'s
+//      softmax max and sum (stats) from the score expression the
+//      backward's core rebuilds p from, so forward and backward agree on
+//      p exactly;
+//   3. out_proj: a Wo + bo + x on the same core (row_tile(D) rows, or
+//      PROJ_ROWS at small M: a LayerNorm needs its whole row in the
+//      block), then the optional LayerNorm over the full row, the sums
+//      reaching its warp-per-row layout through shared memory; writes y
+//      and, in training, the pre-LN r.
 // The training forward keeps qkv, a, stats and r; its q is the unscaled
 // projection.  The log-sum-exp is kept as its two parts: m + log(l) rounds
 // away log(l) when m = NEG (a row whose keys are all blocked), and the
@@ -59,74 +74,138 @@
 // exp2 / log2(e) fold, and its T <= 512 cap (keys and queries stream, so T
 // is free).
 #include "attention.cuh"
+#include "attention_fwd.cuh"
 #include "attention_grad.cuh"
 #include "common.cuh"
 #include "grad.cuh"
+#include "sgemm.cuh"
 #include "sgemm_grad.cuh"
 
 using namespace kit;
 
 namespace {
 
-template <int TN>
-__global__ void __launch_bounds__(NT)
-qkv_proj_kernel(const float* __restrict__ x, const float* __restrict__ mem, int M,
-                const float* __restrict__ wqkv, const float* __restrict__ bqkv,
-                float* __restrict__ qkv) {
-  constexpr int D = 32 * TN;
+// The narrow tiles of the projections at small M (rows_fill false).
+constexpr int PROJ_ROWS = 32;
+constexpr int PROJ_COLS = 128;
+
+// The geometry of a projection build: BM token rows times NP weight
+// columns a block.  Shared memory: the rows k-major (D x LDA), then the
+// weight ring of STAGES tiles of DEPTH x NP floats.
+template <int TN, int BM_, int NP_>
+struct ProjGeo {
+  static constexpr int D = 32 * TN, BM = BM_, NP = NP_;
+  static constexpr int LDA = BM + 4;  // keeps 16-byte rows and 4 LDA = 16 mod 32
+  static constexpr int STAGES = ring_stages(D), DEPTH = BK;
+  static constexpr int SMEM = (D * LDA + STAGES * DEPTH * NP) * (int)sizeof(float);
+  using R = Ring<NP, DEPTH, STAGES>;
+};
+
+// qkv[:, p NP .. (p + 1) NP) = src Wqkv[:, p NP ..] + bqkv[p NP ..] for the
+// block's PARTS column parts p from PARTS blockIdx.y on, src = x for the q
+// columns (< D), else mem: the rows stage once per source, and each
+// part's weight tiles load during the last steps of the part before.
+template <int TN, int BM, int NP, int PARTS>
+__global__ void __launch_bounds__(NT, 1)
+    qkv_proj_kernel(const float* __restrict__ x, const float* __restrict__ mem, int M,
+                    const float* __restrict__ wqkv, const float* __restrict__ bqkv,
+                    float* __restrict__ qkv) {
+  using G = ProjGeo<TN, BM, NP>;
+  constexpr int D = G::D;
   extern __shared__ __align__(16) float smem[];
-  float* AT = smem;            // D x LDT, k-major rows
-  float* Ws = smem + D * LDT;  // BK x D
-  const int row0 = blockIdx.x * BM, part = blockIdx.y;  // 0: q, 1: k, 2: v
-  stage_rows(AT, part == 0 ? x : mem, D, row0, M, D);
-  __syncthreads();
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  mma_rows<TN>(acc, AT, D, wqkv + part * D, 3 * D, D, Ws);
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] += __ldg(bqkv + part * D + col_of(j));
-  store_rows<TN>(qkv + part * D, 3 * D, D, row0, M, acc);
+  float* Xs = smem;
+  typename G::R ring{smem + D * G::LDA, 0};
+  const int row0 = blockIdx.x * BM, p0 = blockIdx.y * PARTS;
+  auto weight = [&](int p) {
+    return p < p0 + PARTS ? Wt{wqkv + p * NP, 3 * D, NP, D} : Wt{};
+  };
+  ring.start(weight(p0), weight(p0 + 1));  // always chainable: K = D
+  const float* staged = nullptr;
+  for (int p = p0; p < p0 + PARTS; ++p) {
+    const float* src = p * NP < D ? x : mem;
+    if (src != staged) {  // Xs is free: block_mma ends with a barrier
+      stage_kmajor<BM, G::LDA>(Xs, src, D, row0, M, D);
+      __syncthreads();
+      staged = src;
+    }
+    float acc[BM / 8][NP / 32];
+    zero(acc);
+    block_mma<BM, NP, G::LDA, G::DEPTH, G::STAGES>(acc, Xs, weight(p), weight(p + 1), ring);
+    g_bias<BM, NP>(acc, bqkv + p * NP);
+    g_store<BM, NP>(qkv + p * NP, 3 * D, row0, M, acc);
+  }
 }
 
-template <int TN>
-__global__ void __launch_bounds__(NT)
-out_proj_kernel(const float* __restrict__ a, const float* __restrict__ x, int M, int n,
-                const float* __restrict__ wo, const float* __restrict__ bo,
-                const float* __restrict__ gamma, const float* __restrict__ beta,
-                float* __restrict__ y, float* __restrict__ r_out) {
-  constexpr int D = 32 * TN;
+// r = x + (a Wo + bo) over whole rows; y = LN(r) (r_out = r when not
+// null) with gamma, else y = r.
+template <int TN, int BM>
+__global__ void __launch_bounds__(NT, 1)
+    out_proj_kernel(const float* __restrict__ a, const float* __restrict__ x, int M, int n,
+                    const float* __restrict__ wo, const float* __restrict__ bo,
+                    const float* __restrict__ gamma, const float* __restrict__ beta,
+                    float* __restrict__ y, float* __restrict__ r_out) {
+  using G = ProjGeo<TN, BM, 32 * TN>;
+  using L = Mma<BM, G::D>;
+  constexpr int D = G::D;
   extern __shared__ __align__(16) float smem[];
-  float* AT = smem;            // D x LDT, k-major rows
-  float* Ws = smem + D * LDT;  // BK x D
   const int row0 = blockIdx.x * BM;
-  stage_rows(AT, a, D, row0, M, D);
+  const Wt w{wo, D, D, D};
+  typename G::R ring{smem + D * G::LDA, 0};
+  ring.start(w, Wt{});  // Wo's first tiles load while a stages
+  stage_kmajor<BM, G::LDA>(smem, a, D, row0, M, D);
   __syncthreads();
-  float r[TM][TN];
+  float r[BM / 8][TN];
+  zero(r);
+  block_mma<BM, D, G::LDA, G::DEPTH, G::STAGES>(r, smem, w, Wt{}, ring);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < L::RT; ++i) {
+    const int row = row0 + L::row(i);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) r[i][j] = 0.f;
-  mma_rows<TN>(r, AT, D, wo, D, D, Ws);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int row = row0 + row_of(i);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int c = col_of(j);
-      float xr = row < M ? __ldg(x + (size_t)row * D + c) : 0.f;
-      r[i][j] = xr + (r[i][j] + __ldg(bo + c));
+    for (int h = 0; h < L::CT / 4; ++h) {
+      const int c = L::col(4 * h);
+      float4 xr = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < M) xr = __ldg(reinterpret_cast<const float4*>(x + (size_t)row * D + c));
+      r[i][4 * h] = xr.x + (r[i][4 * h] + __ldg(bo + c));
+      r[i][4 * h + 1] = xr.y + (r[i][4 * h + 1] + __ldg(bo + c + 1));
+      r[i][4 * h + 2] = xr.z + (r[i][4 * h + 2] + __ldg(bo + c + 2));
+      r[i][4 * h + 3] = xr.w + (r[i][4 * h + 3] + __ldg(bo + c + 3));
     }
   }
-  if (gamma != nullptr) {
-    if (r_out != nullptr) store_rows<TN>(r_out, D, D, row0, M, r);
-    layer_norm<TN>(r, gamma, beta, n);
+  if (gamma == nullptr) {
+    g_store<BM, D>(y, D, row0, M, r);
+    return;
   }
-  store_rows<TN>(y, D, D, row0, M, r);
+  if (r_out != nullptr) g_store<BM, D>(r_out, D, row0, M, r);
+  g_put<BM, D, G::LDA>(smem, r);  // into the LayerNorm's layout; Xs is free
+  __syncthreads();
+  float v[BM / 8][TN];
+  get_rows<TN, G::LDA>(v, smem);
+  layer_norm<TN>(v, gamma, beta, n);
+  store_rows<TN>(y, D, D, row0, M, v);
+}
+
+template <int TN, int BM, int NP, int PARTS>
+int launch_qkv(const float* x, const float* mem, int M, const float* wqkv, const float* bqkv,
+               float* qkv, cudaStream_t st) {
+  using G = ProjGeo<TN, BM, NP>;
+  static bool ready = false;
+  cudaError_t e = allow_smem(qkv_proj_kernel<TN, BM, NP, PARTS>, G::SMEM, ready);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((M + BM - 1) / BM, 3 * G::D / (NP * PARTS));
+  qkv_proj_kernel<TN, BM, NP, PARTS><<<grid, NT, G::SMEM, st>>>(x, mem, M, wqkv, bqkv, qkv);
+  return (int)cudaGetLastError();
+}
+
+template <int TN, int BM>
+int launch_out(const float* a, const float* x, int M, int n, const float* wo, const float* bo,
+               const float* gamma, const float* beta, float* y, float* r_out, cudaStream_t st) {
+  using G = ProjGeo<TN, BM, 32 * TN>;
+  static bool ready = false;
+  cudaError_t e = allow_smem(out_proj_kernel<TN, BM>, G::SMEM, ready);
+  if (e != cudaSuccess) return (int)e;
+  out_proj_kernel<TN, BM><<<(M + BM - 1) / BM, NT, G::SMEM, st>>>(a, x, M, n, wo, bo, gamma,
+                                                                  beta, y, r_out);
+  return (int)cudaGetLastError();
 }
 
 // The attention core's view of the packed qkv (B*T, 3D) rows and the
@@ -144,25 +223,17 @@ int launch_rows(const float* x, const float* mem, int M, int n, const float* wqk
                 const float* beta, float* qkv, float* a, float* y, float* stats, float* r_out,
                 int B, int T, int H, int repeat_inc, int add_keypad, const float* mask,
                 const float* valid, cudaStream_t st) {
-  constexpr int D = 32 * TN;
-  const int smem = (D * LDT + BK * D) * sizeof(float);
-  static bool ready_qkv = false, ready_out = false;
-  cudaError_t e = allow_smem(qkv_proj_kernel<TN>, smem, ready_qkv);
-  if (e != cudaSuccess) return (int)e;
-  e = allow_smem(out_proj_kernel<TN>, smem, ready_out);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (M + BM - 1) / BM;
-
-  qkv_proj_kernel<TN><<<dim3(blocks, 3), NT, smem, st>>>(x, mem, M, wqkv, bqkv, qkv);
-  int rc = (int)cudaGetLastError();
+  constexpr int D = 32 * TN, BR = row_tile(D);
+  if (M <= 0) return 0;
+  const bool fill = rows_fill(M, D);
+  int rc = fill ? launch_qkv<TN, BR, D, 3>(x, mem, M, wqkv, bqkv, qkv, st)
+                : launch_qkv<TN, PROJ_ROWS, PROJ_COLS, 1>(x, mem, M, wqkv, bqkv, qkv, st);
   if (rc) return rc;
-
-  rc = attn_fwd(core_args(qkv, D, mask, valid, a, stats, B, T, H, repeat_inc, add_keypad), n / H,
-                st);
+  rc = attention_forward(
+      core_args(qkv, D, mask, valid, a, stats, B, T, H, repeat_inc, add_keypad), n / H, st);
   if (rc) return rc;
-
-  out_proj_kernel<TN><<<blocks, NT, smem, st>>>(a, x, M, n, wo, bo, gamma, beta, y, r_out);
-  return (int)cudaGetLastError();
+  return fill ? launch_out<TN, BR>(a, x, M, n, wo, bo, gamma, beta, y, r_out, st)
+              : launch_out<TN, PROJ_ROWS>(a, x, M, n, wo, bo, gamma, beta, y, r_out, st);
 }
 
 // The backward (see the note at the top); scratch as kit_attn_sublayer_bwd

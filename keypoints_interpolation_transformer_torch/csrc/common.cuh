@@ -1,9 +1,9 @@
 // Shared building blocks of the port's hand-written Hopper kernels.
 //
-// Every kernel works on blocks of NT = 256 threads (8 warps), most on BM =
-// 32 token rows (the whole-layer kernels on 64-row tiles, with sgemm.cuh's
-// product; the row helpers below take their rows per warp, RM, and row
-// stride).  Warp w owns rows 4w .. 4w + 3 of the block; lane l
+// Every kernel works on blocks of NT = 256 threads (8 warps), the row
+// kernels here on BM = 32 token rows (sgemm.cuh's products on 32- or
+// 64-row tiles; the row helpers below take their rows per warp, RM, and
+// row stride).  Warp w owns rows 4w .. 4w + 3 of the block; lane l
 // owns columns 4l + e + 128 g (e < 4, g < TN / 4), so a row that is
 // D = 32 * TN wide lives in ONE warp and a row reduction (LayerNorm,
 // token_norm) is a warp shuffle, with no shared memory and no barrier.
@@ -18,9 +18,9 @@
 // row-major, the Flax layout, transposed once when the model packs them.
 // On an H100 this product is bound by shared memory: 12 floats read a step
 // for 32 FFMAs, where an SM reads 32 floats a cycle and FFMAs 128, so it
-// runs near 30 TFLOP/s; sgemm.cuh's 8 x 8 tile is the core of the merged
-// layers and the training backwards, the forwards move to it next (ROADMAP
-// B 5), and mma_tile / mma_rows then go.
+// runs near 30 TFLOP/s.  sgemm.cuh's 8 x 8 tile is the core of the merged
+// layers, the per-sublayer forwards and the training backwards; only the
+// pointwise chains (pointwise.cu) still use mma_tile / mma_rows.
 //
 // Widths: the kernels are built for D = 32 * TN with TN = 4, 8, 12 or 16
 // (D = 128 to 512; by_width dispatches).  A narrower model runs zero-padded

@@ -20,12 +20,38 @@
 // residuals in training.  The backward's four products are 4.2 MFLOP per
 // token (34.4 GFLOP per call); it reads u (8 KB per token) once more.
 //
-// Forward design: one block owns 32 token rows; x1 stays in shared memory,
-// the FF axis is walked in D-wide chunks, each chunk's u and gelu(u) live in
-// registers and a shared tile, and z accumulates in registers across the
-// chunks; LN1 and LN2 run over the full row (one warp per row).  GELU uses
-// erff: the rational erf of the TPU kernel exists only because Mosaic has
-// no erf.
+// Forward design (float32), on sgemm.cuh's 8 x 8 core: a block owns a tile
+// of BM token rows with x1 = LN1(r) k-major in shared memory and walks the
+// FF axis in chunks of FC columns: u = x1 W1[:, chunk] + b1 in registers
+// (stored as the training residual on the way), gelu(u) k-major in shared
+// memory, then z += gelu(u) W2[chunk, :] in registers across the chunks;
+// at the end z = x1 + (z + b2) (stored in training) and y = LN2(z), the
+// LayerNorms one warp a row through shared memory (g_put / get_rows).  The
+// weights stream through a ring of cp.async tiles; at FC = D the W1 and
+// W2 products of a chunk and the next chunk's W1 chain on it, so the next
+// tiles load during each product's last steps and the GELU.  It is
+// layer_fused.cu's FF tail without the attention, and two builds cover the
+// rows:
+//   * the row tile (row_tile(D): 64 rows at D <= 256, 32 above; FC = D;
+//     two BM x D accumulators, 128 registers a thread at D = 256, one
+//     block an SM) wherever those tiles fill half the card
+//     (rows_fill: B = 64 and 256 at T = 128);
+//   * below that (one 128-frame video, the 600-frame request) the FF
+//     split: FF_SPLIT_ROWS-row tiles whose FF_SPLIT_COLS-wide chunks are
+//     shared by `parts` blocks (ff_parts in ops/kernels/ffn.py: about two
+//     blocks an SM); each block computes LN1 of its tile itself, sums its
+//     contiguous share of the chunks into scratch (parts x M x D), and a
+//     second pass (ffn_finish_kernel, one warp a row) adds the parts in
+//     order, then x1 and b2, writes z and applies LN2.  No atomics: the
+//     same inputs give the same bits.  The W1 product of a narrow chunk
+//     reads each ring slot as FC-wide tiles D / FC times deeper, so both
+//     products share the slots; they do not chain (their tiles differ).
+// What bounds it on an H100: the products' shared-memory reads (16 floats
+// a step for 64 FFMAs at 8 x 8: about 65 % of the FFMA peak, sgemm.cuh)
+// where the rows fill the card; at small M the parallelism (16 row-chunk
+// items of 64 x D at M = 128 without the split, 64 blocks with it) and
+// the split's scratch round trip.  GELU uses erff: the rational erf of the
+// TPU kernel exists only because Mosaic has no erf.
 //
 // Backward design (float32).  The TPU kernel walks row cells in order and
 // keeps the (D, FF) weight-gradient sums in VMEM from one cell to the
@@ -86,67 +112,209 @@ using namespace kit;
 
 namespace {
 
-template <int TN>
-__global__ void __launch_bounds__(NT)
-ffn_kernel(const float* __restrict__ r, int M, int n, int FF, const float* __restrict__ w1,
-           const float* __restrict__ b1, const float* __restrict__ w2,
-           const float* __restrict__ b2, const float* __restrict__ g1,
-           const float* __restrict__ be1, const float* __restrict__ g2,
-           const float* __restrict__ be2, float* __restrict__ y, float* __restrict__ u_out,
-           float* __restrict__ z_out) {
-  constexpr int D = 32 * TN;
-  extern __shared__ __align__(16) float smem[];
-  float* Xs = smem;                // D x LDT: x1, k-major
-  float* Hs = smem + D * LDT;      // D x LDT: gelu(u) of one FF chunk
-  float* Ws = smem + 2 * D * LDT;  // BK x D
-  const int row0 = blockIdx.x * BM;
+// The FF split's build (see the note at the top): row tiles and FF chunks.
+constexpr int FF_SPLIT_ROWS = 32;
+constexpr int FF_SPLIT_COLS = 128;
 
-  stage_rows(Xs, r, D, row0, M, D);
+// The arguments of the float32 forward (kit_ffn): r (M, D) -> y (M, D);
+// u (M, FF) and z (M, D) when not null; g1 null: no LN1; with parts > 1,
+// partial holds parts x M x D floats.
+struct FfArgs {
+  const float* r;
+  int M, n, FF, parts;
+  const float *w1, *b1, *w2, *b2, *g1, *be1, *g2, *be2;
+  float *y, *u, *z, *partial;
+};
+
+// The geometry of a forward build: BM token rows a block, the FF axis in
+// chunks of FC columns.  Shared memory: x1 (D x LDA, k-major), one GELU
+// chunk (FC x LDA), then the weight ring of STAGES tiles of DEPTH x D
+// floats, which the W1 product reads as DEPTH1 x FC.
+template <int TN, int BM_, int FC_>
+struct FfGeo {
+  static constexpr int D = 32 * TN, BM = BM_, FC = FC_;
+  static constexpr int LDA = BM + 4;  // keeps 16-byte rows and 4 LDA = 16 mod 32
+  // the row-tile build up to D = 256 streams 32-deep tiles in two stages
+  // (half the barriers of sgemm.cuh's three stages of BK: 2-3 % faster on
+  // an H100, layer_probe.py forwards); the others sgemm.cuh's ring
+  static constexpr bool DEEP = FC == D && D <= 256;
+  static constexpr int STAGES = DEEP ? 2 : ring_stages(D);
+  static constexpr int DEPTH = DEEP ? 2 * BK : BK;  // W2 product: N = D
+  static constexpr int DEPTH1 = DEPTH * D / FC;     // W1 product: N = FC, the same tile
+  static constexpr int RM = BM / 8;           // rows a warp in the LayerNorm layout
+  static constexpr bool CHAIN = FC == D;      // the products share one tile shape
+  // two blocks an SM for the split's narrow tiles up to D = 256
+  static constexpr int MIN_BLOCKS = BM * FC < 64 * D && D <= 256 ? 2 : 1;
+  static constexpr int SMEM = (D * LDA + FC * LDA + STAGES * DEPTH * D) * (int)sizeof(float);
+};
+
+// acc += AT cur on the weight ring at pos (block_mma), cur's tiles in
+// flight if primed; next, a product of the same shape (or W null), loads
+// from cur's last steps on if it can chain.  Returns whether next is
+// primed.
+template <int BM, int N, int LDA, int DEPTH, int STAGES>
+__device__ __forceinline__ bool ring_mma(float (&acc)[BM / 8][N / 32], const float* AT,
+                                         const Wt& cur, const Wt& next, float* buf, int& pos,
+                                         bool primed) {
+  using R = Ring<N, DEPTH, STAGES>;
+  R ring{buf, pos};
+  const Wt nx = R::chainable(next) ? next : Wt{};
+  if (!primed) ring.start(cur, nx);
+  block_mma<BM, N, LDA, DEPTH, STAGES>(acc, AT, cur, nx, ring);
+  pos = ring.pos;
+  return nx.W != nullptr;
+}
+
+// g_store of the columns < ncols (a multiple of 4) only.
+template <int BM, int N>
+__device__ __forceinline__ void g_store_cols(float* out, int ldo, int row0, int M, int ncols,
+                                             const float (&acc)[BM / 8][N / 32]) {
+  using L = Mma<BM, N>;
+#pragma unroll
+  for (int i = 0; i < L::RT; ++i) {
+    const int row = row0 + L::row(i);
+    if (row >= M) continue;
+#pragma unroll
+    for (int h = 0; h < L::CT / 4; ++h)
+      if (L::col(4 * h) < ncols)
+        *reinterpret_cast<float4*>(out + (size_t)row * ldo + L::col(4 * h)) = make_float4(
+            acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  }
+}
+
+// Hs = gelu(Hs) over ROWS x BM k-major values (row stride LDA), in place
+// (gelu(0) = 0 keeps the zeros past a short chunk), then a barrier: a loop
+// over shared memory rather than over the sums in registers, as
+// layer_fused.cu's gelu_tile.
+template <int ROWS, int BM, int LDA>
+__device__ __forceinline__ void gelu_rows(float* Hs) {
+  constexpr int Q = BM / 4;  // float4 a k-major row
+  for (int e = threadIdx.x; e < ROWS * Q; e += NT) {
+    float4* p = reinterpret_cast<float4*>(Hs + (e / Q) * LDA) + e % Q;
+    const float4 u = *p;
+    *p = make_float4(gelu(u.x), gelu(u.y), gelu(u.z), gelu(u.w));
+  }
   __syncthreads();
-  float v[TM][TN];
-  if (g1 != nullptr) {
-    get_rows<TN>(v, Xs);
-    layer_norm<TN>(v, g1, be1, n);
-    put_rows<TN>(Xs, v);  // each thread rewrites only what it read
-    __syncthreads();
-  }
+}
 
-  float z[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) z[i][j] = 0.f;
-  for (int f0 = 0; f0 < FF; f0 += D) {
-    const int fc = min(D, FF - f0);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) v[i][j] = 0.f;
-    mma_rows<TN>(v, Xs, D, w1 + f0, FF, fc, Ws);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        int c = col_of(j);
-        v[i][j] = c < fc ? v[i][j] + __ldg(b1 + f0 + c) : 0.f;
-      }
-    if (u_out != nullptr) store_rows<TN>(u_out + f0, FF, fc, row0, M, v);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) v[i][j] = gelu(v[i][j]);
-    put_rows<TN>(Hs, v);
-    __syncthreads();
-    mma_rows<TN>(z, Hs, fc, w2 + (size_t)f0 * D, D, D, Ws);
+// One block per (row tile blockIdx.x, part blockIdx.y): the part's share
+// of the FF chunks (all of them when p.parts == 1, which also ends the
+// tile; else the z sums go to the part's slice of p.partial and
+// ffn_finish_kernel ends it).
+template <int TN, int BM, int FC>
+__global__ void __launch_bounds__(NT, (FfGeo<TN, BM, FC>::MIN_BLOCKS))
+    ffn_kernel(const FfArgs p) {
+  using G = FfGeo<TN, BM, FC>;
+  using L = Mma<BM, G::D>;
+  using L1 = Mma<BM, FC>;
+  constexpr int D = G::D, LDA = G::LDA, STAGES = G::STAGES;
+  extern __shared__ __align__(16) float smem[];
+  float* Xs = smem;              // x1, k-major
+  float* Hs = Xs + D * LDA;      // gelu(u) of one chunk, k-major
+  float* ring = Hs + FC * LDA;   // the weight tiles
+  const int row0 = blockIdx.x * BM, q = blockIdx.y;
+  const int chunks = (p.FF + FC - 1) / FC;
+  const int c_lo = q * chunks / p.parts, c_hi = (q + 1) * chunks / p.parts;
+  // the products of chunk c: W1's FC columns, W2's FC rows
+  auto w1 = [&](int c) {
+    return c < c_hi ? Wt{p.w1 + c * FC, p.FF, min(FC, p.FF - c * FC), D} : Wt{};
+  };
+  auto w2 = [&](int c) { return Wt{p.w2 + (size_t)c * FC * D, D, D, min(FC, p.FF - c * FC)}; };
+  int pos = 0;
+  {  // W1's first tiles load while the rows stage
+    Ring<FC, G::DEPTH1, STAGES> r1{ring, 0};
+    const Wt nx = G::CHAIN && decltype(r1)::chainable(w2(c_lo)) ? w2(c_lo) : Wt{};
+    r1.start(w1(c_lo), nx);
   }
-  get_rows<TN>(v, Xs);
+  stage_kmajor<BM, LDA>(Xs, p.r, D, row0, p.M, D);
+  __syncthreads();
+  if (p.g1 != nullptr) {  // x1 = LN1(r)
+    float v[G::RM][TN];
+    get_rows<TN, LDA>(v, Xs);
+    layer_norm<TN>(v, p.g1, p.be1, p.n);
+    put_rows<TN, LDA>(Xs, v);  // each thread rewrites only what it read
+    __syncthreads();
+  }
+  float z[BM / 8][TN];
+  zero(z);
+  bool primed = true;
+  for (int c = c_lo; c < c_hi; ++c) {
+    const int f0 = c * FC, fc = min(FC, p.FF - f0);
+    float h[BM / 8][FC / 32];
+    zero(h);
+    primed = ring_mma<BM, FC, LDA, G::DEPTH1, STAGES>(h, Xs, w1(c), G::CHAIN ? w2(c) : Wt{},
+                                                      ring, pos, primed);
+    if (!G::CHAIN) {  // W2's first tiles load during the epilogue and the GELU
+      Ring<D, G::DEPTH, STAGES>{ring, pos}.start(w2(c), Wt{});
+      primed = true;
+    }
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int j = 0; j < L1::CT; ++j) {
+      const int col = L1::col(j);
+      const float b1 = col < fc ? __ldg(p.b1 + f0 + col) : 0.f;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) z[i][j] = v[i][j] + (z[i][j] + __ldg(b2 + col_of(j)));
-  if (z_out != nullptr) store_rows<TN>(z_out, D, D, row0, M, z);
-  layer_norm<TN>(z, g2, be2, n);
-  store_rows<TN>(y, D, D, row0, M, z);
+      for (int i = 0; i < L1::RT; ++i) h[i][j] = col < fc ? h[i][j] + b1 : 0.f;
+    }
+    if (p.u != nullptr) g_store_cols<BM, FC>(p.u + f0, p.FF, row0, p.M, fc, h);
+    g_put<BM, FC, LDA>(Hs, h);  // u; the GELU follows in place
+    __syncthreads();
+    gelu_rows<FC, BM, LDA>(Hs);
+    primed = ring_mma<BM, D, LDA, G::DEPTH, STAGES>(z, Hs, w2(c), G::CHAIN ? w1(c + 1) : Wt{},
+                                                    ring, pos, primed);
+  }
+  if (p.parts > 1) {
+    g_store<BM, D>(p.partial + (size_t)q * p.M * D, D, row0, p.M, z);
+    return;
+  }
+  float x[BM / 8][TN];
+  g_get<BM, D, LDA>(x, Xs);  // x1, at this thread's positions
+#pragma unroll
+  for (int j = 0; j < L::CT; ++j) {
+    const float b2 = __ldg(p.b2 + L::col(j));
+#pragma unroll
+    for (int i = 0; i < L::RT; ++i) x[i][j] = x[i][j] + (z[i][j] + b2);
+  }
+  if (p.z != nullptr) g_store<BM, D>(p.z, D, row0, p.M, x);
+  g_put<BM, D, LDA>(Xs, x);  // each thread rewrites only what it read
+  __syncthreads();
+  float v[G::RM][TN];
+  get_rows<TN, LDA>(v, Xs);
+  layer_norm<TN>(v, p.g2, p.be2, p.n);
+  store_rows<TN>(p.y, D, D, row0, p.M, v);
+}
+
+// The FF split's second pass, one warp a row: z = the parts' sums added
+// in order, + x1 + b2, x1 = LN1(r) again by the same expression as the
+// first pass; z written when asked, y = LN2(z).
+template <int TN>
+__global__ void __launch_bounds__(NT) ffn_finish_kernel(const FfArgs p) {
+  constexpr int D = 32 * TN;
+  const int row0 = blockIdx.x * (NT / 32), row = row0 + (threadIdx.x >> 5);
+  if (row >= p.M) return;  // the whole warp
+  auto load = [&](float (&v)[1][TN], const float* src) {
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      const float4 t = __ldcg(reinterpret_cast<const float4*>(src + col_of(4 * g)));
+      v[0][4 * g] = t.x;
+      v[0][4 * g + 1] = t.y;
+      v[0][4 * g + 2] = t.z;
+      v[0][4 * g + 3] = t.w;
+    }
+  };
+  float x[1][TN], s[1][TN], t[1][TN];
+  load(x, p.r + (size_t)row * D);
+  if (p.g1 != nullptr) layer_norm<TN>(x, p.g1, p.be1, p.n);
+  load(s, p.partial + (size_t)row * D);
+  for (int q = 1; q < p.parts; ++q) {
+    load(t, p.partial + ((size_t)q * p.M + row) * D);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) s[0][j] += t[0][j];
+  }
+#pragma unroll
+  for (int j = 0; j < TN; ++j) x[0][j] = x[0][j] + (s[0][j] + __ldg(p.b2 + col_of(j)));
+  if (p.z != nullptr) store_rows<TN>(p.z, D, D, row0, p.M, x);
+  layer_norm<TN>(x, p.g2, p.be2, p.n);
+  store_rows<TN>(p.y, D, D, row0, p.M, x);
 }
 
 // The int8 forward: x1 = LN1(r) (with g1), z = ff_int8_rows(x1), y =
@@ -177,17 +345,19 @@ ffn_int8_kernel(const float* __restrict__ r, int M, int n, const FFInt8 f,
   store_rows<TN>(y, D, D, row0, M, v);
 }
 
-template <int TN>
-int launch(const float* r, int M, int n, int FF, const float* w1, const float* b1,
-           const float* w2, const float* b2, const float* g1, const float* be1, const float* g2,
-           const float* be2, float* y, float* u, float* z, cudaStream_t st) {
-  constexpr int D = 32 * TN;
-  const int smem = (2 * D * LDT + BK * D) * sizeof(float);
+// The forward in the build of BM-row tiles and FC-wide chunks, then, with
+// the split, its second pass.
+template <int TN, int BM, int FC>
+int launch(const FfArgs& p, cudaStream_t st) {
+  using G = FfGeo<TN, BM, FC>;
   static bool ready = false;
-  cudaError_t e = allow_smem(ffn_kernel<TN>, smem, ready);
+  cudaError_t e = allow_smem(ffn_kernel<TN, BM, FC>, G::SMEM, ready);
   if (e != cudaSuccess) return (int)e;
-  ffn_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(r, M, n, FF, w1, b1, w2, b2, g1, be1, g2,
-                                                      be2, y, u, z);
+  if (p.M <= 0) return 0;
+  ffn_kernel<TN, BM, FC><<<dim3((p.M + BM - 1) / BM, p.parts), NT, G::SMEM, st>>>(p);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0 || p.parts == 1) return rc;
+  ffn_finish_kernel<TN><<<(p.M + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -572,19 +742,27 @@ int launch_bwd_split(int passes, int n, const float* g, const float* r, const fl
 
 // r (M, D) -> y (M, D); w1 (D, FF), w2 (FF, D).  g1, be1 null means no LN1;
 // u (M, FF) and z (M, D), when not null, receive the training residuals.
-// D is 128, 256, 384 or 512; n <= D the model's true width (the operands
-// zero-padded from n to D; see common.cuh); FF a multiple of 4.
-extern "C" int kit_ffn(const void* r, int M, int D, int n, int FF, const void* w1,
+// parts: 1 runs the row-tile build; above 1 the FF split, parts blocks
+// per FF_SPLIT_ROWS-row tile over its FF_SPLIT_COLS-wide chunks (at least
+// one chunk each), with parts x M x D floats of scratch.  D is 128, 256,
+// 384 or 512; n <= D the model's true width (the operands zero-padded from
+// n to D; see common.cuh); FF a multiple of 4.
+extern "C" int kit_ffn(const void* r, int M, int D, int n, int FF, int parts, const void* w1,
                        const void* b1, const void* w2, const void* b2, const void* g1,
                        const void* be1, const void* g2, const void* be2, void* y, void* u,
-                       void* z, void* stream) {
+                       void* z, void* scratch, void* stream) {
   auto st = (cudaStream_t)stream;
-  auto p = [](const void* v) { return (const float*)v; };
-  auto o = [](void* v) { return (float*)v; };
-  if (n > D || FF % 4) return (int)cudaErrorInvalidValue;
+  auto f = [](const void* v) { return (const float*)v; };
+  if (n > D || FF % 4 || parts < 1 ||
+      (parts > 1 && (parts > (FF + FF_SPLIT_COLS - 1) / FF_SPLIT_COLS || scratch == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const FfArgs p{f(r),  M,     n,     FF,    parts,       f(w1),     f(b1),     f(w2),
+                 f(b2), f(g1), f(be1), f(g2), f(be2),     (float*)y, (float*)u, (float*)z,
+                 (float*)scratch};
   return by_width(D, [&](auto tn) {
-    return launch<decltype(tn)::value>(p(r), M, n, FF, p(w1), p(b1), p(w2), p(b2), p(g1),
-                                       p(be1), p(g2), p(be2), o(y), o(u), o(z), st);
+    constexpr int TN = decltype(tn)::value, DW = 32 * TN;
+    return parts == 1 ? launch<TN, row_tile(DW), DW>(p, st)
+                      : launch<TN, FF_SPLIT_ROWS, FF_SPLIT_COLS>(p, st);
   });
 }
 

@@ -1,7 +1,7 @@
-// The float32 block product of the whole-layer kernels (layer_fused.cu): a
-// tile of BM token rows times an N-wide slice of a weight, on FFMA.  Its
-// thread tile (Mma, mma_depth) also runs the training backwards'
-// products (sgemm_grad.cuh).
+// The float32 block product of the whole-layer kernels (layer_fused.cu) and
+// the per-sublayer forwards (ffn.cu, attn_sublayer.cu): a tile of BM token
+// rows times an N-wide slice of a weight, on FFMA.  Its thread tile (Mma,
+// mma_depth) also runs the training backwards' products (sgemm_grad.cuh).
 //
 // What bounds such a product on an H100, and what this core does about it:
 //   * Shared-memory bandwidth.  An SM's shared memory delivers 32 floats a
@@ -49,6 +49,16 @@ constexpr int MMA_UNROLL = 2;
 __host__ __device__ constexpr int row_tile(int D) { return D <= 256 ? 64 : 32; }
 // Weight tiles in the ring: 3, or 2 at D = 512 (shared memory).
 __host__ __device__ constexpr int ring_stages(int D) { return D <= 384 ? 3 : 2; }
+
+// An H100 SXM's SMs.  The per-sublayer forwards (ffn.cu, attn_sublayer.cu)
+// pick their tiles by it, not by the card they run on, so the same inputs
+// give the same bits on any card.
+constexpr int SMS = 132;
+// Whether M rows in row_tile(D) tiles, one block an SM each, fill half the
+// card or more: the forwards then take those tiles, else narrower ones.
+__host__ __device__ constexpr bool rows_fill(int M, int D) {
+  return 2 * ((M + row_tile(D) - 1) / row_tile(D)) >= SMS;
+}
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);

@@ -35,7 +35,11 @@ causal term.
 Bound on an H100 by float32 FFMA work in the projections (0.52 MFLOP per
 token forward at D = 256, twice that backward); the attention cores stream
 keys (or queries) through shared memory, so no (T, T) tensor reaches
-device memory.  See the source notes in ``csrc/attn_sublayer.cu`` and
+device memory.  The forward's projections run on ``csrc/sgemm.cuh``'s 8 x
+8 core (narrower tiles where the rows alone leave the card idle), its
+attention core is the per-op forward's (``csrc/attention_fwd.cuh``), so
+its statistics are the ones the backward's core rebuilds p from.  See the
+source notes in ``csrc/attn_sublayer.cu`` and
 ``csrc/attention_grad.cuh``.
 
 Weights: the forward kernels take the Flax layout, q/k/v packed, wqkv =

@@ -23,9 +23,13 @@ Kernels (``csrc/ffn.cu``), replacing
 
 Bound on an H100: 2.1 MFLOP per token forward and 4.2 backward at D = 256,
 FF = 2048, float32 FFMA work at "highest", bf16 tensor-core work (three
-passes at "bf16x3") otherwise.  The forward keeps each FF chunk's GELU
-output on chip; the backward writes du once (see the source note in
-``csrc/ffn.cu``).  In the tensor-core
+passes at "bf16x3") otherwise.  The float32 forward runs on
+``csrc/sgemm.cuh``'s 8 x 8 FFMA core and keeps each FF chunk's GELU output
+on chip; where its row tiles leave the card idle (one 128-frame video,
+the 600-frame request) the FF chunks of a tile are split over blocks
+(``ff_parts``) and a second pass adds their sums in order.  The backward
+writes du once (see the source note in ``csrc/ffn.cu``).  In the
+tensor-core
 modes the float32 weights are split into bf16 hi / lo planes in torch's
 layout (``ff_weight_planes``): once per packed model for serving, per call
 in training.
@@ -53,7 +57,7 @@ from .widths import cut, kernel_width, pad, row_tile
 
 LN_EPS = 1e-5
 # one letter per C argument, the stream last: p pointer, i int
-_SIGS = {"kit_ffn": "p" + "i" * 4 + "p" * 12,
+_SIGS = {"kit_ffn": "p" + "i" * 5 + "p" * 13,
          "kit_ffn_bwd": "p" * 8 + "i" * 5 + "p" * 12,
          "kit_ffn_int8": "p" + "i" * 4 + "p" * 13,
          "kit_ffn_tc": "ip" + "i" * 4 + "p" * 14,
@@ -63,12 +67,44 @@ _SIGS = {"kit_ffn": "p" + "i" * 4 + "p" * 12,
 _FF_STEP = 4
 _FF_STEP_TC = 16
 _PASSES = {"bf16x3": 3, "bf16": 1}  # bf16 products per product
+# the float32 forward's FF split (``csrc/ffn.cu`` FF_SPLIT_ROWS,
+# FF_SPLIT_COLS): its row tile and FF chunk
+SPLIT_ROWS = 32
+SPLIT_COLS = 128
+SMS = 132  # an H100 SXM's SMs (``csrc/sgemm.cuh`` SMS)
 
 
 def ff_kernel_width(FF: int, step: int = _FF_STEP) -> int:
     """The FF width a kernel runs at: FF rounded up to ``step``, the
     weights zero-padded there (``widths``)."""
     return -(-FF // step) * step
+
+
+def rows_fill(M: int, D: int) -> bool:
+    """Whether M rows in ``row_tile(D)`` tiles, one block an SM each, fill
+    half the card or more (``csrc/sgemm.cuh`` ``rows_fill``): the float32
+    forwards then take those tiles, else narrower ones."""
+    return 2 * -(-M // row_tile(D)) >= SMS
+
+
+def ff_parts(M: int, D: int, FF: int) -> int:
+    """The blocks that share one row tile's FF chunks in the float32
+    forward (``csrc/ffn.cu``, the FF split) at M rows, kernel width D and
+    FF: 1 (the row-tile build, no split) where ``rows_fill``; else as many
+    as put about two blocks of ``SPLIT_ROWS`` rows on each SM (one above D
+    = 256, where the build's shared memory allows one), at most one per
+    ``SPLIT_COLS``-wide chunk."""
+    if rows_fill(M, D):
+        return 1
+    slots = SMS * (2 if D <= 256 else 1)
+    chunks = -(-FF // SPLIT_COLS)
+    return max(1, min(chunks, slots // -(-M // SPLIT_ROWS)))
+
+
+def ff_scratch_floats(M: int, D: int, parts: int) -> int:
+    """The float32 forward's scratch: one M x D partial sum per part with
+    the FF split, none without."""
+    return parts * M * D if parts > 1 else 0
 
 
 def ffn_supported(D: int, FF: int, int8: bool = False,
@@ -170,8 +206,11 @@ def _launch_forward(r, w1, b1, w2, b2, g1, be1, g2, be2, train, mode,
     lib = _build.bind("ffn", _SIGS)
     if mode == "f32":
         w1, w2 = pad(w1, D, F4), pad(w2, F4, D)
-        _build.call(lib, "kit_ffn", dev, r, N, D, n, F4, w1, b1, w2, b2, g1,
-                    be1, g2, be2, y, u, z)
+        parts = ff_parts(N, D, F4)
+        scratch = (torch.empty(ff_scratch_floats(N, D, parts), device=dev)
+                   if parts > 1 else None)
+        _build.call(lib, "kit_ffn", dev, r, N, D, n, F4, parts, w1, b1, w2,
+                    b2, g1, be1, g2, be2, y, u, z, scratch)
     else:
         w1h, w1l, w2h, w2l = planes
         w1h, w1l = pad(w1h, F4, D), pad(w1l, F4, D)
@@ -349,7 +388,7 @@ def row_splits(rows: int, tiles: int) -> int:
     """How many row ranges a reduction over ``rows`` is cut into so that
     ``tiles`` output tiles times the splits fill the card twice over
     (132 SMs); each range keeps at least 256 rows."""
-    want = -(-2 * 132 // max(tiles, 1))
+    want = -(-2 * SMS // max(tiles, 1))
     return max(1, min(want, rows // 256))
 
 
@@ -358,7 +397,7 @@ def wave_splits(rows: int, tiles: int) -> int:
     into so that ``tiles`` output tiles times the ranges fill one wave of
     the card's 132 SMs, a block each (``csrc/sgemm_grad.cuh``); each range
     keeps at least 256 rows."""
-    return max(1, min(132 // max(tiles, 1), rows // 256))
+    return max(1, min(SMS // max(tiles, 1), rows // 256))
 
 
 def bwd_splits(N: int, D: int, FF: int) -> int:

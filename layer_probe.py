@@ -6,6 +6,7 @@ on one CUDA card.
     python3 layer_probe.py times TREE...    # layer kernel times, in turns
     python3 layer_probe.py backward TREE... # backward kernel times, in turns
     python3 layer_probe.py attention TREE...  # per-op attention, in turns
+    python3 layer_probe.py forwards TREE...  # sublayer forwards, in turns
 
 ``phases`` copies ``keypoints_interpolation_transformer_torch`` into DIR
 (default ``scratch_tree/layer_probe``, git-ignored), adds ``clock64()``
@@ -33,6 +34,16 @@ the A1 step's B = 64, T = 128 and at the 600-frame request's B = 1, T =
 library call's (``F.scaled_dot_product_attention``, and its autograd
 forward and backward), ``attention_bwd`` given the forward's out and stats
 where the tree has that form, and one call's device time by kernel.
+
+``forwards`` does the same for the per-sublayer float32 forwards
+(``ffn.cu`` and ``attn_sublayer.cu``): ``ffn`` with LN1 at the serving
+batch B = 256, ``ffn_train`` at the A1 step's B = 64, both also at B = 1,
+T = 128 (one 128-frame video) and B = 1, T = 608 (the 600-frame
+request's bucket); ``attn_sublayer`` and ``attn_sublayer_train`` (the
+encoder's self-attention, repeat-inc with the key padding) at B = 256 and
+B = 64 and at B = 1, T = 128; each held against its plain version, then
+its CUDA-event time, the plain version's and one call's device time by
+kernel.
 
 ``backward`` does the same for the training backwards (``ffn.cu`` and
 ``attn_sublayer.cu``): ``ffn_bwd``, ``ffn_bwd_split`` in "f32" (a tree's
@@ -249,22 +260,50 @@ def backward_one(tree):
         ms = min(cs.timed_ms(kern) for _ in range(3))
         plain_ms = min(cs.timed_ms(plain) for _ in range(2))
         out[key] = {"ms": ms, "plain_ms": plain_ms,
-                    "kernels": by_kernel(torch, kern)}
+                    "kernels": by_kernel(cs, torch, kern)}
     print(json.dumps(out), flush=True)
 
 
-def by_kernel(torch, fn):
+def by_kernel(cs, torch, fn):
     """One call's device time by kernel: (name, count, ms), longest
     first."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted(((e.key[:48], e.count, round(getattr(
+    return sorted(((cs.kernel_key(e.key), e.count, round(getattr(
         e, "self_device_time_total", 0) / 1e3, 4))
         for e in prof.key_averages()
         if getattr(e, "self_device_time_total", 0) > 0),
         key=lambda r: -r[2])[:8]
+
+
+FORWARD_SOURCES = ("ffn", "attn_sublayer")
+# (kernel, B, T): the path shapes, one 128-frame video, the 600-frame
+# request's bucket (the FF only: attention runs per op there)
+FORWARD_SHAPES = (("ffn", 256, 128), ("ffn", 1, 128), ("ffn", 1, 608),
+                  ("ffn_train", 64, 128), ("ffn_train", 1, 128),
+                  ("ffn_train", 1, 608), ("attn_sublayer", 256, 128),
+                  ("attn_sublayer", 1, 128), ("attn_sublayer_train", 64, 128),
+                  ("attn_sublayer_train", 1, 128))
+
+
+def forwards_one(tree):
+    import torch
+    cs = load_smoke()
+    use_tree(tree, FORWARD_SOURCES)
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    out = {}
+    for name, B, T in FORWARD_SHAPES:
+        chk = cs.KernelCheck(torch, kmod)
+        (variant, kern, plain), = [c[1:] for c in chk.forward_calls(B, T)
+                                   if c[0] == name]
+        chk.compare(name, f"B={B} T={T} {variant}", kern(), plain())
+        out[f"{name} B={B} T={T}"] = {
+            "ms": min(cs.timed_ms(kern) for _ in range(3)),
+            "plain_ms": min(cs.timed_ms(plain) for _ in range(2)),
+            "kernels": by_kernel(cs, torch, kern)}
+    print(json.dumps(out), flush=True)
 
 
 ATTENTION_SOURCES = ("attention",)
@@ -290,7 +329,7 @@ def attention_one(tree):
         for key, (name, variant, kern, plain, grad) in calls.items():
             chk.compare(key, f"B={B} T={T} {variant}", kern(), plain(), grad)
             row = {"ms": min(cs.timed_ms(kern) for _ in range(3)),
-                   "kernels": by_kernel(torch, kern)}
+                   "kernels": by_kernel(cs, torch, kern)}
             if key in cs.LIBRARY:
                 lib = cs.LIBRARY[name](torch, *chk.layer_args[name])
                 row["library_ms"] = min(cs.timed_ms(lib) for _ in range(3))
@@ -336,6 +375,10 @@ def main():
         in_turns(args, ATTENTION_SOURCES, "attention-one")
     elif mode == "attention-one":
         attention_one(args[0])
+    elif mode == "forwards":
+        in_turns(args, FORWARD_SOURCES, "forwards-one")
+    elif mode == "forwards-one":
+        forwards_one(args[0])
     elif mode == "backward":
         in_turns(args, BACKWARD_SOURCES, "backward-one")
     elif mode == "backward-one":

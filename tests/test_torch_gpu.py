@@ -647,3 +647,71 @@ def test_training_backward_wrappers_raise_rather_than_fall_back(cuda):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["ffn_bwd"] == 1 and counts["attn_sublayer_bwd"] == 1
+
+
+@pytest.mark.gpu
+def test_forwards_match_plain_at_every_batch(cuda):
+    """``ffn``, ``ffn_train``, ``attn_sublayer`` and
+    ``attn_sublayer_train`` against their plain versions at one 128-frame
+    video and the 600-frame request's bucket (the FF split, the narrow
+    projections), B=3 and B=40 at T = 128 (the row-tile builds from 5120
+    rows), with every variant, at the flagship widths and at D = 128 and
+    512."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, heads in ((256, 8), (128, 8), (512, 8)):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, heads, 4 * d)
+        for B, T in ((1, 128), (1, 608), (3, 128), (40, 128)):
+            for name, variant, kern, plain in chk.forward_calls(B, T, True):
+                chk.compare(name, f"D={d} B={B} T={T} {variant}", kern(),
+                            plain())
+
+
+@pytest.mark.gpu
+def test_sublayer_forward_takes_the_per_op_core(cuda):
+    """The training sublayer forward's attention output and statistics
+    equal, bit for bit, the per-op ``fused_attention(..., stats=True)`` on
+    its own q, k, v: both run ``csrc/attention_fwd.cuh``'s core (head
+    widths 32, 16, 64 and 48, the last on ``attention.cuh``'s), so the
+    backward rebuilds p from the score the forward used."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, heads, T in ((256, 8, 300), (256, 16, 128), (256, 4, 40),
+                        (96, 2, 129)):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, heads, 4 * d)
+        o, (mask, valid) = chk.operands(3, T), chk.masks(3, T)
+        valid[2] = 0.0
+        for variant, mem, ln, kind, keypad in chip_smoke.ATTN_VARIANTS:
+            mem = o["mem"] if mem else None
+            ln = (o["g"], o["be"]) if ln else (None, None)
+            _, qkv, a, stats, _ = kernels.fused_attn_sublayer_train(
+                o["x"], mem, o["wqkv"], o["bqkv"], o["wo"], o["bo"], *ln,
+                mask, valid, kind, keypad, heads)
+            q, k, v = (t.reshape(3, T, heads, d // heads).contiguous()
+                       for t in qkv.split(d, -1))
+            out, pstats = kernels.fused_attention(q, k, v, mask, valid, kind,
+                                                  keypad, stats=True)
+            torch.cuda.synchronize()
+            assert torch.equal(out.reshape(3, T, d), a), (d, heads, variant)
+            assert torch.equal(pstats, stats), (d, heads, variant)
+
+
+@pytest.mark.gpu
+def test_forwards_are_deterministic(cuda):
+    """The same inputs twice give the same bits, on the FF split too (its
+    parts added in a fixed order by the second pass, no atomics)."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.ops.kernels.ffn import (
+        ff_parts)
+    assert ff_parts(128, 256, 2048) > 1 and ff_parts(608, 256, 2048) > 1
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for B, T in ((1, 128), (1, 608), (64, 128)):
+        for name, variant, kern, _ in chk.forward_calls(B, T, True):
+            first, second = kern(), kern()
+            torch.cuda.synchronize()
+            first = first if isinstance(first, tuple) else (first,)
+            second = second if isinstance(second, tuple) else (second,)
+            for a, b in zip(first, second):
+                assert (a is None) == (b is None)
+                assert a is None or torch.equal(a, b), (name, variant, B, T)
