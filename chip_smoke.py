@@ -111,7 +111,9 @@ residual) against their plain
 versions in the same mode, each output against its own largest value and
 each mode kernel nearer its own mode than the one below it (see
 HIGH_MODE_TOL), each bound at its mode's peak (bf16 tensor
-cores, three passes for "high"), and the int8 kernels (int8_dense at the Embedding's
+cores, three passes for "high"), each FF mode row timed beside a
+products-only yardstick (its matrix products as ``torch.matmul`` on bf16
+planes, labelled as not the same function), and the int8 kernels (int8_dense at the Embedding's
 Linear, 108 -> 256, and at a q / k / v projection, 256 -> 768, also at the
 600-frame request's 608 rows; ffn_int8 with LN1; enc_layer_int8 with both
 models' masks) against their plain versions and against ``torch._int_mm``
@@ -139,8 +141,10 @@ at small batches and the merged and per-sublayer frames/s at B=256.
 each tree in a fresh process in turns (DIR, this, this, DIR): the merged
 Inpainter's frames/s at B=256, the merged and per-sublayer latency at 1 /
 4 / 16 / 64 videos, the latency of phase 5's 600-frame request (per op)
-in float32 and int8, and the A1 step time on the default route and with
-sublayer fusion off, with the routes' output sums and the steps' first
+in float32 and int8, the A1 step time on the default route and with
+sublayer fusion off, and at "high" and "default", the per-sublayer
+Inpainter's frames/s in the three precisions and its one-video latency
+at "high", with the routes' output sums and the steps' first
 losses, which equal bit for bit where the kernels they run are
 unchanged, and the merged outputs' difference between the trees.
 
@@ -294,6 +298,11 @@ INT8_KERNELS = ("int8_dense", "ffn_int8", "enc_layer_int8")
 MODE_SERVE_KERNELS = ("ffn_high", "ffn_default", "pre_stream")
 MODE_TRAIN_KERNELS = ("ffn_train_high", "ffn_train_default",
                       "ffn_bwd_split_high", "ffn_bwd_split_default")
+# the six rows of the precision modes' FF kernels, beside whose times phase
+# 2 prints a products-only yardstick (``products_yardstick``)
+MODE_FF_KERNELS = ("ffn_high", "ffn_default", "ffn_train_high",
+                   "ffn_train_default", "ffn_bwd_split_high",
+                   "ffn_bwd_split_default")
 # every kernel of ops/kernels.KERNELS, launched no time
 NO_LAUNCHES = dict.fromkeys(
     ("pre_stream_embed", "attn_sublayer", "ffn", "post_head",
@@ -1115,6 +1124,44 @@ def bound(name, B, T):
     return max(t_op, t_mem) * 1e3, "operations" if t_op >= t_mem else "bytes"
 
 
+def products_yardstick(torch, name, B, T):
+    """(call, count): the matrix products of mode kernel ``name`` at (B, T)
+    alone, as ``torch.matmul`` calls on bf16 planes of random operands:
+    three a product at "high" (hi hi, hi lo, lo hi), one at "default"; the
+    forward's two products (x1 W1, gelu(u) W2), the backward's four (dz
+    W2^T, dz^T gelu(u), du^T x1, du W1^T).  A yardstick of the products'
+    cost, not the kernel's function: no LayerNorm, GELU, bias or residual,
+    bf16 outputs, and the planes are made outside the call."""
+    N = B * T
+    gen = torch.Generator(device=DEV).manual_seed(9)
+
+    def planes(*shape):
+        x = torch.randn(*shape, device=DEV, generator=gen)
+        hi = x.to(torch.bfloat16)
+        return hi, (x - hi.float()).to(torch.bfloat16)
+
+    def t(p):
+        return p[0].t(), p[1].t()
+
+    if name.startswith("ffn_bwd_split"):
+        dz, x1, du, h = planes(N, D), planes(N, D), planes(N, FF), planes(N,
+                                                                       FF)
+        w1t, w2t = planes(FF, D), planes(D, FF)
+        prods = [(dz, w2t), (t(dz), h), (t(du), x1), (du, w1t)]
+    else:
+        prods = [(planes(N, D), planes(D, FF)), (planes(N, FF), planes(FF, D))]
+    three = name.endswith("_high")
+
+    def call():
+        for (ah, al), (bh, bl) in prods:
+            torch.matmul(ah, bh)
+            if three:
+                torch.matmul(ah, bl)
+                torch.matmul(al, bh)
+
+    return call, len(prods) * (3 if three else 1)
+
+
 # the sublayer forwards, whose launches phase 2 prints apart
 FORWARD_KERNELS = ("ffn", "ffn_train", "attn_sublayer", "attn_sublayer_train")
 # one 128-frame video and the 600-frame request's bucket: the FF split and
@@ -1248,6 +1295,14 @@ def phase_kernels(torch, kmod):
               f"({b_by}; the kernel at {b_ms / times[name][0]:.1%} of it)"
               + (f"  library {lib_ms:.4f} ms" if lib else "") + rate
               + f"  (B={B} T={T_MAIN})", flush=True)
+        if name in MODE_FF_KERNELS:
+            call, count = products_yardstick(torch, name, B, T_MAIN)
+            y_ms = min(timed_ms(call), timed_ms(call))
+            print(f"  yardstick {name:14s} products only: {y_ms:.4f} ms "
+                  f"({count} torch.matmul calls on bf16 planes, bf16 "
+                  "outputs; not the kernel's function: no LayerNorm, GELU, "
+                  f"bias or float32 output; B={B} T={T_MAIN}); the kernel "
+                  f"at {y_ms / times[name][0]:.1%} of it", flush=True)
         if name in FORWARD_KERNELS:
             print(f"  launches {name}: {launch_ms(torch, kern)} ms", flush=True)
         if name in given:  # the training route's form, beside the row
@@ -2689,9 +2744,11 @@ def ab_measure(torch, gpu, out_path):
     at B=256 (phase 6's method), the merged and the per-sublayer route's
     latency at 1 / 4 / 16 / 64 videos (``--sweep``'s), one 600-frame
     request's latency in float32 and int8 (phase 5's, per op), the A1 step
-    time of the default route and of the per-op route (phase 7's), and
-    each route's output sum and each step's first loss, which equal bit for
-    bit where the kernels they run are unchanged; so do the int8 merged
+    time of the default route and of the per-op route (phase 7's), the
+    A1 step at "high" and "default", the per-sublayer Inpainter's frames/s
+    at B=256 in the three precisions and its one-video latency at "high",
+    and each route's output sum and each step's first loss, which equal bit
+    for bit where the kernels they run are unchanged; so do the int8 merged
     route's outputs and those of every int8 and precision-mode kernel on
     phase 2's seeded operands.  The merged route's B=256
     outputs go to ``out_path`` (.npy) for ``ab`` to compare across the
@@ -2803,6 +2860,57 @@ def ab_measure(torch, gpu, out_path):
             step_ms = min(step_ms, start.elapsed_time(end) / 5)
         out[f"{key}step_ms"] = step_ms
         del model, st, step
+    # the precision modes: the A1 step at "high" and "default" (its first
+    # loss and time, as above); the per-sublayer Inpainter at B=256 in the
+    # three precisions (frames/s, best of 2) and at one video at "high"
+    # (latency, median of 7, best of 2)
+    import dataclasses
+    out["mode_step_ms"], out["mode_loss"] = {}, {}
+    for prec in ("high", "default"):
+        cfg = Config(model=dataclasses.replace(model_config(),
+                                               matmul_precision=prec))
+        model = steps.build_model(cfg.model, for_training=True, device=DEV,
+                                  generator=torch.Generator().manual_seed(0))
+        st = state.TrainState.create(model, cfg.train.lr)
+        step = steps.make_train_step(model, cfg, None)
+        _, m = step(st, x, length, weight, torch.Generator(
+            device=DEV).manual_seed(100), cfg.train.lr)
+        out["mode_loss"][prec] = float(m["loss"])
+        step_ms = float("inf")
+        for _ in range(2):
+            gen = torch.Generator(device=DEV).manual_seed(7)
+            step(st, x, length, weight, gen, cfg.train.lr)  # warm
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(5):
+                step(st, x, length, weight, gen, cfg.train.lr)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms = min(step_ms, start.elapsed_time(end) / 5)
+        out["mode_step_ms"][prec] = step_ms
+        del model, st, step
+    out["mode_fps"], out["high_one_video_ms"] = {}, None
+    for prec in ("highest", "high", "default"):
+        inp = Inpainter(sd, dataclasses.replace(
+            model_config(), matmul_precision=prec), device=DEV,
+            merge_layers=False)
+        out["mode_fps"][prec] = max(frames_per_s(inp, videos, masks)
+                                    for _ in range(2))
+        if prec == "high":
+            v, m = videos[:1], masks[:1]
+            inp.inpaint(v, m)  # warm
+            best = float("inf")
+            for _ in range(2):
+                ms = []
+                for _ in range(7):
+                    t0 = time.perf_counter()
+                    inp.inpaint(v, m)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                best = min(best, float(np.median(ms)))
+            out["high_one_video_ms"] = best
+        del inp
     print(json.dumps(out), flush=True)
     return 0
 
@@ -2850,6 +2958,15 @@ def ab(other, gpu):
                   f"{row['long_float32_sum']!r} / {row['long_int8_sum']!r}; "
                   f"step loss {row['loss']!r}, per op "
                   f"{row['per_op_loss']!r} on {row['gpu']}", flush=True)
+            print(f"  ab {name} modes: A1 step \"high\" "
+                  f"{row['mode_step_ms']['high']:.3f} ms, \"default\" "
+                  f"{row['mode_step_ms']['default']:.3f} ms (losses "
+                  f"{row['mode_loss']['high']!r} / "
+                  f"{row['mode_loss']['default']!r}); per-sublayer Inpainter "
+                  f"B={B_MAIN} " + " / ".join(
+                      f"{p} {v:.1f}" for p, v in row["mode_fps"].items())
+                  + " frames/s; one video at \"high\" "
+                  f"{row['high_one_video_ms']:.3f} ms", flush=True)
         parent, change = (np.load(os.path.join(tmp, f)) for f in
                           ("0_parent.npy", "1_change.npy"))
     _, miss = model_inputs(B_MAIN, T_MAIN, 3)

@@ -1,7 +1,9 @@
 // Building blocks of the port's backward kernels (included by ffn.cu and
 // attn_sublayer.cu), on the block layout of common.cuh: the GELU's
-// derivative, the LayerNorm forward and backward over rows, and the column
-// and partial sums of the tensor-core split backward.
+// derivative, the LayerNorm forward and backward over rows (each can also
+// write its output as the bf16 hi / lo planes the tensor-core backward
+// reads), and the column and partial sums of the tensor-core split
+// backward.
 //
 // Reductions across rows never use atomics: a kernel writes one partial
 // sum per block (or per row split) into scratch the wrapper allocates, and
@@ -9,9 +11,44 @@
 // is the same from run to run.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace kit {
+
+// hi = bf16(x), lo = bf16(x - hi), both round-to-nearest-even (x - hi is
+// exact in float32): the split of the precision modes.  Two values at once,
+// packed as a bf16 pair (the first in the low half).
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Store the thread's values of rows < M as bf16 hi / lo planes (row stride
+// D = 32 * TN; lo null: hi only), as store_rows stores them in float32.
+template <int TN>
+__device__ __forceinline__ void store_planes(__nv_bfloat16* hi, __nv_bfloat16* lo, int row0,
+                                             int M, const float (&v)[TM][TN]) {
+  constexpr int D = 32 * TN;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + row_of(i);
+    if (row >= M) continue;
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      const size_t o = (size_t)row * D + col_of(4 * g);
+      uint32_t h0, l0, h1, l1;
+      split2(v[i][4 * g], v[i][4 * g + 1], h0, l0);
+      split2(v[i][4 * g + 2], v[i][4 * g + 3], h1, l1);
+      *reinterpret_cast<uint2*>(hi + o) = make_uint2(h0, h1);
+      if (lo != nullptr) *reinterpret_cast<uint2*>(lo + o) = make_uint2(l0, l1);
+    }
+  }
+}
 
 // d/du [u * Phi(u)] = Phi(u) + u * phi(u), exact erf (the forward's GELU).
 __device__ __forceinline__ float gelu_grad(float u) {
@@ -67,27 +104,31 @@ __device__ __forceinline__ void block_colsum(const float (&v)[TM][TN], float* re
 
 // LayerNorm over rows [0, M) of width D = 32 * TN (one warp per row), its
 // statistics over the first nw columns (see common.cuh): out = norm(x) *
-// gamma + beta.
+// gamma + beta, and its bf16 planes when hi is not null (store_planes).
 template <int TN>
 __global__ void __launch_bounds__(NT)
 ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, int M, int nw, float* __restrict__ out) {
+              const float* __restrict__ beta, int M, int nw, float* __restrict__ out,
+              __nv_bfloat16* hi = nullptr, __nv_bfloat16* lo = nullptr) {
   constexpr int D = 32 * TN;
   float v[TM][TN];
   load_rows<TN>(v, x, D, blockIdx.x * BM, M);
   layer_norm<TN>(v, gamma, beta, nw);
   store_rows<TN>(out, D, D, blockIdx.x * BM, M, v);
+  if (hi != nullptr) store_planes<TN>(hi, lo, blockIdx.x * BM, M, v);
 }
 
 // Backward of y = norm(x) * gamma + beta over rows [0, M) of width D =
 // 32 * TN (statistics over the first nw columns, dx 0 beyond them), given
 // dy: dx, and the block's partial sums of dy * norm(x) (part[0, D)) and of
-// dy (part[D, 2D)) at part + blockIdx.x * 2D.  dx may be dy: each thread
-// reads all its values before it writes them.
+// dy (part[D, 2D)) at part + blockIdx.x * 2D; dx's bf16 planes too when hi
+// is not null (store_planes).  dx may be dy: each thread reads all its
+// values before it writes them.
 template <int TN>
 __global__ void __launch_bounds__(NT)
 ln_bwd_kernel(const float* dy, const float* __restrict__ x, const float* __restrict__ gamma,
-              int M, int nw, float* dx, float* __restrict__ part) {
+              int M, int nw, float* dx, float* __restrict__ part,
+              __nv_bfloat16* hi = nullptr, __nv_bfloat16* lo = nullptr) {
   constexpr int D = 32 * TN;
   const float inv_n = 1.f / nw;
   __shared__ float red[8 * D];
@@ -136,6 +177,7 @@ ln_bwd_kernel(const float* dy, const float* __restrict__ x, const float* __restr
       t[i][j] = col_of(j) < nw ? (t[i][j] - m1 - n[i][j] * m2) * inv[i] : 0.f;
   }
   store_rows<TN>(dx, D, D, row0, M, t);
+  if (hi != nullptr) store_planes<TN>(hi, lo, row0, M, t);
 }
 
 // part[z * N + j] = sum of X[r * ld + j] over rows r of split z

@@ -28,11 +28,21 @@ passes at "bf16x3") otherwise.  The float32 forward runs on
 on chip; where its row tiles leave the card idle (one 128-frame video,
 the 600-frame request) the FF chunks of a tile are split over blocks
 (``ff_parts``) and a second pass adds their sums in order.  The backward
-writes du once (see the source note in ``csrc/ffn.cu``).  In the
-tensor-core
-modes the float32 weights are split into bf16 hi / lo planes in torch's
-layout (``ff_weight_planes``): once per packed model for serving, per call
-in training.
+writes du once (see the source note in ``csrc/ffn.cu``).
+
+In the tensor-core modes both kernels run on Hopper's warpgroup products
+(``wgmma``) fed through a ring of shared-memory stages by the Tensor
+Memory Accelerator, a producer warpgroup ahead of two consumer warpgroups
+(``csrc/mma_bf16.cuh``): the forward takes 128-row tiles (``tc_rows``),
+keeps u and z in registers and feeds gelu(u) to the second product as a
+register operand, splitting the FF chunks of a tile over ``tc_parts``
+blocks where the tiles fill less than half the card; the backward's four
+products run on one core of 128 x 128 tiles, its operands bf16 planes in
+device memory written once, the weight gradients over ``tc_bwd_splits``
+row ranges added in a fixed order.  The weights are split into bf16 hi /
+lo planes in torch's layout (``ff_weight_planes``) once per packed model
+for serving and once per training step, where ``FFNFunction`` hands the
+forward's planes to the backward.
 
 Weights: the forward kernels take the Flax layout, w1 (D, FF) and w2
 (FF, D); the backward takes torch's ``Linear`` layout, w1t = W1^T (FF, D)
@@ -60,10 +70,10 @@ LN_EPS = 1e-5
 _SIGS = {"kit_ffn": "p" + "i" * 5 + "p" * 13,
          "kit_ffn_bwd": "p" * 8 + "i" * 5 + "p" * 12,
          "kit_ffn_int8": "p" + "i" * 4 + "p" * 13,
-         "kit_ffn_tc": "ip" + "i" * 4 + "p" * 14,
+         "kit_ffn_tc": "ip" + "i" * 5 + "p" * 15,
          "kit_ffn_bwd_split": "i" + "p" * 10 + "i" * 7 + "p" * 12}
 # the FF widths the kernels take, zero-padded to them: the float32 kernels
-# in steps of 4, the tensor-core ones in steps of 16 (the k of m16n8k16)
+# in steps of 4, the tensor-core ones in steps of 16 (the k of m64nNk16)
 _FF_STEP = 4
 _FF_STEP_TC = 16
 _PASSES = {"bf16x3": 3, "bf16": 1}  # bf16 products per product
@@ -72,6 +82,10 @@ _PASSES = {"bf16x3": 3, "bf16": 1}  # bf16 products per product
 SPLIT_ROWS = 32
 SPLIT_COLS = 128
 SMS = 132  # an H100 SXM's SMs (``csrc/sgemm.cuh`` SMS)
+# the tensor-core kernels (``csrc/ffn.cu``, ``csrc/mma_bf16.cuh``): the
+# forward's FF chunk (FC_TC) and the backward's output tile
+TC_FC = 64
+TC_TILE = 128
 
 
 def ff_kernel_width(FF: int, step: int = _FF_STEP) -> int:
@@ -107,6 +121,43 @@ def ff_scratch_floats(M: int, D: int, parts: int) -> int:
     return parts * M * D if parts > 1 else 0
 
 
+def tc_rows(D: int) -> int:
+    """The token rows of a tensor-core forward block (``csrc/ffn.cu``
+    ``TcFwd::ROWS``): 128, two warpgroups of 64, up to D = 256; 64 above,
+    where the groups split z's columns."""
+    return 128 if D <= 256 else 64
+
+
+def tc_parts(M: int, D: int, FF: int) -> int:
+    """The blocks that share one row tile's FF chunks in the tensor-core
+    forward at M rows, kernel width D and FF: 1 where its ``tc_rows(D)``
+    tiles, one block an SM, fill half the card or more; else as many as
+    put about one block on each SM, at most one per ``TC_FC``-wide
+    chunk."""
+    tiles = -(-M // tc_rows(D))
+    if 2 * tiles >= SMS:
+        return 1
+    return max(1, min(-(-FF // TC_FC), SMS // tiles))
+
+
+def tc_bwd_splits(N: int, D: int, FF: int) -> int:
+    """The row ranges of the tensor-core backward's weight-gradient
+    products at N rows: with their (D / 128) x ceil(FF / 128) output tiles
+    they fill one wave of the card, one block an SM (``wave_splits``)."""
+    return wave_splits(N, (D // TC_TILE) * -(-FF // TC_TILE))
+
+
+def tc_bwd_scratch_floats(N: int, D: int, FF: int, s_w: int,
+                          s_vec: int) -> int:
+    """``kit_ffn_bwd_split``'s scratch: the LayerNorms' partial sums per
+    32-row block, the weight gradients' per row range (``s_w`` each), db2's
+    per ``s_vec`` range, db1's per 128-row tile of the du product, then the
+    bf16 planes of dz, x1, du and gelu(u), a hi and a lo plane each (two
+    bf16 a float)."""
+    return (-(-N // 32) * 4 * D + 2 * s_w * FF * D + s_vec * D
+            + -(-N // TC_TILE) * FF + N * (2 * D + 2 * FF))
+
+
 def ffn_supported(D: int, FF: int, int8: bool = False,
                   mode: str = "f32") -> bool:
     """The JAX ``_ffn_fwd_pallas`` rule: the FF kernel while its weights
@@ -138,16 +189,22 @@ def ffn_train_plain(r, w1, b1, w2, b2, g1, be1, g2, be2,
 
 
 def ff_weight_planes(w1t, w2t, mode: str):
-    """(w1h, w1l, w2h, w2l): the tensor-core forward's weights, W1^T (FF,
+    """(w1h, w1l, w2h, w2l): the tensor-core kernels' weights, W1^T (FF,
     D) and W2^T (D, FF) (torch's Linear layout), as bf16 hi / lo planes
-    (the lo planes None in "bf16")."""
+    (the lo planes None in "bf16"); the forward reads them K-major, the
+    backward MN-major."""
     return (*weight_planes(w1t, mode), *weight_planes(w2t, mode))
 
 
-def _check_planes(where, device, shapes, **planes):
-    """The bf16 planes the tensor-core kernels read: contiguous, on
-    ``device``, 16-byte aligned, of the given shapes (None skipped)."""
-    for k, t in planes.items():
+def _check_planes(where, device, mode, planes, n, FF):
+    """The weight planes the tensor-core kernels read in ``mode``: lo
+    planes in "bf16x3" only; each contiguous bfloat16 on ``device``,
+    16-byte aligned, W1^T (FF, n) and W2^T (n, FF)."""
+    if (planes[1] is None or planes[3] is None) != (mode == "bf16"):
+        raise ValueError(f"{where}: mode {mode!r} takes "
+                         f"{'no' if mode == 'bf16' else 'both'} lo planes")
+    shapes = {"w1": (FF, n), "w2": (n, FF)}
+    for k, t in zip(("w1h", "w1l", "w2h", "w2l"), planes):
         if t is None:
             continue
         if t.dtype != torch.bfloat16 or t.device != device or \
@@ -177,12 +234,7 @@ def _check_forward(where, r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln,
     if mode != "f32":
         if planes is None:
             planes = ff_weight_planes(w1.t(), w2.t(), mode)
-        if (planes[1] is None or planes[3] is None) != (mode == "bf16"):
-            raise ValueError(f"{where}: mode {mode!r} takes "
-                             f"{'no' if mode == 'bf16' else 'both'} lo "
-                             "planes")
-        _check_planes(where, r.device, {"w1": (FF, D), "w2": (D, FF)},
-                      **dict(zip(("w1h", "w1l", "w2h", "w2l"), planes)))
+        _check_planes(where, r.device, mode, planes, D, FF)
     return g1, be1, planes
 
 
@@ -215,8 +267,12 @@ def _launch_forward(r, w1, b1, w2, b2, g1, be1, g2, be2, train, mode,
         w1h, w1l, w2h, w2l = planes
         w1h, w1l = pad(w1h, F4, D), pad(w1l, F4, D)
         w2h, w2l = pad(w2h, D, F4), pad(w2l, D, F4)
+        parts = tc_parts(N, D, F4)
+        scratch = (torch.empty(ff_scratch_floats(N, D, parts), device=dev)
+                   if parts > 1 else None)
         _build.call(lib, "kit_ffn_tc", dev, _PASSES[mode], r, N, D, n, F4,
-                    w1h, w1l, b1, w2h, w2l, b2, g1, be1, g2, be2, y, u, z)
+                    parts, w1h, w1l, b1, w2h, w2l, b2, g1, be1, g2, be2, y, u,
+                    z, scratch)
     return cut(y, n), cut(u, FF), cut(z, n)
 
 
@@ -487,12 +543,15 @@ ffn_bwd.launches = 0
 
 
 def ffn_bwd_split(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False,
-                  mode: str = "f32"):
+                  mode: str = "f32", planes=None):
     """``ffn_bwd``'s gradients in two phases (A: LN2 backward, du, dW2^T,
     db2; B: dW1^T, db1, dx1, LN1 backward), the products in ``mode``; the
     arguments and results as ``ffn_bwd`` takes and returns them.  In
-    "bf16x3" and "bf16" the weights are split into bf16 planes here, per
-    call; in "f32" this is ``ffn_bwd`` (and counts as its launch)."""
+    "bf16x3" and "bf16" the kernel reads the weights as the forward's bf16
+    planes in torch's layout: ``planes`` (``ff_weight_planes(w1t, w2t,
+    mode)``, as ``FFNFunction`` saves them from its forward), or split here
+    from w1t, w2t; in "f32" this is ``ffn_bwd`` (and counts as its
+    launch)."""
     check_mode(mode)
     if g.device.type == "cpu":
         return ffn_bwd_split_plain(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln,
@@ -502,34 +561,44 @@ def ffn_bwd_split(g, r, u, z, w1t, w2t, g1, be1, g2, pre_ln: bool = False,
     where = "ffn_bwd_split"
     g1, be1 = _check_backward(where, g, r, u, z, w1t, w2t, g1, be1, g2,
                               pre_ln)
-    # at the kernel width and FF a multiple of 16, zero-padded (``widths``)
-    n, nf = r.shape[-1], w1t.shape[0]
+    if planes is None:
+        planes = ff_weight_planes(w1t, w2t, mode)
+    _check_planes(where, g.device, mode, planes, r.shape[-1], w1t.shape[0])
+    grads = _launch_bwd_split(g, r, u, z, planes, g1, be1, g2, pre_ln, mode)
+    ffn_bwd_split.launches[mode] += 1
+    return grads
+
+
+def _launch_bwd_split(g, r, u, z, planes, g1, be1, g2, pre_ln, mode):
+    """``ffn_bwd_split``'s gradients in a tensor-core mode from its checked
+    operands and the weight planes, at the model's widths n and FF.  Runs
+    at the kernel width D and FF rounded up to 16, the operands
+    zero-padded (``widths``)."""
+    n, nf = r.shape[-1], planes[0].shape[0]
     N = r.numel() // n
-    D = kernel_width(where, n)
+    D = kernel_width("ffn_bwd_split", n)
     FF = ff_kernel_width(nf, _FF_STEP_TC)
     g, r, z, g1, be1, g2 = (pad(t, D) for t in (g, r, z, g1, be1, g2))
-    u, w1t, w2t = pad(u, FF), pad(w1t, FF, D), pad(w2t, D, FF)
-    # the tensor cores, weights as planes in the Flax layout
-    (w1, w1l), (w2, w2l) = (weight_planes(w.t(), mode) for w in (w1t, w2t))
-    s_w1 = row_splits(N, -(-FF // 64) * -(-D // 128))
-    s_w2 = row_splits(N, -(-D // 64) * -(-FF // 128))
+    u = pad(u, FF)
+    w1h, w1l, w2h, w2l = planes
+    w1h, w1l = pad(w1h, FF, D), pad(w1l, FF, D)
+    w2h, w2l = pad(w2h, D, FF), pad(w2l, D, FF)
+    s_w = tc_bwd_splits(N, D, FF)
     s_vec = row_splits(N, -(-D // 128))
     dev = g.device
     empty = lambda *s: torch.empty(*s, device=dev)  # noqa: E731
-    blocks = -(-N // 32)
     dr, dz, du = empty(r.shape), empty(N, D), empty(N, FF)
     x1 = empty(N, D) if pre_ln else None
     dw1t, dw2t = empty(FF, D), empty(D, FF)
     db1, db2 = empty(FF), empty(D)
     ln_out = empty(4, D)  # dg2, dbe2, dg1, dbe1
-    # scratch: per-block / per-split partial sums, reduced in fixed order
-    scratch = empty(blocks * 4 * D + s_w1 * FF * D + s_w2 * D * FF
-                    + s_vec * max(D, FF))
+    # scratch: per-block / per-split partial sums, reduced in fixed order,
+    # then the operand planes
+    scratch = empty(tc_bwd_scratch_floats(N, D, FF, s_w, s_vec))
     lib = _build.bind("ffn", _SIGS)
     _build.call(lib, "kit_ffn_bwd_split", dev, _PASSES[mode], g, r, u, z,
-                w1, w1l, w2, w2l, g1, be1, N, D, n, FF, s_w1, s_w2, s_vec,
+                w1h, w1l, w2h, w2l, g1, be1, N, D, n, FF, s_w, s_w, s_vec,
                 g2, x1, dz, du, dr, dw1t, db1, dw2t, db2, ln_out, scratch)
-    ffn_bwd_split.launches[mode] += 1
     ln_out = cut(ln_out, n)
     dg1, dbe1 = (ln_out[2], ln_out[3]) if pre_ln else (None, None)
     return (cut(dr, n), cut(dw1t, nf, n), cut(db1, nf), cut(dw2t, n, nf),
@@ -554,11 +623,12 @@ class FFNFunction(torch.autograd.Function):
             y, u, z = fused_ffn_train(r, w1t.t().contiguous(), b1,
                                       w2t.t().contiguous(), b2, g1, be1, g2,
                                       be2, pre_ln)
-        else:  # the weights split once per call, in torch's layout
+        else:  # the weights split once per step, in torch's layout
             planes = None if r.device.type == "cpu" else \
                 ff_weight_planes(w1t, w2t, mode)
             y, u, z = fused_ffn_train(r, w1t.t(), b1, w2t.t(), b2, g1, be1,
                                       g2, be2, pre_ln, mode, planes)
+            ctx.planes = planes  # the backward reads the same planes
         ctx.pre_ln, ctx.mode = pre_ln, mode
         ctx.save_for_backward(r, u, z, w1t, w2t, g1, be1, g2)
         return y
@@ -570,5 +640,5 @@ class FFNFunction(torch.autograd.Function):
         if ctx.mode == "f32":
             grads = ffn_bwd(*args)
         else:
-            grads = ffn_bwd_split(*args, ctx.mode)
+            grads = ffn_bwd_split(*args, ctx.mode, ctx.planes)
         return (*grads, None, None)

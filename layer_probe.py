@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the merged layer kernels' and the training backwards' time goes,
-on one CUDA card.
+"""Where the merged layer kernels', the training backwards' and the
+precision-mode FF kernels' time goes, on one CUDA card.
 
     python3 layer_probe.py phases [DIR]     # cycles per phase of a block
     python3 layer_probe.py times TREE...    # layer kernel times, in turns
     python3 layer_probe.py backward TREE... # backward kernel times, in turns
     python3 layer_probe.py attention TREE...  # per-op attention, in turns
     python3 layer_probe.py forwards TREE...  # sublayer forwards, in turns
+    python3 layer_probe.py modes TREE...    # precision-mode FF kernels, in turns
 
 ``phases`` copies ``keypoints_interpolation_transformer_torch`` into DIR
 (default ``scratch_tree/layer_probe``, git-ignored), adds ``clock64()``
@@ -44,6 +45,14 @@ encoder's self-attention, repeat-inc with the key padding) at B = 256 and
 B = 64 and at B = 1, T = 128; each held against its plain version, then
 its CUDA-event time, the plain version's and one call's device time by
 kernel.
+
+``modes`` does the same for the precision modes' FF kernels (``ffn.cu``
+only): the six mode rows (``ffn_high`` and ``ffn_default`` at the serving
+batch B = 256, ``ffn_train_*`` and ``ffn_bwd_split_*`` at the A1 step's B
+= 64, T = 128), each held against its plain version in its own mode and
+the wrong one (``chip_smoke.py``'s limits), and their float32
+counterparts ``ffn``, ``ffn_train`` and ``ffn_bwd``: CUDA-event time and
+one call's device time by kernel.
 
 ``backward`` does the same for the training backwards (``ffn.cu`` and
 ``attn_sublayer.cu``): ``ffn_bwd``, ``ffn_bwd_split`` in "f32" (a tree's
@@ -306,6 +315,41 @@ def forwards_one(tree):
     print(json.dumps(out), flush=True)
 
 
+MODE_SOURCES = ("ffn",)
+
+
+def modes_one(tree):
+    import torch
+    cs = load_smoke()
+    use_tree(tree, MODE_SOURCES)
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    chk = cs.KernelCheck(torch, kmod)
+    B, bt, T = cs.B_MAIN, cs.B_TRAIN, cs.T_MAIN
+    calls = {}
+    for name, variant, kern, plain, grad, wrong in chk.precision_calls(B, bt,
+                                                                       T):
+        if name in cs.MODE_FF_KERNELS and name not in calls:
+            chk.compare(name, f"{variant}", kern(), plain(), grad, wrong())
+            calls[name] = (kern, plain)
+    for b, name in ((B, "ffn"), (bt, "ffn_train")):
+        for fname, variant, kern, plain in chk.forward_calls(b, T):
+            if fname == name:
+                chk.compare(name, variant, kern(), plain())
+                calls[name] = (kern, plain)
+                break
+    for name, variant, kern, plain, grad in chk.train_calls(bt, T):
+        if name == "ffn_bwd":
+            chk.compare(name, variant, kern(), plain(), grad)
+            calls[name] = (kern, plain)
+            break
+    out = {}
+    for name, (kern, plain) in calls.items():
+        out[name] = {"ms": min(cs.timed_ms(kern) for _ in range(3)),
+                     "plain_ms": min(cs.timed_ms(plain) for _ in range(2)),
+                     "kernels": by_kernel(cs, torch, kern)}
+    print(json.dumps(out), flush=True)
+
+
 ATTENTION_SOURCES = ("attention",)
 
 
@@ -379,6 +423,10 @@ def main():
         in_turns(args, FORWARD_SOURCES, "forwards-one")
     elif mode == "forwards-one":
         forwards_one(args[0])
+    elif mode == "modes":
+        in_turns(args, MODE_SOURCES, "modes-one")
+    elif mode == "modes-one":
+        modes_one(args[0])
     elif mode == "backward":
         in_turns(args, BACKWARD_SOURCES, "backward-one")
     elif mode == "backward-one":

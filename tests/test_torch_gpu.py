@@ -715,3 +715,110 @@ def test_forwards_are_deterministic(cuda):
             for a, b in zip(first, second):
                 assert (a is None) == (b is None)
                 assert a is None or torch.equal(a, b), (name, variant, B, T)
+
+
+@pytest.mark.gpu
+def test_mode_kernels_match_plain_at_every_width(cuda):
+    """The tensor-core FF forward (``ffn`` and ``ffn_train`` in "high" and
+    "default") and the split backward against their plain versions in the
+    same mode at D = 128, 256, 384 and 512 (384 and 512: the groups split
+    z's columns), at ragged rows (B=3 at T=40 and 300), at one 128-frame
+    video and the 600-frame request's 608 rows (the FF split over parts),
+    and at D = 256 at the training and serving batches: each output within
+    ``FF_MODE_TOL`` of its own largest value, "default"'s mean within
+    ``DEFAULT_MEAN_TOL``, and ``MODE_SEPARATION`` times nearer its own
+    mode's plain version than the wrong mode's."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d in (128, 256, 384, 512):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, max(1, d // 32),
+                                     8 * d)
+        shapes = [(3, 3, 40), (3, 3, 300), (1, 1, 128), (1, 1, 608)]
+        if d == 256:
+            shapes += [(chip_smoke.B_MAIN, chip_smoke.B_TRAIN, 128)]
+        for B, b_train, T in shapes:
+            for name, variant, kern, plain, grad, wrong in \
+                    chk.precision_calls(B, b_train, T):
+                if name == "pre_stream":
+                    continue
+                chk.compare(name, f"D={d} B={B} T={T} {variant}", kern(),
+                            plain(), grad, wrong())
+
+
+@pytest.mark.gpu
+def test_mode_kernels_at_ragged_widths(cuda):
+    """The mode kernels where the last FF chunk is partial (FF 1000 and
+    200, zero-padded to 1008 and 208: no multiple of the 64-wide chunk)
+    and where the model width pads to the kernel width (200 -> 256), also
+    at D = 512 (the groups splitting z's columns); ragged rows and one
+    video; the limits of the test above."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, ff in ((200, 1000), (256, 1000), (512, 200)):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, 8, ff)
+        for B, b_train, T in ((3, 3, 40), (1, 1, 128)):
+            for name, variant, kern, plain, grad, wrong in \
+                    chk.precision_calls(B, b_train, T):
+                if name == "pre_stream":
+                    continue
+                chk.compare(name, f"D={d} FF={ff} B={B} T={T} {variant}",
+                            kern(), plain(), grad, wrong())
+
+
+@pytest.mark.gpu
+def test_split_backward_is_deterministic(cuda):
+    """``ffn_bwd_split`` in both modes twice on the same inputs gives the
+    same bits: the weight gradients' row ranges are added in a fixed order,
+    with no atomics."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for B, T in ((chip_smoke.B_TRAIN, 128), (3, 300)):
+        for name, variant, kern, *_ in chk.precision_calls(B, B, T):
+            if not name.startswith("ffn_bwd_split"):
+                continue
+            first, second = kern(), kern()
+            torch.cuda.synchronize()
+            for a, b in zip(first, second):
+                assert (a is None and b is None) or torch.equal(a, b), \
+                    (name, variant, B, T)
+
+
+@pytest.mark.gpu
+def test_ffn_function_backward_reads_the_forward_planes(cuda, monkeypatch):
+    """A "high" ``FFNFunction`` step splits the weights once: its backward
+    takes the planes its forward split and gives, bit for bit, the
+    gradients of ``ffn_bwd_split`` splitting them itself from the same
+    residuals (the same planes, read in the same order of sums)."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.ops.kernels import ffn
+    gen = torch.Generator().manual_seed(5)
+    N, D, FF = 8 * 128, 256, 2048
+    rnd = lambda *s, scale=1.0: (torch.randn(  # noqa: E731
+        *s, generator=gen) * scale).to(cuda)
+    r = rnd(N, D)
+    w1t, w2t = rnd(FF, D, scale=D ** -0.5), rnd(D, FF, scale=FF ** -0.5)
+    b1, b2 = rnd(FF, scale=0.05), rnd(D, scale=0.05)
+    g1, be1, g2, be2 = (1 + rnd(D, scale=0.1), rnd(D, scale=0.1),
+                        1 + rnd(D, scale=0.1), rnd(D, scale=0.1))
+    gy = rnd(N, D)
+    leaves = [t.clone().requires_grad_() for t in (r, w1t, b1, w2t, b2, g1,
+                                                    be1, g2, be2)]
+    splits = []
+    real = ffn.ff_weight_planes
+    monkeypatch.setattr(ffn, "ff_weight_planes",
+                        lambda *a: splits.append(a[-1]) or real(*a))
+    kernels.reset_launches()
+    y = ffn.FFNFunction.apply(*leaves, True, "bf16x3")
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert splits == ["bf16x3"]
+    counts = kernels.launch_counts()
+    assert counts["ffn_train_high"] == 1 and counts["ffn_bwd_split_high"] == 1
+    planes = real(w1t, w2t, "bf16x3")
+    _, u, z = kernels.fused_ffn_train(r, w1t.t(), b1, w2t.t(), b2, g1, be1,
+                                      g2, be2, True, "bf16x3", planes)
+    want = kernels.ffn_bwd_split(gy, r, u, z, w1t, w2t, g1, be1, g2, True,
+                                 "bf16x3")
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
