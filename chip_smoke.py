@@ -90,8 +90,16 @@ Phases (each prints its own lines; any failed check exits non-zero):
      B=256, T=128 at "highest", "high" (bf16x3) and "default" (one bf16
      pass): launches (ffn_high / ffn_default 12 in place of ffn), masked
      MPJPE against "highest" (< 1e-4 for "high", the run fails otherwise;
-     "default" printed), frames/s in turns; the merged route at "high"
-     (no FF kernel runs: the whole layers stay float32); the flagship A1
+     "default" printed), frames/s in turns; the merged route (the serving
+     default) at B=256 in the three precisions: launches (enc_layer_high /
+     dec_layer_high 6 at "high", the _default ones at "default"), the
+     kernel route against the plain route in the same precision (within
+     SERVE_TOL; "default" within MODE_DRIFT times the plain route's drift
+     on inputs one ulp away), masked MPJPE against "highest" beside
+     bench.py's 1e-4
+     gate and the plain route's figure (the run fails where the kernels
+     miss the gate and their plain version does not), frames/s in turns;
+     the flagship A1
      step at "high" and "default", kernel route against the plain route in
      the same mode (loss and gradient norm within 1e-4 relative; each
      parameter's gradient of the first step within HIGH_MODE_TOL /
@@ -113,7 +121,12 @@ each mode kernel nearer its own mode than the one below it (see
 HIGH_MODE_TOL), each bound at its mode's peak (bf16 tensor
 cores, three passes for "high"), each FF mode row timed beside a
 products-only yardstick (its matrix products as ``torch.matmul`` on bf16
-planes, labelled as not the same function), and the int8 kernels (int8_dense at the Embedding's
+planes, labelled as not the same function), the merged layers' mode
+kernels (``enc_layer`` / ``dec_layer`` in "high" and "default", the
+decoder with and without its FF tail, both models' masks, at B=3 and T in
+{40, 128, 256, 300}, the decoder without its tail at T=512, timed at
+B=256 beside a yardstick of their products; held by LAYER_MODE_TOL, and
+in phase 10 at every width), and the int8 kernels (int8_dense at the Embedding's
 Linear, 108 -> 256, and at a q / k / v projection, 256 -> 768, also at the
 600-frame request's 608 rows; ffn_int8 with LN1; enc_layer_int8 with both
 models' masks) against their plain versions and against ``torch._int_mm``
@@ -219,6 +232,32 @@ FF_MODE_TOL = {"ffn_high": HIGH_MODE_TOL, "ffn_train_high": HIGH_MODE_TOL,
                "ffn_default": DEFAULT_MODE_TOL,
                "ffn_train_default": DEFAULT_MODE_TOL,
                "ffn_bwd_split_default": DEFAULT_MODE_TOL}
+# the merged layers in a mode against their plain versions in that mode.
+# Both modes round the softmax probabilities to ONE bf16 (the TPU kernels'
+# _prob_parts), so a probability whose float32 value the two sum orders
+# put on either side of a bf16 rounding boundary moves by one bf16 step,
+# and its query's token by up to 2^-8 of that probability's share of v.
+# The largest error is such a flip (worst over phases 2 and 10, PERF.md
+# §6: 6.1e-5 of the output's max at "high", 5.0e-4 at "default", where
+# the wrong mode's can be as low as 1.2e-4), too close to the wrong mode
+# for a limit, so the mean decides: flips are rare, while a kernel off
+# its mode misses every output (mean at most 5.4e-7 at "high" and 1.1e-5
+# at "default", the wrong mode's at least 125 and 8.8 times further).
+# Each output within LAYER_MODE_TOL of its own max, the
+# mean at "high" within LAYER_HIGH_MEAN_TOL, and the mean error
+# MODE_SEPARATION times nearer the plain version in its own mode than in
+# the wrong one.
+LAYER_MODE_TOL = {"enc_layer_high": 1e-3, "dec_layer_high": 1e-3,
+                  "enc_layer_default": 4e-3, "dec_layer_default": 4e-3}
+LAYER_HIGH_MEAN_TOL = 2e-5
+# A whole model at "default" rounds every activation to one bf16, so the
+# flips above cascade through 6 + 6 layers: served at B=256, the kernel
+# route lands 3.2e-4 masked MPJPE from the plain route in the same mode
+# (1.3e-3 its largest coordinate), as far as "default" lies from
+# "highest".  So, as the int8 routes are held (INT8_DRIFT), the merged
+# route at "default" is held within MODE_DRIFT times the plain route's own
+# drift when its inputs move by one ulp; "high" stays within SERVE_TOL.
+MODE_DRIFT = 2.0
 # int8 kernels against their plain versions: the same int8 values and exact
 # int32 sums on both sides, except where the float32 value being quantized
 # (a LayerNorm or GELU output, summed in another order by the two) lies
@@ -303,12 +342,17 @@ MODE_TRAIN_KERNELS = ("ffn_train_high", "ffn_train_default",
 MODE_FF_KERNELS = ("ffn_high", "ffn_default", "ffn_train_high",
                    "ffn_train_default", "ffn_bwd_split_high",
                    "ffn_bwd_split_default")
+# the merged layers' mode kernels: held and timed in phase 2 like the FF
+# mode kernels (LAYER_MODE_TOL), served in phase 11 on the merged route
+LAYER_MODE_KERNELS = ("enc_layer_high", "enc_layer_default",
+                      "dec_layer_high", "dec_layer_default")
 # every kernel of ops/kernels.KERNELS, launched no time
 NO_LAUNCHES = dict.fromkeys(
     ("pre_stream_embed", "attn_sublayer", "ffn", "post_head",
      "attn_sublayer_train", "attn_sublayer_bwd", "ffn_train", "ffn_bwd",
      "enc_layer", "dec_layer", "attention", "attention_bwd", "masked_loss",
-     *INT8_KERNELS, *MODE_SERVE_KERNELS, *MODE_TRAIN_KERNELS), 0)
+     *INT8_KERNELS, *MODE_SERVE_KERNELS, *MODE_TRAIN_KERNELS,
+     *LAYER_MODE_KERNELS), 0)
 # the training step's launches of each kernel: 18 attention sublayers, 12
 # FF sublayers, forward and backward; none of the serving kernels
 TRAIN_COUNTS = {**NO_LAUNCHES, "attn_sublayer_train": 18,
@@ -401,8 +445,13 @@ class KernelCheck:
         pairs = [(g_, w_, x_) for g_, w_, x_ in zip(gots, wants, wrongs)
                  if not (g_ is None and w_ is None)]
         gscale = max(float(w_.abs().max()) for _, w_, _ in pairs)
-        mode_tol = FF_MODE_TOL.get(name.split()[0])
-        worst = [0.0, 0.0]  # normalized: own mode, wrong mode
+        base = name.split()[0]
+        layer_mode = base in LAYER_MODE_TOL
+        mode_tol = LAYER_MODE_TOL[base] if layer_mode else \
+            FF_MODE_TOL.get(base)
+        # normalized: own mode, wrong mode (the largest errors; the mean
+        # errors for the merged layers)
+        worst = [0.0, 0.0]
         for g_, w_, x_ in pairs:
             if g_ is None or w_ is None or g_.shape != w_.shape:
                 shapes = [None if t_ is None else tuple(t_.shape)
@@ -418,18 +467,22 @@ class KernelCheck:
                 own = float(w_.abs().max()) or 1.0
                 tol = mode_tol * own
                 avg = float((g_ - w_).abs().mean()) / own
-                worst[0] = max(worst[0], err / own)
+                worst[0] = max(worst[0], avg if layer_mode else err / own)
                 mean = (f" = {err / own:.3e} of its max {own:.3e}, mean "
                         f"{avg:.3e}")
                 if x_ is not None:
                     werr = float((g_ - x_).abs().max()) / own
-                    worst[1] = max(worst[1], werr)
-                    mean += (f"; wrong mode {werr:.3e}, mean "
-                             f"{float((g_ - x_).abs().mean()) / own:.3e}")
-                if name.split()[0].endswith("_default") and \
+                    wavg = float((g_ - x_).abs().mean()) / own
+                    worst[1] = max(worst[1], wavg if layer_mode else werr)
+                    mean += f"; wrong mode {werr:.3e}, mean {wavg:.3e}"
+                if base in FF_MODE_TOL and base.endswith("_default") and \
                         avg > DEFAULT_MEAN_TOL:
                     fail(f"{name} {variant}: mean abs err {avg:.3e} of its "
                          f"max > {DEFAULT_MEAN_TOL:.1e}")
+                if layer_mode and base.endswith("_high") and \
+                        avg > LAYER_HIGH_MEAN_TOL:
+                    fail(f"{name} {variant}: mean abs err {avg:.3e} of its "
+                         f"max > {LAYER_HIGH_MEAN_TOL:.1e}")
             if name.split()[0] in INT8_KERNELS:
                 tol = INT8_TOL * scale
                 avg = float((g_ - w_).abs().mean())
@@ -444,7 +497,8 @@ class KernelCheck:
             if err > tol:
                 fail(f"{name} {variant}: max_abs_err {err:.3e} > {tol:.2e}")
         if wrong is not None:
-            print(f"  {name:16s} {variant:34s} worst of the call: own mode "
+            what = "mean" if layer_mode else "worst"
+            print(f"  {name:16s} {variant:34s} {what} of the call: own mode "
                   f"{worst[0]:.3e}, wrong mode {worst[1]:.3e} (at least "
                   f"{MODE_SEPARATION:g} x further)", flush=True)
             if not worst[0] * MODE_SEPARATION < worst[1]:
@@ -640,6 +694,66 @@ class KernelCheck:
                             lambda a=args: k.fused_decoder_layer(
                                 *a, cluster=cluster),
                             lambda a=args: k.decoder_layer_plain(*a)))
+        return out
+
+    def layer_mode_calls(self, o, mask, valid, encoder=True,
+                         tails=(True, False)):
+        """(kernel name, variant, wrapper call, plain call, False, plain
+        call in the wrong mode) of the merged layers' mode kernels, with
+        ``layer_calls``' masks: the encoder layer (with ``encoder``) and the
+        decoder layer with and without its FF tail (``tails``), in "high"
+        and "default", their weights split into planes once, as a packed
+        model keeps them.  The plain model's come first (they are
+        timed)."""
+        from keypoints_interpolation_transformer_torch.ops.kernels.ffn \
+            import ff_weight_planes
+        from keypoints_interpolation_transformer_torch.ops.kernels \
+            .layer_fused import attn_weight_planes
+        k, out = self.k, []
+        self.layer_mode_args = {}  # (name, variant) -> (args, keywords)
+        ones = self.torch.ones_like(mask)
+        attn = (o["wqkv"], o["bqkv"], o["wo"], o["bo"])
+        cattn = (o["cwqkv"], o["cbqkv"], o["cwo"], o["cbo"])
+        ff = (o["w1"], o["b1"], o["w2"], o["b2"], o["g"], o["be"], o["g2"],
+              o["be2"])
+        for mode, tag in (("bf16x3", "high"), ("bf16", "default")):
+            wrong = WRONG_MODE[mode]
+            ap = attn_weight_planes(*attn[:3], self.heads, mode)
+            cp = attn_weight_planes(*cattn[:3], self.heads, mode)
+            fp = ff_weight_planes(o["w1"].t(), o["w2"].t(), mode)
+            for flags, m, kind in (("plain", mask, "repeat-inc"),
+                                   ("cycle", ones, "all")) if encoder else ():
+                args = (o["x"], *attn, *ff, m, valid, kind, True, self.heads)
+                self.layer_mode_args[(f"enc_layer_{tag}",
+                                      f"{flags} {kind}+keypad")] = (
+                    args, {"mode": mode, "planes": (ap, fp)})
+                out.append((
+                    f"enc_layer_{tag}", f"{flags} {kind}+keypad",
+                    lambda a=args, md=mode, p=(ap, fp):
+                    k.fused_encoder_layer(*a, mode=md, planes=p),
+                    lambda a=args, md=mode: k.encoder_layer_plain(*a, md),
+                    False,
+                    lambda a=args, md=wrong: k.encoder_layer_plain(*a, md)))
+            for with_ff in tails:
+                for flags, m, kind, keypad in (
+                        ("plain", mask, "repeat-inc", False),
+                        ("cycle", ones, "all", True)):
+                    args = (o["x"], o["mem"], *attn, *cattn, o["g"], o["be"],
+                            ff if with_ff else None, m, valid, None, valid,
+                            kind, keypad, "all", False, self.heads)
+                    p = (ap, cp, fp if with_ff else None)
+                    variant = (f"{flags} self {kind}"
+                               f"{'+keypad' if keypad else ''} ff={with_ff}")
+                    self.layer_mode_args[(f"dec_layer_{tag}", variant)] = (
+                        args, {"mode": mode, "planes": p})
+                    out.append((
+                        f"dec_layer_{tag}", variant,
+                        lambda a=args, md=mode, p=p: k.fused_decoder_layer(
+                            *a, mode=md, planes=p),
+                        lambda a=args, md=mode: k.decoder_layer_plain(*a, md),
+                        False,
+                        lambda a=args, md=wrong: k.decoder_layer_plain(*a,
+                                                                       md)))
         return out
 
     def train_calls(self, B, T, blocked=False):
@@ -1111,13 +1225,18 @@ LIBRARY = {"enc_layer": library_encoder_layer,
 def bound(name, B, T):
     """(bound_ms, bound_by): the larger of the operations over the peak for
     their type (float32 FLOP over the FFMA peak, or in the precision modes
-    over the bf16 tensor-core peak, three times for "high"; int8
+    over the bf16 tensor-core peak, three times for "high", twice for a
+    merged layer's p v; int8
     operations over the int8 tensor-core peak) and the bytes over the
     memory rate."""
     flop, int8, byts = work(name, B, T)
     peak = PEAK_FLOPS
     if name.endswith("_high"):
-        flop, peak = 3 * flop, PEAK_BF16
+        # three passes a product; a merged layer's p v (half its attention
+        # core's FLOP) two, its probabilities being one bf16
+        pv = (2 if name.startswith("dec") else 1) * 2 * B * HEADS * T * T * (
+            D // HEADS) if name in LAYER_MODE_KERNELS else 0
+        flop, peak = 3 * flop - pv, PEAK_BF16
     elif name.endswith("_default"):
         peak = PEAK_BF16
     t_op, t_mem = flop / peak + int8 / PEAK_INT8, byts / PEAK_BYTES
@@ -1127,11 +1246,13 @@ def bound(name, B, T):
 def products_yardstick(torch, name, B, T):
     """(call, count): the matrix products of mode kernel ``name`` at (B, T)
     alone, as ``torch.matmul`` calls on bf16 planes of random operands:
-    three a product at "high" (hi hi, hi lo, lo hi), one at "default"; the
-    forward's two products (x1 W1, gelu(u) W2), the backward's four (dz
-    W2^T, dz^T gelu(u), du^T x1, du W1^T).  A yardstick of the products'
-    cost, not the kernel's function: no LayerNorm, GELU, bias or residual,
-    bf16 outputs, and the planes are made outside the call."""
+    three a product at "high" (hi hi, hi lo, lo hi; p v two), one at
+    "default"; the FF forward's two products (x1 W1, gelu(u) W2), the
+    backward's four (dz W2^T, dz^T gelu(u), du^T x1, du W1^T), a merged
+    layer's projections, FF pair and per-head scores and p v.  A yardstick
+    of the products' cost, not the kernel's function: no LayerNorm, GELU,
+    softmax, bias or residual, bf16 outputs, and the planes are made
+    outside the call."""
     N = B * T
     gen = torch.Generator(device=DEV).manual_seed(9)
 
@@ -1143,23 +1264,44 @@ def products_yardstick(torch, name, B, T):
     def t(p):
         return p[0].t(), p[1].t()
 
+    three = name.endswith("_high")
+    # (A's planes, B's planes, terms): three at "high" but for p v's two
+    # (one bf16 p against v's hi and lo), one at "default"
     if name.startswith("ffn_bwd_split"):
         dz, x1, du, h = planes(N, D), planes(N, D), planes(N, FF), planes(N,
                                                                        FF)
         w1t, w2t = planes(FF, D), planes(D, FF)
-        prods = [(dz, w2t), (t(dz), h), (t(du), x1), (du, w1t)]
+        prods = [(dz, w2t, 3), (t(dz), h, 3), (t(du), x1, 3), (du, w1t, 3)]
+    elif name.startswith(("enc_layer", "dec_layer")):
+        # the projections, the FF pair and per head (batched) the scores
+        # and p v; the decoder adds the cross q, the memory's k / v, a
+        # second out-projection and attention
+        dec = name.startswith("dec")
+        dh, BH = D // HEADS, B * HEADS
+        prods = [(planes(N, D), planes(D, 3 * D), 3),
+                 (planes(N, D), planes(D, D), 3),
+                 (planes(N, D), planes(D, FF), 3),
+                 (planes(N, FF), planes(FF, D), 3)]
+        attn = [(planes(BH, T, dh), planes(BH, dh, T), 3),
+                (planes(BH, T, T), planes(BH, T, dh), 2)]
+        prods += attn
+        if dec:
+            prods += [(planes(N, D), planes(D, D), 3),
+                      (planes(N, D), planes(D, 2 * D), 3),
+                      (planes(N, D), planes(D, D), 3)] + attn
     else:
-        prods = [(planes(N, D), planes(D, FF)), (planes(N, FF), planes(FF, D))]
-    three = name.endswith("_high")
+        prods = [(planes(N, D), planes(D, FF), 3),
+                 (planes(N, FF), planes(FF, D), 3)]
 
     def call():
-        for (ah, al), (bh, bl) in prods:
+        for (ah, al), (bh, bl), terms in prods:
             torch.matmul(ah, bh)
             if three:
                 torch.matmul(ah, bl)
-                torch.matmul(al, bh)
+                if terms == 3:
+                    torch.matmul(al, bh)
 
-    return call, len(prods) * (3 if three else 1)
+    return call, sum(terms if three else 1 for _, _, terms in prods)
 
 
 # the sublayer forwards, whose launches phase 2 prints apart
@@ -1216,7 +1358,8 @@ def phase_kernels(torch, kmod):
                 + [(*c, None) for c in chk.train_calls(b_train, T)
                    + chk.per_op_calls(b_train, T, blocked)]
                 + [(*c, False, None) for c in chk.int8_calls(B, T)]
-                + chk.precision_calls(B, b_train, T))
+                + chk.precision_calls(B, b_train, T)
+                + chk.layer_mode_calls(chk.operands(B, T), *chk.masks(B, T)))
 
     def held(fn):
         return None if fn is None else fn()
@@ -1232,6 +1375,13 @@ def phase_kernels(torch, kmod):
         for name, variant, kern, plain, grad in chk.per_op_calls(B, T):
             chk.compare(name, f"B={B} T={T} {variant}", kern(), plain(),
                         grad)
+    # the merged decoder layer in a mode at its longest length, without
+    # its FF tail (T 257-512), the keys in one stage of its attention core
+    o, (mask, valid) = chk.operands(2, 512), chk.masks(2, 512)
+    for name, variant, kern, plain, grad, wrong in chk.layer_mode_calls(
+            o, mask, valid, encoder=False, tails=(False,)):
+        chk.compare(name, f"B=2 T=512 {variant}", kern(), plain(), grad,
+                    wrong())
     # the training kernels at the sublayer kernel's longest length: four
     # key tiles of the backward's attention core, their dq parts added in
     # order, and a video whose keys are all padded
@@ -1277,6 +1427,10 @@ def phase_kernels(torch, kmod):
             print(f"  {name} library: none; no one PyTorch call computes "
                   "the fused sublayer, and none rounds float32 operands "
                   "to bf16 hi / lo parts", flush=True)
+        if name in LAYER_MODE_KERNELS:
+            print(f"  {name} library: none; no PyTorch call rounds the "
+                  "operands of a layer's products, or its softmax "
+                  "probabilities, to bf16 in-chain", flush=True)
         p0 = timed_ms(plain)
         k0 = timed_ms(kern)
         lib_ms = min(timed_ms(lib), timed_ms(lib)) if lib else None
@@ -1285,8 +1439,8 @@ def phase_kernels(torch, kmod):
         b_ms, b_by = bound(name, B, T_MAIN)
         times[name] = (min(k0, k1), min(p0, p1), b_ms, b_by, lib_ms)
         rate = ""
-        if name in LAYER_KERNELS:  # the work each does, over its time
-            flop, int8, _ = work(name, B, T_MAIN)
+        if name in LAYER_KERNELS + LAYER_MODE_KERNELS:  # the work, over
+            flop, int8, _ = work(name, B, T_MAIN)      # its time
             rate = f"  {flop / times[name][0] / 1e9:.1f} TFLOP/s" + (
                 f" + {int8 / times[name][0] / 1e9:.1f} int8 TOP/s"
                 if int8 else "")
@@ -1295,7 +1449,7 @@ def phase_kernels(torch, kmod):
               f"({b_by}; the kernel at {b_ms / times[name][0]:.1%} of it)"
               + (f"  library {lib_ms:.4f} ms" if lib else "") + rate
               + f"  (B={B} T={T_MAIN})", flush=True)
-        if name in MODE_FF_KERNELS:
+        if name in MODE_FF_KERNELS + LAYER_MODE_KERNELS:
             call, count = products_yardstick(torch, name, B, T_MAIN)
             y_ms = min(timed_ms(call), timed_ms(call))
             print(f"  yardstick {name:14s} products only: {y_ms:.4f} ms "
@@ -2202,9 +2356,9 @@ def device_profile(torch, label, fn, gpu):
 
 def profile_paths(torch, gpu):
     """One warm train step on the kernel path, on the per-op attention
-    route and at "high", then one merged-route and one per-sublayer "high"
-    Inpainter call at B=256, T=128 (host arrays in and out, as phase 6
-    times it)."""
+    route and at "high", then one merged-route Inpainter call at "highest",
+    "high" and "default" and one per-sublayer call at "highest" and "high"
+    at B=256, T=128 (host arrays in and out, as phase 6 times it)."""
     from keypoints_interpolation_transformer_torch.eval.serving import (
         Inpainter)
     from keypoints_interpolation_transformer_torch.models.completer import (
@@ -2236,6 +2390,9 @@ def profile_paths(torch, gpu):
     videos, masks = model_inputs(B_MAIN, T_MAIN, 3)
     for label, mc, merge in (
             ("merged-route", model_config(), True),
+            ("merged-route \"high\"", cfg.model, True),
+            ("merged-route \"default\"", dataclasses.replace(
+                model_config(), matmul_precision="default"), True),
             ("per-sublayer", model_config(), False),
             ("per-sublayer \"high\"", cfg.model, False)):
         inp = Inpainter(model.state_dict(), mc, device=DEV,
@@ -2405,11 +2562,105 @@ def mode_counts(counts, prec):
     return out
 
 
+def mode_drift(plain_engine, videos, masks, want, miss):
+    """The masked MPJPE by which ``plain_engine``'s predictions ``want``
+    move when the inputs move by one ulp (the mode's own sensitivity)."""
+    nudged = [np.nextafter(v, np.float32(2.0)) for v in videos]
+    moved = np.stack(plain_engine.inpaint(nudged, masks))
+    drift = masked_mpjpe_delta(moved, want, miss)
+    print(f"  the plain route on inputs one ulp away drifts by masked MPJPE "
+          f"{drift:.3e}", flush=True)
+    return drift
+
+
+def merged_mode_counts(prec):
+    """MERGED_COUNTS with the whole layers moved to the precision's own
+    kernels."""
+    if prec == "highest":
+        return dict(MERGED_COUNTS)
+    tag, out = MODE_TAG[prec], dict(MERGED_COUNTS)
+    for name in ("enc_layer", "dec_layer"):
+        out[f"{name}{tag}"], out[name] = out[name], 0
+    return out
+
+
+def merged_precision(torch, kmod, gpu, sd, videos, masks, miss):
+    """The merged route (the JAX package's serving default) at B=256 in
+    the three precisions: the launches of one call (the mode's whole-layer
+    kernels at "high" and "default"), the kernel route against the plain
+    route in the same precision (the largest coordinate difference within
+    SERVE_TOL; at "default" the masked MPJPE within MODE_DRIFT times the
+    plain route's drift), the masked MPJPE against "highest"
+    beside bench.py's 1e-4 gate (the plain route's figure beside it: the
+    gate judges the mode's own arithmetic, which the JAX package shares;
+    the run fails where the kernels miss the gate and their plain version
+    does not), and frames/s in turns.  Returns the mode layers' launches."""
+    import dataclasses
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    launches, outs, engines, engines_plain = {}, {}, {}, {}
+    for prec in PRECISIONS:
+        cfg = dataclasses.replace(model_config(), matmul_precision=prec)
+        engines[prec] = Inpainter(sd, cfg, device=DEV)
+        kmod.reset_launches()
+        got = np.stack(engines[prec].inpaint(videos, masks))
+        torch.cuda.synchronize()
+        counts, want = kmod.launch_counts(), merged_mode_counts(prec)
+        if counts != want:
+            fail(f"{prec} merged serving launches {counts} != {want}")
+        for name in LAYER_MODE_KERNELS:
+            launches[name] = launches.get(name, 0) + counts[name]
+        engines_plain[prec] = Inpainter(sd, cfg, device=DEV, plain=True)
+        plain = np.stack(engines_plain[prec].inpaint(videos, masks))
+        if got.shape != plain.shape or not np.isfinite(got).all():
+            fail(f"{prec} merged serving: shape {got.shape} or non-finite")
+        if not np.array_equal(got[miss == 0], plain[miss == 0]):
+            fail(f"{prec} merged serving changed a non-missing frame")
+        err = float(np.abs(got - plain).max())
+        delta = masked_mpjpe_delta(got, plain, miss)
+        print(f"  {prec}: merged serving B={B_MAIN} T={T_MAIN}, kernel "
+              f"route against the plain route in the same precision: "
+              f"largest coordinate difference {err:.3e}, masked MPJPE "
+              f"{delta:.3e}; launches {nonzero(counts)}", flush=True)
+        if prec == "default":
+            tol = MODE_DRIFT * mode_drift(engines_plain[prec], videos, masks,
+                                          plain, miss)
+            print(f"  default: held by masked MPJPE within {tol:.3e} "
+                  f"({MODE_DRIFT:g} x the plain route's drift on inputs "
+                  "one ulp away)", flush=True)
+            if not delta < tol:
+                fail(f"default merged serving: kernel route {delta:.3e} "
+                     f"masked MPJPE from the plain route >= {tol:.3e}")
+        elif err > SERVE_TOL:
+            fail(f"{prec} merged serving: kernel route {err:.3e} from the "
+                 f"plain route > {SERVE_TOL:.0e}")
+        outs[prec] = (got, plain)
+    for prec in ("high", "default"):
+        got, plain = outs[prec]
+        delta = masked_mpjpe_delta(got, outs["highest"][0], miss)
+        pdelta = masked_mpjpe_delta(plain, outs["highest"][1], miss)
+        verdict = "within" if delta < MPJPE_TOL else "at or above"
+        print(f"  {prec}: merged serving masked MPJPE against \"highest\" "
+              f"{delta:.3e} ({verdict} bench.py's gate {MPJPE_TOL:.0e}); "
+              f"the plain route in the mode {pdelta:.3e}", flush=True)
+        if delta >= MPJPE_TOL > pdelta:
+            fail(f"{prec}: the merged kernels miss the gate ({delta:.3e}) "
+                 f"where their plain version meets it ({pdelta:.3e})")
+    fps = {}
+    for prec in PRECISIONS + PRECISIONS[::-1]:
+        fps[prec] = max(fps.get(prec, 0.0),
+                        frames_per_s(engines[prec], videos, masks))
+    print(f"  Inpainter merged B={B_MAIN} T={T_MAIN}: " + ", ".join(
+        f"{p} {fps[p]:.1f} frames/s" for p in PRECISIONS)
+        + f" (best of 2 turns) on {gpu}", flush=True)
+    return launches
+
+
 def phase_precision(torch, kmod, gpu, tmp):
     """Serving per sublayer at B=256 in the three precisions (launches,
     masked MPJPE against "highest": "high" gated at bench.py's 1e-4,
-    "default" printed; frames/s in turns); the merged route at "high"
-    (no FF kernel: the whole layers stay float32); the flagship A1 step at
+    "default" printed; frames/s in turns); the merged route in the three
+    precisions (``merged_precision``); the flagship A1 step at
     "high" and "default", kernel route against the plain route in the same
     mode, its launches, step time and loss against the float32 step; one
     epoch of ``cli train --precision high``.  Returns the mode kernels'
@@ -2429,7 +2680,8 @@ def phase_precision(torch, kmod, gpu, tmp):
           flush=True)
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on: the plain mode versions would round twice")
-    launches = dict.fromkeys(MODE_SERVE_KERNELS + MODE_TRAIN_KERNELS, 0)
+    launches = dict.fromkeys(MODE_SERVE_KERNELS + MODE_TRAIN_KERNELS
+                             + LAYER_MODE_KERNELS, 0)
     net = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
                             generator=torch.Generator().manual_seed(0))
     sd = net.state_dict()
@@ -2463,18 +2715,8 @@ def phase_precision(torch, kmod, gpu, tmp):
                   f"launches {nonzero(counts)}", flush=True)
             if gate and not delta < MPJPE_TOL:
                 fail(f"{prec}: masked MPJPE {delta:.3e} >= {MPJPE_TOL}")
-    merged = Inpainter(sd, dataclasses.replace(model_config(),
-                                               matmul_precision="high"),
-                       device=DEV)
-    kmod.reset_launches()
-    merged.inpaint(videos[:8], masks[:8])
-    torch.cuda.synchronize()
-    if kmod.launch_counts() != MERGED_COUNTS:
-        fail(f"merged route at \"high\": {kmod.launch_counts()} != "
-             f"{MERGED_COUNTS}")
-    print("  merged route at \"high\": the float32 whole-layer kernels, no "
-          f"FF kernel ({nonzero(MERGED_COUNTS)})", flush=True)
-    del merged
+    launches.update(merged_precision(torch, kmod, gpu, sd, videos, masks,
+                                     miss))
     fps = {}
     for prec in PRECISIONS + PRECISIONS[::-1]:
         engines[prec].inpaint(videos, masks)  # warm
@@ -2680,6 +2922,10 @@ def phase_widths(torch, kmod):
             for name, variant, kern, plain, grad in calls:
                 chk.compare(name, f"{tag} T={T} {variant}", kern(), plain(),
                             grad)
+            for name, variant, kern, plain, grad, wrong in \
+                    chk.layer_mode_calls(chk.operands(3, T), *chk.masks(3, T)):
+                chk.compare(name, f"{tag} T={T} {variant}", kern(), plain(),
+                            grad, wrong())
         # B=40 (5120 rows) fills half the card with row tiles at every
         # width: the forwards' row-tile builds (B=3 above takes the narrow
         # ones and the FF split)
@@ -2891,6 +3137,15 @@ def ab_measure(torch, gpu, out_path):
             step_ms = min(step_ms, start.elapsed_time(end) / 5)
         out["mode_step_ms"][prec] = step_ms
         del model, st, step
+    # the merged route at B=256 in the three precisions (frames/s, best
+    # of 2): "high" and "default" run the mode layers where a tree has them
+    out["merged_mode_fps"] = {}
+    for prec in ("highest", "high", "default"):
+        inp = Inpainter(sd, dataclasses.replace(
+            model_config(), matmul_precision=prec), device=DEV)
+        out["merged_mode_fps"][prec] = max(frames_per_s(inp, videos, masks)
+                                           for _ in range(2))
+        del inp
     out["mode_fps"], out["high_one_video_ms"] = {}, None
     for prec in ("highest", "high", "default"):
         inp = Inpainter(sd, dataclasses.replace(
@@ -2966,7 +3221,11 @@ def ab(other, gpu):
                   f"B={B_MAIN} " + " / ".join(
                       f"{p} {v:.1f}" for p, v in row["mode_fps"].items())
                   + " frames/s; one video at \"high\" "
-                  f"{row['high_one_video_ms']:.3f} ms", flush=True)
+                  f"{row['high_one_video_ms']:.3f} ms; merged Inpainter "
+                  f"B={B_MAIN} " + " / ".join(
+                      f"{p} {v:.1f}" for p, v in
+                      row["merged_mode_fps"].items()) + " frames/s",
+                  flush=True)
         parent, change = (np.load(os.path.join(tmp, f)) for f in
                           ("0_parent.npy", "1_change.npy"))
     _, miss = model_inputs(B_MAIN, T_MAIN, 3)

@@ -331,22 +331,29 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a row-major bf16 matrix (rows x cols, row stride cols) read in
-// boxes of 64 columns x box_rows rows, 128-byte swizzled, zero-filled out of
-// bounds; a null base leaves the map zero (a plane the mode does not read).
-inline int plane_map(CUtensorMap* m, const bf16* base, int rows, int cols, int box_rows) {
+// The map of a row-major bf16 matrix (rows x cols, row stride ld >= cols,
+// a multiple of 8) read in boxes of 64 columns x box_rows rows, 128-byte
+// swizzled, zero-filled out of bounds; a null base leaves the map zero (a
+// plane the mode does not read).
+inline int plane_map(CUtensorMap* m, const bf16* base, int rows, int cols, int box_rows,
+                     int ld) {
   *m = CUtensorMap{};
   if (base == nullptr) return 0;
   EncodeTiled f = encode_tiled();
   if (f == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
   const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows}, unit[2] = {1u, 1u};
   const CUresult r = f(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims,
                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// plane_map of a matrix whose row stride is its width.
+inline int plane_map(CUtensorMap* m, const bf16* base, int rows, int cols, int box_rows) {
+  return plane_map(m, base, rows, cols, box_rows, cols);
 }
 
 }  // namespace kit

@@ -58,12 +58,12 @@ class Inpainter:
     would run.
 
     ``model_cfg.matmul_precision`` ("highest", "high", "default" or an
-    alias) is the models' precision: the FF sublayers that run on their own
-    (``merge_layers=False``, or a bucket the merged encoder layer does not
-    take: T > 256) run in its mode, the rest in float32.  On the merged
-    route at T <= 256 no FF kernel runs (the FF tails are inside the
-    whole-layer kernels, float32 at every precision), so there the
-    precision changes nothing.
+    alias) is the models' precision: the merged whole-layer kernels (T <=
+    256, and the decoder's up to 512) run every product of the layer in its
+    mode, and the FF sublayers that run on their own (``merge_layers=False``,
+    or a bucket the merged encoder layer does not take: T > 256) run in it
+    too; the per-sublayer and per-op attention and the pointwise chains stay
+    float32.  Int8 serving keeps its attention float32 at every precision.
 
     ``quantize="int8"`` serves int8 as the JAX package's Inpainter does on
     the TPU: the FF sublayers through the int8 FF kernels (the merged

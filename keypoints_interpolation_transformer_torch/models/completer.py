@@ -41,7 +41,11 @@ Two routes, as the JAX package's ``build_model`` has them:
 ``precision`` (the JAX ``matmul_precision`` names: "highest", "high",
 "default" and their aliases; ``utils/config.resolve_precision``) is set at
 construction and read by every forward: the FF sublayers run in its mode
-on both routes, everything else in float32 (see ``models/layers.py``).
+on both routes, and so do the merged whole-layer kernels on the serving
+route (every product of the layer, attention included, as the JAX
+``_enc_kernel`` / ``_dec_kernel`` take the mode); the per-sublayer and
+per-op attention and the pointwise chains stay float32 (see
+``models/layers.py``).
 
 On both routes ``attn_sublayer_fusion`` off, or a length the sublayer
 kernel does not take (T > 512 or T % 8 != 0), sends attention per op
@@ -62,7 +66,8 @@ from ..ops.kernels.ffn import ffn_supported
 from ..ops.kernels.pointwise import pointwise_supported, token_norm
 from ..utils.config import resolve_precision
 from .layers import (AttnSpec, FeedForward, MultiHeadAttention, SwiGLU,
-                     TransformerCore, ff_planes, graph_linear, int8_dense,
+                     TransformerCore, attn_planes, ff_planes, graph_linear,
+                     int8_dense,
                      int8_linear, packed_linear,
                      sinusoidal_positional_encoding)
 
@@ -127,8 +132,8 @@ class KeypointCompleter(nn.Module):
 
     @property
     def mode(self) -> str:
-        """The precision mode of the FF sublayers: "f32", "bf16x3" or
-        "bf16"."""
+        """The precision mode of the FF sublayers and the merged layers:
+        "f32", "bf16x3" or "bf16"."""
         return resolve_precision(self.precision)
 
     @torch.no_grad()
@@ -162,8 +167,10 @@ class KeypointCompleter(nn.Module):
         where ``ffn_supported`` sends them to the plain chain), the
         attention projections, embeddings, SwiGLUs and head in the Dense
         table's form (``int8_matmul.quantize_weight``).  Otherwise, in the
-        precision modes "high" and "default", the FF weights are split into
-        the bf16 planes their kernels read (``ff_planes``)."""
+        precision modes "high" and "default", the FF weights and every
+        attention sublayer's are split into the bf16 planes their kernels
+        read (``ff_planes``, ``attn_planes``: the merged layers' and the FF
+        sublayers'), so that the first request splits nothing."""
         self.int8 = check_quantize(quantize) == "int8"
         mode = self.mode
         for m in self.modules():
@@ -171,6 +178,8 @@ class KeypointCompleter(nn.Module):
                 m.packed()
                 if self.int8:
                     m.int8_packed()
+                elif mode != "f32" and isinstance(m, MultiHeadAttention):
+                    attn_planes(m, mode)
             elif isinstance(m, nn.Linear):
                 packed_linear(m)
                 if self.int8:

@@ -18,10 +18,13 @@ autograd differentiates the plain version.
 The FF sublayer runs in the model's precision mode ``mode`` ("f32",
 "bf16x3" or "bf16"; ``ops/kernels/precision.py``): its kernels in that
 mode (the training route's backward through ``ffn_bwd_split`` outside
-"f32"), its plain chain with the products in that mode.  Everything else
-stays float32 in every mode, the merged whole-layer kernels included, so on
-the merged route a precision mode changes only the FF sublayers that run
-on their own.
+"f32"), its plain chain with the products in that mode.  So do the merged
+whole-layer kernels, every product of the layer (attention included) in
+the mode as the JAX ``_enc_kernel`` / ``_dec_kernel`` take them, their
+weights split once into bf16 planes (``attn_planes``, ``ff_planes``); int8
+serving keeps its layers float32 around the int8 FF.  The per-sublayer
+attention and the per-op attention stay float32 in every mode (the JAX
+package's sublayer and per-op kernels in a mode are not ported yet).
 
 Serving with ``merge=True`` (the JAX package's default, ``merge_layers``)
 takes the merged whole-layer kernels where the JAX package takes them
@@ -61,7 +64,8 @@ from ..ops.kernels import (AttentionFunction, AttnSublayerFunction,
                            fused_ffn_int8, fused_int8_dense, int8_dense_plain)
 from ..ops.kernels.ffn import LN_EPS, ff_weight_planes, ffn_supported
 from ..ops.kernels.int8_matmul import quantize_weight
-from ..ops.kernels.layer_fused import (decoder_full_supported,
+from ..ops.kernels.layer_fused import (attn_weight_planes,
+                                       decoder_full_supported,
                                        fused_layer_supported,
                                        use_sublayer_kernel)
 from ..ops.kernels.pointwise import token_norm
@@ -114,6 +118,15 @@ def ff_planes(ff: "FeedForward", mode: str):
                                            ff.linear2.weight),
                    lambda: ff_weight_planes(ff.linear1.weight.detach(),
                                             ff.linear2.weight.detach(), mode))
+
+
+def attn_planes(mha: "MultiHeadAttention", mode: str):
+    """An attention sublayer's weights as the merged mode kernels read them
+    (``layer_fused.attn_weight_planes``: q's scale folded in, bf16 planes),
+    built once per state of the weights."""
+    return _cached(mha, f"_planes_{mode}", list(mha.parameters()),
+                   lambda: attn_weight_planes(*mha.packed()[:3],
+                                              mha.num_heads, mode))
 
 
 def int8_linear(lin: nn.Linear, form: str = "dense"):
@@ -370,15 +383,20 @@ class EncoderLayer(FeedForward):
         T = x.shape[1]
         sub = use_sublayer_kernel(fuse, T, D)
         if sub and merge and not train and fused_layer_supported(T, D, FF):
+            args = (*self.self_attn.packed(), *spec, self.self_attn.num_heads)
             if int8:
                 fn = encoder_layer_int8_plain if plain else \
                     fused_encoder_layer_int8
                 ff = self.ff_int8_packed(self.norm1, self.norm2)
-            else:
-                fn = encoder_layer_plain if plain else fused_encoder_layer
-                ff = self.ff_packed(self.norm1, self.norm2)
-            return fn(x, *self.self_attn.packed(), *ff, *spec,
-                      self.self_attn.num_heads)
+                return fn(x, *args[:4], *ff, *args[4:])
+            ff = self.ff_packed(self.norm1, self.norm2)
+            if plain:
+                return encoder_layer_plain(x, *args[:4], *ff, *args[4:],
+                                           mode)
+            planes = None if mode == "f32" else (
+                attn_planes(self.self_attn, mode), ff_planes(self, mode))
+            return fused_encoder_layer(x, *args[:4], *ff, *args[4:],
+                                       mode=mode, planes=planes)
         if sub:
             r = self.self_attn.sublayer(x, None, None, spec, plain, train)
         else:
@@ -410,15 +428,25 @@ class DecoderLayer(FeedForward):
             # the FF tail stays out of the merged kernel under int8, as
             # the JAX package's ``full`` holds for its float kernel only
             full = decoder_full_supported(T, D, FF) and not int8
-            fn = decoder_layer_plain if plain else fused_decoder_layer
-            r = fn(y, memory, *self.self_attn.packed(),
-                   *self.multihead_attn.packed(), self.norm1.weight,
-                   self.norm1.bias,
-                   self.ff_packed(self.norm2, self.norm3) if full else None,
-                   self_spec.mask, self_spec.valid, cross_spec.mask,
-                   cross_spec.valid, self_spec.kind, self_spec.add_keypad,
-                   cross_spec.kind, cross_spec.add_keypad,
-                   self.self_attn.num_heads)
+            # int8 serving keeps its decoder layers float32 (its outputs
+            # stay as they were; the int8 route at a mode is not ported)
+            lmode = "f32" if int8 else mode
+            args = (y, memory, *self.self_attn.packed(),
+                    *self.multihead_attn.packed(), self.norm1.weight,
+                    self.norm1.bias,
+                    self.ff_packed(self.norm2, self.norm3) if full else None,
+                    self_spec.mask, self_spec.valid, cross_spec.mask,
+                    cross_spec.valid, self_spec.kind, self_spec.add_keypad,
+                    cross_spec.kind, cross_spec.add_keypad,
+                    self.self_attn.num_heads)
+            if plain:
+                r = decoder_layer_plain(*args, lmode)
+            else:
+                planes = None if lmode == "f32" else (
+                    attn_planes(self.self_attn, lmode),
+                    attn_planes(self.multihead_attn, lmode),
+                    ff_planes(self, lmode) if full else None)
+                r = fused_decoder_layer(*args, mode=lmode, planes=planes)
             if full:
                 return r
             return self.ff_sublayer(r, self.norm2, self.norm3, plain,

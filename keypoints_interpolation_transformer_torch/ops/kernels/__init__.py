@@ -25,9 +25,10 @@ from .ffn import (FFNFunction, ff_weight_planes, ffn_bwd, ffn_bwd_plain,
                   ffn_plain, ffn_train_plain, fused_ffn, fused_ffn_int8,
                   fused_ffn_train)
 from .int8_matmul import fused_int8_dense, int8_dense_plain
-from .layer_fused import (decoder_layer_plain, encoder_layer_int8_plain,
-                          encoder_layer_plain, fused_decoder_layer,
-                          fused_encoder_layer, fused_encoder_layer_int8)
+from .layer_fused import (attn_weight_planes, decoder_layer_plain,
+                          encoder_layer_int8_plain, encoder_layer_plain,
+                          fused_decoder_layer, fused_encoder_layer,
+                          fused_encoder_layer_int8)
 from .masked_loss import (FusedEuclideanLoss, fused_euclidean_loss,
                           fused_masked_loss, masked_loss_plain)
 from .pointwise import (fused_post_head, fused_pre_stream,
@@ -64,9 +65,9 @@ KERNELS = (
     Kernel("ffn_bwd", ffn_bwd,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:450"),
     Kernel("enc_layer", fused_encoder_layer,
-           f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:77"),
+           f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:77", "f32"),
     Kernel("dec_layer", fused_decoder_layer,
-           f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:239"),
+           f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:239", "f32"),
     Kernel("attention", fused_attention,
            f"{_SRC}/attention.cu", f"{_TPU}/attention.py:317"),
     Kernel("attention_bwd", attention_bwd,
@@ -94,6 +95,14 @@ KERNELS = (
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:646,679", "bf16"),
     Kernel("pre_stream", fused_pre_stream,
            f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:77"),
+    Kernel("enc_layer_high", fused_encoder_layer,
+           f"{_SRC}/layer_modes.cu", f"{_TPU}/layer_fused.py:77", "bf16x3"),
+    Kernel("enc_layer_default", fused_encoder_layer,
+           f"{_SRC}/layer_modes.cu", f"{_TPU}/layer_fused.py:77", "bf16"),
+    Kernel("dec_layer_high", fused_decoder_layer,
+           f"{_SRC}/layer_modes.cu", f"{_TPU}/layer_fused.py:239", "bf16x3"),
+    Kernel("dec_layer_default", fused_decoder_layer,
+           f"{_SRC}/layer_modes.cu", f"{_TPU}/layer_fused.py:239", "bf16"),
 )
 
 

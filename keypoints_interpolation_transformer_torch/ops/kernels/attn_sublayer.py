@@ -62,6 +62,7 @@ import torch.nn.functional as F
 from ..masks import NEG
 from . import _build
 from .ffn import LN_EPS, _ln_bwd_plain, wave_splits
+from .precision import check_mode, part_products, parts, prob_products
 from .widths import check_heads, cut, cut_blocks, kernel_width, pad, \
     pad_blocks, row_tile
 
@@ -69,6 +70,9 @@ from .widths import check_heads, cut, cut_blocks, kernel_width, pad, \
 _SIGS = {"kit_attn_sublayer": "pp" + "i" * 5 + "p" * 8 + "ii" + "p" * 6,
          "kit_attn_sublayer_bwd": "p" * 12 + "i" * 8 + "p" * 9}
 KINDS = ("repeat-inc", "all")
+# log2(e): in the precision modes the scores are in the log2 domain (the
+# JAX ``LOG2E``, folded into Wq / bq and the keypad term)
+LOG2E = 1.4426950408889634
 # the backward's one-pass attention core (``csrc/attention_grad.cuh``):
 # the keys a block owns (``AB_KT``) and the head widths it is built for
 # (``tiled_head``)
@@ -76,11 +80,14 @@ KEY_TILE = 128
 TILED_HEADS = (16, 32, 64)
 
 
-def bias_from_masks(mask, valid, T: int, kind: str, add_keypad: bool):
+def bias_from_masks(mask, valid, T: int, kind: str, add_keypad: bool,
+                    mul: float = 1.0):
     """Additive bias, broadcastable to (B, T_query, T_key) (key-only terms
     stay (B, 1, T_key)), from the 1-D masks, summed in the
     order of the JAX ``_bias_terms``, or None when no term applies.
-    ``mask`` is read only for "repeat-inc" or ``add_keypad``."""
+    ``mask`` is read only for "repeat-inc" or ``add_keypad``; ``mul``
+    scales the keypad term only, as ``_bias_terms_T`` scales it for its
+    log2-domain scores (the NEG blockers stay as they are)."""
     if kind not in KINDS:
         raise ValueError(f"unsupported mask kind {kind!r}")
     bias = None
@@ -90,7 +97,7 @@ def bias_from_masks(mask, valid, T: int, kind: str, add_keypad: bool):
         blocked = future[None] & (mask[:, None, :] > 0)
         bias = torch.where(blocked, NEG, 0.0)
     if add_keypad:
-        kp = mask[:, None, :]
+        kp = mask[:, None, :] if mul == 1.0 else mask[:, None, :] * mul
         bias = kp if bias is None else bias + kp
     if valid is not None:
         vb = torch.where(valid[:, None, :] > 0, 0.0, NEG)
@@ -99,8 +106,15 @@ def bias_from_masks(mask, valid, T: int, kind: str, add_keypad: bool):
 
 
 def attn_sublayer_plain(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b, mask,
-                        valid, kind: str, add_keypad: bool, heads: int):
-    """Plain PyTorch version of ``fused_attn_sublayer``."""
+                        valid, kind: str, add_keypad: bool, heads: int,
+                        mode: str = "f32"):
+    """Plain PyTorch version of ``fused_attn_sublayer``; in the modes
+    "bf16x3" and "bf16" the products round as the JAX ``_sublayer_kernel``
+    rounds them there (``_sublayer_mode_plain``)."""
+    if check_mode(mode) != "f32":
+        return _sublayer_mode_plain(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b,
+                                    mask, valid, kind, add_keypad, heads,
+                                    mode)
     B, T, D = x.shape
     dh = D // heads
     mem = x if memory is None else memory
@@ -117,6 +131,56 @@ def attn_sublayer_plain(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b, mask,
         logits = logits + bias[:, None]
     a = (torch.softmax(logits, dim=-1) @ v).transpose(1, 2).reshape(B, T, D)
     r = x + (a @ wo + bo)
+    if ln_w is not None:
+        r = F.layer_norm(r, (D,), ln_w, ln_b, LN_EPS)
+    return r
+
+
+def mode_q_scale(dh: int) -> float:
+    """The factor the modes fold into Wq and bq before they are split: the
+    JAX ``_enc_fwd_pallas`` / ``_dec_fwd_pallas`` ``qscale``."""
+    return LOG2E / math.sqrt(dh)
+
+
+def _sublayer_mode_plain(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b, mask,
+                         valid, kind, add_keypad, heads, mode):
+    """The attention sublayer in a mode, as the JAX TPU kernels compute it:
+    log2(e) / sqrt(dh) folded into Wq and bq in float32, then every
+    projection a product of the bf16 parts (``precision.part_products``,
+    each activation split once) + bias; per head the scores k_hi q_hi^T +
+    k_hi q_lo^T + k_lo q_hi^T (one term in "bf16") + the bias with its
+    keypad term times log2(e); the softmax in the log2 domain (max, exp2,
+    times 1 / sum) before the probabilities are rounded to one bf16 that
+    multiplies v's parts (``precision.prob_products``); biases, the
+    residual and the LayerNorm in float32."""
+    B, T, D = x.shape
+    dh = D // heads
+    mem = x if memory is None else memory
+    wq, wk, wv = wqkv.split(D, dim=1)
+    bq, bk, bv = bqkv.split(D)
+    s = mode_q_scale(dh)
+    wq, bq = wq * s, bq * s
+    xp = parts(x.reshape(-1, D), mode)
+    mp = xp if memory is None else parts(mem.reshape(-1, D), mode)
+
+    def proj(a_parts, w, b):
+        return part_products(a_parts, parts(w, mode)) + b
+
+    def split(t):
+        return t.reshape(B, T, heads, dh).transpose(1, 2)
+
+    qp = parts(split(proj(xp, wq, bq)), mode)
+    kp = parts(split(proj(mp, wk, bk)), mode)
+    vp = parts(split(proj(mp, wv, bv)), mode)
+    st = part_products(kp, tuple(q.transpose(-1, -2) for q in qp))
+    logits = st.transpose(-1, -2)
+    bias = bias_from_masks(mask, valid, T, kind, add_keypad, mul=LOG2E)
+    if bias is not None:
+        logits = logits + bias[:, None]
+    e = torch.exp2(logits - logits.amax(-1, keepdim=True))
+    p = e * (1.0 / e.sum(-1, keepdim=True))
+    a = prob_products(p, vp).transpose(1, 2).reshape(-1, D)
+    r = x + (proj(parts(a, mode), wo, bo)).reshape(B, T, D)
     if ln_w is not None:
         r = F.layer_norm(r, (D,), ln_w, ln_b, LN_EPS)
     return r

@@ -1,9 +1,9 @@
-"""Whole transformer layers in one kernel launch each: the encoder layer and
-the decoder layer, for serving.
+"""Whole transformer layers in one wrapper call each (one kernel launch in
+float32): the encoder layer and the decoder layer, for serving.
 
-Kernels (``csrc/layer_fused.cu``), replacing
-``keypoints_interpolation_transformer_tpu/ops/pallas/layer_fused.py`` (the
-float32 mode):
+Kernels (``csrc/layer_fused.cu`` in float32, ``csrc/layer_modes.cu`` in
+the precision modes), replacing
+``keypoints_interpolation_transformer_tpu/ops/pallas/layer_fused.py``:
 
   * ``fused_encoder_layer`` <- ``_enc_kernel``: one post-LN torch encoder
     layer,
@@ -27,6 +27,19 @@ Bound on an H100 by float32 FFMA work (90 GFLOP per encoder layer at
 B = 256, T = 128, D = 256, FF = 2048); see the source notes in
 ``csrc/layer_fused.cu`` and ``csrc/sgemm.cuh``.
 
+In the modes "bf16x3" ("high") and "bf16" (``mode``; ``precision.py``) both
+wrappers compute what the TPU kernels compute there: log2(e) / sqrt(dh)
+folded into Wq and bq before the split, every product on the bf16 parts,
+the softmax normalized before its probabilities are rounded to one bf16
+(``attn_sublayer._sublayer_mode_plain``, ``ffn.ffn_plain``).  Their kernels
+run on the bf16 tensor cores (``csrc/layer_modes.cu``: the projections on
+``csrc/tc_gemm.cuh``'s wgmma product, the attention core on mma.sync, the
+FF tail on the FF sublayer's own mode kernel, ``csrc/ffn_tc.cuh``), a
+short sequence of launches a call whose grids spread a video over the
+card themselves, so ``cluster`` is not read there; the weights arrive as
+bf16 planes (``attn_weight_planes`` and ``ffn.ff_weight_planes``), built
+once per packed model, or here from the float32 weights.
+
 The routing predicates are the port's copies of the JAX package's rules
 (``fused_layer_supported``, ``decoder_full_supported``, the sublayer
 kernel's ``fused_attn_sublayer_supported`` and the model's
@@ -36,7 +49,8 @@ same TPU kernels in both packages.
 Weights in the Flax layout, as ``MultiHeadAttention.packed()`` and
 ``packed_linear`` build them.  A wrapper takes its plain version for CPU
 tensors and launches its kernel for CUDA tensors (or raises);
-``launches`` counts the calls that launched.
+``launches`` counts the calls that launched, per mode for the two float
+wrappers (``launches[mode]``).
 """
 
 from __future__ import annotations
@@ -46,9 +60,11 @@ import functools
 import torch
 
 from . import _build
-from .attn_sublayer import _check_config, attn_sublayer_plain
-from .ffn import (check_int8_ff, ff_kernel_width, ffn_int8_plain, ffn_plain,
-                  pad_int8_ff)
+from .attn_sublayer import _check_config, attn_sublayer_plain, mode_q_scale
+from .ffn import (_FF_STEP_TC, _PASSES, _check_planes, check_int8_ff,
+                  ff_kernel_width, ff_weight_planes, ffn_int8_plain, ffn_plain,
+                  pad_int8_ff, tc_parts)
+from .precision import MODES, check_mode, weight_planes
 from .widths import cut, kernel_width, pad, pad_blocks, row_tile
 
 # one letter per C argument, the stream last: p pointer, i int
@@ -56,6 +72,9 @@ _SIGS = {"kit_enc_layer": "p" + "i" * 8 + "p" * 14 + "ii" + "p" * 3,
          "kit_enc_layer_int8": "p" + "i" * 8 + "p" * 16 + "ii" + "p" * 4,
          "kit_dec_layer": "pp" + "i" * 8 + "p" * 20 + "ii" + "pp" + "ii"
                           + "p" * 3}
+_MODE_SIGS = {"kit_enc_layer_tc": "ip" + "i" * 7 + "p" * 18 + "ii" + "p" * 5,
+              "kit_dec_layer_tc": "ipp" + "i" * 7 + "p" * 26 + "ii" + "pp"
+                                  + "ii" + "p" * 5}
 _MAX_CLUSTER = 8  # the portable thread-block cluster size
 
 _MERGED_MAX_T = 256   # the JAX package's full-T residency cap
@@ -125,14 +144,43 @@ def scratch_floats(B: int, T: int, D: int, decoder: bool, parts: int) -> int:
     return B * T * D * (base + (parts if parts > 1 else 0))
 
 
+def mode_scratch(B: int, T: int, D: int, decoder: bool, mode: str,
+                 parts: int):
+    """The mode kernels' per-call scratch (``csrc/layer_modes.cu``): bf16
+    planes (x, q / k / v and the attention output, 5 B T D a plane; the
+    decoder's 10 add the memory, its cross k / v, x1 and the cross q; two
+    planes in "bf16x3"), floats (the out-projection's sum; the decoder's 3
+    B T D add x1 and the pre-FF sum) and the FF split's parts x B T x D
+    floats (none with one part): (bf16 elements, floats, split floats)."""
+    planes = 2 if mode == "bf16x3" else 1
+    MD = B * T * D
+    return ((10 if decoder else 5) * planes * MD, (3 if decoder else 1) * MD,
+            parts * MD if parts > 1 else 0)
+
+
+def attn_weight_planes(wqkv, bqkv, wo, heads: int, mode: str):
+    """(wh, wl, b, oh, ol): one attention sublayer's weights as the mode
+    kernels read them: [Wq s | Wk | Wv] (D, 3D) with s = log2(e) / sqrt(D /
+    heads) folded into Wq in float32 before the split, as bf16 hi / lo
+    planes; b = [bq s | bk | bv] in float32; Wo's planes (the lo planes
+    None in "bf16")."""
+    D = wo.shape[0]
+    s = mode_q_scale(D // heads)
+    w = torch.cat([wqkv[:, :D] * s, wqkv[:, D:]], 1)
+    b = torch.cat([bqkv[:D] * s, bqkv[D:]])
+    return (*weight_planes(w, mode), b.contiguous(), *weight_planes(wo, mode))
+
+
 def encoder_layer_plain(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
                         be2, mask, valid, kind: str, add_keypad: bool,
-                        heads: int):
+                        heads: int, mode: str = "f32"):
     """Plain PyTorch version of ``fused_encoder_layer``: the attention
-    sublayer (no LayerNorm) then the FF sublayer with LN1 before it."""
+    sublayer (no LayerNorm) then the FF sublayer with LN1 before it, both
+    in ``mode``."""
     r = attn_sublayer_plain(x, None, wqkv, bqkv, wo, bo, None, None, mask,
-                            valid, kind, add_keypad, heads)
-    return ffn_plain(r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln=True)
+                            valid, kind, add_keypad, heads, mode)
+    return ffn_plain(r, w1, b1, w2, b2, g1, be1, g2, be2, pre_ln=True,
+                     mode=mode)
 
 
 def encoder_layer_int8_plain(x, wqkv, bqkv, wo, bo, w1q, w1s, b1, w2q, w2s,
@@ -148,15 +196,16 @@ def encoder_layer_int8_plain(x, wqkv, bqkv, wo, bo, w1q, w1s, b1, w2q, w2s,
 def decoder_layer_plain(x, memory, swqkv, sbqkv, swo, sbo, cwqkv, cbqkv, cwo,
                         cbo, g1, be1, ff, smask, svalid, cmask, cvalid,
                         skind: str, sadd_keypad: bool, ckind: str,
-                        cadd_keypad: bool, heads: int):
-    """Plain PyTorch version of ``fused_decoder_layer``."""
+                        cadd_keypad: bool, heads: int, mode: str = "f32"):
+    """Plain PyTorch version of ``fused_decoder_layer``, every sublayer in
+    ``mode``."""
     x1 = attn_sublayer_plain(x, None, swqkv, sbqkv, swo, sbo, g1, be1, smask,
-                             svalid, skind, sadd_keypad, heads)
+                             svalid, skind, sadd_keypad, heads, mode)
     r = attn_sublayer_plain(x1, memory, cwqkv, cbqkv, cwo, cbo, None, None,
-                            cmask, cvalid, ckind, cadd_keypad, heads)
+                            cmask, cvalid, ckind, cadd_keypad, heads, mode)
     if ff is None:
         return r
-    return ffn_plain(r, *ff, pre_ln=True)
+    return ffn_plain(r, *ff, pre_ln=True, mode=mode)
 
 
 _ATTN = ("wqkv", "bqkv", "wo", "bo")
@@ -194,24 +243,33 @@ def _check_masks(where, x, mask, valid, kind, add_keypad, heads):
 def fused_encoder_layer(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
                         be2, mask, valid, kind: str = "repeat-inc",
                         add_keypad: bool = False, heads: int = 8,
-                        cluster: int | None = None):
+                        cluster: int | None = None, mode: str = "f32",
+                        planes=None):
     """x (B, T, D) -> y (B, T, D): one encoder layer.  ``mask`` is read
     only for "repeat-inc" or ``add_keypad``; ``valid`` None means every key
     is real.  ``cluster``, blocks per video from 1 to 8, defaults to
     ``cluster_size``; it changes the result only through the order in
-    which the FF split (``ff_parts``) adds the FF sums."""
+    which the FF split (``ff_parts``) adds the FF sums.  In the modes
+    "bf16x3" and "bf16" the kernel reads the weights as bf16 planes:
+    ``planes`` = (``attn_weight_planes``, ``ffn.ff_weight_planes``), or
+    split here from the float32 weights."""
+    check_mode(mode)
     if x.device.type == "cpu":
         return encoder_layer_plain(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1,
                                    be1, g2, be2, mask, valid, kind,
-                                   add_keypad, heads)
-    y = _launch_encoder(x, (wqkv, bqkv, wo, bo),
-                        (w1, b1, w2, b2, g1, be1, g2, be2), mask, valid, kind,
-                        add_keypad, heads, cluster)
-    fused_encoder_layer.launches += 1
+                                   add_keypad, heads, mode)
+    attn, ff = (wqkv, bqkv, wo, bo), (w1, b1, w2, b2, g1, be1, g2, be2)
+    if mode == "f32":
+        y = _launch_encoder(x, attn, ff, mask, valid, kind, add_keypad, heads,
+                            cluster)
+    else:
+        y = _launch_encoder_mode(x, attn, ff, mask, valid, kind, add_keypad,
+                                 heads, cluster, mode, planes)
+    fused_encoder_layer.launches[mode] += 1
     return y
 
 
-fused_encoder_layer.launches = 0
+fused_encoder_layer.launches = dict.fromkeys(MODES, 0)
 
 
 def _cluster(where, B, device, cluster):
@@ -320,26 +378,31 @@ def fused_decoder_layer(x, memory, swqkv, sbqkv, swo, sbo, cwqkv, cbqkv, cwo,
                         cbo, g1, be1, ff, smask, svalid, cmask, cvalid,
                         skind: str = "repeat-inc", sadd_keypad: bool = False,
                         ckind: str = "all", cadd_keypad: bool = False,
-                        heads: int = 8, cluster: int | None = None):
+                        heads: int = 8, cluster: int | None = None,
+                        mode: str = "f32", planes=None):
     """x, memory (B, T, D) -> y (B, T, D): one decoder layer.  ``ff`` is
     None (no FF tail: y = x1 + CA(x1, memory)) or (w1, b1, w2, b2, g2, be2,
     g3, be3).  smask/svalid build the self-attention bias, cmask/cvalid the
     cross-attention one, as ``fused_encoder_layer``'s masks do; ``cluster``
-    as there."""
+    as there.  ``mode`` as ``fused_encoder_layer`` takes it, ``planes`` =
+    (the self and the cross ``attn_weight_planes``, the FF tail's
+    ``ffn.ff_weight_planes`` or None)."""
+    check_mode(mode)
     if x.device.type == "cpu":
         return decoder_layer_plain(x, memory, swqkv, sbqkv, swo, sbo, cwqkv,
                                    cbqkv, cwo, cbo, g1, be1, ff, smask,
                                    svalid, cmask, cvalid, skind, sadd_keypad,
-                                   ckind, cadd_keypad, heads)
-    y = _launch_decoder(x, memory, (swqkv, sbqkv, swo, sbo),
-                        (cwqkv, cbqkv, cwo, cbo), g1, be1, ff, smask, svalid,
-                        cmask, cvalid, skind, sadd_keypad, ckind, cadd_keypad,
-                        heads, cluster)
-    fused_decoder_layer.launches += 1
+                                   ckind, cadd_keypad, heads, mode)
+    launch = _launch_decoder if mode == "f32" else functools.partial(
+        _launch_decoder_mode, mode=mode, planes=planes)
+    y = launch(x, memory, (swqkv, sbqkv, swo, sbo), (cwqkv, cbqkv, cwo, cbo),
+               g1, be1, ff, smask, svalid, cmask, cvalid, skind, sadd_keypad,
+               ckind, cadd_keypad, heads, cluster)
+    fused_decoder_layer.launches[mode] += 1
     return y
 
 
-fused_decoder_layer.launches = 0
+fused_decoder_layer.launches = dict.fromkeys(MODES, 0)
 
 
 def _launch_decoder(x, memory, sattn, cattn, g1, be1, ff, smask, svalid,
@@ -372,4 +435,161 @@ def _launch_decoder(x, memory, sattn, cattn, g1, be1, ff, smask, svalid,
                 FF, cl, parts, *sattn, *cattn, g1, be1, *ff, smask, svalid,
                 int(skind == "repeat-inc"), int(sadd_keypad), cmask, cvalid,
                 int(ckind == "repeat-inc"), int(cadd_keypad), y, scratch)
+    return cut(y, n)
+
+
+# ---- the precision modes "bf16x3" and "bf16" (csrc/layer_modes.cu) --------
+
+
+def _check_attn_planes(where, device, mode, planes, n, prefix=""):
+    """One attention sublayer's ``attn_weight_planes`` in ``mode``: bf16
+    (n, 3n) and (n, n) planes (lo planes in "bf16x3" only), the float32
+    bias (3n,), each contiguous on ``device``."""
+    wh, wl, b, oh, ol = planes
+    if (wl is None or ol is None) != (mode == "bf16"):
+        raise ValueError(f"{where}: mode {mode!r} takes "
+                         f"{'no' if mode == 'bf16' else 'both'} attention lo "
+                         "planes")
+    for k, t, shape in (("wh", wh, (n, 3 * n)), ("wl", wl, (n, 3 * n)),
+                        ("oh", oh, (n, n)), ("ol", ol, (n, n))):
+        if t is None:
+            continue
+        if t.dtype != torch.bfloat16 or t.device != device or \
+                not t.is_contiguous():
+            raise ValueError(f"{where}: {prefix}{k} must be a contiguous "
+                             f"bfloat16 tensor on {device}")
+        _build.check_shape(where, prefix + k, t, shape)
+        _build.check_aligned(where, **{prefix + k: t})
+    _build.check_tensors(where, device, **{prefix + "b": b})
+    _build.check_shape(where, prefix + "b", b, (3 * n,))
+
+
+def _pad_attn_planes(planes, n, D):
+    """``attn_weight_planes`` zero-padded from the model's width n to the
+    kernel width D, each of q, k, v on its own (``pad_blocks``)."""
+    wh, wl, b, oh, ol = planes
+
+    def w3(t):
+        return None if t is None else pad(pad_blocks(t, n, D, 1), D, 3 * D)
+
+    return (w3(wh), w3(wl), pad_blocks(b, n, D, 0),
+            *(None if t is None else pad(t, D, D) for t in (oh, ol)))
+
+
+def _pad_ff_planes(planes, D, F16):
+    """``ffn.ff_weight_planes`` (W1^T (FF, n), W2^T (n, FF)) zero-padded to
+    the kernel width D and FF to F16."""
+    w1h, w1l, w2h, w2l = planes
+    return (*(None if t is None else pad(t, F16, D) for t in (w1h, w1l)),
+            *(None if t is None else pad(t, D, F16) for t in (w2h, w2l)))
+
+
+def _mode_ff(where, x, ff, ff_planes, mode, D):
+    """The FF tail's operands in a mode at the kernel width D: its planes,
+    checked and padded, and the vectors padded; (FF16, (w1h, w1l, b1, w2h,
+    w2l, b2, g_in, be_in, g_out, be_out)) or (0, None) without a tail."""
+    if ff is None:
+        return 0, None
+    w1, b1, w2, b2, *norms = ff
+    n, FF = w1.shape
+    _build.check_tensors(where, x.device, b1=b1, b2=b2,
+                         **dict(zip(_FF[4:], norms)))
+    for name, t, shape in (("w1", w1, (n, FF)), ("b1", b1, (FF,)),
+                           ("w2", w2, (FF, n)), ("b2", b2, (n,)),
+                           *((k, t, (n,)) for k, t in zip(_FF[4:], norms))):
+        _build.check_shape(where, name, t, shape)
+    if ff_planes is None:
+        ff_planes = ff_weight_planes(w1.t(), w2.t(), mode)
+    _check_planes(where, x.device, mode, ff_planes, n, FF)
+    F16 = ff_kernel_width(FF, _FF_STEP_TC)
+    w1h, w1l, w2h, w2l = _pad_ff_planes(ff_planes, D, F16)
+    return F16, (w1h, w1l, pad(b1, F16), w2h, w2l,
+                 *(pad(t, D) for t in (b2, *norms)))
+
+
+def _mode_attn(where, x, attn, planes, heads, mode, D, prefix=""):
+    """One attention sublayer's operands in a mode at the kernel width D:
+    (wh, wl, b, oh, ol, bo), its planes built from the float32 weights
+    when ``planes`` is None."""
+    n = x.shape[-1]
+    wqkv, bqkv, wo, bo = attn
+    _build.check_tensors(where, x.device, **{prefix + "bqkv": bqkv,
+                                             prefix + "bo": bo})
+    for name, t, shape in (("wqkv", wqkv, (n, 3 * n)),
+                           ("bqkv", bqkv, (3 * n,)), ("wo", wo, (n, n)),
+                           ("bo", bo, (n,))):
+        _build.check_shape(where, prefix + name, t, shape)
+    if planes is None:
+        planes = attn_weight_planes(wqkv, bqkv, wo, heads, mode)
+    _check_attn_planes(where, x.device, mode, planes, n, prefix)
+    return (*_pad_attn_planes(planes, n, D), pad(bo, D))
+
+
+def _mode_buffers(B, T, D, decoder, mode, parts, device):
+    """The mode kernels' scratch (``mode_scratch``): bf16 planes, floats
+    and the FF split's parts (None without it)."""
+    nb, nf, ns = mode_scratch(B, T, D, decoder, mode, parts)
+    return (torch.empty(nb, dtype=torch.bfloat16, device=device),
+            torch.empty(nf, device=device),
+            torch.empty(ns, device=device) if ns else None)
+
+
+def _launch_encoder_mode(x, attn, ff, mask, valid, kind, add_keypad, heads,
+                         cluster, mode, planes):
+    """The merged encoder layer in ``mode`` at the kernel width, the
+    operands zero-padded from the model's width (``widths``)."""
+    where = "fused_encoder_layer"
+    _build.check_tensors(where, x.device, x=x)
+    _build.check_aligned(where, x=x, bo=attn[3])
+    mask = _check_masks(where, x, mask, valid, kind, add_keypad, heads)
+    _cluster(where, x.shape[0], x.device, cluster)  # checked, not read
+    B, T, n = x.shape
+    D = kernel_width(where, n)
+    aplanes, fplanes = (None, None) if planes is None else planes
+    at = _mode_attn(where, x, attn, aplanes, heads, mode, D)
+    F16, ffw = _mode_ff(where, x, ff, fplanes, mode, D)
+    x = pad(x, D)
+    y = torch.empty_like(x)
+    parts = tc_parts(B * T, D, F16)
+    buf, fs, partial = _mode_buffers(B, T, D, False, mode, parts, x.device)
+    lib = _build.bind("layer_modes", _MODE_SIGS)
+    _build.call(lib, "kit_enc_layer_tc", x.device, _PASSES[mode], x, B, T, D,
+                n, heads, F16, parts, *at, *ffw, mask, valid,
+                int(kind == "repeat-inc"), int(add_keypad), y, buf, fs,
+                partial)
+    return cut(y, n)
+
+
+def _launch_decoder_mode(x, memory, sattn, cattn, g1, be1, ff, smask, svalid,
+                         cmask, cvalid, skind, sadd_keypad, ckind,
+                         cadd_keypad, heads, cluster, mode, planes):
+    """The merged decoder layer in ``mode``, as ``_launch_encoder_mode``."""
+    where = "fused_decoder_layer"
+    B, T, n = x.shape
+    _build.check_tensors(where, x.device, x=x, memory=memory, g1=g1, be1=be1)
+    _build.check_shape(where, "memory", memory, (B, T, n))
+    _build.check_shape(where, "g1", g1, (n,))
+    _build.check_shape(where, "be1", be1, (n,))
+    _build.check_aligned(where, x=x, memory=memory, self_bo=sattn[3],
+                         cross_bo=cattn[3])
+    smask = _check_masks(where, x, smask, svalid, skind, sadd_keypad, heads)
+    cmask = _check_masks(where, x, cmask, cvalid, ckind, cadd_keypad, heads)
+    _cluster(where, B, x.device, cluster)  # checked, not read
+    D = kernel_width(where, n)
+    splanes, cplanes, fplanes = (None,) * 3 if planes is None else planes
+    sa = _mode_attn(where, x, sattn, splanes, heads, mode, D, "self ")
+    ca = _mode_attn(where, x, cattn, cplanes, heads, mode, D, "cross ")
+    F16, ffw = _mode_ff(where, x, ff, fplanes, mode, D)
+    if ffw is None:
+        ffw = (None,) * 10
+    x, memory, g1, be1 = (pad(t, D) for t in (x, memory, g1, be1))
+    y = torch.empty_like(x)
+    parts = tc_parts(B * T, D, F16) if F16 else 1
+    buf, fs, partial = _mode_buffers(B, T, D, True, mode, parts, x.device)
+    lib = _build.bind("layer_modes", _MODE_SIGS)
+    _build.call(lib, "kit_dec_layer_tc", x.device, _PASSES[mode], x, memory,
+                B, T, D, n, heads, F16, parts, *sa, *ca, g1, be1, *ffw, smask,
+                svalid, int(skind == "repeat-inc"), int(sadd_keypad), cmask,
+                cvalid, int(ckind == "repeat-inc"), int(cadd_keypad), y, buf,
+                fs, partial)
     return cut(y, n)

@@ -15,7 +15,10 @@ model's ``precision`` attribute, set from ``ModelConfig.matmul_precision``
       A_hi B_hi.
 
 Only the operands of the products are rounded; LayerNorm, GELU, biases and
-residuals stay float32 in every mode.  A product of two bf16 values is exact
+residuals stay float32 in every mode.  The attention core rounds as the
+JAX ``_attn_core`` does: the scores are products of q's and k's parts
+(``part_products``), and the softmax probabilities, normalized first, are
+rounded to one bf16 that multiplies v's parts (``prob_products``).  A product of two bf16 values is exact
 in float32, so ``mode_matmul`` emulates the kernels' operand rounding
 exactly, with float32 sums in another order.  On the card it needs TF32
 off, or its float32 products would round once more.
@@ -51,6 +54,33 @@ def weight_planes(w: torch.Tensor, mode: str):
     return hi, lo
 
 
+def parts(x: torch.Tensor, mode: str):
+    """The float32 values of x's bf16 parts in ``mode``: (hi, lo) in
+    "bf16x3", (hi,) in "bf16" (the JAX ``_prep``)."""
+    if mode == "bf16":
+        return (x.to(torch.bfloat16).float(),)
+    return tuple(p.float() for p in split_bf16(x))
+
+
+def part_products(a_parts, b_parts) -> torch.Tensor:
+    """a @ b from pre-split parts (``parts``; batched as ``@`` is): a_hi b_hi,
+    or (a_hi b_hi + a_hi b_lo) + a_lo b_hi, the three products summed in
+    float32 in the order of the JAX ``_dot``."""
+    if len(a_parts) == 1:
+        return a_parts[0] @ b_parts[0]
+    (ah, al), (bh, bl) = a_parts, b_parts
+    return (ah @ bh + ah @ bl) + al @ bh
+
+
+def prob_products(p: torch.Tensor, v_parts) -> torch.Tensor:
+    """p @ v with the probabilities p rounded to one bf16 and v in its parts
+    (``parts``): p v_hi (+ p v_lo), as the JAX ``_prob_parts`` /
+    ``_prob_dot`` take them."""
+    pb = p.to(torch.bfloat16).float()
+    out = pb @ v_parts[0]
+    return out if len(v_parts) == 1 else out + pb @ v_parts[1]
+
+
 def _check_tf32(t: torch.Tensor) -> None:
     if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("mode_matmul needs torch.backends.cuda.matmul."
@@ -59,11 +89,7 @@ def _check_tf32(t: torch.Tensor) -> None:
 
 
 def _rounded_product(a: torch.Tensor, b: torch.Tensor, mode: str):
-    if mode == "bf16":
-        return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
-    ah, al = (p.float() for p in split_bf16(a))
-    bh, bl = (p.float() for p in split_bf16(b))
-    return (ah @ bh + ah @ bl) + al @ bh
+    return part_products(parts(a, mode), parts(b, mode))
 
 
 class _ModeMatmul(torch.autograd.Function):

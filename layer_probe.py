@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Where the merged layer kernels', the training backwards' and the
-precision-mode FF kernels' time goes, on one CUDA card.
+precision-mode kernels' time goes, on one CUDA card.
 
     python3 layer_probe.py phases [DIR]     # cycles per phase of a block
     python3 layer_probe.py times TREE...    # layer kernel times, in turns
     python3 layer_probe.py backward TREE... # backward kernel times, in turns
     python3 layer_probe.py attention TREE...  # per-op attention, in turns
     python3 layer_probe.py forwards TREE...  # sublayer forwards, in turns
-    python3 layer_probe.py modes TREE...    # precision-mode FF kernels, in turns
+    python3 layer_probe.py modes TREE...    # precision-mode kernels, in turns
 
 ``phases`` copies ``keypoints_interpolation_transformer_torch`` into DIR
 (default ``scratch_tree/layer_probe``, git-ignored), adds ``clock64()``
@@ -46,13 +46,17 @@ B = 64 and at B = 1, T = 128; each held against its plain version, then
 its CUDA-event time, the plain version's and one call's device time by
 kernel.
 
-``modes`` does the same for the precision modes' FF kernels (``ffn.cu``
-only): the six mode rows (``ffn_high`` and ``ffn_default`` at the serving
-batch B = 256, ``ffn_train_*`` and ``ffn_bwd_split_*`` at the A1 step's B
-= 64, T = 128), each held against its plain version in its own mode and
-the wrong one (``chip_smoke.py``'s limits), and their float32
-counterparts ``ffn``, ``ffn_train`` and ``ffn_bwd``: CUDA-event time and
-one call's device time by kernel.
+``modes`` does the same for the precision modes' kernels (``ffn.cu``,
+``layer_modes.cu`` where a tree has it, and ``layer_fused.cu``): the six
+FF mode rows (``ffn_high`` and ``ffn_default`` at the serving batch B =
+256, ``ffn_train_*`` and ``ffn_bwd_split_*`` at the A1 step's B = 64, T =
+128) and the four merged-layer mode rows (``enc_layer_high`` /
+``_default``, ``dec_layer_high`` / ``_default`` with its FF tail, B =
+256), each held against its plain version in its own mode and the wrong
+one (``chip_smoke.py``'s limits), and their float32 counterparts ``ffn``,
+``ffn_train``, ``ffn_bwd``, ``enc_layer`` and ``dec_layer`` (what a tree
+without the mode layers runs on the merged route at every precision):
+CUDA-event time and one call's device time by kernel.
 
 ``backward`` does the same for the training backwards (``ffn.cu`` and
 ``attn_sublayer.cu``): ``ffn_bwd``, ``ffn_bwd_split`` in "f32" (a tree's
@@ -315,14 +319,23 @@ def forwards_one(tree):
     print(json.dumps(out), flush=True)
 
 
-MODE_SOURCES = ("ffn",)
+MODE_SOURCES = ("ffn", "layer_modes", "layer_fused")
+
+
+def tree_sources(tree, sources):
+    """``sources`` that ``tree`` has (an older tree lacks the newer ones)."""
+    csrc = os.path.join(os.path.abspath(tree), PKG, "csrc")
+    return [s for s in sources if os.path.isfile(os.path.join(csrc,
+                                                              f"{s}.cu"))]
 
 
 def modes_one(tree):
     import torch
     cs = load_smoke()
-    use_tree(tree, MODE_SOURCES)
+    use_tree(tree, tree_sources(tree, MODE_SOURCES))
     from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    from keypoints_interpolation_transformer_torch.ops.kernels import (
+        layer_fused)
     chk = cs.KernelCheck(torch, kmod)
     B, bt, T = cs.B_MAIN, cs.B_TRAIN, cs.T_MAIN
     calls = {}
@@ -342,6 +355,20 @@ def modes_one(tree):
             chk.compare(name, variant, kern(), plain(), grad)
             calls[name] = (kern, plain)
             break
+    # the merged layers at the serving batch: float32 (what an older tree
+    # runs at every precision) and, where the tree has them, the four mode
+    # kernels, each with the plain model's masks and the decoder's FF tail
+    o, (mask, valid) = chk.operands(B, T), chk.masks(B, T)
+    for name, variant, kern, plain in chk.layer_calls(o, mask, valid):
+        if name not in calls:
+            chk.compare(name, variant, kern(), plain())
+            calls[name] = (kern, plain)
+    if hasattr(layer_fused, "attn_weight_planes"):
+        for name, variant, kern, plain, grad, wrong in \
+                chk.layer_mode_calls(o, mask, valid, tails=(True,)):
+            if name not in calls:
+                chk.compare(name, variant, kern(), plain(), grad, wrong())
+                calls[name] = (kern, plain)
     out = {}
     for name, (kern, plain) in calls.items():
         out[name] = {"ms": min(cs.timed_ms(kern) for _ in range(3)),
@@ -386,8 +413,9 @@ def in_turns(trees, sources, mode):
     tree in a fresh process: the trees in order, then in reverse."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
             f"{PKG}.ops.kernels import _build; print(_build.build("
-            f"{list(sources)!r}))")
-    builds = [subprocess.Popen([sys.executable, "-c", code, t])
+            "sys.argv[2:]))")
+    builds = [subprocess.Popen([sys.executable, "-c", code, t,
+                                *tree_sources(t, sources)])
               for t in trees]
     if any(b.wait() != 0 for b in builds):
         sys.exit("layer_probe: a tree did not build")

@@ -822,3 +822,145 @@ def test_ffn_function_backward_reads_the_forward_planes(cuda, monkeypatch):
                                  "bf16x3")
     for leaf, w in zip(leaves, want):
         assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.gpu
+def test_layer_mode_kernels_match_plain_at_every_width(cuda):
+    """The merged layers' mode kernels (``enc_layer`` / ``dec_layer`` in
+    "high" and "default") against their plain versions in the same mode at
+    D = 128, 256, 384 and 512 (head width 32), at T 40, 128 and 256 (the
+    merged encoder's cap), with both models' masks and the decoder with and
+    without its FF tail, and the decoder without it at T = 512 (its cap):
+    ``LAYER_MODE_TOL`` and the mean ``MODE_SEPARATION`` times nearer its own
+    mode's plain version than the wrong mode's."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d in (128, 256, 384, 512):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, d // 32, 4 * d)
+        for B, T in ((3, 40), (3, 128), (2, 256)):
+            for name, variant, kern, plain, grad, wrong in \
+                    chk.layer_mode_calls(chk.operands(B, T), *chk.masks(B, T)):
+                chk.compare(name, f"D={d} B={B} T={T} {variant}", kern(),
+                            plain(), grad, wrong())
+        for name, variant, kern, plain, grad, wrong in chk.layer_mode_calls(
+                chk.operands(1, 512), *chk.masks(1, 512), encoder=False,
+                tails=(False,)):
+            chk.compare(name, f"D={d} B=1 T=512 {variant}", kern(), plain(),
+                        grad, wrong())
+
+
+@pytest.mark.gpu
+def test_layer_mode_kernels_ignore_the_cluster(cuda):
+    """The mode kernels take no thread-block cluster (their launches' grids
+    spread a video themselves): every cluster size 1 to 8 gives the same
+    bits, and the wrapper still refuses a size above 8."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    o, (mask, valid) = chk.operands(2, 128), chk.masks(2, 128)
+    calls = chk.layer_mode_calls(o, mask, valid)
+    first = [kern() for _, _, kern, *_ in calls]
+    for cl in range(1, 9):
+        for (name, variant, *_), want in zip(calls, first):
+            args = chk.layer_mode_args[(name, variant)]
+            fn = kernels.fused_encoder_layer if name.startswith("enc") else \
+                kernels.fused_decoder_layer
+            got = fn(*args[0], cluster=cl, **args[1])
+            assert torch.equal(got, want), (name, variant, cl)
+    name, variant, *_ = calls[0]
+    args = chk.layer_mode_args[(name, variant)]
+    with pytest.raises(ValueError):
+        kernels.fused_encoder_layer(*args[0], cluster=9, **args[1])
+
+
+@pytest.mark.gpu
+def test_layer_mode_wrappers_raise_rather_than_fall_back(cuda):
+    """Planes of the wrong type, shape or mode and weights off the card
+    raise; nothing runs another route in their place."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    B, T, D, FF, H = 2, 16, 128, 256, 4
+    z = lambda *s: torch.zeros(*s, device=cuda)  # noqa: E731
+    attn = (z(D, 3 * D), z(3 * D), z(D, D), z(D))
+    ff = (z(D, FF), z(FF), z(FF, D), z(D), z(D) + 1, z(D), z(D) + 1, z(D))
+    x = z(B, T, D)
+    ap = kernels.attn_weight_planes(*attn[:3], H, "bf16x3")
+    fp = kernels.ff_weight_planes(ff[0].t(), ff[2].t(), "bf16x3")
+    with pytest.raises(ValueError):  # "high" without the lo planes
+        kernels.fused_encoder_layer(x, *attn, *ff, None, None, "all", False,
+                                    H, mode="bf16x3",
+                                    planes=((*ap[:1], None, *ap[2:]), fp))
+    with pytest.raises(ValueError):  # float32 planes
+        kernels.fused_encoder_layer(
+            x, *attn, *ff, None, None, "all", False, H, mode="bf16x3",
+            planes=(tuple(None if t is None else t.float() for t in ap), fp))
+    with pytest.raises(ValueError):  # planes of another width
+        kernels.fused_encoder_layer(
+            x, *attn, *ff, None, None, "all", False, H, mode="bf16",
+            planes=(kernels.attn_weight_planes(z(2 * D, 6 * D), z(6 * D),
+                                               z(2 * D, 2 * D), H, "bf16"),
+                    kernels.ff_weight_planes(ff[0].t(), ff[2].t(), "bf16")))
+    with pytest.raises(ValueError):  # weights left on the CPU
+        kernels.fused_decoder_layer(x, x, *attn, *(t.cpu() for t in attn),
+                                    z(D), z(D), None, None, None, None, None,
+                                    "all", False, "all", False, H,
+                                    mode="bf16")
+    with pytest.raises(ValueError):  # an unknown mode
+        kernels.fused_encoder_layer(x, *attn, *ff, None, None, "all", False,
+                                    H, mode="tf32")
+    kernels.reset_launches()
+    kernels.fused_encoder_layer(x, *attn, *ff, None, None, "all", False, H,
+                                mode="bf16x3", planes=(ap, fp))
+    kernels.fused_decoder_layer(x, x, *attn, *attn, z(D), z(D), None, None,
+                                None, None, None, "all", False, "all",
+                                False, H, mode="bf16")
+    counts = kernels.launch_counts()
+    assert (counts["enc_layer_high"], counts["dec_layer_default"],
+            counts["enc_layer"], counts["dec_layer"]) == (1, 1, 0, 0)
+
+
+@pytest.mark.gpu
+def test_flagship_forward_at_high_launches_the_mode_layers(cuda):
+    """One flagship forward (6 + 6 layers, D=256, FF=2048) at T=128 at
+    "high" and "default": the merged route launches pre_stream_embed 2,
+    the mode's enc_layer 6 and dec_layer 6, post_head 1 and no float32
+    layer, and agrees with the plain path in the same mode: at "high"
+    within SERVE_TOL, at "default" (whose bf16 flips cascade through the
+    layers) within MODE_DRIFT times the plain path's own drift on inputs
+    one ulp away (``chip_smoke.mode_drift``'s rule, the mean keypoint
+    distance over every frame)."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    B, T = 2, 128
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(0.2, 0.8, (B, T, 54, 2)).astype(
+        np.float32)).to(cuda)
+    m = torch.from_numpy((rng.random((B, T)) < 0.3).astype(np.float32)).to(
+        cuda)
+    valid = torch.ones(B, T, device=cuda)
+    for prec in ("high", "default"):
+        model = KeypointCompleter(256, 6, 8, ff_dim=2048, device=cuda,
+                                  precision=prec,
+                                  generator=torch.Generator().manual_seed(0))
+        model.pack_weights()
+        with torch.inference_mode():
+            want = model(x, x, m, m, valid, plain=True)
+            kernels.reset_launches()
+            got = model(x, x, m, m, valid)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts() == \
+                chip_smoke.merged_mode_counts(prec)
+            if prec == "high":
+                torch.testing.assert_close(got, want,
+                                           atol=chip_smoke.SERVE_TOL, rtol=0)
+                continue
+            xn = torch.nextafter(x, torch.full_like(x, 2.0))
+            moved = model(xn, xn, m, m, valid, plain=True)
+
+            def dist(a, b):
+                return float((a - b).norm(dim=-1).mean())
+
+            drift = dist(moved, want)
+            assert dist(got, want) < chip_smoke.MODE_DRIFT * drift, (
+                dist(got, want), drift)

@@ -272,10 +272,14 @@ def test_kernel_table_and_counters():
                      "ffn_high", "ffn_default", "ffn_train_high",
                      "ffn_train_default",
                      "ffn_bwd_split_high", "ffn_bwd_split_default",
-                     "pre_stream"]
+                     "pre_stream", "enc_layer_high", "enc_layer_default",
+                     "dec_layer_high", "dec_layer_default"]
     # the precision modes count apart, under their wrapper's mode
     modes = {k.name: k.mode for k in kernels.KERNELS if k.mode}
     assert modes["ffn"] == modes["ffn_train"] == "f32"
+    assert modes["enc_layer"] == modes["dec_layer"] == "f32"
+    assert modes["enc_layer_high"] == modes["dec_layer_high"] == "bf16x3"
+    assert modes["dec_layer_default"] == "bf16"
     assert modes["ffn_high"] == modes["ffn_bwd_split_high"] == "bf16x3"
     assert modes["ffn_train_default"] == "bf16"
     for k in kernels.KERNELS:

@@ -63,7 +63,10 @@ def _source(name):
     return (_build.CSRC / name).read_text()
 
 
-FFN, MMA = _source("ffn.cu"), _source("mma_bf16.cuh")
+# ffn.cu with the headers that hold its tensor-core forward and product
+# (shared with layer_modes.cu)
+FFN = "".join(_source(n) for n in ("ffn.cu", "ffn_tc.cuh", "tc_gemm.cuh"))
+MMA = _source("mma_bf16.cuh")
 
 
 def _const(name, src):
