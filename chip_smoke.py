@@ -88,7 +88,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
      path, with its launch counts;
  11. precision modes (run after phase 8): the per-sublayer Inpainter at
      B=256, T=128 at "highest", "high" (bf16x3) and "default" (one bf16
-     pass): launches (ffn_high / ffn_default 12 in place of ffn), masked
+     pass): launches (ffn_high / ffn_default 12 in place of ffn,
+     attn_sublayer_high / _default 18 in place of attn_sublayer), masked
      MPJPE against "highest" (< 1e-4 for "high", the run fails otherwise;
      "default" printed), frames/s in turns; the merged route (the serving
      default) at B=256 in the three precisions: launches (enc_layer_high /
@@ -105,12 +106,15 @@ Phases (each prints its own lines; any failed check exits non-zero):
      parameter's gradient of the first step within HIGH_MODE_TOL /
      DEFAULT_MODE_TOL of its own largest value and MODE_SEPARATION times
      nearer than the route one mode down), its
-     launches (attn_sublayer_train 18, attn_sublayer_bwd 18, ffn_train_high
-     12, ffn_bwd_split_high 12, ffn_bwd 0), step time beside the float32
-     step, loss against it; one epoch of ``cli train --precision high``; an
-     HTTP request through a ``cli serve --precision high`` child process
-     (a 300-frame video, so the FF sublayers run in the mode: ffn_high 12)
-     against the plain path in the mode.
+     launches (attn_sublayer_train_high 18, attn_sublayer_bwd_high 18,
+     ffn_train_high 12, ffn_bwd_split_high 12, the float32 ones 0), two
+     "high" runs from one seed equal bit for bit, step time beside the
+     float32 step, loss against it; one epoch of ``cli train --precision
+     high`` (the mode's sublayer and FF kernels, no float32 one); an HTTP
+     request through a ``cli serve --precision high`` child process (a
+     300-frame video, so the encoder runs per sublayer in the mode:
+     attn_sublayer_high 6, ffn_high 12) against the plain path in the
+     mode.
 
 Phase 2 also holds the precision modes' kernels (``ffn`` and
 ``ffn_train`` in "high" and "default" at B=256 and B=64, ``ffn_bwd_split``
@@ -126,7 +130,13 @@ kernels (``enc_layer`` / ``dec_layer`` in "high" and "default", the
 decoder with and without its FF tail, both models' masks, at B=3 and T in
 {40, 128, 256, 300}, the decoder without its tail at T=512, timed at
 B=256 beside a yardstick of their products; held by LAYER_MODE_TOL, and
-in phase 10 at every width), and the int8 kernels (int8_dense at the Embedding's
+in phase 10 at every width), the attention sublayer's mode kernels
+(``attn_sublayer``, ``attn_sublayer_train`` and ``attn_sublayer_bwd`` in
+"high" and "default", the model's three sublayers, B=3 at T in {40, 128,
+256, 300, 512} with a training video whose keys are all padded, the
+serving row timed at B=256 and the training rows at B=64 beside a
+yardstick of their products and their launches; held like the merged
+layers, and in phase 10 at every width), and the int8 kernels (int8_dense at the Embedding's
 Linear, 108 -> 256, and at a q / k / v projection, 256 -> 768, also at the
 600-frame request's 608 rows; ffn_int8 with LN1; enc_layer_int8 with both
 models' masks) against their plain versions and against ``torch._int_mm``
@@ -232,6 +242,13 @@ FF_MODE_TOL = {"ffn_high": HIGH_MODE_TOL, "ffn_train_high": HIGH_MODE_TOL,
                "ffn_default": DEFAULT_MODE_TOL,
                "ffn_train_default": DEFAULT_MODE_TOL,
                "ffn_bwd_split_default": DEFAULT_MODE_TOL}
+# the attention sublayer's six mode rows, beside whose times phase 2 prints
+# a products-only yardstick too
+SUBLAYER_MODE_SERVE = ("attn_sublayer_high", "attn_sublayer_default")
+SUBLAYER_MODE_TRAIN = ("attn_sublayer_train_high",
+                       "attn_sublayer_train_default", "attn_sublayer_bwd_high",
+                       "attn_sublayer_bwd_default")
+SUBLAYER_MODE_KERNELS = SUBLAYER_MODE_SERVE + SUBLAYER_MODE_TRAIN
 # the merged layers in a mode against their plain versions in that mode.
 # Both modes round the softmax probabilities to ONE bf16 (the TPU kernels'
 # _prob_parts), so a probability whose float32 value the two sum orders
@@ -247,8 +264,22 @@ FF_MODE_TOL = {"ffn_high": HIGH_MODE_TOL, "ffn_train_high": HIGH_MODE_TOL,
 # mean at "high" within LAYER_HIGH_MEAN_TOL, and the mean error
 # MODE_SEPARATION times nearer the plain version in its own mode than in
 # the wrong one.
+# The attention sublayer's mode kernels are held the same way: they round
+# p to one bf16 as the merged layers do, and their backward rebuilds it, so
+# a flip moves a few tokens' outputs and gradients.
 LAYER_MODE_TOL = {"enc_layer_high": 1e-3, "dec_layer_high": 1e-3,
-                  "enc_layer_default": 4e-3, "dec_layer_default": 4e-3}
+                  "enc_layer_default": 4e-3, "dec_layer_default": 4e-3,
+                  **{k: 1e-3 if k.endswith("_high") else 4e-3
+                     for k in SUBLAYER_MODE_KERNELS}}
+# The training forward also returns the raw attention output a (its third
+# output), where a flipped probability is not diluted by the out-projection
+# and the LayerNorm: it moves an element by one bf16 step of that
+# probability times a value of v, the same step in both modes (worst seen at
+# B=64: 1.59e-3 of a's max at "high", 1.27e-3 at "default", the means 9e-7
+# and the wrong mode's 5e-4; PERF.md §6).  That one output takes the flip
+# cap of "default" in both modes, and the mean decides.
+RAW_A_TOL = {"attn_sublayer_train_high": (2, 4e-3),
+             "attn_sublayer_train_default": (2, 4e-3)}
 LAYER_HIGH_MEAN_TOL = 2e-5
 # A whole model at "default" rounds every activation to one bf16, so the
 # flips above cascade through 6 + 6 layers: served at B=256, the kernel
@@ -334,9 +365,11 @@ INT8_KERNELS = ("int8_dense", "ffn_int8", "enc_layer_int8")
 # the precision modes' kernels ("high": bf16x3, "default": one bf16 pass)
 # and the pre-stream chain on an embedding: serving ones timed at the
 # serving batch, training ones at the training batch
-MODE_SERVE_KERNELS = ("ffn_high", "ffn_default", "pre_stream")
+MODE_SERVE_KERNELS = ("ffn_high", "ffn_default", "pre_stream",
+                      *SUBLAYER_MODE_SERVE)
 MODE_TRAIN_KERNELS = ("ffn_train_high", "ffn_train_default",
-                      "ffn_bwd_split_high", "ffn_bwd_split_default")
+                      "ffn_bwd_split_high", "ffn_bwd_split_default",
+                      *SUBLAYER_MODE_TRAIN)
 # the six rows of the precision modes' FF kernels, beside whose times phase
 # 2 prints a products-only yardstick (``products_yardstick``)
 MODE_FF_KERNELS = ("ffn_high", "ffn_default", "ffn_train_high",
@@ -442,9 +475,9 @@ class KernelCheck:
             fail(f"{name} {variant}: {len(gots)} outputs != {len(wants)}")
         wrongs = ((wrong if isinstance(wrong, tuple) else (wrong,))
                   if wrong is not None else (None,) * len(wants))
-        pairs = [(g_, w_, x_) for g_, w_, x_ in zip(gots, wants, wrongs)
-                 if not (g_ is None and w_ is None)]
-        gscale = max(float(w_.abs().max()) for _, w_, _ in pairs)
+        pairs = [(i, g_, w_, x_) for i, (g_, w_, x_) in enumerate(
+            zip(gots, wants, wrongs)) if not (g_ is None and w_ is None)]
+        gscale = max(float(w_.abs().max()) for _, _, w_, _ in pairs)
         base = name.split()[0]
         layer_mode = base in LAYER_MODE_TOL
         mode_tol = LAYER_MODE_TOL[base] if layer_mode else \
@@ -452,7 +485,7 @@ class KernelCheck:
         # normalized: own mode, wrong mode (the largest errors; the mean
         # errors for the merged layers)
         worst = [0.0, 0.0]
-        for g_, w_, x_ in pairs:
+        for i, g_, w_, x_ in pairs:
             if g_ is None or w_ is None or g_.shape != w_.shape:
                 shapes = [None if t_ is None else tuple(t_.shape)
                           for t_ in (g_, w_)]
@@ -465,7 +498,8 @@ class KernelCheck:
             mean = ""
             if mode_tol is not None:
                 own = float(w_.abs().max()) or 1.0
-                tol = mode_tol * own
+                raw = RAW_A_TOL.get(base)
+                tol = (raw[1] if raw and raw[0] == i else mode_tol) * own
                 avg = float((g_ - w_).abs().mean()) / own
                 worst[0] = max(worst[0], avg if layer_mode else err / own)
                 mean = (f" = {err / own:.3e} of its max {own:.3e}, mean "
@@ -800,6 +834,75 @@ class KernelCheck:
                         lambda a=bargs: k.ffn_bwd_plain(*a), True))
         return out
 
+
+    def sublayer_mode_calls(self, B, b_train, T, blocked=False):
+        """(kernel name, variant, wrapper call, plain call, is a gradient,
+        plain call in the wrong mode) of the attention sublayer's mode
+        kernels for the model's three sublayers (ATTN_VARIANTS), in "high"
+        and "default": the serving forward at (B, T) with the folded planes
+        a packed model keeps (``attn_weight_planes``), the training forward
+        and the backward at (b_train, T) with the planes
+        ``AttnSublayerFunction`` splits once a step (``attn_train_planes``);
+        each backward gets the plain training forward's residuals in its
+        mode on both sides, the wrong mode's plain backward those of the
+        wrong mode (a mode's statistics are log2-domain).  Keys padded in
+        the second video and, with ``blocked`` and b_train > 2, every key of
+        the third in training."""
+        from keypoints_interpolation_transformer_torch.ops.kernels \
+            .attn_sublayer import attn_train_planes, attn_weight_planes
+        k, out = self.k, []
+        o, (mask, valid) = self.operands(B, T), self.masks(B, T)
+        ot, (tmask, tvalid) = self.operands(b_train, T), self.masks(b_train,
+                                                                    T)
+        if blocked and b_train > 2:
+            tvalid[2] = 0.0
+        dy = self.rand(b_train, T, self.d)
+        w_in, w_out = ot["wqkv"].t().contiguous(), ot["wo"].t().contiguous()
+        for mode, tag in (("bf16x3", "high"), ("bf16", "default")):
+            wrong = WRONG_MODE[mode]
+            sp = attn_weight_planes(o["wqkv"], o["bqkv"], o["wo"],
+                                    self.heads, mode)
+            tp = attn_train_planes(w_in, w_out, mode)
+            for variant, cross, ln, kind, keypad in ATTN_VARIANTS:
+                mem = o["mem"] if cross else None
+                norm = (o["g"], o["be"]) if ln else (None, None)
+                args = (o["x"], mem, o["wqkv"], o["bqkv"], o["wo"], o["bo"],
+                        *norm, mask, valid, kind, keypad, self.heads)
+                out.append((
+                    f"attn_sublayer_{tag}", variant,
+                    lambda a=args, m=mode, p=sp: k.fused_attn_sublayer(
+                        *a, m, p),
+                    lambda a=args, m=mode: k.attn_sublayer_plain(*a, m),
+                    False,
+                    lambda a=args, m=wrong: k.attn_sublayer_plain(*a, m)))
+                mem = ot["mem"] if cross else None
+                norm = (ot["g"], ot["be"]) if ln else (None, None)
+                targs = (ot["x"], mem, ot["wqkv"], ot["bqkv"], ot["wo"],
+                         ot["bo"], *norm, tmask, tvalid, kind, keypad,
+                         self.heads)
+                out.append((
+                    f"attn_sublayer_train_{tag}", variant,
+                    lambda a=targs, m=mode, p=tp: k.fused_attn_sublayer_train(
+                        *a, m, p),
+                    lambda a=targs, m=mode: k.attn_sublayer_train_plain(*a,
+                                                                        m),
+                    False,
+                    lambda a=targs, m=wrong: k.attn_sublayer_train_plain(*a,
+                                                                         m)))
+
+                def bargs(md, a=targs, mem=mem, g=norm[0], kind=kind,
+                          keypad=keypad):
+                    _, qkv, att, stats, r = k.attn_sublayer_train_plain(*a, md)
+                    return (dy, a[0], mem, qkv, att, stats, r, w_in, w_out, g,
+                            tmask, tvalid, kind, keypad, self.heads, md)
+
+                own, other = bargs(mode), bargs(wrong)
+                out.append((
+                    f"attn_sublayer_bwd_{tag}", variant,
+                    lambda a=own, p=tp: k.attn_sublayer_bwd(*a, p),
+                    lambda a=own: k.attn_sublayer_bwd_plain(*a), True,
+                    lambda a=other: k.attn_sublayer_bwd_plain(*a)))
+        return out
 
     def precision_calls(self, B, b_train, T):
         """(kernel name, variant, wrapper call, plain call, is a gradient,
@@ -1232,10 +1335,13 @@ def bound(name, B, T):
     flop, int8, byts = work(name, B, T)
     peak = PEAK_FLOPS
     if name.endswith("_high"):
-        # three passes a product; a merged layer's p v (half its attention
-        # core's FLOP) two, its probabilities being one bf16
-        pv = (2 if name.startswith("dec") else 1) * 2 * B * HEADS * T * T * (
-            D // HEADS) if name in LAYER_MODE_KERNELS else 0
+        # three passes a product; a product of the probabilities (a merged
+        # layer's p v, half its attention core's FLOP; the sublayer's p v,
+        # or its backward's p^T dA) two, its probabilities being one bf16
+        pv = 2 * B * HEADS * T * T * (D // HEADS)
+        pv = (2 if name.startswith("dec") else 1) * pv \
+            if name in LAYER_MODE_KERNELS else \
+            pv if name in SUBLAYER_MODE_KERNELS else 0
         flop, peak = 3 * flop - pv, PEAK_BF16
     elif name.endswith("_default"):
         peak = PEAK_BF16
@@ -1249,7 +1355,9 @@ def products_yardstick(torch, name, B, T):
     three a product at "high" (hi hi, hi lo, lo hi; p v two), one at
     "default"; the FF forward's two products (x1 W1, gelu(u) W2), the
     backward's four (dz W2^T, dz^T gelu(u), du^T x1, du W1^T), a merged
-    layer's projections, FF pair and per-head scores and p v.  A yardstick
+    layer's projections, FF pair and per-head scores and p v; the attention
+    sublayer's projections, scores and p v, its backward's dA, dW_out,
+    dW_in and dx and per head the scores, gw, dv, dq and dk.  A yardstick
     of the products' cost, not the kernel's function: no LayerNorm, GELU,
     softmax, bias or residual, bf16 outputs, and the planes are made
     outside the call."""
@@ -1272,6 +1380,21 @@ def products_yardstick(torch, name, B, T):
                                                                        FF)
         w1t, w2t = planes(FF, D), planes(D, FF)
         prods = [(dz, w2t, 3), (t(dz), h, 3), (t(du), x1, 3), (du, w1t, 3)]
+    elif name.startswith("attn_sublayer"):
+        dh, BH = D // HEADS, B * HEADS
+        scores = (planes(BH, T, dh), planes(BH, dh, T), 3)
+        if "bwd" in name:  # dA, dW_out, dW_in, dx; scores, gw, dv, dq, dk
+            prods = [(planes(N, D), planes(D, D), 3),
+                     (t(planes(N, D)), planes(N, D), 3),
+                     (t(planes(N, 3 * D)), planes(N, D), 3),
+                     (planes(N, 3 * D), planes(3 * D, D), 3),
+                     scores, scores, (planes(BH, T, T), planes(BH, T, dh), 2),
+                     (planes(BH, T, T), planes(BH, T, dh), 3),
+                     (planes(BH, T, T), planes(BH, T, dh), 3)]
+        else:
+            prods = [(planes(N, D), planes(D, 3 * D), 3),
+                     (planes(N, D), planes(D, D), 3), scores,
+                     (planes(BH, T, T), planes(BH, T, dh), 2)]
     elif name.startswith(("enc_layer", "dec_layer")):
         # the projections, the FF pair and per head (batched) the scores
         # and p v; the decoder adds the cross q, the memory's k / v, a
@@ -1320,7 +1443,7 @@ def kernel_key(name):
 
 def launch_ms(torch, fn):
     """One call's device time by CUDA kernel (torch.profiler), in launch
-    order: "name ms, ..."."""
+    order, then their sum: "name ms, ...; device sum ms"."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1332,8 +1455,24 @@ def launch_ms(torch, fn):
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            rows.append(f"{kernel_key(e.name)} {us / 1e3:.4f}")
-    return ", ".join(rows)
+            rows.append((kernel_key(e.name), us / 1e3))
+    return (", ".join(f"{k} {ms:.4f}" for k, ms in rows)
+            + f"; device sum {sum(ms for _, ms in rows):.4f}")
+
+
+def host_ms(torch, fn, iters=20):
+    """One call's host time, from the call to its return with the card
+    idle at the start: the wrapper's checks, allocations and launches (the
+    kernels run after it returns unless the host waits for them)."""
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / iters * 1e3
 
 
 def phase_kernels(torch, kmod):
@@ -1345,6 +1484,12 @@ def phase_kernels(torch, kmod):
           "gradient: the same, summed over up to 8192 rows; some gradients "
           "(the k-bias) are exactly zero in exact arithmetic, so no "
           "per-tensor scale", flush=True)
+    print(f"  attention sublayer's and merged layers' mode kernels: each "
+          "output within LAYER_MODE_TOL of its own max |plain| (the "
+          "training forward's raw a within RAW_A_TOL), the mean at "
+          f"'high' within {LAYER_HIGH_MEAN_TOL:.0e}, and the mean "
+          f"{MODE_SEPARATION:g} x nearer its own mode (a flipped bf16 "
+          "probability moves a few tokens)", flush=True)
     print(f"  precision modes' FF kernels: each output within "
           f"{HIGH_MODE_TOL:.0e} ('high') / {DEFAULT_MODE_TOL:.0e} "
           f"('default') of its own max "
@@ -1359,7 +1504,8 @@ def phase_kernels(torch, kmod):
                    + chk.per_op_calls(b_train, T, blocked)]
                 + [(*c, False, None) for c in chk.int8_calls(B, T)]
                 + chk.precision_calls(B, b_train, T)
-                + chk.layer_mode_calls(chk.operands(B, T), *chk.masks(B, T)))
+                + chk.layer_mode_calls(chk.operands(B, T), *chk.masks(B, T))
+                + chk.sublayer_mode_calls(B, b_train, T, blocked))
 
     def held(fn):
         return None if fn is None else fn()
@@ -1388,6 +1534,12 @@ def phase_kernels(torch, kmod):
     for name, variant, kern, plain, grad in chk.train_calls(3, 512, True):
         chk.compare(name, f"B=3 T=512 {variant}, video 3 all padded", kern(),
                     plain(), grad)
+    # the attention sublayer's mode kernels there too (more keys than one
+    # stage of the backward's cores holds at the widest heads)
+    for name, variant, kern, plain, grad, wrong in chk.sublayer_mode_calls(
+            3, 3, 512, True):
+        chk.compare(name, f"B=3 T=512 {variant}, training video 3 all "
+                    "padded", kern(), plain(), grad, wrong())
     # the batch picks the whole-layer kernels' cluster size; serving
     # batches take every size, so each is held here, at lengths that fill
     # the row tiles, leave a padded tail (40, 300) and split the FF chunks
@@ -1449,7 +1601,8 @@ def phase_kernels(torch, kmod):
               f"({b_by}; the kernel at {b_ms / times[name][0]:.1%} of it)"
               + (f"  library {lib_ms:.4f} ms" if lib else "") + rate
               + f"  (B={B} T={T_MAIN})", flush=True)
-        if name in MODE_FF_KERNELS + LAYER_MODE_KERNELS:
+        if name in MODE_FF_KERNELS + LAYER_MODE_KERNELS \
+                + SUBLAYER_MODE_KERNELS:
             call, count = products_yardstick(torch, name, B, T_MAIN)
             y_ms = min(timed_ms(call), timed_ms(call))
             print(f"  yardstick {name:14s} products only: {y_ms:.4f} ms "
@@ -1457,8 +1610,10 @@ def phase_kernels(torch, kmod):
                   "outputs; not the kernel's function: no LayerNorm, GELU, "
                   f"bias or float32 output; B={B} T={T_MAIN}); the kernel "
                   f"at {y_ms / times[name][0]:.1%} of it", flush=True)
-        if name in FORWARD_KERNELS:
-            print(f"  launches {name}: {launch_ms(torch, kern)} ms", flush=True)
+        if name in FORWARD_KERNELS + SUBLAYER_MODE_KERNELS + (
+                "attn_sublayer_bwd",):
+            print(f"  launches {name}: {launch_ms(torch, kern)} ms; host "
+                  f"{host_ms(torch, kern):.4f} ms a call", flush=True)
         if name in given:  # the training route's form, beside the row
             gvariant, gkern, gplain = given[name]
             g_ms = min(timed_ms(gkern), timed_ms(gkern))
@@ -2549,15 +2704,19 @@ MODE_TAG = {"high": "_high", "default": "_default"}
 
 
 def mode_counts(counts, prec):
-    """``counts`` with each FF kernel's launches moved to the precision's
-    own kernel (the float32 forward and backward of "highest" become the
-    mode's forward and split backward)."""
+    """``counts`` with each FF and attention-sublayer kernel's launches
+    moved to the precision's own kernel (the float32 forward and backward
+    of "highest" become the mode's forward and split backward)."""
     if prec == "highest":
         return dict(counts)
     tag, out = MODE_TAG[prec], dict(counts)
     for name, mode_name in (("ffn", f"ffn{tag}"),
                             ("ffn_train", f"ffn_train{tag}"),
-                            ("ffn_bwd", f"ffn_bwd_split{tag}")):
+                            ("ffn_bwd", f"ffn_bwd_split{tag}"),
+                            ("attn_sublayer", f"attn_sublayer{tag}"),
+                            ("attn_sublayer_train",
+                             f"attn_sublayer_train{tag}"),
+                            ("attn_sublayer_bwd", f"attn_sublayer_bwd{tag}")):
         out[mode_name], out[name] = out[name], 0
     return out
 
@@ -2705,7 +2864,9 @@ def phase_precision(torch, kmod, gpu, tmp):
         if not np.array_equal(got[miss == 0], clean[miss == 0]):
             fail(f"{prec} serving changed a non-missing frame")
         if prec != "highest":
-            launches[f"ffn{MODE_TAG[prec]}"] = counts[f"ffn{MODE_TAG[prec]}"]
+            for n in ("ffn", "attn_sublayer"):
+                launches[f"{n}{MODE_TAG[prec]}"] = counts[
+                    f"{n}{MODE_TAG[prec]}"]
             delta = masked_mpjpe_delta(got, outs["highest"], miss)
             gate = prec == "high"
             print(f"  {prec}: per-sublayer serving B={B_MAIN} T={T_MAIN}, "
@@ -2750,9 +2911,12 @@ def phase_precision(torch, kmod, gpu, tmp):
         cfg = Config(model=dataclasses.replace(model_config(),
                                                matmul_precision=prec))
         runs = {}
+        # "high" twice from the same seed: its steps' losses agree bit for
+        # bit (every sum in a fixed order)
+        again = (("again", cfg.model, False),) if prec == "high" else ()
         for name, mc, plain in (("kernel", cfg.model, False),
                                 ("plain", cfg.model, True),
-                                ("highest", model_config(), False)):
+                                ("highest", model_config(), False), *again):
             c = Config(model=mc)
             model = steps.build_model(mc, for_training=True, device=DEV,
                                       generator=torch.Generator().manual_seed(
@@ -2765,7 +2929,8 @@ def phase_precision(torch, kmod, gpu, tmp):
         want = mode_counts(TRAIN_COUNTS, prec)
         for i in range(2):
             res = {}
-            for name in ("plain", "kernel", "highest"):
+            for name in ("plain", "kernel", "highest", *(n for n, *_ in
+                                                        again)):
                 _, st, step = runs[name]
                 gen = torch.Generator(device=DEV).manual_seed(100 + i)
                 kmod.reset_launches()
@@ -2777,7 +2942,7 @@ def phase_precision(torch, kmod, gpu, tmp):
                     fail(f"{prec} {name} step {i}: loss {res[name][0]}")
                 if name == "plain" and any(counts.values()):
                     fail(f"{prec} plain step launched kernels: {counts}")
-                if name == "kernel":
+                if name in ("kernel", "again"):
                     if counts != want:
                         fail(f"{prec} step {i} launches {counts} != {want}")
                     for n in MODE_TRAIN_KERNELS:
@@ -2793,6 +2958,12 @@ def phase_precision(torch, kmod, gpu, tmp):
                   f"launches {kernel_counts}", flush=True)
             if rel > LOSS_RTOL or grel > LOSS_RTOL:
                 fail(f"{prec} step {i}: kernel and plain route differ")
+            if again:
+                print(f"  {prec} A1 step {i} again from the same seed: loss "
+                      f"{res['again'][0]!r}, grad norm {res['again'][1]!r} "
+                      f"(first run {lk!r}, {gk!r})", flush=True)
+                if res["again"] != res["kernel"]:
+                    fail(f"{prec} step {i}: two runs from one seed differ")
         step_ms = {}
         for name in ("plain", "kernel", "highest", "highest", "kernel",
                      "plain"):
@@ -2859,14 +3030,20 @@ def phase_precision(torch, kmod, gpu, tmp):
     if rc != 0 or res["epochs_run"] != 1 or not np.isfinite(
             res["best_val_loss"]):
         fail("cli train --precision high did not run its epoch")
-    if not (counts.get("ffn_train_high") and counts.get("ffn_bwd_split_high")
-            and counts.get("ffn_high")) or \
-            any(counts.get(n) for n in ("ffn", "ffn_train", "ffn_bwd")):
+    if not all(counts.get(n) for n in (
+            "ffn_train_high", "ffn_bwd_split_high", "ffn_high",
+            "attn_sublayer_train_high", "attn_sublayer_bwd_high",
+            "attn_sublayer_high")) or \
+            any(counts.get(n) for n in ("ffn", "ffn_train", "ffn_bwd",
+                                        "attn_sublayer",
+                                        "attn_sublayer_train",
+                                        "attn_sublayer_bwd")):
         fail(f"cli train --precision high launched {counts}")
 
     # ``cli serve --precision high`` over HTTP: a 300-frame video's bucket
-    # of 320 runs the FF sublayers on their own (in the mode) on the
-    # default route, against the plain path in the same mode
+    # of 320 runs the encoder per sublayer and the decoder's FF sublayers
+    # on their own (in the mode) on the default route, against the plain
+    # path in the same mode
     from keypoints_interpolation_transformer_torch.models.convert import (
         save_reference_pth)
     path = os.path.join(tmp, "precision.pth")
@@ -2880,7 +3057,9 @@ def phase_precision(torch, kmod, gpu, tmp):
         videos, masks)
     torch.cuda.synchronize()
     counts = nonzero(kmod.launch_counts())
-    if counts.get("ffn_high") != 2 * LAYERS or counts.get("ffn"):
+    if counts.get("ffn_high") != 2 * LAYERS or counts.get("ffn") or \
+            counts.get("attn_sublayer_high") != LAYERS or \
+            counts.get("attn_sublayer"):
         fail(f"serving at \"high\": launches {counts}")
     got = serve_over_cli(["--checkpoint", path, "--precision", "high"],
                          videos, masks)
@@ -2922,8 +3101,9 @@ def phase_widths(torch, kmod):
             for name, variant, kern, plain, grad in calls:
                 chk.compare(name, f"{tag} T={T} {variant}", kern(), plain(),
                             grad)
-            for name, variant, kern, plain, grad, wrong in \
-                    chk.layer_mode_calls(chk.operands(3, T), *chk.masks(3, T)):
+            for name, variant, kern, plain, grad, wrong in (
+                    chk.layer_mode_calls(chk.operands(3, T), *chk.masks(3, T))
+                    + chk.sublayer_mode_calls(3, 3, T)):
                 chk.compare(name, f"{tag} T={T} {variant}", kern(), plain(),
                             grad, wrong())
         # B=40 (5120 rows) fills half the card with row tiles at every
@@ -3067,8 +3247,10 @@ def ab_measure(torch, gpu, out_path):
     from keypoints_interpolation_transformer_torch.ops import kernels as kmod
     chk = KernelCheck(torch, kmod)
     sums = {}
-    for name, variant, kern, *_ in (chk.int8_calls(3, T_MAIN)
-                                    + chk.precision_calls(3, 3, T_MAIN)):
+    for name, variant, kern, *_ in (
+            chk.int8_calls(3, T_MAIN) + chk.precision_calls(3, 3, T_MAIN)
+            + chk.layer_mode_calls(chk.operands(3, T_MAIN),
+                                   *chk.masks(3, T_MAIN))):
         got = kern()
         sums[f"{name} {variant}"] = sum(
             float(t.double().sum()) for t in
@@ -3139,10 +3321,12 @@ def ab_measure(torch, gpu, out_path):
         del model, st, step
     # the merged route at B=256 in the three precisions (frames/s, best
     # of 2): "high" and "default" run the mode layers where a tree has them
-    out["merged_mode_fps"] = {}
+    out["merged_mode_fps"], out["merged_mode_sum"] = {}, {}
     for prec in ("highest", "high", "default"):
         inp = Inpainter(sd, dataclasses.replace(
             model_config(), matmul_precision=prec), device=DEV)
+        out["merged_mode_sum"][prec] = float(np.stack(inp.inpaint(
+            videos, masks)).astype(np.float64).sum())
         out["merged_mode_fps"][prec] = max(frames_per_s(inp, videos, masks)
                                            for _ in range(2))
         del inp
@@ -3237,11 +3421,12 @@ def ab(other, gpu):
     same = {k: len({json.dumps(r[k]) for _, r in rows}) == 1
             for k in ("merged_sum", "sublayer_sum", "loss", "per_op_loss",
                       "long_float32_sum", "long_int8_sum", "int8_merged_sum",
-                      "kernel_sums")}
+                      "merged_mode_sum", "kernel_sums")}
     print(f"  ab: bit for bit equal across the trees: {same}", flush=True)
     moved = sorted(k for k in rows[0][1]["kernel_sums"]
                    if len({r["kernel_sums"].get(k) for _, r in rows}) > 1)
-    print(f"  ab: int8 and mode kernels whose outputs moved: {moved}",
+    print(f"  ab: int8, FF mode and merged mode kernels whose outputs "
+          f"moved: {moved}",
           flush=True)
     return 0
 

@@ -48,7 +48,7 @@
 //      [Wq s | Wk | Wv] (the decoder's cross k / v from the memory, its
 //      cross q from x1 in two more), the epilogue adding the bias and
 //      splitting the result into the planes the attention core reads;
-//   3. attn_mode_kernel (below): the attention core per (query block,
+//   3. attn_mode_kernel (attn_modes.cuh): the attention core per (query block,
 //      head, video) on mma.sync m16n8k16, writing the output's planes;
 //   4. the out-projection on tc_gemm_kernel, its epilogue adding the bias
 //      and the residual (float32); in the decoder, ln_fwd_kernel then makes
@@ -68,22 +68,10 @@
 // encoder layer, 11 for a decoder layer, one more each with the FF split),
 // each a host call.
 //
-// The attention core (attn_mode_kernel): a block of 1-4 warps owns 16
-// query rows a warp of one head of one video; q's planes for them, and
-// the head's k and v planes for KB keys at a time (all T when they fit,
-// which they do for dh <= 32 at T <= 512) with each key's bias, sit in
-// shared memory, rows padded so that fragment loads meet no bank conflict
-// (v's B fragments come transposed by ldmatrix).  The head width is padded
-// with zeros to DP, a multiple of 16 (the k of m16n8k16).  Two sweeps over
-// the keys, each recomputing the scores of 16 keys at a time from the
-// planes (the three terms in their own accumulators, added as the TPU
-// kernel adds its three dots): the row's max and its sum of exp2(s - max)
-// (a running max, the sum rescaled as it grows: the same sum in another
-// float32 order), then per 32 or 64 columns of the output p = bf16(exp2(s
-// - max) * (1 / sum)) as the A fragment of p v_hi and p v_lo, each term in
-// its own accumulator.  The scores cost 2 T dh FLOP a query a term and a
-// sweep, small beside the projections, and the rounding of p needs the
-// row's max and sum before any p.
+// The attention core (attn_mode_kernel) and the projection launcher sit in
+// attn_modes.cuh, shared with the attention sublayer in a mode
+// (attn_sublayer_modes.cu).
+#include "attn_modes.cuh"
 #include "common.cuh"
 #include "ffn_tc.cuh"
 #include "grad.cuh"
@@ -93,348 +81,6 @@
 using namespace kit;
 
 namespace {
-
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr int ATTN_SMEM = 232448;  // an H100 block's dynamic shared memory
-
-struct AttnMode {      // one attention core in a mode
-  const bf16 *qh, *ql;  // q's planes: head h of row t of video b at (b T + t) ldq + h dh
-  const bf16 *kh, *kl;  // k's and v's planes, row stride ldkv
-  const bf16 *vh, *vl;
-  int ldq, ldkv;
-  const float* mask;    // (B, T) or null
-  const float* valid;   // (B, T) or null: every key valid
-  int repeat_inc, add_keypad;
-  bf16 *oh, *ol;        // the output's planes, row stride ldo
-  int ldo;
-  int T, dh, DP, KB;    // DP: dh rounded up to 16; KB: keys a stage, a multiple of 16
-};
-
-// d += a b, m16n8k16, bf16 in, float32 accumulate; a the A fragment (4
-// registers), b0 / b1 the B fragment.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The shared memory of attn_mode_kernel: q's planes (16 W rows), and KB
-// keys of k's and of v's planes, every row DP + 8 wide (a row of 4 mod 8
-// words keeps a fragment's 32 loads on 32 banks, and 16-byte rows serve
-// ldmatrix), then each key's bias (two floats).
-__host__ __device__ constexpr int attn_smem(int planes, int W, int DP, int KB) {
-  return 2 * planes * (16 * W + 2 * KB) * (DP + 8) + 8 * KB;
-}
-
-// The B fragments of two n8 tiles of p v: v's rows j0 .. j0 + 15 (the k of
-// m16n8k16) at columns d0 .. d0 + 15 of a row-major tile (row stride ld),
-// transposed by ldmatrix: {b0, b1} of columns d0 .., then of d0 + 8 ...
-__device__ __forceinline__ void v_fragments(uint32_t (&b)[4], const bf16* V, int ld, int j0,
-                                            int d0, int lane) {
-  const bf16* row = V + (j0 + (lane & 15)) * ld + d0 + 8 * (lane >> 4);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(smem_u32(row)));
-}
-
-// The attention core of head blockIdx.y of video blockIdx.z for the
-// blockDim.x / 2 query rows from blockIdx.x times that (see the note at the
-// top): out = softmax(q k^T + bias) v in the mode's passes, written as the
-// output's hi / lo planes at the head's dh columns (rows < T only), NO n8
-// tiles (8 NO columns) of the output at a time.
-template <int PASSES, int NO>
-__global__ void __launch_bounds__(128) attn_mode_kernel(const AttnMode p) {
-  constexpr int PL = PASSES == 3 ? 2 : 1;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int QR = blockDim.x / 2;  // 16 rows a warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, row0 = blockIdx.x * QR, T = p.T, dh = p.dh, DP = p.DP, KB = p.KB;
-  const int QLD = DP + 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // PL planes of QR x QLD
-  bf16* Ks = Qs + PL * QR * QLD;                  // PL planes of KB x QLD
-  bf16* Vs = Ks + PL * KB * QLD;                  // PL planes of KB x QLD
-  // key j's bias for a query at or after it, and for one before it
-  float2* kbias = reinterpret_cast<float2*>(Vs + PL * KB * QLD);
-  const size_t vid = (size_t)blockIdx.z * T;
-  const int hc = h * dh;  // the head's first column
-  const bool vec = dh % 8 == 0;  // 16-byte rows: whole 8-column chunks
-  // rows first .. first + rows - 1 of the head's DP columns of a matrix's
-  // planes (row stride ld) into dst's planes (plane stride pstride), zero
-  // past T and dh; 8 columns a chunk, four chunks a thread in flight
-  auto stage = [&](bf16* dst, int pstride, const bf16* sh, const bf16* sl, int ld, int first,
-                   int rows) {
-    const int cpr = DP / 8, n = rows * cpr;
-    for (int i0 = threadIdx.x; i0 < n; i0 += 4 * blockDim.x) {
-      uint4 vh[4], vl[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        vh[u] = vl[u] = make_uint4(0u, 0u, 0u, 0u);
-        const int i = i0 + u * blockDim.x;
-        if (i >= n) continue;
-        const int r = i / cpr, c = 8 * (i - r * cpr), row = first + r;
-        if (row >= T || c >= dh) continue;
-        const size_t o = (vid + row) * ld + hc + c;
-        if (vec) {
-          vh[u] = __ldg(reinterpret_cast<const uint4*>(sh + o));
-          if (PL == 2) vl[u] = __ldg(reinterpret_cast<const uint4*>(sl + o));
-        } else {  // one value at a time, packed in registers
-          uint32_t wh[4] = {0u, 0u, 0u, 0u}, wl[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            if (c + e >= dh) break;
-            wh[e >> 1] |= (uint32_t)__bfloat16_as_ushort(sh[o + e]) << (16 * (e & 1));
-            if (PL == 2)
-              wl[e >> 1] |= (uint32_t)__bfloat16_as_ushort(sl[o + e]) << (16 * (e & 1));
-          }
-          vh[u] = make_uint4(wh[0], wh[1], wh[2], wh[3]);
-          vl[u] = make_uint4(wl[0], wl[1], wl[2], wl[3]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = i0 + u * blockDim.x;
-        if (i >= n) continue;
-        const int r = i / cpr, c = 8 * (i - r * cpr);
-        *reinterpret_cast<uint4*>(dst + r * QLD + c) = vh[u];
-        if (PL == 2) *reinterpret_cast<uint4*>(dst + pstride + r * QLD + c) = vl[u];
-      }
-    }
-  };
-  stage(Qs, QR * QLD, p.qh, p.ql, p.ldq, row0, QR);
-  const float* mask = p.mask == nullptr ? nullptr : p.mask + vid;
-  const float* valid = p.valid == nullptr ? nullptr : p.valid + vid;
-  // the bias terms in the order of _bias_terms_T: (blocked ? NEG : 0), +
-  // the keypad term times log2(e), + NEG on an invalid key; a key past T
-  // -inf, so that it weighs nothing
-  auto stage_keys = [&](int k0) {
-    stage(Ks, KB * QLD, p.kh, p.kl, p.ldkv, k0, KB);
-    stage(Vs, KB * QLD, p.vh, p.vl, p.ldkv, k0, KB);
-    for (int j = threadIdx.x; j < KB; j += blockDim.x) {
-      const int key = k0 + j;
-      float2 b = make_float2(-INFINITY, -INFINITY);
-      if (key < T) {
-        const float km = mask == nullptr ? 0.f : __ldg(mask + key);
-        float open = 0.f, shut = (p.repeat_inc && km > 0.f) ? NEG : 0.f;
-        if (p.add_keypad) {
-          open = open + km * LOG2E;
-          shut = shut + km * LOG2E;
-        }
-        if (valid != nullptr) {
-          const float vb = __ldg(valid + key) > 0.f ? 0.f : NEG;
-          open = open + vb;
-          shut = shut + vb;
-        }
-        b = make_float2(open, shut);
-      }
-      kbias[j] = b;
-    }
-  };
-  const int qa = row0 + 16 * warp + g, qb = qa + 8;  // the thread's two query rows
-  // s = the scores of keys key0 + 16 (this stage's j0 ..) in the C layout:
-  // s[nt][e] is row (e < 2 ? qa : qb), key key0 + 8 nt + 2 t + (e & 1);
-  // -inf past T.  The bias in the order of _bias_terms_T.
-  auto scores = [&](float (&s)[2][4], int j0, int key0) {
-    float hh[2][4], hl[2][4], lh[2][4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) hh[nt][e] = hl[nt][e] = lh[nt][e] = 0.f;
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      const bf16* qp = Qs + (16 * warp + g) * QLD + 16 * ks + 2 * t;
-      const uint32_t ah[4] = {ld32(qp), ld32(qp + 8 * QLD), ld32(qp + 8), ld32(qp + 8 * QLD + 8)};
-      uint32_t al[4] = {0u, 0u, 0u, 0u};
-      if (PL == 2) {
-        const bf16* ql = qp + QR * QLD;
-        al[0] = ld32(ql);
-        al[1] = ld32(ql + 8 * QLD);
-        al[2] = ld32(ql + 8);
-        al[3] = ld32(ql + 8 * QLD + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const bf16* kp = Ks + (j0 + 8 * nt + g) * QLD + 16 * ks + 2 * t;
-        const uint32_t b0 = ld32(kp), b1 = ld32(kp + 8);
-        mma16816(hh[nt], ah, b0, b1);  // k_hi q_hi
-        if (PASSES == 3) {
-          const bf16* kl = kp + KB * QLD;
-          mma16816(hl[nt], al, b0, b1);                // k_hi q_lo
-          mma16816(lh[nt], ah, ld32(kl), ld32(kl + 8));  // k_lo q_hi
-        }
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = j0 + 8 * nt + 2 * t + c, key = key0 + 8 * nt + 2 * t + c;
-        const float2 b = kbias[j];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int e = 2 * r + c;
-          const float d = PASSES == 3 ? (hh[nt][e] + hl[nt][e]) + lh[nt][e] : hh[nt][e];
-          s[nt][e] = d + (key > (r == 0 ? qa : qb) ? b.y : b.x);
-        }
-      }
-  };
-  const bool once = KB >= T;  // every key in one stage
-  if (once) stage_keys(0);
-  __syncthreads();
-  // one sweep over the keys, 16 at a time, body(s, j0) on their scores
-  auto sweep = [&](auto&& body) {
-    for (int k0 = 0; k0 < T; k0 += KB) {
-      if (!once) {
-        __syncthreads();  // the previous stage is read
-        stage_keys(k0);
-        __syncthreads();
-      }
-      const int nk = min(KB, T - k0);
-      for (int j0 = 0; j0 < nk; j0 += 16) {
-        float s[2][4];
-        scores(s, j0, k0 + j0);
-        body(s, j0);
-      }
-    }
-  };
-  // each row's max and its sum of exp2(s - max), in one sweep: a lane's
-  // running max over its keys, its sum rescaled whenever the max grows,
-  // then the quad's four lanes (the row's other keys) joined
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  sweep([&](float (&s)[2][4], int) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float mx = fmaxf(fmaxf(s[0][2 * i], s[0][2 * i + 1]),
-                             fmaxf(s[1][2 * i], s[1][2 * i + 1]));
-      const float nm = fmaxf(m[i], mx);
-      if (nm == -INFINITY) continue;  // every key of the lane so far past T
-      const float add = (exp2f(s[0][2 * i] - nm) + exp2f(s[0][2 * i + 1] - nm)) +
-                        (exp2f(s[1][2 * i] - nm) + exp2f(s[1][2 * i + 1] - nm));
-      l[i] = l[i] * exp2f(m[i] - nm) + add;
-      m[i] = nm;
-    }
-  });
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mq = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-    mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));  // finite: key 0 < T
-    l[i] = l[i] * exp2f(m[i] - mq);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    m[i] = mq;
-  }
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
-  for (int d0 = 0; d0 < DP; d0 += 8 * NO) {
-    const int nto = min(NO, (DP - d0) / 8);  // n8 tiles of this chunk of the output
-    float oh[NO][4], ol[NO][4];
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oh[nt][e] = ol[nt][e] = 0.f;
-    sweep([&](float (&s)[2][4], int j0) {
-      // p = exp2(s - max) (1 / sum), one bf16 each, as the A fragment of
-      // the 16 keys: the two n8 score tiles side by side
-      float pr[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pr[nt][e] = exp2f(s[nt][e] - m[e >> 1]) * inv[e >> 1];
-      const uint32_t pa[4] = {pack_bf16(pr[0][0], pr[0][1]), pack_bf16(pr[0][2], pr[0][3]),
-                              pack_bf16(pr[1][0], pr[1][1]), pack_bf16(pr[1][2], pr[1][3])};
-#pragma unroll
-      for (int nt = 0; nt < NO; nt += 2) {
-        if (nt < nto) {  // nto is even: DP is a multiple of 16
-          uint32_t b[4];
-          v_fragments(b, Vs, QLD, j0, d0 + 8 * nt, lane);
-          mma16816(oh[nt], pa, b[0], b[1]);  // p v_hi
-          mma16816(oh[nt + 1], pa, b[2], b[3]);
-          if (PASSES == 3) {
-            v_fragments(b, Vs + KB * QLD, QLD, j0, d0 + 8 * nt, lane);
-            mma16816(ol[nt], pa, b[0], b[1]);  // p v_lo
-            mma16816(ol[nt + 1], pa, b[2], b[3]);
-          }
-        }
-      }
-    });
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      if (nt >= nto) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? qa : qb, c = d0 + 8 * nt + 2 * t + (e & 1);
-        if (row >= T || c >= dh) continue;
-        const float o = PASSES == 3 ? oh[nt][e] + ol[nt][e] : oh[nt][e];
-        const bf16 hi = __float2bfloat16_rn(o);
-        const size_t at = (vid + row) * p.ldo + hc + c;
-        p.oh[at] = hi;
-        if (PASSES == 3) p.ol[at] = __float2bfloat16_rn(o - __bfloat162float(hi));
-      }
-    }
-  }
-}
-
-template <int PASSES>
-int attend(AttnMode a, int B, int H, cudaStream_t st) {
-  constexpr int PL = PASSES == 3 ? 2 : 1;
-  a.DP = round_up(a.dh, 16);
-  // the output 32 columns at a time up to dh = 32 (half the accumulators),
-  // else 64
-  static bool ready4 = false, ready8 = false;
-  auto kernel = a.DP <= 32 ? attn_mode_kernel<PASSES, 4> : attn_mode_kernel<PASSES, 8>;
-  cudaError_t e = allow_smem(kernel, ATTN_SMEM, a.DP <= 32 ? ready4 : ready8);
-  if (e != cudaSuccess) return (int)e;
-  // four warps a block, with as many keys a stage as fit (every key where
-  // they do); fewer warps only for the widest heads
-  const int Tk = round_up(a.T, 16);
-  int W = 4, KB = Tk;
-  for (W = 4; W >= 1; W /= 2) {
-    for (KB = Tk; KB > 16 && attn_smem(PL, W, a.DP, KB) > ATTN_SMEM; KB -= 16) {
-    }
-    if (attn_smem(PL, W, a.DP, KB) <= ATTN_SMEM) break;
-  }
-  if (W < 1) return (int)cudaErrorInvalidValue;
-  a.KB = KB;
-  const dim3 grid((a.T + 16 * W - 1) / (16 * W), H, B);
-  kernel<<<grid, 32 * W, attn_smem(PL, W, a.DP, KB), st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// One projection on tc_gemm_kernel: A (M, K) planes (row stride K) times
-// W (K, N) planes (row stride ldw), the epilogue EPI (EPI_PLANES: + bias,
-// split to p.oh / p.ol; EPI_RES: p.out = p.add + (product + bias)).
-template <int PASSES, int EPI>
-int project(const bf16* ah, const bf16* al, int M, int K, const bf16* wh, const bf16* wl,
-            int N, int ldw, GemmArgs p, cudaStream_t st) {
-  using G = TcGemm<PASSES>;
-  static bool ready = false;
-  cudaError_t e = allow_smem(tc_gemm_kernel<PASSES, 0, EPI>, G::SMEM, ready);
-  if (e != cudaSuccess) return (int)e;
-  GemmMaps mp;
-  int rc;
-  if ((rc = plane_map(&mp.a[0], ah, M, K, 128)) ||
-      (rc = plane_map(&mp.a[1], PASSES == 3 ? al : nullptr, M, K, 128)) ||
-      (rc = plane_map(&mp.b[0], wh, K, N, 64, ldw)) ||
-      (rc = plane_map(&mp.b[1], PASSES == 3 ? wl : nullptr, K, N, 64, ldw)))
-    return rc;
-  p.M = M;
-  p.N = N;
-  p.K = K;
-  p.krows = round_up(K, 64);
-  p.split = 0;
-  const dim3 grid((N + 127) / 128, (M + 127) / 128, 1);
-  tc_gemm_kernel<PASSES, 0, EPI><<<grid, WG_THREADS, G::SMEM, st>>>(mp, p);
-  return (int)cudaGetLastError();
-}
 
 struct AttnW {          // one attention sublayer's weights in a mode
   const bf16 *wh, *wl;  // [Wq s | Wk | Wv] (D, 3D) planes, s = log2(e) / sqrt(dh)
@@ -449,67 +95,6 @@ struct FfW {  // the FF tail: W1^T (FF, D) and W2^T (D, FF) planes, LN_in before
   int FF, parts;
   float* partial;  // parts > 1: parts x M x D floats
 };
-
-struct Masks {
-  const float *mask, *valid;
-  int repeat_inc, add_keypad;
-};
-
-// A plane pair: hi, and lo at `elems` on (null with one pass).
-struct Planes {
-  bf16 *hi, *lo;
-};
-
-template <int PASSES>
-Planes carve(bf16*& at, size_t elems) {
-  Planes q{at, PASSES == 3 ? at + elems : nullptr};
-  at += (PASSES == 3 ? 2 : 1) * elems;
-  return q;
-}
-
-GemmArgs planes_out(Planes o, const float* bias) {
-  GemmArgs g{};
-  g.oh = o.hi;
-  g.ol = o.lo;
-  g.bias = bias;
-  return g;
-}
-
-GemmArgs res_out(float* out, int ldo, const float* add, const float* bias) {
-  GemmArgs g{};
-  g.out = out;
-  g.ldo = ldo;
-  g.add = add;
-  g.bias = bias;
-  return g;
-}
-
-AttnMode core(Planes q, int ldq, Planes k, Planes v, int ldkv, const Masks& m, Planes o, int D,
-              int T, int dh) {
-  AttnMode a{};
-  a.qh = q.hi;
-  a.ql = q.lo;
-  a.kh = k.hi;
-  a.kl = k.lo;
-  a.vh = v.hi;
-  a.vl = v.lo;
-  a.ldq = ldq;
-  a.ldkv = ldkv;
-  a.mask = m.mask;
-  a.valid = m.valid;
-  a.repeat_inc = m.repeat_inc;
-  a.add_keypad = m.add_keypad;
-  a.oh = o.hi;
-  a.ol = o.lo;
-  a.ldo = D;
-  a.T = T;
-  a.dh = dh;
-  return a;
-}
-
-Planes offset(Planes p, int cols) {
-  return Planes{p.hi + cols, p.lo == nullptr ? nullptr : p.lo + cols};
-}
 
 #define KIT_CHECK(x) \
   if ((rc = (x)) != 0) return rc

@@ -1,9 +1,10 @@
 // A product of bf16 planes on the tensor cores in the precision modes
 // "high" (bf16x3) and "default" (one bf16 pass): tc_gemm_kernel and its
-// launch (tc_gemm), and the split of a float32 matrix into its planes
-// (split_planes).  ffn.cu's split backward runs its four products on it,
-// layer_modes.cu the projections of the merged layers in a mode; see the
-// notes at the top of ffn.cu and layer_modes.cu.
+// launch (tc_gemm, tc_gemm_ld), and the split of a float32 matrix into its
+// planes (split_planes).  ffn.cu's split backward runs its four products on
+// it, layer_modes.cu the projections of the merged layers in a mode,
+// attn_sublayer_modes.cu every product of the attention sublayer in a mode;
+// see the notes at the top of those files.
 #pragma once
 
 #include <algorithm>
@@ -19,8 +20,10 @@ namespace kit {
 // out[m][c] (m < M, c < N) = sum over k of A(m, k) B(c, k) in the mode's
 // passes, on 128 x 128 output tiles (the two groups 64 rows each) in
 // 64-deep stages.  A is K-major (TA 0: (M, K) planes, 128-row boxes) or
-// MN-major (TA 1: (K, M) planes, 64 x 64 boxes); B is always MN-major ((K,
-// N) planes).  Split blockIdx.z of the contraction covers k in [z krows,
+// MN-major (TA 1: (K, M) planes, 64 x 64 boxes); B is MN-major (TB 1: (K,
+// N) planes, 64 x 64 boxes) or K-major (TB 0: (N, K) planes, 128-row
+// boxes: a weight in torch's layout as a projection reads it).  Split
+// blockIdx.z of the contraction covers k in [z krows,
 // (z + 1) krows) (krows a multiple of 64, so no box crosses into the next
 // split) and writes at out + z * split; an empty split writes zeros.
 // Epilogues: the weight-gradient parts (STORE), dx1 = product + add (ADD),
@@ -30,8 +33,12 @@ namespace kit {
 // for the merged layers in a mode, product + bias as hi / lo planes in
 // place of the float32 output (PLANES: the q / k / v and cross-attention
 // projections, whose outputs only the attention core reads, split) and
-// out = add + (product + bias) (RES: an out-projection and its residual).
-enum { EPI_STORE, EPI_ADD, EPI_DU, EPI_PLANES, EPI_RES };
+// out = add + (product + bias) (RES: an out-projection and its residual);
+// for the attention sublayer's training forward, v = product + bias in
+// float32 at out and the planes of v, its first scols columns times qs
+// (QKV: q, k and v kept for the backward, the core's operands with q's
+// scale).
+enum { EPI_STORE, EPI_ADD, EPI_DU, EPI_PLANES, EPI_RES, EPI_QKV };
 
 struct GemmMaps {
   CUtensorMap a[2], b[2];
@@ -47,7 +54,9 @@ struct GemmArgs {
   bf16 *oh, *ol;     // EPI_DU, EPI_PLANES: the output's planes (M, N); ol null with passes 1
   bf16 *gh, *gl;     // EPI_DU: gelu(u)'s planes (M, N); gl null with passes 1
   float* colsum;     // EPI_DU: (row tiles, N) column sums of du
-  const float* bias;  // EPI_PLANES, EPI_RES: (N)
+  const float* bias;  // EPI_PLANES, EPI_RES, EPI_QKV: (N)
+  int scols;          // EPI_QKV: the columns scaled by qs before the split
+  float qs;
 };
 
 template <int PASSES>
@@ -61,7 +70,7 @@ struct TcGemm {
   static_assert(128 * LDC * 4 <= STAGES * STAGE, "the output tile fits the ring");
 };
 
-template <int PASSES, int TA, int EPI>
+template <int PASSES, int TA, int EPI, int TB = 1>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     tc_gemm_kernel(const __grid_constant__ GemmMaps mp, const GemmArgs p) {
   using G = TcGemm<PASSES>;
@@ -102,8 +111,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
             tma_load(sa + TC_TILE / 2, &mp.a[pl], m0 + 64, k0, bar);
           }
           unsigned char* sbb = sb + (G::PLANES + pl) * TC_TILE;
-          tma_load(sbb, &mp.b[pl], n0, k0, bar);
-          tma_load(sbb + TC_TILE / 2, &mp.b[pl], n0 + 64, k0, bar);
+          if (TB == 0) {
+            tma_load(sbb, &mp.b[pl], k0, n0, bar);
+          } else {
+            tma_load(sbb, &mp.b[pl], n0, k0, bar);
+            tma_load(sbb + TC_TILE / 2, &mp.b[pl], n0 + 64, k0, bar);
+          }
         }
         at.advance<STAGES>();
       }
@@ -131,12 +144,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      const uint32_t a = a0 + (TA == 0 ? s * 32 : s * 2048), b = b0 + s * 2048;
+      const uint32_t a = a0 + (TA == 0 ? s * 32 : s * 2048), b = b0 + (TB == 0 ? s * 32 : s * 2048);
       auto da = [&](uint32_t x) { return TA == 0 ? desc_k(x) : desc_mn(x, TC_TILE / 2); };
-      wgmma_ss128<TA, 1>(d, da(a), desc_mn(b, TC_TILE / 2));
+      auto db = [&](uint32_t x) { return TB == 0 ? desc_k(x) : desc_mn(x, TC_TILE / 2); };
+      wgmma_ss128<TA, TB>(d, da(a), db(b));
       if (PASSES == 3) {
-        wgmma_ss128<TA, 1>(d, da(a), desc_mn(b + TC_TILE, TC_TILE / 2));
-        wgmma_ss128<TA, 1>(d, da(a + TC_TILE), desc_mn(b, TC_TILE / 2));
+        wgmma_ss128<TA, TB>(d, da(a), db(b + TC_TILE));
+        wgmma_ss128<TA, TB>(d, da(a + TC_TILE), db(b));
       }
     }
     wgmma_commit();
@@ -200,11 +214,17 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       const float4 a = __ldg(reinterpret_cast<const float4*>(p.add + o));
       v = make_float4(v.x + a.x, v.y + a.y, v.z + a.z, v.w + a.w);
     }
-    if (EPI == EPI_PLANES || EPI == EPI_RES) {
+    if (EPI == EPI_PLANES || EPI == EPI_RES || EPI == EPI_QKV) {
       const float4 b = __ldg(reinterpret_cast<const float4*>(p.bias + c));
       v = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
     }
-    if (EPI == EPI_PLANES) {
+    if (EPI == EPI_QKV) {  // c is a multiple of 4, as scols is
+      *reinterpret_cast<float4*>(out + (size_t)m * p.ldo + c) = v;
+      if (c < p.scols)
+        v = make_float4(__fmul_rn(v.x, p.qs), __fmul_rn(v.y, p.qs), __fmul_rn(v.z, p.qs),
+                        __fmul_rn(v.w, p.qs));
+    }
+    if (EPI == EPI_PLANES || EPI == EPI_QKV) {
       uint32_t h0, l0, h1, l1;
       split2(v.x, v.y, h0, l0);
       split2(v.z, v.w, h1, l1);
@@ -235,29 +255,40 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 }
 
 // One product: A's and B's maps from their planes (hi, and lo with passes
-// 3): A (a_rows, a_cols) read K-major (TA 0, 128-row boxes) or MN-major (TA
-// 1, 64-row boxes), B (b_rows, b_cols) MN-major; the grid from the output
-// (M, N) and the splits.
+// 3): A (a_rows, a_cols, row stride lda) read K-major (TA 0, 128-row boxes)
+// or MN-major (TA 1, 64-row boxes), B (b_rows, b_cols, row stride ldb)
+// MN-major (TB 1, 64-row boxes) or K-major (TB 0, 128-row boxes); the grid
+// from the output (M, N) and the splits.
 // Internal linkage: see sgemm_grad.cuh's host side.
-template <int PASSES, int TA, int EPI>
-static int tc_gemm(const bf16* ah, const bf16* al, int a_rows, int a_cols, const bf16* bh,
-            const bf16* bl, int b_rows, int b_cols, GemmArgs p, int splits, cudaStream_t st) {
+template <int PASSES, int TA, int EPI, int TB = 1>
+static int tc_gemm_ld(const bf16* ah, const bf16* al, int a_rows, int a_cols, int lda,
+                      const bf16* bh, const bf16* bl, int b_rows, int b_cols, int ldb, GemmArgs p,
+                      int splits, cudaStream_t st) {
   using G = TcGemm<PASSES>;
   static bool ready = false;
-  cudaError_t e = allow_smem(tc_gemm_kernel<PASSES, TA, EPI>, G::SMEM, ready);
+  cudaError_t e = allow_smem(tc_gemm_kernel<PASSES, TA, EPI, TB>, G::SMEM, ready);
   if (e != cudaSuccess) return (int)e;
   GemmMaps mp;
-  const int a_box = TA == 0 ? 128 : 64;
+  const int a_box = TA == 0 ? 128 : 64, b_box = TB == 0 ? 128 : 64;
   int rc;
-  if ((rc = plane_map(&mp.a[0], ah, a_rows, a_cols, a_box)) ||
-      (rc = plane_map(&mp.a[1], PASSES == 3 ? al : nullptr, a_rows, a_cols, a_box)) ||
-      (rc = plane_map(&mp.b[0], bh, b_rows, b_cols, 64)) ||
-      (rc = plane_map(&mp.b[1], PASSES == 3 ? bl : nullptr, b_rows, b_cols, 64)))
+  if ((rc = plane_map(&mp.a[0], ah, a_rows, a_cols, a_box, lda)) ||
+      (rc = plane_map(&mp.a[1], PASSES == 3 ? al : nullptr, a_rows, a_cols, a_box, lda)) ||
+      (rc = plane_map(&mp.b[0], bh, b_rows, b_cols, b_box, ldb)) ||
+      (rc = plane_map(&mp.b[1], PASSES == 3 ? bl : nullptr, b_rows, b_cols, b_box, ldb)))
     return rc;
   p.krows = round_up((p.K + splits - 1) / splits, 64);
   const dim3 grid((p.N + 127) / 128, (p.M + 127) / 128, splits);
-  tc_gemm_kernel<PASSES, TA, EPI><<<grid, WG_THREADS, G::SMEM, st>>>(mp, p);
+  tc_gemm_kernel<PASSES, TA, EPI, TB><<<grid, WG_THREADS, G::SMEM, st>>>(mp, p);
   return (int)cudaGetLastError();
+}
+
+// tc_gemm_ld with A and B each as wide as its row stride.
+template <int PASSES, int TA, int EPI>
+static int tc_gemm(const bf16* ah, const bf16* al, int a_rows, int a_cols, const bf16* bh,
+                   const bf16* bl, int b_rows, int b_cols, GemmArgs p, int splits,
+                   cudaStream_t st) {
+  return tc_gemm_ld<PASSES, TA, EPI>(ah, al, a_rows, a_cols, a_cols, bh, bl, b_rows, b_cols,
+                                     b_cols, p, splits, st);
 }
 
 // hi / lo planes of x (n values, a multiple of 4); lo null: hi only.

@@ -60,10 +60,12 @@ class Inpainter:
     ``model_cfg.matmul_precision`` ("highest", "high", "default" or an
     alias) is the models' precision: the merged whole-layer kernels (T <=
     256, and the decoder's up to 512) run every product of the layer in its
-    mode, and the FF sublayers that run on their own (``merge_layers=False``,
-    or a bucket the merged encoder layer does not take: T > 256) run in it
-    too; the per-sublayer and per-op attention and the pointwise chains stay
-    float32.  Int8 serving keeps its attention float32 at every precision.
+    mode, and the FF and attention sublayers that run on their own
+    (``merge_layers=False``, or a bucket the merged encoder layer does not
+    take: 256 < T <= 512) run in it too; the per-op attention (T > 512) and
+    the pointwise chains stay float32.  Int8 serving keeps its merged layers
+    float32 at every precision; its per-sublayer attention runs in the mode,
+    as the JAX package's does.
 
     ``quantize="int8"`` serves int8 as the JAX package's Inpainter does on
     the TPU: the FF sublayers through the int8 FF kernels (the merged

@@ -43,7 +43,9 @@ Two routes, as the JAX package's ``build_model`` has them:
 construction and read by every forward: the FF sublayers run in its mode
 on both routes, and so do the merged whole-layer kernels on the serving
 route (every product of the layer, attention included, as the JAX
-``_enc_kernel`` / ``_dec_kernel`` take the mode); the per-sublayer and
+``_enc_kernel`` / ``_dec_kernel`` take the mode) and the attention
+sublayer kernel on both routes (``_sublayer_kernel`` serving,
+``_sublayer_train_kernel`` and ``_sublayer_bwd_kernel`` training); the
 per-op attention and the pointwise chains stay float32 (see
 ``models/layers.py``).
 
@@ -132,8 +134,8 @@ class KeypointCompleter(nn.Module):
 
     @property
     def mode(self) -> str:
-        """The precision mode of the FF sublayers and the merged layers:
-        "f32", "bf16x3" or "bf16"."""
+        """The precision mode of the FF and attention sublayers and the
+        merged layers: "f32", "bf16x3" or "bf16"."""
         return resolve_precision(self.precision)
 
     @torch.no_grad()
@@ -166,11 +168,13 @@ class KeypointCompleter(nn.Module):
         the FF weights in the FF kernels' scale form (or the Dense one
         where ``ffn_supported`` sends them to the plain chain), the
         attention projections, embeddings, SwiGLUs and head in the Dense
-        table's form (``int8_matmul.quantize_weight``).  Otherwise, in the
-        precision modes "high" and "default", the FF weights and every
-        attention sublayer's are split into the bf16 planes their kernels
-        read (``ff_planes``, ``attn_planes``: the merged layers' and the FF
-        sublayers'), so that the first request splits nothing."""
+        table's form (``int8_matmul.quantize_weight``).  In the precision
+        modes "high" and "default" every attention sublayer's weights are
+        split into the bf16 planes the serving mode kernels read
+        (``attn_planes``: the merged layers' and the attention sublayer's,
+        int8 serving's per-sublayer route too) and, without int8, the FF
+        weights into the FF kernels' (``ff_planes``), so that the first
+        request splits nothing."""
         self.int8 = check_quantize(quantize) == "int8"
         mode = self.mode
         for m in self.modules():
@@ -178,7 +182,7 @@ class KeypointCompleter(nn.Module):
                 m.packed()
                 if self.int8:
                     m.int8_packed()
-                elif mode != "f32" and isinstance(m, MultiHeadAttention):
+                if mode != "f32" and isinstance(m, MultiHeadAttention):
                     attn_planes(m, mode)
             elif isinstance(m, nn.Linear):
                 packed_linear(m)

@@ -22,9 +22,15 @@ mode (the training route's backward through ``ffn_bwd_split`` outside
 whole-layer kernels, every product of the layer (attention included) in
 the mode as the JAX ``_enc_kernel`` / ``_dec_kernel`` take them, their
 weights split once into bf16 planes (``attn_planes``, ``ff_planes``); int8
-serving keeps its layers float32 around the int8 FF.  The per-sublayer
-attention and the per-op attention stay float32 in every mode (the JAX
-package's sublayer and per-op kernels in a mode are not ported yet).
+serving keeps its merged layers float32 around the int8 FF.  So does the
+attention sublayer kernel on the per-sublayer route, serving (the folded
+``attn_planes`` of the merged layers) and training (its forward with q
+scaled after the bias and its backward, in the mode as the JAX
+``_sublayer_train_kernel`` / ``_sublayer_bwd_kernel`` take it), on the
+int8 route too, as the JAX package runs its per-sublayer attention in the
+ambient mode whatever the FF does.  The per-op attention stays float32 in
+every mode (the JAX package's per-op kernels in a mode are not ported
+yet).
 
 Serving with ``merge=True`` (the JAX package's default, ``merge_layers``)
 takes the merged whole-layer kernels where the JAX package takes them
@@ -121,8 +127,9 @@ def ff_planes(ff: "FeedForward", mode: str):
 
 
 def attn_planes(mha: "MultiHeadAttention", mode: str):
-    """An attention sublayer's weights as the merged mode kernels read them
-    (``layer_fused.attn_weight_planes``: q's scale folded in, bf16 planes),
+    """An attention sublayer's weights as the serving mode kernels (the
+    merged layers' and the sublayer's) read them
+    (``attn_sublayer.attn_weight_planes``: q's scale folded in, bf16 planes),
     built once per state of the weights."""
     return _cached(mha, f"_planes_{mode}", list(mha.parameters()),
                    lambda: attn_weight_planes(*mha.packed()[:3],
@@ -283,25 +290,32 @@ class MultiHeadAttention(nn.Module):
         return _cached(self, "_packed", list(self.parameters()), build)
 
     def sublayer(self, x, memory, norm: Optional[nn.LayerNorm],
-                 spec: AttnSpec, plain: bool = False, train: bool = False):
+                 spec: AttnSpec, plain: bool = False, train: bool = False,
+                 mode: str = "f32"):
         """[norm](x + attention(x, memory or x)) through the sublayer
-        kernel (or its plain version); ``train`` takes the gradient
-        route."""
+        kernel (or its plain version) in precision ``mode``; ``train``
+        takes the gradient route (outside "f32" through
+        ``AttnSublayerFunction``'s backward in the mode, plain or not)."""
         ln_w, ln_b = (None, None) if norm is None else (norm.weight,
                                                         norm.bias)
         masks = (spec.mask, spec.valid, spec.kind, spec.add_keypad,
                  self.num_heads)
         if not train:
-            fn = attn_sublayer_plain if plain else fused_attn_sublayer
-            return fn(x, memory, *self.packed(), ln_w, ln_b, *masks)
-        if plain:
+            if plain:
+                return attn_sublayer_plain(x, memory, *self.packed(), ln_w,
+                                           ln_b, *masks, mode)
+            planes = None if mode == "f32" else attn_planes(self, mode)
+            return fused_attn_sublayer(x, memory, *self.packed(), ln_w, ln_b,
+                                       *masks, mode, planes)
+        if plain and mode == "f32":
             return attn_sublayer_plain(
                 x, memory, self.in_proj_weight.t(), self.in_proj_bias,
                 self.out_proj.weight.t(), self.out_proj.bias, ln_w, ln_b,
                 *masks)
         return AttnSublayerFunction.apply(
             x, memory, self.in_proj_weight, self.in_proj_bias,
-            self.out_proj.weight, self.out_proj.bias, ln_w, ln_b, *masks)
+            self.out_proj.weight, self.out_proj.bias, ln_w, ln_b, *masks,
+            mode, plain)
 
 
 class FeedForward(nn.Module):
@@ -398,7 +412,8 @@ class EncoderLayer(FeedForward):
             return fused_encoder_layer(x, *args[:4], *ff, *args[4:],
                                        mode=mode, planes=planes)
         if sub:
-            r = self.self_attn.sublayer(x, None, None, spec, plain, train)
+            r = self.self_attn.sublayer(x, None, None, spec, plain, train,
+                                        mode)
         else:
             r = x + self.self_attn.attend(x, None, spec, plain, train, int8)
         return self.ff_sublayer(r, self.norm1, self.norm2, plain, train, int8,
@@ -453,9 +468,9 @@ class DecoderLayer(FeedForward):
                                     int8=int8, mode=mode)
         if sub:
             y = self.self_attn.sublayer(y, None, self.norm1, self_spec,
-                                        plain, train)
+                                        plain, train, mode)
             r = self.multihead_attn.sublayer(y, memory, None, cross_spec,
-                                             plain, train)
+                                             plain, train, mode)
         else:
             y = self.norm1(y + self.self_attn.attend(y, None, self_spec,
                                                      plain, train, int8))

@@ -18,8 +18,8 @@ from .attention import (AttentionFunction, attention_bwd,
                         fused_attention)
 from .attn_sublayer import (AttnSublayerFunction, attn_sublayer_bwd,
                             attn_sublayer_bwd_plain, attn_sublayer_plain,
-                            attn_sublayer_train_plain, fused_attn_sublayer,
-                            fused_attn_sublayer_train)
+                            attn_sublayer_train_plain, attn_train_planes,
+                            fused_attn_sublayer, fused_attn_sublayer_train)
 from .ffn import (FFNFunction, ff_weight_planes, ffn_bwd, ffn_bwd_plain,
                   ffn_bwd_split, ffn_bwd_split_plain, ffn_int8_plain,
                   ffn_plain, ffn_train_plain, fused_ffn, fused_ffn_int8,
@@ -51,15 +51,18 @@ KERNELS = (
     Kernel("pre_stream_embed", fused_pre_stream_embed,
            f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:230"),
     Kernel("attn_sublayer", fused_attn_sublayer,
-           f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:135"),
+           f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:135",
+           "f32"),
     Kernel("ffn", fused_ffn,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215", "f32"),
     Kernel("post_head", fused_post_head,
            f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:90"),
     Kernel("attn_sublayer_train", fused_attn_sublayer_train,
-           f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:173"),
+           f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:173",
+           "f32"),
     Kernel("attn_sublayer_bwd", attn_sublayer_bwd,
-           f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:410"),
+           f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:410",
+           "f32"),
     Kernel("ffn_train", fused_ffn_train,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215", "f32"),
     Kernel("ffn_bwd", ffn_bwd,
@@ -103,6 +106,24 @@ KERNELS = (
            f"{_SRC}/layer_modes.cu", f"{_TPU}/layer_fused.py:239", "bf16x3"),
     Kernel("dec_layer_default", fused_decoder_layer,
            f"{_SRC}/layer_modes.cu", f"{_TPU}/layer_fused.py:239", "bf16"),
+    Kernel("attn_sublayer_high", fused_attn_sublayer,
+           f"{_SRC}/attn_sublayer_modes.cu", f"{_TPU}/attn_sublayer.py:135",
+           "bf16x3"),
+    Kernel("attn_sublayer_default", fused_attn_sublayer,
+           f"{_SRC}/attn_sublayer_modes.cu", f"{_TPU}/attn_sublayer.py:135",
+           "bf16"),
+    Kernel("attn_sublayer_train_high", fused_attn_sublayer_train,
+           f"{_SRC}/attn_sublayer_modes.cu", f"{_TPU}/attn_sublayer.py:173",
+           "bf16x3"),
+    Kernel("attn_sublayer_train_default", fused_attn_sublayer_train,
+           f"{_SRC}/attn_sublayer_modes.cu", f"{_TPU}/attn_sublayer.py:173",
+           "bf16"),
+    Kernel("attn_sublayer_bwd_high", attn_sublayer_bwd,
+           f"{_SRC}/attn_sublayer_modes.cu", f"{_TPU}/attn_sublayer.py:410",
+           "bf16x3"),
+    Kernel("attn_sublayer_bwd_default", attn_sublayer_bwd,
+           f"{_SRC}/attn_sublayer_modes.cu", f"{_TPU}/attn_sublayer.py:410",
+           "bf16"),
 )
 
 

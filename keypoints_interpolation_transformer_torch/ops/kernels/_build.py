@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("pointwise", "attn_sublayer", "ffn", "layer_fused", "layer_modes",
-           "attention", "masked_loss", "int8_matmul")
+           "attn_sublayer_modes", "attention", "masked_loss", "int8_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -60,11 +60,12 @@ import functools
 import torch
 
 from . import _build
-from .attn_sublayer import _check_config, attn_sublayer_plain, mode_q_scale
+from .attn_sublayer import (_check_config, _mode_attn, attn_sublayer_plain,
+                            attn_weight_planes)
 from .ffn import (_FF_STEP_TC, _PASSES, _check_planes, check_int8_ff,
                   ff_kernel_width, ff_weight_planes, ffn_int8_plain, ffn_plain,
                   pad_int8_ff, tc_parts)
-from .precision import MODES, check_mode, weight_planes
+from .precision import MODES, check_mode
 from .widths import cut, kernel_width, pad, pad_blocks, row_tile
 
 # one letter per C argument, the stream last: p pointer, i int
@@ -156,19 +157,6 @@ def mode_scratch(B: int, T: int, D: int, decoder: bool, mode: str,
     MD = B * T * D
     return ((10 if decoder else 5) * planes * MD, (3 if decoder else 1) * MD,
             parts * MD if parts > 1 else 0)
-
-
-def attn_weight_planes(wqkv, bqkv, wo, heads: int, mode: str):
-    """(wh, wl, b, oh, ol): one attention sublayer's weights as the mode
-    kernels read them: [Wq s | Wk | Wv] (D, 3D) with s = log2(e) / sqrt(D /
-    heads) folded into Wq in float32 before the split, as bf16 hi / lo
-    planes; b = [bq s | bk | bv] in float32; Wo's planes (the lo planes
-    None in "bf16")."""
-    D = wo.shape[0]
-    s = mode_q_scale(D // heads)
-    w = torch.cat([wqkv[:, :D] * s, wqkv[:, D:]], 1)
-    b = torch.cat([bqkv[:D] * s, bqkv[D:]])
-    return (*weight_planes(w, mode), b.contiguous(), *weight_planes(wo, mode))
 
 
 def encoder_layer_plain(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
@@ -441,41 +429,6 @@ def _launch_decoder(x, memory, sattn, cattn, g1, be1, ff, smask, svalid,
 # ---- the precision modes "bf16x3" and "bf16" (csrc/layer_modes.cu) --------
 
 
-def _check_attn_planes(where, device, mode, planes, n, prefix=""):
-    """One attention sublayer's ``attn_weight_planes`` in ``mode``: bf16
-    (n, 3n) and (n, n) planes (lo planes in "bf16x3" only), the float32
-    bias (3n,), each contiguous on ``device``."""
-    wh, wl, b, oh, ol = planes
-    if (wl is None or ol is None) != (mode == "bf16"):
-        raise ValueError(f"{where}: mode {mode!r} takes "
-                         f"{'no' if mode == 'bf16' else 'both'} attention lo "
-                         "planes")
-    for k, t, shape in (("wh", wh, (n, 3 * n)), ("wl", wl, (n, 3 * n)),
-                        ("oh", oh, (n, n)), ("ol", ol, (n, n))):
-        if t is None:
-            continue
-        if t.dtype != torch.bfloat16 or t.device != device or \
-                not t.is_contiguous():
-            raise ValueError(f"{where}: {prefix}{k} must be a contiguous "
-                             f"bfloat16 tensor on {device}")
-        _build.check_shape(where, prefix + k, t, shape)
-        _build.check_aligned(where, **{prefix + k: t})
-    _build.check_tensors(where, device, **{prefix + "b": b})
-    _build.check_shape(where, prefix + "b", b, (3 * n,))
-
-
-def _pad_attn_planes(planes, n, D):
-    """``attn_weight_planes`` zero-padded from the model's width n to the
-    kernel width D, each of q, k, v on its own (``pad_blocks``)."""
-    wh, wl, b, oh, ol = planes
-
-    def w3(t):
-        return None if t is None else pad(pad_blocks(t, n, D, 1), D, 3 * D)
-
-    return (w3(wh), w3(wl), pad_blocks(b, n, D, 0),
-            *(None if t is None else pad(t, D, D) for t in (oh, ol)))
-
-
 def _pad_ff_planes(planes, D, F16):
     """``ffn.ff_weight_planes`` (W1^T (FF, n), W2^T (n, FF)) zero-padded to
     the kernel width D and FF to F16."""
@@ -505,24 +458,6 @@ def _mode_ff(where, x, ff, ff_planes, mode, D):
     w1h, w1l, w2h, w2l = _pad_ff_planes(ff_planes, D, F16)
     return F16, (w1h, w1l, pad(b1, F16), w2h, w2l,
                  *(pad(t, D) for t in (b2, *norms)))
-
-
-def _mode_attn(where, x, attn, planes, heads, mode, D, prefix=""):
-    """One attention sublayer's operands in a mode at the kernel width D:
-    (wh, wl, b, oh, ol, bo), its planes built from the float32 weights
-    when ``planes`` is None."""
-    n = x.shape[-1]
-    wqkv, bqkv, wo, bo = attn
-    _build.check_tensors(where, x.device, **{prefix + "bqkv": bqkv,
-                                             prefix + "bo": bo})
-    for name, t, shape in (("wqkv", wqkv, (n, 3 * n)),
-                           ("bqkv", bqkv, (3 * n,)), ("wo", wo, (n, n)),
-                           ("bo", bo, (n,))):
-        _build.check_shape(where, prefix + name, t, shape)
-    if planes is None:
-        planes = attn_weight_planes(wqkv, bqkv, wo, heads, mode)
-    _check_attn_planes(where, x.device, mode, planes, n, prefix)
-    return (*_pad_attn_planes(planes, n, D), pad(bo, D))
 
 
 def _mode_buffers(B, T, D, decoder, mode, parts, device):

@@ -60,9 +60,11 @@ def build_model(model_cfg, variant: Optional[str] = None, *,
     the TPU; the port computes in float32 throughout, and its sublayer
     kernels and their backwards match the plain versions there, so it
     keeps its sublayer route.  ``model_cfg.matmul_precision`` becomes the
-    model's ``precision``: its FF sublayers run in that mode on every route
-    (at "high" and "default" the JAX package's FF kernel with its native
-    backward)."""
+    model's ``precision``: its FF and attention sublayers run in that mode
+    on every route (at "high" and "default" the JAX package's FF kernel and
+    attention-sublayer kernel with their native backwards, as its training
+    route resolves ``attn_sublayer_fusion`` on and ``ff_impl`` to Pallas
+    there)."""
     if model_cfg.compute_dtype != "float32":
         raise ValueError("the PyTorch port computes in float32 only")
     if model_cfg.attn_sublayer_fusion not in FUSION:

@@ -47,16 +47,21 @@ its CUDA-event time, the plain version's and one call's device time by
 kernel.
 
 ``modes`` does the same for the precision modes' kernels (``ffn.cu``,
-``layer_modes.cu`` where a tree has it, and ``layer_fused.cu``): the six
-FF mode rows (``ffn_high`` and ``ffn_default`` at the serving batch B =
-256, ``ffn_train_*`` and ``ffn_bwd_split_*`` at the A1 step's B = 64, T =
-128) and the four merged-layer mode rows (``enc_layer_high`` /
-``_default``, ``dec_layer_high`` / ``_default`` with its FF tail, B =
-256), each held against its plain version in its own mode and the wrong
-one (``chip_smoke.py``'s limits), and their float32 counterparts ``ffn``,
-``ffn_train``, ``ffn_bwd``, ``enc_layer`` and ``dec_layer`` (what a tree
-without the mode layers runs on the merged route at every precision):
-CUDA-event time and one call's device time by kernel.
+``layer_modes.cu`` and ``attn_sublayer_modes.cu`` where a tree has them,
+``layer_fused.cu`` and ``attn_sublayer.cu``): the six FF mode rows
+(``ffn_high`` and ``ffn_default`` at the serving batch B = 256,
+``ffn_train_*`` and ``ffn_bwd_split_*`` at the A1 step's B = 64, T = 128),
+the four merged-layer mode rows (``enc_layer_high`` / ``_default``,
+``dec_layer_high`` / ``_default`` with its FF tail, B = 256) and the six
+attention-sublayer mode rows (``attn_sublayer_high`` / ``_default`` at B =
+256, ``attn_sublayer_train_*`` and ``attn_sublayer_bwd_*`` at B = 64: the
+encoder's self-attention), each held against its plain version in its own
+mode and the wrong one (``chip_smoke.py``'s limits), and their float32
+counterparts ``ffn``, ``ffn_train``, ``ffn_bwd``, ``enc_layer``,
+``dec_layer``, ``attn_sublayer``, ``attn_sublayer_train`` and
+``attn_sublayer_bwd`` (what an older tree runs at every precision):
+CUDA-event time and one call's device time by kernel, and for the
+attention sublayer's rows by launch, in order.
 
 ``backward`` does the same for the training backwards (``ffn.cu`` and
 ``attn_sublayer.cu``): ``ffn_bwd``, ``ffn_bwd_split`` in "f32" (a tree's
@@ -319,7 +324,8 @@ def forwards_one(tree):
     print(json.dumps(out), flush=True)
 
 
-MODE_SOURCES = ("ffn", "layer_modes", "layer_fused")
+MODE_SOURCES = ("ffn", "layer_modes", "layer_fused", "attn_sublayer",
+                "attn_sublayer_modes")
 
 
 def tree_sources(tree, sources):
@@ -335,7 +341,7 @@ def modes_one(tree):
     use_tree(tree, tree_sources(tree, MODE_SOURCES))
     from keypoints_interpolation_transformer_torch.ops import kernels as kmod
     from keypoints_interpolation_transformer_torch.ops.kernels import (
-        layer_fused)
+        attn_sublayer, layer_fused)
     chk = cs.KernelCheck(torch, kmod)
     B, bt, T = cs.B_MAIN, cs.B_TRAIN, cs.T_MAIN
     calls = {}
@@ -369,11 +375,33 @@ def modes_one(tree):
             if name not in calls:
                 chk.compare(name, variant, kern(), plain(), grad, wrong())
                 calls[name] = (kern, plain)
+    # the attention sublayer (the encoder's self-attention): float32 (what
+    # an older tree runs at every precision) at the serving batch and the A1
+    # step's, and where the tree has them the six mode rows, each call's
+    # device time by launch (projections, core, LayerNorm, sums)
+    for b, (name, variant, kern, plain, *_) in (
+            [(B, c) for c in chk.forward_calls(B, T)]
+            + [(bt, c) for c in chk.forward_calls(bt, T)]
+            + [(bt, (*c, False)) for c in chk.train_calls(bt, T)]):
+        wanted = {B: ("attn_sublayer",),
+                  bt: ("attn_sublayer_train", "attn_sublayer_bwd")}[b]
+        if name in wanted and name not in calls:
+            chk.compare(name, variant, kern(), plain(),
+                        name.endswith("bwd"))
+            calls[name] = (kern, plain)
+    if hasattr(attn_sublayer, "attn_train_planes"):
+        for name, variant, kern, plain, grad, wrong in \
+                chk.sublayer_mode_calls(B, bt, T):
+            if name not in calls:
+                chk.compare(name, variant, kern(), plain(), grad, wrong())
+                calls[name] = (kern, plain)
     out = {}
     for name, (kern, plain) in calls.items():
         out[name] = {"ms": min(cs.timed_ms(kern) for _ in range(3)),
                      "plain_ms": min(cs.timed_ms(plain) for _ in range(2)),
                      "kernels": by_kernel(cs, torch, kern)}
+        if name.startswith("attn_sublayer"):
+            out[name]["launches"] = cs.launch_ms(torch, kern)
     print(json.dumps(out), flush=True)
 
 

@@ -492,9 +492,9 @@ def test_train_step_at_high_on_the_card(cuda):
     """Two layers at "high": one A1 step on the kernel and the plain route
     in that mode from the same parameters and corruption, the same loss
     and the same gradients (each parameter's within HIGH_MODE_TOL of its
-    own largest value, as the optimizer receives them), and the FF
-    sublayers through the "high" kernels (the bf16x3 forward and the split
-    backward, not the float32 ffn_bwd)."""
+    own largest value, as the optimizer receives them), and the FF and
+    attention sublayers through the "high" kernels (the bf16x3 forwards and
+    backwards, not the float32 ffn_bwd or attn_sublayer_train / _bwd)."""
     import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     from keypoints_interpolation_transformer_torch.train import state, steps
@@ -526,8 +526,8 @@ def test_train_step_at_high_on_the_card(cuda):
         torch.cuda.synchronize()
         losses[plain] = float(m["loss"])
     assert kernels.launch_counts() == {
-        **chip_smoke.NO_LAUNCHES, "attn_sublayer_train": 6,
-        "attn_sublayer_bwd": 6, "ffn_train_high": 4,
+        **chip_smoke.NO_LAUNCHES, "attn_sublayer_train_high": 6,
+        "attn_sublayer_bwd_high": 6, "ffn_train_high": 4,
         "ffn_bwd_split_high": 4}
     assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])
     assert grads[True].keys() == grads[False].keys()
@@ -964,3 +964,182 @@ def test_flagship_forward_at_high_launches_the_mode_layers(cuda):
             drift = dist(moved, want)
             assert dist(got, want) < chip_smoke.MODE_DRIFT * drift, (
                 dist(got, want), drift)
+
+
+@pytest.mark.gpu
+def test_sublayer_mode_kernels_match_plain_at_every_width(cuda):
+    """The attention sublayer's mode kernels (``fused_attn_sublayer``,
+    ``fused_attn_sublayer_train`` and ``attn_sublayer_bwd`` in "high" and
+    "default") against their plain versions in the same mode, the model's
+    three sublayers, at D 32 (padded to 128), 128, 384 and 512 with head
+    widths 8 to 512, ragged and long lengths (T 40, 300, 512, a training
+    video whose keys are all padded), and at one 128-frame video: each
+    output within ``LAYER_MODE_TOL`` of its own largest value (the training
+    forward's raw a within ``RAW_A_TOL``), the mean at
+    "high" within ``LAYER_HIGH_MEAN_TOL``, and the mean
+    ``MODE_SEPARATION`` times nearer its own mode's plain version than the
+    wrong mode's."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, heads in ((256, 8), (32, 4), (128, 2), (384, 6), (512, 1)):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, heads, 4 * d)
+        shapes = [(3, 3, 40), (1, 1, 128)]
+        if d == 256:
+            shapes += [(3, 3, 300), (3, 3, 512)]
+        for B, b_train, T in shapes:
+            for name, variant, kern, plain, grad, wrong in \
+                    chk.sublayer_mode_calls(B, b_train, T, blocked=True):
+                chk.compare(name, f"D={d} H={heads} B={B} T={T} {variant}",
+                            kern(), plain(), grad, wrong())
+
+
+@pytest.mark.gpu
+def test_sublayer_mode_kernels_are_deterministic(cuda):
+    """The training forward and the backward in both modes twice on the
+    same inputs give the same bits: no atomics, every sum in a fixed
+    order."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for name, variant, kern, *_ in chk.sublayer_mode_calls(
+            3, chip_smoke.B_TRAIN, 128):
+        if name.startswith(("attn_sublayer_train", "attn_sublayer_bwd")):
+            first, second = kern(), kern()
+            torch.cuda.synchronize()
+            for a, b in zip(first, second):
+                assert (a is None and b is None) or torch.equal(a, b), \
+                    (name, variant)
+
+
+@pytest.mark.gpu
+def test_attn_sublayer_function_reads_the_forward_planes(cuda, monkeypatch):
+    """A "high" ``AttnSublayerFunction`` step splits the weights once: its
+    backward takes the planes its forward split and gives, bit for bit, the
+    gradients of ``attn_sublayer_bwd`` given planes split anew from the same
+    weights and the same residuals; one launch of each mode kernel, none of
+    the float32 ones."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.ops.kernels import (
+        attn_sublayer)
+    gen = torch.Generator().manual_seed(6)
+    B, T, D, H = 8, 128, 256, 8
+    rnd = lambda *s, scale=1.0: (torch.randn(  # noqa: E731
+        *s, generator=gen) * scale).to(cuda)
+    x = rnd(B, T, D)
+    w_in, w_out = rnd(3 * D, D, scale=D ** -0.5), rnd(D, D, scale=D ** -0.5)
+    b_in, b_out = rnd(3 * D, scale=0.05), rnd(D, scale=0.05)
+    g, be = 1 + rnd(D, scale=0.1), rnd(D, scale=0.1)
+    mask = (torch.rand(B, T, generator=gen) < 0.3).float().to(cuda)
+    valid = torch.ones(B, T, device=cuda)
+    valid[1, T - 20:] = 0.0
+    gy = rnd(B, T, D)
+    leaves = [t.clone().requires_grad_() for t in (x, w_in, b_in, w_out,
+                                                    b_out, g, be)]
+    splits = []
+    real = attn_sublayer.attn_train_planes
+    monkeypatch.setattr(attn_sublayer, "attn_train_planes",
+                        lambda *a: splits.append(a[-1]) or real(*a))
+    kernels.reset_launches()
+    y = attn_sublayer.AttnSublayerFunction.apply(
+        leaves[0], None, *leaves[1:], mask, valid, "repeat-inc", False, H,
+        "bf16x3")
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert splits == ["bf16x3"]
+    counts = kernels.launch_counts()
+    assert (counts["attn_sublayer_train_high"], counts["attn_sublayer_bwd_high"],
+            counts["attn_sublayer_train"], counts["attn_sublayer_bwd"]) == \
+        (1, 1, 0, 0)
+    _, qkv, a, stats, r = kernels.fused_attn_sublayer_train(
+        x, None, w_in.t(), b_in, w_out.t(), b_out, g, be, mask, valid,
+        "repeat-inc", False, H, "bf16x3", real(w_in, w_out, "bf16x3"))
+    want = kernels.attn_sublayer_bwd(gy, x, None, qkv, a, stats, r, w_in,
+                                     w_out, g, mask, valid, "repeat-inc",
+                                     False, H, "bf16x3",
+                                     real(w_in, w_out, "bf16x3"))
+    got = [leaves[0].grad, None, *(t.grad for t in leaves[1:])]
+    for grad, w in zip(got, want):
+        assert (grad is None and w is None) or torch.equal(grad, w)
+
+
+@pytest.mark.gpu
+def test_sublayer_mode_wrappers_raise_rather_than_fall_back(cuda):
+    """The mode wrappers check their planes (given on the card to the
+    training forward and the backward; dtype, shape, the lo planes the mode
+    takes) and raise; they count only the calls that launched."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.ops.kernels.attn_sublayer \
+        import attn_train_planes, attn_weight_planes
+    B, T, D, H = 2, 40, 128, 4
+    x = torch.randn(B, T, D, device=cuda)
+    wqkv, bqkv = torch.randn(D, 3 * D, device=cuda), torch.zeros(3 * D,
+                                                                 device=cuda)
+    wo, bo = torch.randn(D, D, device=cuda), torch.zeros(D, device=cuda)
+    args = (x, None, wqkv, bqkv, wo, bo, None, None, None, None, "all",
+            False, H)
+    sp = attn_weight_planes(wqkv, bqkv, wo, H, "bf16x3")
+    tp = attn_train_planes(wqkv.t(), wo.t(), "bf16x3")
+    with pytest.raises(ValueError):  # "default" takes no lo planes
+        kernels.fused_attn_sublayer(*args, "bf16", sp)
+    with pytest.raises(ValueError):  # float32 planes
+        kernels.fused_attn_sublayer_train(*args, "bf16x3",
+                                          tuple(p.float() for p in tp))
+    with pytest.raises(ValueError):  # the serving planes in training
+        kernels.fused_attn_sublayer_train(*args, "bf16x3", sp)
+    with pytest.raises(ValueError):  # no planes in training
+        kernels.fused_attn_sublayer_train(*args, "bf16", None)
+    kernels.reset_launches()
+    kernels.fused_attn_sublayer(*args, "bf16x3", sp)
+    dp = attn_train_planes(wqkv.t(), wo.t(), "bf16")
+    y, qkv, a, stats, r = kernels.fused_attn_sublayer_train(*args, "bf16",
+                                                            dp)
+    bargs = (x, x, None, qkv, a, stats, r, wqkv.t().contiguous(),
+             wo.t().contiguous(), None, None, None, "all", False, H, "bf16")
+    with pytest.raises(ValueError):  # no planes in the backward
+        kernels.attn_sublayer_bwd(*bargs)
+    kernels.attn_sublayer_bwd(*bargs, dp)
+    counts = kernels.launch_counts()
+    assert (counts["attn_sublayer_high"], counts["attn_sublayer_train_default"],
+            counts["attn_sublayer_bwd_default"], counts["attn_sublayer"]) == \
+        (1, 1, 1, 0)
+
+
+@pytest.mark.gpu
+def test_a1_step_at_high_launches_the_sublayer_mode_kernels(cuda):
+    """A two-layer A1 step at "high" and at "default" runs every attention
+    sublayer through the mode's training forward and backward (6 each: 2
+    encoder, 4 decoder sublayers) and no float32 sublayer kernel, and
+    agrees with the plain route in the same mode."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.train import state, steps
+    from keypoints_interpolation_transformer_torch.utils.config import (
+        Config, ModelConfig)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(0.2, 0.8, (4, 128, 54, 2)).astype(
+        np.float32)).to(cuda)
+    length = torch.tensor([128, 97, 128, 60], device=cuda)
+    for prec, tag in (("high", "_high"), ("default", "_default")):
+        cfg = Config(model=ModelConfig(hidden_dim=128, num_heads=4,
+                                       num_layers=2, ff_dim=512,
+                                       matmul_precision=prec))
+        losses = {}
+        for plain in (True, False):
+            net = steps.build_model(cfg.model, for_training=True,
+                                    device=cuda,
+                                    generator=torch.Generator().manual_seed(0))
+            kernels.reset_launches()
+            _, m = steps.make_train_step(net, cfg, None, plain=plain)(
+                state.TrainState.create(net, 1e-3), x, length,
+                torch.ones(4, device=cuda),
+                torch.Generator(device=cuda).manual_seed(1), 1e-3)
+            torch.cuda.synchronize()
+            losses[plain] = float(m["loss"])
+            counts = kernels.launch_counts()
+            if plain:
+                assert not any(counts.values()), counts
+            else:
+                assert counts[f"attn_sublayer_train{tag}"] == 6
+                assert counts[f"attn_sublayer_bwd{tag}"] == 6
+                assert counts["attn_sublayer_train"] == \
+                    counts["attn_sublayer_bwd"] == 0
+        assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])

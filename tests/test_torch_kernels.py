@@ -273,10 +273,17 @@ def test_kernel_table_and_counters():
                      "ffn_train_default",
                      "ffn_bwd_split_high", "ffn_bwd_split_default",
                      "pre_stream", "enc_layer_high", "enc_layer_default",
-                     "dec_layer_high", "dec_layer_default"]
+                     "dec_layer_high", "dec_layer_default",
+                     "attn_sublayer_high", "attn_sublayer_default",
+                     "attn_sublayer_train_high",
+                     "attn_sublayer_train_default",
+                     "attn_sublayer_bwd_high", "attn_sublayer_bwd_default"]
     # the precision modes count apart, under their wrapper's mode
     modes = {k.name: k.mode for k in kernels.KERNELS if k.mode}
     assert modes["ffn"] == modes["ffn_train"] == "f32"
+    assert modes["attn_sublayer"] == modes["attn_sublayer_bwd"] == "f32"
+    assert modes["attn_sublayer_train_high"] == "bf16x3"
+    assert modes["attn_sublayer_bwd_default"] == "bf16"
     assert modes["enc_layer"] == modes["dec_layer"] == "f32"
     assert modes["enc_layer_high"] == modes["dec_layer_high"] == "bf16x3"
     assert modes["dec_layer_default"] == "bf16"

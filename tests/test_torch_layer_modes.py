@@ -442,9 +442,10 @@ def test_attn_weight_planes_split_the_scaled_weights(rng, mode):
 
 def test_mode_kernels_in_the_table():
     """Four rows name the mode kernels of the two float wrappers, beside
-    their "f32" rows; the table counts per mode."""
+    their "f32" rows; the table counts per mode (the attention sublayer's
+    six mode rows: ``tests/test_torch_sublayer_modes.py``)."""
     table = {k.name: k for k in kernels.KERNELS}
-    assert len(kernels.KERNELS) == 27
+    assert len(kernels.KERNELS) == 33
     for name, wrapper, line, mode in (
             ("enc_layer", kernels.fused_encoder_layer, 77, "f32"),
             ("enc_layer_high", kernels.fused_encoder_layer, 77, "bf16x3"),
