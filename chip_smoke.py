@@ -93,10 +93,13 @@ Phases (each prints its own lines; any failed check exits non-zero):
      MPJPE against "highest" (< 1e-4 for "high", the run fails otherwise;
      "default" printed), frames/s in turns; the merged route (the serving
      default) at B=256 in the three precisions: launches (enc_layer_high /
-     dec_layer_high 6 at "high", the _default ones at "default"), the
+     dec_layer_high 6, pre_stream_embed_high 2 and post_head_high 1 at
+     "high", the _default ones at "default"), the
      kernel route against the plain route in the same precision (within
-     SERVE_TOL; "default" within MODE_DRIFT times the plain route's drift
-     on inputs one ulp away), masked MPJPE against "highest" beside
+     SERVE_TOL; "default" within MODE_DRIFT times the plain route's spread
+     over float32 summation orders, the plain route on the CPU against it
+     on the card, and as far from "highest" as the plain route within
+     MODE_SEPARATION), masked MPJPE against "highest" beside
      bench.py's 1e-4
      gate and the plain route's figure (the run fails where the kernels
      miss the gate and their plain version does not), frames/s in turns;
@@ -109,7 +112,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
      launches (attn_sublayer_train_high 18, attn_sublayer_bwd_high 18,
      ffn_train_high 12, ffn_bwd_split_high 12, the float32 ones 0), two
      "high" runs from one seed equal bit for bit, step time beside the
-     float32 step, loss against it; one epoch of ``cli train --precision
+     float32 step, loss against it; one A1 step with sublayer fusion off
+     at "high" and at "default" (attention_<mode> 18, attention_bwd_<mode>
+     18, the FF modes 12 each) against its plain route in the mode, the
+     same way; one epoch of ``cli train --precision
      high`` (the mode's sublayer and FF kernels, no float32 one); an HTTP
      request through a ``cli serve --precision high`` child process (a
      300-frame video, so the encoder runs per sublayer in the mode:
@@ -147,10 +153,19 @@ masks, cross-attention, padded keys, a video whose keys are all padded;
 ``attention_bwd`` standalone, which runs the forward first as
 ``scaled_dot_product_attention``'s autograd call does, and given the
 forward's out and stats, as the training route calls it: that form's
-time is printed beside the standalone row) and the masked loss with
-padded frames; phase 5 also serves one 600-frame
-video (bucket 608, above the sublayer kernel's 512) on the per-op route:
-attention 18, ffn 12, pre_stream_embed 2, post_head 1.
+time is printed beside the standalone row; the pair in "high" and
+"default" at the same lengths and masks, against its plain version in the
+mode and one mode down, timed at B=64), the masked loss with padded
+frames, and the pointwise chains in "high" and "default" (with and
+without the Cycle residual and the embedding out, timed at B=256); a
+forward's statistics are held over the videos with a real key (a video
+whose keys are all padded holds a -1e9 sentinel); phase 5 also serves one
+600-frame video (bucket 608, above the sublayer kernel's 512) on the
+per-op route: attention 18, ffn 12, pre_stream_embed 2, post_head 1; and
+again at "high" (attention_high 18, ffn_high 12, pre_stream_embed_high 2,
+post_head_high 1), masked MPJPE against "highest" beside bench.py's gate
+and the plain route's figure in the mode (the run fails where the kernels
+miss the gate and their plain version does not).
 
 ``--profile`` prints, after the build, the device time by kernel of one
 train step (float32, per op, and at "high"), of one merged-route and one
@@ -242,6 +257,20 @@ FF_MODE_TOL = {"ffn_high": HIGH_MODE_TOL, "ffn_train_high": HIGH_MODE_TOL,
                "ffn_default": DEFAULT_MODE_TOL,
                "ffn_train_default": DEFAULT_MODE_TOL,
                "ffn_bwd_split_default": DEFAULT_MODE_TOL}
+# the per-op attention's backward and the pointwise chains in a mode: no
+# probability rounded to one bf16 in their products ("high" splits the
+# backward's float32 p for dv), so each output is held per output as the FF
+# kernels are, "default" by its mean too
+OP_MODE_TOL = {"attention_bwd_high": HIGH_MODE_TOL,
+               "attention_bwd_default": DEFAULT_MODE_TOL,
+               "pre_stream_embed_high": HIGH_MODE_TOL,
+               "pre_stream_embed_default": DEFAULT_MODE_TOL,
+               "post_head_high": HIGH_MODE_TOL,
+               "post_head_default": DEFAULT_MODE_TOL}
+ATTN_MODE_KERNELS = ("attention_high", "attention_default",
+                     "attention_bwd_high", "attention_bwd_default")
+CHAIN_MODE_KERNELS = ("pre_stream_embed_high", "pre_stream_embed_default",
+                      "post_head_high", "post_head_default")
 # the attention sublayer's six mode rows, beside whose times phase 2 prints
 # a products-only yardstick too
 SUBLAYER_MODE_SERVE = ("attn_sublayer_high", "attn_sublayer_default")
@@ -271,6 +300,10 @@ LAYER_MODE_TOL = {"enc_layer_high": 1e-3, "dec_layer_high": 1e-3,
                   "enc_layer_default": 4e-3, "dec_layer_default": 4e-3,
                   **{k: 1e-3 if k.endswith("_high") else 4e-3
                      for k in SUBLAYER_MODE_KERNELS}}
+# The per-op attention forward in a mode rounds p to one bf16 too, and its
+# output is the raw a, a flip undiluted: held as RAW_A_TOL holds a, the
+# mean deciding.
+LAYER_MODE_TOL.update({"attention_high": 4e-3, "attention_default": 4e-3})
 # The training forward also returns the raw attention output a (its third
 # output), where a flipped probability is not diluted by the out-projection
 # and the LayerNorm: it moves an element by one bf16 step of that
@@ -282,12 +315,17 @@ RAW_A_TOL = {"attn_sublayer_train_high": (2, 4e-3),
              "attn_sublayer_train_default": (2, 4e-3)}
 LAYER_HIGH_MEAN_TOL = 2e-5
 # A whole model at "default" rounds every activation to one bf16, so the
-# flips above cascade through 6 + 6 layers: served at B=256, the kernel
-# route lands 3.2e-4 masked MPJPE from the plain route in the same mode
-# (1.3e-3 its largest coordinate), as far as "default" lies from
-# "highest".  So, as the int8 routes are held (INT8_DRIFT), the merged
-# route at "default" is held within MODE_DRIFT times the plain route's own
-# drift when its inputs move by one ulp; "high" stays within SERVE_TOL.
+# flips above cascade through 6 + 6 layers and the pointwise chains: served
+# at B=256, any two float32 summation orders of the same arithmetic land
+# about 1.06e-3 masked MPJPE apart (the plain route on the card against the
+# plain route on the CPU; kernel layers or chains in either's place the
+# same), while "default" lies 1.84e-3 from "highest" (PERF.md §7).  So the
+# merged route at "default" is held within MODE_DRIFT times the plain
+# route's own spread over summation orders (``order_drift``: the plain
+# route on the card against the plain route on the CPU), and, since that
+# limit reaches as far as "highest" lies, its distance from "highest"
+# within MODE_SEPARATION of its plain route's either way (a float32 route
+# lies about 0 from it, a "high" one 3e-5); "high" stays within SERVE_TOL.
 MODE_DRIFT = 2.0
 # int8 kernels against their plain versions: the same int8 values and exact
 # int32 sums on both sides, except where the float32 value being quantized
@@ -346,6 +384,20 @@ def timed_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def real_stats(fn, i, valid):
+    """``fn`` with its output i, statistics (B, H, T, 2), kept only for
+    the videos that have a real key: a video whose keys are all padded
+    holds the -1e9 sentinel as its rows' maximum, which would set the
+    output's scale and so its tolerance."""
+    idx = valid.any(1).nonzero().squeeze(1)
+
+    def call():
+        out = list(fn())
+        out[i] = out[i].index_select(0, idx)
+        return tuple(out)
+    return call
+
+
 TRAIN_KERNELS = ("attn_sublayer_train", "attn_sublayer_bwd", "ffn_train",
                  "ffn_bwd")
 SERVING_KERNELS = ("pre_stream_embed", "attn_sublayer", "ffn", "post_head",
@@ -366,10 +418,10 @@ INT8_KERNELS = ("int8_dense", "ffn_int8", "enc_layer_int8")
 # and the pre-stream chain on an embedding: serving ones timed at the
 # serving batch, training ones at the training batch
 MODE_SERVE_KERNELS = ("ffn_high", "ffn_default", "pre_stream",
-                      *SUBLAYER_MODE_SERVE)
+                      *SUBLAYER_MODE_SERVE, *CHAIN_MODE_KERNELS)
 MODE_TRAIN_KERNELS = ("ffn_train_high", "ffn_train_default",
                       "ffn_bwd_split_high", "ffn_bwd_split_default",
-                      *SUBLAYER_MODE_TRAIN)
+                      *SUBLAYER_MODE_TRAIN, *ATTN_MODE_KERNELS)
 # the six rows of the precision modes' FF kernels, beside whose times phase
 # 2 prints a products-only yardstick (``products_yardstick``)
 MODE_FF_KERNELS = ("ffn_high", "ffn_default", "ffn_train_high",
@@ -416,6 +468,11 @@ INT8_SUBLAYER_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
 INT8_PER_OP_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
                       "attention": 3 * LAYERS, "int8_dense": 7 * LAYERS,
                       "ffn_int8": 2 * LAYERS, "post_head": 1}
+# the 600-frame request at "high": its per-op cores, FF sublayers and
+# pointwise chains in the mode
+PER_OP_HIGH_COUNTS = {**NO_LAUNCHES, "pre_stream_embed_high": 2,
+                      "attention_high": 3 * LAYERS, "ffn_high": 2 * LAYERS,
+                      "post_head_high": 1}
 # the per-op training step with the fused loss
 PER_OP_TRAIN_COUNTS = {**NO_LAUNCHES, "attention": 3 * LAYERS,
                        "attention_bwd": 3 * LAYERS, "ffn_train": 2 * LAYERS,
@@ -463,8 +520,9 @@ class KernelCheck:
         gradients (``grad``), within GRAD_TOL of the largest gradient of
         the call; an int8 kernel's (``name`` in INT8_KERNELS) within
         INT8_TOL of max(1, its scale) and INT8_MEAN_TOL of it on average;
-        an FF kernel of the precision modes (``name`` in FF_MODE_TOL)
-        within its mode's limit of each output's own largest value and,
+        an FF kernel of the precision modes (``name`` in FF_MODE_TOL, and
+        the per-op backward and the chains in OP_MODE_TOL) within its
+        mode's limit of each output's own largest value and,
         given ``wrong`` (the plain version's outputs in the wrong mode),
         MODE_SEPARATION times nearer ``want`` than ``wrong``."""
         t = self.torch
@@ -481,7 +539,7 @@ class KernelCheck:
         base = name.split()[0]
         layer_mode = base in LAYER_MODE_TOL
         mode_tol = LAYER_MODE_TOL[base] if layer_mode else \
-            FF_MODE_TOL.get(base)
+            FF_MODE_TOL.get(base, OP_MODE_TOL.get(base))
         # normalized: own mode, wrong mode (the largest errors; the mean
         # errors for the merged layers)
         worst = [0.0, 0.0]
@@ -509,8 +567,8 @@ class KernelCheck:
                     wavg = float((g_ - x_).abs().mean()) / own
                     worst[1] = max(worst[1], wavg if layer_mode else werr)
                     mean += f"; wrong mode {werr:.3e}, mean {wavg:.3e}"
-                if base in FF_MODE_TOL and base.endswith("_default") and \
-                        avg > DEFAULT_MEAN_TOL:
+                if (base in FF_MODE_TOL or base in OP_MODE_TOL) and \
+                        base.endswith("_default") and avg > DEFAULT_MEAN_TOL:
                     fail(f"{name} {variant}: mean abs err {avg:.3e} of its "
                          f"max > {DEFAULT_MEAN_TOL:.1e}")
                 if layer_mode and base.endswith("_high") and \
@@ -809,10 +867,11 @@ class KernelCheck:
             ln = (o["g"], o["be"]) if ln else (None, None)
             args = (o["x"], mem, o["wqkv"], o["bqkv"], o["wo"], o["bo"], *ln,
                     mask, valid, kind, keypad, self.heads)
-            out.append(("attn_sublayer_train", variant,
-                        lambda a=args: k.fused_attn_sublayer_train(*a),
-                        lambda a=args: k.attn_sublayer_train_plain(*a),
-                        False))
+            kern = lambda a=args: k.fused_attn_sublayer_train(*a)  # noqa
+            plain = lambda a=args: k.attn_sublayer_train_plain(*a)  # noqa
+            if blocked and B > 2:  # the stats of the videos with a real key
+                kern, plain = (real_stats(f, 3, valid) for f in (kern, plain))
+            out.append(("attn_sublayer_train", variant, kern, plain, False))
             _, qkv, a, stats, r = k.attn_sublayer_train_plain(*args)
             bargs = (dy, o["x"], mem, qkv, a, stats, r, w_in, w_out, ln[0],
                      mask, valid, kind, keypad, self.heads)
@@ -880,15 +939,16 @@ class KernelCheck:
                 targs = (ot["x"], mem, ot["wqkv"], ot["bqkv"], ot["wo"],
                          ot["bo"], *norm, tmask, tvalid, kind, keypad,
                          self.heads)
-                out.append((
-                    f"attn_sublayer_train_{tag}", variant,
-                    lambda a=targs, m=mode, p=tp: k.fused_attn_sublayer_train(
-                        *a, m, p),
-                    lambda a=targs, m=mode: k.attn_sublayer_train_plain(*a,
-                                                                        m),
-                    False,
-                    lambda a=targs, m=wrong: k.attn_sublayer_train_plain(*a,
-                                                                         m)))
+                calls = (lambda a=targs, m=mode, p=tp:
+                         k.fused_attn_sublayer_train(*a, m, p),
+                         lambda a=targs, m=mode:
+                         k.attn_sublayer_train_plain(*a, m),
+                         lambda a=targs, m=wrong:
+                         k.attn_sublayer_train_plain(*a, m))
+                if blocked and b_train > 2:  # the stats of real videos
+                    calls = tuple(real_stats(f, 3, tvalid) for f in calls)
+                out.append((f"attn_sublayer_train_{tag}", variant, calls[0],
+                            calls[1], False, calls[2]))
 
                 def bargs(md, a=targs, mem=mem, g=norm[0], kind=kind,
                           keypad=keypad):
@@ -1004,6 +1064,12 @@ class KernelCheck:
             if residuals:
                 res = k.fused_attention(*args, stats=True)
                 res_plain = k.attention_plain(*args, stats=True)
+                calls = (lambda a=args: k.fused_attention(*a, stats=True),
+                         lambda a=args: k.attention_plain(*a, stats=True))
+                if blocked and B > 2:  # the stats of real videos
+                    calls = tuple(real_stats(f, 1, valid) for f in calls)
+                out.append(("attention", f"{variant}, out and stats",
+                            *calls, False))
                 out.append(("attention_bwd", f"{variant}, {RESIDUAL_FORM}",
                             lambda a=bargs, r=res: k.attention_bwd(*a, *r),
                             lambda a=bargs, r=res_plain:
@@ -1017,6 +1083,94 @@ class KernelCheck:
                     if blocked and B > 2 else "padded frames",
                     lambda a=args: k.fused_masked_loss(*a),
                     lambda a=args: k.masked_loss_plain(*a), False))
+        return out
+
+    def op_mode_calls(self, B, T, blocked=True):
+        """(kernel name, variant, wrapper call, plain call, is a gradient,
+        plain call in the wrong mode) of the per-op attention pair in
+        "high" and "default" at (B, T), with ``per_op_calls``' masks (keys
+        padded in the second video and, with ``blocked`` and B > 2, every
+        key of the third); a mode's backward takes no out or stats.  The
+        encoder's masks come first (they are timed)."""
+        t, k = self.torch, self.k
+        dh = self.d // self.heads
+        q, kk, v, g = (self.rand(B, T, self.heads, dh) for _ in range(4))
+        mask, valid = self.masks(B, T)
+        if blocked and B > 2:
+            valid[2] = 0.0
+        ones = t.ones_like(mask)
+        out = []
+        for mode, tag in (("bf16x3", "high"), ("bf16", "default")):
+            wrong = WRONG_MODE[mode]
+            for variant, m, kind, keypad in (
+                    ("enc repeat-inc+keypad", mask, "repeat-inc", True),
+                    ("dec repeat-inc", mask, "repeat-inc", False),
+                    ("cycle all+keypad", ones, "all", True),
+                    ("cross all", None, "all", False)):
+                args = (q, kk, v, m, valid, kind, keypad)
+                out.append((f"attention_{tag}", variant,
+                            lambda a=args, md=mode: k.fused_attention(
+                                *a, mode=md),
+                            lambda a=args, md=mode: k.attention_plain(
+                                *a, mode=md), False,
+                            lambda a=args, md=wrong: k.attention_plain(
+                                *a, mode=md)))
+                if kind == "repeat-inc" and keypad:
+                    # out and the log2-domain stats of the videos with a
+                    # real key
+                    calls = tuple(real_stats(
+                        lambda a=args, md=md, f=f: f(*a, stats=True,
+                                                     mode=md), 1, valid)
+                        for f, md in ((k.fused_attention, mode),
+                                      (k.attention_plain, mode),
+                                      (k.attention_plain, wrong)))
+                    out.append((f"attention_{tag}", f"{variant}, stats",
+                                calls[0], calls[1], False, calls[2]))
+                bargs = (q, kk, v, g, m, valid, kind, keypad)
+                out.append((f"attention_bwd_{tag}", variant,
+                            lambda a=bargs, md=mode: k.attention_bwd(
+                                *a, mode=md),
+                            lambda a=bargs, md=mode: k.attention_bwd_plain(
+                                *a, mode=md), True,
+                            lambda a=bargs, md=wrong: k.attention_bwd_plain(
+                                *a, mode=md)))
+        return out
+
+    def chain_mode_calls(self, B, T):
+        """(kernel name, variant, wrapper call, plain call, False, plain
+        call in the wrong mode) of the pointwise chains in "high" and
+        "default" at (B, T), their weights split into planes once as a
+        packed model keeps them (``chain_planes``): the pre-stream chain
+        with its embedding out (first: timed) and without, with and without
+        the Cycle residual; the post head."""
+        from keypoints_interpolation_transformer_torch.ops.kernels \
+            .pointwise import chain_planes
+        k, o = self.k, self.operands(B, T)
+        out = []
+        for mode, tag in (("bf16x3", "high"), ("bf16", "default")):
+            wrong = WRONG_MODE[mode]
+            pp = chain_planes(o["w12"], o["w3"], mode, wemb=o["wemb"])
+            ph = chain_planes(o["w12"], o["w3"], mode, wh=o["wh"])
+            for pe_res, want_emb in ((False, True), (False, False),
+                                     (True, True), (True, False)):
+                args = (o["x_in"], o["wemb"], o["bemb"], o["pe"], o["w12"],
+                        o["b12"], o["w3"], o["b3"], pe_res, want_emb)
+                out.append((f"pre_stream_embed_{tag}",
+                            f"pe_residual={pe_res} want_emb={want_emb}",
+                            lambda a=args, md=mode, p=pp:
+                            k.fused_pre_stream_embed(*a, mode=md, planes=p),
+                            lambda a=args, md=mode:
+                            k.pre_stream_embed_plain(*a, md), False,
+                            lambda a=args, md=wrong:
+                            k.pre_stream_embed_plain(*a, md)))
+            args = (o["x"], o["mem"], o["w12"], o["b12"], o["w3"], o["b3"],
+                    o["wh"], o["bh"])
+            out.append((f"post_head_{tag}", "",
+                        lambda a=args, md=mode, p=ph: k.fused_post_head(
+                            *a, mode=md, planes=p),
+                        lambda a=args, md=mode: k.post_head_plain(*a, md),
+                        False,
+                        lambda a=args, md=wrong: k.post_head_plain(*a, md)))
         return out
 
 
@@ -1102,6 +1256,8 @@ def work(name, B, T):
         return int8_work(name, B, T)
     base = name.replace("_high", "").replace("_default", "")
     flop, elems = table["ffn_bwd" if base == "ffn_bwd_split" else base]
+    if name in CHAIN_MODE_KERNELS[:2]:  # timed with its embedding out
+        elems += N * D
     return flop, 0, elems * f
 
 
@@ -1341,7 +1497,7 @@ def bound(name, B, T):
         pv = 2 * B * HEADS * T * T * (D // HEADS)
         pv = (2 if name.startswith("dec") else 1) * pv \
             if name in LAYER_MODE_KERNELS else \
-            pv if name in SUBLAYER_MODE_KERNELS else 0
+            pv if name in SUBLAYER_MODE_KERNELS + ("attention_high",) else 0
         flop, peak = 3 * flop - pv, PEAK_BF16
     elif name.endswith("_default"):
         peak = PEAK_BF16
@@ -1357,7 +1513,8 @@ def products_yardstick(torch, name, B, T):
     backward's four (dz W2^T, dz^T gelu(u), du^T x1, du W1^T), a merged
     layer's projections, FF pair and per-head scores and p v; the attention
     sublayer's projections, scores and p v, its backward's dA, dW_out,
-    dW_in and dx and per head the scores, gw, dv, dq and dk.  A yardstick
+    dW_in and dx and per head the scores, gw, dv, dq and dk; the per-op
+    pair's per-head products alone; a chain's three products.  A yardstick
     of the products' cost, not the kernel's function: no LayerNorm, GELU,
     softmax, bias or residual, bf16 outputs, and the planes are made
     outside the call."""
@@ -1395,6 +1552,22 @@ def products_yardstick(torch, name, B, T):
             prods = [(planes(N, D), planes(D, 3 * D), 3),
                      (planes(N, D), planes(D, D), 3), scores,
                      (planes(BH, T, T), planes(BH, T, dh), 2)]
+    elif name.startswith("attention"):
+        # per head (batched) the scores and p v; the backward's scores, gw,
+        # dv (p split), dq and dk
+        dh, BH = D // HEADS, B * HEADS
+        scores = (planes(BH, T, dh), planes(BH, dh, T), 3)
+        by_p = (planes(BH, T, T), planes(BH, T, dh), 3)
+        prods = [scores, scores, by_p, by_p, by_p] if "bwd" in name else \
+            [scores, (planes(BH, T, T), planes(BH, T, dh), 2)]
+    elif name.startswith(("pre_stream_embed", "post_head")):
+        # the embedding (108 -> D, K padded to 112), [W1 | W2] and W3, or
+        # [W1 | W2], W3 and the head (D -> 108, N padded to 112)
+        swiglu = [(planes(N, D), planes(D, 2 * D), 3),
+                  (planes(N, D), planes(D, D), 3)]
+        prods = [(planes(N, 112), planes(112, D), 3)] + swiglu \
+            if name.startswith("pre") else \
+            swiglu + [(planes(N, D), planes(D, 112), 3)]
     elif name.startswith(("enc_layer", "dec_layer")):
         # the projections, the FF pair and per head (batched) the scores
         # and p v; the decoder adds the cross q, the memory's k / v, a
@@ -1505,7 +1678,9 @@ def phase_kernels(torch, kmod):
                 + [(*c, False, None) for c in chk.int8_calls(B, T)]
                 + chk.precision_calls(B, b_train, T)
                 + chk.layer_mode_calls(chk.operands(B, T), *chk.masks(B, T))
-                + chk.sublayer_mode_calls(B, b_train, T, blocked))
+                + chk.sublayer_mode_calls(B, b_train, T, blocked)
+                + chk.op_mode_calls(b_train, T, blocked)
+                + chk.chain_mode_calls(B, T))
 
     def held(fn):
         return None if fn is None else fn()
@@ -1521,6 +1696,10 @@ def phase_kernels(torch, kmod):
         for name, variant, kern, plain, grad in chk.per_op_calls(B, T):
             chk.compare(name, f"B={B} T={T} {variant}", kern(), plain(),
                         grad)
+        for name, variant, kern, plain, grad, wrong in chk.op_mode_calls(B,
+                                                                         T):
+            chk.compare(name, f"B={B} T={T} {variant}", kern(), plain(),
+                        grad, wrong())
     # the merged decoder layer in a mode at its longest length, without
     # its FF tail (T 257-512), the keys in one stage of its attention core
     o, (mask, valid) = chk.operands(2, 512), chk.masks(2, 512)
@@ -1602,7 +1781,8 @@ def phase_kernels(torch, kmod):
               + (f"  library {lib_ms:.4f} ms" if lib else "") + rate
               + f"  (B={B} T={T_MAIN})", flush=True)
         if name in MODE_FF_KERNELS + LAYER_MODE_KERNELS \
-                + SUBLAYER_MODE_KERNELS:
+                + SUBLAYER_MODE_KERNELS + ATTN_MODE_KERNELS \
+                + CHAIN_MODE_KERNELS:
             call, count = products_yardstick(torch, name, B, T_MAIN)
             y_ms = min(timed_ms(call), timed_ms(call))
             print(f"  yardstick {name:14s} products only: {y_ms:.4f} ms "
@@ -1611,7 +1791,8 @@ def phase_kernels(torch, kmod):
                   f"bias or float32 output; B={B} T={T_MAIN}); the kernel "
                   f"at {y_ms / times[name][0]:.1%} of it", flush=True)
         if name in FORWARD_KERNELS + SUBLAYER_MODE_KERNELS + (
-                "attn_sublayer_bwd",):
+                "attn_sublayer_bwd",) + ATTN_MODE_KERNELS \
+                + CHAIN_MODE_KERNELS:
             print(f"  launches {name}: {launch_ms(torch, kern)} ms; host "
                   f"{host_ms(torch, kern):.4f} ms a call", flush=True)
         if name in given:  # the training route's form, beside the row
@@ -1879,7 +2060,9 @@ def phase_long_request(torch, kmod, path, gpu):
     """One request of one 600-frame video with ``max_seq_len=640``: its
     bucket of 608 frames is above the sublayer kernel's 512, so attention
     goes per op (``fused_attention``), as the JAX package routes it; held
-    against the plain-path Inpainter and timed beside it."""
+    against the plain-path Inpainter and timed beside it; then at "high"
+    (the per-op cores, FF sublayers and chains in the mode) against
+    "highest" by bench.py's gate."""
     from keypoints_interpolation_transformer_torch.eval.serving import (
         Inpainter)
     print("phase 5: one 600-frame request on the per-op route", flush=True)
@@ -1905,6 +2088,36 @@ def phase_long_request(torch, kmod, path, gpu):
           f"{MPJPE_TOL:.0e})", flush=True)
     if not delta < MPJPE_TOL:
         fail(f"608 bucket: masked MPJPE delta {delta:.3e} >= {MPJPE_TOL}")
+    # the same request at "high": masked MPJPE against "highest" beside
+    # bench.py's gate and beside the plain route's in the mode (the run
+    # fails where the kernels miss the gate and their plain version does
+    # not); the kernel route against the plain route printed
+    high = {plain: Inpainter.from_checkpoint(
+        path, device=DEV, max_seq_len=640, plain=plain, precision="high")
+        for plain in (False, True)}
+    want_h = high[True].inpaint(video, miss)
+    kmod.reset_launches()
+    got_h = high[False].inpaint(video, miss)
+    torch.cuda.synchronize()
+    counts = kmod.launch_counts()
+    print(f"  600-frame request at \"high\": launches {nonzero(counts)}",
+          flush=True)
+    if counts != PER_OP_HIGH_COUNTS:
+        fail(f"600-frame request at high: launches {counts} != "
+             f"{PER_OP_HIGH_COUNTS}")
+    err, _ = pooled_mpjpe("608 bucket at high", video, miss, got_h, want_h)
+    delta = masked_mpjpe_delta(np.asarray(got_h), np.asarray(got),
+                               miss[0][None])
+    pdelta = masked_mpjpe_delta(np.asarray(want_h), np.asarray(want),
+                                miss[0][None])
+    verdict = "within" if delta < MPJPE_TOL else "at or above"
+    print(f"  608 bucket at \"high\": masked MPJPE against \"highest\" "
+          f"{delta:.3e} ({verdict} bench.py's gate {MPJPE_TOL:.0e}); the "
+          f"plain route in the mode {pdelta:.3e}; kernel route against the "
+          f"plain route in the mode {err:.3e}", flush=True)
+    if delta >= MPJPE_TOL > pdelta:
+        fail(f"608 bucket at high: the kernels miss the gate ({delta:.3e}) "
+             f"where their plain version meets it ({pdelta:.3e})")
     lat = {}
     for plain in (True, False, False, True):
         engines[plain].inpaint(video, miss)  # warm
@@ -2511,7 +2724,8 @@ def device_profile(torch, label, fn, gpu):
 
 def profile_paths(torch, gpu):
     """One warm train step on the kernel path, on the per-op attention
-    route and at "high", then one merged-route Inpainter call at "highest",
+    route, at "high" and at "high" per op (sublayer fusion off), then one
+    merged-route Inpainter call at "highest",
     "high" and "default" and one per-sublayer call at "highest" and "high"
     at B=256, T=128 (host arrays in and out, as phase 6 times it)."""
     from keypoints_interpolation_transformer_torch.eval.serving import (
@@ -2531,15 +2745,17 @@ def profile_paths(torch, gpu):
     from keypoints_interpolation_transformer_torch.utils.config import Config
     cfg = Config(model=dataclasses.replace(model_config(),
                                            matmul_precision="high"))
-    model = steps.build_model(cfg.model, for_training=True, device=DEV,
-                              generator=torch.Generator().manual_seed(0))
-    st = state.TrainState.create(model, lr)
-    step = steps.make_train_step(model, cfg, None)
-    gen = torch.Generator(device=DEV).manual_seed(7)
-    device_profile(torch, f"one \"high\" train step, B={B_TRAIN} "
-                   f"T={T_MAIN}", lambda: step(st, clean, length, weight,
-                                               gen, lr), gpu)
-    del model, st, step
+    for label, mc in (("", cfg.model), (" per-op", dataclasses.replace(
+            cfg.model, attn_sublayer_fusion="off"))):
+        model = steps.build_model(mc, for_training=True, device=DEV,
+                                  generator=torch.Generator().manual_seed(0))
+        st = state.TrainState.create(model, lr)
+        step = steps.make_train_step(model, Config(model=mc), None)
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        device_profile(torch, f"one{label} \"high\" train step, "
+                       f"B={B_TRAIN} T={T_MAIN}", lambda: step(
+                           st, clean, length, weight, gen, lr), gpu)
+        del model, st, step
     model = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
                               generator=torch.Generator().manual_seed(0))
     videos, masks = model_inputs(B_MAIN, T_MAIN, 3)
@@ -2701,12 +2917,15 @@ def frames_per_s(engine, videos, masks, reps=3):
 # "default" (their FF sublayers on the bf16 tensor cores, the rest float32)
 PRECISIONS = ("highest", "high", "default")
 MODE_TAG = {"high": "_high", "default": "_default"}
+# one mode down, by the precision's name
+WRONG_PREC = {"high": "default", "default": "highest"}
 
 
 def mode_counts(counts, prec):
-    """``counts`` with each FF and attention-sublayer kernel's launches
-    moved to the precision's own kernel (the float32 forward and backward
-    of "highest" become the mode's forward and split backward)."""
+    """``counts`` with each FF, attention-sublayer, per-op attention and
+    pointwise-chain kernel's launches moved to the precision's own kernel
+    (the float32 FF forward and backward of "highest" become the mode's
+    forward and split backward)."""
     if prec == "highest":
         return dict(counts)
     tag, out = MODE_TAG[prec], dict(counts)
@@ -2716,29 +2935,61 @@ def mode_counts(counts, prec):
                             ("attn_sublayer", f"attn_sublayer{tag}"),
                             ("attn_sublayer_train",
                              f"attn_sublayer_train{tag}"),
-                            ("attn_sublayer_bwd", f"attn_sublayer_bwd{tag}")):
+                            ("attn_sublayer_bwd", f"attn_sublayer_bwd{tag}"),
+                            ("attention", f"attention{tag}"),
+                            ("attention_bwd", f"attention_bwd{tag}"),
+                            ("pre_stream_embed", f"pre_stream_embed{tag}"),
+                            ("post_head", f"post_head{tag}")):
         out[mode_name], out[name] = out[name], 0
     return out
 
 
-def mode_drift(plain_engine, videos, masks, want, miss):
-    """The masked MPJPE by which ``plain_engine``'s predictions ``want``
-    move when the inputs move by one ulp (the mode's own sensitivity)."""
-    nudged = [np.nextafter(v, np.float32(2.0)) for v in videos]
-    moved = np.stack(plain_engine.inpaint(nudged, masks))
-    drift = masked_mpjpe_delta(moved, want, miss)
-    print(f"  the plain route on inputs one ulp away drifts by masked MPJPE "
-          f"{drift:.3e}", flush=True)
+def order_drift(plain, sd, cfg, videos, masks, miss):
+    """The masked MPJPE between ``plain`` (the plain route's predictions on
+    the card) and the same plain route on the CPU: one arithmetic in two
+    float32 summation orders, the spread a kernel route's own order is
+    held to."""
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    t0 = time.perf_counter()
+    cpu = np.stack(Inpainter(sd, cfg, device="cpu", plain=True).inpaint(
+        videos, masks))
+    drift = masked_mpjpe_delta(cpu, plain, miss)
+    print(f"  the plain route on the CPU (another float32 summation order) "
+          f"lies {drift:.3e} masked MPJPE from it on the card "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return drift
 
 
+def steps_ms(torch, runs, names, x, length, weight, lr):
+    """Each of ``runs`` (name -> (train state, step)) timed by CUDA events
+    over 5 steps after a warm one, in turns (``names``, then reversed):
+    name -> the best of the two means, ms."""
+    out = {}
+    for name in names + names[::-1]:
+        st, step = runs[name]
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        step(st, x, length, weight, gen, lr)  # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(5):
+            step(st, x, length, weight, gen, lr)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 5
+        out[name] = min(out.get(name, ms), ms)
+    return out
+
+
 def merged_mode_counts(prec):
-    """MERGED_COUNTS with the whole layers moved to the precision's own
-    kernels."""
+    """MERGED_COUNTS with the whole layers and the pointwise chains moved
+    to the precision's own kernels."""
     if prec == "highest":
         return dict(MERGED_COUNTS)
     tag, out = MODE_TAG[prec], dict(MERGED_COUNTS)
-    for name in ("enc_layer", "dec_layer"):
+    for name in ("enc_layer", "dec_layer", "pre_stream_embed", "post_head"):
         out[f"{name}{tag}"], out[name] = out[name], 0
     return out
 
@@ -2749,7 +3000,9 @@ def merged_precision(torch, kmod, gpu, sd, videos, masks, miss):
     kernels at "high" and "default"), the kernel route against the plain
     route in the same precision (the largest coordinate difference within
     SERVE_TOL; at "default" the masked MPJPE within MODE_DRIFT times the
-    plain route's drift), the masked MPJPE against "highest"
+    plain route's spread over summation orders, and its distance from
+    "highest" within MODE_SEPARATION of the plain route's), the masked
+    MPJPE against "highest"
     beside bench.py's 1e-4 gate (the plain route's figure beside it: the
     gate judges the mode's own arithmetic, which the JAX package shares;
     the run fails where the kernels miss the gate and their plain version
@@ -2767,7 +3020,7 @@ def merged_precision(torch, kmod, gpu, sd, videos, masks, miss):
         counts, want = kmod.launch_counts(), merged_mode_counts(prec)
         if counts != want:
             fail(f"{prec} merged serving launches {counts} != {want}")
-        for name in LAYER_MODE_KERNELS:
+        for name in LAYER_MODE_KERNELS + CHAIN_MODE_KERNELS:
             launches[name] = launches.get(name, 0) + counts[name]
         engines_plain[prec] = Inpainter(sd, cfg, device=DEV, plain=True)
         plain = np.stack(engines_plain[prec].inpaint(videos, masks))
@@ -2782,14 +3035,25 @@ def merged_precision(torch, kmod, gpu, sd, videos, masks, miss):
               f"largest coordinate difference {err:.3e}, masked MPJPE "
               f"{delta:.3e}; launches {nonzero(counts)}", flush=True)
         if prec == "default":
-            tol = MODE_DRIFT * mode_drift(engines_plain[prec], videos, masks,
-                                          plain, miss)
+            tol = MODE_DRIFT * order_drift(plain, sd, cfg, videos, masks,
+                                           miss)
             print(f"  default: held by masked MPJPE within {tol:.3e} "
-                  f"({MODE_DRIFT:g} x the plain route's drift on inputs "
-                  "one ulp away)", flush=True)
+                  f"({MODE_DRIFT:g} x the plain route's spread over "
+                  "summation orders)", flush=True)
+            own, pown = (masked_mpjpe_delta(o, outs["highest"][1], miss)
+                         for o in (got, plain))
+            print(f"  default: against the plain route at \"highest\" the "
+                  f"kernel route {own:.3e}, the plain route {pown:.3e} (the "
+                  f"mode's own error; within {MODE_SEPARATION:g} x of each "
+                  "other)", flush=True)
             if not delta < tol:
                 fail(f"default merged serving: kernel route {delta:.3e} "
                      f"masked MPJPE from the plain route >= {tol:.3e}")
+            if not (pown < own * MODE_SEPARATION
+                    and own < pown * MODE_SEPARATION):
+                fail(f"default merged serving: the kernel route lies "
+                     f"{own:.3e} from \"highest\", its plain route "
+                     f"{pown:.3e}: not the mode's arithmetic")
         elif err > SERVE_TOL:
             fail(f"{prec} merged serving: kernel route {err:.3e} from the "
                  f"plain route > {SERVE_TOL:.0e}")
@@ -2821,9 +3085,11 @@ def phase_precision(torch, kmod, gpu, tmp):
     "default" printed; frames/s in turns); the merged route in the three
     precisions (``merged_precision``); the flagship A1 step at
     "high" and "default", kernel route against the plain route in the same
-    mode, its launches, step time and loss against the float32 step; one
-    epoch of ``cli train --precision high``.  Returns the mode kernels'
-    launches on these paths."""
+    mode, its launches, step time and loss against the float32 step; the
+    A1 step per op (fusion off) in both modes against its plain route, and
+    its time beside the float32 per-op step's; one epoch of ``cli train
+    --precision high``.  Returns the mode kernels' launches on these
+    paths."""
     import contextlib
     import dataclasses
     import io
@@ -2864,7 +3130,8 @@ def phase_precision(torch, kmod, gpu, tmp):
         if not np.array_equal(got[miss == 0], clean[miss == 0]):
             fail(f"{prec} serving changed a non-missing frame")
         if prec != "highest":
-            for n in ("ffn", "attn_sublayer"):
+            for n in ("ffn", "attn_sublayer", "pre_stream_embed",
+                      "post_head"):
                 launches[f"{n}{MODE_TAG[prec]}"] = counts[
                     f"{n}{MODE_TAG[prec]}"]
             delta = masked_mpjpe_delta(got, outs["highest"], miss)
@@ -2964,22 +3231,9 @@ def phase_precision(torch, kmod, gpu, tmp):
                       f"(first run {lk!r}, {gk!r})", flush=True)
                 if res["again"] != res["kernel"]:
                     fail(f"{prec} step {i}: two runs from one seed differ")
-        step_ms = {}
-        for name in ("plain", "kernel", "highest", "highest", "kernel",
-                     "plain"):
-            _, st, step = runs[name]
-            gen = torch.Generator(device=DEV).manual_seed(7)
-            step(st, x, length, weight, gen, lr)  # warm
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(5):
-                step(st, x, length, weight, gen, lr)
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / 5
-            step_ms[name] = min(step_ms.get(name, ms), ms)
+        step_ms = steps_ms(torch, {n: r[1:] for n, r in runs.items()},
+                           ("plain", "kernel", "highest"), x, length, weight,
+                           lr)
         print(f"  {prec} A1 step B={B_TRAIN} T={T_MAIN}: kernel route "
               f"{step_ms['kernel']:.3f} ms, plain route "
               f"{step_ms['plain']:.3f} ms, \"highest\" kernel route "
@@ -3007,6 +3261,80 @@ def phase_precision(torch, kmod, gpu, tmp):
         if not (gap[0] <= tols[prec] and gap[0] * MODE_SEPARATION < gap[1]):
             fail(f"{prec} step gradients: {gap[0]:.3e} from the plain route "
                  f"in the mode, {gap[1]:.3e} from one mode down")
+
+    # the per-op route (sublayer fusion off, the JAX package's training
+    # route where its sublayer kernel is off) at "high" and "default": one
+    # A1 step, kernel route against the plain route in the mode (loss and
+    # grad norm within LOSS_RTOL, each parameter's gradient within the
+    # mode's limit of its own max and MODE_SEPARATION times nearer than one
+    # mode down), launches attention_<mode> 18, attention_bwd_<mode> 18
+    # and the FF modes' 12 each, the float32 rows 0
+    per_op = {**PER_OP_TRAIN_COUNTS, "masked_loss": 0}
+    per_op_runs = {}  # the kernel routes, timed after the checks
+    for prec in ("high", "default"):
+        res, grads = {}, {}
+        for name, p_, plain in (("kernel", prec, False), ("plain", prec,
+                                                          True),
+                                ("wrong", WRONG_PREC[prec], True)):
+            mc = dataclasses.replace(model_config(), matmul_precision=p_,
+                                     attn_sublayer_fusion="off")
+            c = Config(model=mc)
+            model = steps.build_model(mc, for_training=True, device=DEV,
+                                      generator=torch.Generator().manual_seed(
+                                          0))
+            st = state.TrainState.create(model, c.train.lr)
+            keep_first_grads(st, (prec, f"per-op {name}"))
+            step = steps.make_train_step(model, c, None, plain=plain)
+            kmod.reset_launches()
+            _, m = step(st, x, length, weight, torch.Generator(
+                device=DEV).manual_seed(100), c.train.lr)
+            torch.cuda.synchronize()
+            counts = kmod.launch_counts()
+            res[name] = (float(m["loss"]), float(m["grad_norm"]))
+            if not np.isfinite(res[name][0]):
+                fail(f"{prec} per-op {name} step: loss {res[name][0]}")
+            if name == "kernel":
+                want = mode_counts(per_op, prec)
+                if counts != want:
+                    fail(f"{prec} per-op step launches {counts} != {want}")
+                for n in ATTN_MODE_KERNELS:
+                    launches[n] = max(launches[n], counts[n])
+                per_op_runs[prec] = (st, step)
+            elif any(counts.values()):
+                fail(f"{prec} per-op plain step launched {counts}")
+            del model, st, step
+        (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+        rel, grel = abs(lk - lp) / abs(lp), abs(gk - gp) / gp
+        k_ = first_grads[(prec, "per-op kernel")]
+        gap = [max(float((k_[n] - w[n]).abs().max())
+                   / (float(w[n].abs().max()) or 1.0) for n in k_)
+               for w in (first_grads[(prec, "per-op plain")],
+                         first_grads[(prec, "per-op wrong")])]
+        print(f"  {prec} A1 step per op (fusion off): loss kernel {lk:.7f} "
+              f"plain {lp:.7f} rel {rel:.3e}; grad norm rel {grel:.3e} (tol "
+              f"{LOSS_RTOL:.0e}); each parameter's gradient against the "
+              f"plain route in the mode, worst {gap[0]:.3e} of its own max, "
+              f"one mode down {gap[1]:.3e} (tol {tols[prec]:.0e}, at least "
+              f"{MODE_SEPARATION:g} x further); launches "
+              f"{nonzero(mode_counts(per_op, prec))}", flush=True)
+        if rel > LOSS_RTOL or grel > LOSS_RTOL:
+            fail(f"{prec} per-op step: kernel and plain route differ")
+        if not (gap[0] <= tols[prec] and gap[0] * MODE_SEPARATION < gap[1]):
+            fail(f"{prec} per-op step gradients: {gap[0]:.3e} from the plain "
+                 f"route in the mode, {gap[1]:.3e} from one mode down")
+    mc = dataclasses.replace(model_config(), attn_sublayer_fusion="off")
+    c = Config(model=mc)
+    model = steps.build_model(mc, for_training=True, device=DEV,
+                              generator=torch.Generator().manual_seed(0))
+    st = state.TrainState.create(model, c.train.lr)
+    per_op_runs["highest"] = (st, steps.make_train_step(model, c, None))
+    step_ms = steps_ms(torch, per_op_runs, ("highest", "high", "default"), x,
+                       length, weight, c.train.lr)
+    print(f"  A1 step per op (fusion off) B={B_TRAIN} T={T_MAIN}: kernel "
+          "route " + ", ".join(f"\"{p}\" {step_ms[p]:.3f} ms"
+                               for p in ("highest", "high", "default"))
+          + f" (mean of 5 warm steps, best of 2 turns) on {gpu}", flush=True)
+    del per_op_runs, model, st
 
     args = ["train", "--device", DEV, "--precision", "high", "--regime",
             "a1", "--synthetic", "160", "--synthetic_min_len", "97",
@@ -3250,7 +3578,8 @@ def ab_measure(torch, gpu, out_path):
     for name, variant, kern, *_ in (
             chk.int8_calls(3, T_MAIN) + chk.precision_calls(3, 3, T_MAIN)
             + chk.layer_mode_calls(chk.operands(3, T_MAIN),
-                                   *chk.masks(3, T_MAIN))):
+                                   *chk.masks(3, T_MAIN))
+            + chk.sublayer_mode_calls(3, 3, T_MAIN)):
         got = kern()
         sums[f"{name} {variant}"] = sum(
             float(t.double().sum()) for t in
@@ -3425,9 +3754,8 @@ def ab(other, gpu):
     print(f"  ab: bit for bit equal across the trees: {same}", flush=True)
     moved = sorted(k for k in rows[0][1]["kernel_sums"]
                    if len({r["kernel_sums"].get(k) for _, r in rows}) > 1)
-    print(f"  ab: int8, FF mode and merged mode kernels whose outputs "
-          f"moved: {moved}",
-          flush=True)
+    print(f"  ab: int8, FF mode, merged mode and sublayer mode kernels "
+          f"whose outputs moved: {moved}", flush=True)
     return 0
 
 
@@ -3440,6 +3768,7 @@ def model_config():
 
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke runs the port on the card")
     if "--ab-measure" in sys.argv[1:]:  # the tree under test goes first
@@ -3517,6 +3846,8 @@ def main():
          "plain_ms": times[k.name][1], "bound_ms": times[k.name][2],
          "bound_by": times[k.name][3], "library_ms": times[k.name][4]}
         for k in kmod.KERNELS]}
+    print(f"run: {time.perf_counter() - t_start:.1f} s, the build included",
+          flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,9 +36,10 @@ import sys
 def _add_precision(p: argparse.ArgumentParser) -> None:
     p.add_argument("--precision", type=str, default="highest",
                    choices=["highest", "high", "default"],
-                   help="the FF sublayers' matmul precision: float32, "
-                        "bf16x3 or one bf16 pass on the tensor cores (the "
-                        "rest of the model stays float32)")
+                   help="the matmul precision of the kernels' products: "
+                        "float32, bf16x3 or one bf16 pass on the tensor "
+                        "cores (norms, activations and biases stay float32; "
+                        "training keeps its pointwise chains float32)")
 
 
 def _add_train(p: argparse.ArgumentParser) -> None:

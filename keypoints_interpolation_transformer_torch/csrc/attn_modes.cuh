@@ -1,11 +1,13 @@
 // The attention core of the precision modes "high" (bf16x3) and "default"
 // (one bf16 pass) on mma.sync m16n8k16, and the launches around it: the
-// forward (attn_mode_kernel; layer_modes.cu's merged layers and
-// attn_sublayer_modes.cu's sublayer) and the two kernels of the sublayer's
-// backward (attn_mode_dq_kernel, attn_mode_dkv_kernel).  The contract is
-// the TPU kernels' mode arithmetic (keypoints_interpolation_transformer_tpu/
-// ops/pallas/attention.py _prep / _dot / _prob_parts / _prob_dot, as
-// attn_sublayer.py's _attn_core and _sublayer_bwd_kernel take them):
+// forward (attn_mode_kernel; layer_modes.cu's merged layers,
+// attn_sublayer_modes.cu's sublayer and, from float32 q, k and v split in
+// the block, attention_modes.cu's per-op core) and the two kernels of the
+// sublayer's backward (attn_mode_dq_kernel, attn_mode_dkv_kernel).  The
+// contract is the TPU kernels' mode arithmetic
+// (keypoints_interpolation_transformer_tpu/ops/pallas/attention.py _prep /
+// _dot / _prob_parts / _prob_dot, as attn_sublayer.py's _attn_core and
+// _sublayer_bwd_kernel take them):
 //   * hi = bf16(x), lo = bf16(x - hi), both rounded to nearest even; a
 //     product of two split operands is hi hi + hi lo + lo hi ("high"), each
 //     term a float32 sum of exact bf16 products, or hi hi ("default");
@@ -88,6 +90,11 @@ struct AttnMode {      // one attention core in a mode
   int T, dh, DP, KB;    // DP: dh rounded up to 16; KB: keys a stage, a multiple of 16
   float* stats;         // null, or (B, H, T, 2): each row's (m, l), log2 domain
   float* a32;           // null, or the float32 output, row stride ldo
+  // the per-op core (attention_modes.cu): q, k and v in float32 (row
+  // strides ldq, ldkv), split in the block, q first times qs; then the
+  // plane pointers above are unused, and oh null writes no output planes
+  const float *q32, *k32, *v32;
+  float qs;
 };
 
 // d += a b, m16n8k16, bf16 in, float32 accumulate; a the A fragment (4
@@ -295,12 +302,21 @@ __global__ void __launch_bounds__(128) attn_mode_kernel(const AttnMode p) {
   float2* kbias = reinterpret_cast<float2*>(Vs + PL * KB * QLD);
   const size_t vid = (size_t)blockIdx.z * T;
   const int hc = h * dh;  // the head's first column
-  stage_planes<PL>(Qs, QLD, QR * QLD, p.qh, p.ql, p.ldq, vid, hc, row0, QR, T, dh, DP);
+  const bool f32in = p.q32 != nullptr;
+  if (f32in)
+    stage_split<PL>(Qs, QLD, QR * QLD, p.q32, p.ldq, vid, hc, row0, QR, T, dh, DP, true, p.qs);
+  else
+    stage_planes<PL>(Qs, QLD, QR * QLD, p.qh, p.ql, p.ldq, vid, hc, row0, QR, T, dh, DP);
   const float* mask = p.mask == nullptr ? nullptr : p.mask + vid;
   const float* valid = p.valid == nullptr ? nullptr : p.valid + vid;
   auto stage_keys = [&](int k0) {
-    stage_planes<PL>(Ks, QLD, KB * QLD, p.kh, p.kl, p.ldkv, vid, hc, k0, KB, T, dh, DP);
-    stage_planes<PL>(Vs, QLD, KB * QLD, p.vh, p.vl, p.ldkv, vid, hc, k0, KB, T, dh, DP);
+    if (f32in) {
+      stage_split<PL>(Ks, QLD, KB * QLD, p.k32, p.ldkv, vid, hc, k0, KB, T, dh, DP, false, 1.f);
+      stage_split<PL>(Vs, QLD, KB * QLD, p.v32, p.ldkv, vid, hc, k0, KB, T, dh, DP, false, 1.f);
+    } else {
+      stage_planes<PL>(Ks, QLD, KB * QLD, p.kh, p.kl, p.ldkv, vid, hc, k0, KB, T, dh, DP);
+      stage_planes<PL>(Vs, QLD, KB * QLD, p.vh, p.vl, p.ldkv, vid, hc, k0, KB, T, dh, DP);
+    }
     for (int j = threadIdx.x; j < KB; j += blockDim.x)
       kbias[j] = key_bias(mask, valid, k0 + j, T, p.repeat_inc, p.add_keypad);
   };
@@ -418,10 +434,12 @@ __global__ void __launch_bounds__(128) attn_mode_kernel(const AttnMode p) {
         const int row = e < 2 ? qa : qb, c = d0 + 8 * nt + 2 * t + (e & 1);
         if (row >= T || c >= dh) continue;
         const float o = PASSES == 3 ? oh[nt][e] + ol[nt][e] : oh[nt][e];
-        const bf16 hi = __float2bfloat16_rn(o);
         const size_t at = (vid + row) * p.ldo + hc + c;
-        p.oh[at] = hi;
-        if (PASSES == 3) p.ol[at] = __float2bfloat16_rn(o - __bfloat162float(hi));
+        if (p.oh != nullptr) {
+          const bf16 hi = __float2bfloat16_rn(o);
+          p.oh[at] = hi;
+          if (PASSES == 3) p.ol[at] = __float2bfloat16_rn(o - __bfloat162float(hi));
+        }
         if (p.a32 != nullptr) p.a32[at] = o;
       }
     }

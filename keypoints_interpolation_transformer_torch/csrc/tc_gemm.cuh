@@ -37,8 +37,13 @@ namespace kit {
 // for the attention sublayer's training forward, v = product + bias in
 // float32 at out and the planes of v, its first scols columns times qs
 // (QKV: q, k and v kept for the backward, the core's operands with q's
-// scale).
-enum { EPI_STORE, EPI_ADD, EPI_DU, EPI_PLANES, EPI_RES, EPI_QKV };
+// scale); for the pointwise chains in a mode (pointwise_modes.cu), out =
+// product + bias in float32 (BIAS), and the SwiGLU gate g = (x1 + b1)
+// sigmoid(x2 + b2) as hi / lo planes of row stride ldo, from a product
+// whose 128-column tile j holds x1's and then x2's columns 64 j .. 64 j +
+// 63 (the weight's columns so interleaved; bias = [b1 | b2] as it is,
+// ldo = D) (GLU).
+enum { EPI_STORE, EPI_ADD, EPI_DU, EPI_PLANES, EPI_RES, EPI_QKV, EPI_BIAS, EPI_GLU };
 
 struct GemmMaps {
   CUtensorMap a[2], b[2];
@@ -54,7 +59,7 @@ struct GemmArgs {
   bf16 *oh, *ol;     // EPI_DU, EPI_PLANES: the output's planes (M, N); ol null with passes 1
   bf16 *gh, *gl;     // EPI_DU: gelu(u)'s planes (M, N); gl null with passes 1
   float* colsum;     // EPI_DU: (row tiles, N) column sums of du
-  const float* bias;  // EPI_PLANES, EPI_RES, EPI_QKV: (N)
+  const float* bias;  // EPI_PLANES, EPI_RES, EPI_QKV, EPI_BIAS: (N); EPI_GLU: [b1 | b2]
   int scols;          // EPI_QKV: the columns scaled by qs before the split
   float qs;
 };
@@ -193,6 +198,20 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   for (int rr = warp; rr < 128 && in; rr += CONSUMER_WARPS) {
     const int m = m0 + rr;
     if (m >= p.M) break;
+    if (EPI == EPI_GLU) {  // two gate columns a lane: x1 at cc, x2 at 64 + cc
+      const int cc = 2 * lane, col = 64 * blockIdx.x + cc;
+      const float2 x1 = *reinterpret_cast<const float2*>(Cs + rr * G::LDC + cc);
+      const float2 x2 = *reinterpret_cast<const float2*>(Cs + rr * G::LDC + 64 + cc);
+      const float g0 = (x1.x + __ldg(p.bias + col)) * sigmoidf(x2.x + __ldg(p.bias + p.ldo + col));
+      const float g1 =
+          (x1.y + __ldg(p.bias + col + 1)) * sigmoidf(x2.y + __ldg(p.bias + p.ldo + col + 1));
+      uint32_t h0, l0;
+      split2(g0, g1, h0, l0);
+      const size_t go = (size_t)m * p.ldo + col;
+      *reinterpret_cast<uint32_t*>(p.oh + go) = h0;
+      if (PASSES == 3) *reinterpret_cast<uint32_t*>(p.ol + go) = l0;
+      continue;
+    }
     float4 v = *reinterpret_cast<const float4*>(Cs + rr * G::LDC + 4 * lane);
     const size_t o = (size_t)m * p.N + c;
     if (EPI == EPI_DU) {
@@ -214,7 +233,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       const float4 a = __ldg(reinterpret_cast<const float4*>(p.add + o));
       v = make_float4(v.x + a.x, v.y + a.y, v.z + a.z, v.w + a.w);
     }
-    if (EPI == EPI_PLANES || EPI == EPI_RES || EPI == EPI_QKV) {
+    if (EPI == EPI_PLANES || EPI == EPI_RES || EPI == EPI_QKV || EPI == EPI_BIAS) {
       const float4 b = __ldg(reinterpret_cast<const float4*>(p.bias + c));
       v = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
     }

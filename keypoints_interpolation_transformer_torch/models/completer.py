@@ -45,9 +45,16 @@ on both routes, and so do the merged whole-layer kernels on the serving
 route (every product of the layer, attention included, as the JAX
 ``_enc_kernel`` / ``_dec_kernel`` take the mode) and the attention
 sublayer kernel on both routes (``_sublayer_kernel`` serving,
-``_sublayer_train_kernel`` and ``_sublayer_bwd_kernel`` training); the
-per-op attention and the pointwise chains stay float32 (see
-``models/layers.py``).
+``_sublayer_train_kernel`` and ``_sublayer_bwd_kernel`` training), the
+per-op attention core on both routes (``_attn_kernel``,
+``_attn_bwd_kernel``), and on the serving route the pointwise chains where
+their kernels run (``pointwise_supported``; ``_pre_embed_kernel`` and
+``_post_kernel`` in the mode, their weights split once into planes,
+``chain_planes_of``), int8 serving included, as the JAX Inpainter runs its
+Pallas chains under the ambient precision whatever its int8 interceptor
+does to the Dense layers.  The training route keeps the plain chains in
+float32, as the JAX training path keeps its XLA chains (``pw_impl =
+"xla"``); so do the XLA chains elsewhere (see ``models/layers.py``).
 
 On both routes ``attn_sublayer_fusion`` off, or a length the sublayer
 kernel does not take (T > 512 or T % 8 != 0), sends attention per op
@@ -68,9 +75,8 @@ from ..ops.kernels.ffn import ffn_supported
 from ..ops.kernels.pointwise import pointwise_supported, token_norm
 from ..utils.config import resolve_precision
 from .layers import (AttnSpec, FeedForward, MultiHeadAttention, SwiGLU,
-                     TransformerCore, attn_planes, ff_planes, graph_linear,
-                     int8_dense,
-                     int8_linear, packed_linear,
+                     TransformerCore, attn_planes, chain_planes_of, ff_planes,
+                     graph_linear, int8_dense, int8_linear, packed_linear,
                      sinusoidal_positional_encoding)
 
 QUANTIZE = (None, "int8")
@@ -174,9 +180,13 @@ class KeypointCompleter(nn.Module):
         (``attn_planes``: the merged layers' and the attention sublayer's,
         int8 serving's per-sublayer route too) and, without int8, the FF
         weights into the FF kernels' (``ff_planes``), so that the first
-        request splits nothing."""
+        request splits nothing; so are the pointwise chains' where their
+        kernels run (``chain_planes_of``)."""
         self.int8 = check_quantize(quantize) == "int8"
         mode = self.mode
+        if mode != "f32" and pointwise_supported(self.hidden_dim, 8):
+            for sw, lin, head in self._chains():
+                chain_planes_of(sw, lin, mode, head)
         for m in self.modules():
             if isinstance(m, (SwiGLU, MultiHeadAttention)):
                 m.packed()
@@ -197,6 +207,13 @@ class KeypointCompleter(nn.Module):
                 if ffn_supported(D, FF, int8=True):
                     int8_linear(m.linear1, "ff")
                     int8_linear(m.linear2, "ff")
+
+    def _chains(self):
+        """(SwiGLU, Linear, is the head) of the three pointwise chains:
+        the two pre-stream chains with their embeddings, the post head."""
+        return ((self.swiGlu_input_prev, self.input_embedding, False),
+                (self.swiGlu_filled_prev, self.filled_embedding, False),
+                (self.swiGlu_decoded, self.fc_final, True))
 
     def forward(self, inputs: torch.Tensor, filled: torch.Tensor,
                 src_frame_mask: Optional[torch.Tensor] = None,
@@ -227,10 +244,13 @@ class KeypointCompleter(nn.Module):
         train = self.training and torch.is_grad_enabled()
         int8 = self.int8 and not train
         # the pointwise kernels where the JAX package takes its own
-        # (``pointwise_supported``); its XLA chains, here the plain ones,
-        # elsewhere, their Linears int8 under int8 serving
-        kernel = pointwise_supported(self.hidden_dim, T) and not plain
-        int8_chains = int8 and not pointwise_supported(self.hidden_dim, T)
+        # (``pointwise_supported``), in the model's mode on the serving
+        # route; its XLA chains, here the plain ones, elsewhere, their
+        # Linears int8 under int8 serving
+        supported = pointwise_supported(self.hidden_dim, T)
+        kernel = supported and not plain
+        int8_chains = int8 and not supported
+        chain_mode = self.mode if supported and not train else "f32"
         if train:
             pre, post = pre_stream_embed_plain, post_head_plain
             linear = graph_linear
@@ -254,11 +274,21 @@ class KeypointCompleter(nn.Module):
         else:
             pe_in = (pe + learned_in).contiguous()
             pe_fill = (pe + learned_fill).contiguous()
+
+        def chain_kw(sw, lin, head):
+            """The chain's mode (and the planes its kernels read)."""
+            if chain_mode == "f32":
+                return {}
+            return {"mode": chain_mode, **({"planes": chain_planes_of(
+                sw, lin, chain_mode, head)} if kernel else {})}
+
+        kw_in, kw_fill, kw_post = (chain_kw(*c) for c in self._chains())
         src = pre(x, *linear(self.input_embedding), pe_in,
-                  *swiglu(self.swiGlu_input_prev), self.pe_residual, False)
+                  *swiglu(self.swiGlu_input_prev), self.pe_residual, False,
+                  **kw_in)
         tgt, filled_emb = pre(f, *linear(self.filled_embedding),
                               pe_fill, *swiglu(self.swiGlu_filled_prev),
-                              self.pe_residual, True)
+                              self.pe_residual, True, **kw_fill)
 
         has_src, has_tgt = src_frame_mask is not None, \
             tgt_frame_mask is not None
@@ -273,7 +303,7 @@ class KeypointCompleter(nn.Module):
                                    self.attn_sublayer_fusion, int8,
                                    self.mode)
         out = post(decoded, filled_emb, *swiglu(self.swiGlu_decoded),
-                   *linear(self.fc_final))
+                   *linear(self.fc_final), **kw_post)
         return out.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)
 
 

@@ -28,9 +28,11 @@ attention sublayer kernel on the per-sublayer route, serving (the folded
 scaled after the bias and its backward, in the mode as the JAX
 ``_sublayer_train_kernel`` / ``_sublayer_bwd_kernel`` take it), on the
 int8 route too, as the JAX package runs its per-sublayer attention in the
-ambient mode whatever the FF does.  The per-op attention stays float32 in
-every mode (the JAX package's per-op kernels in a mode are not ported
-yet).
+ambient mode whatever the FF does.  So does the per-op attention core
+(``fused_attention`` / ``AttentionFunction`` in the mode, as the JAX
+``_attn_kernel`` / ``_attn_bwd_kernel`` take it) on the serving, training
+and int8 routes; its projections stay ``F.linear`` (or int8), as the XLA
+products they replace.
 
 Serving with ``merge=True`` (the JAX package's default, ``merge_layers``)
 takes the merged whole-layer kernels where the JAX package takes them
@@ -74,12 +76,12 @@ from ..ops.kernels.layer_fused import (attn_weight_planes,
                                        decoder_full_supported,
                                        fused_layer_supported,
                                        use_sublayer_kernel)
-from ..ops.kernels.pointwise import token_norm
+from ..ops.kernels.pointwise import chain_planes, token_norm
 
 __all__ = ["LN_EPS", "token_norm", "sinusoidal_positional_encoding",
            "SwiGLU", "MultiHeadAttention", "FeedForward", "EncoderLayer",
            "DecoderLayer", "TransformerCore", "AttnSpec", "packed_linear",
-           "graph_linear"]
+           "graph_linear", "chain_planes_of"]
 
 
 def sinusoidal_positional_encoding(max_len: int, dim: int,
@@ -134,6 +136,20 @@ def attn_planes(mha: "MultiHeadAttention", mode: str):
     return _cached(mha, f"_planes_{mode}", list(mha.parameters()),
                    lambda: attn_weight_planes(*mha.packed()[:3],
                                               mha.num_heads, mode))
+
+
+def chain_planes_of(sw: "SwiGLU", lin: nn.Linear, mode: str, head: bool):
+    """A pointwise chain's weights as its mode kernels read them
+    (``pointwise.chain_planes``): the SwiGLU's and its Linear's, the
+    embedding before it or (``head``) the head after it, built once per
+    state of those weights."""
+    def build():
+        w12, _, w3, _ = sw.packed()
+        w = packed_linear(lin)[0]
+        return chain_planes(w12, w3, mode,
+                            **({"wh": w} if head else {"wemb": w}))
+    return _cached(sw, f"_chain_planes_{mode}", [*sw.parameters(),
+                                                 lin.weight], build)
 
 
 def int8_linear(lin: nn.Linear, form: str = "dense"):
@@ -260,21 +276,23 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out)
 
     def attend(self, x, memory, spec: AttnSpec, plain: bool = False,
-               train: bool = False, int8: bool = False):
+               train: bool = False, int8: bool = False, mode: str = "f32"):
         """attention(x, memory or x) on the per-op route (no residual):
         the projections by ``F.linear`` (with ``int8``, serving only, by the
-        int8 dense layer), the core through ``fused_attention``
-        (``AttentionFunction`` under ``train``) or its plain version."""
+        int8 dense layer), the core in precision ``mode`` through
+        ``fused_attention`` (``AttentionFunction`` under ``train``, which
+        outside "f32" takes the plain versions with ``plain``) or its plain
+        version."""
         B, T, D = x.shape
         q, k, v = self.project(x, x if memory is None else memory, int8,
                                plain)
         masks = (spec.mask, spec.valid, spec.kind, spec.add_keypad)
-        if plain:
-            a = attention_plain(q, k, v, *masks)
-        elif train:
-            a = AttentionFunction.apply(q, k, v, *masks)
+        if train and not (plain and mode == "f32"):
+            a = AttentionFunction.apply(q, k, v, *masks, mode, plain)
+        elif plain:
+            a = attention_plain(q, k, v, *masks, mode=mode)
         else:
-            a = fused_attention(q, k, v, *masks)
+            a = fused_attention(q, k, v, *masks, mode=mode)
         a = a.reshape(B, T, D)
         if int8:
             return int8_dense(plain)(a, *self.int8_packed()[3:])
@@ -415,7 +433,8 @@ class EncoderLayer(FeedForward):
             r = self.self_attn.sublayer(x, None, None, spec, plain, train,
                                         mode)
         else:
-            r = x + self.self_attn.attend(x, None, spec, plain, train, int8)
+            r = x + self.self_attn.attend(x, None, spec, plain, train, int8,
+                                          mode)
         return self.ff_sublayer(r, self.norm1, self.norm2, plain, train, int8,
                                 mode)
 
@@ -473,9 +492,10 @@ class DecoderLayer(FeedForward):
                                              plain, train, mode)
         else:
             y = self.norm1(y + self.self_attn.attend(y, None, self_spec,
-                                                     plain, train, int8))
+                                                     plain, train, int8,
+                                                     mode))
             r = y + self.multihead_attn.attend(y, memory, cross_spec, plain,
-                                               train, int8)
+                                               train, int8, mode)
         return self.ff_sublayer(r, self.norm2, self.norm3, plain, train,
                                 int8, mode)
 

@@ -31,7 +31,7 @@ from .layer_fused import (attn_weight_planes, decoder_layer_plain,
                           fused_encoder_layer_int8)
 from .masked_loss import (FusedEuclideanLoss, fused_euclidean_loss,
                           fused_masked_loss, masked_loss_plain)
-from .pointwise import (fused_post_head, fused_pre_stream,
+from .pointwise import (chain_planes, fused_post_head, fused_pre_stream,
                         fused_pre_stream_embed, post_head_plain,
                         pre_stream_embed_plain, pre_stream_plain)
 
@@ -49,14 +49,14 @@ _SRC = "keypoints_interpolation_transformer_torch/csrc"
 
 KERNELS = (
     Kernel("pre_stream_embed", fused_pre_stream_embed,
-           f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:230"),
+           f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:230", "f32"),
     Kernel("attn_sublayer", fused_attn_sublayer,
            f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:135",
            "f32"),
     Kernel("ffn", fused_ffn,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:215", "f32"),
     Kernel("post_head", fused_post_head,
-           f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:90"),
+           f"{_SRC}/pointwise.cu", f"{_TPU}/pointwise.py:90", "f32"),
     Kernel("attn_sublayer_train", fused_attn_sublayer_train,
            f"{_SRC}/attn_sublayer.cu", f"{_TPU}/attn_sublayer.py:173",
            "f32"),
@@ -72,9 +72,9 @@ KERNELS = (
     Kernel("dec_layer", fused_decoder_layer,
            f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:239", "f32"),
     Kernel("attention", fused_attention,
-           f"{_SRC}/attention.cu", f"{_TPU}/attention.py:317"),
+           f"{_SRC}/attention.cu", f"{_TPU}/attention.py:317", "f32"),
     Kernel("attention_bwd", attention_bwd,
-           f"{_SRC}/attention.cu", f"{_TPU}/attention.py:409"),
+           f"{_SRC}/attention.cu", f"{_TPU}/attention.py:409", "f32"),
     Kernel("masked_loss", fused_masked_loss,
            f"{_SRC}/masked_loss.cu", f"{_TPU}/masked_loss.py:28"),
     Kernel("int8_dense", fused_int8_dense,
@@ -124,6 +124,26 @@ KERNELS = (
     Kernel("attn_sublayer_bwd_default", attn_sublayer_bwd,
            f"{_SRC}/attn_sublayer_modes.cu", f"{_TPU}/attn_sublayer.py:410",
            "bf16"),
+    Kernel("attention_high", fused_attention,
+           f"{_SRC}/attention_modes.cu", f"{_TPU}/attention.py:317",
+           "bf16x3"),
+    Kernel("attention_default", fused_attention,
+           f"{_SRC}/attention_modes.cu", f"{_TPU}/attention.py:317", "bf16"),
+    Kernel("attention_bwd_high", attention_bwd,
+           f"{_SRC}/attention_modes.cu", f"{_TPU}/attention.py:409",
+           "bf16x3"),
+    Kernel("attention_bwd_default", attention_bwd,
+           f"{_SRC}/attention_modes.cu", f"{_TPU}/attention.py:409", "bf16"),
+    Kernel("pre_stream_embed_high", fused_pre_stream_embed,
+           f"{_SRC}/pointwise_modes.cu", f"{_TPU}/pointwise.py:230",
+           "bf16x3"),
+    Kernel("pre_stream_embed_default", fused_pre_stream_embed,
+           f"{_SRC}/pointwise_modes.cu", f"{_TPU}/pointwise.py:230", "bf16"),
+    Kernel("post_head_high", fused_post_head,
+           f"{_SRC}/pointwise_modes.cu", f"{_TPU}/pointwise.py:90",
+           "bf16x3"),
+    Kernel("post_head_default", fused_post_head,
+           f"{_SRC}/pointwise_modes.cu", f"{_TPU}/pointwise.py:90", "bf16"),
 )
 
 

@@ -31,8 +31,9 @@ class ModelConfig:
     ff_dim: int = 2048             # torch nn.Transformer default
     variant: str = "plain"         # "plain" | "cycle" | "embedding"
     # "highest" (float32), "high" (bf16x3) or "default" (one bf16 pass),
-    # and the JAX aliases (ops/kernels/precision.py): the mode of the FF
-    # sublayers; the rest of the model stays float32
+    # and the JAX aliases (ops/kernels/precision.py): the mode of every
+    # kernel's products, as the JAX package's ambient precision sets it
+    # (norms, activations and biases stay float32)
     matmul_precision: str = "highest"
     compute_dtype: str = "float32"
     # kernel routing of the JAX package: the port takes "auto" only (its

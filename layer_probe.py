@@ -8,6 +8,7 @@ precision-mode kernels' time goes, on one CUDA card.
     python3 layer_probe.py attention TREE...  # per-op attention, in turns
     python3 layer_probe.py forwards TREE...  # sublayer forwards, in turns
     python3 layer_probe.py modes TREE...    # precision-mode kernels, in turns
+    python3 layer_probe.py spread           # "default" routes' spread
 
 ``phases`` copies ``keypoints_interpolation_transformer_torch`` into DIR
 (default ``scratch_tree/layer_probe``, git-ignored), adds ``clock64()``
@@ -62,6 +63,17 @@ counterparts ``ffn``, ``ffn_train``, ``ffn_bwd``, ``enc_layer``,
 ``attn_sublayer_bwd`` (what an older tree runs at every precision):
 CUDA-event time and one call's device time by kernel, and for the
 attention sublayer's rows by launch, in order.
+
+``spread`` serves ``chip_smoke.py``'s phase 11 batch (B = 256, T = 128,
+the flagship widths) at "default" on the merged route through the kernel
+route, the plain route, the plain route on the CPU (another float32
+summation order), the plain route with its frames one ulp up, kernel
+layers with plain chains and the reverse, and both routes with float32
+chains, and prints the masked MPJPE of each against the kernel route, the
+plain route, the plain route at "highest" and the CPU's; then the chains
+alone, kernel against plain, on the model's own inputs (largest and mean
+difference, its mean signed toward larger magnitudes, the share of
+elements that differ).
 
 ``backward`` does the same for the training backwards (``ffn.cu`` and
 ``attn_sublayer.cu``): ``ffn_bwd``, ``ffn_bwd_split`` in "f32" (a tree's
@@ -459,6 +471,96 @@ def in_turns(trees, sources, mode):
         print(f"  {tree}: {r.stdout.strip().splitlines()[-1]}", flush=True)
 
 
+def spread():
+    """The ``spread`` mode (see the module docstring)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    cs = load_smoke()
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.models import completer
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    from keypoints_interpolation_transformer_torch.ops.kernels import _build
+    print(cs.gpu_line(), flush=True)
+    _build.SOURCES = ("pointwise", "pointwise_modes", "layer_modes")
+    _build.build(_build.SOURCES)
+    sd = KeypointCompleter(cs.D, cs.LAYERS, cs.HEADS, ff_dim=cs.FF,
+                           generator=torch.Generator().manual_seed(0)
+                           ).state_dict()
+    clean, miss = cs.model_inputs(cs.B_MAIN, cs.T_MAIN, 3)
+    videos, masks = list(clean), list(miss)
+
+    def engine(prec, **kw):
+        return Inpainter(sd, dataclasses.replace(
+            cs.model_config(), matmul_precision=prec), **kw)
+
+    def run(eng, v=videos):
+        out = np.stack(eng.inpaint(v, masks))
+        torch.cuda.synchronize()
+        return out
+
+    def no_planes(fn, f32=False):
+        def call(*a, planes=None, mode="f32", **kw):
+            return fn(*a, **kw) if f32 else fn(*a, mode=mode, **kw)
+        return call
+
+    K, P = engine("default", device="cuda"), engine("default", device="cuda",
+                                                    plain=True)
+    outs = {"kernel": run(K), "plain": run(P),
+            "highest": run(engine("highest", device="cuda", plain=True)),
+            "plain, CPU": run(engine("default", device="cpu", plain=True)),
+            "plain, frames +1 ulp": run(P, [np.nextafter(v, np.float32(2))
+                                            for v in videos])}
+    names = ("fused_pre_stream_embed", "fused_post_head",
+             "pre_stream_embed_plain", "post_head_plain")
+    kept = {n: getattr(completer, n) for n in names}
+    completer.fused_pre_stream_embed = no_planes(kmod.pre_stream_embed_plain)
+    completer.fused_post_head = no_planes(kmod.post_head_plain)
+    outs["kernel layers, plain chains"] = run(K)
+    for n in names:
+        setattr(completer, n, no_planes(kept[n], f32=True))
+    outs["kernel, f32 chains"] = run(K)
+    outs["plain, f32 chains"] = run(P)
+    for n in names:
+        setattr(completer, n, kept[n])
+    tr = K.model.transformer
+    tr.forward = (lambda fwd: lambda *a: fwd(*a[:5], True, *a[6:]))(
+        tr.forward)
+    outs["plain layers, kernel chains"] = run(K)
+    del tr.forward
+    cols = ("kernel", "plain", "highest", "plain, CPU")
+    print("\"default\" merged route, B=256 T=128, masked MPJPE against "
+          + ", ".join(cols), flush=True)
+    for a, out in outs.items():
+        print(f"  {a:28s} " + " ".join(
+            f"{cs.masked_mpjpe_delta(out, outs[b], miss):.3e}" for b in cols),
+            flush=True)
+
+    calls = []
+    for n in ("fused_pre_stream_embed", "fused_post_head"):
+        setattr(completer, n, (lambda n_, fn: lambda *a, **kw: (
+            calls.append((n_, fn, a, kw)), fn(*a, **kw))[1])(n, kept[n]))
+    run(K)
+    for n in names[:2]:
+        setattr(completer, n, kept[n])
+    for n, fn, a, kw in calls:
+        plain = kmod.pre_stream_embed_plain if "pre" in n else \
+            kmod.post_head_plain
+        got, want = fn(*a, **kw), plain(*a, mode=kw["mode"])
+        for j, (g, w) in enumerate(zip(*(x if isinstance(x, tuple) else (x,)
+                                         for x in (got, want)))):
+            d = (g - w).double()
+            print(f"  {n} output {j}: largest difference "
+                  f"{d.abs().max().item():.3e} (of {w.abs().max().item():.3e}"
+                  f"), mean {d.abs().mean().item():.3e}, mean signed toward "
+                  f"larger |plain| {(d * w.double().sign()).mean().item():.3e}"
+                  f", share differing {(d != 0).double().mean().item():.3f}",
+                  flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -483,6 +585,8 @@ def main():
         in_turns(args, MODE_SOURCES, "modes-one")
     elif mode == "modes-one":
         modes_one(args[0])
+    elif mode == "spread":
+        spread()
     elif mode == "backward":
         in_turns(args, BACKWARD_SOURCES, "backward-one")
     elif mode == "backward-one":

@@ -921,13 +921,16 @@ def test_layer_mode_wrappers_raise_rather_than_fall_back(cuda):
 @pytest.mark.gpu
 def test_flagship_forward_at_high_launches_the_mode_layers(cuda):
     """One flagship forward (6 + 6 layers, D=256, FF=2048) at T=128 at
-    "high" and "default": the merged route launches pre_stream_embed 2,
-    the mode's enc_layer 6 and dec_layer 6, post_head 1 and no float32
-    layer, and agrees with the plain path in the same mode: at "high"
-    within SERVE_TOL, at "default" (whose bf16 flips cascade through the
-    layers) within MODE_DRIFT times the plain path's own drift on inputs
-    one ulp away (``chip_smoke.mode_drift``'s rule, the mean keypoint
-    distance over every frame)."""
+    "high" and "default": the merged route launches the mode's
+    pre_stream_embed 2, enc_layer 6, dec_layer 6 and post_head 1 and no
+    float32 layer or chain, and agrees with the plain path in the same
+    mode: at "high" within SERVE_TOL; at "default" (whose bf16 flips
+    cascade through the chains and the layers) within MODE_DRIFT times the
+    plain path's own spread over float32 summation orders (the plain path
+    on the CPU against it on the card, as ``chip_smoke.order_drift``), and
+    as far from the plain path at "highest" as the plain path in the mode
+    within MODE_SEPARATION either way (a float32 or "high" route lies
+    about 0 from it); the mean keypoint distance over every frame."""
     import chip_smoke
     from keypoints_interpolation_transformer_torch.models.completer import (
         KeypointCompleter)
@@ -939,15 +942,27 @@ def test_flagship_forward_at_high_launches_the_mode_layers(cuda):
     m = torch.from_numpy((rng.random((B, T)) < 0.3).astype(np.float32)).to(
         cuda)
     valid = torch.ones(B, T, device=cuda)
+    args = (x, x, m, m, valid)
+
+    def flagship(prec, device):
+        return KeypointCompleter(256, 6, 8, ff_dim=2048, device=device,
+                                 precision=prec,
+                                 generator=torch.Generator().manual_seed(0))
+
+    def dist(a, b):
+        return float((a - b).norm(dim=-1).mean())
+
+    top = flagship("highest", cuda)
+    with torch.inference_mode():
+        highest = top(*args, plain=True)
     for prec in ("high", "default"):
-        model = KeypointCompleter(256, 6, 8, ff_dim=2048, device=cuda,
-                                  precision=prec,
-                                  generator=torch.Generator().manual_seed(0))
+        model, on_cpu = flagship(prec, cuda), flagship(prec, "cpu")
+        on_cpu.load_state_dict(model.state_dict())
         model.pack_weights()
         with torch.inference_mode():
-            want = model(x, x, m, m, valid, plain=True)
+            want = model(*args, plain=True)
             kernels.reset_launches()
-            got = model(x, x, m, m, valid)
+            got = model(*args)
             torch.cuda.synchronize()
             assert kernels.launch_counts() == \
                 chip_smoke.merged_mode_counts(prec)
@@ -955,15 +970,13 @@ def test_flagship_forward_at_high_launches_the_mode_layers(cuda):
                 torch.testing.assert_close(got, want,
                                            atol=chip_smoke.SERVE_TOL, rtol=0)
                 continue
-            xn = torch.nextafter(x, torch.full_like(x, 2.0))
-            moved = model(xn, xn, m, m, valid, plain=True)
-
-            def dist(a, b):
-                return float((a - b).norm(dim=-1).mean())
-
-            drift = dist(moved, want)
-            assert dist(got, want) < chip_smoke.MODE_DRIFT * drift, (
-                dist(got, want), drift)
+            other = on_cpu(*(t.cpu() for t in args), plain=True).to(cuda)
+        drift = dist(other, want)
+        assert dist(got, want) < chip_smoke.MODE_DRIFT * drift, (
+            dist(got, want), drift)
+        own, pown = dist(got, highest), dist(want, highest)
+        sep = chip_smoke.MODE_SEPARATION
+        assert pown < own * sep and own < pown * sep, (own, pown)
 
 
 @pytest.mark.gpu
@@ -1142,4 +1155,139 @@ def test_a1_step_at_high_launches_the_sublayer_mode_kernels(cuda):
                 assert counts[f"attn_sublayer_bwd{tag}"] == 6
                 assert counts["attn_sublayer_train"] == \
                     counts["attn_sublayer_bwd"] == 0
+        assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])
+
+
+@pytest.mark.gpu
+def test_per_op_mode_pair_matches_plain_at_every_width(cuda):
+    """The per-op attention pair in "high" and "default" (``fused_attention``
+    and ``attention_bwd`` with ``mode``) against their plain versions in
+    the same mode, the model's four mask kinds, a video whose keys are all
+    padded, at head widths 8 to 512 and lengths 40 to 608: held as
+    ``chip_smoke.py``'s phase 2 holds them (LAYER_MODE_TOL for the
+    forward, OP_MODE_TOL for the backward, and nearer its own mode than
+    one mode down)."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, heads, shapes in ((256, 8, ((3, 40), (3, 128), (1, 608))),
+                             (32, 4, ((3, 40),)), (384, 6, ((3, 100),)),
+                             (512, 1, ((2, 40),)), (96, 4, ((3, 37),))):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, heads, 4 * d)
+        for B, T in shapes:
+            for name, variant, kern, plain, grad, wrong in \
+                    chk.op_mode_calls(B, T):
+                chk.compare(name, f"D={d} H={heads} B={B} T={T} {variant}",
+                            kern(), plain(), grad, wrong())
+
+
+@pytest.mark.gpu
+def test_chain_mode_kernels_match_plain_at_every_width(cuda):
+    """The pointwise chains in "high" and "default" against their plain
+    versions in the same mode at the four kernel widths, a ragged batch of
+    one 608-frame video and a short one, with and without the Cycle
+    residual and the embedding out."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d in (128, 256, 384, 512):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, 8 if d < 384 else 4,
+                                     4 * d)
+        for B, T in ((3, 40), (1, 608)):
+            for name, variant, kern, plain, grad, wrong in \
+                    chk.chain_mode_calls(B, T):
+                chk.compare(name, f"D={d} B={B} T={T} {variant}", kern(),
+                            plain(), grad, wrong())
+
+
+@pytest.mark.gpu
+def test_per_op_mode_pair_is_deterministic(cuda):
+    """Both modes' forward and backward twice on the same inputs give the
+    same bits: no atomics, every sum in a fixed order."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    g = torch.Generator().manual_seed(5)
+    q, k, v, dy = (torch.randn(4, 200, 8, 32, generator=g).to(cuda)
+                   for _ in range(4))
+    mask = (torch.rand(4, 200, generator=g) < 0.3).float().to(cuda)
+    valid = torch.ones(4, 200, device=cuda)
+    valid[1, 150:] = 0.0
+    for mode in ("bf16x3", "bf16"):
+        outs = [(kernels.fused_attention(q, k, v, mask, valid, mode=mode),
+                 *kernels.attention_bwd(q, k, v, dy, mask, valid,
+                                        mode=mode)) for _ in range(2)]
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_mode_pair_and_chain_wrappers_raise_rather_than_fall_back(cuda):
+    """The new mode wrappers on the card take no residuals in a mode,
+    demand and check their planes, and count the launches they make."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    q = torch.randn(2, 16, 4, 8, device=cuda)
+    m, valid = torch.zeros(2, 16, device=cuda), torch.ones(2, 16,
+                                                          device=cuda)
+    out, st = kernels.fused_attention(q, q, q, m, valid, stats=True)
+    with pytest.raises(ValueError, match="no out or stats"):
+        kernels.attention_bwd(q, q, q, q, m, valid, "repeat-inc", False, out,
+                              st, mode="bf16x3")
+    with pytest.raises(TypeError):
+        kernels.fused_attention(q.double(), q, q, m, valid, mode="bf16")
+    D, F = 128, 108
+    x = torch.rand(1, 8, F, device=cuda)
+    w12, w3 = torch.randn(D, 2 * D, device=cuda), torch.randn(D, D,
+                                                              device=cuda)
+    wemb = torch.randn(F, D, device=cuda)
+    b = torch.zeros(2 * D, device=cuda)
+    args = (x, wemb, b[:D].clone(), torch.zeros(8, D, device=cuda), w12, b,
+            w3, b[:D].clone())
+    planes = kernels.chain_planes(w12, w3, "bf16", wemb=wemb)
+    with pytest.raises(ValueError, match="takes the weights' planes"):
+        kernels.fused_pre_stream_embed(*args, mode="bf16")
+    with pytest.raises(ValueError, match="does not fit mode"):
+        kernels.fused_pre_stream_embed(*args, mode="bf16x3", planes=planes)
+    kernels.reset_launches()
+    kernels.fused_pre_stream_embed(*args, mode="bf16", planes=planes)
+    kernels.fused_attention(q, q, q, m, valid, mode="bf16x3")
+    counts = kernels.launch_counts()
+    assert (counts["pre_stream_embed_default"], counts["attention_high"],
+            counts["pre_stream_embed"], counts["attention"]) == (1, 1, 0, 0)
+
+
+@pytest.mark.gpu
+def test_per_op_a1_step_in_a_mode_launches_the_mode_pair(cuda):
+    """A two-layer A1 step with sublayer fusion off at "high" and at
+    "default" runs every attention core through the mode's pair (6 each: 2
+    encoder, 4 decoder) and no float32 attention kernel, and agrees with
+    the plain route in the same mode."""
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.train import state, steps
+    from keypoints_interpolation_transformer_torch.utils.config import (
+        Config, ModelConfig)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(0.2, 0.8, (4, 128, 54, 2)).astype(
+        np.float32)).to(cuda)
+    length = torch.tensor([128, 97, 128, 60], device=cuda)
+    for prec, tag in (("high", "_high"), ("default", "_default")):
+        cfg = Config(model=ModelConfig(hidden_dim=128, num_heads=4,
+                                       num_layers=2, ff_dim=512,
+                                       attn_sublayer_fusion="off",
+                                       matmul_precision=prec))
+        losses = {}
+        for plain in (True, False):
+            net = steps.build_model(cfg.model, for_training=True,
+                                    device=cuda,
+                                    generator=torch.Generator().manual_seed(0))
+            kernels.reset_launches()
+            _, m = steps.make_train_step(net, cfg, None, plain=plain)(
+                state.TrainState.create(net, 1e-3), x, length,
+                torch.ones(4, device=cuda),
+                torch.Generator(device=cuda).manual_seed(1), 1e-3)
+            torch.cuda.synchronize()
+            losses[plain] = float(m["loss"])
+            counts = kernels.launch_counts()
+            if plain:
+                assert not any(counts.values()), counts
+            else:
+                assert counts[f"attention{tag}"] == 6
+                assert counts[f"attention_bwd{tag}"] == 6
+                assert counts["attention"] == counts["attention_bwd"] == 0
         assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])

@@ -277,7 +277,11 @@ def test_kernel_table_and_counters():
                      "attn_sublayer_high", "attn_sublayer_default",
                      "attn_sublayer_train_high",
                      "attn_sublayer_train_default",
-                     "attn_sublayer_bwd_high", "attn_sublayer_bwd_default"]
+                     "attn_sublayer_bwd_high", "attn_sublayer_bwd_default",
+                     "attention_high", "attention_default",
+                     "attention_bwd_high", "attention_bwd_default",
+                     "pre_stream_embed_high", "pre_stream_embed_default",
+                     "post_head_high", "post_head_default"]
     # the precision modes count apart, under their wrapper's mode
     modes = {k.name: k.mode for k in kernels.KERNELS if k.mode}
     assert modes["ffn"] == modes["ffn_train"] == "f32"

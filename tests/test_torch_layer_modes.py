@@ -303,9 +303,10 @@ def _model_inputs(rng, Tm, padded):
 def test_merged_model_at_high_matches_jax(rng, cycle):
     """One layer at T = 16: the port at "high" on its merged route (plain
     versions on the CPU) against the JAX model with its merged layers on
-    Pallas (interpret mode, ambient "high") and its pointwise chains on
-    XLA, which on the CPU run in float32 as the port's do: what differs is
-    what this slice ports.  The float32 port is further away."""
+    Pallas (interpret mode, ambient "high") and ``pointwise_impl="pallas"``
+    as on its TPU: at D = 32 its pointwise kernels do not take the width,
+    so its chains run on XLA, which on the CPU run in float32 as the
+    port's plain chains do.  The float32 port is further away."""
     Tm, dm, heads, ffm = 16, 32, 4, 64
     x, f, sm, tm, valid = _model_inputs(rng, Tm, True)
     kinds = "repeat-inc"
@@ -317,7 +318,7 @@ def test_merged_model_at_high_matches_jax(rng, cycle):
     params = jax.jit(make(attention_impl="xla", ff_impl="xla", **kw).init)(
         jax.random.key(3), jnp.asarray(x[:1]), jnp.asarray(f[:1]))
     jm = make(attention_impl="pallas", ff_impl="pallas",
-              pointwise_impl="xla", **kw)
+              pointwise_impl="pallas", **kw)
     with _interpret("high"):
         want = np.asarray(jax.jit(lambda p: jm.apply(
             p, *_j(x, f), src_frame_mask=jnp.asarray(sm),
@@ -445,7 +446,7 @@ def test_mode_kernels_in_the_table():
     their "f32" rows; the table counts per mode (the attention sublayer's
     six mode rows: ``tests/test_torch_sublayer_modes.py``)."""
     table = {k.name: k for k in kernels.KERNELS}
-    assert len(kernels.KERNELS) == 33
+    assert len(kernels.KERNELS) == 41
     for name, wrapper, line, mode in (
             ("enc_layer", kernels.fused_encoder_layer, 77, "f32"),
             ("enc_layer_high", kernels.fused_encoder_layer, 77, "bf16x3"),

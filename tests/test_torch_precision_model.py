@@ -88,11 +88,12 @@ def _inputs(rng):
 @pytest.mark.parametrize("cycle", [False, True])
 def test_model_forward_at_high_matches_jax(rng, cycle):
     """The model at "high" per sublayer (its FF and attention sublayers
-    bf16x3, the pointwise chains float32) against the JAX KeypointCompleter
-    whose FF and attention sublayers run Pallas (``ff_impl="pallas"``,
-    ``attention_impl="pallas"`` with sublayer fusion, pointwise chains in
-    XLA, no merged layers) in interpret mode under ambient "high": the XLA
-    ops run in float32 on the CPU, so both split the work the same way.
+    bf16x3) against the JAX KeypointCompleter whose FF and attention
+    sublayers run Pallas (``ff_impl="pallas"``, ``attention_impl="pallas"``
+    with sublayer fusion, ``pointwise_impl="pallas"`` as on its TPU, no
+    merged layers) in interpret mode under ambient "high": at D = 32 the
+    pointwise kernels take neither width, so both packages run their plain
+    (XLA) chains, in float32 on the CPU, and split the work the same way.
     Within MODE_DRIFT times the JAX model's own drift on inputs one ulp
     away; a float32 port model is further away, MODE_SEPARATION times on
     average: the mode's rounding is what closes the gap."""
@@ -101,7 +102,7 @@ def test_model_forward_at_high_matches_jax(rng, cycle):
                 ff_dim=FF_)
     jmake = jc.keypoint_completer_cycle if cycle else jc.KeypointCompleter
     jm = jmake(attention_impl="pallas", ff_impl="pallas",
-               pointwise_impl="xla", attn_sublayer_fusion=True,
+               pointwise_impl="pallas", attn_sublayer_fusion=True,
                merge_layers=False, **dims)
     # the same parameter tree, initialized on XLA: the Pallas kernels in
     # interpret mode take seconds a call
@@ -285,7 +286,7 @@ def test_loop_cli_and_inpainter_take_the_modes(tmp_path, monkeypatch):
     mc = jconfig.ModelConfig(hidden_dim=32, num_layers=1, num_heads=4,
                              ff_dim=64, attention_impl="pallas",
                              ff_impl="pallas", attn_sublayer_fusion="on",
-                             pointwise_impl="xla", matmul_precision="high")
+                             pointwise_impl="pallas", matmul_precision="high")
     with _interpret("high"):
         want = jserving.Inpainter.from_checkpoint(
             path, mc, bucket_multiple=16).inpaint(videos, masks)
