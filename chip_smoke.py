@@ -79,7 +79,15 @@ Phases (each prints its own lines; any failed check exits non-zero):
      and one-video latency beside the float32 merged route; one 600-frame
      request on the per-op route (int8_dense 42, attention 18, ffn_int8
      12); the Cycle pair and the Embedding int8; an HTTP round trip through
-     a ``cli serve --quantize int8`` child process;
+     a ``cli serve --quantize int8`` child process; since slice 15 the
+     merged route at "high" and "default" (the int8 merged encoder layer
+     and the decoder layer in the mode: enc_layer_int8_<mode> 6,
+     dec_layer_<mode> 6, ffn_int8 6, the chains' mode rows 2 / 1), each
+     against the plain int8 route in the mode on 32 videos (within twice
+     that route's spread over float32 summation orders, the plain route on
+     the CPU against it on the card, and at least 1e-3; its distance from
+     int8 "highest" within 2 x of the plain route's), frames/s in turns
+     beside int8 "highest";
  10. widths: every kernel at D in {32, 128, 384, 512} with head widths 8,
      16, 64 and 128, and at D in {384, 512} with one and two heads (head widths
      192 to 512, the attention cores' wide build), against its plain
@@ -110,11 +118,15 @@ Phases (each prints its own lines; any failed check exits non-zero):
      DEFAULT_MODE_TOL of its own largest value and MODE_SEPARATION times
      nearer than the route one mode down), its
      launches (attn_sublayer_train_high 18, attn_sublayer_bwd_high 18,
-     ffn_train_high 12, ffn_bwd_split_high 12, the float32 ones 0), two
+     ffn_train_high 12, ffn_bwd_split_high 12, mode_linear_high and
+     mode_linear_bwd_high 9 for the chains' Dense products, the float32
+     ones 0; the chain parameters' gradients printed apart), two
      "high" runs from one seed equal bit for bit, step time beside the
      float32 step, loss against it; one A1 step with sublayer fusion off
      at "high" and at "default" (attention_<mode> 18, attention_bwd_<mode>
-     18, the FF modes 12 each) against its plain route in the mode, the
+     18, the FF modes 12 each, mode_linear_<mode> and its backward 51:
+     the chains' 9 and the projections' 7 a layer pair) against its plain
+     route in the mode, the
      same way; one epoch of ``cli train --precision
      high`` (the mode's sublayer and FF kernels, no float32 one); an HTTP
      request through a ``cli serve --precision high`` child process (a
@@ -157,18 +169,26 @@ time is printed beside the standalone row; the pair in "high" and
 "default" at the same lengths and masks, against its plain version in the
 mode and one mode down, timed at B=64), the masked loss with padded
 frames, and the pointwise chains in "high" and "default" (with and
-without the Cycle residual and the embedding out, timed at B=256); a
+without the Cycle residual and the embedding out, timed at B=256);
+``mode_linear`` and ``mode_linear_bwd`` in "high" and "default" at a q /
+k / v projection (256 -> 768, timed at B=64), the 108-wide embedding and
+the head (their widths padded to 112), beside ``torch.mm`` on bf16
+operands with a float32 output at "default" (its library call) and a
+products-only yardstick; the int8 merged encoder layer in "high" and
+"default" with both models' masks (timed at B=256); a
 forward's statistics are held over the videos with a real key (a video
 whose keys are all padded holds a -1e9 sentinel); phase 5 also serves one
 600-frame video (bucket 608, above the sublayer kernel's 512) on the
 per-op route: attention 18, ffn 12, pre_stream_embed 2, post_head 1; and
 again at "high" (attention_high 18, ffn_high 12, pre_stream_embed_high 2,
-post_head_high 1), masked MPJPE against "highest" beside bench.py's gate
+post_head_high 1, mode_linear_high 42 for its projections), masked MPJPE
+against "highest" beside bench.py's gate
 and the plain route's figure in the mode (the run fails where the kernels
 miss the gate and their plain version does not).
 
 ``--profile`` prints, after the build, the device time by kernel of one
-train step (float32, per op, and at "high"), of one merged-route and one
+train step (float32, per op, and at "high" and "default", fused and per
+op), of one merged-route and one
 per-sublayer "high" Inpainter call and of one a1 epoch of the loop (with
 its device idle share and the host work in it).  ``--sweep`` prints the
 whole-layer kernels' times at T=128 for B in {256, 64, 8, 1} with clusters
@@ -180,7 +200,9 @@ each tree in a fresh process in turns (DIR, this, this, DIR): the merged
 Inpainter's frames/s at B=256, the merged and per-sublayer latency at 1 /
 4 / 16 / 64 videos, the latency of phase 5's 600-frame request (per op)
 in float32 and int8, the A1 step time on the default route and with
-sublayer fusion off, and at "high" and "default", the per-sublayer
+sublayer fusion off, and at "high" and "default" (fused and per op, each
+beside one profiled step's device busy and wall time), the int8 merged
+Inpainter's frames/s in the three precisions, the per-sublayer
 Inpainter's frames/s in the three precisions and its one-video latency
 at "high", with the routes' output sums and the steps' first
 losses, which equal bit for bit where the kernels they run are
@@ -257,6 +279,12 @@ FF_MODE_TOL = {"ffn_high": HIGH_MODE_TOL, "ffn_train_high": HIGH_MODE_TOL,
                "ffn_default": DEFAULT_MODE_TOL,
                "ffn_train_default": DEFAULT_MODE_TOL,
                "ffn_bwd_split_default": DEFAULT_MODE_TOL}
+# the Dense products the JAX package leaves to XLA, in a mode: one product
+# (its backward two), held per output as the FF kernels are
+LINEAR_MODE_KERNELS = ("mode_linear_high", "mode_linear_default",
+                       "mode_linear_bwd_high", "mode_linear_bwd_default")
+# the int8 route's merged encoder layer in a mode
+INT8_MODE_KERNELS = ("enc_layer_int8_high", "enc_layer_int8_default")
 # the per-op attention's backward and the pointwise chains in a mode: no
 # probability rounded to one bf16 in their products ("high" splits the
 # backward's float32 p for dv), so each output is held per output as the FF
@@ -266,7 +294,9 @@ OP_MODE_TOL = {"attention_bwd_high": HIGH_MODE_TOL,
                "pre_stream_embed_high": HIGH_MODE_TOL,
                "pre_stream_embed_default": DEFAULT_MODE_TOL,
                "post_head_high": HIGH_MODE_TOL,
-               "post_head_default": DEFAULT_MODE_TOL}
+               "post_head_default": DEFAULT_MODE_TOL,
+               **{k: HIGH_MODE_TOL if k.endswith("_high") else
+                  DEFAULT_MODE_TOL for k in LINEAR_MODE_KERNELS}}
 ATTN_MODE_KERNELS = ("attention_high", "attention_default",
                      "attention_bwd_high", "attention_bwd_default")
 CHAIN_MODE_KERNELS = ("pre_stream_embed_high", "pre_stream_embed_default",
@@ -348,6 +378,16 @@ INT8_MEAN_TOL = 1e-5
 # within INT8_MPJPE_TOL where the floor is below half of it.
 INT8_MPJPE_TOL = 1e-3
 INT8_DRIFT = 2.0
+# the int8 route's merged encoder layer in a mode: its attention half flips
+# a bf16 probability as the merged mode layers do (LAYER_MODE_TOL), and its
+# int8 tail quantizes LN1's output, which a flip or the sum order moves one
+# step the other way (INT8_TOL): each output within INT8_TOL of its own
+# max, the mean within the int8 kernels' mean cap plus the merged mode
+# layer's own (at most 5.4e-7 at "high" and 1.1e-5 at "default" above),
+# and the mean MODE_SEPARATION times nearer its own mode
+LAYER_MODE_TOL.update(dict.fromkeys(INT8_MODE_KERNELS, INT8_TOL))
+INT8_LAYER_MEAN_TOL = {"enc_layer_int8_high": INT8_MEAN_TOL + 2e-5,
+                       "enc_layer_int8_default": INT8_MEAN_TOL + 4e-5}
 # int8 against float32 served predictions (masked MPJPE): the JAX serving
 # test's bound (tests/test_eval.py)
 INT8_VS_F32 = 0.1
@@ -437,7 +477,7 @@ NO_LAUNCHES = dict.fromkeys(
      "attn_sublayer_train", "attn_sublayer_bwd", "ffn_train", "ffn_bwd",
      "enc_layer", "dec_layer", "attention", "attention_bwd", "masked_loss",
      *INT8_KERNELS, *MODE_SERVE_KERNELS, *MODE_TRAIN_KERNELS,
-     *LAYER_MODE_KERNELS), 0)
+     *LAYER_MODE_KERNELS, *LINEAR_MODE_KERNELS, *INT8_MODE_KERNELS), 0)
 # the training step's launches of each kernel: 18 attention sublayers, 12
 # FF sublayers, forward and backward; none of the serving kernels
 TRAIN_COUNTS = {**NO_LAUNCHES, "attn_sublayer_train": 18,
@@ -468,11 +508,17 @@ INT8_SUBLAYER_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
 INT8_PER_OP_COUNTS = {**NO_LAUNCHES, "pre_stream_embed": 2,
                       "attention": 3 * LAYERS, "int8_dense": 7 * LAYERS,
                       "ffn_int8": 2 * LAYERS, "post_head": 1}
+# the per-op route's Dense products a layer pair in a mode (``mode_linear``):
+# q / k / v and the out-projection, 2 per self-attention, 3 for
+# cross-attention; and an A1 step's chains under autograd: the two
+# pre-stream chains' embedding, [fc1 | fc2] and fc3, the head's three
+PER_OP_DENSE, CHAIN_DENSE = 7, 9
 # the 600-frame request at "high": its per-op cores, FF sublayers and
-# pointwise chains in the mode
+# pointwise chains in the mode, its projections through mode_linear
 PER_OP_HIGH_COUNTS = {**NO_LAUNCHES, "pre_stream_embed_high": 2,
                       "attention_high": 3 * LAYERS, "ffn_high": 2 * LAYERS,
-                      "post_head_high": 1}
+                      "post_head_high": 1,
+                      "mode_linear_high": PER_OP_DENSE * LAYERS}
 # the per-op training step with the fused loss
 PER_OP_TRAIN_COUNTS = {**NO_LAUNCHES, "attention": 3 * LAYERS,
                        "attention_bwd": 3 * LAYERS, "ffn_train": 2 * LAYERS,
@@ -572,9 +618,14 @@ class KernelCheck:
                     fail(f"{name} {variant}: mean abs err {avg:.3e} of its "
                          f"max > {DEFAULT_MEAN_TOL:.1e}")
                 if layer_mode and base.endswith("_high") and \
+                        base not in INT8_MODE_KERNELS and \
                         avg > LAYER_HIGH_MEAN_TOL:
                     fail(f"{name} {variant}: mean abs err {avg:.3e} of its "
                          f"max > {LAYER_HIGH_MEAN_TOL:.1e}")
+                if base in INT8_MODE_KERNELS and \
+                        avg > INT8_LAYER_MEAN_TOL[base]:
+                    fail(f"{name} {variant}: mean abs err {avg:.3e} of its "
+                         f"max > {INT8_LAYER_MEAN_TOL[base]:.1e}")
             if name.split()[0] in INT8_KERNELS:
                 tol = INT8_TOL * scale
                 avg = float((g_ - w_).abs().mean())
@@ -1174,6 +1225,97 @@ class KernelCheck:
         return out
 
 
+    def linear_mode_calls(self, B, T):
+        """(kernel name, variant, wrapper call, plain call, is a gradient,
+        plain call in the wrong mode) of ``mode_linear`` and its backward in
+        "high" and "default" over B T rows: a per-op route's q / k / v
+        projection (D -> 3D, first: timed), the embedding of the 108-wide
+        frames (108 -> D, K padded to 112) and the head back to them (D ->
+        108, N padded to 112); the backward reads the planes of x and W
+        as the forward's call leaves them (``row_planes``,
+        ``linear_planes``)."""
+        k, o = self.k, self.operands(B, T)
+        out = []
+        for mode, tag in (("bf16x3", "high"), ("bf16", "default")):
+            wrong = WRONG_MODE[mode]
+            for variant, x, w, b in (
+                    ("qkv projection", o["x"], o["wqkv"], o["bqkv"]),
+                    ("embedding", o["x_in"], o["wemb"], o["bemb"]),
+                    ("head", o["x"], o["wh"], o["bh"])):
+                v = f"{variant} {w.shape[0]}->{w.shape[1]}"
+                args = (x, w, b)
+                self.layer_args.setdefault(f"mode_linear_{tag}", args)
+                out.append((f"mode_linear_{tag}", v,
+                            lambda a=args, md=mode: k.mode_linear(*a, md),
+                            lambda a=args, md=mode: k.mode_linear_plain(
+                                *a, md), False,
+                            lambda a=args, md=wrong: k.mode_linear_plain(
+                                *a, md)))
+                bargs = (self.rand(*x.shape[:-1], w.shape[1]), x, w)
+                planes = (k.row_planes(x, mode), k.linear_planes(w, mode))
+                out.append((f"mode_linear_bwd_{tag}", v,
+                            lambda a=bargs, md=mode, p=planes:
+                            k.mode_linear_bwd(*a, md, p),
+                            lambda a=bargs, md=mode: k.mode_linear_bwd_plain(
+                                *a, md), True,
+                            lambda a=bargs, md=wrong:
+                            k.mode_linear_bwd_plain(*a, md)))
+        return out
+
+    def int8_layer_mode_calls(self, o, mask, valid):
+        """(kernel name, variant, wrapper call, plain call, False, plain
+        call in the wrong mode) of the merged encoder layer with its FF
+        tail int8 in "high" and "default" (``_enc_kernel``'s ``ff_int8``
+        under those modes), the attention's planes split once as a packed
+        model keeps them, with the plain model's masks (first: timed) and
+        the Cycle model's."""
+        from keypoints_interpolation_transformer_torch.ops.kernels \
+            .int8_matmul import quantize_weight
+        k = self.k
+
+        def q(w):  # an (in, out) weight in torch's Linear layout
+            return quantize_weight(w.t().contiguous(), "ff")
+
+        ff8 = (*q(o["w1"]), o["b1"], *q(o["w2"]), o["b2"])
+        attn = (o["wqkv"], o["bqkv"], o["wo"], o["bo"])
+        out = []
+        for mode, tag in (("bf16x3", "high"), ("bf16", "default")):
+            planes = k.attn_weight_planes(*attn[:3], self.heads, mode)
+            for flags, m, kind in (("plain", mask, "repeat-inc"),
+                                   ("cycle", self.torch.ones_like(mask),
+                                    "all")):
+                args = (o["x"], *attn, *ff8, o["g"], o["be"], o["g2"],
+                        o["be2"], m, valid, kind, True, self.heads)
+                out.append((f"enc_layer_int8_{tag}", f"{flags} {kind}+keypad",
+                            lambda a=args, md=mode, p=planes:
+                            k.fused_encoder_layer_int8(*a, mode=md, planes=p),
+                            lambda a=args, md=mode:
+                            k.encoder_layer_int8_plain(*a, md), False,
+                            lambda a=args, md=WRONG_MODE[mode]:
+                            k.encoder_layer_int8_plain(*a, md)))
+        return out
+
+
+def library_mode_linear(torch, x, w, b):
+    """One bf16 pass as one PyTorch call: ``torch.mm`` on the bf16 operands
+    with a float32 output (``aten::mm.dtype``), plus the bias: the function
+    of ``mode_linear`` at "default"; None where the card's torch lacks
+    ``out_dtype``."""
+    try:
+        torch.mm(x.reshape(-1, x.shape[-1])[:1].to(torch.bfloat16),
+                 w.to(torch.bfloat16), out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        print(f"  mode_linear_default library: torch.mm(..., out_dtype) "
+              f"unavailable ({str(e).splitlines()[0][:80]})", flush=True)
+        return None
+
+    def call():
+        y = torch.mm(x.reshape(-1, x.shape[-1]).to(torch.bfloat16),
+                     w.to(torch.bfloat16), out_dtype=torch.float32)
+        return (y + b).reshape(*x.shape[:-1], w.shape[1])
+    return call
+
+
 def int8_work(name, B, T):
     """(float32 FLOP, int8 operations, bytes) of the int8 kernels' timed
     variants at (B, T): float32 activations in and out, int8 weights (one
@@ -1252,9 +1394,16 @@ def work(name, B, T):
     # or an output); the pre-stream chain is the embed kernel's second half
     table["pre_stream"] = (2 * N * 3 * D * D,
                            2 * N * D + T * D + 3 * D * D + 3 * D)
-    if name in INT8_KERNELS:
-        return int8_work(name, B, T)
+    # mode_linear's timed variant, the q / k / v projection (D -> 3D): x,
+    # W and b in, y out; its backward g, x and W in, dx, dW and db out
+    table["mode_linear"] = (2 * N * D * 3 * D,
+                            N * D + 3 * D * D + 3 * D + 3 * N * D)
+    table["mode_linear_bwd"] = (4 * N * D * 3 * D,
+                                3 * N * D + N * D + 3 * D * D + N * D
+                                + 3 * D * D + 3 * D)
     base = name.replace("_high", "").replace("_default", "")
+    if base in INT8_KERNELS:
+        return int8_work(base, B, T)
     flop, elems = table["ffn_bwd" if base == "ffn_bwd_split" else base]
     if name in CHAIN_MODE_KERNELS[:2]:  # timed with its embedding out
         elems += N * D
@@ -1472,7 +1621,8 @@ def library_encoder_layer_int8(torch, x, wqkv, bqkv, wo, bo, w1q, w1s, b1,
 # int8 kernels have none either: their library time is ``torch._int_mm``
 # (cuBLASLt) on the int8 operands plus the plain quantize and dequantize
 # steps and the float ops around them, labelled so where it is printed.
-LIBRARY = {"enc_layer": library_encoder_layer,
+LIBRARY = {"mode_linear_default": library_mode_linear,
+           "enc_layer": library_encoder_layer,
            "dec_layer": library_decoder_layer,
            "attention": library_attention,
            "attention_bwd": library_attention_bwd,
@@ -1496,7 +1646,7 @@ def bound(name, B, T):
         # or its backward's p^T dA) two, its probabilities being one bf16
         pv = 2 * B * HEADS * T * T * (D // HEADS)
         pv = (2 if name.startswith("dec") else 1) * pv \
-            if name in LAYER_MODE_KERNELS else \
+            if name in LAYER_MODE_KERNELS + INT8_MODE_KERNELS else \
             pv if name in SUBLAYER_MODE_KERNELS + ("attention_high",) else 0
         flop, peak = 3 * flop - pv, PEAK_BF16
     elif name.endswith("_default"):
@@ -1560,6 +1710,11 @@ def products_yardstick(torch, name, B, T):
         by_p = (planes(BH, T, T), planes(BH, T, dh), 3)
         prods = [scores, scores, by_p, by_p, by_p] if "bwd" in name else \
             [scores, (planes(BH, T, T), planes(BH, T, dh), 2)]
+    elif name.startswith("mode_linear"):
+        # y = x W (D -> 3D); the backward's dx = g W^T and dW = x^T g
+        prods = [(planes(N, 3 * D), planes(3 * D, D), 3),
+                 (t(planes(N, D)), planes(N, 3 * D), 3)] \
+            if "bwd" in name else [(planes(N, D), planes(D, 3 * D), 3)]
     elif name.startswith(("pre_stream_embed", "post_head")):
         # the embedding (108 -> D, K padded to 112), [W1 | W2] and W3, or
         # [W1 | W2], W3 and the head (D -> 108, N padded to 112)
@@ -1680,7 +1835,10 @@ def phase_kernels(torch, kmod):
                 + chk.layer_mode_calls(chk.operands(B, T), *chk.masks(B, T))
                 + chk.sublayer_mode_calls(B, b_train, T, blocked)
                 + chk.op_mode_calls(b_train, T, blocked)
-                + chk.chain_mode_calls(B, T))
+                + chk.chain_mode_calls(B, T)
+                + chk.linear_mode_calls(b_train, T)
+                + chk.int8_layer_mode_calls(chk.operands(B, T),
+                                            *chk.masks(B, T)))
 
     def held(fn):
         return None if fn is None else fn()
@@ -1734,7 +1892,7 @@ def phase_kernels(torch, kmod):
     for name, variant, kern, plain, grad, wrong in all_calls(
             B_MAIN, T_MAIN, B_TRAIN, False):
         B = B_TRAIN if name in TRAIN_KERNELS + PER_OP_KERNELS \
-            + MODE_TRAIN_KERNELS else B_MAIN
+            + MODE_TRAIN_KERNELS + LINEAR_MODE_KERNELS else B_MAIN
         chk.compare(name, f"B={B} T={T_MAIN} {variant}", kern(), plain(),
                     grad, held(wrong))
         if RESIDUAL_FORM in variant:
@@ -1758,10 +1916,16 @@ def phase_kernels(torch, kmod):
             print(f"  {name} library: none; no one PyTorch call computes "
                   "the fused sublayer, and none rounds float32 operands "
                   "to bf16 hi / lo parts", flush=True)
-        if name in LAYER_MODE_KERNELS:
+        if name in LAYER_MODE_KERNELS + INT8_MODE_KERNELS:
             print(f"  {name} library: none; no PyTorch call rounds the "
                   "operands of a layer's products, or its softmax "
                   "probabilities, to bf16 in-chain", flush=True)
+        if name in LINEAR_MODE_KERNELS and lib is None:
+            print(f"  {name} library: none; no one PyTorch call sums the "
+                  "three products of bf16 hi / lo parts (\"high\") or "
+                  "takes a product's two transposed products at once (the "
+                  "backward); the products-only yardstick below",
+                  flush=True)
         p0 = timed_ms(plain)
         k0 = timed_ms(kern)
         lib_ms = min(timed_ms(lib), timed_ms(lib)) if lib else None
@@ -1770,8 +1934,8 @@ def phase_kernels(torch, kmod):
         b_ms, b_by = bound(name, B, T_MAIN)
         times[name] = (min(k0, k1), min(p0, p1), b_ms, b_by, lib_ms)
         rate = ""
-        if name in LAYER_KERNELS + LAYER_MODE_KERNELS:  # the work, over
-            flop, int8, _ = work(name, B, T_MAIN)      # its time
+        if name in LAYER_KERNELS + LAYER_MODE_KERNELS + INT8_MODE_KERNELS:
+            flop, int8, _ = work(name, B, T_MAIN)  # the work, over its time
             rate = f"  {flop / times[name][0] / 1e9:.1f} TFLOP/s" + (
                 f" + {int8 / times[name][0] / 1e9:.1f} int8 TOP/s"
                 if int8 else "")
@@ -1782,7 +1946,7 @@ def phase_kernels(torch, kmod):
               + f"  (B={B} T={T_MAIN})", flush=True)
         if name in MODE_FF_KERNELS + LAYER_MODE_KERNELS \
                 + SUBLAYER_MODE_KERNELS + ATTN_MODE_KERNELS \
-                + CHAIN_MODE_KERNELS:
+                + CHAIN_MODE_KERNELS + LINEAR_MODE_KERNELS:
             call, count = products_yardstick(torch, name, B, T_MAIN)
             y_ms = min(timed_ms(call), timed_ms(call))
             print(f"  yardstick {name:14s} products only: {y_ms:.4f} ms "
@@ -1792,7 +1956,8 @@ def phase_kernels(torch, kmod):
                   f"at {y_ms / times[name][0]:.1%} of it", flush=True)
         if name in FORWARD_KERNELS + SUBLAYER_MODE_KERNELS + (
                 "attn_sublayer_bwd",) + ATTN_MODE_KERNELS \
-                + CHAIN_MODE_KERNELS:
+                + CHAIN_MODE_KERNELS + LINEAR_MODE_KERNELS \
+                + INT8_MODE_KERNELS:
             print(f"  launches {name}: {launch_ms(torch, kern)} ms; host "
                   f"{host_ms(torch, kern):.4f} ms a call", flush=True)
         if name in given:  # the training route's form, beside the row
@@ -2253,6 +2418,94 @@ def serve_over_cli(args, videos, masks):
             proc.wait(timeout=60)
 
 
+# int8 serving in a mode: the videos its gate compares on (the plain route
+# on the CPU, the spread's other summation order, takes them in seconds)
+INT8_MODE_VIDEOS = 32
+
+
+def int8_merged_counts(prec):
+    """One int8 forward on the merged route in a mode: the pointwise
+    kernels, the int8 merged encoder layer and the decoder layer (without
+    its FF tail) in the mode, then the int8 FF sublayer."""
+    tag = MODE_TAG[prec]
+    return {**NO_LAUNCHES, f"pre_stream_embed{tag}": 2,
+            f"enc_layer_int8{tag}": LAYERS, f"dec_layer{tag}": LAYERS,
+            "ffn_int8": LAYERS, f"post_head{tag}": 1}
+
+
+def int8_precision(torch, kmod, path, videos, masks, miss, highest, gpu):
+    """Int8 serving on the merged route at "high" and "default": the
+    launches of one call (``int8_merged_counts``); on the first
+    INT8_MODE_VIDEOS videos, the kernel route against the plain int8 route
+    in the same precision, within MODE_DRIFT times the plain route's spread
+    over float32 summation orders (the plain route on the CPU against it on
+    the card; at least INT8_MPJPE_TOL, as ``int8_tolerance`` floors the
+    int8 routes), and its distance from the int8 plain route at "highest"
+    (``highest``) within MODE_SEPARATION of the plain route's either way;
+    frames/s at B=256 beside int8 "highest" in turns.  Returns the int8
+    merged encoder's launches per mode."""
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    n = INT8_MODE_VIDEOS
+    sub, smask, smiss = videos[:n], masks[:n], miss[:n]
+    base = np.stack(highest[:n])
+    launches, engines = {}, {}
+    for prec in ("high", "default"):
+        tag = MODE_TAG[prec]
+        eng = {plain: Inpainter.from_checkpoint(
+            path, device=DEV, quantize="int8", precision=prec, plain=plain)
+            for plain in (False, True)}
+        kmod.reset_launches()
+        got = eng[False].inpaint(videos, masks)
+        torch.cuda.synchronize()
+        counts, want = kmod.launch_counts(), int8_merged_counts(prec)
+        if counts != want:
+            fail(f"int8 merged at {prec}: launches {counts} != {want}")
+        launches[f"enc_layer_int8{tag}"] = counts[f"enc_layer_int8{tag}"]
+        got = np.stack(got[:n])
+        plain = np.stack(eng[True].inpaint(sub, smask))
+        t0 = time.perf_counter()
+        cpu = np.stack(Inpainter.from_checkpoint(
+            path, device="cpu", quantize="int8", precision=prec,
+            plain=True).inpaint(sub, smask))
+        secs = time.perf_counter() - t0
+        if not np.isfinite(got).all() or got.shape != plain.shape:
+            fail(f"int8 merged at {prec}: shape {got.shape} or non-finite")
+        if not np.array_equal(got[smiss == 0], plain[smiss == 0]):
+            fail(f"int8 merged at {prec} changed a non-missing frame")
+        delta = masked_mpjpe_delta(got, plain, smiss)
+        spread = masked_mpjpe_delta(cpu, plain, smiss)
+        tol = max(MODE_DRIFT * spread, INT8_MPJPE_TOL)
+        own, pown = (masked_mpjpe_delta(o, base, smiss) for o in (got, plain))
+        print(f"  int8 merged at \"{prec}\" ({n} videos): kernel route "
+              f"against the plain int8 route in the mode masked MPJPE "
+              f"{delta:.3e} (tol {tol:.3e}: {MODE_DRIFT:g} x the plain "
+              f"route's spread over summation orders, {spread:.3e} from it "
+              f"on the CPU in {secs:.1f} s, at least {INT8_MPJPE_TOL:.0e}); "
+              f"against int8 \"highest\" the kernel route {own:.3e}, the "
+              f"plain route {pown:.3e} (within {MODE_SEPARATION:g} x of each "
+              f"other); launches {nonzero(counts)}", flush=True)
+        if not delta < tol:
+            fail(f"int8 merged at {prec}: {delta:.3e} from the plain route "
+                 f">= {tol:.3e}")
+        if not (pown < own * MODE_SEPARATION and own < pown * MODE_SEPARATION):
+            fail(f"int8 merged at {prec}: the kernel route lies {own:.3e} "
+                 f"from int8 \"highest\", its plain route {pown:.3e}: not "
+                 "the mode's arithmetic")
+        engines[prec] = eng[False]
+        del eng
+    engines["highest"] = Inpainter.from_checkpoint(path, device=DEV,
+                                                   quantize="int8")
+    fps = {}
+    for prec in PRECISIONS + PRECISIONS[::-1]:
+        fps[prec] = max(fps.get(prec, 0.0),
+                        frames_per_s(engines[prec], videos, masks))
+    print(f"  Inpainter int8 merged B={B_MAIN} T={T_MAIN}: " + ", ".join(
+        f"{p} {fps[p]:.1f} frames/s" for p in PRECISIONS)
+        + f" (best of 2 turns) on {gpu}", flush=True)
+    return launches
+
+
 def phase_int8(torch, kmod, path, variant_paths, gpu):
     """Int8 serving (``Inpainter(quantize="int8")``) from the flagship's
     reference .pth, against the plain int8 path and the float32 route."""
@@ -2335,6 +2588,8 @@ def phase_int8(torch, kmod, path, variant_paths, gpu):
           f"{lat['float merged']:.3f} ms (median of 7, best of 2 turns) on "
           f"{gpu}", flush=True)
     del engines
+    mode_launches = int8_precision(torch, kmod, path, videos, masks, miss,
+                                   outs["int8 plain"], gpu)
 
     # one 600-frame request: bucket 608, attention per op
     rng = np.random.default_rng(13)
@@ -2395,7 +2650,7 @@ def phase_int8(torch, kmod, path, variant_paths, gpu):
     merged = route_counts["int8 merged"]
     return {"enc_layer_int8": merged["enc_layer_int8"],
             "ffn_int8": merged["ffn_int8"],
-            "int8_dense": launches["int8_dense"]}
+            "int8_dense": launches["int8_dense"], **mode_launches}
 
 
 def train_setup(torch):
@@ -2688,10 +2943,13 @@ def kernel_name(ptxas_line):
     return mangled
 
 
-def device_profile(torch, label, fn, gpu):
-    """Device time by kernel of one call of ``fn`` (warmed twice before),
-    from torch.profiler (CUPTI), and the device's busy share of its wall
-    time."""
+def profiled(torch, fn):
+    """(rows, wall ms) of one call of ``fn`` (warmed twice before) under
+    torch.profiler (CUPTI): rows (name, self device ms, count) of the
+    kernels and copies only (an autograd node also reports the device time
+    of the kernels it launched, and a span, record_function or the
+    optimizer's step, the device time between its first and last kernel);
+    the wall time with the profiler on."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
@@ -2706,14 +2964,18 @@ def device_profile(torch, label, fn, gpu):
     def self_device_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
-    # kernels and copies only: an autograd node also reports the device
-    # time of the kernels it launched, and a span (record_function, the
-    # optimizer's step) the device time between its first and last kernel
     rows = [(e.key, self_device_us(e) / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU
             and not getattr(e, "is_user_annotation", False)
             and self_device_us(e) > 0]
+    return rows, wall
+
+
+def device_profile(torch, label, fn, gpu):
+    """Device time by kernel of one call of ``fn`` (``profiled``), and the
+    device's busy share of its wall time."""
+    rows, wall = profiled(torch, fn)
     busy = sum(r[1] for r in rows)
     print(f"profile: {label}, {gpu}: wall {wall:.3f} ms (profiler on), "
           f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %)",
@@ -2745,14 +3007,21 @@ def profile_paths(torch, gpu):
     from keypoints_interpolation_transformer_torch.utils.config import Config
     cfg = Config(model=dataclasses.replace(model_config(),
                                            matmul_precision="high"))
-    for label, mc in (("", cfg.model), (" per-op", dataclasses.replace(
-            cfg.model, attn_sublayer_fusion="off"))):
+    for label, mc in (
+            (" \"high\"", cfg.model),
+            (" per-op \"high\"", dataclasses.replace(
+                cfg.model, attn_sublayer_fusion="off")),
+            (" \"default\"", dataclasses.replace(
+                cfg.model, matmul_precision="default")),
+            (" per-op \"default\"", dataclasses.replace(
+                cfg.model, matmul_precision="default",
+                attn_sublayer_fusion="off"))):
         model = steps.build_model(mc, for_training=True, device=DEV,
                                   generator=torch.Generator().manual_seed(0))
         st = state.TrainState.create(model, lr)
         step = steps.make_train_step(model, Config(model=mc), None)
         gen = torch.Generator(device=DEV).manual_seed(7)
-        device_profile(torch, f"one{label} \"high\" train step, "
+        device_profile(torch, f"one{label} train step, "
                        f"B={B_TRAIN} T={T_MAIN}", lambda: step(
                            st, clean, length, weight, gen, lr), gpu)
         del model, st, step
@@ -2983,6 +3252,18 @@ def steps_ms(torch, runs, names, x, length, weight, lr):
     return out
 
 
+def train_mode_counts(counts, prec, per_op=False):
+    """``mode_counts`` of a training step's launches, with the Dense
+    products of its chains (and, per op, its projections) through
+    ``mode_linear`` and its backward in the mode."""
+    out = mode_counts(counts, prec)
+    if prec != "highest":
+        dense = CHAIN_DENSE + (PER_OP_DENSE * LAYERS if per_op else 0)
+        for name in ("mode_linear", "mode_linear_bwd"):
+            out[f"{name}{MODE_TAG[prec]}"] = dense
+    return out
+
+
 def merged_mode_counts(prec):
     """MERGED_COUNTS with the whole layers and the pointwise chains moved
     to the precision's own kernels."""
@@ -3079,6 +3360,26 @@ def merged_precision(torch, kmod, gpu, sd, videos, masks, miss):
     return launches
 
 
+# the parameters of the pointwise chains, whose products the training
+# route takes through mode_linear (the JAX package's XLA chains)
+CHAIN_PARAMS = ("input_embedding", "filled_embedding", "swiGlu_input_prev",
+                "swiGlu_filled_prev", "swiGlu_decoded", "fc_final")
+
+
+def chain_gaps(label, kernel, plain, wrong):
+    """Print the chain parameters' worst gradient gap, the kernel route
+    against the plain route in the mode and against one mode down (each
+    against its own largest value), already held with every parameter's
+    above."""
+    gaps = [max(float((kernel[n] - w[n]).abs().max())
+                / (float(w[n].abs().max()) or 1.0)
+                for n in kernel if n.startswith(CHAIN_PARAMS))
+            for w in (plain, wrong)]
+    print(f"  {label}: the chain parameters' gradients (mode_linear's "
+          f"backward) worst {gaps[0]:.3e} of their own max against the plain "
+          f"route in the mode, {gaps[1]:.3e} one mode down", flush=True)
+
+
 def phase_precision(torch, kmod, gpu, tmp):
     """Serving per sublayer at B=256 in the three precisions (launches,
     masked MPJPE against "highest": "high" gated at bench.py's 1e-4,
@@ -3106,7 +3407,7 @@ def phase_precision(torch, kmod, gpu, tmp):
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on: the plain mode versions would round twice")
     launches = dict.fromkeys(MODE_SERVE_KERNELS + MODE_TRAIN_KERNELS
-                             + LAYER_MODE_KERNELS, 0)
+                             + LAYER_MODE_KERNELS + LINEAR_MODE_KERNELS, 0)
     net = KeypointCompleter(D, LAYERS, HEADS, ff_dim=FF,
                             generator=torch.Generator().manual_seed(0))
     sd = net.state_dict()
@@ -3193,7 +3494,7 @@ def phase_precision(torch, kmod, gpu, tmp):
             runs[name] = (model, st,
                           steps.make_train_step(model, c, None, plain=plain))
         lr = cfg.train.lr
-        want = mode_counts(TRAIN_COUNTS, prec)
+        want = train_mode_counts(TRAIN_COUNTS, prec)
         for i in range(2):
             res = {}
             for name in ("plain", "kernel", "highest", *(n for n, *_ in
@@ -3212,7 +3513,7 @@ def phase_precision(torch, kmod, gpu, tmp):
                 if name in ("kernel", "again"):
                     if counts != want:
                         fail(f"{prec} step {i} launches {counts} != {want}")
-                    for n in MODE_TRAIN_KERNELS:
+                    for n in MODE_TRAIN_KERNELS + LINEAR_MODE_KERNELS:
                         launches[n] = max(launches[n], counts[n])
                     kernel_counts = nonzero(counts)
             (lk, gk), (lp, gp), (lf, _) = (res[n] for n in
@@ -3261,6 +3562,8 @@ def phase_precision(torch, kmod, gpu, tmp):
         if not (gap[0] <= tols[prec] and gap[0] * MODE_SEPARATION < gap[1]):
             fail(f"{prec} step gradients: {gap[0]:.3e} from the plain route "
                  f"in the mode, {gap[1]:.3e} from one mode down")
+        chain_gaps(f"{prec} A1 step", k, first_grads[(prec, "plain")],
+                   first_grads[wrong[prec]])
 
     # the per-op route (sublayer fusion off, the JAX package's training
     # route where its sublayer kernel is off) at "high" and "default": one
@@ -3294,10 +3597,10 @@ def phase_precision(torch, kmod, gpu, tmp):
             if not np.isfinite(res[name][0]):
                 fail(f"{prec} per-op {name} step: loss {res[name][0]}")
             if name == "kernel":
-                want = mode_counts(per_op, prec)
+                want = train_mode_counts(per_op, prec, per_op=True)
                 if counts != want:
                     fail(f"{prec} per-op step launches {counts} != {want}")
-                for n in ATTN_MODE_KERNELS:
+                for n in ATTN_MODE_KERNELS + LINEAR_MODE_KERNELS:
                     launches[n] = max(launches[n], counts[n])
                 per_op_runs[prec] = (st, step)
             elif any(counts.values()):
@@ -3316,7 +3619,11 @@ def phase_precision(torch, kmod, gpu, tmp):
               f"plain route in the mode, worst {gap[0]:.3e} of its own max, "
               f"one mode down {gap[1]:.3e} (tol {tols[prec]:.0e}, at least "
               f"{MODE_SEPARATION:g} x further); launches "
-              f"{nonzero(mode_counts(per_op, prec))}", flush=True)
+              f"{nonzero(train_mode_counts(per_op, prec, True))}",
+              flush=True)
+        chain_gaps(f"{prec} A1 step per op", k_,
+                   first_grads[(prec, "per-op plain")],
+                   first_grads[(prec, "per-op wrong")])
         if rel > LOSS_RTOL or grel > LOSS_RTOL:
             fail(f"{prec} per-op step: kernel and plain route differ")
         if not (gap[0] <= tols[prec] and gap[0] * MODE_SEPARATION < gap[1]):
@@ -3431,7 +3738,10 @@ def phase_widths(torch, kmod):
                             grad)
             for name, variant, kern, plain, grad, wrong in (
                     chk.layer_mode_calls(chk.operands(3, T), *chk.masks(3, T))
-                    + chk.sublayer_mode_calls(3, 3, T)):
+                    + chk.sublayer_mode_calls(3, 3, T)
+                    + chk.linear_mode_calls(3, T)
+                    + chk.int8_layer_mode_calls(chk.operands(3, T),
+                                                *chk.masks(3, T))):
                 chk.compare(name, f"{tag} T={T} {variant}", kern(), plain(),
                             grad, wrong())
         # B=40 (5120 rows) fills half the card with row tiles at every
@@ -3617,37 +3927,58 @@ def ab_measure(torch, gpu, out_path):
             step_ms = min(step_ms, start.elapsed_time(end) / 5)
         out[f"{key}step_ms"] = step_ms
         del model, st, step
-    # the precision modes: the A1 step at "high" and "default" (its first
-    # loss and time, as above); the per-sublayer Inpainter at B=256 in the
-    # three precisions (frames/s, best of 2) and at one video at "high"
-    # (latency, median of 7, best of 2)
+    # the precision modes: the A1 step at "high" and "default", on the
+    # default route and per op (fusion off): its first loss, its time as
+    # above, and one warm step's device time (the kernels' and copies'
+    # self time under torch.profiler) beside its wall time there
     import dataclasses
     out["mode_step_ms"], out["mode_loss"] = {}, {}
+    out["per_op_mode_step_ms"], out["mode_step_device_ms"] = {}, {}
     for prec in ("high", "default"):
-        cfg = Config(model=dataclasses.replace(model_config(),
-                                               matmul_precision=prec))
-        model = steps.build_model(cfg.model, for_training=True, device=DEV,
-                                  generator=torch.Generator().manual_seed(0))
-        st = state.TrainState.create(model, cfg.train.lr)
-        step = steps.make_train_step(model, cfg, None)
-        _, m = step(st, x, length, weight, torch.Generator(
-            device=DEV).manual_seed(100), cfg.train.lr)
-        out["mode_loss"][prec] = float(m["loss"])
-        step_ms = float("inf")
-        for _ in range(2):
+        for key, fusion in (("", "auto"), ("per_op_", "off")):
+            cfg = Config(model=dataclasses.replace(
+                model_config(), matmul_precision=prec,
+                attn_sublayer_fusion=fusion))
+            model = steps.build_model(cfg.model, for_training=True,
+                                      device=DEV, generator=torch.Generator()
+                                      .manual_seed(0))
+            st = state.TrainState.create(model, cfg.train.lr)
+            step = steps.make_train_step(model, cfg, None)
+            _, m = step(st, x, length, weight, torch.Generator(
+                device=DEV).manual_seed(100), cfg.train.lr)
+            if not key:
+                out["mode_loss"][prec] = float(m["loss"])
+            step_ms = float("inf")
+            for _ in range(2):
+                gen = torch.Generator(device=DEV).manual_seed(7)
+                step(st, x, length, weight, gen, cfg.train.lr)  # warm
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(5):
+                    step(st, x, length, weight, gen, cfg.train.lr)
+                end.record()
+                torch.cuda.synchronize()
+                step_ms = min(step_ms, start.elapsed_time(end) / 5)
+            out[f"{key}mode_step_ms"][prec] = step_ms
             gen = torch.Generator(device=DEV).manual_seed(7)
-            step(st, x, length, weight, gen, cfg.train.lr)  # warm
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(5):
-                step(st, x, length, weight, gen, cfg.train.lr)
-            end.record()
-            torch.cuda.synchronize()
-            step_ms = min(step_ms, start.elapsed_time(end) / 5)
-        out["mode_step_ms"][prec] = step_ms
-        del model, st, step
+            rows, wall = profiled(torch, lambda: step(
+                st, x, length, weight, gen, cfg.train.lr))
+            out["mode_step_device_ms"][f"{key}{prec}"] = (
+                sum(r[1] for r in rows), wall)
+            del model, st, step
+    # the int8 merged route at B=256 in the three precisions (frames/s,
+    # best of 2): "high" and "default" run the int8 mode layers where a
+    # tree has them
+    out["int8_mode_fps"] = {}
+    for prec in ("highest", "high", "default"):
+        inp = Inpainter(sd, dataclasses.replace(
+            model_config(), matmul_precision=prec), device=DEV,
+            quantize="int8")
+        out["int8_mode_fps"][prec] = max(frames_per_s(inp, videos, masks)
+                                         for _ in range(2))
+        del inp
     # the merged route at B=256 in the three precisions (frames/s, best
     # of 2): "high" and "default" run the mode layers where a tree has them
     out["merged_mode_fps"], out["merged_mode_sum"] = {}, {}
@@ -3738,6 +4069,18 @@ def ab(other, gpu):
                   f"B={B_MAIN} " + " / ".join(
                       f"{p} {v:.1f}" for p, v in
                       row["merged_mode_fps"].items()) + " frames/s",
+                  flush=True)
+            print(f"  ab {name} mode steps B={B_TRAIN} T={T_MAIN}: per op "
+                  "(fusion off) " + " / ".join(
+                      f"\"{p}\" {v:.3f}" for p, v in
+                      row["per_op_mode_step_ms"].items())
+                  + " ms; one warm step under the profiler, device busy / "
+                  "wall: " + ", ".join(
+                      f"{k} {d:.3f} / {w:.3f} ms" for k, (d, w) in
+                      row["mode_step_device_ms"].items())
+                  + f"; int8 merged Inpainter B={B_MAIN} " + " / ".join(
+                      f"{p} {v:.1f}" for p, v in
+                      row["int8_mode_fps"].items()) + " frames/s",
                   flush=True)
         parent, change = (np.load(os.path.join(tmp, f)) for f in
                           ("0_parent.npy", "1_change.npy"))

@@ -302,34 +302,6 @@ __global__ void __launch_bounds__(NT, (FfGeo<TN, BM, FC>::MIN_BLOCKS))
 }
 
 
-// The int8 forward: x1 = LN1(r) (with g1), z = ff_int8_rows(x1), y =
-// LN2(z); h (M, f.n) is the scratch ff_int8_rows keeps each row's GELU
-// output in.
-template <int TN>
-__global__ void __launch_bounds__(NT)
-ffn_int8_kernel(const float* __restrict__ r, int M, int n, const FFInt8 f,
-                const float* __restrict__ g1, const float* __restrict__ be1,
-                const float* __restrict__ g2, const float* __restrict__ be2,
-                float* __restrict__ y, float* h) {
-  constexpr int D = 32 * TN;
-  extern __shared__ __align__(16) float smem[];
-  float* Xs = smem;            // D x LDT
-  float* Hs = smem + D * LDT;  // D x LDT
-  const int row0 = blockIdx.x * BM;
-  stage_rows(Xs, r, D, row0, M, D);
-  __syncthreads();
-  float v[TM][TN];
-  get_rows<TN>(v, Xs);
-  if (g1 != nullptr) {
-    layer_norm<TN>(v, g1, be1, n);
-    put_rows<TN>(Xs, v);  // each thread rewrites only what it read
-  }
-  ff_int8_rows<TN>(Xs, Hs, f, h + (size_t)row0 * f.n, f.n, min(BM, M - row0));
-  get_rows<TN>(v, Xs);
-  layer_norm<TN>(v, g2, be2, n);
-  store_rows<TN>(y, D, D, row0, M, v);
-}
-
 // The forward in the build of BM-row tiles and FC-wide chunks, then, with
 // the split, its second pass.
 template <int TN, int BM, int FC>
@@ -343,18 +315,6 @@ int launch(const FfArgs& p, cudaStream_t st) {
   int rc = (int)cudaGetLastError();
   if (rc != 0 || p.parts == 1) return rc;
   ffn_finish_kernel<TN><<<(p.M + NT / 32 - 1) / (NT / 32), NT, 0, st>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <int TN>
-int launch_int8(const float* r, int M, int n, const FFInt8& f, const float* g1, const float* be1,
-                const float* g2, const float* be2, float* y, float* h, cudaStream_t st) {
-  constexpr int D = 32 * TN;
-  const int smem = 2 * D * LDT * sizeof(float);
-  static bool ready = false;
-  cudaError_t e = allow_smem(ffn_int8_kernel<TN>, smem, ready);
-  if (e != cudaSuccess) return (int)e;
-  ffn_int8_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(r, M, n, f, g1, be1, g2, be2, y, h);
   return (int)cudaGetLastError();
 }
 

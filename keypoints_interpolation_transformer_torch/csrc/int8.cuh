@@ -249,4 +249,51 @@ __device__ __noinline__ void ff_int8_rows(float* Xs, float* Hs, const FFInt8 f, 
   put_rows<TN, LD>(Xs, v);
 }
 
+// ---- the int8 FF sublayer (ffn.cu kit_ffn_int8; layer_modes.cu runs it as
+// the int8 merged encoder layer's tail in a mode) ---------------------------
+
+// The int8 forward: x1 = LN1(r) (with g1), z = ff_int8_rows(x1), y =
+// LN2(z); h (M, f.n) is the scratch ff_int8_rows keeps each row's GELU
+// output in.
+template <int TN>
+__global__ void __launch_bounds__(NT)
+ffn_int8_kernel(const float* __restrict__ r, int M, int n, const FFInt8 f,
+                const float* __restrict__ g1, const float* __restrict__ be1,
+                const float* __restrict__ g2, const float* __restrict__ be2,
+                float* __restrict__ y, float* h) {
+  constexpr int D = 32 * TN;
+  extern __shared__ __align__(16) float smem[];
+  float* Xs = smem;            // D x LDT
+  float* Hs = smem + D * LDT;  // D x LDT
+  const int row0 = blockIdx.x * BM;
+  stage_rows(Xs, r, D, row0, M, D);
+  __syncthreads();
+  float v[TM][TN];
+  get_rows<TN>(v, Xs);
+  if (g1 != nullptr) {
+    layer_norm<TN>(v, g1, be1, n);
+    put_rows<TN>(Xs, v);  // each thread rewrites only what it read
+  }
+  ff_int8_rows<TN>(Xs, Hs, f, h + (size_t)row0 * f.n, f.n, min(BM, M - row0));
+  get_rows<TN>(v, Xs);
+  layer_norm<TN>(v, g2, be2, n);
+  store_rows<TN>(y, D, D, row0, M, v);
+}
+
+// One launch of ffn_int8_kernel over M rows.  Internal linkage: see
+// sgemm_grad.cuh's host side (ffn.cu and layer_modes.cu each set the
+// shared-memory ceiling of their own copy of the kernel).
+template <int TN>
+static int launch_int8(const float* r, int M, int n, const FFInt8& f, const float* g1,
+                       const float* be1, const float* g2, const float* be2, float* y, float* h,
+                       cudaStream_t st) {
+  constexpr int D = 32 * TN;
+  const int smem = 2 * D * LDT * sizeof(float);
+  static bool ready = false;
+  cudaError_t e = allow_smem(ffn_int8_kernel<TN>, smem, ready);
+  if (e != cudaSuccess) return (int)e;
+  ffn_int8_kernel<TN><<<(M + BM - 1) / BM, NT, smem, st>>>(r, M, n, f, g1, be1, g2, be2, y, h);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace kit

@@ -75,6 +75,7 @@
 #include "common.cuh"
 #include "ffn_tc.cuh"
 #include "grad.cuh"
+#include "int8.cuh"
 #include "mma_bf16.cuh"
 #include "tc_gemm.cuh"
 
@@ -107,17 +108,14 @@ int ff_tail(const float* r, int M, int n, const FfW& f, float* y, cudaStream_t s
   return launch_tc<TN, PASSES>(p, f.w1h, f.w1l, f.w2h, f.w2l, st);
 }
 
-// The encoder layer (see the note at the top).  planes: 5 M D bf16 a plane
-// (x, q / k / v, the attention output); fs: M D floats (r).
+// The encoder layer's attention half: r = x + MHA(x) into fs (M D floats),
+// through the planes of x, q / k / v and the attention output.
 template <int TN, int PASSES>
-int enc_layer(const float* x, int B, int T, int n, int H, const AttnW& at, const FfW& ff,
-              const Masks& mk, float* y, bf16* planes, float* fs, cudaStream_t st) {
+int enc_attention(const float* x, int B, int T, int n, int H, const AttnW& at, const Masks& mk,
+                  Planes xp, Planes qkv, Planes ap, float* fs, cudaStream_t st) {
   constexpr int D = 32 * TN;
   const int M = B * T;
   const size_t MD = (size_t)M * D;
-  bf16* cur = planes;
-  const Planes xp = carve<PASSES>(cur, MD), qkv = carve<PASSES>(cur, 3 * MD),
-               ap = carve<PASSES>(cur, MD);
   int rc;
   KIT_CHECK(split_planes(x, MD, xp.hi, xp.lo, st));
   KIT_CHECK((project<PASSES, EPI_PLANES>(xp.hi, xp.lo, M, D, at.wh, at.wl, 3 * D, 3 * D,
@@ -127,9 +125,41 @@ int enc_layer(const float* x, int B, int T, int n, int H, const AttnW& at, const
   KIT_CHECK(attend<PASSES>(core(qkv, 3 * D, offset(qkv, D), offset(qkv, 2 * D), 3 * D, mk, ap, D,
                                 T, n / H),
                            B, H, st));
-  KIT_CHECK((project<PASSES, EPI_RES>(ap.hi, ap.lo, M, D, at.oh, at.ol, D, D,
-                                      res_out(fs, D, x, at.bo), st)));
-  return ff_tail<TN, PASSES>(fs, M, n, ff, y, st);
+  return project<PASSES, EPI_RES>(ap.hi, ap.lo, M, D, at.oh, at.ol, D, D,
+                                  res_out(fs, D, x, at.bo), st);
+}
+
+// The encoder layer (see the note at the top).  planes: 5 M D bf16 a plane
+// (x, q / k / v, the attention output); fs: M D floats (r).
+template <int TN, int PASSES>
+int enc_layer(const float* x, int B, int T, int n, int H, const AttnW& at, const FfW& ff,
+              const Masks& mk, float* y, bf16* planes, float* fs, cudaStream_t st) {
+  const size_t MD = (size_t)B * T * 32 * TN;
+  bf16* cur = planes;
+  const Planes xp = carve<PASSES>(cur, MD), qkv = carve<PASSES>(cur, 3 * MD),
+               ap = carve<PASSES>(cur, MD);
+  int rc;
+  KIT_CHECK((enc_attention<TN, PASSES>(x, B, T, n, H, at, mk, xp, qkv, ap, fs, st)));
+  return ff_tail<TN, PASSES>(fs, B * T, n, ff, y, st);
+}
+
+// The encoder layer with its FF tail int8 (_enc_kernel's ff_int8): the
+// attention half in the mode, then int8.cuh's ffn_int8_kernel (LN1, the
+// int8 x int8 products with their GELU, LN2), the tail the float32 int8
+// layer and the int8 FF sublayer compute.  planes and fs as enc_layer's;
+// h: M FF floats (the GELU rows).
+template <int TN, int PASSES>
+int enc_layer_int8(const float* x, int B, int T, int n, int H, const AttnW& at, const FFInt8& q,
+                   const float* g1, const float* be1, const float* g2, const float* be2,
+                   const Masks& mk, float* y, bf16* planes, float* fs, float* h,
+                   cudaStream_t st) {
+  const size_t MD = (size_t)B * T * 32 * TN;
+  bf16* cur = planes;
+  const Planes xp = carve<PASSES>(cur, MD), qkv = carve<PASSES>(cur, 3 * MD),
+               ap = carve<PASSES>(cur, MD);
+  int rc;
+  KIT_CHECK((enc_attention<TN, PASSES>(x, B, T, n, H, at, mk, xp, qkv, ap, fs, st)));
+  return launch_int8<TN>(fs, B * T, n, q, g1, be1, g2, be2, y, h, st);
 }
 
 // The decoder layer.  planes: 10 M D bf16 a plane (x, the memory, the self
@@ -236,6 +266,37 @@ extern "C" int kit_enc_layer_tc(int passes, const void* x, int B, int T, int D, 
     auto layer = passes == 3 ? enc_layer<TN, 3> : enc_layer<TN, 1>;
     return layer((const float*)x, B, T, n, H, at, ff, mk, (float*)y, (bf16*)planes, (float*)fs,
                  (cudaStream_t)stream);
+  });
+}
+
+// x (B, T, D) -> y (B, T, D): one encoder layer in mode passes with its FF
+// tail int8.  The attention weights as kit_enc_layer_tc takes them; w1q
+// (FF, D) and w2q (D, FF) int8 in torch's Linear layout with their
+// per-row scales w1s (FF) and w2s (D) (the "ff" form), b1, b2, LN1 g1 /
+// be1 and LN2 g2 / be2 as kit_ffn_int8 takes them.  planes and fs as
+// kit_enc_layer_tc's; h: B T FF floats.  FF a multiple of 4.
+extern "C" int kit_enc_layer_int8_tc(int passes, const void* x, int B, int T, int D, int n, int H,
+                                     int FF, const void* wh, const void* wl, const void* b,
+                                     const void* oh, const void* ol, const void* bo,
+                                     const void* w1q, const void* w1s, const void* b1,
+                                     const void* w2q, const void* w2s, const void* b2,
+                                     const void* g1, const void* be1, const void* g2,
+                                     const void* be2, const void* mask, const void* valid,
+                                     int repeat_inc, int add_keypad, void* y, void* planes,
+                                     void* fs, void* h, void* stream) {
+  auto f = [](const void* v) { return (const float*)v; };
+  const AttnW at = attn_w(wh, wl, b, oh, ol, bo);
+  const FfW none = ff_w(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                        nullptr, nullptr, 0, 1, nullptr);
+  if (w1q == nullptr || w2q == nullptr || FF <= 0 || FF % 4 || !args_ok(passes, D, n, H, at, none))
+    return (int)cudaErrorInvalidValue;
+  const FFInt8 q{(const int8_t*)w1q, f(w1s), f(b1), (const int8_t*)w2q, f(w2s), f(b2), FF};
+  const Masks mk{f(mask), f(valid), repeat_inc, add_keypad};
+  return by_width(D, [&](auto tn) {
+    constexpr int TN = decltype(tn)::value;
+    auto layer = passes == 3 ? enc_layer_int8<TN, 3> : enc_layer_int8<TN, 1>;
+    return layer(f(x), B, T, n, H, at, q, f(g1), f(be1), f(g2), f(be2), mk, (float*)y,
+                 (bf16*)planes, (float*)fs, (float*)h, (cudaStream_t)stream);
   });
 }
 

@@ -49,27 +49,6 @@ using namespace kit;
 // (Kernels in namespace kit: see attention_modes.cu.)
 namespace kit {
 
-// x (M, F) float32 -> hi / lo planes of row stride FP (F <= FP, both
-// multiples of 4), zero in the columns F .. FP - 1; lo null: hi only.
-__global__ void __launch_bounds__(NT) split_rows_kernel(const float* __restrict__ x, int M, int F,
-                                                        int FP, bf16* __restrict__ hi,
-                                                        bf16* __restrict__ lo) {
-  const int per_row = FP / 4;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)M * per_row;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t row = i / per_row;
-    const int c = 4 * (int)(i - row * per_row);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < F) v = __ldg(reinterpret_cast<const float4*>(x + row * F + c));
-    uint32_t h0, l0, h1, l1;
-    split2(v.x, v.y, h0, l0);
-    split2(v.z, v.w, h1, l1);
-    const size_t o = row * FP + c;
-    *reinterpret_cast<uint2*>(hi + o) = make_uint2(h0, h1);
-    if (lo != nullptr) *reinterpret_cast<uint2*>(lo + o) = make_uint2(l0, l1);
-  }
-}
-
 // The pre chain's row step: n = token_norm(e) (+ token_norm(e) with
 // pe_residual) + pe[row % T], as hi / lo planes (row stride D = 32 TN).
 template <int TN>
@@ -151,9 +130,7 @@ int pre_embed(const float* x, int M, int T, int F, const bf16* wembh, const bf16
   const Planes xp = carve<PASSES>(cur, (size_t)M * FP), np = carve<PASSES>(cur, (size_t)M * D),
                gp = carve<PASSES>(cur, (size_t)M * D);
   int rc;
-  const int blocks = (int)std::min<size_t>(((size_t)M * FP / 4 + NT - 1) / NT, 8 * 132);
-  split_rows_kernel<<<blocks, NT, 0, st>>>(x, M, F, FP, xp.hi, xp.lo);
-  KIT_CHECK((int)cudaGetLastError());
+  KIT_CHECK(split_rows(x, M, F, FP, xp.hi, xp.lo, st));
   GemmArgs pe_args{};
   pe_args.out = emb;
   pe_args.ldo = D;

@@ -3,6 +3,7 @@
 // launch (tc_gemm, tc_gemm_ld), and the split of a float32 matrix into its
 // planes (split_planes).  ffn.cu's split backward runs its four products on
 // it, layer_modes.cu the projections of the merged layers in a mode,
+// mode_linear.cu the products the JAX package leaves to XLA in a mode,
 // attn_sublayer_modes.cu every product of the attention sublayer in a mode;
 // see the notes at the top of those files.
 #pragma once
@@ -322,6 +323,37 @@ __global__ void split_kernel(const float* __restrict__ x, size_t n, bf16* __rest
     *reinterpret_cast<uint2*>(hi + i) = make_uint2(h0, h1);
     if (lo != nullptr) *reinterpret_cast<uint2*>(lo + i) = make_uint2(l0, l1);
   }
+}
+
+// x (M, F) float32 -> hi / lo planes of row stride FP (F <= FP, both
+// multiples of 4), zero in the columns F .. FP - 1; lo null: hi only: the
+// planes of a matrix whose width is no multiple of 8 (TMA's 16-byte row
+// rule), as the pointwise chains' 108-wide frames and mode_linear.cu's
+// operands are.
+__global__ void __launch_bounds__(NT) split_rows_kernel(const float* __restrict__ x, int M, int F,
+                                                        int FP, bf16* __restrict__ hi,
+                                                        bf16* __restrict__ lo) {
+  const int per_row = FP / 4;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < (size_t)M * per_row;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t row = i / per_row;
+    const int c = 4 * (int)(i - row * per_row);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < F) v = __ldg(reinterpret_cast<const float4*>(x + row * F + c));
+    uint32_t h0, l0, h1, l1;
+    split2(v.x, v.y, h0, l0);
+    split2(v.z, v.w, h1, l1);
+    const size_t o = row * FP + c;
+    *reinterpret_cast<uint2*>(hi + o) = make_uint2(h0, h1);
+    if (lo != nullptr) *reinterpret_cast<uint2*>(lo + o) = make_uint2(l0, l1);
+  }
+}
+
+inline int split_rows(const float* x, int M, int F, int FP, bf16* hi, bf16* lo,
+                      cudaStream_t st) {
+  const int blocks = (int)std::min<size_t>(((size_t)M * FP / 4 + NT - 1) / NT, 8 * 132);
+  split_rows_kernel<<<blocks, NT, 0, st>>>(x, M, F, FP, hi, lo);
+  return (int)cudaGetLastError();
 }
 
 inline int split_planes(const float* x, size_t n, bf16* hi, bf16* lo, cudaStream_t st) {

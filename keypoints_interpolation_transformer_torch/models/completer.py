@@ -35,26 +35,30 @@ Two routes, as the JAX package's ``build_model`` has them:
             forward and backward kernels); the pre- and post-stream chains
             through their plain versions under autograd, as the JAX
             training path keeps those chains in XLA (``build_model`` with
-            ``for_training``), not as a fallback.  ``merge_layers`` is not
-            read there, as the JAX training path sets it off.
+            ``for_training``), not as a fallback: their Dense products go
+            through ``mode_linear`` in the model's mode.  ``merge_layers``
+            is not read there, as the JAX training path sets it off.
 
 ``precision`` (the JAX ``matmul_precision`` names: "highest", "high",
 "default" and their aliases; ``utils/config.resolve_precision``) is set at
-construction and read by every forward: the FF sublayers run in its mode
-on both routes, and so do the merged whole-layer kernels on the serving
-route (every product of the layer, attention included, as the JAX
-``_enc_kernel`` / ``_dec_kernel`` take the mode) and the attention
-sublayer kernel on both routes (``_sublayer_kernel`` serving,
-``_sublayer_train_kernel`` and ``_sublayer_bwd_kernel`` training), the
-per-op attention core on both routes (``_attn_kernel``,
-``_attn_bwd_kernel``), and on the serving route the pointwise chains where
+construction and read by every forward, and every product of the model
+runs in its mode, as the JAX package runs its train step and its serving
+calls under the ambient ``jax.default_matmul_precision``: the FF sublayers
+on both routes, the merged whole-layer kernels on the serving route (every
+product of the layer, attention included, as the JAX ``_enc_kernel`` /
+``_dec_kernel`` take the mode; on the int8 route too, around its int8 FF),
+the attention sublayer kernel on both routes (``_sublayer_kernel``
+serving, ``_sublayer_train_kernel`` and ``_sublayer_bwd_kernel``
+training), the per-op attention core on both routes (``_attn_kernel``,
+``_attn_bwd_kernel``), the pointwise chains on the serving route where
 their kernels run (``pointwise_supported``; ``_pre_embed_kernel`` and
 ``_post_kernel`` in the mode, their weights split once into planes,
-``chain_planes_of``), int8 serving included, as the JAX Inpainter runs its
-Pallas chains under the ambient precision whatever its int8 interceptor
-does to the Dense layers.  The training route keeps the plain chains in
-float32, as the JAX training path keeps its XLA chains (``pw_impl =
-"xla"``); so do the XLA chains elsewhere (see ``models/layers.py``).
+``chain_planes_of``), int8 serving included, and the products the JAX
+package leaves to XLA, its ``nn.Dense`` calls: the chains elsewhere and in
+training and the per-op q / k / v and out-projections (see
+``models/layers.py``), through ``mode_linear`` (``dense_in_mode``) with its
+backward in the mode; int8 serving keeps the Dense calls int8 that its
+interceptor makes int8 (``_int8_chains``, the per-op projections).
 
 On both routes ``attn_sublayer_fusion`` off, or a length the sublayer
 kernel does not take (T > 512 or T % 8 != 0), sends attention per op
@@ -75,8 +79,9 @@ from ..ops.kernels.ffn import ffn_supported
 from ..ops.kernels.pointwise import pointwise_supported, token_norm
 from ..utils.config import resolve_precision
 from .layers import (AttnSpec, FeedForward, MultiHeadAttention, SwiGLU,
-                     TransformerCore, attn_planes, chain_planes_of, ff_planes,
-                     graph_linear, int8_dense, int8_linear, packed_linear,
+                     TransformerCore, attn_planes, chain_planes_of,
+                     dense_in_mode, ff_planes, graph_linear, int8_dense,
+                     int8_linear, packed_linear,
                      sinusoidal_positional_encoding)
 
 QUANTIZE = (None, "int8")
@@ -140,8 +145,8 @@ class KeypointCompleter(nn.Module):
 
     @property
     def mode(self) -> str:
-        """The precision mode of the FF and attention sublayers and the
-        merged layers: "f32", "bf16x3" or "bf16"."""
+        """The precision mode of every product of the model: "f32",
+        "bf16x3" or "bf16"."""
         return resolve_precision(self.precision)
 
     @torch.no_grad()
@@ -244,13 +249,14 @@ class KeypointCompleter(nn.Module):
         train = self.training and torch.is_grad_enabled()
         int8 = self.int8 and not train
         # the pointwise kernels where the JAX package takes its own
-        # (``pointwise_supported``), in the model's mode on the serving
-        # route; its XLA chains, here the plain ones, elsewhere, their
-        # Linears int8 under int8 serving
+        # (``pointwise_supported``) on the serving route; its XLA chains,
+        # here the plain ones, elsewhere and in training, their Dense
+        # products through ``mode_linear`` in the model's mode (int8 under
+        # int8 serving); every chain in the mode
         supported = pointwise_supported(self.hidden_dim, T)
-        kernel = supported and not plain
+        kernel = supported and not plain and not train
         int8_chains = int8 and not supported
-        chain_mode = self.mode if supported and not train else "f32"
+        mode = self.mode
         if train:
             pre, post = pre_stream_embed_plain, post_head_plain
             linear = graph_linear
@@ -276,11 +282,14 @@ class KeypointCompleter(nn.Module):
             pe_fill = (pe + learned_fill).contiguous()
 
         def chain_kw(sw, lin, head):
-            """The chain's mode (and the planes its kernels read)."""
-            if chain_mode == "f32":
+            """The chain's mode, and the planes its kernels read or the
+            Dense layer its plain version takes the products with."""
+            if mode == "f32" or int8_chains:
                 return {}
-            return {"mode": chain_mode, **({"planes": chain_planes_of(
-                sw, lin, chain_mode, head)} if kernel else {})}
+            if kernel:
+                return {"mode": mode,
+                        "planes": chain_planes_of(sw, lin, mode, head)}
+            return {"mode": mode, "linear": dense_in_mode(mode, plain)}
 
         kw_in, kw_fill, kw_post = (chain_kw(*c) for c in self._chains())
         src = pre(x, *linear(self.input_embedding), pe_in,
@@ -347,11 +356,11 @@ def keypoint_completer_cycle(hidden_dim: int, num_layers: int,
 
 class Embedding(nn.Module):
     """The linear autoencoder over flattened frames (the JAX ``Embedding``,
-    pre-trained by regime A3): output_embedding(input_embedding(x)).  Two
-    plain Linears, no kernel: the JAX package runs them as ``nn.Dense``
-    outside any Pallas kernel too.  It has no FF sublayer, so ``precision``
-    (checked and kept, as every model of the port carries one) changes
-    nothing."""
+    pre-trained by regime A3): output_embedding(input_embedding(x)).  The
+    JAX package runs its two ``nn.Dense`` outside any Pallas kernel, as XLA
+    dots in the ambient precision; so at "highest" they are two Linears
+    here, and at "high" / "default" (``precision``) two ``mode_linear``
+    products, serving and in A3 training (their backward in the mode)."""
 
     def __init__(self, hidden_dim: int, input_size: int = FRAME_FEATURES,
                  device=None, generator: Optional[torch.Generator] = None,
@@ -372,6 +381,11 @@ class Embedding(nn.Module):
 
     int8 = False
 
+    @property
+    def mode(self) -> str:
+        """The precision mode of its two products."""
+        return resolve_precision(self.precision)
+
     def pack_weights(self, quantize: Optional[str] = None) -> None:
         """With ``quantize="int8"``, quantize both Linears once (the Dense
         table's form) and serve them through the int8 dense layer, as the
@@ -384,13 +398,21 @@ class Embedding(nn.Module):
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """x (B, T, K, 2) -> its reconstruction (B, T, K, 2); int8 after
         ``pack_weights("int8")`` unless gradients are taken in ``train()``
-        mode (``plain`` then selects the int8 layer's plain version)."""
+        mode, else in the model's mode; ``plain`` selects the int8 layer's
+        or ``mode_linear``'s plain version."""
         B, T = x.shape[0], x.shape[1]
         h = x.reshape(B, T, -1).to(torch.float32)
-        if self.int8 and not (self.training and torch.is_grad_enabled()):
+        train = self.training and torch.is_grad_enabled()
+        linears = (self.input_embedding, self.output_embedding)
+        if self.int8 and not train:
             dense = int8_dense(plain)
-            for m in (self.input_embedding, self.output_embedding):
+            for m in linears:
                 h = dense(h, *int8_linear(m))
+        elif self.mode != "f32":
+            dense = dense_in_mode(self.mode, plain)
+            for m in linears:
+                h = dense(h, *(graph_linear(m) if train else
+                               packed_linear(m)))
         else:
             h = self.output_embedding(self.input_embedding(h))
         return h.reshape(B, T, NUM_KEYPOINTS, NUM_COORDS)

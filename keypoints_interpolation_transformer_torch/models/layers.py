@@ -21,8 +21,9 @@ mode (the training route's backward through ``ffn_bwd_split`` outside
 "f32"), its plain chain with the products in that mode.  So do the merged
 whole-layer kernels, every product of the layer (attention included) in
 the mode as the JAX ``_enc_kernel`` / ``_dec_kernel`` take them, their
-weights split once into bf16 planes (``attn_planes``, ``ff_planes``); int8
-serving keeps its merged layers float32 around the int8 FF.  So does the
+weights split once into bf16 planes (``attn_planes``, ``ff_planes``); on
+the int8 route too, around the int8 FF (the encoder's ``ff_int8`` tail
+inside ``fused_encoder_layer_int8``, the decoder's after it).  So does the
 attention sublayer kernel on the per-sublayer route, serving (the folded
 ``attn_planes`` of the merged layers) and training (its forward with q
 scaled after the bias and its backward, in the mode as the JAX
@@ -31,8 +32,10 @@ int8 route too, as the JAX package runs its per-sublayer attention in the
 ambient mode whatever the FF does.  So does the per-op attention core
 (``fused_attention`` / ``AttentionFunction`` in the mode, as the JAX
 ``_attn_kernel`` / ``_attn_bwd_kernel`` take it) on the serving, training
-and int8 routes; its projections stay ``F.linear`` (or int8), as the XLA
-products they replace.
+and int8 routes; and so do its q / k / v and out-projections, the JAX
+package's ``nn.Dense`` calls, which it leaves to XLA in the ambient
+precision: ``mode_linear`` in a bf16 mode (its backward in the mode under
+``train``), ``F.linear`` at "f32", int8 under int8 serving.
 
 Serving with ``merge=True`` (the JAX package's default, ``merge_layers``)
 takes the merged whole-layer kernels where the JAX package takes them
@@ -47,7 +50,7 @@ takes it (``use_sublayer_kernel``): with ``fuse`` (``attn_sublayer_fusion``)
 on and ``sublayer_supported(T, D)`` (T <= 512, T % 8 == 0); so do the
 merged kernels.  Elsewhere attention goes per op, as the JAX
 ``MultiHeadAttention`` does with a fused spec: q / k / v projections and
-the out-projection as library matmuls (XLA products there), the core
+the out-projection as Dense layers in the mode (XLA products there), the core
 through ``fused_attention`` (``AttentionFunction`` under ``train``), the
 residual and the decoder's self-attention LN1 as plain ops; the FF sublayer
 still goes through its kernel.
@@ -55,6 +58,7 @@ still goes through its kernel.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -69,7 +73,8 @@ from ..ops.kernels import (AttentionFunction, AttnSublayerFunction,
                            fused_attention, fused_attn_sublayer,
                            fused_decoder_layer, fused_encoder_layer,
                            fused_encoder_layer_int8, fused_ffn,
-                           fused_ffn_int8, fused_int8_dense, int8_dense_plain)
+                           fused_ffn_int8, fused_int8_dense, int8_dense_plain,
+                           mode_linear, mode_linear_plain)
 from ..ops.kernels.ffn import LN_EPS, ff_weight_planes, ffn_supported
 from ..ops.kernels.int8_matmul import quantize_weight
 from ..ops.kernels.layer_fused import (attn_weight_planes,
@@ -165,6 +170,15 @@ def int8_dense(plain: bool):
     return int8_dense_plain if plain else fused_int8_dense
 
 
+def dense_in_mode(mode: str, plain: bool):
+    """A Dense layer (x, w, b) -> x W + b with the product in ``mode``, as
+    the JAX package's XLA dots take the ambient precision: ``mode_linear``
+    (its kernel on the card, its backward in the mode under autograd), or
+    its plain version."""
+    return functools.partial(mode_linear_plain if plain else mode_linear,
+                             mode=mode)
+
+
 class AttnSpec(NamedTuple):
     """What an attention sublayer's bias is built from: the (B, T) frame
     mask (1 = missing) and valid mask (1 = real frame), both optional."""
@@ -230,26 +244,41 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim, device=device)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def project(self, q_in, kv_in, int8: bool = False, plain: bool = False):
+    def project(self, q_in, kv_in, int8: bool = False, plain: bool = False,
+                mode: str = "f32", train: bool = False):
         """q = q_in Wq + bq, k and v from kv_in, each (B, T, H, dh); with
         ``int8`` through the int8 dense layer (``int8_packed``), as the JAX
         package's int8 interceptor runs the q/k/v ``nn.Dense``: one call over
         the packed weight equals three, its scales being per output column
-        and x's per row."""
+        and x's per row.  In a bf16 ``mode`` through ``mode_linear`` (the
+        JAX package's XLA products in the ambient precision; one call over
+        [Wq | Wk | Wv] equals three, each output column its own product),
+        the parameters themselves under ``train``."""
         B, D = q_in.shape[0], q_in.shape[-1]
         H = self.num_heads
 
         def heads(t):
             return t.reshape(B, -1, H, D // H).contiguous()
 
-        if int8:
-            dense = int8_dense(plain)
-            wq, ws, b = self.int8_packed()[:3]
+        if int8 or mode != "f32":
+            if int8:
+                dense = int8_dense(plain)
+                wq, ws, b = self.int8_packed()[:3]
+
+                def part(t, cols):
+                    return dense(t, wq[cols], ws[cols], b[cols])
+            else:
+                dense = dense_in_mode(mode, plain)
+                w, b = (self.in_proj_weight.t(), self.in_proj_bias) \
+                    if train else self.packed()[:2]
+
+                def part(t, cols):
+                    return dense(t, w[:, cols], b[cols])
             if q_in is kv_in:
                 return tuple(heads(t) for t in
-                             dense(q_in, wq, ws, b).split(D, -1))
-            q = dense(q_in, wq[:D], ws[:D], b[:D])
-            k, v = dense(kv_in, wq[D:], ws[D:], b[D:]).split(D, -1)
+                             part(q_in, slice(None)).split(D, -1))
+            q = part(q_in, slice(0, D))
+            k, v = part(kv_in, slice(D, None)).split(D, -1)
             return heads(q), heads(k), heads(v)
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
@@ -278,14 +307,14 @@ class MultiHeadAttention(nn.Module):
     def attend(self, x, memory, spec: AttnSpec, plain: bool = False,
                train: bool = False, int8: bool = False, mode: str = "f32"):
         """attention(x, memory or x) on the per-op route (no residual):
-        the projections by ``F.linear`` (with ``int8``, serving only, by the
-        int8 dense layer), the core in precision ``mode`` through
-        ``fused_attention`` (``AttentionFunction`` under ``train``, which
-        outside "f32" takes the plain versions with ``plain``) or its plain
-        version."""
+        the projections by ``F.linear`` at "f32", by ``mode_linear`` in a
+        bf16 mode (with ``int8``, serving only, by the int8 dense layer),
+        the core in precision ``mode`` through ``fused_attention``
+        (``AttentionFunction`` under ``train``, which outside "f32" takes
+        the plain versions with ``plain``) or its plain version."""
         B, T, D = x.shape
         q, k, v = self.project(x, x if memory is None else memory, int8,
-                               plain)
+                               plain, mode, train)
         masks = (spec.mask, spec.valid, spec.kind, spec.add_keypad)
         if train and not (plain and mode == "f32"):
             a = AttentionFunction.apply(q, k, v, *masks, mode, plain)
@@ -296,6 +325,10 @@ class MultiHeadAttention(nn.Module):
         a = a.reshape(B, T, D)
         if int8:
             return int8_dense(plain)(a, *self.int8_packed()[3:])
+        if mode != "f32":
+            w, b = (self.out_proj.weight.t(), self.out_proj.bias) if train \
+                else self.packed()[2:]
+            return dense_in_mode(mode, plain)(a, w, b)
         return self.out_proj(a)
 
     def packed(self):
@@ -416,11 +449,15 @@ class EncoderLayer(FeedForward):
         sub = use_sublayer_kernel(fuse, T, D)
         if sub and merge and not train and fused_layer_supported(T, D, FF):
             args = (*self.self_attn.packed(), *spec, self.self_attn.num_heads)
-            if int8:
-                fn = encoder_layer_int8_plain if plain else \
-                    fused_encoder_layer_int8
+            if int8:  # the attention in the mode, the FF int8
                 ff = self.ff_int8_packed(self.norm1, self.norm2)
-                return fn(x, *args[:4], *ff, *args[4:])
+                if plain:
+                    return encoder_layer_int8_plain(x, *args[:4], *ff,
+                                                    *args[4:], mode)
+                planes = None if mode == "f32" else attn_planes(
+                    self.self_attn, mode)
+                return fused_encoder_layer_int8(x, *args[:4], *ff, *args[4:],
+                                                mode=mode, planes=planes)
             ff = self.ff_packed(self.norm1, self.norm2)
             if plain:
                 return encoder_layer_plain(x, *args[:4], *ff, *args[4:],
@@ -460,11 +497,9 @@ class DecoderLayer(FeedForward):
         sub = use_sublayer_kernel(fuse, T, D)
         if sub and merge and not train and memory.shape[1] == T:
             # the FF tail stays out of the merged kernel under int8, as
-            # the JAX package's ``full`` holds for its float kernel only
+            # the JAX package's ``full`` holds for its float kernel only;
+            # the layer in the mode all the same, then the int8 FF
             full = decoder_full_supported(T, D, FF) and not int8
-            # int8 serving keeps its decoder layers float32 (its outputs
-            # stay as they were; the int8 route at a mode is not ported)
-            lmode = "f32" if int8 else mode
             args = (y, memory, *self.self_attn.packed(),
                     *self.multihead_attn.packed(), self.norm1.weight,
                     self.norm1.bias,
@@ -474,13 +509,13 @@ class DecoderLayer(FeedForward):
                     cross_spec.kind, cross_spec.add_keypad,
                     self.self_attn.num_heads)
             if plain:
-                r = decoder_layer_plain(*args, lmode)
+                r = decoder_layer_plain(*args, mode)
             else:
-                planes = None if lmode == "f32" else (
-                    attn_planes(self.self_attn, lmode),
-                    attn_planes(self.multihead_attn, lmode),
-                    ff_planes(self, lmode) if full else None)
-                r = fused_decoder_layer(*args, mode=lmode, planes=planes)
+                planes = None if mode == "f32" else (
+                    attn_planes(self.self_attn, mode),
+                    attn_planes(self.multihead_attn, mode),
+                    ff_planes(self, mode) if full else None)
+                r = fused_decoder_layer(*args, mode=mode, planes=planes)
             if full:
                 return r
             return self.ff_sublayer(r, self.norm2, self.norm3, plain,

@@ -29,11 +29,14 @@ from .layer_fused import (attn_weight_planes, decoder_layer_plain,
                           encoder_layer_int8_plain, encoder_layer_plain,
                           fused_decoder_layer, fused_encoder_layer,
                           fused_encoder_layer_int8)
+from .linear import (ModeLinearFunction, linear_planes, mode_linear,
+                     mode_linear_bwd, row_planes)
 from .masked_loss import (FusedEuclideanLoss, fused_euclidean_loss,
                           fused_masked_loss, masked_loss_plain)
 from .pointwise import (chain_planes, fused_post_head, fused_pre_stream,
                         fused_pre_stream_embed, post_head_plain,
                         pre_stream_embed_plain, pre_stream_plain)
+from .precision import mode_linear_bwd_plain, mode_linear_plain
 
 
 class Kernel(NamedTuple):
@@ -46,6 +49,7 @@ class Kernel(NamedTuple):
 
 _TPU = "keypoints_interpolation_transformer_tpu/ops/pallas"
 _SRC = "keypoints_interpolation_transformer_torch/csrc"
+_XLA = "keypoints_interpolation_transformer_tpu/models"
 
 KERNELS = (
     Kernel("pre_stream_embed", fused_pre_stream_embed,
@@ -82,7 +86,7 @@ KERNELS = (
     Kernel("ffn_int8", fused_ffn_int8,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:248"),
     Kernel("enc_layer_int8", fused_encoder_layer_int8,
-           f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:77"),
+           f"{_SRC}/layer_fused.cu", f"{_TPU}/layer_fused.py:77", "f32"),
     # the precision modes: "high" (bf16x3) and "default" (one bf16 pass)
     Kernel("ffn_high", fused_ffn,
            f"{_SRC}/ffn.cu", f"{_TPU}/ffn.py:200", "bf16x3"),
@@ -144,6 +148,22 @@ KERNELS = (
            "bf16x3"),
     Kernel("post_head_default", fused_post_head,
            f"{_SRC}/pointwise_modes.cu", f"{_TPU}/pointwise.py:90", "bf16"),
+    # the products the JAX package leaves to XLA (its nn.Dense layers: the
+    # per-op projections, the training chains, the Embedding), which run
+    # in the ambient mode there: no Pallas body, the Dense call sites
+    Kernel("mode_linear_high", mode_linear,
+           f"{_SRC}/mode_linear.cu", f"{_XLA}/layers.py:88,112", "bf16x3"),
+    Kernel("mode_linear_default", mode_linear,
+           f"{_SRC}/mode_linear.cu", f"{_XLA}/layers.py:88,112", "bf16"),
+    Kernel("mode_linear_bwd_high", mode_linear_bwd,
+           f"{_SRC}/mode_linear.cu", f"{_XLA}/layers.py:88,112", "bf16x3"),
+    Kernel("mode_linear_bwd_default", mode_linear_bwd,
+           f"{_SRC}/mode_linear.cu", f"{_XLA}/layers.py:88,112", "bf16"),
+    # the int8 route's merged encoder layer in a mode (``ff_int8``)
+    Kernel("enc_layer_int8_high", fused_encoder_layer_int8,
+           f"{_SRC}/layer_modes.cu", f"{_TPU}/layer_fused.py:77", "bf16x3"),
+    Kernel("enc_layer_int8_default", fused_encoder_layer_int8,
+           f"{_SRC}/layer_modes.cu", f"{_TPU}/layer_fused.py:77", "bf16"),
 )
 
 

@@ -10,6 +10,9 @@ the precision modes), replacing
 
         r = x + MHA(x);  x1 = LN1(r);  y = LN2(x1 + gelu(x1 W1 + b1) W2 + b2)
 
+  * ``fused_encoder_layer_int8`` <- ``_enc_kernel`` with ``ff_int8``: the
+    same layer with its FF products int8 x int8 (per-row activation
+    scales, "ff"-form weight scales), its attention in the mode;
   * ``fused_decoder_layer`` <- ``_dec_kernel``: self-attention + LN1,
     cross-attention and, with ``ff``, the FF tail,
 
@@ -38,7 +41,11 @@ FF tail on the FF sublayer's own mode kernel, ``csrc/ffn_tc.cuh``), a
 short sequence of launches a call whose grids spread a video over the
 card themselves, so ``cluster`` is not read there; the weights arrive as
 bf16 planes (``attn_weight_planes`` and ``ffn.ff_weight_planes``), built
-once per packed model, or here from the float32 weights.
+once per packed model, or here from the float32 weights.  The int8 encoder
+layer in a mode runs the same attention launches, then the int8 FF
+sublayer's own kernel (``csrc/int8.cuh``'s ``ffn_int8_kernel``: LN1, the
+``__dp4a`` products with their GELU, LN2), as ``_enc_kernel`` keeps its
+``ff_int8`` tail whatever the ambient mode.
 
 The routing predicates are the port's copies of the JAX package's rules
 (``fused_layer_supported``, ``decoder_full_supported``, the sublayer
@@ -74,6 +81,8 @@ _SIGS = {"kit_enc_layer": "p" + "i" * 8 + "p" * 14 + "ii" + "p" * 3,
          "kit_dec_layer": "pp" + "i" * 8 + "p" * 20 + "ii" + "pp" + "ii"
                           + "p" * 3}
 _MODE_SIGS = {"kit_enc_layer_tc": "ip" + "i" * 7 + "p" * 18 + "ii" + "p" * 5,
+              "kit_enc_layer_int8_tc": "ip" + "i" * 6 + "p" * 18 + "ii"
+                                       + "p" * 5,
               "kit_dec_layer_tc": "ipp" + "i" * 7 + "p" * 26 + "ii" + "pp"
                                   + "ii" + "p" * 5}
 _MAX_CLUSTER = 8  # the portable thread-block cluster size
@@ -173,11 +182,13 @@ def encoder_layer_plain(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
 
 def encoder_layer_int8_plain(x, wqkv, bqkv, wo, bo, w1q, w1s, b1, w2q, w2s,
                              b2, g1, be1, g2, be2, mask, valid, kind: str,
-                             add_keypad: bool, heads: int):
-    """Plain PyTorch version of ``fused_encoder_layer_int8``: the float
-    attention sublayer, then the int8 FF sublayer with LN1 before it."""
+                             add_keypad: bool, heads: int, mode: str = "f32"):
+    """Plain PyTorch version of ``fused_encoder_layer_int8``: the attention
+    sublayer in ``mode`` (the TPU kernel's ``_prep_w`` weights, q's scale
+    folded before the split), then the int8 FF sublayer with LN1 before it,
+    in every mode as ``_enc_kernel``'s ``ff_int8`` tail computes it."""
     r = attn_sublayer_plain(x, None, wqkv, bqkv, wo, bo, None, None, mask,
-                            valid, kind, add_keypad, heads)
+                            valid, kind, add_keypad, heads, mode)
     return ffn_int8_plain(r, w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2, be2)
 
 
@@ -295,6 +306,22 @@ def _scratch(floats, n, D, device):
     return (torch.empty if n == D else torch.zeros)(floats, device=device)
 
 
+def _int8_ff(where, x, ff, D):
+    """The int8 FF tail's operands (``fused_encoder_layer_int8``'s w1q ..
+    be2), checked and zero-padded to the kernel width D and FF to a
+    multiple of 4: (F4, operands)."""
+    n = x.shape[-1]
+    w1q, w1s, b1, w2q, w2s, b2, *norms = ff
+    _build.check_tensors(where, x.device, w1s=w1s, b1=b1, w2s=w2s, b2=b2,
+                         **dict(zip(_FF[4:], norms)))
+    FF = check_int8_ff(where, n, w1q, w1s, b1, w2q, w2s, b2)
+    for name, t in zip(_FF[4:], norms):
+        _build.check_shape(where, name, t, (n,))
+    F4 = ff_kernel_width(FF)
+    return F4, (*pad_int8_ff(w1q, w1s, b1, w2q, w2s, b2, D, F4),
+                *(pad(t, D) for t in norms))
+
+
 def _launch_encoder(x, attn, ff, mask, valid, kind, add_keypad, heads,
                     cluster, int8=False):
     """The merged encoder layer at the kernel width, the operands
@@ -309,15 +336,7 @@ def _launch_encoder(x, attn, ff, mask, valid, kind, add_keypad, heads,
     cl = _cluster(where, B, x.device, cluster)
     attn = _pad_attn(attn, n, D)
     if int8:
-        w1q, w1s, b1, w2q, w2s, b2, *norms = ff
-        _build.check_tensors(where, x.device, w1s=w1s, b1=b1, w2s=w2s, b2=b2,
-                             **dict(zip(_FF[4:], norms)))
-        FF = check_int8_ff(where, n, w1q, w1s, b1, w2q, w2s, b2)
-        for name, t in zip(_FF[4:], norms):
-            _build.check_shape(where, name, t, (n,))
-        F4 = ff_kernel_width(FF)
-        ff = (*pad_int8_ff(w1q, w1s, b1, w2q, w2s, b2, D, F4),
-              *(pad(t, D) for t in norms))
+        F4, ff = _int8_ff(where, x, ff, D)
     else:
         FF = _check_weights(where, x, "", _FF, ff)
         F4 = ff_kernel_width(FF)
@@ -343,23 +362,33 @@ def fused_encoder_layer_int8(x, wqkv, bqkv, wo, bo, w1q, w1s, b1, w2q, w2s,
                              b2, g1, be1, g2, be2, mask, valid,
                              kind: str = "repeat-inc",
                              add_keypad: bool = False, heads: int = 8,
-                             cluster: int | None = None):
+                             cluster: int | None = None, mode: str = "f32",
+                             planes=None):
     """``fused_encoder_layer`` with its FF tail int8 (``_enc_kernel`` in its
     ``ff_int8`` mode): w1q (FF, D) and w2q (D, FF) int8 in torch's layout
-    with their "ff"-form scales (``int8_matmul.quantize_weight``); the
-    attention stays float32."""
+    with their "ff"-form scales (``int8_matmul.quantize_weight``).  The
+    attention runs in ``mode``: float32, or in "bf16x3" / "bf16" on
+    ``csrc/layer_modes.cu`` from the attention's bf16 planes (``planes``,
+    ``attn_weight_planes``, or split here from the float32 weights), as the
+    TPU kernel takes the ambient mode whatever the FF does."""
+    check_mode(mode)
     if x.device.type == "cpu":
         return encoder_layer_int8_plain(x, wqkv, bqkv, wo, bo, w1q, w1s, b1,
                                         w2q, w2s, b2, g1, be1, g2, be2, mask,
-                                        valid, kind, add_keypad, heads)
-    y = _launch_encoder(x, (wqkv, bqkv, wo, bo),
-                        (w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2, be2), mask,
-                        valid, kind, add_keypad, heads, cluster, int8=True)
-    fused_encoder_layer_int8.launches += 1
+                                        valid, kind, add_keypad, heads, mode)
+    ff = (w1q, w1s, b1, w2q, w2s, b2, g1, be1, g2, be2)
+    if mode == "f32":
+        y = _launch_encoder(x, (wqkv, bqkv, wo, bo), ff, mask, valid, kind,
+                            add_keypad, heads, cluster, int8=True)
+    else:
+        y = _launch_encoder_int8_mode(x, (wqkv, bqkv, wo, bo), ff, mask,
+                                      valid, kind, add_keypad, heads,
+                                      cluster, mode, planes)
+    fused_encoder_layer_int8.launches[mode] += 1
     return y
 
 
-fused_encoder_layer_int8.launches = 0
+fused_encoder_layer_int8.launches = dict.fromkeys(MODES, 0)
 
 
 def fused_decoder_layer(x, memory, swqkv, sbqkv, swo, sbo, cwqkv, cbqkv, cwo,
@@ -492,6 +521,31 @@ def _launch_encoder_mode(x, attn, ff, mask, valid, kind, add_keypad, heads,
                 n, heads, F16, parts, *at, *ffw, mask, valid,
                 int(kind == "repeat-inc"), int(add_keypad), y, buf, fs,
                 partial)
+    return cut(y, n)
+
+
+def _launch_encoder_int8_mode(x, attn, ff, mask, valid, kind, add_keypad,
+                              heads, cluster, mode, planes):
+    """The int8 route's merged encoder layer in ``mode`` at the kernel
+    width: the attention half of ``_launch_encoder_mode``'s layer, then the
+    int8 FF tail of ``kit_ffn_int8``."""
+    where = "fused_encoder_layer_int8"
+    _build.check_tensors(where, x.device, x=x)
+    _build.check_aligned(where, x=x, bo=attn[3])
+    mask = _check_masks(where, x, mask, valid, kind, add_keypad, heads)
+    _cluster(where, x.shape[0], x.device, cluster)  # checked, not read
+    B, T, n = x.shape
+    D = kernel_width(where, n)
+    at = _mode_attn(where, x, attn, planes, heads, mode, D)
+    F4, ffw = _int8_ff(where, x, ff, D)
+    x = pad(x, D)
+    y = torch.empty_like(x)
+    buf, fs, _ = _mode_buffers(B, T, D, False, mode, 1, x.device)
+    h = torch.empty(B * T * F4, device=x.device)  # each row's GELU output
+    lib = _build.bind("layer_modes", _MODE_SIGS)
+    _build.call(lib, "kit_enc_layer_int8_tc", x.device, _PASSES[mode], x, B,
+                T, D, n, heads, F4, *at, *ffw, mask, valid,
+                int(kind == "repeat-inc"), int(add_keypad), y, buf, fs, h)
     return cut(y, n)
 
 

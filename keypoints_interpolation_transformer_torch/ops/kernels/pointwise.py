@@ -39,12 +39,13 @@ mode) counts the calls that launched it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 from .ffn import _PASSES, LN_EPS
-from .precision import (MODES, check_mode, part_products, parts,
-                        weight_planes)
+from .precision import MODES, check_mode, mode_linear_plain, weight_planes
 from .widths import KERNEL_WIDTHS
 
 _SIGS = {"kit_pre_embed": "piiiipppppppppip",
@@ -77,33 +78,36 @@ def swiglu_plain(n, w12, b12, w3, b3):
     return (x1 * torch.sigmoid(x2)) @ w3 + b3
 
 
-def _mode_product(a, w, mode):
-    """a (..., K) @ w (K, N) from the bf16 parts of both (the JAX
-    ``_proj``'s three terms, or one), summed in float32."""
-    out = part_products(parts(a.reshape(-1, a.shape[-1]), mode),
-                        parts(w, mode))
-    return out.reshape(*a.shape[:-1], w.shape[1])
+def _dense(mode, linear):
+    """The chain's Dense layer in ``mode``: ``linear`` (x, w, b) if given
+    (the training route's ``mode_linear``, kernel and backward in the
+    mode), else ``mode_linear_plain``."""
+    return linear or functools.partial(mode_linear_plain, mode=mode)
 
 
-def swiglu_mode_plain(n, w12, b12, w3, b3, mode):
+def swiglu_mode_plain(n, w12, b12, w3, b3, mode, linear=None):
     """``swiglu_plain`` as the JAX ``_swiglu`` takes it in a mode: n's
     parts against [W1 | W2]'s, + b12, the gate in float32, its parts
-    against W3's, + b3."""
-    x1, x2 = (_mode_product(n, w12, mode) + b12).chunk(2, dim=-1)
-    return _mode_product(x1 * torch.sigmoid(x2), w3, mode) + b3
+    against W3's, + b3 (each product ``linear``, see ``_dense``)."""
+    dense = _dense(mode, linear)
+    x1, x2 = dense(n, w12, b12).chunk(2, dim=-1)
+    return dense(x1 * torch.sigmoid(x2), w3, b3)
 
 
 def pre_stream_embed_plain(x, wemb, bemb, pe_learned, w12, b12, w3, b3,
                            pe_residual: bool, want_emb: bool,
-                           mode: str = "f32"):
+                           mode: str = "f32", linear=None):
     """Plain PyTorch version of ``fused_pre_stream_embed``; in a mode the
-    JAX ``_pre_embed_kernel``'s arithmetic: e from x's and Wemb's parts,
-    the SwiGLU from the parts of n and of the gate."""
+    JAX ``_pre_embed_kernel``'s arithmetic, which is also its XLA chain's
+    (``nn.Dense`` under the ambient precision): e from x's and Wemb's
+    parts, the SwiGLU from the parts of n and of the gate.  ``linear``
+    (x, w, b) takes each product in the mode where given (``_dense``)."""
     if check_mode(mode) != "f32":
-        e = _mode_product(x, wemb, mode) + bemb
+        dense = _dense(mode, linear)
+        e = dense(x, wemb, bemb)
         n = token_norm(e)
         n = (n + n + pe_learned) if pe_residual else (n + pe_learned)
-        s = swiglu_mode_plain(n, w12, b12, w3, b3, mode)
+        s = swiglu_mode_plain(n, w12, b12, w3, b3, mode, dense)
         return (s, e) if want_emb else s
     e = x @ wemb + bemb
     n = token_norm(e)
@@ -121,14 +125,16 @@ def pre_stream_plain(e, pe_learned, w12, b12, w3, b3,
 
 
 def post_head_plain(decoded, filled_emb, w12, b12, w3, b3, wh, bh,
-                    mode: str = "f32"):
+                    mode: str = "f32", linear=None):
     """Plain PyTorch version of ``fused_post_head``; in a mode the JAX
     ``_post_kernel``'s arithmetic (the SwiGLU as above, the head from the
-    parts of swish(z) and Wh)."""
+    parts of swish(z) and Wh), ``linear`` as ``pre_stream_embed_plain``
+    takes it."""
     if check_mode(mode) != "f32":
-        z = token_norm(swiglu_mode_plain(decoded, w12, b12, w3, b3, mode)
-                       + filled_emb)
-        return _mode_product(z * torch.sigmoid(z), wh, mode) + bh
+        dense = _dense(mode, linear)
+        z = token_norm(swiglu_mode_plain(decoded, w12, b12, w3, b3, mode,
+                                         dense) + filled_emb)
+        return dense(z * torch.sigmoid(z), wh, bh)
     z = token_norm(swiglu_plain(decoded, w12, b12, w3, b3) + filled_emb)
     return (z * torch.sigmoid(z)) @ wh + bh
 

@@ -22,6 +22,15 @@ rounded to one bf16 that multiplies v's parts (``prob_products``).  A product of
 in float32, so ``mode_matmul`` emulates the kernels' operand rounding
 exactly, with float32 sums in another order.  On the card it needs TF32
 off, or its float32 products would round once more.
+
+The JAX package runs its whole train step and its serving calls under the
+ambient precision, so the products it leaves to XLA (its ``nn.Dense``
+layers: the training route's pointwise chains, the per-op q / k / v and
+out-projections, the Embedding) are in the mode too, and so are their
+transposed products in the backward.  ``mode_linear_plain`` is one such
+Dense layer: x W + b with the product in the mode, its gradients g W^T
+and x^T g in the mode as well (``_ModeMatmul``), the bias's a float32
+column sum.
 """
 
 from __future__ import annotations
@@ -123,3 +132,31 @@ def mode_matmul(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
         return a @ b
     _check_tf32(a)
     return _ModeMatmul.apply(a, b, mode)
+
+
+def mode_linear_plain(x: torch.Tensor, w: torch.Tensor, b, mode: str):
+    """x (..., K) W (K, N) + b (N,) (b may be None) with the product in
+    ``mode`` (``mode_matmul`` on the rows of x); at "f32" exactly ``x @ w +
+    b``.  Under autograd the gradients of x and W are products in the mode
+    too, the bias's the float32 sum of g over the rows."""
+    if check_mode(mode) == "f32":
+        y = x @ w
+    else:
+        y = mode_matmul(x.reshape(-1, x.shape[-1]), w, mode).reshape(
+            *x.shape[:-1], w.shape[1])
+    return y if b is None else y + b
+
+
+def mode_linear_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                          mode: str, need_dx: bool = True):
+    """The gradients of ``mode_linear_plain`` given g = dL/dy (..., N):
+    (dx = g W^T or None without ``need_dx``, dW = x^T g, db = the column
+    sums of g), the two products in ``mode`` over the rows of x and g."""
+    check_mode(mode)
+    g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+    if mode == "f32":
+        dx = (g2 @ w.t()).reshape(x.shape) if need_dx else None
+        return dx, x2.t() @ g2, g2.sum(0)
+    dx = _rounded_product(g2, w.t(), mode).reshape(x.shape) if need_dx \
+        else None
+    return dx, _rounded_product(x2.t(), g2, mode), g2.sum(0)

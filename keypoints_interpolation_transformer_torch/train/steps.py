@@ -183,7 +183,7 @@ def regime_loss(regime: str, model, first_model, y, inputs, mask, length,
         zeroed = zero_missing_frames(x, x_mask)
         x = torch.where(zero_gate[:, None, None, None], zeroed, x)
         y = x
-        pred = model(x)
+        pred = model(x, plain=plain)
     else:
         if regime == "a4":
             x = zero_missing_frames(x, x_mask)
@@ -292,7 +292,7 @@ def make_eval_step(model, cfg, first_model=None,
         x, x_no, x_mask, y_mask, valid = shift_streams(inputs, mask, length)
         if regime == "a3":
             x = zero_missing_frames(x, x_mask)  # always zeroed at eval
-            pred = model(x)
+            pred = model(x, plain=plain)
             return (losses.euclidean_loss(pred, x, frame_weight=valid),
                     losses.euclidean_loss(x, x, frame_weight=valid))
         y = clean

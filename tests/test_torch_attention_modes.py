@@ -27,6 +27,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from jax_dense_modes import dense_in_mode
 from keypoints_interpolation_transformer_tpu.models import completer as jc
 from keypoints_interpolation_transformer_tpu.ops.pallas import (
     attention as jattn)
@@ -264,7 +265,10 @@ def test_per_op_model_at_high_matches_jax():
     """The model with sublayer fusion off at "high" (its per-op attention
     cores and FF sublayers bf16x3) against the JAX KeypointCompleter with
     ``attention_impl="pallas"``, ``attn_sublayer_fusion`` off and its FF
-    on Pallas, in interpret mode under ambient "high".  A flipped encoder
+    on Pallas, in interpret mode under ambient "high", its ``nn.Dense``
+    layers (q / k / v, out-projections, the XLA chains at D = 32) rounded
+    as the TPU rounds them there (``jax_dense_modes``), as the port's
+    ``mode_linear`` rounds them.  A flipped encoder
     probability reaches every decoder frame of its video through the
     cross-attention (here 2 of 27 frames beyond TOL, 2.3e-4 at most, the
     mean 4e-6), so frames are held as ``_close_mode`` holds tokens, and
@@ -289,7 +293,7 @@ def test_per_op_model_at_high_matches_jax():
     run = jax.jit(lambda p, x, f: jm.apply(
         p, x, f, src_frame_mask=jnp.asarray(sm),
         tgt_frame_mask=jnp.asarray(tm), valid_mask=jnp.asarray(valid)))
-    with _interpret("high"):
+    with _interpret("high"), dense_in_mode("bf16x3"):
         want = np.asarray(run(params, jnp.asarray(x), jnp.asarray(f)))
     real = valid > 0
     outs = {}
@@ -310,8 +314,9 @@ def test_per_op_a1_step_at_high_matches_jax():
     """One A1 step with sublayer fusion off at "high" against
     ``jax.value_and_grad`` of the JAX A1 loss with ``attention_impl`` and
     ``ff_impl`` "pallas" and fusion off, under ambient "high" in interpret
-    mode: its attention backward is ``_attn_bwd_kernel`` in the mode, as
-    the port's; on the CPU the JAX package differentiates its FF kernel
+    mode, its ``nn.Dense`` products and their backward in the mode
+    (``jax_dense_modes``; the port's ``mode_linear``): its attention
+    backward is ``_attn_bwd_kernel`` in the mode, as the port's; on the CPU the JAX package differentiates its FF kernel
     through its float32 XLA reference (its native backward needs the TPU)
     while the port's runs bf16x3, so the gradients agree to that distance,
     about 2^-16 of the largest gradient, given a factor of 10 (as
@@ -341,7 +346,7 @@ def test_per_op_a1_step_at_high_matches_jax():
                                         valid)
         return jsteps._weighted_mean(criterion(pred, y, valid), weight)
 
-    with _interpret("high"):
+    with _interpret("high"), dense_in_mode("bf16x3"):
         batch = jax.jit(lambda key: jsteps.corrupt_batch(
             key, clean, length, augment=True, aug_prob=0.5,
             is_random_missing=False, dataset_name="all", stats=None))(

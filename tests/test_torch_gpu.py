@@ -492,9 +492,10 @@ def test_train_step_at_high_on_the_card(cuda):
     """Two layers at "high": one A1 step on the kernel and the plain route
     in that mode from the same parameters and corruption, the same loss
     and the same gradients (each parameter's within HIGH_MODE_TOL of its
-    own largest value, as the optimizer receives them), and the FF and
+    own largest value, as the optimizer receives them), the FF and
     attention sublayers through the "high" kernels (the bf16x3 forwards and
-    backwards, not the float32 ffn_bwd or attn_sublayer_train / _bwd)."""
+    backwards, not the float32 ffn_bwd or attn_sublayer_train / _bwd), and
+    the chains' Dense products through ``mode_linear`` and its backward."""
     import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     from keypoints_interpolation_transformer_torch.train import state, steps
@@ -528,7 +529,9 @@ def test_train_step_at_high_on_the_card(cuda):
     assert kernels.launch_counts() == {
         **chip_smoke.NO_LAUNCHES, "attn_sublayer_train_high": 6,
         "attn_sublayer_bwd_high": 6, "ffn_train_high": 4,
-        "ffn_bwd_split_high": 4}
+        "ffn_bwd_split_high": 4,
+        "mode_linear_high": chip_smoke.CHAIN_DENSE,
+        "mode_linear_bwd_high": chip_smoke.CHAIN_DENSE}
     assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])
     assert grads[True].keys() == grads[False].keys()
     for n, want in grads[True].items():
@@ -1256,8 +1259,11 @@ def test_mode_pair_and_chain_wrappers_raise_rather_than_fall_back(cuda):
 def test_per_op_a1_step_in_a_mode_launches_the_mode_pair(cuda):
     """A two-layer A1 step with sublayer fusion off at "high" and at
     "default" runs every attention core through the mode's pair (6 each: 2
-    encoder, 4 decoder) and no float32 attention kernel, and agrees with
-    the plain route in the same mode."""
+    encoder, 4 decoder) and no float32 attention kernel, its Dense products
+    through ``mode_linear`` and its backward (the chains' 9, the
+    projections' 7 a layer pair), and agrees with the plain route in the
+    same mode."""
+    import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     from keypoints_interpolation_transformer_torch.train import state, steps
     from keypoints_interpolation_transformer_torch.utils.config import (
@@ -1290,4 +1296,70 @@ def test_per_op_a1_step_in_a_mode_launches_the_mode_pair(cuda):
                 assert counts[f"attention{tag}"] == 6
                 assert counts[f"attention_bwd{tag}"] == 6
                 assert counts["attention"] == counts["attention_bwd"] == 0
+                # the chains' and the projections' Dense products
+                dense = chip_smoke.CHAIN_DENSE + chip_smoke.PER_OP_DENSE * 2
+                assert counts[f"mode_linear{tag}"] == dense
+                assert counts[f"mode_linear_bwd{tag}"] == dense
         assert abs(losses[False] - losses[True]) <= 1e-4 * abs(losses[True])
+
+
+@pytest.mark.gpu
+def test_mode_linear_matches_plain_on_the_card(cuda):
+    """``mode_linear`` and its backward in "high" and "default" against
+    their plain versions at a q / k / v projection, the 108-wide embedding
+    and the head (chip_smoke's ``linear_mode_calls``: each output within
+    its mode's limit of its own largest value, nearer its own mode than one
+    mode down), at T 40 and 128; through autograd the Function's forward
+    hands its planes to the backward, one launch each; a width that is no
+    multiple of 4 raises."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels, 128, 4, 256)
+    for T in (40, 128):
+        for name, variant, kern, plain, grad, wrong in \
+                chk.linear_mode_calls(3, T):
+            chk.compare(name, f"T={T} {variant}", kern(), plain(), grad,
+                        wrong())
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(3, 40, 108, device=cuda, generator=gen)
+    w = torch.randn(108, 128, device=cuda, generator=gen).requires_grad_()
+    b = torch.randn(128, device=cuda, generator=gen).requires_grad_()
+    g = torch.randn(3, 40, 128, device=cuda, generator=gen)
+    for mode in ("bf16x3", "bf16"):
+        kernels.reset_launches()
+        w.grad = b.grad = None
+        kernels.mode_linear(x, w, b, mode).backward(g)
+        counts = kernels.launch_counts()
+        tag = "_high" if mode == "bf16x3" else "_default"
+        assert counts[f"mode_linear{tag}"] == 1
+        assert counts[f"mode_linear_bwd{tag}"] == 1
+        _, dw, db = kernels.mode_linear_bwd_plain(g, x, w.detach(), mode)
+        for got, want in ((w.grad, dw), (b.grad, db)):
+            err = float((got - want).abs().max())
+            assert err <= chip_smoke.OP_MODE_TOL[f"mode_linear_bwd{tag}"] \
+                * float(want.abs().max())
+    with pytest.raises(ValueError, match="multiples of 4"):
+        kernels.mode_linear(torch.randn(2, 6, device=cuda),
+                            torch.randn(6, 8, device=cuda), None, "bf16")
+
+
+@pytest.mark.gpu
+def test_int8_layer_mode_kernels_match_plain_on_the_card(cuda):
+    """The int8 merged encoder layer in "high" and "default" against its
+    plain version in the mode (chip_smoke's ``int8_layer_mode_calls``) at
+    D 128 and 256, T 40 and 128, both models' masks; after the int8 FF
+    sublayer has run in the same process (``ffn.cu``'s copy of the int8
+    tail's kernel: each library sets its own copy's shared memory)."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    for d, heads in ((128, 4), (256, 8)):
+        chk = chip_smoke.KernelCheck(torch, kernels, d, heads, 4 * d)
+        for name, variant, kern, plain in chk.int8_calls(3, 40):
+            if name == "ffn_int8":
+                chk.compare(name, f"D={d} T=40 {variant}", kern(), plain())
+        for T in (40, 128):
+            for name, variant, kern, plain, grad, wrong in \
+                    chk.int8_layer_mode_calls(chk.operands(3, T),
+                                              *chk.masks(3, T)):
+                chk.compare(name, f"D={d} T={T} {variant}", kern(), plain(),
+                            grad, wrong())

@@ -281,7 +281,10 @@ def test_kernel_table_and_counters():
                      "attention_high", "attention_default",
                      "attention_bwd_high", "attention_bwd_default",
                      "pre_stream_embed_high", "pre_stream_embed_default",
-                     "post_head_high", "post_head_default"]
+                     "post_head_high", "post_head_default",
+                     "mode_linear_high", "mode_linear_default",
+                     "mode_linear_bwd_high", "mode_linear_bwd_default",
+                     "enc_layer_int8_high", "enc_layer_int8_default"]
     # the precision modes count apart, under their wrapper's mode
     modes = {k.name: k.mode for k in kernels.KERNELS if k.mode}
     assert modes["ffn"] == modes["ffn_train"] == "f32"

@@ -26,6 +26,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from jax_dense_modes import dense_in_mode
 from keypoints_interpolation_transformer_tpu.models import completer as jc
 from keypoints_interpolation_transformer_tpu.ops.pallas import (
     layer_fused as jlf)
@@ -305,8 +306,10 @@ def test_merged_model_at_high_matches_jax(rng, cycle):
     versions on the CPU) against the JAX model with its merged layers on
     Pallas (interpret mode, ambient "high") and ``pointwise_impl="pallas"``
     as on its TPU: at D = 32 its pointwise kernels do not take the width,
-    so its chains run on XLA, which on the CPU run in float32 as the
-    port's plain chains do.  The float32 port is further away."""
+    so its chains run on XLA in the ambient precision, their ``nn.Dense``
+    rounded as the TPU rounds them (``jax_dense_modes``), as the port's
+    plain chains take their products through ``mode_linear``.  The float32
+    port is further away."""
     Tm, dm, heads, ffm = 16, 32, 4, 64
     x, f, sm, tm, valid = _model_inputs(rng, Tm, True)
     kinds = "repeat-inc"
@@ -319,7 +322,7 @@ def test_merged_model_at_high_matches_jax(rng, cycle):
         jax.random.key(3), jnp.asarray(x[:1]), jnp.asarray(f[:1]))
     jm = make(attention_impl="pallas", ff_impl="pallas",
               pointwise_impl="pallas", **kw)
-    with _interpret("high"):
+    with _interpret("high"), dense_in_mode("bf16x3"):
         want = np.asarray(jax.jit(lambda p: jm.apply(
             p, *_j(x, f), src_frame_mask=jnp.asarray(sm),
             tgt_frame_mask=jnp.asarray(tm), valid_mask=jnp.asarray(valid),
@@ -404,9 +407,12 @@ def test_merged_route_takes_the_mode_and_packed_planes(rng, monkeypatch,
 
 
 def test_int8_route_keeps_its_layers_float32(rng, monkeypatch):
-    """Int8 serving at "high" keeps the merged layers around its int8 FF
-    in float32 (the int8 route at a mode is not ported): its decoder layers
-    get mode "f32", as at "highest"."""
+    """Int8 serving at "high" runs the merged layers around its int8 FF in
+    the mode, as the JAX package's do under the ambient precision (the
+    encoder's ``fused_encoder_layer_int8`` in ``tests/
+    test_torch_int8_modes.py``): its decoder layers get mode "bf16x3" and
+    the planes of their attention sublayers, as at "high" without int8;
+    at "highest" they stay "f32"."""
     rec = _Recorder(monkeypatch)
     model = KeypointCompleter(32, 1, 4, ff_dim=64, precision="high",
                               generator=torch.Generator().manual_seed(0))
@@ -414,7 +420,8 @@ def test_int8_route_keeps_its_layers_float32(rng, monkeypatch):
     with torch.no_grad():
         model.eval()(*_t(*_model_inputs(rng, 16, True)))
     assert [(n, m) for n, m, _ in rec.calls] == [("fused_decoder_layer",
-                                                  "f32")]
+                                                  "bf16x3")]
+    assert rec.calls[0][2] is not None
 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
@@ -446,7 +453,7 @@ def test_mode_kernels_in_the_table():
     their "f32" rows; the table counts per mode (the attention sublayer's
     six mode rows: ``tests/test_torch_sublayer_modes.py``)."""
     table = {k.name: k for k in kernels.KERNELS}
-    assert len(kernels.KERNELS) == 41
+    assert len(kernels.KERNELS) == 47
     for name, wrapper, line, mode in (
             ("enc_layer", kernels.fused_encoder_layer, 77, "f32"),
             ("enc_layer_high", kernels.fused_encoder_layer, 77, "bf16x3"),

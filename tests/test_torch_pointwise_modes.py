@@ -289,8 +289,9 @@ def test_model_routes_the_chains_by_mode(monkeypatch, prec, mode):
     """Serving at D = 128, T % 8 == 0 takes the chain kernels in the mode
     with the planes a packed model keeps (int8 serving too); the plain
     route the plain chains in the mode; a length the kernels do not take
-    (T % 8 != 0), "highest" and the training route the float32 plain
-    chains, as the JAX package keeps its XLA chains there."""
+    (T % 8 != 0) and the training route the plain chains in the mode with
+    their products through ``mode_linear``, as the JAX package's XLA chains
+    take the ambient precision there; "highest" the float32 kernels."""
     spy = _Spy(monkeypatch)
     model = KeypointCompleter(D, 1, 2, ff_dim=256, precision=prec,
                               generator=torch.Generator().manual_seed(0))
@@ -308,15 +309,15 @@ def test_model_routes_the_chains_by_mode(monkeypatch, prec, mode):
         assert spy.take() == [("pre", mode, False)] * 2 + [
             ("post", mode, False)]
         model(x[:, :13], x[:, :13], m[:, :13], m[:, :13])
-        assert spy.take() == [("pre", "f32", False)] * 2 + [
-            ("post", "f32", False)]
+        assert spy.take() == [("pre", mode, False)] * 2 + [
+            ("post", mode, False)]
         model.pack_weights("int8")
         model(x, x, m, m)
         assert spy.take() == fused
         model.pack_weights()
     model.train()(x, x, m, m).sum().backward()
-    assert spy.take() == [("pre", "f32", False)] * 2 + [
-        ("post", "f32", False)]
+    assert spy.take() == [("pre", mode, False)] * 2 + [
+        ("post", mode, False)]
     highest = KeypointCompleter(D, 1, 2, ff_dim=256,
                                 generator=torch.Generator().manual_seed(0))
     highest.pack_weights()

@@ -16,6 +16,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from jax_dense_modes import dense_in_mode
 from keypoints_interpolation_transformer_tpu.eval import serving as jserving
 from keypoints_interpolation_transformer_tpu.models import completer as jc
 from keypoints_interpolation_transformer_tpu.train import steps as jsteps
@@ -93,7 +94,9 @@ def test_model_forward_at_high_matches_jax(rng, cycle):
     with sublayer fusion, ``pointwise_impl="pallas"`` as on its TPU, no
     merged layers) in interpret mode under ambient "high": at D = 32 the
     pointwise kernels take neither width, so both packages run their plain
-    (XLA) chains, in float32 on the CPU, and split the work the same way.
+    (XLA) chains, in the mode (the JAX ``nn.Dense`` rounded as the TPU
+    rounds it there, ``jax_dense_modes``; the port's ``mode_linear``), and
+    split the work the same way.
     Within MODE_DRIFT times the JAX model's own drift on inputs one ulp
     away; a float32 port model is further away, MODE_SEPARATION times on
     average: the mode's rounding is what closes the gap."""
@@ -114,7 +117,7 @@ def test_model_forward_at_high_matches_jax(rng, cycle):
         tgt_frame_mask=jnp.asarray(tm), valid_mask=jnp.asarray(valid),
         src_mask_kind="repeat-inc", tgt_mask_kind="repeat-inc"))
     up = np.float32(2)
-    with _interpret("high"):
+    with _interpret("high"), dense_in_mode("bf16x3"):
         want = np.asarray(run(params, jnp.asarray(x), jnp.asarray(f)))
         moved = np.asarray(run(params, jnp.asarray(np.nextafter(x, up)),
                                jnp.asarray(np.nextafter(f, up))))
@@ -151,7 +154,10 @@ def test_a1_step_at_high_matches_jax():
     references (their native backwards need the TPU), while the port's
     backwards run bf16x3, so the gradients agree to the bf16x3-against-
     float32 distance, about 2^-16 of the largest gradient, given a factor
-    of 10."""
+    of 10.  The pre-stream and post-head chains, which its training route
+    leaves to XLA (``nn.Dense`` in the ambient precision), run in the mode
+    on both sides: the JAX Dense layers rounded as the TPU rounds them
+    (``jax_dense_modes``), the port's through ``mode_linear``."""
     Bq, Tq = 4, 16
     mc = jconfig.ModelConfig(hidden_dim=D_, num_heads=HEADS,
                              num_layers=LAYERS, ff_dim=FF_, ff_impl="pallas",
@@ -178,7 +184,7 @@ def test_a1_step_at_high_matches_jax():
                                         valid)
         return jsteps._weighted_mean(criterion(pred, y, valid), weight)
 
-    with _interpret("high"):
+    with _interpret("high"), dense_in_mode("bf16x3"):
         batch = jax.jit(lambda key: jsteps.corrupt_batch(
             key, clean, length, augment=True, aug_prob=0.5,
             is_random_missing=False, dataset_name="all", stats=None))(
@@ -233,7 +239,8 @@ def test_loop_cli_and_inpainter_take_the_modes(tmp_path, monkeypatch):
     per-sublayer Inpainter serves its non-missing frames untouched, at
     "high" within HIGH_TOL of the JAX Inpainter at "high" on its Pallas
     kernels (interpret mode; its attention rounds p to one bf16 as the
-    port's does), nearer it than the port at "highest" is, and within
+    port's does; its XLA chains at D = 32 in the mode, ``jax_dense_modes``,
+    as the port's), nearer it than the port at "highest" is, and within
     bench.py's masked-MPJPE gate of "highest", at "default" within the
     mode's distance of "highest"."""
     import json
@@ -287,7 +294,7 @@ def test_loop_cli_and_inpainter_take_the_modes(tmp_path, monkeypatch):
                              ff_dim=64, attention_impl="pallas",
                              ff_impl="pallas", attn_sublayer_fusion="on",
                              pointwise_impl="pallas", matmul_precision="high")
-    with _interpret("high"):
+    with _interpret("high"), dense_in_mode("bf16x3"):
         want = jserving.Inpainter.from_checkpoint(
             path, mc, bucket_multiple=16).inpaint(videos, masks)
     for a, b in zip(outs["high"], want):

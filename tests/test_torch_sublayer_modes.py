@@ -315,7 +315,7 @@ def test_mode_rows_in_the_table():
     beside their "f32" rows, each naming the JAX kernel it replaces; the
     table counts per mode, and the plain versions count nothing."""
     table = {k.name: k for k in kernels.KERNELS}
-    assert len(kernels.KERNELS) == 41
+    assert len(kernels.KERNELS) == 47
     src = (_build.CSRC.parents[1] / "keypoints_interpolation_transformer_tpu"
            / "ops/pallas/attn_sublayer.py").read_text().splitlines()
     for base, wrapper, line, body in (
