@@ -119,8 +119,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
      nearer than the route one mode down), its
      launches (attn_sublayer_train_high 18, attn_sublayer_bwd_high 18,
      ffn_train_high 12, ffn_bwd_split_high 12, mode_linear_high and
-     mode_linear_bwd_high 9 for the chains' Dense products, the float32
-     ones 0; the chain parameters' gradients printed apart), two
+     mode_linear_bwd_high 9 for the chains' Dense products, each weight
+     split once a step, ``weight_planes.splits`` as many as mode_linear's
+     launches, the float32 ones 0; the chain parameters' gradients
+     printed apart), two
      "high" runs from one seed equal bit for bit, step time beside the
      float32 step, loss against it; one A1 step with sublayer fusion off
      at "high" and at "default" (attention_<mode> 18, attention_bwd_<mode>
@@ -174,14 +176,18 @@ without the Cycle residual and the embedding out, timed at B=256);
 k / v projection (256 -> 768, timed at B=64), the 108-wide embedding and
 the head (their widths padded to 112), beside ``torch.mm`` on bf16
 operands with a float32 output at "default" (its library call) and a
-products-only yardstick; the int8 merged encoder layer in "high" and
+products-only yardstick; the launches a call of the timed rows read from
+the profiler and held to ``CALL_LAUNCHES`` (``mode_linear`` one, the
+sublayer's backward in a mode seven at T=128, given the forward's planes
+of x and a); the int8 merged encoder layer in "high" and
 "default" with both models' masks (timed at B=256); a
 forward's statistics are held over the videos with a real key (a video
 whose keys are all padded holds a -1e9 sentinel); phase 5 also serves one
 600-frame video (bucket 608, above the sublayer kernel's 512) on the
 per-op route: attention 18, ffn 12, pre_stream_embed 2, post_head 1; and
 again at "high" (attention_high 18, ffn_high 12, pre_stream_embed_high 2,
-post_head_high 1, mode_linear_high 42 for its projections), masked MPJPE
+post_head_high 1, mode_linear_high 42 for its projections; a warm
+request splits no weight: ``weight_planes.splits`` 0), masked MPJPE
 against "highest" beside bench.py's gate
 and the plain route's figure in the mode (the run fails where the kernels
 miss the gate and their plain version does not).
@@ -206,7 +212,9 @@ Inpainter's frames/s in the three precisions, the per-sublayer
 Inpainter's frames/s in the three precisions and its one-video latency
 at "high", with the routes' output sums and the steps' first
 losses, which equal bit for bit where the kernels they run are
-unchanged, and the merged outputs' difference between the trees.
+unchanged, every kernel row's output sums on phase 2's seeded operands
+(float32, int8 and mode kernels; ``mode_linear_bwd`` given the same
+planes), and the merged outputs' difference between the trees.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card it exits 1 and prints
@@ -735,7 +743,7 @@ class KernelCheck:
                      lambda a=args: k.fused_attn_sublayer(*a),
                      lambda a=args: k.attn_sublayer_plain(*a)),
                     ("attn_sublayer_train", variant,
-                     lambda a=args: k.fused_attn_sublayer_train(*a),
+                     lambda a=args: k.fused_attn_sublayer_train(*a)[:5],
                      lambda a=args: k.attn_sublayer_train_plain(*a))]
         return out
 
@@ -918,7 +926,7 @@ class KernelCheck:
             ln = (o["g"], o["be"]) if ln else (None, None)
             args = (o["x"], mem, o["wqkv"], o["bqkv"], o["wo"], o["bo"], *ln,
                     mask, valid, kind, keypad, self.heads)
-            kern = lambda a=args: k.fused_attn_sublayer_train(*a)  # noqa
+            kern = lambda a=args: k.fused_attn_sublayer_train(*a)[:5]  # noqa
             plain = lambda a=args: k.attn_sublayer_train_plain(*a)  # noqa
             if blocked and B > 2:  # the stats of the videos with a real key
                 kern, plain = (real_stats(f, 3, valid) for f in (kern, plain))
@@ -958,8 +966,14 @@ class KernelCheck:
         wrong mode (a mode's statistics are log2-domain).  Keys padded in
         the second video and, with ``blocked`` and b_train > 2, every key of
         the third in training."""
+        from keypoints_interpolation_transformer_torch.ops.kernels import \
+            attn_sublayer as tas
         from keypoints_interpolation_transformer_torch.ops.kernels \
             .attn_sublayer import attn_train_planes, attn_weight_planes
+        # the backward given the planes of x, the memory and a as the
+        # training forward keeps them (an older tree, which splits them in
+        # the call, has no such planes)
+        act_planes = getattr(tas, "attn_act_planes", None)
         k, out = self.k, []
         o, (mask, valid) = self.operands(B, T), self.masks(B, T)
         ot, (tmask, tvalid) = self.operands(b_train, T), self.masks(b_train,
@@ -991,7 +1005,7 @@ class KernelCheck:
                          ot["bo"], *norm, tmask, tvalid, kind, keypad,
                          self.heads)
                 calls = (lambda a=targs, m=mode, p=tp:
-                         k.fused_attn_sublayer_train(*a, m, p),
+                         k.fused_attn_sublayer_train(*a, m, p)[:5],
                          lambda a=targs, m=mode:
                          k.attn_sublayer_train_plain(*a, m),
                          lambda a=targs, m=wrong:
@@ -1008,9 +1022,12 @@ class KernelCheck:
                             tmask, tvalid, kind, keypad, self.heads, md)
 
                 own, other = bargs(mode), bargs(wrong)
+                extra = () if act_planes is None else (
+                    act_planes(own[1], own[2], own[4], mode),)
                 out.append((
                     f"attn_sublayer_bwd_{tag}", variant,
-                    lambda a=own, p=tp: k.attn_sublayer_bwd(*a, p),
+                    lambda a=own, p=tp, e=extra: k.attn_sublayer_bwd(*a, p,
+                                                                     *e),
                     lambda a=own: k.attn_sublayer_bwd_plain(*a), True,
                     lambda a=other: k.attn_sublayer_bwd_plain(*a)))
         return out
@@ -1755,6 +1772,13 @@ def products_yardstick(torch, name, B, T):
     return call, sum(terms if three else 1 for _, _, terms in prods)
 
 
+# the kernels a call of which makes a known number of launches, which
+# phase 2 reads from the profiler at its timed row: mode_linear's forward
+# one (x split in the kernel, W's planes cached), the attention sublayer's
+# backward in a mode seven for self-attention at T=128 (the fused core;
+# the forward's planes of x and a)
+CALL_LAUNCHES = {"mode_linear_high": 1, "mode_linear_default": 1,
+                 "attn_sublayer_bwd_high": 7, "attn_sublayer_bwd_default": 7}
 # the sublayer forwards, whose launches phase 2 prints apart
 FORWARD_KERNELS = ("ffn", "ffn_train", "attn_sublayer", "attn_sublayer_train")
 # one 128-frame video and the 600-frame request's bucket: the FF split and
@@ -1769,9 +1793,11 @@ def kernel_key(name):
     return name.split("(")[0][:48]
 
 
-def launch_ms(torch, fn):
+def launch_ms(torch, fn, count=False):
     """One call's device time by CUDA kernel (torch.profiler), in launch
-    order, then their sum: "name ms, ...; device sum ms"."""
+    order, then their sum: "name ms, ...; device sum ms"; with ``count``
+    also the number of device activities (kernels and memsets) the call
+    made."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1784,8 +1810,9 @@ def launch_ms(torch, fn):
                      getattr(e, "self_cuda_time_total", 0))
         if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
             rows.append((kernel_key(e.name), us / 1e3))
-    return (", ".join(f"{k} {ms:.4f}" for k, ms in rows)
+    text = (", ".join(f"{k} {ms:.4f}" for k, ms in rows)
             + f"; device sum {sum(ms for _, ms in rows):.4f}")
+    return (text, len(rows)) if count else text
 
 
 def host_ms(torch, fn, iters=20):
@@ -1847,6 +1874,16 @@ def phase_kernels(torch, kmod):
         for name, variant, kern, plain, grad, wrong in all_calls(3, T, 3):
             chk.compare(name, f"B=3 T={T} {variant}", kern(), plain(), grad,
                         held(wrong))
+    # the attention sublayer's mode kernels where the fused backward core
+    # takes two tiles of 128 rows: T=144 (the last fused length at "high")
+    # and T=240 (at "default"; the two-kernel core at "high"); on operands
+    # of their own, so that every other check keeps the operands it had
+    two = KernelCheck(torch, kmod)
+    for T in (144, 240):
+        for name, variant, kern, plain, grad, wrong in \
+                two.sublayer_mode_calls(3, 3, T, True):
+            two.compare(name, f"B=3 T={T} {variant}", kern(), plain(), grad,
+                        wrong())
     # the per-op kernels at the lengths they carry: above the sublayer
     # kernel's 512 frames up to the positional table's 2048
     for T in ATTN_T:
@@ -1958,8 +1995,17 @@ def phase_kernels(torch, kmod):
                 "attn_sublayer_bwd",) + ATTN_MODE_KERNELS \
                 + CHAIN_MODE_KERNELS + LINEAR_MODE_KERNELS \
                 + INT8_MODE_KERNELS:
-            print(f"  launches {name}: {launch_ms(torch, kern)} ms; host "
-                  f"{host_ms(torch, kern):.4f} ms a call", flush=True)
+            text, n = launch_ms(torch, kern, count=True)
+            for _ in range(2):  # an empty trace is the profiler's, not a call's
+                if n:
+                    break
+                text, n = launch_ms(torch, kern, count=True)
+            print(f"  launches {name}: {text} ms; host "
+                  f"{host_ms(torch, kern):.4f} ms a call; {n} device "
+                  "activities a call", flush=True)
+            if name in CALL_LAUNCHES and n != CALL_LAUNCHES[name]:
+                fail(f"{name} {variant}: {n} device activities a call, not "
+                     f"{CALL_LAUNCHES[name]}")
         if name in given:  # the training route's form, beside the row
             gvariant, gkern, gplain = given[name]
             g_ms = min(timed_ms(gkern), timed_ms(gkern))
@@ -2270,6 +2316,16 @@ def phase_long_request(torch, kmod, path, gpu):
     if counts != PER_OP_HIGH_COUNTS:
         fail(f"600-frame request at high: launches {counts} != "
              f"{PER_OP_HIGH_COUNTS}")
+    # a warm request splits no weight: W's planes are kept per weight
+    # version (``weight_planes``)
+    kmod.weight_planes.splits["bf16x3"] = 0
+    high[False].inpaint(video, miss)
+    torch.cuda.synchronize()
+    splits = kmod.weight_planes.splits["bf16x3"]
+    print(f"  600-frame request at \"high\", warm: {splits} weight splits "
+          "(mode_linear's W planes kept)", flush=True)
+    if splits != 0:
+        fail(f"a warm 600-frame request at high split {splits} weights")
     err, _ = pooled_mpjpe("608 bucket at high", video, miss, got_h, want_h)
     delta = masked_mpjpe_delta(np.asarray(got_h), np.asarray(got),
                                miss[0][None])
@@ -3252,6 +3308,21 @@ def steps_ms(torch, runs, names, x, length, weight, lr):
     return out
 
 
+PREC_MODE = {"high": "bf16x3", "default": "bf16"}
+
+
+def check_splits(kmod, what, prec, counts, kernel):
+    """A training step splits each weight its ``mode_linear`` calls read
+    once (a new weight version every step): as many splits as forward
+    launches on the kernel route, none on the plain one."""
+    got = kmod.weight_planes.splits[PREC_MODE[prec]]
+    want = counts[f"mode_linear{MODE_TAG[prec]}"] if kernel else 0
+    print(f"  {what}: {got} weight splits (mode_linear's W planes; "
+          f"{want} expected)", flush=True)
+    if got != want:
+        fail(f"{what}: {got} weight splits, not {want}")
+
+
 def train_mode_counts(counts, prec, per_op=False):
     """``mode_counts`` of a training step's launches, with the Dense
     products of its chains (and, per op, its projections) through
@@ -3502,9 +3573,12 @@ def phase_precision(torch, kmod, gpu, tmp):
                 _, st, step = runs[name]
                 gen = torch.Generator(device=DEV).manual_seed(100 + i)
                 kmod.reset_launches()
+                kmod.weight_planes.splits[PREC_MODE[prec]] = 0
                 _, m = step(st, x, length, weight, gen, lr)
                 torch.cuda.synchronize()
                 counts = kmod.launch_counts()
+                check_splits(kmod, f"{prec} {name} step {i}", prec, counts,
+                             name != "plain")
                 res[name] = (float(m["loss"]), float(m["grad_norm"]))
                 if not np.isfinite(res[name][0]):
                     fail(f"{prec} {name} step {i}: loss {res[name][0]}")
@@ -3589,10 +3663,13 @@ def phase_precision(torch, kmod, gpu, tmp):
             keep_first_grads(st, (prec, f"per-op {name}"))
             step = steps.make_train_step(model, c, None, plain=plain)
             kmod.reset_launches()
+            kmod.weight_planes.splits[PREC_MODE[prec]] = 0
             _, m = step(st, x, length, weight, torch.Generator(
                 device=DEV).manual_seed(100), c.train.lr)
             torch.cuda.synchronize()
             counts = kmod.launch_counts()
+            check_splits(kmod, f"{prec} per-op {name} step", prec, counts,
+                         name == "kernel")
             res[name] = (float(m["loss"]), float(m["grad_norm"]))
             if not np.isfinite(res[name][0]):
                 fail(f"{prec} per-op {name} step: loss {res[name][0]}")
@@ -3886,10 +3963,16 @@ def ab_measure(torch, gpu, out_path):
     chk = KernelCheck(torch, kmod)
     sums = {}
     for name, variant, kern, *_ in (
-            chk.int8_calls(3, T_MAIN) + chk.precision_calls(3, 3, T_MAIN)
+            chk.calls(3, T_MAIN) + chk.train_calls(3, T_MAIN)
+            + chk.per_op_calls(3, T_MAIN)
+            + chk.int8_calls(3, T_MAIN) + chk.precision_calls(3, 3, T_MAIN)
             + chk.layer_mode_calls(chk.operands(3, T_MAIN),
                                    *chk.masks(3, T_MAIN))
-            + chk.sublayer_mode_calls(3, 3, T_MAIN)):
+            + chk.sublayer_mode_calls(3, 3, T_MAIN)
+            + chk.op_mode_calls(3, T_MAIN) + chk.chain_mode_calls(3, T_MAIN)
+            + chk.linear_mode_calls(3, T_MAIN)
+            + chk.int8_layer_mode_calls(chk.operands(3, T_MAIN),
+                                        *chk.masks(3, T_MAIN))):
         got = kern()
         sums[f"{name} {variant}"] = sum(
             float(t.double().sum()) for t in
@@ -4097,8 +4180,9 @@ def ab(other, gpu):
     print(f"  ab: bit for bit equal across the trees: {same}", flush=True)
     moved = sorted(k for k in rows[0][1]["kernel_sums"]
                    if len({r["kernel_sums"].get(k) for _, r in rows}) > 1)
-    print(f"  ab: int8, FF mode, merged mode and sublayer mode kernels "
-          f"whose outputs moved: {moved}", flush=True)
+    print(f"  ab: kernel rows (every float32, int8 and mode kernel on "
+          f"phase 2's seeded operands; mode_linear_bwd given the same "
+          f"planes) whose outputs moved: {moved}", flush=True)
     return 0
 
 

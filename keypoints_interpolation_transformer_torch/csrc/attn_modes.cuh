@@ -493,10 +493,16 @@ struct AttnModeBwd {
   const float *mask, *valid;
   int repeat_inc, add_keypad;
   float qs, scale;         // the forward's q scale log2(e) / sqrt(dh); 1 / sqrt(dh)
-  float *dq, *dk, *dv;     // row stride ldg
+  float *dq, *dk, *dv;     // the two kernels: row stride ldg
   int ldg;
-  float* delta;            // (B, H, T)
+  float* delta;            // the two kernels: (B, H, T)
   int T, dh, DP, KB;       // KB: the streamed side's rows a stage, a multiple of 16
+  // the fused core: [dq | dk | dv] as hi / lo planes (row stride ldg, the
+  // lo null with one pass) and each video's column sums of them, colsum
+  // (B, 3 D), zero in the columns from n = H dh on of each part
+  bf16 *gh, *gl;
+  float* colsum;
+  int D;
 };
 
 // attn_mode_dq_kernel's shared memory: the block's rows of q s's planes and
@@ -834,6 +840,443 @@ int attend_bwd(AttnModeBwd a, int B, int H, cudaStream_t st) {
     return (int)cudaErrorInvalidValue;
   a.KB = rows;
   dkv<<<dim3((a.T + 16 * W - 1) / (16 * W), H, B), 32 * W, dkv_smem(PL, W, a.DP, rows), st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---- the fused backward core --------------------------------------------------
+//
+// attn_mode_bwd_kernel: the whole backward of one (video, head) in one
+// block, where the head's rows fit shared memory (fused_bwd): the planes of
+// q s, q, k, v and dA for every row, built once; s, p, gw and dl once per
+// (key, query) pair; dv, dk and dq from them with no second sweep over the
+// scores and no second kernel.  The TPU kernel (_sublayer_bwd_kernel, its
+// residual branch at T <= 256) does the same per head from VMEM.  What
+// bounded the two kernels before it (attn_mode_dq_kernel and
+// attn_mode_dkv_kernel: the scores and gw built twice, q, k, v split twice,
+// operands staged thread by thread, dq written in float32 and split again
+// by a third launch) is gone; what bounds it now is the head's rows
+// arriving (q, k, v in float32 and dA's planes, some 80 KB a head at T =
+// 128) and the mma.sync products.  Eight warps:
+//   1. cp.async brings q, k, v, a (float32, zero past T and dh) and dA's
+//      planes; the split makes the planes of q s (the product rounded once,
+//      as the forward's EPI_QKV rounds it), q, k and v; each query's (m,
+//      1 / l) and delta = sum_d (dA_hi + dA_lo) a (per 8 columns in order,
+//      then the parts in order);
+//   2. key-major, a warp per 16 keys: per 16 queries s^T = k (q s)^T, p^T,
+//      gw^T = v dA^T and dl^T exactly as attn_mode_dkv_kernel computes them,
+//      dv += p^T dA and dk += dl^T q in registers, and dl^T's planes kept in
+//      shared memory (where q, k and v arrived in float32);
+//   3. query-major, a warp per 16 queries: dq = dl k over the keys in order,
+//      dl's A fragments read transposed from dl^T by ldmatrix .trans, the
+//      three terms in attn_mode_dq_kernel's order.
+// The products are mma.sync m16n8k16: a 16-row tile of a head 32 wide is
+// below wgmma's 64-row tile, and every product's operands are already
+// fragments of another (p and dl come out of the score tiles in registers).
+// dq, dk and dv leave as the bf16 planes the weight-gradient and dx products
+// read, with each video's column sums of them (the bias gradients' part):
+// per warp over its tiles, then the warps in order; no atomics.
+constexpr int FUSED_WARPS = 8;
+constexpr int FUSED_DP = 64;  // the widest head (rounded up to 16) the fused core takes
+
+// The fused core's shared memory at Tr = T rounded up to 16: the five
+// matrices' planes (Tr rows of DP + 8), each query's (m, 1 / l, delta), the
+// warps' column sums, delta's parts (8 columns each), then dl^T's planes
+// (Tr rows of Tr + 8), whose room first holds q, k, v and a in float32.
+__host__ __device__ constexpr int fused_bwd_smem(int planes, int Tr, int DP) {
+  return 2 * planes * 5 * Tr * (DP + 8) + 16 * Tr + 4 * FUSED_WARPS * DP + Tr * DP / 2 +
+         cmax(2 * planes * Tr * (Tr + 8), 16 * Tr * DP);
+}
+
+// Whether the fused core takes (T, dh) in mode planes (1 or 2 a matrix).
+inline bool fused_bwd(int planes, int T, int dh) {
+  return dh % 8 == 0 && round_up(dh, 16) <= FUSED_DP &&
+         fused_bwd_smem(planes, round_up(T, 16), round_up(dh, 16)) <= ATTN_SMEM;
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !full.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// The A fragment of dl (16 queries from i0 x 16 keys from j0) from dl^T
+// stored key-major (row stride ld), transposed by ldmatrix: matrices
+// (keys j0 .., queries i0 ..), (j0 .., i0 + 8 ..), (j0 + 8 .., i0 ..),
+// (j0 + 8 .., i0 + 8 ..) are a0 .. a3.
+__device__ __forceinline__ void dl_fragments(uint32_t (&a)[4], const bf16* DLt, int ld, int j0,
+                                             int i0, int lane) {
+  const int mi = lane >> 3;
+  const bf16* row = DLt + (j0 + 8 * (mi >> 1) + (lane & 7)) * ld + i0 + 8 * (mi & 1);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_u32(row)));
+}
+
+// Column sums of a warp's per-thread values s[nt][c] (column 8 nt + 2 t + c)
+// over the lanes of each t (the rows), then over the warps in order, into
+// out[c] for c < dh.  red: FUSED_WARPS x DP floats.  Starts and ends with a
+// barrier.
+template <int NO>
+__device__ __forceinline__ void warps_colsum(float (&s)[NO][2], float* red, int DP, int dh,
+                                             float* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = s[nt][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      s[nt][c] = v;
+    }
+  __syncthreads();
+  if (lane < 4)
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) red[warp * DP + 8 * nt + 2 * t + c] = s[nt][c];
+  __syncthreads();
+  for (int c = threadIdx.x; c < dh; c += blockDim.x) {
+    float v = red[c];
+    for (int w = 1; w < FUSED_WARPS; ++w) v += red[w * DP + c];
+    out[c] = v;
+  }
+}
+
+// The A fragments (hi, and lo with two planes) of a 16-row tile of a
+// row-major matrix in shared memory (row stride LD, plane stride apl) over
+// KS steps of 16 columns, as dots loads them.
+template <int PL, int KS>
+__device__ __forceinline__ void a_fragments(uint32_t (&ah)[KS][4], uint32_t (&al)[KS][4],
+                                            const bf16* A, int apl, int LD, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const bf16* ap = A + g * LD + 16 * ks + 2 * t;
+    ah[ks][0] = ld32(ap);
+    ah[ks][1] = ld32(ap + 8 * LD);
+    ah[ks][2] = ld32(ap + 8);
+    ah[ks][3] = ld32(ap + 8 * LD + 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) al[ks][e] = 0u;
+    if (PL == 2) {
+      const bf16* lp = ap + apl;
+      al[ks][0] = ld32(lp);
+      al[ks][1] = ld32(lp + 8 * LD);
+      al[ks][2] = ld32(lp + 8);
+      al[ks][3] = ld32(lp + 8 * LD + 8);
+    }
+  }
+}
+
+// dots with the A fragments given (a_fragments) and KS steps known: the
+// same products in the same order.
+template <int PASSES, int KS>
+__device__ __forceinline__ void dots_a(float (&hh)[2][4], float (&al)[2][4], float (&bl)[2][4],
+                                       const uint32_t (&ah)[KS][4], const uint32_t (&alo)[KS][4],
+                                       const bf16* Bm, int bpl, int LD, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hh[nt][e] = al[nt][e] = bl[nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const bf16* bp = Bm + (8 * nt + g) * LD + 16 * ks + 2 * t;
+      const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
+      mma16816(hh[nt], ah[ks], b0, b1);
+      if (PASSES == 3) {
+        const bf16* bq = bp + bpl;
+        mma16816(al[nt], alo[ks], b0, b1);
+        mma16816(bl[nt], ah[ks], ld32(bq), ld32(bq + 8));
+      }
+    }
+}
+
+// The backward of head blockIdx.y of video blockIdx.z (see above) at head
+// width DPC (dh rounded up to 16: the loops over it unrolled).
+template <int PASSES, int DPC>
+__global__ void __launch_bounds__(32 * FUSED_WARPS, 1) attn_mode_bwd_kernel(const AttnModeBwd p) {
+  constexpr int PL = PASSES == 3 ? 2 : 1;
+  constexpr int W = FUSED_WARPS, DP = DPC, NO = DPC / 8, KS = DPC / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, T = p.T, dh = p.dh, Tr = round_up(T, 16);
+  const int QLD = DP + 8, DLD = Tr + 8, PS = Tr * QLD;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // PL planes of Tr x QLD each: q s
+  bf16* Qu = Qs + PL * PS;                        // q
+  bf16* Ks = Qu + PL * PS;
+  bf16* Vs = Ks + PL * PS;
+  bf16* Ds = Vs + PL * PS;                        // dA
+  float4* qst = reinterpret_cast<float4*>(Ds + PL * PS);  // (m, 1 / l, delta)
+  float* red = reinterpret_cast<float*>(qst + Tr);
+  float* dpart = red + W * DP;                         // Tr x DP / 8: delta's parts
+  bf16* DLt = reinterpret_cast<bf16*>(dpart + Tr * DP / 8);  // PL planes of Tr x DLD: dl^T
+  float* F32 = reinterpret_cast<float*>(DLt);         // q, k, v, a: 4 x Tr x DP, first
+  const size_t vid = (size_t)blockIdx.z * T;
+  const int hc = h * dh;
+  const size_t hrow = ((size_t)blockIdx.z * gridDim.y + h) * T;
+  // 1. the head's rows: q, k, v and a in float32 and dA's planes, zero past
+  // T and dh; each query's (m, 1 / l) meanwhile
+  {
+    const int cf = DP / 4, nf = 4 * Tr * cf;  // 16-byte chunks of the float rows
+    for (int i = threadIdx.x; i < nf; i += blockDim.x) {
+      const int mtx = i / (Tr * cf), rem = i - mtx * Tr * cf, r = rem / cf, c = 4 * (rem - r * cf);
+      const bool in = r < T && c < dh;
+      const float* src = mtx == 0 ? p.q : mtx == 1 ? p.k : mtx == 2 ? p.v : p.a;
+      const int ld = mtx == 3 ? p.ld : p.ldqkv;
+      cp16(F32 + (mtx * Tr + r) * DP + c, in ? src + (vid + r) * ld + hc + c : src, in);
+    }
+    const int cb = DP / 8, nb = PL * Tr * cb;
+    for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+      const int pl = i / (Tr * cb), rem = i - pl * Tr * cb, r = rem / cb, c = 8 * (rem - r * cb);
+      const bool in = r < T && c < dh;
+      const bf16* src = pl == 0 ? p.dah : p.dal;
+      cp16(Ds + pl * PS + r * QLD + c, in ? src + (vid + r) * p.ld + hc + c : src, in);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int r = threadIdx.x; r < Tr; r += blockDim.x) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);  // a row past T: p = 0
+      if (r < T) {
+        const float2 ml = __ldg(reinterpret_cast<const float2*>(p.stats + 2 * (hrow + r)));
+        v = make_float4(ml.x, 1.f / ml.y, 0.f, 0.f);
+      }
+      qst[r] = v;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the planes, and delta's part of the chunk: sum over its 8 columns of
+  // (dA_hi + dA_lo) a, in order (zero past T and dh)
+  const float* A32 = F32 + 3 * Tr * DP;
+  for (int i = threadIdx.x; i < Tr * (DP / 8); i += blockDim.x) {
+    const int r = i / (DP / 8), c = 8 * (i - r * (DP / 8));
+    {
+      const bf16* dp = Ds + r * QLD + c;
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float da = PL == 2 ? __bfloat162float(dp[e]) + __bfloat162float(dp[PS + e])
+                                 : __bfloat162float(dp[e]);
+        part = fmaf(da, A32[r * DP + c + e], part);
+      }
+      dpart[i] = part;
+    }
+#pragma unroll
+    for (int mtx = 0; mtx < 3; ++mtx) {
+      const float* src = F32 + (mtx * Tr + r) * DP + c;
+      const float4 a = *reinterpret_cast<const float4*>(src);
+      const float4 b = *reinterpret_cast<const float4*>(src + 4);
+      float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      uint32_t hh[4], ll[4];
+      bf16* dst = mtx == 0 ? Qu : mtx == 1 ? Ks : Vs;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split2(v[2 * e], v[2 * e + 1], hh[e], ll[e]);
+      *reinterpret_cast<uint4*>(dst + r * QLD + c) = make_uint4(hh[0], hh[1], hh[2], hh[3]);
+      if (PL == 2)
+        *reinterpret_cast<uint4*>(dst + PS + r * QLD + c) = make_uint4(ll[0], ll[1], ll[2], ll[3]);
+      if (mtx == 0) {  // q s: the product rounded once, then split
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = __fmul_rn(v[e], p.qs);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split2(v[2 * e], v[2 * e + 1], hh[e], ll[e]);
+        *reinterpret_cast<uint4*>(Qs + r * QLD + c) = make_uint4(hh[0], hh[1], hh[2], hh[3]);
+        if (PL == 2)
+          *reinterpret_cast<uint4*>(Qs + PS + r * QLD + c) =
+              make_uint4(ll[0], ll[1], ll[2], ll[3]);
+      }
+    }
+  }
+  __syncthreads();
+  // each query's delta: its chunks' parts added in order
+  for (int r = threadIdx.x; r < Tr; r += blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) s += dpart[r * (DP / 8) + c];
+    qst[r].z = s;
+  }
+  __syncthreads();  // the planes are built: dl^T may take the float32 rows' room
+  const float* mask = p.mask == nullptr ? nullptr : p.mask + vid;
+  const float* valid = p.valid == nullptr ? nullptr : p.valid + vid;
+  float* cs_out = p.colsum + (size_t)blockIdx.z * 3 * p.D;
+  // 2. key-major: dv, dk and dl^T
+  float csk[NO][2], csv[NO][2];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt) csk[nt][0] = csk[nt][1] = csv[nt][0] = csv[nt][1] = 0.f;
+  for (int k0 = 16 * warp; k0 < Tr; k0 += 16 * W) {
+    const int ka = k0 + g, kb = ka + 8;  // the thread's two keys
+    const float2 bias[2] = {key_bias(mask, valid, ka, T, p.repeat_inc, p.add_keypad),
+                            key_bias(mask, valid, kb, T, p.repeat_inc, p.add_keypad)};
+    float dk[NO][4], dv[NO][4];
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
+    // the key tile's k and v fragments, the A of every query tile's products
+    uint32_t kah[KS][4], kal[KS][4], vah[KS][4], val[KS][4];
+    a_fragments<PL, KS>(kah, kal, Ks + k0 * QLD, PS, QLD, lane);
+    a_fragments<PL, KS>(vah, val, Vs + k0 * QLD, PS, QLD, lane);
+    for (int j0 = 0; j0 < Tr; j0 += 16) {
+      // s^T = k (q s)^T, the terms in the forward's order
+      float hh[2][4], lq[2][4], lk[2][4], pf[2][4];
+      dots_a<PASSES, KS>(hh, lk, lq, kah, kal, Qs + j0 * QLD, PS, QLD, lane);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? ka : kb, qi = j0 + 8 * nt + 2 * t + (e & 1);
+          const float4 qv = qst[qi];
+          const float d = PASSES == 3 ? (hh[nt][e] + lq[nt][e]) + lk[nt][e] : hh[nt][e];
+          const float s = d + (key > qi ? bias[e >> 1].y : bias[e >> 1].x);
+          pf[nt][e] = bf16_round(exp2f(s - qv.x) * qv.y);
+        }
+      // gw^T = v dA^T in the order of (v_hi dA_hi + v_hi dA_lo) + v_lo dA_hi
+      dots_a<PASSES, KS>(hh, lk, lq, vah, val, Ds + j0 * QLD, PS, QLD, lane);
+      uint32_t pa[4], dh_[4], dl_[4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float gw[2], dlt[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 2 * r + c;
+            gw[c] = PASSES == 3 ? (hh[nt][e] + lq[nt][e]) + lk[nt][e] : hh[nt][e];
+            dlt[c] = qst[j0 + 8 * nt + 2 * t + c].z;
+          }
+          pa[2 * nt + r] = pack_bf16(pf[nt][2 * r], pf[nt][2 * r + 1]);
+          dl_pair(pf[nt][2 * r], gw[0], dlt[0], pf[nt][2 * r + 1], gw[1], dlt[1], p.scale,
+                  dh_[2 * nt + r], dl_[2 * nt + r]);
+          // dl^T's planes: key (r ? kb : ka), queries j0 + 8 nt + 2 t, + 1
+          const int o = (k0 + g + 8 * r) * DLD + j0 + 8 * nt + 2 * t;
+          *reinterpret_cast<uint32_t*>(DLt + o) = dh_[2 * nt + r];
+          if (PL == 2) *reinterpret_cast<uint32_t*>(DLt + Tr * DLD + o) = dl_[2 * nt + r];
+        }
+#pragma unroll
+      for (int nt = 0; nt < NO; nt += 2) {
+        uint32_t b[4];
+        // dv += p^T dA_hi (+ p^T dA_lo)
+        v_fragments(b, Ds, QLD, j0, 8 * nt, lane);
+        mma16816(dv[nt], pa, b[0], b[1]);
+        mma16816(dv[nt + 1], pa, b[2], b[3]);
+        if (PASSES == 3) {
+          v_fragments(b, Ds + PS, QLD, j0, 8 * nt, lane);
+          mma16816(dv[nt], pa, b[0], b[1]);
+          mma16816(dv[nt + 1], pa, b[2], b[3]);
+        }
+        // dk += dl^T q: dl_hi q_hi + dl_hi q_lo + dl_lo q_hi
+        v_fragments(b, Qu, QLD, j0, 8 * nt, lane);
+        mma16816(dk[nt], dh_, b[0], b[1]);
+        mma16816(dk[nt + 1], dh_, b[2], b[3]);
+        if (PASSES == 3) {
+          mma16816(dk[nt], dl_, b[0], b[1]);
+          mma16816(dk[nt + 1], dl_, b[2], b[3]);
+          v_fragments(b, Qu + PS, QLD, j0, 8 * nt, lane);
+          mma16816(dk[nt], dh_, b[0], b[1]);
+          mma16816(dk[nt + 1], dh_, b[2], b[3]);
+        }
+      }
+    }
+    // dk and dv as planes of their parts of [dq | dk | dv], and their
+    // column sums over the warp's keys
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = r ? kb : ka, c = 8 * nt + 2 * t;
+        if (key >= T || c >= dh) continue;
+        csk[nt][0] += dk[nt][2 * r];
+        csk[nt][1] += dk[nt][2 * r + 1];
+        csv[nt][0] += dv[nt][2 * r];
+        csv[nt][1] += dv[nt][2 * r + 1];
+        const size_t at = (vid + key) * p.ldg + hc + c;
+        uint32_t hi, lo;
+        split2(dk[nt][2 * r], dk[nt][2 * r + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(p.gh + at + p.D) = hi;
+        if (PL == 2) *reinterpret_cast<uint32_t*>(p.gl + at + p.D) = lo;
+        split2(dv[nt][2 * r], dv[nt][2 * r + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(p.gh + at + 2 * p.D) = hi;
+        if (PL == 2) *reinterpret_cast<uint32_t*>(p.gl + at + 2 * p.D) = lo;
+      }
+    }
+  }
+  warps_colsum<NO>(csk, red, DP, dh, cs_out + p.D + hc);
+  warps_colsum<NO>(csv, red, DP, dh, cs_out + 2 * p.D + hc);
+  __syncthreads();  // dl^T is whole
+  // 3. query-major: dq = dl k
+  float csq[NO][2];
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt) csq[nt][0] = csq[nt][1] = 0.f;
+  for (int i0 = 16 * warp; i0 < Tr; i0 += 16 * W) {
+    float dq[NO][4];
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+    for (int j0 = 0; j0 < Tr; j0 += 16) {
+      uint32_t ah[4], al[4];
+      dl_fragments(ah, DLt, DLD, j0, i0, lane);
+      if (PASSES == 3) dl_fragments(al, DLt + Tr * DLD, DLD, j0, i0, lane);
+#pragma unroll
+      for (int nt = 0; nt < NO; nt += 2) {
+        uint32_t b[4];
+        v_fragments(b, Ks, QLD, j0, 8 * nt, lane);
+        mma16816(dq[nt], ah, b[0], b[1]);
+        mma16816(dq[nt + 1], ah, b[2], b[3]);
+        if (PASSES == 3) {
+          mma16816(dq[nt], al, b[0], b[1]);
+          mma16816(dq[nt + 1], al, b[2], b[3]);
+          v_fragments(b, Ks + PS, QLD, j0, 8 * nt, lane);
+          mma16816(dq[nt], ah, b[0], b[1]);
+          mma16816(dq[nt + 1], ah, b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = i0 + g + 8 * r, c = 8 * nt + 2 * t;
+        if (row >= T || c >= dh) continue;
+        csq[nt][0] += dq[nt][2 * r];
+        csq[nt][1] += dq[nt][2 * r + 1];
+        const size_t at = (vid + row) * p.ldg + hc + c;
+        uint32_t hi, lo;
+        split2(dq[nt][2 * r], dq[nt][2 * r + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(p.gh + at) = hi;
+        if (PL == 2) *reinterpret_cast<uint32_t*>(p.gl + at) = lo;
+      }
+    }
+  }
+  warps_colsum<NO>(csq, red, DP, dh, cs_out + hc);
+  if (h == 0)  // the columns past the heads, which no block writes
+    for (int c = gridDim.y * dh + threadIdx.x; c < p.D; c += blockDim.x) {
+      cs_out[c] = 0.f;
+      cs_out[p.D + c] = 0.f;
+      cs_out[2 * p.D + c] = 0.f;
+    }
+}
+
+// The fused core over every (video, head): a.gh / a.gl and a.colsum.
+template <int PASSES>
+int attend_bwd_fused(AttnModeBwd a, int B, int H, cudaStream_t st) {
+  constexpr int PL = PASSES == 3 ? 2 : 1;
+  a.DP = round_up(a.dh, 16);
+  if (!fused_bwd(PL, a.T, a.dh)) return (int)cudaErrorInvalidValue;
+  static bool ready[4] = {false, false, false, false};
+  const int which = a.DP / 16 - 1;  // DP 16, 32, 48 or 64
+  auto kernel = which == 0   ? attn_mode_bwd_kernel<PASSES, 16>
+                : which == 1 ? attn_mode_bwd_kernel<PASSES, 32>
+                : which == 2 ? attn_mode_bwd_kernel<PASSES, 48>
+                             : attn_mode_bwd_kernel<PASSES, 64>;
+  const int smem = fused_bwd_smem(PL, round_up(a.T, 16), a.DP);
+  cudaError_t e = allow_smem(kernel, ATTN_SMEM, ready[which]);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(1, H, B), 32 * FUSED_WARPS, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -55,20 +55,29 @@
 //      with the statistics in training);
 //   4. the out-projection, + bo + x (EPI_RES): r, or y without a LayerNorm;
 //   5. ln_fwd_kernel: y = LN(r).
-// The backward (15 launches and a memset for self-attention with its
-// LayerNorm, 17 for cross-attention without: the splits of dy and the
-// memory and one more product each for dW and dx, less the LayerNorm's
-// backward and sum):
-//   1. ln_bwd_kernel (dr and its planes, per-block sums of dgamma and
-//      dbeta, added by sum_split), or the split of dy;
-//   2. the planes of x (and the memory) and of a (split_kernel);
-//   3. dA's planes = dr Wo^T (tc_gemm_kernel, a zero bias);
-//   4. attn_mode_dq_kernel, attn_mode_dkv_kernel into dqkv (M, 3D) float32,
-//      then its planes;
-//   5. [dW_in | dW_out] = [dqkv^T [x | m] | dr^T a] (tc_gemm_kernel, both
-//      operands MN-major as they lie), over s_w row ranges added in order
-//      (sum_split); the bias gradients [db_in | db_out], the column sums of
-//      [dqkv | dr], per BIAS_ROWS rows (bias_grad_kernel), added in order;
+// The backward, redesigned for the H100: what bounded it was launches and
+// host work (15 launches and a memset a call), two attention cores that
+// each rebuilt s, p and gw, and splits of what the forward had split
+// already.  Now 7 launches for self-attention (with its LayerNorm or
+// without), 9 for cross-attention (one more product each for dW and dx),
+// where the fused core takes (T, dh) (attn_modes.cuh fused_bwd: head widths
+// up to 64 and T up to 144 at "high", 240 at "default" for a 32-wide head);
+// above that the two-kernel core, its float32 dqkv split and summed as
+// before (10 and 12):
+//   1. ln_bwd_kernel (dr and its planes, per-block sums of dgamma, dbeta
+//      and dr), or without a LayerNorm dy_planes_kernel (dy's planes and
+//      column sums);
+//   2. dA's planes = dr Wo^T (tc_gemm_kernel, no bias);
+//   3. attn_mode_bwd_kernel, one block per (video, head): dq, dk and dv as
+//      the planes of [dq | dk | dv] (M, 3D), each video's column sums of
+//      them beside (the bias gradients' part);
+//   4. [dW_in | dW_out] = [dqkv^T [x | m] | dr^T a] (tc_gemm_kernel, both
+//      operands MN-major as they lie), over s_w row ranges, with the
+//      planes of x (and the memory) and of a the training forward kept
+//      (its keep, which the call must give: no split here);
+//   5. sum_jobs_kernel: every ordered sum in one launch (dW_in's and
+//      dW_out's row ranges, db_in's videos, db_out's and the LayerNorm's
+//      32-row blocks);
 //   6. dx = dr + dqkv W_in (EPI_ADD; cross-attention: dr + dq Wq and dmem =
 //      [dk dv] W_kv).
 // No sum uses atomics: the gradients have the same bits from run to run.
@@ -85,25 +94,21 @@ using namespace kit;
 // file's anonymous namespace from kit's, which attn_modes.cuh opens.)
 namespace kit {
 
-// The bias gradients' partial sums: part[z * 4D + c] = the sum over rows
-// [z BIAS_ROWS, (z + 1) BIAS_ROWS) of dqkv's column c (c < 3D) or of dr's
-// column c - 3D; blockIdx.x a tile of 128 columns of [dqkv | dr], 4 a lane
-// (16-byte loads), the 8 warps over the range's rows, then added in order of
-// the warps.  sum_split then adds the ranges in order.
+// The column sums of X (M, ncols; row stride ld) per BIAS_ROWS rows:
+// part[z * ncols + c] = the sum over rows [z BIAS_ROWS, (z + 1) BIAS_ROWS)
+// of column c; blockIdx.x a tile of 128 columns, 4 a lane (16-byte loads),
+// the 8 warps over the range's rows, then added in order of the warps (the
+// two-kernel core's dqkv: the bias gradients' part).
 constexpr int BIAS_ROWS = 128;
 
-__global__ void __launch_bounds__(NT) bias_grad_kernel(const float* __restrict__ dqkv,
-                                                       const float* __restrict__ dr, int M, int D,
-                                                       float* __restrict__ part) {
+__global__ void __launch_bounds__(NT) bias_grad_kernel(const float* __restrict__ X, int ld, int M,
+                                                       int ncols, float* __restrict__ part) {
   __shared__ float4 red[NT / 32][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = 128 * blockIdx.x + 4 * lane;  // a column of [dqkv | dr]
-  const bool q = c < 3 * D;
-  const float* src = q ? dqkv + c : dr + (c - 3 * D);
-  const int ld = q ? 3 * D : D, r1 = min(M, (int)(blockIdx.y + 1) * BIAS_ROWS);
+  const int c = 128 * blockIdx.x + 4 * lane, r1 = min(M, (int)(blockIdx.y + 1) * BIAS_ROWS);
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int r = blockIdx.y * BIAS_ROWS + warp; r < r1; r += NT / 32) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * ld));
+    const float4 v = __ldg(reinterpret_cast<const float4*>(X + (size_t)r * ld + c));
     s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
   }
   red[warp][lane] = s;
@@ -114,7 +119,45 @@ __global__ void __launch_bounds__(NT) bias_grad_kernel(const float* __restrict__
     const float4 v = red[w][lane];
     t = make_float4(t.x + v.x, t.y + v.y, t.z + v.z, t.w + v.w);
   }
-  *reinterpret_cast<float4*>(part + (size_t)blockIdx.y * 4 * D + c) = t;
+  *reinterpret_cast<float4*>(part + (size_t)blockIdx.y * ncols + c) = t;
+}
+
+// dr = dy without a LayerNorm: its planes and the block's column sums
+// (part + blockIdx.x * D), BM rows a block.
+template <int TN>
+__global__ void __launch_bounds__(NT) dy_planes_kernel(const float* __restrict__ dy, int M,
+                                                       float* __restrict__ part,
+                                                       bf16* __restrict__ hi,
+                                                       bf16* __restrict__ lo) {
+  constexpr int D = 32 * TN;
+  __shared__ float red[8 * D];
+  float v[TM][TN];
+  load_rows<TN>(v, dy, D, blockIdx.x * BM, M);
+  block_colsum<TN>(v, red, part + (size_t)blockIdx.x * D, D);
+  store_planes<TN>(hi, lo, blockIdx.x * BM, M, v);
+}
+
+// Several ordered sums in one launch: job k is sum_split's out[i] = sum
+// over z < S of part[z * stride + i], i < n, in its `blocks` blocks.
+constexpr int SUM_JOBS = 5;
+struct SumJob {
+  const float* part;
+  int S;
+  size_t stride;
+  int n;
+  float* out;
+  int blocks;
+};
+struct SumJobs {
+  SumJob j[SUM_JOBS];
+  int count;
+};
+
+__global__ void __launch_bounds__(NT) sum_jobs_kernel(const SumJobs jobs) {
+  int b = blockIdx.x, k = 0;
+  while (k + 1 < jobs.count && b >= jobs.j[k].blocks) b -= jobs.j[k++].blocks;
+  const SumJob& jb = jobs.j[k];
+  sum_split_block(jb.part, jb.S, jb.stride, jb.n, jb.out, b);
 }
 
 }  // namespace kit
@@ -147,23 +190,29 @@ Planes shift(Planes p, size_t elems) {
 #define KIT_CHECK(x) \
   if ((rc = (x)) != 0) return rc
 
-// The forward (see the note at the top).  planes: (5 or, with a memory, 6)
-// M D bf16 a plane (x, the memory, q / k / v, the attention output); fs: M D
-// floats (r) when serving with a LayerNorm.  In training qkv (M, 3D), a32
-// (M, D) and stats receive the residuals, r (M, D) the pre-LN sum with a
-// LayerNorm.
+// The forward (see the note at the top).  planes: serving, (5 or, with a
+// memory, 6) M D bf16 a plane (x, the memory, the attention output, q / k /
+// v); training, q / k / v's (3 M D), and keep those of x, the memory and a
+// (the backward's operands); fs: M D floats (r) when serving with a
+// LayerNorm.  In training qkv (M, 3D), a32 (M, D) and stats receive the
+// residuals, r (M, D) the pre-LN sum with a LayerNorm.
 template <int TN, int PASSES, int TB>
 int forward(const float* x, const float* mem, int B, int T, int n, int H, const SubW& w,
             const float* gamma, const float* beta, const Masks& mk, float* y, float* qkv,
-            float* a32, float* stats, float* r, bf16* planes, float* fs, cudaStream_t st) {
+            float* a32, float* stats, float* r, bf16* planes, bf16* keep, float* fs,
+            cudaStream_t st) {
   constexpr int D = 32 * TN;
   constexpr bool TRAIN = TB == 0;
   const int M = B * T, dh = n / H;
   const size_t MD = (size_t)M * D;
   const bool self = mem == nullptr;
-  bf16* cur = planes;
-  const Planes xp = carve<PASSES>(cur, MD), mp = self ? xp : carve<PASSES>(cur, MD),
-               qkvp = carve<PASSES>(cur, 3 * MD), ap = carve<PASSES>(cur, MD);
+  // the planes of x, the memory and a (in training in keep: the backward's
+  // operands), then q / k / v's
+  bf16* at = TRAIN ? keep : planes;
+  const Planes xp = carve<PASSES>(at, MD), mp = self ? xp : carve<PASSES>(at, MD),
+               ap = carve<PASSES>(at, MD);
+  bf16* cur = TRAIN ? planes : at;
+  const Planes qkvp = carve<PASSES>(cur, 3 * MD);
   // q's planes at row stride ldq, k's and v's at ldkv: one (M, 3D) block for
   // self-attention, else q (M, D) and [k | v] (M, 2D)
   const Planes kvp = self ? offset(qkvp, D) : shift(qkvp, MD);
@@ -203,51 +252,62 @@ int forward(const float* x, const float* mem, int B, int T, int n, int H, const 
   return (int)cudaGetLastError();
 }
 
+// Whether the backward runs the fused core (attn_modes.cuh fused_bwd).
+bool fused_core(int passes, int T, int dh) { return fused_bwd(passes == 3 ? 2 : 1, T, dh); }
+
 // The backward (see the note at the top); scratch as
-// kit_attn_sublayer_tc_bwd lays it out.
+// kit_attn_sublayer_tc_bwd lays it out; acts: the forward's planes of x,
+// the memory and a; dmem null means self-attention.
 template <int TN, int PASSES>
-int backward(const float* dy, const float* x, const float* mem, const float* qkv, const float* a,
-             const float* stats, const float* r, const bf16* wih, const bf16* wil,
-             const bf16* woh, const bf16* wol, const float* gamma, const Masks& mk, int B, int T,
-             int n, int H, int s_w, float* dx, float* dmem, float* dw_in, float* dw_out,
-             float* db, float* ln_out, float* scratch, cudaStream_t st) {
+int backward(const float* dy, const float* qkv, const float* a, const float* stats,
+             const float* r, const bf16* wih, const bf16* wil, const bf16* woh, const bf16* wol,
+             const float* gamma, const Masks& mk, int B, int T, int n, int H, int s_w,
+             const bf16* acts, float* dx, float* dmem, float* dw_in, float* dw_out, float* db,
+             float* ln_out, float* scratch, cudaStream_t st) {
   constexpr int D = 32 * TN;
   const int M = B * T, dh = n / H, blocks = (M + BM - 1) / BM,
             s_vec = (M + BIAS_ROWS - 1) / BIAS_ROWS;
   const size_t MD = (size_t)M * D, DD = (size_t)D * D;
-  const bool self = mem == nullptr;
-  float* dqkv = scratch;                                    // M x 3D
-  float* delta = dqkv + 3 * MD;                             // B x H x T
-  float* p_ln = delta + round_up(B * H * T, 4);             // blocks x 2D
-  float* p_w = p_ln + (size_t)blocks * 2 * D;               // s_w x 4 D^2
-  float* p_vec = p_w + (size_t)s_w * 4 * DD;                // s_vec x 4D
-  float* zeros = p_vec + (size_t)s_vec * 4 * D;             // D
-  float* dr_buf = zeros + D;                                // M x D
-  bf16* cur = reinterpret_cast<bf16*>(dr_buf + MD);
-  const Planes drp = carve<PASSES>(cur, MD), xp = carve<PASSES>(cur, MD),
-               mp = self ? xp : carve<PASSES>(cur, MD), dap = carve<PASSES>(cur, MD),
-               ap = carve<PASSES>(cur, MD), dqp = carve<PASSES>(cur, 3 * MD);
+  const bool self = dmem == nullptr, fused = fused_core(PASSES, T, dh);
+  float* cf = scratch;
+  auto take = [&](size_t n) {
+    float* p = cf;
+    cf += n;
+    return p;
+  };
+  // the two kernels' float32 dq, dk, dv and delta; each block's sums of
+  // [dgamma | dbeta] and of dr; [dW_in | dW_out] per row range; [dq | dk |
+  // dv]'s column sums per video (fused) or per BIAS_ROWS rows; dr
+  float* dqkv = fused ? nullptr : take(3 * MD);                   // M x 3D (two kernels)
+  float* delta = fused ? nullptr : take(round_up(B * H * T, 4));  // B x H x T (two kernels)
+  float* p_ln = take((size_t)blocks * 2 * D);                     // blocks x 2D
+  float* p_dr = take((size_t)blocks * D);                         // blocks x D
+  float* p_w = take((size_t)s_w * 4 * DD);                        // s_w x 4 D^2
+  float* p_vec = take((size_t)(fused ? B : s_vec) * 3 * D);       // (B or s_vec) x 3D
+  float* dr_buf = take(MD);                                       // M x D
+  bf16* cur = reinterpret_cast<bf16*>(cf);
+  const Planes drp = carve<PASSES>(cur, MD), dap = carve<PASSES>(cur, MD),
+               dqp = carve<PASSES>(cur, 3 * MD);
+  bf16* kept = const_cast<bf16*>(acts);
+  const Planes xp = carve<PASSES>(kept, MD), mp = self ? xp : carve<PASSES>(kept, MD),
+               ap = carve<PASSES>(kept, MD);
   int rc;
+  // 1. dr: the LayerNorm's backward, or dy; its planes and column sums
   const float* dr = dy;
   if (gamma != nullptr) {
-    ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dy, r, gamma, M, n, dr_buf, p_ln, drp.hi, drp.lo);
-    KIT_CHECK((int)cudaGetLastError());
-    KIT_CHECK(sum_split(p_ln, blocks, 2 * D, 2 * D, ln_out, st));
+    ln_bwd_kernel<TN><<<blocks, NT, 0, st>>>(dy, r, gamma, M, n, dr_buf, p_ln, drp.hi, drp.lo,
+                                             p_dr);
     dr = dr_buf;
   } else {
-    KIT_CHECK(split_planes(dy, MD, drp.hi, drp.lo, st));
+    dy_planes_kernel<TN><<<blocks, NT, 0, st>>>(dy, M, p_dr, drp.hi, drp.lo);
   }
-  KIT_CHECK(split_planes(x, MD, xp.hi, xp.lo, st));
-  if (!self) KIT_CHECK(split_planes(mem, MD, mp.hi, mp.lo, st));
-  KIT_CHECK(split_planes(a, MD, ap.hi, ap.lo, st));
-  // dA = dr W_out (torch's layout: rows o, columns i), as planes
-  KIT_CHECK((int)cudaMemsetAsync(zeros, 0, D * sizeof(float), st));
+  KIT_CHECK((int)cudaGetLastError());
+  // 2. dA = dr W_out (torch's layout: rows o, columns i), as planes
   KIT_CHECK((project<PASSES, EPI_PLANES, 1>(drp.hi, drp.lo, M, D, woh, wol, D, D,
-                                            planes_out(dap, zeros), st)));
-  // the core's gradients into dqkv's three parts; a narrower model (n < D)
-  // leaves each part's columns from n on unwritten, and the products below
-  // read them: zero them first
-  if (n < D) KIT_CHECK((int)cudaMemsetAsync(dqkv, 0, 3 * MD * sizeof(float), st));
+                                            planes_out(dap, nullptr), st)));
+  // 3. the core's gradients as [dq | dk | dv] planes and their column sums;
+  // a narrower model (n < D) leaves each part's columns from n on
+  // unwritten, and the products below read them: zero them first
   AttnModeBwd c{};
   c.q = qkv;
   c.k = qkv + D;
@@ -264,16 +324,29 @@ int backward(const float* dy, const float* x, const float* mem, const float* qkv
   c.add_keypad = mk.add_keypad;
   c.qs = (float)(1.4426950408889634 / sqrt((double)dh));
   c.scale = (float)(1.0 / sqrt((double)dh));
-  c.dq = dqkv;
-  c.dk = dqkv + D;
-  c.dv = dqkv + 2 * D;
   c.ldg = 3 * D;
-  c.delta = delta;
   c.T = T;
   c.dh = dh;
-  KIT_CHECK(attend_bwd<PASSES>(c, B, H, st));
-  KIT_CHECK(split_planes(dqkv, 3 * MD, dqp.hi, dqp.lo, st));
-  // [dW_in | dW_out] per row range: dW_in[j, i] = sum_r dqkv[r, j] [x | m][r,
+  c.D = D;
+  if (fused) {
+    if (n < D)
+      KIT_CHECK((int)cudaMemsetAsync(dqp.hi, 0, (PASSES == 3 ? 2 : 1) * 3 * MD * sizeof(bf16), st));
+    c.gh = dqp.hi;
+    c.gl = dqp.lo;
+    c.colsum = p_vec;
+    KIT_CHECK(attend_bwd_fused<PASSES>(c, B, H, st));
+  } else {
+    if (n < D) KIT_CHECK((int)cudaMemsetAsync(dqkv, 0, 3 * MD * sizeof(float), st));
+    c.dq = dqkv;
+    c.dk = dqkv + D;
+    c.dv = dqkv + 2 * D;
+    c.delta = delta;
+    KIT_CHECK(attend_bwd<PASSES>(c, B, H, st));
+    KIT_CHECK(split_planes(dqkv, 3 * MD, dqp.hi, dqp.lo, st));
+    bias_grad_kernel<<<dim3(3 * D / 128, s_vec), NT, 0, st>>>(dqkv, 3 * D, M, 3 * D, p_vec);
+    KIT_CHECK((int)cudaGetLastError());
+  }
+  // 4. [dW_in | dW_out] per row range: dW_in[j, i] = sum_r dqkv[r, j] [x | m][r,
   // i] (q from x), dW_out[o, i] = sum_r dr[r, o] a[r, i]
   const size_t split = 4 * DD;
   GemmArgs g{};
@@ -301,12 +374,22 @@ int backward(const float* dy, const float* x, const float* mem, const float* qkv
   g.out = p_w + 3 * DD;
   KIT_CHECK((tc_gemm_ld<PASSES, 1, EPI_STORE>(drp.hi, drp.lo, M, D, D, ap.hi, ap.lo, M, D, D, g,
                                               s_w, st)));
-  KIT_CHECK(sum_split(p_w, s_w, split, 3 * D * D, dw_in, st));
-  KIT_CHECK(sum_split(p_w + 3 * DD, s_w, split, D * D, dw_out, st));
-  bias_grad_kernel<<<dim3(D / 32, s_vec), NT, 0, st>>>(dqkv, dr, M, D, p_vec);
+  // 5. every ordered sum in one launch: dW_in, dW_out, db_in, db_out and
+  // the LayerNorm's [dgamma | dbeta]
+  SumJobs jobs{};
+  auto job = [&](const float* part, int S, size_t stride, int cnt, float* out) {
+    jobs.j[jobs.count++] = SumJob{part, S, stride, cnt, out, (cnt / 4 + 31) / 32};
+  };
+  job(p_w, s_w, split, 3 * D * D, dw_in);
+  job(p_w + 3 * DD, s_w, split, D * D, dw_out);
+  job(p_vec, fused ? B : s_vec, 3 * D, 3 * D, db);
+  job(p_dr, blocks, D, D, db + 3 * D);
+  if (gamma != nullptr) job(p_ln, blocks, 2 * D, 2 * D, ln_out);
+  int nb = 0;
+  for (int k = 0; k < jobs.count; ++k) nb += jobs.j[k].blocks;
+  sum_jobs_kernel<<<nb, NT, 0, st>>>(jobs);
   KIT_CHECK((int)cudaGetLastError());
-  KIT_CHECK(sum_split(p_vec, s_vec, 4 * D, 4 * D, db, st));
-  // dx = dr + dqkv W_in (self: K = 3D), or dr + dq W_q and dmem = [dk dv] W_kv
+  // 6. dx = dr + dqkv W_in (self: K = 3D), or dr + dq W_q and dmem = [dk dv] W_kv
   GemmArgs e{};
   e.M = M;
   e.N = D;
@@ -347,8 +430,10 @@ int backward(const float* dy, const float* x, const float* mem, const float* qkv
 // each row's (m, l) of exp2 and, with gamma, r (B*T, D) the pre-LN sum.  The
 // lo planes null with passes 1.  gamma, beta null means no LayerNorm; mask,
 // valid (B, T) may be null.  planes: 5 B T D bf16 a plane (6 with a memory;
-// passes 3: two planes); fs: B T D floats (serving with a LayerNorm; else
-// unused).  D is 128, 256, 384 or 512; n <= D the model's true width (the
+// passes 3: two planes), the planes of x, the memory and a first, then q /
+// k / v's; in training keep holds the first (2 or 3 B T D a plane: what
+// kit_attn_sublayer_tc_bwd takes as acts) and planes only q / k / v's (3 B
+// T D a plane); fs: B T D floats (serving with a LayerNorm; else unused).  D is 128, 256, 384 or 512; n <= D the model's true width (the
 // operands zero-padded; see common.cuh).
 extern "C" int kit_attn_sublayer_tc(int passes, int train, const void* x, const void* mem, int B,
                                     int T, int D, int n, int H, const void* wh, const void* wl,
@@ -356,11 +441,11 @@ extern "C" int kit_attn_sublayer_tc(int passes, int train, const void* x, const 
                                     const void* gamma, const void* beta, const void* mask,
                                     const void* valid, int repeat_inc, int add_keypad, void* y,
                                     void* qkv, void* a, void* stats, void* r, void* planes,
-                                    void* fs, void* stream) {
+                                    void* keep, void* fs, void* stream) {
   const bool lo = passes == 3;
   if (!(passes == 1 || passes == 3) || n > D || H <= 0 || n % H ||
       (lo && (wl == nullptr || ol == nullptr)) ||
-      (train && (qkv == nullptr || a == nullptr || stats == nullptr ||
+      (train && (qkv == nullptr || a == nullptr || stats == nullptr || keep == nullptr ||
                  (gamma != nullptr && r == nullptr))) ||
       (!train && gamma != nullptr && fs == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -373,35 +458,37 @@ extern "C" int kit_attn_sublayer_tc(int passes, int train, const void* x, const 
     auto run = passes == 3 ? (train ? forward<TN, 3, 0> : forward<TN, 3, 1>)
                            : (train ? forward<TN, 1, 0> : forward<TN, 1, 1>);
     return run(f(x), f(mem), B, T, n, H, w, f(gamma), f(beta), mk, (float*)y, (float*)qkv,
-               (float*)a, (float*)stats, (float*)r, (bf16*)planes, (float*)fs,
+               (float*)a, (float*)stats, (float*)r, (bf16*)planes, (bf16*)keep, (float*)fs,
                (cudaStream_t)stream);
   });
 }
 
 // Gradients of kit_attn_sublayer_tc's training form given dy = dL/dy (B*T,
-// D), its inputs and its residuals qkv, a, stats and r (r with a LayerNorm
-// only), in mode passes: wih / wil = in_proj_weight (3D, D) and woh / wol =
+// D) and its residuals qkv, a, stats and r (r with a LayerNorm only), in
+// mode passes: wih / wil = in_proj_weight (3D, D) and woh / wol =
 // out_proj.weight (D, D), the forward's planes in torch's layout (lo null
-// with passes 1).  Writes dx, dmem (with a memory), dw_in (3D, D), dw_out
-// (D, D), db = [db_in | db_out] (4D) and, with gamma, ln_out = [dgamma |
-// dbeta].  scratch: 3 M D + B H T (rounded up to 4) + blocks * 2 D + s_w * 4
-// D^2 + s_vec * 4 D + D + M D floats, M = B*T, blocks = ceil(M / 32), s_vec
-// = ceil(M / BIAS_ROWS), then (7, or 8 with a memory) M D bf16 a plane; the
-// weight gradients sum over s_w row ranges.  D and n as kit_attn_sublayer_tc
-// takes them.
-extern "C" int kit_attn_sublayer_tc_bwd(int passes, const void* dy, const void* x,
-                                        const void* mem, const void* qkv, const void* a,
-                                        const void* stats, const void* r, const void* wih,
-                                        const void* wil, const void* woh, const void* wol,
-                                        const void* gamma, const void* mask, const void* valid,
+// with passes 1); acts: the training forward's keep (the planes of x, the
+// memory and a).  Writes dx, dmem (with a memory: dmem null means
+// self-attention), dw_in (3D, D), dw_out (D, D), db = [db_in | db_out] (4D)
+// and, with gamma, ln_out = [dgamma | dbeta].  scratch, M = B*T, blocks =
+// ceil(M / 32), s_vec = ceil(M / BIAS_ROWS), floats: where the fused core
+// does not take (T, dh) (kit_attn_bwd_fused) 3 M D + B H T (rounded up to
+// 4); then blocks * 3 D + s_w * 4 D^2 + (fused ? B : s_vec) * 3 D + M D;
+// then 5 M D bf16 a plane; the weight gradients sum over s_w row ranges.  D
+// and n as kit_attn_sublayer_tc takes them.
+extern "C" int kit_attn_sublayer_tc_bwd(int passes, const void* dy, const void* qkv,
+                                        const void* a, const void* stats, const void* r,
+                                        const void* wih, const void* wil, const void* woh,
+                                        const void* wol, const void* gamma, const void* mask,
+                                        const void* valid,
                                         int B, int T, int D, int n, int H, int repeat_inc,
-                                        int add_keypad, int s_w, void* dx, void* dmem,
-                                        void* dw_in, void* dw_out, void* db, void* ln_out,
-                                        void* scratch, void* stream) {
+                                        int add_keypad, int s_w, const void* acts, void* dx,
+                                        void* dmem, void* dw_in, void* dw_out, void* db,
+                                        void* ln_out, void* scratch, void* stream) {
   const bool lo = passes == 3;
   if (!(passes == 1 || passes == 3) || n > D || H <= 0 || n % H || s_w < 1 ||
       (lo && (wil == nullptr || wol == nullptr)) || (gamma != nullptr && r == nullptr) ||
-      (mem != nullptr && dmem == nullptr))
+      acts == nullptr)
     return (int)cudaErrorInvalidValue;
   const Masks mk{(const float*)mask, (const float*)valid, repeat_inc, add_keypad};
   auto f = [](const void* v) { return (const float*)v; };
@@ -410,8 +497,14 @@ extern "C" int kit_attn_sublayer_tc_bwd(int passes, const void* dy, const void* 
   return by_width(D, [&](auto tn) {
     constexpr int TN = decltype(tn)::value;
     auto run = passes == 3 ? backward<TN, 3> : backward<TN, 1>;
-    return run(f(dy), f(x), f(mem), f(qkv), f(a), f(stats), f(r), h(wih), h(wil), h(woh),
-               h(wol), f(gamma), mk, B, T, n, H, s_w, o(dx), o(dmem), o(dw_in), o(dw_out), o(db),
-               o(ln_out), o(scratch), (cudaStream_t)stream);
+    return run(f(dy), f(qkv), f(a), f(stats), f(r), h(wih), h(wil), h(woh),
+               h(wol), f(gamma), mk, B, T, n, H, s_w, h(acts), o(dx), o(dmem), o(dw_in), o(dw_out),
+               o(db), o(ln_out), o(scratch), (cudaStream_t)stream);
   });
+}
+
+// 1 where kit_attn_sublayer_tc_bwd runs the fused core at (T, dh) in mode
+// passes, else 0 (the two-kernel core): the wrapper sizes the scratch by it.
+extern "C" int kit_attn_bwd_fused(int passes, int T, int dh) {
+  return fused_core(passes, T, dh) ? 1 : 0;
 }

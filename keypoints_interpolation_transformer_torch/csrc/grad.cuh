@@ -122,13 +122,15 @@ ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 // 32 * TN (statistics over the first nw columns, dx 0 beyond them), given
 // dy: dx, and the block's partial sums of dy * norm(x) (part[0, D)) and of
 // dy (part[D, 2D)) at part + blockIdx.x * 2D; dx's bf16 planes too when hi
-// is not null (store_planes).  dx may be dy: each thread reads all its
-// values before it writes them.
+// is not null (store_planes), and the block's column sums of dx at
+// dxsum + blockIdx.x * D when dxsum is not null.  dx may be dy: each thread
+// reads all its values before it writes them.
 template <int TN>
 __global__ void __launch_bounds__(NT)
 ln_bwd_kernel(const float* dy, const float* __restrict__ x, const float* __restrict__ gamma,
               int M, int nw, float* dx, float* __restrict__ part,
-              __nv_bfloat16* hi = nullptr, __nv_bfloat16* lo = nullptr) {
+              __nv_bfloat16* hi = nullptr, __nv_bfloat16* lo = nullptr,
+              float* __restrict__ dxsum = nullptr) {
   constexpr int D = 32 * TN;
   const float inv_n = 1.f / nw;
   __shared__ float red[8 * D];
@@ -176,6 +178,7 @@ ln_bwd_kernel(const float* dy, const float* __restrict__ x, const float* __restr
     for (int j = 0; j < TN; ++j)
       t[i][j] = col_of(j) < nw ? (t[i][j] - m1 - n[i][j] * m2) * inv[i] : 0.f;
   }
+  if (dxsum != nullptr) block_colsum<TN>(t, red, dxsum + (size_t)blockIdx.x * D, D);
   store_rows<TN>(dx, D, D, row0, M, t);
   if (hi != nullptr) store_planes<TN>(hi, lo, row0, M, t);
 }

@@ -278,7 +278,8 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4
 }
 
 // d (m64n128, float32) += A B, A from registers (the m64k16 fragment, a[4])
-// and B from shared memory (descriptor db, K-major).
+// and B from shared memory (descriptor db; TB 0 K-major, 1 MN-major).
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -292,7 +293,7 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -304,7 +305,7 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[64], const uint32_t (&a)[
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
 
 

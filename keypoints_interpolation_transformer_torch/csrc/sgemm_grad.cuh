@@ -386,12 +386,13 @@ __global__ void __launch_bounds__(NT, 1) tn_kernel(const TNArgs p) {
 // order, and the runs are added in order (a fixed order: the same bits
 // from run to run, with 8 chains of loads in flight where a long S, the
 // LayerNorms' 32-row blocks, would leave one).
-__global__ void __launch_bounds__(NT) sum_split_kernel(const float* __restrict__ part, int S,
-                                                       size_t stride, int n,
-                                                       float* __restrict__ out) {
+// sum_split_kernel's block bx (NT threads).
+__device__ __forceinline__ void sum_split_block(const float* __restrict__ part, int S,
+                                                size_t stride, int n, float* __restrict__ out,
+                                                int bx) {
   __shared__ float4 red[NT / 32][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = 4 * (blockIdx.x * 32 + lane);
+  const int i = 4 * (bx * 32 + lane);
   const int per = (S + NT / 32 - 1) / (NT / 32), z0 = warp * per, z1 = min(S, z0 + per);
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   if (i < n)
@@ -418,6 +419,12 @@ __global__ void __launch_bounds__(NT) sum_split_kernel(const float* __restrict__
     }
     *reinterpret_cast<float4*>(out + i) = acc;
   }
+}
+
+__global__ void __launch_bounds__(NT) sum_split_kernel(const float* __restrict__ part, int S,
+                                                       size_t stride, int n,
+                                                       float* __restrict__ out) {
+  sum_split_block(part, S, stride, n, out, blockIdx.x);
 }
 
 // ---- host side ------------------------------------------------------------

@@ -60,7 +60,7 @@ struct GemmArgs {
   bf16 *oh, *ol;     // EPI_DU, EPI_PLANES: the output's planes (M, N); ol null with passes 1
   bf16 *gh, *gl;     // EPI_DU: gelu(u)'s planes (M, N); gl null with passes 1
   float* colsum;     // EPI_DU: (row tiles, N) column sums of du
-  const float* bias;  // EPI_PLANES, EPI_RES, EPI_QKV, EPI_BIAS: (N); EPI_GLU: [b1 | b2]
+  const float* bias;  // EPI_PLANES (or null), EPI_RES, EPI_QKV, EPI_BIAS: (N); EPI_GLU: [b1 | b2]
   int scols;          // EPI_QKV: the columns scaled by qs before the split
   float qs;
 };
@@ -234,7 +234,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       const float4 a = __ldg(reinterpret_cast<const float4*>(p.add + o));
       v = make_float4(v.x + a.x, v.y + a.y, v.z + a.z, v.w + a.w);
     }
-    if (EPI == EPI_PLANES || EPI == EPI_RES || EPI == EPI_QKV || EPI == EPI_BIAS) {
+    if ((EPI == EPI_PLANES && p.bias != nullptr) || EPI == EPI_RES || EPI == EPI_QKV ||
+        EPI == EPI_BIAS) {
       const float4 b = __ldg(reinterpret_cast<const float4*>(p.bias + c));
       v = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
     }

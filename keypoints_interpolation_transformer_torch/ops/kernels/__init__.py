@@ -30,7 +30,7 @@ from .layer_fused import (attn_weight_planes, decoder_layer_plain,
                           fused_decoder_layer, fused_encoder_layer,
                           fused_encoder_layer_int8)
 from .linear import (ModeLinearFunction, linear_planes, mode_linear,
-                     mode_linear_bwd, row_planes)
+                     mode_linear_bwd, row_planes, weight_planes)
 from .masked_loss import (FusedEuclideanLoss, fused_euclidean_loss,
                           fused_masked_loss, masked_loss_plain)
 from .pointwise import (chain_planes, fused_post_head, fused_pre_stream,

@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[str, str] = {}  # "library.function": the signature set
 
 
 def _nvcc() -> str:
@@ -98,7 +99,12 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 def bind(name: str, signatures: Dict[str, str]) -> ctypes.CDLL:
     """The loaded library ``name`` with ``argtypes`` set from
     ``signatures`` (one letter per argument: p pointer or stream, i int);
-    builds every stale source first."""
+    builds every stale source first.  A wrapper binds on every call: a
+    library already loaded with those signatures returns at once."""
+    lib = _libs.get(name)
+    if lib is not None and all(_bound.get(f"{name}.{fn}") == sig
+                               for fn, sig in signatures.items()):
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -113,6 +119,7 @@ def bind(name: str, signatures: Dict[str, str]) -> ctypes.CDLL:
             f = getattr(lib, fn)
             f.argtypes = [_CTYPES[c] for c in sig]
             f.restype = ctypes.c_int
+            _bound[f"{name}.{fn}"] = sig
         return lib
 
 

@@ -90,7 +90,7 @@ from ..masks import NEG
 from . import _build
 from .ffn import _PASSES, LN_EPS, _ln_bwd_plain, wave_splits
 from .precision import (MODES, check_mode, part_products, parts,
-                        prob_products, weight_planes)
+                        prob_products, split_bf16, weight_planes)
 from .widths import check_heads, cut, cut_blocks, kernel_width, pad, \
     pad_blocks, row_tile
 
@@ -98,8 +98,9 @@ from .widths import check_heads, cut, cut_blocks, kernel_width, pad, \
 _SIGS = {"kit_attn_sublayer": "pp" + "i" * 5 + "p" * 8 + "ii" + "p" * 6,
          "kit_attn_sublayer_bwd": "p" * 12 + "i" * 8 + "p" * 9}
 _MODE_SIGS = {"kit_attn_sublayer_tc": "iipp" + "i" * 5 + "p" * 10 + "ii"
-                                      + "p" * 8,
-              "kit_attn_sublayer_tc_bwd": "i" + "p" * 14 + "i" * 8 + "p" * 8}
+                                      + "p" * 9,
+              "kit_attn_sublayer_tc_bwd": "i" + "p" * 12 + "i" * 8 + "p" * 9,
+              "kit_attn_bwd_fused": "iii"}
 # the backward's bias gradients: rows a partial sum (``csrc/
 # attn_sublayer_modes.cu`` BIAS_ROWS)
 BIAS_ROWS = 128
@@ -411,22 +412,25 @@ def fused_attn_sublayer_train(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b,
                               add_keypad: bool = False, heads: int = 8,
                               mode: str = "f32", planes=None):
     """``fused_attn_sublayer`` that also returns what its backward reads:
-    (y, qkv, a, stats, r), as ``attn_sublayer_train_plain`` says.  In the
-    modes the kernel reads w_in = wqkv^T and w_out = wo^T as bf16 planes in
-    torch's layout: ``planes`` (``attn_train_planes``), which a call on the
-    card must give."""
+    (y, qkv, a, stats, r, acts), the first five as
+    ``attn_sublayer_train_plain`` says.  In the modes the kernel reads w_in
+    = wqkv^T and w_out = wo^T as bf16 planes in torch's layout: ``planes``
+    (``attn_train_planes``), which a call on the card must give; acts are
+    the planes of x, the memory and a the kernel split, which the backward
+    reads (``attn_sublayer_bwd``'s ``acts``; None on the CPU and at
+    "f32")."""
     check_mode(mode)
     if x.device.type == "cpu":
-        return attn_sublayer_train_plain(x, memory, wqkv, bqkv, wo, bo, ln_w,
-                                         ln_b, mask, valid, kind, add_keypad,
-                                         heads, mode)
+        return (*attn_sublayer_train_plain(x, memory, wqkv, bqkv, wo, bo,
+                                           ln_w, ln_b, mask, valid, kind,
+                                           add_keypad, heads, mode), None)
     where = "fused_attn_sublayer_train"
     if mode == "f32":
         mask = _check_forward(where, x, memory, wqkv, bqkv, wo, bo, ln_w,
                               ln_b, mask, valid, kind, add_keypad, heads)
-        out = _launch_forward(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b,
-                              mask, valid, kind, add_keypad, heads,
-                              train=True)
+        out = (*_launch_forward(x, memory, wqkv, bqkv, wo, bo, ln_w, ln_b,
+                                mask, valid, kind, add_keypad, heads,
+                                train=True), None)
     else:
         mask = _check_forward(where, x, memory, wqkv, bqkv, wo, bo, ln_w,
                               ln_b, mask, valid, kind, add_keypad, heads,
@@ -513,15 +517,40 @@ def _train_planes(where, device, planes, mode, n, D):
     return _pad_planes((wih, wil), (woh, wol), n, D, 0)
 
 
+def mode_act_elems(B: int, T: int, D: int, cross: bool, mode: str) -> int:
+    """The bf16 elements of the training forward's kept planes (``acts``):
+    those of x, the memory (cross-attention) and the attention output a, B
+    T D each, two planes in "bf16x3"."""
+    return (3 if cross else 2) * (2 if mode == "bf16x3" else 1) * B * T * D
+
+
 def mode_forward_scratch(B: int, T: int, D: int, cross: bool, mode: str,
                          ln: bool, train: bool):
     """``kit_attn_sublayer_tc``'s scratch (``csrc/attn_sublayer_modes.cu``):
-    (bf16 elements, floats): the planes of x, the memory (cross-attention),
-    q / k / v and the attention output, B T D each but q / k / v's 3 B T D,
+    (bf16 elements, floats): the planes of q / k / v (3 B T D) and, when
+    serving (training keeps them apart: ``acts``, ``mode_act_elems``), of
+    x, the memory (cross-attention) and the attention output (B T D each),
     two planes in "bf16x3"; the pre-LN sum when serving with a LayerNorm."""
     MD = B * T * D
-    return ((6 if cross else 5) * (2 if mode == "bf16x3" else 1) * MD,
-            MD if ln and not train else 0)
+    planes = 3 * (2 if mode == "bf16x3" else 1) * MD
+    if not train:
+        planes += mode_act_elems(B, T, D, cross, mode)
+    return planes, (MD if ln and not train else 0)
+
+
+def attn_act_planes(x, memory, a, mode: str):
+    """The planes of x, the memory (None: self-attention) and a, each
+    zero-padded to the kernel width and split (hi, then lo in "bf16x3"), as
+    the training forward keeps them for ``attn_sublayer_bwd`` (``acts``): for
+    a backward called on the card without its forward's call."""
+    D = kernel_width("attn_sublayer_bwd", x.shape[-1])
+    out = []
+    for t in (x, memory, a):
+        if t is not None:
+            t = pad(t, D).reshape(-1)
+            out.extend(split_bf16(t) if mode == "bf16x3"
+                       else (t.to(torch.bfloat16),))
+    return torch.cat(out)
 
 
 def mode_bwd_splits(M: int, D: int) -> int:
@@ -531,26 +560,30 @@ def mode_bwd_splits(M: int, D: int) -> int:
     return wave_splits(M, 4 * (D // 128) ** 2)
 
 
-def mode_bwd_scratch_floats(B: int, T: int, D: int, heads: int, cross: bool,
-                            mode: str, s_w: int) -> int:
-    """``kit_attn_sublayer_tc_bwd``'s scratch in floats: dqkv (3 M D), delta
-    (B H T, rounded up to 4), the LayerNorm's sums per 32-row block, the
-    weight gradients' per row range (4 D^2 each), the bias gradients' per
-    ``BIAS_ROWS`` rows (4 D each), a zero bias (D), dr (M D), then the bf16
-    planes of dr, x, the memory (cross-attention), dA, a and dqkv (7 or 8 M
-    D a plane, two planes in "bf16x3"; two bf16 a float)."""
+def mode_bwd_scratch_floats(B: int, T: int, D: int, heads: int, mode: str,
+                            s_w: int, fused: bool) -> int:
+    """``kit_attn_sublayer_tc_bwd``'s scratch in floats, ``fused`` as
+    ``kit_attn_bwd_fused`` answers for (T, dh): without the fused core dqkv
+    (3 M D) and delta (B H T, rounded up to 4); the LayerNorm's and dr's
+    sums per 32-row block (3 D each), the weight gradients' per row range
+    (4 D^2 each), [dq | dk | dv]'s sums per video (fused) or per
+    ``BIAS_ROWS`` rows (3 D each), dr (M D), then the bf16 planes of dr, dA
+    and [dq | dk | dv] (5 M D a plane, two planes in "bf16x3"; two bf16 a
+    float)."""
     M = B * T
     MD = M * D
-    s_vec = -(-M // BIAS_ROWS)
-    planes = (8 if cross else 7) * (2 if mode == "bf16x3" else 1) * MD
-    return (3 * MD + -(-B * heads * T // 4) * 4 + -(-M // 32) * 2 * D
-            + s_w * 4 * D * D + s_vec * 4 * D + D + MD + -(-planes // 2))
+    two = 0 if fused else 3 * MD + -(-B * heads * T // 4) * 4
+    vec = B if fused else -(-M // BIAS_ROWS)
+    planes = 5 * (2 if mode == "bf16x3" else 1) * MD
+    return (two + -(-M // 32) * 3 * D + s_w * 4 * D * D + vec * 3 * D + MD
+            + -(-planes // 2))
 
 
 def _launch_forward_mode(x, memory, weights, ln_w, ln_b, mask, valid, kind,
                          add_keypad, heads, mode, train):
-    """(y, qkv, a, stats, r) of the forward in ``mode`` at the model's width
-    n (qkv, a, stats and r None unless ``train``; r only with a LayerNorm):
+    """(y, qkv, a, stats, r, acts) of the forward in ``mode`` at the model's
+    width n (qkv, a, stats, r and acts, the planes of x, the memory and a,
+    None unless ``train``; r only with a LayerNorm):
     ``weights`` (wh, wl, b, oh, ol, bo) padded to the kernel width D, the
     serving form's (``_mode_attn``) or the training form's
     (``_train_weights``)."""
@@ -560,13 +593,15 @@ def _launch_forward_mode(x, memory, weights, ln_w, ln_b, mask, valid, kind,
     x, memory, ln_w, ln_b = (pad(t, D) for t in (x, memory, ln_w, ln_b))
     dev = x.device
     y = torch.empty_like(x)
-    qkv = a = stats = r = None
+    qkv = a = stats = r = acts = None
     if train:
         qkv = torch.empty(B, T, 3 * D, device=dev)
         # the columns from H * dh on are not written
         a = (torch.empty if n == D else torch.zeros)(B, T, D, device=dev)
         stats = torch.empty(B, heads, T, 2, device=dev)
         r = torch.empty_like(x) if ln_w is not None else None
+        acts = torch.empty(mode_act_elems(B, T, D, memory is not None, mode),
+                           dtype=torch.bfloat16, device=dev)
     nb, nf = mode_forward_scratch(B, T, D, memory is not None, mode,
                                   ln_w is not None, train)
     buf = torch.empty(nb, dtype=torch.bfloat16, device=dev)
@@ -575,11 +610,11 @@ def _launch_forward_mode(x, memory, weights, ln_w, ln_b, mask, valid, kind,
     _build.call(lib, "kit_attn_sublayer_tc", dev, _PASSES[mode], int(train),
                 x, memory, B, T, D, n, heads, *weights, ln_w, ln_b, mask,
                 valid, int(kind == "repeat-inc"), int(add_keypad), y, qkv, a,
-                stats, r, buf, fs)
+                stats, r, buf, acts, fs)
     if not train:
-        return cut(y, n), None, None, None, None
+        return cut(y, n), None, None, None, None, None
     return (cut(y, n), cut_blocks(qkv, n, D, -1), cut(a, n), stats,
-            cut(r, n))
+            cut(r, n), acts)
 
 
 def attn_core_bwd_plain(da, qkv, a, stats, mask, valid, kind: str,
@@ -767,7 +802,7 @@ def bwd_scratch_floats(B: int, T: int, D: int, heads: int, dh: int) -> int:
 def attn_sublayer_bwd(dy, x, memory, qkv, a, stats, r, w_in, w_out, ln_w,
                       mask, valid, kind: str = "repeat-inc",
                       add_keypad: bool = False, heads: int = 8,
-                      mode: str = "f32", planes=None):
+                      mode: str = "f32", planes=None, acts=None):
     """Gradients of ``fused_attn_sublayer_train``'s y: dy (B, T, D) is
     dL/dy; x, memory, masks as the forward saw them; qkv, a, stats, r as
     it wrote them (in the same ``mode``: a mode's statistics are in the
@@ -776,7 +811,8 @@ def attn_sublayer_bwd(dy, x, memory, qkv, a, stats, r, w_in, w_out, ln_w,
     is None for self-attention, dln_* None without a LayerNorm.  In the
     modes the kernels read the forward's planes of w_in and w_out
     (``planes``, ``attn_train_planes``, as ``AttnSublayerFunction`` hands
-    them on), which a call on the card must give."""
+    them on) and those of x, the memory and a (``acts``: the forward's sixth
+    value, or ``attn_act_planes``), which a call on the card must give."""
     check_mode(mode)
     if dy.device.type == "cpu":
         return attn_sublayer_bwd_plain(dy, x, memory, qkv, a, stats, r, w_in,
@@ -807,25 +843,32 @@ def attn_sublayer_bwd(dy, x, memory, qkv, a, stats, r, w_in, w_out, ln_w,
                                  w_out, ln_w, mask, valid, kind, add_keypad,
                                  heads)
     else:
-        planes = _train_planes(where, dy.device, planes, mode, D,
-                               kernel_width(where, D))
+        kw = kernel_width(where, D)
+        planes = _train_planes(where, dy.device, planes, mode, D, kw)
+        n_acts = mode_act_elems(B, T, kw, memory is not None, mode)
+        if acts is None or acts.dtype != torch.bfloat16 or \
+                acts.device != dy.device or not acts.is_contiguous() or \
+                acts.numel() != n_acts:
+            raise ValueError(f"{where}: mode {mode!r} takes the forward's "
+                             f"planes of x, the memory and a (acts: {n_acts} "
+                             f"contiguous bfloat16 values on {dy.device})")
+        _build.check_aligned(where, acts=acts)
         grads = _launch_backward_mode(dy, x, memory, qkv, a, stats, r,
-                                      planes, ln_w, mask, valid, kind,
+                                      planes, acts, ln_w, mask, valid, kind,
                                       add_keypad, heads, mode)
     attn_sublayer_bwd.launches[mode] += 1
     return grads
 
 
-def _launch_backward_mode(dy, x, memory, qkv, a, stats, r, planes, ln_w,
-                          mask, valid, kind, add_keypad, heads, mode):
+def _launch_backward_mode(dy, x, memory, qkv, a, stats, r, planes, acts,
+                          ln_w, mask, valid, kind, add_keypad, heads, mode):
     """``attn_sublayer_bwd``'s gradients in a mode from its checked
     operands, at the model's width n.  Runs at the kernel width D, the
-    operands zero-padded from n (``widths``), ``planes`` already
-    (``_train_planes``)."""
+    operands zero-padded from n (``widths``), ``planes`` and ``acts``
+    already (``_train_planes``, the forward's keep)."""
     B, T, n = x.shape
     D = kernel_width("attn_sublayer_bwd", n)
-    dy, x, memory, a, r, ln_w = (pad(t, D) for t in (dy, x, memory, a, r,
-                                                     ln_w))
+    dy, a, r, ln_w = (pad(t, D) for t in (dy, a, r, ln_w))
     qkv = pad_blocks(qkv, n, D, -1)
     wih, wil, woh, wol = planes
     dev = dy.device
@@ -836,14 +879,15 @@ def _launch_backward_mode(dy, x, memory, qkv, a, stats, r, planes, ln_w,
     dw_in, dw_out = empty(3 * D, D), empty(D, D)
     db = empty(4 * D)  # [db_in | db_out]
     ln_out = empty(2, D)
-    scratch = empty(mode_bwd_scratch_floats(B, T, D, heads,
-                                            memory is not None, mode, s_w))
     lib = _build.bind("attn_sublayer_modes", _MODE_SIGS)
-    _build.call(lib, "kit_attn_sublayer_tc_bwd", dev, _PASSES[mode], dy, x,
-                memory, qkv, a, stats, r, wih, wil, woh, wol, ln_w, mask,
+    fused = bool(lib.kit_attn_bwd_fused(_PASSES[mode], T, n // heads))
+    scratch = empty(mode_bwd_scratch_floats(B, T, D, heads, mode, s_w,
+                                            fused))
+    _build.call(lib, "kit_attn_sublayer_tc_bwd", dev, _PASSES[mode], dy,
+                qkv, a, stats, r, wih, wil, woh, wol, ln_w, mask,
                 valid, B, T, D, n, heads, int(kind == "repeat-inc"),
-                int(add_keypad), s_w, dx, dmem, dw_in, dw_out, db, ln_out,
-                scratch)
+                int(add_keypad), s_w, acts, dx, dmem, dw_in, dw_out, db,
+                ln_out, scratch)
     db_in, db_out = db[:3 * D], db[3 * D:]
     dg, dbe = (None, None) if ln_w is None else (cut(ln_out[0], n),
                                                  cut(ln_out[1], n))
@@ -897,28 +941,30 @@ class AttnSublayerFunction(torch.autograd.Function):
     out_proj.weight) and returns their gradients in it; ``memory`` None
     selects self-attention.  In the modes the weights are split into bf16
     planes once a forward (``attn_train_planes``), and the backward reads
-    the same planes."""
+    the same planes, and those of x, the memory and a the forward's kernel
+    split (its ``acts``)."""
 
     @staticmethod
     def forward(ctx, x, memory, w_in, b_in, w_out, b_out, ln_w, ln_b, mask,
                 valid, kind, add_keypad, heads, mode="f32", plain=False):
-        planes = None
+        planes = acts = None
         if plain:
             y, qkv, a, stats, r = attn_sublayer_train_plain(
                 x, memory, w_in.t(), b_in, w_out.t(), b_out, ln_w, ln_b,
                 mask, valid, kind, add_keypad, heads, mode)
         elif mode == "f32":
-            y, qkv, a, stats, r = fused_attn_sublayer_train(
+            y, qkv, a, stats, r, _ = fused_attn_sublayer_train(
                 x, memory, w_in.t().contiguous(), b_in,
                 w_out.t().contiguous(), b_out, ln_w, ln_b, mask, valid, kind,
                 add_keypad, heads)
         else:  # the weights split once per step, in torch's layout
             if x.device.type != "cpu":
                 planes = attn_train_planes(w_in, w_out, mode)
-            y, qkv, a, stats, r = fused_attn_sublayer_train(
+            y, qkv, a, stats, r, acts = fused_attn_sublayer_train(
                 x, memory, w_in.t(), b_in, w_out.t(), b_out, ln_w, ln_b,
                 mask, valid, kind, add_keypad, heads, mode, planes)
         ctx.planes = planes  # the backward reads the same planes
+        ctx.acts = acts
         ctx.cfg = (kind, add_keypad, heads, mode)
         ctx.plain = plain
         ctx.save_for_backward(x, memory, qkv, a, stats, r, w_in, w_out,
@@ -931,5 +977,5 @@ class AttnSublayerFunction(torch.autograd.Function):
         if ctx.plain:
             grads = attn_sublayer_bwd_plain(*args)
         else:
-            grads = attn_sublayer_bwd(*args, ctx.planes)
+            grads = attn_sublayer_bwd(*args, ctx.planes, ctx.acts)
         return (*grads, None, None, None, None, None, None, None)

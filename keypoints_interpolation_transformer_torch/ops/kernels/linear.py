@@ -11,23 +11,33 @@ its backward.  Kernels (``csrc/mode_linear.cu``):
 
   * ``mode_linear(x, w, b, mode)``: y = x W + b over the last axis, the
     product on the bf16 tensor cores from the bf16 parts of x and W
-    (``precision.mode_linear_plain`` says it step by step);
+    (``precision.mode_linear_plain`` says it step by step), one launch a
+    call: the kernel reads x in float32 and splits it itself;
+  * ``weight_planes(w, mode)``: W's planes and their tensor maps, made once
+    per weight version (the tensor, its ``_version``, its storage and the
+    mode: an optimizer's in-place step and ``load_state_dict``'s ``copy_``
+    both bump the version) and kept while W lives; ``weight_planes.splits``
+    counts the splits;
   * ``mode_linear_bwd``: dx = g W^T and dW = x^T g in the same mode, db the
     float32 column sums of g, in a fixed order (no atomics);
   * ``ModeLinearFunction`` ties them together under autograd: its forward
-    keeps the planes of x and W it split, and its backward reads them, so a
-    step splits each weight once.
+    has the kernel write x's planes beside y, and its backward reads them
+    and W's, so a step splits each weight once.
 
 ``mode_linear`` takes the plain version for CPU tensors and launches the
 kernels for CUDA tensors (through ``ModeLinearFunction`` when a gradient
 is wanted), or raises; at "f32" it is ``x @ w + b``, as the port computed
 these products before (the library's float32 product, counted nowhere).
 ``launches[mode]`` counts the calls that launched.  W is (in, out), the Flax
-layout, as ``packed_linear`` and ``graph_linear`` hand it over; K and N
-must be multiples of 4.
+layout, as ``packed_linear`` and ``graph_linear`` hand it over (a view of
+a Linear's weight keys the cache by that weight); K and N must be
+multiples of 4.
 """
 
 from __future__ import annotations
+
+import weakref
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,8 +47,11 @@ from .precision import (MODES, check_mode, mode_linear_bwd_plain,
                         mode_linear_plain, split_bf16)
 
 # one letter per C argument, the stream last: p pointer, i int
-_SIGS = {"kit_mode_linear": "ipiii" + "p" * 8,
+_SIGS = {"kit_mode_linear": "ipiii" + "p" * 6,
+         "kit_mode_linear_weight": "ipii" + "p" * 4,
          "kit_mode_linear_bwd": "ipiii" + "p" * 7 + "ii" + "p" * 4}
+# two CUtensorMap of 128 bytes: the maps of W's planes
+_MAPS_BYTES = 256
 # the planes' row multiple (``csrc/mode_linear.cu`` pad16): TMA reads rows
 # of 16-byte multiples, and 108 columns are 216 bytes
 PLANE_COLS = 16
@@ -122,28 +135,104 @@ def _plane_pair(P, rows, cols, device):
     return buf[0], (buf[1] if P == 2 else None)
 
 
-def _launch(x, w, b, mode):
-    """The forward on the card: (y (M, N), x's planes, W's planes), x's rows
-    (M, K) and W (K, N) split in the kernel's call."""
+class WeightPlanes(NamedTuple):
+    """W's planes (hi, lo; lo None in "bf16") and, on the card, the tensor
+    maps of them that the kernel reads (a CPU byte tensor)."""
+    planes: tuple
+    maps: Optional[torch.Tensor]
+
+
+class _Entry(NamedTuple):
+    ref: weakref.ref
+    version: int
+    ptr: int
+    value: WeightPlanes
+
+
+_CACHE: dict = {}
+
+
+def _cache_key(w: torch.Tensor, mode: str):
+    """(the tensor W is a view of, or W, and the key of W's planes): the
+    base's identity, W's place in it and the mode."""
+    base = w if w._base is None else w._base
+    return base, (id(base), tuple(w.shape), tuple(w.stride()),
+                  w.storage_offset(), mode)
+
+
+def weight_planes(w: torch.Tensor, mode: str) -> WeightPlanes:
+    """W (K, N)'s planes in ``mode`` as ``csrc/mode_linear.cu`` reads them
+    (``linear_planes``), split once per version of W: a hit needs the same
+    tensor (a weak reference, so a new tensor at a freed one's address
+    misses), the same ``_version`` and the same storage.  On the card the
+    split is ``kit_mode_linear_weight``'s, which also encodes the planes'
+    tensor maps; on the CPU ``linear_planes``."""
+    check_mode(mode)
+    base, key = _cache_key(w, mode)
+    e = _CACHE.get(key)
+    if e is not None and e.ref() is base and e.version == w._version \
+            and e.ptr == w.data_ptr():
+        return e.value
+    if w.device.type == "cpu":
+        value = WeightPlanes(linear_planes(w, mode), None)
+    else:
+        value = _split_weight(w, mode)
+    weight_planes.splits[mode] += 1
+    ref = weakref.ref(base, lambda _, k=key: _CACHE.pop(k, None))
+    _CACHE[key] = _Entry(ref, w._version, w.data_ptr(), value)
+    return value
+
+
+weight_planes.splits = dict.fromkeys(MODES, 0)
+
+
+def _split_weight(w, mode):
     where = "mode_linear"
     K, N = w.shape
     _check_widths(where, K, N)
+    wc = _operand(where, "w", w.detach(), w.device)
+    P = 2 if mode == "bf16x3" else 1
+    wh, wl = _plane_pair(P, K, padded(N), w.device)
+    maps = torch.empty(_MAPS_BYTES, dtype=torch.uint8)
+    lib = _build.bind("mode_linear", _SIGS)
+    _build.call(lib, "kit_mode_linear_weight", w.device, _PASSES[mode], wc,
+                K, N, wh, wl, maps)
+    return WeightPlanes((wh, wl), maps)
+
+
+def _launch(x, w, b, mode, keep):
+    """The forward on the card: (y (..., N), x's planes (M, padded(K)) or
+    None, W's planes), one launch; x's planes written when ``keep``.  The
+    checks raise on device, dtype and shape; a view that is not contiguous
+    or not 16-byte aligned is copied."""
+    where = "mode_linear"
+    K, N = w.shape
+    dev = x.device
     if x.shape[-1] != K:
         raise ValueError(f"{where}: x has {x.shape[-1]} features, W {K} rows")
-    x2 = _operand(where, "x", x.reshape(-1, K), x.device)
-    w = _operand(where, "w", w, x.device)
-    b = _operand(where, "b", b, x.device)
-    _build.check_shape(where, "b", b, (N,))
+    if w.device != dev:
+        raise ValueError(f"{where}: w is on {w.device}, expected {dev}")
+    wp = weight_planes(w, mode)
+    x2 = x.reshape(-1, K)
+    if x2.dtype != torch.float32 or not x2.is_contiguous() \
+            or x2.data_ptr() % 16:
+        x2 = _operand(where, "x", x2, dev)
+    if b is not None:
+        if b.dtype != torch.float32 or b.device != dev \
+                or not b.is_contiguous() or b.data_ptr() % 16:
+            b = _operand(where, "b", b, dev)
+        if b.shape != (N,):
+            _build.check_shape(where, "b", b, (N,))
     M = x2.shape[0]
-    P = 2 if mode == "bf16x3" else 1
-    xh, xl = _plane_pair(P, M, padded(K), x.device)
-    wh, wl = _plane_pair(P, K, padded(N), x.device)
-    y = torch.empty(M, N, device=x.device)
+    xh = xl = None
+    if keep:
+        xh, xl = _plane_pair(2 if mode == "bf16x3" else 1, M, padded(K), dev)
+    y = torch.empty(M, N, device=dev)
     lib = _build.bind("mode_linear", _SIGS)
-    _build.call(lib, "kit_mode_linear", x.device, _PASSES[mode], x2, M, K, N,
-                w, wh, wl, b, y, xh, xl)
+    _build.call(lib, "kit_mode_linear", dev, _PASSES[mode], x2, M, K, N,
+                wp.maps, b, y, xh, xl)
     mode_linear.launches[mode] += 1
-    return y.reshape(*x.shape[:-1], N), (xh, xl), (wh, wl)
+    return y.view(*x.shape[:-1], N), (xh, xl), wp.planes
 
 
 def mode_linear(x: torch.Tensor, w: torch.Tensor, b, mode: str):
@@ -156,7 +245,7 @@ def mode_linear(x: torch.Tensor, w: torch.Tensor, b, mode: str):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, b)):
         return ModeLinearFunction.apply(x, w, b, mode)
-    return _launch(x, w, b, mode)[0]
+    return _launch(x, w, b, mode, False)[0]
 
 
 mode_linear.launches = dict.fromkeys(MODES, 0)
@@ -218,8 +307,9 @@ mode_linear_bwd.launches = dict.fromkeys(MODES, 0)
 
 class ModeLinearFunction(torch.autograd.Function):
     """y = x W + b in a bf16 mode through ``mode_linear``'s kernel and
-    ``mode_linear_bwd``: the forward splits x and W into planes once and
-    hands them to the backward (on the CPU, the plain versions of both)."""
+    ``mode_linear_bwd``: the forward's kernel writes x's planes, W's come
+    from ``weight_planes``, and the backward reads both (on the CPU, the
+    plain versions of both)."""
 
     @staticmethod
     def forward(ctx, x, w, b, mode):
@@ -228,7 +318,7 @@ class ModeLinearFunction(torch.autograd.Function):
             ctx.planes = None
             ctx.save_for_backward(x, w)
             return mode_linear_plain(x, w, b, mode)
-        y, xp, wp = _launch(x, w, b, mode)
+        y, xp, wp = _launch(x, w, b, mode, True)
         ctx.planes, ctx.K = (xp, wp), w.shape[0]
         return y
 

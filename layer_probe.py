@@ -3,6 +3,7 @@
 precision-mode kernels' time goes, on one CUDA card.
 
     python3 layer_probe.py phases [DIR]     # cycles per phase of a block
+    python3 layer_probe.py bwdphases [DIR]  # the same, fused backward core
     python3 layer_probe.py times TREE...    # layer kernel times, in turns
     python3 layer_probe.py backward TREE... # backward kernel times, in turns
     python3 layer_probe.py attention TREE...  # per-op attention, in turns
@@ -21,6 +22,15 @@ printing the time of each call (counters on) and its cycles per block by
 phase.  The counters change the code the compiler schedules, so the times
 differ from ``chip_smoke.py``'s by a few per cent either way; the split
 between the phases is what this is for.
+
+``bwdphases`` does the same for the attention sublayer's fused backward
+core in the modes (``csrc/attn_modes.cuh`` ``attn_mode_bwd_kernel``, its
+counters thread 0's of each block: the load and split, delta, the
+key-major pass as warp 0 runs it, the sums, the query-major pass) in
+``scratch_tree/bwd_phases``, only ``attn_sublayer_modes.cu`` built: the
+A1 step's self-attention backward at B = 64, T = 128 in "high" and
+"default", each call's time (counters on), cycles a block by phase and
+device time by launch.
 
 ``times`` takes trees that each hold a copy of the package (a git
 checkout, ``git archive`` of another commit, or an edited copy under
@@ -56,13 +66,15 @@ the four merged-layer mode rows (``enc_layer_high`` / ``_default``,
 ``dec_layer_high`` / ``_default`` with its FF tail, B = 256) and the six
 attention-sublayer mode rows (``attn_sublayer_high`` / ``_default`` at B =
 256, ``attn_sublayer_train_*`` and ``attn_sublayer_bwd_*`` at B = 64: the
-encoder's self-attention), each held against its plain version in its own
+encoder's self-attention) and, where a tree has ``mode_linear.cu``, the
+four Dense rows (``mode_linear_*`` and ``mode_linear_bwd_*`` at the q / k
+/ v projection, B = 64), each held against its plain version in its own
 mode and the wrong one (``chip_smoke.py``'s limits), and their float32
 counterparts ``ffn``, ``ffn_train``, ``ffn_bwd``, ``enc_layer``,
 ``dec_layer``, ``attn_sublayer``, ``attn_sublayer_train`` and
 ``attn_sublayer_bwd`` (what an older tree runs at every precision):
-CUDA-event time and one call's device time by kernel, and for the
-attention sublayer's rows by launch, in order.
+CUDA-event time, host time a call and one call's device time by kernel,
+and for the attention sublayer's and the Dense rows by launch, in order.
 
 ``spread`` serves ``chip_smoke.py``'s phase 11 batch (B = 256, T = 128,
 the flagship widths) at "default" on the merged route through the kernel
@@ -244,6 +256,88 @@ def phases(out_dir):
                   f"cycles a block {json.dumps(cyc)}", flush=True)
 
 
+# the fused backward core's phases (csrc/attn_modes.cuh
+# attn_mode_bwd_kernel), counted as PHASES are (thread 0 of each block)
+BWD_PHASES = {0: "load + split", 1: "delta", 2: "key-major (dv, dk, dl)",
+              3: "dk / dv sums", 4: "query-major (dq)", 5: "dq sums"}
+BWD_PATCHES = (
+    ('#include "tc_gemm.cuh"\n\nnamespace kit {\n',
+     '#include "tc_gemm.cuh"\n\n'
+     "__device__ unsigned long long kit_prof[32];\n"
+     "#define PROF0 long long _t = clock64();\n"
+     "#define PROF(i) do { if (threadIdx.x == 0) atomicAdd(&kit_prof[i], "
+     "(unsigned long long)(clock64() - _t)); _t = clock64(); } while (0)\n"
+     "\nnamespace kit {\n"),
+    ("  // 1. the head's rows: q, k, v and a in float32",
+     "  PROF0\n  // 1. the head's rows: q, k, v and a in float32"),
+    ("  // each query's delta: its chunks' parts added in order",
+     "  PROF(0);\n  // each query's delta: its chunks' parts added in order"),
+    ("  __syncthreads();  // the planes are built: dl^T may take the float32 "
+     "rows' room\n",
+     "  __syncthreads();  // the planes are built: dl^T may take the float32 "
+     "rows' room\n  PROF(1);\n"),
+    ("  warps_colsum<NO>(csk, red, DP, dh, cs_out + p.D + hc);\n",
+     "  PROF(2);\n  warps_colsum<NO>(csk, red, DP, dh, cs_out + p.D + hc);\n"),
+    ("  // 3. query-major: dq = dl k\n",
+     "  PROF(3);\n  // 3. query-major: dq = dl k\n"),
+    ("  warps_colsum<NO>(csq, red, DP, dh, cs_out + hc);\n",
+     "  PROF(4);\n  warps_colsum<NO>(csq, red, DP, dh, cs_out + hc);\n"
+     "  PROF(5);\n"),
+)
+
+
+def bwd_phases(out_dir):
+    """``bwdphases``: the fused backward core's cycles a block by phase
+    (a copy of the package under ``out_dir`` with counters, only
+    ``attn_sublayer_modes.cu`` built), the A1 step's self-attention
+    backward at B = 64, T = 128 in "high" and "default"."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    tree = os.path.abspath(out_dir)
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, PKG), os.path.join(tree, PKG),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    csrc = os.path.join(tree, PKG, "csrc")
+    with open(os.path.join(csrc, "attn_modes.cuh")) as f:
+        src = f.read()
+    for old, new in BWD_PATCHES:
+        if old not in src:
+            sys.exit(f"layer_probe: no longer in attn_modes.cuh: {old!r}")
+        src = src.replace(old, new, 1)
+    with open(os.path.join(csrc, "attn_modes.cuh"), "w") as f:
+        f.write(src)
+    with open(os.path.join(csrc, "attn_sublayer_modes.cu"), "a") as f:
+        f.write(READ_COUNTERS)
+    cs = load_smoke()
+    _build = use_tree(tree, ("attn_sublayer_modes",))
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    print(cs.gpu_line(), flush=True)
+    print(f"  nvcc attn_sublayer_modes.cu (counters on) "
+          f"{_build.build()['attn_sublayer_modes']:.1f} s", flush=True)
+    lib = _build.bind("attn_sublayer_modes", {})
+    lib.kit_prof_get.argtypes = [ctypes.c_void_p]
+    buf = np.zeros(32, dtype=np.uint64)
+    chk = cs.KernelCheck(torch, kmod)
+    blocks = cs.B_TRAIN * cs.HEADS
+    for name, variant, kern, plain, grad, wrong in chk.sublayer_mode_calls(
+            3, cs.B_TRAIN, cs.T_MAIN):
+        if not name.startswith("attn_sublayer_bwd") or \
+                variant != cs.ATTN_VARIANTS[0][0]:
+            continue
+        chk.compare(name, variant, kern(), plain(), grad, wrong())
+        ms = min(cs.timed_ms(kern) for _ in range(2))
+        lib.kit_prof_get(buf.ctypes.data)  # reset
+        kern()
+        torch.cuda.synchronize()
+        lib.kit_prof_get(buf.ctypes.data)
+        cyc = {BWD_PHASES[i]: int(buf[i]) // blocks for i in BWD_PHASES}
+        print(f"  {name} {variant} B={cs.B_TRAIN} T={cs.T_MAIN}: {ms:.4f} "
+              f"ms (counters on); cycles a block {json.dumps(cyc)}; "
+              f"{cs.launch_ms(torch, kern)} ms", flush=True)
+
+
 def times_one(tree):
     import torch
     cs = load_smoke()
@@ -337,7 +431,7 @@ def forwards_one(tree):
 
 
 MODE_SOURCES = ("ffn", "layer_modes", "layer_fused", "attn_sublayer",
-                "attn_sublayer_modes")
+                "attn_sublayer_modes", "mode_linear")
 
 
 def tree_sources(tree, sources):
@@ -407,12 +501,21 @@ def modes_one(tree):
             if name not in calls:
                 chk.compare(name, variant, kern(), plain(), grad, wrong())
                 calls[name] = (kern, plain)
+    # the Dense products in a mode where the tree has them: the q / k / v
+    # projection at the A1 step's rows, forward and backward
+    if hasattr(kmod, "mode_linear"):
+        for name, variant, kern, plain, grad, wrong in \
+                chk.linear_mode_calls(bt, T):
+            if name not in calls:
+                chk.compare(name, variant, kern(), plain(), grad, wrong())
+                calls[name] = (kern, plain)
     out = {}
     for name, (kern, plain) in calls.items():
         out[name] = {"ms": min(cs.timed_ms(kern) for _ in range(3)),
                      "plain_ms": min(cs.timed_ms(plain) for _ in range(2)),
+                     "host_ms": min(cs.host_ms(torch, kern) for _ in range(2)),
                      "kernels": by_kernel(cs, torch, kern)}
-        if name.startswith("attn_sublayer"):
+        if name.startswith(("attn_sublayer", "mode_linear")):
             out[name]["launches"] = cs.launch_ms(torch, kern)
     print(json.dumps(out), flush=True)
 
@@ -569,6 +672,9 @@ def main():
     if mode == "phases":
         phases(args[0] if args else os.path.join(ROOT, "scratch_tree",
                                                  "layer_probe"))
+    elif mode == "bwdphases":
+        bwd_phases(args[0] if args else os.path.join(ROOT, "scratch_tree",
+                                                     "bwd_phases"))
     elif mode == "times":
         in_turns(args, ("layer_fused",), "times-one")
     elif mode == "times-one":

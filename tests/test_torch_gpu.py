@@ -687,7 +687,7 @@ def test_sublayer_forward_takes_the_per_op_core(cuda):
         for variant, mem, ln, kind, keypad in chip_smoke.ATTN_VARIANTS:
             mem = o["mem"] if mem else None
             ln = (o["g"], o["be"]) if ln else (None, None)
-            _, qkv, a, stats, _ = kernels.fused_attn_sublayer_train(
+            _, qkv, a, stats, _, _ = kernels.fused_attn_sublayer_train(
                 o["x"], mem, o["wqkv"], o["bqkv"], o["wo"], o["bo"], *ln,
                 mask, valid, kind, keypad, heads)
             q, k, v = (t.reshape(3, T, heads, d // heads).contiguous()
@@ -1066,13 +1066,13 @@ def test_attn_sublayer_function_reads_the_forward_planes(cuda, monkeypatch):
     assert (counts["attn_sublayer_train_high"], counts["attn_sublayer_bwd_high"],
             counts["attn_sublayer_train"], counts["attn_sublayer_bwd"]) == \
         (1, 1, 0, 0)
-    _, qkv, a, stats, r = kernels.fused_attn_sublayer_train(
+    _, qkv, a, stats, r, acts = kernels.fused_attn_sublayer_train(
         x, None, w_in.t(), b_in, w_out.t(), b_out, g, be, mask, valid,
         "repeat-inc", False, H, "bf16x3", real(w_in, w_out, "bf16x3"))
     want = kernels.attn_sublayer_bwd(gy, x, None, qkv, a, stats, r, w_in,
                                      w_out, g, mask, valid, "repeat-inc",
                                      False, H, "bf16x3",
-                                     real(w_in, w_out, "bf16x3"))
+                                     real(w_in, w_out, "bf16x3"), acts)
     got = [leaves[0].grad, None, *(t.grad for t in leaves[1:])]
     for grad, w in zip(got, want):
         assert (grad is None and w is None) or torch.equal(grad, w)
@@ -1107,13 +1107,17 @@ def test_sublayer_mode_wrappers_raise_rather_than_fall_back(cuda):
     kernels.reset_launches()
     kernels.fused_attn_sublayer(*args, "bf16x3", sp)
     dp = attn_train_planes(wqkv.t(), wo.t(), "bf16")
-    y, qkv, a, stats, r = kernels.fused_attn_sublayer_train(*args, "bf16",
-                                                            dp)
+    y, qkv, a, stats, r, acts = kernels.fused_attn_sublayer_train(
+        *args, "bf16", dp)
     bargs = (x, x, None, qkv, a, stats, r, wqkv.t().contiguous(),
              wo.t().contiguous(), None, None, None, "all", False, H, "bf16")
     with pytest.raises(ValueError):  # no planes in the backward
         kernels.attn_sublayer_bwd(*bargs)
-    kernels.attn_sublayer_bwd(*bargs, dp)
+    with pytest.raises(ValueError):  # no planes of x and a
+        kernels.attn_sublayer_bwd(*bargs, dp)
+    with pytest.raises(ValueError):  # the planes of another mode
+        kernels.attn_sublayer_bwd(*bargs, dp, torch.cat([acts, acts]))
+    kernels.attn_sublayer_bwd(*bargs, dp, acts)
     counts = kernels.launch_counts()
     assert (counts["attn_sublayer_high"], counts["attn_sublayer_train_default"],
             counts["attn_sublayer_bwd_default"], counts["attn_sublayer"]) == \
@@ -1363,3 +1367,186 @@ def test_int8_layer_mode_kernels_match_plain_on_the_card(cuda):
                                               *chk.masks(3, T)):
                 chk.compare(name, f"D={d} T={T} {variant}", kern(), plain(),
                             grad, wrong())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_mode_linear_forward_is_one_launch_at_every_shape(cuda, mode):
+    """``mode_linear``'s forward (x split in the kernel, W's planes kept)
+    against its plain version at K 108 / 256 / 2048, N 108 / 256 / 768 and
+    M 1, 7 and 300 (no multiple of 128), with and without a gradient
+    wanted: one kernel launch a call (profiler), each output within its
+    mode's limit and nearer its own mode than one mode down; under
+    autograd the planes of x the kernel writes equal ``row_planes`` bit for
+    bit and the backward's gradients equal ``mode_linear_bwd``'s from
+    those planes."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.ops.kernels import linear
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    tag = "_high" if mode == "bf16x3" else "_default"
+    wrong = chip_smoke.WRONG_MODE[mode]
+    calls = []
+    for K in (108, 256, 2048):
+        for N in (108, 256, 768):
+            w, b = chk.weight(K, N), chk.rand(N, scale=0.05)
+            for M in (1, 7, 300):
+                x = chk.rand(M, K)
+                v = f"M={M} K={K} N={N}"
+                kernels.mode_linear(x, w, b, mode)  # W's planes split
+                calls.append((x, w, b))
+                y = kernels.mode_linear(x, w, b, mode)
+                chk.compare(f"mode_linear{tag}", v, y,
+                            kernels.mode_linear_plain(x, w, b, mode), False,
+                            kernels.mode_linear_plain(x, w, b, wrong))
+                xg = x.clone().requires_grad_()
+                wg = w.clone().requires_grad_()
+                kept = []
+                real = linear._launch
+                try:
+                    linear._launch = lambda *a: kept.append(real(*a)) or \
+                        kept[-1]
+                    yg = kernels.mode_linear(xg, wg, b, mode)
+                finally:
+                    linear._launch = real
+                g = chk.rand(M, N)
+                yg.backward(g)
+                assert torch.equal(yg.detach(), y), v
+                xh, xl = kept[0][1]
+                rh, rl = kernels.row_planes(x, mode)
+                assert torch.equal(xh, rh) and (
+                    (xl is None and rl is None) or torch.equal(xl, rl)), v
+                dx, dw, _ = kernels.mode_linear_bwd(
+                    g, x, w, mode, (kernels.row_planes(x, mode),
+                                    kernels.linear_planes(w, mode)))
+                assert torch.equal(xg.grad, dx) and torch.equal(wg.grad, dw)
+    # warm calls: one kernel launch each (the counter), and no other device
+    # work (the profiler: a trace that lost events, fewer than the calls
+    # launched, is the profiler's and taken again)
+    names = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for x, w, b in calls:
+                kernels.mode_linear(x, w, b, mode)
+            torch.cuda.synchronize()
+        assert kernels.launch_counts()[f"mode_linear{tag}"] == len(calls)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= len(calls):
+            break
+    assert len(names) == len(calls) and all(
+        "mode_linear_kernel" in n for n in names), names
+
+
+@pytest.mark.gpu
+def test_mode_linear_weight_planes_follow_the_weights(cuda):
+    """W's planes are split once per weight version on the card: a warm
+    call splits nothing, an optimizer step and ``load_state_dict`` split
+    again, and each output then matches the plain version of the new
+    weights (a stale plane would be a silent wrong result)."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    torch.manual_seed(3)
+    lin = torch.nn.Linear(256, 768, device=cuda)
+    x = torch.randn(300, 256, device=cuda)
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for mode, tag in (("bf16x3", "_high"), ("bf16", "_default")):
+        splits = kernels.weight_planes.splits
+        opt = torch.optim.SGD(lin.parameters(), lr=0.5)
+
+        def run(what, expect_split):
+            before = splits[mode]
+            y = kernels.mode_linear(x, lin.weight.t(), lin.bias, mode)
+            assert splits[mode] == before + expect_split, what
+            with torch.no_grad():
+                want = kernels.mode_linear_plain(x, lin.weight.t(), lin.bias,
+                                                 mode)
+            chk.compare(f"mode_linear{tag}", what, y.detach(), want)
+
+        run("first call", 1)
+        run("warm call", 0)
+        loss = kernels.mode_linear(x, lin.weight.t(), lin.bias, mode).sum()
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        run("after an optimizer step", 1)
+        run("warm again", 0)
+        lin.load_state_dict({"weight": torch.randn(768, 256),
+                             "bias": torch.randn(768)})
+        run("after load_state_dict", 1)
+
+
+@pytest.mark.gpu
+def test_fused_sublayer_backward_matches_plain(cuda):
+    """The attention sublayer's backward in "high" and "default" against
+    its plain version in the mode (``_bwd_mode_plain``) and one mode down,
+    self- and cross-attention, with and without the LayerNorm, given the
+    forward's planes of x, the memory and a (the same bits as
+    ``attn_sublayer_train``'s split), at T 40 and 128 (one tile of the
+    fused core), 144 (two at "high", the last fused length there) and 240
+    (two at "default", the last fused length there; the two-kernel core at
+    "high"), 256 and 320 (the two-kernel core in both modes); the main
+    path's T=128 with 32-wide heads on the fused core; the launches a call
+    from the profiler: 7 for self-attention and 9 for cross-attention on
+    the fused core."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.ops.kernels import (
+        _build, attn_sublayer as tas)
+    lib = _build.bind("attn_sublayer_modes", tas._MODE_SIGS)
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    D, H = chk.d, chk.heads
+    fused_at = {(T, p): bool(lib.kit_attn_bwd_fused(p, T, D // H))
+                for T in (40, 128, 144, 240, 256, 320) for p in (3, 1)}
+    assert fused_at == {(T, p): T <= (144 if p == 3 else 240)
+                        for T, p in fused_at}, fused_at
+    for T in (40, 128, 144, 240, 256, 320):
+        o, (mask, valid) = chk.operands(3, T), chk.masks(3, T)
+        dy = chk.rand(3, T, D)
+        w_in, w_out = o["wqkv"].t().contiguous(), o["wo"].t().contiguous()
+        for mode, tag in (("bf16x3", "_high"), ("bf16", "_default")):
+            wrong = chip_smoke.WRONG_MODE[mode]
+            tp = tas.attn_train_planes(w_in, w_out, mode)
+            for cross in (False, True):
+                for ln in (False, True):
+                    mem = o["mem"] if cross else None
+                    norm = (o["g"], o["be"]) if ln else (None, None)
+                    fargs = (o["x"], mem, o["wqkv"], o["bqkv"], o["wo"],
+                             o["bo"], *norm, mask, valid, "repeat-inc", True,
+                             H)
+                    y, qkv, a, stats, r, acts = \
+                        kernels.fused_attn_sublayer_train(*fargs, mode, tp)
+                    assert torch.equal(acts, tas.attn_act_planes(
+                        o["x"], mem, a, mode))
+                    v = f"T={T} cross={cross} ln={ln}"
+
+                    def bargs(md, qkv=qkv, a=a, stats=stats, r=r, mem=mem,
+                              g=norm[0]):
+                        return (dy, o["x"], mem, qkv, a, stats, r, w_in,
+                                w_out, g, mask, valid, "repeat-inc", True, H,
+                                md)
+
+                    got = kernels.attn_sublayer_bwd(*bargs(mode), tp, acts)
+                    _, qw, aw, sw, rw = kernels.attn_sublayer_train_plain(
+                        *fargs, wrong)
+                    chk.compare(f"attn_sublayer_bwd{tag}", v, got,
+                                kernels.attn_sublayer_bwd_plain(*bargs(mode)),
+                                True, kernels.attn_sublayer_bwd_plain(
+                                    *bargs(wrong, qw, aw, sw, rw)))
+                    if fused_at[T, 3 if mode == "bf16x3" else 1]:
+                        n, want = 0, 9 if cross else 7
+                        for _ in range(3):  # a trace that lost events: again
+                            with profile(activities=[
+                                    ProfilerActivity.CUDA]) as prof:
+                                kernels.attn_sublayer_bwd(*bargs(mode), tp,
+                                                          acts)
+                                torch.cuda.synchronize()
+                            n = sum(1 for e in prof.events() if e.device_type
+                                    == torch.autograd.DeviceType.CUDA)
+                            if n >= want:
+                                break
+                        assert n == want, (v, n)

@@ -454,3 +454,56 @@ def test_rows_and_signatures():
     cu = (_build.CSRC / "mode_linear.cu").read_text()
     for entry, sig in tlin._SIGS.items():
         assert _c_params(cu, entry) == sig, entry
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_weight_planes_are_split_once_per_weight_version(mode):
+    """``weight_planes`` (the cache of W's planes the forward kernel reads)
+    on CPU tensors: the planes equal ``linear_planes``; a second call with
+    the same weight splits nothing; an in-place change (``_version``) and
+    ``load_state_dict``'s ``copy_`` split again; a view of a Linear's
+    weight (``graph_linear``'s ``weight.t()``, made anew each call) hits
+    the cache of its weight; a new tensor at a freed one's address, and
+    with its id, never hits the freed one's entry."""
+    splits = tlin.weight_planes.splits
+    rng = np.random.default_rng(4)
+
+    def check(w, hit):
+        before = splits[mode]
+        got = tlin.weight_planes(w, mode)
+        assert splits[mode] == before + (0 if hit else 1)
+        for a, b in zip(got.planes, tlin.linear_planes(w, mode)):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert got.maps is None  # the tensor maps exist on the card only
+        return got
+
+    w = torch.from_numpy(rng.standard_normal((12, 20)).astype(np.float32))
+    first = check(w, False)
+    assert check(w, True) is first
+    with torch.no_grad():
+        w.mul_(2.0)
+    check(w, False)
+    check(w, True)
+    lin = torch.nn.Linear(20, 12)
+    check(lin.weight.t(), False)
+    check(lin.weight.t(), True)
+    check(lin.weight, False)  # another view of the same storage
+    lin.load_state_dict({"weight": torch.ones(12, 20),
+                         "bias": torch.zeros(12)})
+    assert bool((check(lin.weight.t(), False).planes[0][:, :12] == 1).all())
+    # a new tensor over the same memory, once the first is freed: its
+    # address (and often its id) is the freed tensor's; it misses
+    arr = rng.standard_normal((8, 16)).astype(np.float32)
+    old = torch.from_numpy(arr)
+    ptr = old.data_ptr()
+    check(old, False)
+    del old
+    arr *= 3.0
+    new = torch.from_numpy(arr)
+    assert new.data_ptr() == ptr
+    check(new, False)
+    check(new, True)
+    # the cache keeps no entry of a freed weight
+    key = tlin._cache_key(new, mode)[1]
+    del new
+    assert key not in tlin._CACHE

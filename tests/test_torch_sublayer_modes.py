@@ -208,6 +208,7 @@ def test_train_forward_plain_matches_pallas_in_mode(rng, mode, flags):
     flipped = (p != w).any(-1).mean()
     assert flipped <= FLIP_TOKENS, flipped
     wrapped = kernels.fused_attn_sublayer_train(*c.targs(), mode=mode)
+    assert len(wrapped) == 6 and wrapped[5] is None  # no planes on the CPU
     for got, want in zip(wrapped, (y, qkv, a, stats, r)):
         assert (got is None and want is None) or torch.equal(got, want)
 
@@ -356,7 +357,8 @@ def _c_params(entry):
 
 
 @pytest.mark.parametrize("entry", ["kit_attn_sublayer_tc",
-                                   "kit_attn_sublayer_tc_bwd"])
+                                   "kit_attn_sublayer_tc_bwd",
+                                   "kit_attn_bwd_fused"])
 def test_signatures_match_the_c_entries(entry):
     assert tas._MODE_SIGS[entry] == _c_params(entry)
     assert "attn_sublayer_modes" in _build.SOURCES
@@ -373,7 +375,11 @@ def test_scratch_is_what_the_kernels_carve(cross, mode):
     """``mode_forward_scratch`` and ``mode_bwd_scratch_floats`` against
     the regions ``csrc/attn_sublayer_modes.cu`` lays out: the carve calls
     (M D a unit, the memory's only with cross-attention) times the planes,
-    and the backward's float regions as its comments size them."""
+    and the backward's float regions as its comments size them, with the
+    fused core and with the two kernels.  Training keeps the planes of x,
+    the memory and a apart (``mode_act_elems``), and the backward reads
+    them from there: its scratch holds only dr's, dA's and [dq | dk |
+    dv]'s."""
     src = (_build.CSRC / "attn_sublayer_modes.cu").read_text()
     planes = 2 if mode == "bf16x3" else 1
     Bq, Tq, Dq, heads, s_w = 3, 40, 128, 4, 5
@@ -382,8 +388,8 @@ def test_scratch_is_what_the_kernels_carve(cross, mode):
     MD = M * Dq
 
     def units(body):
-        found = re.findall(r"(self \? \w+ : )?carve<PASSES>\(cur, (\d*)\s*"
-                           r"\*?\s*MD\)", body)
+        found = re.findall(r"(self \? \w+ : )?carve<PASSES>\((?:cur|at), "
+                           r"(\d*)\s*\*?\s*MD\)", body)
         return sum((int(u) if u else 1) for opt, u in found
                    if cross or not opt)
 
@@ -391,19 +397,32 @@ def test_scratch_is_what_the_kernels_carve(cross, mode):
     nb, nf = tas.mode_forward_scratch(Bq, Tq, Dq, cross, mode, True, False)
     assert fwd == (6 if cross else 5) and nb == fwd * planes * MD
     assert nf == MD
-    assert tas.mode_forward_scratch(Bq, Tq, Dq, cross, mode, True,
-                                    True)[1] == 0
+    nb, nf = tas.mode_forward_scratch(Bq, Tq, Dq, cross, mode, True, True)
+    acts = tas.mode_act_elems(Bq, Tq, Dq, cross, mode)
+    assert nf == 0 and nb == 3 * planes * MD
+    assert nb + acts == fwd * planes * MD
     bwd = _body(src, "int backward(")
     regions = re.findall(r"float\* \w+ = [^;]+;\s*// ([^\n]+)", bwd)
-    sizes = {"M x 3D": 3 * MD, "B x H x T": -(-Bq * heads * Tq // 4) * 4,
-             "blocks x 2D": -(-M // 32) * 2 * Dq,
-             "s_w x 4 D^2": s_w * 4 * Dq * Dq, "s_vec x 4D": s_vec * 4 * Dq,
-             "D": Dq, "M x D": MD}
-    assert regions == list(sizes)
-    floats = sum(sizes.values()) + -(-units(bwd) * planes * MD // 2)
-    assert units(bwd) == (8 if cross else 7)
-    assert tas.mode_bwd_scratch_floats(Bq, Tq, Dq, heads, cross, mode,
-                                       s_w) == floats
+    assert re.findall(r"carve<PASSES>\(kept, MD\)", bwd) and \
+        "split_planes(x" not in bwd
+    for T, fused in ((Tq, True), (300, False)):
+        M = Bq * T
+        MD = M * Dq
+        sizes = {"M x 3D (two kernels)": 3 * MD,
+                 "B x H x T (two kernels)": -(-Bq * heads * T // 4) * 4,
+                 "blocks x 2D": -(-M // 32) * 2 * Dq,
+                 "blocks x D": -(-M // 32) * Dq,
+                 "s_w x 4 D^2": s_w * 4 * Dq * Dq,
+                 "(B or s_vec) x 3D": (Bq if fused
+                                       else -(-M // tas.BIAS_ROWS)) * 3 * Dq,
+                 "M x D": MD}
+        assert regions == list(sizes)
+        used = sum(v for k, v in sizes.items()
+                   if not (fused and "two kernels" in k))
+        assert units(bwd) == 5
+        assert tas.mode_bwd_scratch_floats(Bq, T, Dq, heads, mode, s_w,
+                                           fused) == \
+            used + -(-5 * planes * MD // 2)
     assert f"constexpr int BIAS_ROWS = {tas.BIAS_ROWS};" in src
 
 

@@ -158,8 +158,8 @@ def test_attn_sublayer_train_forward_matches_pallas_residuals(
             jnp.asarray(x), None if self_attn else jnp.asarray(mem),
             _jax_params(ws, bs, ln), jnp.asarray(mask), jnp.asarray(valid),
             kind, keypad, post_ln, H_, want_residuals=True)
-    ty, qkv, ta, stats, tr = _torch_side(x, mem, ws, bs, ln, mask, valid,
-                                         self_attn, kind, keypad, post_ln)
+    ty, qkv, ta, stats, tr, _ = _torch_side(x, mem, ws, bs, ln, mask, valid,
+                                            self_attn, kind, keypad, post_ln)
     tq, tk, tv = qkv.split(D_, -1)
     for name, g, w in (("y", ty, y), ("q", tq, q), ("k", tk, k),
                        ("v", tv, v), ("a", ta, a)):
@@ -203,8 +203,8 @@ def test_attn_sublayer_bwd_matches_pallas_and_vjp(
             _, vjp = jax.vjp(ref, jx, jm, params)
             rdx, rdmem, rdp = vjp(jnp.asarray(g))
 
-    _, qkv, a, stats, r = _torch_side(x, mem, ws, bs, ln, mask, valid,
-                                      self_attn, kind, keypad, post_ln)
+    _, qkv, a, stats, r, _ = _torch_side(x, mem, ws, bs, ln, mask, valid,
+                                         self_attn, kind, keypad, post_ln)
     w_in = np.concatenate([w.T for w in ws[:3]])
     dx, dmem, dw_in, db_in, dw_out, db_out, dg, dbe = kernels.\
         attn_sublayer_bwd(*_t(g, x, None if self_attn else mem), qkv, a,
