@@ -305,6 +305,18 @@ OP_MODE_TOL = {"attention_bwd_high": HIGH_MODE_TOL,
                "post_head_default": DEFAULT_MODE_TOL,
                **{k: HIGH_MODE_TOL if k.endswith("_high") else
                   DEFAULT_MODE_TOL for k in LINEAR_MODE_KERNELS}}
+# The per-op backward at "default" rounds dl = p (gw - delta) / sqrt(dh) to
+# ONE bf16 before dq = dl k and dk = dl^T q, so a dl whose float32 value two
+# summation orders put on either side of a bf16 rounding midpoint moves its
+# key's dk by one bf16 step of dl times q.  On the standing draw
+# (``flip_draw_calls``) one dl lies 3 float32 ulps from a midpoint
+# (``FLIP_DL``, ``flip_dl_orders``), and the kernel and the plain version
+# round it apart, 2.075e-03 of dk's max, in the two rows whose softmax is
+# the same (``FLIP_ROWS``).  Those rows alone take "default"'s flip cap, as
+# the sublayer and merged-layer mode rows do, and the mean decides: within
+# DEFAULT_MEAN_TOL, and MODE_SEPARATION times nearer its own mode than the
+# wrong one.  Every other row keeps its max-error limit.
+FLIP_TOL = 4e-3
 ATTN_MODE_KERNELS = ("attention_high", "attention_default",
                      "attention_bwd_high", "attention_bwd_default")
 CHAIN_MODE_KERNELS = ("pre_stream_embed_high", "pre_stream_embed_default",
@@ -543,9 +555,9 @@ ATTN_VARIANTS = (("enc self repeat-inc+keypad", False, False, "repeat-inc",
 class KernelCheck:
     """Runs every kernel variant against its plain version on the card."""
 
-    def __init__(self, torch, kmod, d=D, heads=HEADS, ff=FF):
+    def __init__(self, torch, kmod, d=D, heads=HEADS, ff=FF, dev=DEV):
         self.torch, self.k = torch, kmod
-        self.d, self.heads, self.ff = d, heads, ff
+        self.d, self.heads, self.ff, self.dev = d, heads, ff, dev
         self.g = torch.Generator().manual_seed(1234)
         self.max_err = {}
         self.layer_args = {}
@@ -556,7 +568,7 @@ class KernelCheck:
             x = t.rand(*shape, generator=self.g) * (hi - lo) + lo
         else:
             x = t.randn(*shape, generator=self.g) * scale
-        return x.to(DEV).contiguous()
+        return x.to(self.dev).contiguous()
 
     def weight(self, fan_in, fan_out):
         b = 1.0 / fan_in ** 0.5
@@ -567,9 +579,10 @@ class KernelCheck:
         mask = (t.rand(B, T, generator=self.g) < 0.3).float()
         valid = t.ones(B, T)
         valid[min(1, B - 1), T - max(T // 5, 1):] = 0.0  # a padded row
-        return mask.to(DEV).contiguous(), valid.to(DEV).contiguous()
+        return mask.to(self.dev).contiguous(), valid.to(self.dev).contiguous()
 
-    def compare(self, name, variant, got, want, grad=False, wrong=None):
+    def compare(self, name, variant, got, want, grad=False, wrong=None,
+                flip=False):
         """Each output within REL_TOL of max(1, its scale), or, for
         gradients (``grad``), within GRAD_TOL of the largest gradient of
         the call; an int8 kernel's (``name`` in INT8_KERNELS) within
@@ -578,7 +591,9 @@ class KernelCheck:
         the per-op backward and the chains in OP_MODE_TOL) within its
         mode's limit of each output's own largest value and,
         given ``wrong`` (the plain version's outputs in the wrong mode),
-        MODE_SEPARATION times nearer ``want`` than ``wrong``."""
+        MODE_SEPARATION times nearer ``want`` than ``wrong``; a row on a
+        draw whose bf16 rounding flips between float32 orders (``flip``)
+        within FLIP_TOL, the mean deciding."""
         t = self.torch
         t.cuda.synchronize()
         gots = got if isinstance(got, tuple) else (got,)
@@ -592,6 +607,7 @@ class KernelCheck:
         gscale = max(float(w_.abs().max()) for _, _, w_, _ in pairs)
         base = name.split()[0]
         layer_mode = base in LAYER_MODE_TOL
+        by_mean = layer_mode or flip  # the mean decides the mode
         mode_tol = LAYER_MODE_TOL[base] if layer_mode else \
             FF_MODE_TOL.get(base, OP_MODE_TOL.get(base))
         # normalized: own mode, wrong mode (the largest errors; the mean
@@ -611,15 +627,16 @@ class KernelCheck:
             if mode_tol is not None:
                 own = float(w_.abs().max()) or 1.0
                 raw = RAW_A_TOL.get(base)
-                tol = (raw[1] if raw and raw[0] == i else mode_tol) * own
+                tol = (raw[1] if raw and raw[0] == i else
+                       FLIP_TOL if flip else mode_tol) * own
                 avg = float((g_ - w_).abs().mean()) / own
-                worst[0] = max(worst[0], avg if layer_mode else err / own)
+                worst[0] = max(worst[0], avg if by_mean else err / own)
                 mean = (f" = {err / own:.3e} of its max {own:.3e}, mean "
                         f"{avg:.3e}")
                 if x_ is not None:
                     werr = float((g_ - x_).abs().max()) / own
                     wavg = float((g_ - x_).abs().mean()) / own
-                    worst[1] = max(worst[1], wavg if layer_mode else werr)
+                    worst[1] = max(worst[1], wavg if by_mean else werr)
                     mean += f"; wrong mode {werr:.3e}, mean {wavg:.3e}"
                 if (base in FF_MODE_TOL or base in OP_MODE_TOL) and \
                         base.endswith("_default") and avg > DEFAULT_MEAN_TOL:
@@ -648,7 +665,7 @@ class KernelCheck:
             if err > tol:
                 fail(f"{name} {variant}: max_abs_err {err:.3e} > {tol:.2e}")
         if wrong is not None:
-            what = "mean" if layer_mode else "worst"
+            what = "mean" if by_mean else "worst"
             print(f"  {name:16s} {variant:34s} {what} of the call: own mode "
                   f"{worst[0]:.3e}, wrong mode {worst[1]:.3e} (at least "
                   f"{MODE_SEPARATION:g} x further)", flush=True)
@@ -1195,6 +1212,7 @@ class KernelCheck:
                     out.append((f"attention_{tag}", f"{variant}, stats",
                                 calls[0], calls[1], False, calls[2]))
                 bargs = (q, kk, v, g, m, valid, kind, keypad)
+                self.layer_args[f"attention_bwd_{tag} {variant}"] = bargs
                 out.append((f"attention_bwd_{tag}", variant,
                             lambda a=bargs, md=mode: k.attention_bwd(
                                 *a, mode=md),
@@ -1250,7 +1268,7 @@ class KernelCheck:
         frames (108 -> D, K padded to 112) and the head back to them (D ->
         108, N padded to 112); the backward reads the planes of x and W
         as the forward's call leaves them (``row_planes``,
-        ``linear_planes``)."""
+        ``weight_planes``)."""
         k, o = self.k, self.operands(B, T)
         out = []
         for mode, tag in (("bf16x3", "high"), ("bf16", "default")):
@@ -1269,7 +1287,7 @@ class KernelCheck:
                             lambda a=args, md=wrong: k.mode_linear_plain(
                                 *a, md)))
                 bargs = (self.rand(*x.shape[:-1], w.shape[1]), x, w)
-                planes = (k.row_planes(x, mode), k.linear_planes(w, mode))
+                planes = (k.row_planes(x, mode), k.weight_planes(w, mode))
                 out.append((f"mode_linear_bwd_{tag}", v,
                             lambda a=bargs, md=mode, p=planes:
                             k.mode_linear_bwd(*a, md, p),
@@ -1311,6 +1329,145 @@ class KernelCheck:
                             lambda a=args, md=WRONG_MODE[mode]:
                             k.encoder_layer_int8_plain(*a, md)))
         return out
+
+
+# the standing draw: the state of ``KernelCheck``'s generator (the CPU
+# generator's 5056 bytes) just before the draw of ``op_mode_calls(3, 512)``
+# as an earlier phase 2 reached it, after its rows at B=3 and T 128, 40, 256
+# and 300, the sublayer's mode rows at T 144 and 240 and the per-op rows at
+# T 40 and 512
+FLIP_DRAW = os.path.join("tests", "data", "flip_draw.state")
+
+
+def flip_draw_calls(torch, kmod, dev=DEV):
+    """The per-op attention pair's mode rows (``op_mode_calls``) at B=3,
+    T=512 on the standing draw (see FLIP_TOL): a ``KernelCheck`` whose
+    generator starts from ``FLIP_DRAW``.  Its ``FLIP_ROWS`` hold one dl
+    (``FLIP_DL``) 3 float32 ulps from a bf16 rounding midpoint."""
+    chk = KernelCheck(torch, kmod, dev=dev)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, FLIP_DRAW), "rb") as f:
+        chk.g.set_state(torch.frombuffer(bytearray(f.read()),
+                                         dtype=torch.uint8))
+    return chk, chk.op_mode_calls(3, 512)
+
+
+def new_path_checks(torch, kmod):
+    """The attention sublayer's mode rows at n = 224 with 7 heads (the
+    kernel width 256: the two-kernel training forward's padded head slice)
+    at T 128 and 40; the training forward's kept planes (``acts``) against
+    ``attn_act_planes`` of its x, memory and a, bit for bit, at B_TRAIN x
+    T_MAIN, at B=3 T=40 with a memory and at T=144 (the five-launch path);
+    ``mode_linear_bwd`` twice on the same operands at the A1 step's q / k /
+    v projection, the embedding (K = 108) and 8200 rows: the same bits."""
+    from keypoints_interpolation_transformer_torch.ops.kernels \
+        .attn_sublayer import attn_act_planes, attn_train_planes
+    narrow = KernelCheck(torch, kmod, d=224, heads=7)
+    for T in (128, 40):
+        for name, variant, kern, plain, grad, wrong in \
+                narrow.sublayer_mode_calls(3, 3, T, True):
+            narrow.compare(name, f"n=224 B=3 T={T} {variant}", kern(), plain(),
+                           grad, wrong())
+    chk = KernelCheck(torch, kmod)
+    for mode in ("bf16x3", "bf16"):
+        for B, T, cross in ((B_TRAIN, T_MAIN, False), (3, 40, True),
+                            (3, 144, False)):
+            o, (mask, valid) = chk.operands(B, T), chk.masks(B, T)
+            mem = o["mem"] if cross else None
+            tp = attn_train_planes(o["wqkv"].t().contiguous(),
+                                   o["wo"].t().contiguous(), mode)
+            out = kmod.fused_attn_sublayer_train(
+                o["x"], mem, o["wqkv"], o["bqkv"], o["wo"], o["bo"], o["g"],
+                o["be"], mask, valid, "all" if cross else "repeat-inc",
+                not cross, HEADS, mode, tp)
+            want = attn_act_planes(o["x"], mem, out[2], mode)
+            torch.cuda.synchronize()
+            same = out[5] is not None and torch.equal(out[5], want)
+            print(f"  attn_sublayer_train {mode} B={B} T={T} "
+                  f"{'cross' if cross else 'self'}: kept planes of x"
+                  f"{', the memory' if cross else ''} and a equal "
+                  f"attn_act_planes' bit for bit: {same}", flush=True)
+            if not same:
+                fail(f"attn_sublayer_train {mode} B={B} T={T}: the kept "
+                     "planes differ from attn_act_planes'")
+        for rows, K, N in ((B_TRAIN * T_MAIN, D, 3 * D),
+                           (B_TRAIN * T_MAIN, F_IN, D), (8200, D, D)):
+            x, g = chk.rand(rows, K), chk.rand(rows, N)
+            w = chk.weight(K, N)
+            planes = (kmod.row_planes(x, mode), kmod.weight_planes(w, mode))
+            one = kmod.mode_linear_bwd(g, x, w, mode, planes)
+            two = kmod.mode_linear_bwd(g, x, w, mode, planes)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(one, two))
+            print(f"  mode_linear_bwd {mode} M={rows} K={K} N={N}: dx, dW "
+                  f"and db the same bits on two runs: {same}", flush=True)
+            if not same:
+                fail(f"mode_linear_bwd {mode} M={rows} K={K} N={N}: two runs "
+                     "differ")
+
+
+# the standing draw's rows whose dl flips: the Cycle model's "all" mask
+# with its keypad term adds the same 1 to every key's score, which the
+# softmax takes out, so "cross all" has the same p and dl; and (video,
+# head, key, query) of that dl
+FLIP_ROWS = (("attention_bwd_default", "cycle all+keypad"),
+             ("attention_bwd_default", "cross all"))
+FLIP_DL = (1, 0, 178, 182)
+
+
+def flip_dl_orders(torch, kmod, args):
+    """{order: {s, p, gw, l, delta, dl, bf16}} at the standing draw's
+    FLIP_DL (video, head, key j, query i) as the plain version computes it
+    at "default" (s = k q / sqrt(dh) + bias from the bf16 parts, p =
+    exp(s - max) (1 / l), delta = sum of gw p, dl = p (gw - delta) /
+    sqrt(dh), bf16 its rounding), in three float32 orders: torch's; the
+    kernel's sums (delta = (sum of gw exp(s - max)) (1 / l), as
+    ``attn_op_dq_kernel`` takes it), in torch's order; and one term at a
+    time (the dot products over the head's columns in order, l and delta
+    over the keys from the last)."""
+    from keypoints_interpolation_transformer_torch.ops.kernels.attn_sublayer \
+        import bias_from_masks
+    q, k, v, g, mask, valid, kind, keypad = args
+    b, h, j, i = FLIP_DL
+    T, dh = q.shape[1], q.shape[3]
+    hq, hk, hv, hg = (t[b, :, h, :].to(torch.bfloat16).float()
+                      for t in (q, k, v, g))
+    sc = torch.tensor(1.0 / dh ** 0.5, device=q.device)
+    bias = bias_from_masks(mask, valid, T, kind, keypad)[b]
+    bias = bias[min(i, bias.shape[0] - 1)]
+    zero = torch.zeros((), device=q.device)
+    out = {}
+    for order in ("torch's order", "the kernel's sums",
+                  "one term at a time"):
+        if order == "one term at a time":
+            s, gw = torch.zeros(T, device=q.device), torch.zeros(
+                T, device=q.device)
+            for d in range(dh):
+                s = s + hk[:, d] * hq[i, d]
+                gw = gw + hv[:, d] * hg[i, d]
+            s = s * sc + bias
+        else:
+            s, gw = (hk @ hq[i]) * sc + bias, hv @ hg[i]
+        e = torch.exp(s - s.max())
+        if order == "one term at a time":
+            l = zero
+            for jj in range(T - 1, -1, -1):
+                l = l + e[jj]
+            p = e * (1.0 / l)
+            delta = zero
+            for jj in range(T - 1, -1, -1):
+                delta = delta + gw[jj] * p[jj]
+        else:
+            l = e.sum()
+            p = e * (1.0 / l)
+            delta = (gw * p).sum() if order == "torch's order" else \
+                (gw * e).sum() * (1.0 / l)
+        x = (p[j] * (gw[j] - delta)) * sc
+        out[order] = {"s": float(s[j]), "p": float(p[j]),
+                      "gw": float(gw[j]), "l": float(l),
+                      "delta": float(delta), "dl": float(x),
+                      "bf16": float(x.to(torch.bfloat16).float())}
+    return out
 
 
 def library_mode_linear(torch, x, w, b):
@@ -1415,6 +1572,7 @@ def work(name, B, T):
     # W and b in, y out; its backward g, x and W in, dx, dW and db out
     table["mode_linear"] = (2 * N * D * 3 * D,
                             N * D + 3 * D * D + 3 * D + 3 * N * D)
+    # (x's and W's bf16 planes at "high": hi and lo, a float's worth)
     table["mode_linear_bwd"] = (4 * N * D * 3 * D,
                                 3 * N * D + N * D + 3 * D * D + N * D
                                 + 3 * D * D + 3 * D)
@@ -1424,6 +1582,14 @@ def work(name, B, T):
     flop, elems = table["ffn_bwd" if base == "ffn_bwd_split" else base]
     if name in CHAIN_MODE_KERNELS[:2]:  # timed with its embedding out
         elems += N * D
+    if name in SUBLAYER_MODE_TRAIN[:2]:
+        # the kept planes of x and a (bf16; two planes each at "high"),
+        # which the backward in a mode reads; the timed variant has no
+        # LayerNorm, so no r
+        elems += (2 if name.endswith("_high") else 1) * N * D
+    if name == "mode_linear_bwd_default":
+        # x's and W's planes are one bf16 plane each, half a float
+        elems -= (N * D + 3 * D * D) // 2
     return flop, 0, elems * f
 
 
@@ -1774,10 +1940,16 @@ def products_yardstick(torch, name, B, T):
 
 # the kernels a call of which makes a known number of launches, which
 # phase 2 reads from the profiler at its timed row: mode_linear's forward
-# one (x split in the kernel, W's planes cached), the attention sublayer's
-# backward in a mode seven for self-attention at T=128 (the fused core;
-# the forward's planes of x and a)
+# one (x split in the kernel, W's planes cached), its backward two (dx with
+# g's planes and db's parts, then dW with the ordered sums), the attention
+# sublayer's training forward in a mode two for self-attention at T=128
+# (q / k / v and the core per head, then the out-projection with the
+# LayerNorm), its backward seven (the fused core; the forward's planes of
+# x and a)
 CALL_LAUNCHES = {"mode_linear_high": 1, "mode_linear_default": 1,
+                 "mode_linear_bwd_high": 2, "mode_linear_bwd_default": 2,
+                 "attn_sublayer_train_high": 2,
+                 "attn_sublayer_train_default": 2,
                  "attn_sublayer_bwd_high": 7, "attn_sublayer_bwd_default": 7}
 # the sublayer forwards, whose launches phase 2 prints apart
 FORWARD_KERNELS = ("ffn", "ffn_train", "attn_sublayer", "attn_sublayer_train")
@@ -1884,6 +2056,11 @@ def phase_kernels(torch, kmod):
                 two.sublayer_mode_calls(3, 3, T, True):
             two.compare(name, f"B=3 T={T} {variant}", kern(), plain(), grad,
                         wrong())
+    # the training forward's two-kernel path (csrc/attn_sublayer_modes.cu
+    # fused_fwd: kernel width 256, 32-wide heads, T <= 128) for a narrower
+    # model (n = 224, 7 heads: one padded head slice), its kept planes and
+    # mode_linear's backward run twice
+    new_path_checks(torch, kmod)
     # the per-op kernels at the lengths they carry: above the sublayer
     # kernel's 512 frames up to the positional table's 2048
     for T in ATTN_T:
@@ -1895,6 +2072,22 @@ def phase_kernels(torch, kmod):
                                                                          T):
             chk.compare(name, f"B={B} T={T} {variant}", kern(), plain(),
                         grad, wrong())
+    # the standing draw on which a dl's bf16 rounding flips between float32
+    # orders (FLIP_TOL), every time
+    flip, rows = flip_draw_calls(torch, kmod)
+    for name, variant, kern, plain, grad, wrong in rows:
+        flip.compare(name, f"B=3 T=512 {variant}, standing draw", kern(),
+                     plain(), grad, wrong(),
+                     flip=(name, variant) in FLIP_ROWS)
+    # the flipped dl itself, on the card: the plain version's float32 value
+    # in three orders, each with its bf16 rounding
+    for name, variant in FLIP_ROWS:
+        args = flip.layer_args[f"{name} {variant}"]
+        for order, x in flip_dl_orders(torch, kmod, args).items():
+            print(f"  {name} {variant}, standing draw: dl of video "
+                  f"{FLIP_DL[0]}, head {FLIP_DL[1]}, key {FLIP_DL[2]}, query "
+                  f"{FLIP_DL[3]} in {order}: {x['dl']:.9e} -> bf16 "
+                  f"{x['bf16']:.9e}", flush=True)
     # the merged decoder layer in a mode at its longest length, without
     # its FF tail (T 257-512), the keys in one stage of its attention core
     o, (mask, valid) = chk.operands(2, 512), chk.masks(2, 512)

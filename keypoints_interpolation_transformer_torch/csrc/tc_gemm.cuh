@@ -8,6 +8,8 @@
 // see the notes at the top of those files.
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include <algorithm>
 
 #include "common.cuh"
@@ -43,8 +45,16 @@ namespace kit {
 // sigmoid(x2 + b2) as hi / lo planes of row stride ldo, from a product
 // whose 128-column tile j holds x1's and then x2's columns 64 j .. 64 j +
 // 63 (the weight's columns so interleaved; bias = [b1 | b2] as it is,
-// ldo = D) (GLU).
-enum { EPI_STORE, EPI_ADD, EPI_DU, EPI_PLANES, EPI_RES, EPI_QKV, EPI_BIAS, EPI_GLU };
+// ldo = D) (GLU); for mode_linear.cu's weight gradient, the splits' parts
+// summed in the same launch (SUM: the splits of an output tile are one
+// thread-block cluster (1, 1, splits), splits a power of two up to 8; each
+// block leaves its part in shared memory, and after a cluster barrier block
+// z adds rows [z 128 / splits, (z + 1) 128 / splits) of every part in rank
+// order through distributed shared memory into out; the clusters of the
+// first row of tiles also add vrows rows of column parts in a fixed order
+// into vout, the bias gradient: 2 splits interleaved row groups a column,
+// then the groups in order).
+enum { EPI_STORE, EPI_ADD, EPI_DU, EPI_PLANES, EPI_RES, EPI_QKV, EPI_BIAS, EPI_GLU, EPI_SUM };
 
 struct GemmMaps {
   CUtensorMap a[2], b[2];
@@ -63,6 +73,9 @@ struct GemmArgs {
   const float* bias;  // EPI_PLANES (or null), EPI_RES, EPI_QKV, EPI_BIAS: (N); EPI_GLU: [b1 | b2]
   int scols;          // EPI_QKV: the columns scaled by qs before the split
   float qs;
+  const float* vpart;    // EPI_SUM: (vrows, N) column parts, or null
+  int vrows;
+  float* vout;           // EPI_SUM: (N) their sum in row order
 };
 
 template <int PASSES>
@@ -195,6 +208,51 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   float* out = p.out + blockIdx.z * p.split;
   const int c = n0 + 4 * lane;
   const bool in = c < p.N;  // N is a multiple of 16: the lane's 4 columns are in or out
+  if constexpr (EPI == EPI_SUM) {
+    cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+    const int S = (int)gridDim.z, z = (int)cl.block_rank(), rows = 128 / S;
+    cl.sync();  // every part of the tile is in its block's shared memory
+    for (int rr = z * rows + warp; rr < (z + 1) * rows && in; rr += CONSUMER_WARPS) {
+      const int m = m0 + rr;
+      if (m >= p.M) break;
+      const int o = rr * G::LDC + 4 * lane;
+      float4 sum = *reinterpret_cast<const float4*>(cl.map_shared_rank(Cs, 0) + o);
+      for (int r = 1; r < S; ++r) {
+        const float4 v = *reinterpret_cast<const float4*>(cl.map_shared_rank(Cs, r) + o);
+        sum = make_float4(sum.x + v.x, sum.y + v.y, sum.z + v.z, sum.w + v.w);
+      }
+      *reinterpret_cast<float4*>(p.out + (size_t)m * p.ldo + c) = sum;
+    }
+    if (p.vout != nullptr && blockIdx.y == 0) {
+      // db: the block's 128 / S columns, each over 2 S interleaved row
+      // groups (neighbouring threads on neighbouring columns, eight loads
+      // in flight), then the groups in order
+      __shared__ float red[32 * CONSUMER_WARPS];
+      const int groups = 2 * S, rg = threadIdx.x / rows, col = n0 + z * rows + threadIdx.x % rows;
+      float sum = 0.f;
+      if (col < p.N) {
+        for (int r0 = rg; r0 < p.vrows; r0 += 8 * groups) {
+          float v[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int r = r0 + u * groups;
+            v[u] = r < p.vrows ? __ldcg(p.vpart + (size_t)r * p.N + col) : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) sum += v[u];
+        }
+      }
+      red[threadIdx.x] = sum;
+      consumers_sync();
+      if ((int)threadIdx.x < rows && col < p.N) {
+        float t = red[threadIdx.x];
+        for (int q = 1; q < groups; ++q) t += red[q * rows + threadIdx.x];
+        p.vout[col] = t;
+      }
+    }
+    cl.sync();  // no block leaves while another reads its part
+    return;
+  }
   float4 cs = make_float4(0.f, 0.f, 0.f, 0.f);  // EPI_DU: the warp's rows of du, summed
   for (int rr = warp; rr < 128 && in; rr += CONSUMER_WARPS) {
     const int m = m0 + rr;
@@ -299,6 +357,23 @@ static int tc_gemm_ld(const bf16* ah, const bf16* al, int a_rows, int a_cols, in
     return rc;
   p.krows = round_up((p.K + splits - 1) / splits, 64);
   const dim3 grid((p.N + 127) / 128, (p.M + 127) / 128, splits);
+  if constexpr (EPI == EPI_SUM) {  // the splits of a tile: one cluster
+    if (splits > 8 || (splits & (splits - 1))) return (int)cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(WG_THREADS);
+    cfg.dynamicSmemBytes = G::SMEM;
+    cfg.stream = st;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = 1;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = splits;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, tc_gemm_kernel<PASSES, TA, EPI, TB>, mp, p);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  }
   tc_gemm_kernel<PASSES, TA, EPI, TB><<<grid, WG_THREADS, G::SMEM, st>>>(mp, p);
   return (int)cudaGetLastError();
 }

@@ -126,9 +126,12 @@ def bind(name: str, signatures: Dict[str, str]) -> ctypes.CDLL:
 def call(lib: ctypes.CDLL, fn: str, device: torch.device, *args) -> None:
     """Launch ``fn`` on ``device``'s current stream; raises on a CUDA
     error.  Tensor arguments are passed as pointers, None as null."""
-    rc = lib.kit_set_device(device.index or 0)
+    index = device.index or 0
+    rc = lib.kit_set_device(index)
     if rc == 0:
-        stream = torch.cuda.current_stream(device).cuda_stream
+        # the handle itself (torch.cuda.current_stream makes a Stream object
+        # per call, some 5 us of host time)
+        stream = torch._C._cuda_getCurrentRawStream(index)
         conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]
         rc = getattr(lib, fn)(*conv, stream)

@@ -100,7 +100,8 @@ _SIGS = {"kit_attn_sublayer": "pp" + "i" * 5 + "p" * 8 + "ii" + "p" * 6,
 _MODE_SIGS = {"kit_attn_sublayer_tc": "iipp" + "i" * 5 + "p" * 10 + "ii"
                                       + "p" * 9,
               "kit_attn_sublayer_tc_bwd": "i" + "p" * 12 + "i" * 8 + "p" * 9,
-              "kit_attn_bwd_fused": "iii"}
+              "kit_attn_bwd_fused": "iii",
+              "kit_attn_fwd_fused": "iiii"}
 # the backward's bias gradients: rows a partial sum (``csrc/
 # attn_sublayer_modes.cu`` BIAS_ROWS)
 BIAS_ROWS = 128
@@ -514,6 +515,8 @@ def _train_planes(where, device, planes, mode, n, D):
     _check_planes(where, device, mode, (
         ("wih", wih, (3 * n, n)), ("wil", wil, (3 * n, n)),
         ("woh", woh, (n, n)), ("wol", wol, (n, n))))
+    if n == D:
+        return wih, wil, woh, wol
     return _pad_planes((wih, wil), (woh, wol), n, D, 0)
 
 
@@ -525,17 +528,36 @@ def mode_act_elems(B: int, T: int, D: int, cross: bool, mode: str) -> int:
 
 
 def mode_forward_scratch(B: int, T: int, D: int, cross: bool, mode: str,
-                         ln: bool, train: bool):
+                         ln: bool, train: bool, fused: bool = False):
     """``kit_attn_sublayer_tc``'s scratch (``csrc/attn_sublayer_modes.cu``):
     (bf16 elements, floats): the planes of q / k / v (3 B T D) and, when
     serving (training keeps them apart: ``acts``, ``mode_act_elems``), of
     x, the memory (cross-attention) and the attention output (B T D each),
-    two planes in "bf16x3"; the pre-LN sum when serving with a LayerNorm."""
+    two planes in "bf16x3"; the pre-LN sum when serving with a LayerNorm.
+    None where the training forward takes its two-kernel path (``fused``,
+    as ``kit_attn_fwd_fused`` answers: q, k and v stay on the chip)."""
+    if train and fused:
+        return 0, 0
     MD = B * T * D
     planes = 3 * (2 if mode == "bf16x3" else 1) * MD
     if not train:
         planes += mode_act_elems(B, T, D, cross, mode)
     return planes, (MD if ln and not train else 0)
+
+
+_FWD_FUSED: dict = {}
+
+
+def mode_forward_fused(mode: str, T: int, D: int, dh: int) -> bool:
+    """Whether the training forward in ``mode`` takes its two-kernel path
+    at (T, D, dh): ``kit_attn_fwd_fused``'s answer, asked once a shape."""
+    key = (mode, T, D, dh)
+    got = _FWD_FUSED.get(key)
+    if got is None:
+        lib = _build.bind("attn_sublayer_modes", _MODE_SIGS)
+        got = _FWD_FUSED[key] = bool(lib.kit_attn_fwd_fused(
+            _PASSES[mode], T, D, dh))
+    return got
 
 
 def attn_act_planes(x, memory, a, mode: str):
@@ -590,21 +612,28 @@ def _launch_forward_mode(x, memory, weights, ln_w, ln_b, mask, valid, kind,
     where = "fused_attn_sublayer"
     B, T, n = x.shape
     D = kernel_width(where, n)
-    x, memory, ln_w, ln_b = (pad(t, D) for t in (x, memory, ln_w, ln_b))
+    if n < D:
+        x, memory, ln_w, ln_b = (pad(t, D) for t in (x, memory, ln_w, ln_b))
     dev = x.device
     y = torch.empty_like(x)
     qkv = a = stats = r = acts = None
+    fused = train and mode_forward_fused(mode, T, D, n // heads)
     if train:
-        qkv = torch.empty(B, T, 3 * D, device=dev)
-        # the columns from H * dh on are not written
-        a = (torch.empty if n == D else torch.zeros)(B, T, D, device=dev)
-        stats = torch.empty(B, heads, T, 2, device=dev)
-        r = torch.empty_like(x) if ln_w is not None else None
+        # what the backward keeps, in one allocation: qkv, a, r, stats (each
+        # a multiple of 4 floats but the last); the columns of a from H * dh
+        # on are not written by the five-launch path
+        MD, ln = B * T * D, ln_w is not None
+        res = (torch.empty if n == D or fused else torch.zeros)(
+            (4 + ln) * MD + 2 * B * heads * T, device=dev)
+        qkv = res[:3 * MD].view(B, T, 3 * D)
+        a = res[3 * MD:4 * MD].view(B, T, D)
+        r = res[4 * MD:5 * MD].view(B, T, D) if ln else None
+        stats = res[(4 + ln) * MD:].view(B, heads, T, 2)
         acts = torch.empty(mode_act_elems(B, T, D, memory is not None, mode),
                            dtype=torch.bfloat16, device=dev)
     nb, nf = mode_forward_scratch(B, T, D, memory is not None, mode,
-                                  ln_w is not None, train)
-    buf = torch.empty(nb, dtype=torch.bfloat16, device=dev)
+                                  ln_w is not None, train, fused)
+    buf = torch.empty(nb, dtype=torch.bfloat16, device=dev) if nb else None
     fs = torch.empty(nf, device=dev) if nf else None
     lib = _build.bind("attn_sublayer_modes", _MODE_SIGS)
     _build.call(lib, "kit_attn_sublayer_tc", dev, _PASSES[mode], int(train),

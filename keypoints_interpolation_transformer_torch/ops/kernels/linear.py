@@ -19,7 +19,10 @@ its backward.  Kernels (``csrc/mode_linear.cu``):
     both bump the version) and kept while W lives; ``weight_planes.splits``
     counts the splits;
   * ``mode_linear_bwd``: dx = g W^T and dW = x^T g in the same mode, db the
-    float32 column sums of g, in a fixed order (no atomics);
+    float32 column sums of g, in a fixed order (no atomics), two launches:
+    dx from g read in float32, g's planes and db's column parts beside it;
+    then dW over row ranges, each output tile's ranges one thread-block
+    cluster that adds them (and db's parts) in order;
   * ``ModeLinearFunction`` ties them together under autograd: its forward
     has the kernel write x's planes beside y, and its backward reads them
     and W's, so a step splits each weight once.
@@ -49,16 +52,21 @@ from .precision import (MODES, check_mode, mode_linear_bwd_plain,
 # one letter per C argument, the stream last: p pointer, i int
 _SIGS = {"kit_mode_linear": "ipiii" + "p" * 6,
          "kit_mode_linear_weight": "ipii" + "p" * 4,
-         "kit_mode_linear_bwd": "ipiii" + "p" * 7 + "ii" + "p" * 4}
-# two CUtensorMap of 128 bytes: the maps of W's planes
-_MAPS_BYTES = 256
+         "kit_mode_linear_bwd": "ipiii" + "p" * 6 + "i" + "p" * 4}
+# four CUtensorMap of 128 bytes: the maps of W's planes, MN-major (the
+# forward's) then K-major (the backward's dx)
+_MAPS_BYTES = 512
+_BWD_MAPS = 256
+# the most row ranges dW's launch takes: a cluster of that many blocks a
+# tile (``csrc/tc_gemm.cuh`` EPI_SUM)
+MAX_SPLITS = 8
 # the planes' row multiple (``csrc/mode_linear.cu`` pad16): TMA reads rows
 # of 16-byte multiples, and 108 columns are 216 bytes
 PLANE_COLS = 16
 # the tensor-core product's output tile (``csrc/tc_gemm.cuh``)
 TILE = 128
-# rows of g a partial column sum of db covers, at least
-COLSUM_ROWS = 256
+# the consumer warps of a tile: db's column parts are one a warp's 16 rows
+TILE_WARPS = 8
 
 
 def padded(n: int) -> int:
@@ -88,15 +96,25 @@ def row_planes(x: torch.Tensor, mode: str):
 
 
 def weight_splits(M: int, K: int, N: int) -> int:
-    """The row ranges of dW = x^T g at M rows: with its ceil(K / 128) x
-    ceil(N / 128) output tiles they fill one wave of the card."""
-    return wave_splits(M, -(-K // TILE) * -(-N // TILE))
+    """The row ranges of dW = x^T g at M rows: as many as fill one wave of
+    the card with its ceil(K / 128) x ceil(N / 128) output tiles, rounded
+    down to a power of two up to ``MAX_SPLITS`` (a tile's ranges are one
+    cluster, which adds their parts through its shared memory)."""
+    s = min(MAX_SPLITS, wave_splits(M, -(-K // TILE) * -(-N // TILE)))
+    return 1 << (s.bit_length() - 1)
 
 
-def colsum_splits(M: int) -> int:
-    """The row ranges db's column sums add in order: one per
-    ``COLSUM_ROWS`` rows, at most 132 (one wave of blocks)."""
-    return max(1, min(132, M // COLSUM_ROWS))
+def colsum_rows(M: int) -> int:
+    """The rows of db's column parts at M rows of g: one a warp's 16 rows
+    of each 128-row tile (``csrc/mode_linear.cuh``), added in row order."""
+    return -(-M // TILE) * TILE_WARPS
+
+
+def bwd_scratch(M: int, N: int, mode: str):
+    """The backward's scratch: (bf16 elements of g's planes, (M,
+    padded(N)) each, floats of db's column parts)."""
+    P = 2 if mode == "bf16x3" else 1
+    return P * M * padded(N), colsum_rows(M) * N
 
 
 def _operand(where, name, t, device):
@@ -232,7 +250,7 @@ def _launch(x, w, b, mode, keep):
     _build.call(lib, "kit_mode_linear", dev, _PASSES[mode], x2, M, K, N,
                 wp.maps, b, y, xh, xl)
     mode_linear.launches[mode] += 1
-    return y.view(*x.shape[:-1], N), (xh, xl), wp.planes
+    return y.view(*x.shape[:-1], N), (xh, xl), wp
 
 
 def mode_linear(x: torch.Tensor, w: torch.Tensor, b, mode: str):
@@ -257,7 +275,7 @@ def mode_linear_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     """The gradients of ``mode_linear`` given g = dL/dy (..., N): (dx (...,
     K), dW (K, N), db (N,)), each None where not needed, the products in
     ``mode``.  On the card the kernel reads the planes of x's rows and of W
-    (``planes`` = (``row_planes(x)``, ``linear_planes(w)``), as the
+    (``planes`` = (``row_planes(x)``, ``weight_planes(w)``), as the
     forward's call left them; split here when not given); x and W are read
     only on the CPU and for their shapes."""
     check_mode(mode)
@@ -267,39 +285,52 @@ def mode_linear_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if g.device.type == "cpu":
         dx, dw, db = mode_linear_bwd_plain(g, x, w, mode, need_dx)
         return dx, (dw if need_dw else None), (db if need_db else None)
-    if planes is None:
-        planes = (row_planes(x, mode), linear_planes(w, mode))
-    return _launch_bwd(g, planes, w.shape[0], mode, need_dx, need_dw,
+    xp, wp = (row_planes(x, mode), weight_planes(w, mode)) \
+        if planes is None else planes
+    return _launch_bwd(g, xp, wp, w.shape[0], mode, need_dx, need_dw,
                        need_db)
 
 
-def _launch_bwd(g, planes, K, mode, need_dx, need_dw, need_db):
-    """The backward on the card from the planes of x's rows and of W (K,
-    N)."""
+def _launch_bwd(g, xp, wp, K, mode, need_dx, need_dw, need_db):
+    """The backward on the card from the planes of x's rows and W's
+    ``WeightPlanes`` (K, N): two launches (one when neither dW nor db is
+    wanted); dx is written to scratch when not wanted, dW too when only db
+    is."""
     where = "mode_linear_bwd"
     N = g.shape[-1]
-    _check_widths(where, K, N)
-    g2 = _operand(where, "g", g.reshape(-1, N), g.device)
+    dev = g.device
+    if K % 4 or N % 4:
+        _check_widths(where, K, N)
+    g2 = g.reshape(-1, N)
+    if g2.dtype != torch.float32 or not g2.is_contiguous() \
+            or g2.data_ptr() % 16:
+        g2 = _operand(where, "g", g2, dev)
     M = g2.shape[0]
-    xp, wp = planes
-    _check_planes(where, xp, mode, g.device, (M, padded(K)))
-    _check_planes(where, wp, mode, g.device, (K, padded(N)))
-    P = 2 if mode == "bf16x3" else 1
-    gh, gl = _plane_pair(P, M, padded(N), g.device)
-    splits = weight_splits(M, K, N) if need_dw else 1
-    vsplits = colsum_splits(M)
-    part = torch.empty((splits * K * N if splits > 1 else 0) + vsplits * N,
-                       device=g.device)
-    dx = torch.empty(M, K, device=g.device) if need_dx else None
-    dw = torch.empty(K, N, device=g.device) if need_dw else None
-    db = torch.empty(N, device=g.device) if need_db else None
+    _check_planes(where, xp, mode, dev, (M, padded(K)))
+    if not isinstance(wp, WeightPlanes) or wp.maps is None \
+            or wp.planes[0].device != dev \
+            or wp.planes[0].shape != (K, padded(N)) \
+            or (wp.planes[1] is None) != (mode == "bf16"):
+        raise ValueError(f"{where}: W's planes must be weight_planes' of a "
+                         f"({K}, {N}) weight on {dev} in mode {mode!r}")
+    splits = weight_splits(M, K, N) if need_dw or need_db else 1
+    nb, nf = bwd_scratch(M, N, mode)
+    # one allocation: g's planes (a multiple of 32 bytes), then db's parts
+    buf = torch.empty(2 * nb + 4 * max(nf, 4), dtype=torch.uint8, device=dev)
+    gpl = buf[:2 * nb].view(torch.bfloat16)
+    gh, gl = (gpl[:nb // 2], gpl[nb // 2:]) if mode == "bf16x3" else \
+        (gpl, None)
+    part = buf[2 * nb:].view(torch.float32)
+    dx = torch.empty(M, K, device=dev)
+    dw = torch.empty(K, N, device=dev) if need_dw or need_db else None
+    db = torch.empty(N, device=dev) if need_db else None
     lib = _build.bind("mode_linear", _SIGS)
-    _build.call(lib, "kit_mode_linear_bwd", g.device, _PASSES[mode], g2, M,
-                K, N, *xp, *wp, dx, dw, db, splits, vsplits, gh, gl, part)
+    _build.call(lib, "kit_mode_linear_bwd", dev, _PASSES[mode], g2, M, K, N,
+                *xp, wp.maps.data_ptr() + _BWD_MAPS, dx, dw, db, splits, gh,
+                gl, part)
     mode_linear_bwd.launches[mode] += 1
-    if dx is not None:
-        dx = dx.reshape(*g.shape[:-1], K)
-    return dx, dw, db
+    return (dx.view(*g.shape[:-1], K) if need_dx else None,
+            dw if need_dw else None, db)
 
 
 mode_linear_bwd.launches = dict.fromkeys(MODES, 0)
@@ -330,6 +361,6 @@ class ModeLinearFunction(torch.autograd.Function):
             dx, dw, db = mode_linear_bwd(g, *ctx.saved_tensors, ctx.mode,
                                          None, need_dx, need_dw, need_db)
         else:
-            dx, dw, db = _launch_bwd(g, ctx.planes, ctx.K, ctx.mode,
+            dx, dw, db = _launch_bwd(g, *ctx.planes, ctx.K, ctx.mode,
                                      need_dx, need_dw, need_db)
         return dx, dw, db, None

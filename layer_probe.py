@@ -10,6 +10,8 @@ precision-mode kernels' time goes, on one CUDA card.
     python3 layer_probe.py forwards TREE...  # sublayer forwards, in turns
     python3 layer_probe.py modes TREE...    # precision-mode kernels, in turns
     python3 layer_probe.py spread           # "default" routes' spread
+    python3 layer_probe.py host             # host time of two mode wrappers
+    python3 layer_probe.py flipdl [DIR]     # the standing draw's dl, kernel
 
 ``phases`` copies ``keypoints_interpolation_transformer_torch`` into DIR
 (default ``scratch_tree/layer_probe``, git-ignored), adds ``clock64()``
@@ -23,6 +25,15 @@ phase.  The counters change the code the compiler schedules, so the times
 differ from ``chip_smoke.py``'s by a few per cent either way; the split
 between the phases is what this is for.
 
+``host`` builds ``mode_linear.cu`` and ``attn_sublayer_modes.cu`` and
+splits the host time a call of two mode wrappers at the A1 step's shapes
+(``fused_attn_sublayer_train`` at B = 64, T = 128, self-attention, with
+the planes ``attn_train_planes`` makes, and ``mode_linear_bwd`` at the q /
+k / v projection from the planes a ``ModeLinearFunction`` keeps) into the
+whole call, the call with the C entry stubbed out (the Python: checks,
+allocations, argument packing), and two of its pieces, each the mean of
+200 back-to-back calls with the card idle at the start.
+
 ``bwdphases`` does the same for the attention sublayer's fused backward
 core in the modes (``csrc/attn_modes.cuh`` ``attn_mode_bwd_kernel``, its
 counters thread 0's of each block: the load and split, delta, the
@@ -31,6 +42,18 @@ key-major pass as warp 0 runs it, the sums, the query-major pass) in
 A1 step's self-attention backward at B = 64, T = 128 in "high" and
 "default", each call's time (counters on), cycles a block by phase and
 device time by launch.
+
+``flipdl`` copies the package into DIR (default ``scratch_tree/flip_dl``)
+with ``csrc/attention_modes.cu`` made to record, at the standing draw's
+``chip_smoke.FLIP_DL`` (video, head, key j, query i), what the per-op
+backward at "default" computes there in float32: the key-major kernel's s,
+the query's (m, 1 / l, delta), p, gw and dl before its bf16 rounding, and
+the query-major kernel's sums l and sum of gw exp(s - m) for that row.  It
+builds that source alone, runs ``attention_bwd`` at "default" on the
+standing draw's ``FLIP_ROWS`` (``chip_smoke.flip_draw_calls``) and prints those values
+beside the plain version's in its three float32 orders
+(``chip_smoke.flip_dl_orders``) on the card and on the CPU, and the
+kernel's and the plain version's dk at that key.
 
 ``times`` takes trees that each hold a copy of the package (a git
 checkout, ``git archive`` of another commit, or an edited copy under
@@ -101,6 +124,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "keypoints_interpolation_transformer_torch"
@@ -336,6 +360,109 @@ def bwd_phases(out_dir):
         print(f"  {name} {variant} B={cs.B_TRAIN} T={cs.T_MAIN}: {ms:.4f} "
               f"ms (counters on); cycles a block {json.dumps(cyc)}; "
               f"{cs.launch_ms(torch, kern)} ms", flush=True)
+
+
+# (anchor in attention_modes.cu, text put after it): the key-major kernel's
+# s, (m, 1 / l, delta) and p at FLIP_DL, then its gw and dl before the bf16
+# rounding; the query-major kernel's l and sum of gw exp(s - m) of the row
+FLIP_PATCHES = (
+    ("            pf[nt][e] = expf(s - qv.x) * qv.y;\n",
+     "            if (FLIP_AT(key, q0 + qi)) {\n"
+     "              kit_flip[0] = s; kit_flip[1] = qv.x; kit_flip[2] = qv.y;\n"
+     "              kit_flip[3] = qv.z; kit_flip[4] = pf[nt][e];\n"
+     "            }\n"),
+    ("            dl_pair(pf[nt][2 * r], gw[0], dlt[0], pf[nt][2 * r + 1], "
+     "gw[1], dlt[1], p.scale,\n"
+     "                    dh_[2 * nt + r], dl_[2 * nt + r]);\n",
+     "            for (int c = 0; c < 2; ++c)\n"
+     "              if (FLIP_AT(r == 0 ? ka : kb, q0 + j0 + 8 * nt + 2 * t + c))"
+     " {\n"
+     "                kit_flip[5] = gw[c];\n"
+     "                kit_flip[6] = __fmul_rn(__fmul_rn(pf[nt][2 * r + c], "
+     "gw[c] - dlt[c]), p.scale);\n"
+     "              }\n"),
+    ("    delta[i] = ds[i] * inv[i];\n",
+     "    if (t == 0 && FLIP_AT(FLIP_J, row)) {\n"
+     "      kit_flip[7] = l[i];\n"
+     "      kit_flip[8] = ds[i];\n"
+     "    }\n"),
+)
+FLIP_NAMES = ("s", "m", "1/l", "delta", "p", "gw", "dl", "l", "sum gw e")
+
+
+def flip_dl(out_dir):
+    """``flipdl``: the per-op backward's float32 values at the standing
+    draw's FLIP_DL on the card (a copy of the package under ``out_dir``
+    with ``attention_modes.cu`` recording them, only that source built)
+    beside the plain version's."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    cs = load_smoke()
+    tree = os.path.abspath(out_dir)
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, PKG), os.path.join(tree, PKG),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    path = os.path.join(tree, PKG, "csrc", "attention_modes.cu")
+    with open(path) as f:
+        src = f.read()
+    for old, new in FLIP_PATCHES:
+        if src.count(old) != 1:
+            sys.exit(f"layer_probe: not once in attention_modes.cu: {old!r}")
+        src = src.replace(old, old + new)
+    b, h, j, i = cs.FLIP_DL
+    head = ("namespace kit {\n__device__ float kit_flip[16];\n"
+            f"#define FLIP_J {j}\n#define FLIP_AT(key, q) (blockIdx.z == {b}"
+            f" && blockIdx.y == {h} && (key) == {j} && (q) == {i})\n")
+    src = src.replace("namespace kit {\n", head, 1)
+    src += ('extern "C" int kit_flip_get(void* out) {\n'
+            "  return (int)cudaMemcpyFromSymbol(out, kit::kit_flip, "
+            "sizeof(kit::kit_flip));\n}\n")
+    with open(path, "w") as f:
+        f.write(src)
+    _build = use_tree(tree, ("attention_modes",))
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    print(cs.gpu_line(), flush=True)
+    print(f"  nvcc attention_modes.cu (recording on) "
+          f"{_build.build()['attention_modes']:.1f} s", flush=True)
+    lib = _build.bind("attention_modes", {})
+    lib.kit_flip_get.argtypes = [ctypes.c_void_p]
+    chk, _ = cs.flip_draw_calls(torch, kmod)
+    for name, variant in cs.FLIP_ROWS:
+        args = chk.layer_args[f"{name} {variant}"]
+        got = kmod.attention_bwd(*args, mode="bf16")
+        want = kmod.attention_bwd_plain(*args, mode="bf16")
+        torch.cuda.synchronize()
+        buf = np.zeros(16, dtype=np.float32)
+        if lib.kit_flip_get(buf.ctypes.data):
+            sys.exit("layer_probe: kit_flip_get failed")
+        kern = {n: float(buf[k]) for k, n in enumerate(FLIP_NAMES)}
+        kern["bf16"] = float(torch.tensor(kern["dl"]).to(torch.bfloat16)
+                             .float())
+        print(f"  {variant}: kernel (attn_op_dkv_kernel / attn_op_dq_kernel)"
+              f": {json.dumps({k: f'{v:.9e}' for k, v in kern.items()})}",
+              flush=True)
+        cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+        for where, a in (("card", args), ("CPU", cpu)):
+            for order, x in cs.flip_dl_orders(torch, kmod, a).items():
+                print(f"  {variant}: plain on the {where}, {order}: "
+                      f"{json.dumps({k: f'{v:.9e}' for k, v in x.items()})}",
+                      flush=True)
+        dk, dkw = got[1][b, j, h].cpu(), want[1][b, j, h].cpu()
+        own = float(want[1].abs().max())
+        step = float(q_step(torch, kern["bf16"], args, cs.FLIP_DL)) / own
+        print(f"  {variant}: dk of key {j}: largest |kernel - plain| "
+              f"{float((dk - dkw).abs().max()) / own:.4e} of dk's max; one "
+              f"bf16 step of dl times q there {step:.4e}", flush=True)
+
+
+def q_step(torch, dl, args, at):
+    """One bf16 step of dl at ``dl`` times the query's largest |q| of the
+    head, the most a flip of that dl moves its key's dk."""
+    b, h, _, i = at
+    step = abs(dl) * 2.0 ** -7
+    return step * args[0][b, i, h].to(torch.bfloat16).float().abs().max()
 
 
 def times_one(tree):
@@ -664,6 +791,68 @@ def spread():
                   flush=True)
 
 
+def host_parts():
+    """The ``host`` mode (see the module docstring)."""
+    import torch
+    from keypoints_interpolation_transformer_torch.ops.kernels import _build
+    _build.SOURCES = ("mode_linear", "attn_sublayer_modes")
+    from keypoints_interpolation_transformer_torch.ops import kernels as k
+    from keypoints_interpolation_transformer_torch.ops.kernels import (
+        attn_sublayer as tas, linear as tlin)
+    dev = torch.device("cuda", 0)
+
+    def us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        el = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return round(el / n * 1e6, 1)
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    gen = torch.Generator().manual_seed(1)
+    B, T, D = 64, 128, 256
+    x = torch.randn(B, T, D, generator=gen).to(dev)
+    wqkv = (torch.randn(D, 3 * D, generator=gen) / 16).to(dev)
+    wo = (torch.randn(D, D, generator=gen) / 16).to(dev)
+    b3, b1 = torch.zeros(3 * D, device=dev), torch.zeros(D, device=dev)
+    mask = torch.zeros(B, T, device=dev)
+    valid = torch.ones(B, T, device=dev)
+    M, K, N = B * T, D, 3 * D
+    xx = torch.randn(M, K, generator=gen).to(dev)
+    g = torch.randn(M, N, generator=gen).to(dev)
+    w = (torch.randn(K, N, generator=gen) / 16).to(dev)
+    for mode in ("bf16x3", "bf16"):
+        planes = tas.attn_train_planes(wqkv.t().contiguous(),
+                                       wo.t().contiguous(), mode)
+        fwd = lambda: k.fused_attn_sublayer_train(  # noqa: E731
+            x, None, wqkv, b3, wo, b1, None, None, mask, valid,
+            "repeat-inc", True, 8, mode, planes)
+        xp, wp = tlin.row_planes(xx, mode), tlin.weight_planes(w, mode)
+        bwd = lambda: tlin._launch_bwd(  # noqa: E731
+            g, xp, wp, K, mode, True, True, True)
+        out = {"attn_sublayer_train": us(fwd), "mode_linear_bwd": us(bwd)}
+        real = _build.call
+        _build.call = lambda *a: None
+        try:
+            out["attn_sublayer_train Python"] = us(fwd)
+            out["mode_linear_bwd Python"] = us(bwd)
+        finally:
+            _build.call = real
+        out["attn_sublayer_train checks"] = us(
+            lambda: tas._check_forward("probe", x, None, wqkv, b3, wo, b1,
+                                       None, None, mask, valid, "repeat-inc",
+                                       True, 8, dense=False)) + us(
+            lambda: tas._train_planes("probe", dev, planes, mode, D, D))
+        out["torch.empty of 2M floats"] = us(
+            lambda: torch.empty(M * D, device=dev))
+        print(f"  {mode}: host us a call {json.dumps(out)}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -675,6 +864,9 @@ def main():
     elif mode == "bwdphases":
         bwd_phases(args[0] if args else os.path.join(ROOT, "scratch_tree",
                                                      "bwd_phases"))
+    elif mode == "flipdl":
+        flip_dl(args[0] if args else os.path.join(ROOT, "scratch_tree",
+                                                  "flip_dl"))
     elif mode == "times":
         in_turns(args, ("layer_fused",), "times-one")
     elif mode == "times-one":
@@ -693,6 +885,8 @@ def main():
         modes_one(args[0])
     elif mode == "spread":
         spread()
+    elif mode == "host":
+        host_parts()
     elif mode == "backward":
         in_turns(args, BACKWARD_SOURCES, "backward-one")
     elif mode == "backward-one":

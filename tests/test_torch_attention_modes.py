@@ -410,3 +410,38 @@ def test_per_op_route_takes_the_mode(monkeypatch, prec, mode):
     model.pack_weights(None)
     model.train()(x, x, m, m).sum().backward()
     assert seen == [("serve", mode)] * 6 + [("train", mode)] * 3
+
+
+def test_plain_backward_on_the_standing_draw_matches_pallas():
+    """The standing draw of ``chip_smoke.py`` phase 2 (``flip_draw_calls``,
+    its operands drawn on the CPU from ``FLIP_DRAW`` as on the card): the
+    plain backward at "default" against ``_fused_bwd_pallas`` in interpret
+    mode at the per-op mode tests' tolerance, each output against max(1,
+    its largest value); and in both ``FLIP_ROWS`` the dl at ``FLIP_DL``
+    lies so near a bf16 rounding midpoint that two float32 orders of the
+    same arithmetic round it apart."""
+    import chip_smoke
+    chk, rows = chip_smoke.flip_draw_calls(torch, kernels, dev="cpu")
+    for row in chip_smoke.FLIP_ROWS:
+        assert row in [r[:2] for r in rows]
+        args = chk.layer_args[" ".join(row)]
+        q, k, v, g, mask, valid, kind, keypad = args
+        assert q.shape == (3, 512, 8, 32) and kind == "all", row
+        # cross-attention has no frame mask: "all" without the keypad
+        # term reads none
+        jmask = torch.zeros_like(valid) if mask is None else mask
+        with _interpret("default"):
+            want = [np.asarray(t) for t in jattn._fused_bwd_pallas(
+                *(jnp.asarray(a.numpy()) for a in (q, k, v, g, jmask, valid)),
+                kind, keypad)]
+        got = kernels.attention_bwd_plain(*args, mode="bf16")
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            s = max(1.0, float(np.abs(w).max()))
+            np.testing.assert_allclose(a.numpy() / s, w / s,
+                                       atol=TOL["bf16"], rtol=0,
+                                       err_msg=f"{row} {name}")
+        orders = chip_smoke.flip_dl_orders(torch, kernels, args)
+        x0, x1 = orders["torch's order"], orders["one term at a time"]
+        assert x0["bf16"] != x1["bf16"], (row, orders)
+        assert abs(x0["dl"] - x1["dl"]) <= \
+            4 * np.spacing(np.float32(x0["dl"])), (row, orders)

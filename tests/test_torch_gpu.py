@@ -1419,7 +1419,7 @@ def test_mode_linear_forward_is_one_launch_at_every_shape(cuda, mode):
                     (xl is None and rl is None) or torch.equal(xl, rl)), v
                 dx, dw, _ = kernels.mode_linear_bwd(
                     g, x, w, mode, (kernels.row_planes(x, mode),
-                                    kernels.linear_planes(w, mode)))
+                                    kernels.weight_planes(w, mode)))
                 assert torch.equal(xg.grad, dx) and torch.equal(wg.grad, dw)
     # warm calls: one kernel launch each (the counter), and no other device
     # work (the profiler: a trace that lost events, fewer than the calls
@@ -1493,7 +1493,6 @@ def test_fused_sublayer_backward_matches_plain(cuda):
     from the profiler: 7 for self-attention and 9 for cross-attention on
     the fused core."""
     import chip_smoke
-    from torch.profiler import ProfilerActivity, profile
     from keypoints_interpolation_transformer_torch.ops import kernels
     from keypoints_interpolation_transformer_torch.ops.kernels import (
         _build, attn_sublayer as tas)
@@ -1538,15 +1537,109 @@ def test_fused_sublayer_backward_matches_plain(cuda):
                                 True, kernels.attn_sublayer_bwd_plain(
                                     *bargs(wrong, qw, aw, sw, rw)))
                     if fused_at[T, 3 if mode == "bf16x3" else 1]:
-                        n, want = 0, 9 if cross else 7
-                        for _ in range(3):  # a trace that lost events: again
-                            with profile(activities=[
-                                    ProfilerActivity.CUDA]) as prof:
-                                kernels.attn_sublayer_bwd(*bargs(mode), tp,
-                                                          acts)
-                                torch.cuda.synchronize()
-                            n = sum(1 for e in prof.events() if e.device_type
-                                    == torch.autograd.DeviceType.CUDA)
-                            if n >= want:
-                                break
+                        want = 9 if cross else 7
+                        n = len(_device_launches(
+                            lambda: kernels.attn_sublayer_bwd(
+                                *bargs(mode), tp, acts), want))
                         assert n == want, (v, n)
+
+
+def _device_launches(fn, least=1):
+    """The kernels one call of ``fn`` launches (the profiler; a trace of
+    fewer than ``least`` kernels, one that lost events, is taken again, up
+    to five times)."""
+    from torch.profiler import ProfilerActivity, profile
+    names = []
+    for _ in range(5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= least:
+            break
+    return names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_sublayer_training_forward_takes_two_kernels(cuda, mode):
+    """The attention sublayer's training forward in a mode where its
+    two-kernel path takes the shape (kernel width 256, 32-wide heads, T <=
+    128): self-attention in two launches, cross-attention in three, at T
+    128 / 100 / 40 and a narrower model (n = 224, 7 heads); its outputs
+    against the plain version by the mode rows' rule; its kept planes the
+    same bits as ``attn_act_planes``; above T = 128 the five-launch path."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.ops.kernels import (
+        attn_sublayer as tas)
+    tag = "high" if mode == "bf16x3" else "default"
+    for d, heads in ((256, 8), (224, 7)):
+        chk = chip_smoke.KernelCheck(torch, kernels, d=d, heads=heads)
+        for T, want_self in ((128, 2), (100, 2), (40, 2), (144, 5)):
+            o, (mask, valid) = chk.operands(3, T), chk.masks(3, T)
+            tp = tas.attn_train_planes(o["wqkv"].t().contiguous(),
+                                       o["wo"].t().contiguous(), mode)
+            for cross in (False, True):
+                mem = o["mem"] if cross else None
+                args = (o["x"], mem, o["wqkv"], o["bqkv"], o["wo"], o["bo"],
+                        o["g"], o["be"], mask, valid,
+                        "all" if cross else "repeat-inc", not cross, heads)
+                out = kernels.fused_attn_sublayer_train(*args, mode, tp)
+                chk.compare(f"attn_sublayer_train_{tag}",
+                            f"n={d} T={T} cross={cross}", out[:5],
+                            kernels.attn_sublayer_train_plain(*args, mode),
+                            False, kernels.attn_sublayer_train_plain(
+                                *args, chip_smoke.WRONG_MODE[mode]))
+                assert torch.equal(out[5], tas.attn_act_planes(
+                    o["x"], mem, out[2], mode)), (d, T, cross)
+                if d == 256:
+                    fused = tas.mode_forward_fused(mode, T, d, d // heads)
+                    assert fused == (want_self == 2)
+                    # a memory adds its k / v projection on the two-kernel
+                    # path, its split and projection on the five-launch one
+                    want = want_self + ((1 if fused else 2) if cross else 0)
+                    names = _device_launches(
+                        lambda: kernels.fused_attn_sublayer_train(
+                            *args, mode, tp), want)
+                    assert len(names) == want, (T, cross, names)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_mode_linear_backward_is_two_launches(cuda, mode):
+    """``mode_linear_bwd`` at the A1 step's products (M = 8192: a q / k / v
+    projection, the 108-wide embedding and head), at M = 300 (no multiple
+    of 128) and M = 40 (one row range): dx, dW and db against the plain
+    version in the mode's limits and nearer it than one mode down, the
+    same bits on two runs, two launches (one without dW and db), no
+    memset."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    tag = "_high" if mode == "bf16x3" else "_default"
+    for M, K, N in ((8192, 256, 768), (8192, 108, 256), (8192, 256, 108),
+                    (300, 256, 256), (40, 256, 768)):
+        x, w, g = chk.rand(M, K), chk.weight(K, N), chk.rand(M, N)
+        planes = (kernels.row_planes(x, mode), kernels.weight_planes(w, mode))
+        got = kernels.mode_linear_bwd(g, x, w, mode, planes)
+        chk.compare(f"mode_linear_bwd{tag}", f"M={M} K={K} N={N}", got,
+                    kernels.mode_linear_bwd_plain(g, x, w, mode), True,
+                    kernels.mode_linear_bwd_plain(
+                        g, x, w, chip_smoke.WRONG_MODE[mode]))
+        again = kernels.mode_linear_bwd(g, x, w, mode, planes)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        names = _device_launches(
+            lambda: kernels.mode_linear_bwd(g, x, w, mode, planes), 2)
+        assert len(names) == 2 and "mode_linear_kernel" in names[0] and \
+            "tc_gemm_kernel" in names[1], names
+        names = _device_launches(lambda: kernels.mode_linear_bwd(
+            g, x, w, mode, planes, need_dw=False, need_db=False))
+        assert len(names) == 1, names
+    # W's planes must be weight_planes' on g's card
+    with pytest.raises(ValueError, match="weight_planes"):
+        kernels.mode_linear_bwd(g, x, w, mode, (
+            planes[0], kernels.weight_planes(w.cpu(), mode)))

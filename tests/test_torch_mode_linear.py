@@ -396,8 +396,8 @@ def test_routes_take_mode_linear(monkeypatch, prec, mode):
 
 def test_planes_splits_and_counters():
     """The planes the kernels read (columns zero-padded to 16: 108 -> 112,
-    TMA's row rule; lo None at "default"), the backward's row ranges, and
-    the wrappers counting nothing on CPU tensors."""
+    TMA's row rule; lo None at "default"), the backward's row ranges and
+    column parts, and the wrappers counting nothing on CPU tensors."""
     w = torch.randn(32, 108)
     for mode in MODES:
         hi, lo = kernels.linear_planes(w, mode)
@@ -411,11 +411,19 @@ def test_planes_splits_and_counters():
         xh, _ = kernels.row_planes(torch.randn(2, 5, 108), mode)
         assert xh.shape == (10, 112)
     assert tlin.padded(108) == 112 and tlin.padded(256) == 256
-    # one wave of 132 SMs: 4 output tiles of a 256 x 256 weight take 33
-    # row ranges of at least 256 rows each at the training batch's 8192
-    assert tlin.weight_splits(8192, 256, 256) == 32
+    # one wave of 132 SMs: 4 output tiles of a 256 x 256 weight would take
+    # 33 row ranges of at least 256 rows each at the training batch's 8192;
+    # a tile's ranges are one cluster: a power of two, at most 8
+    assert tlin.weight_splits(8192, 256, 256) == 8
+    assert tlin.weight_splits(8192, 256, 768) == 8  # 12 tiles: 11 -> 8
+    assert tlin.weight_splits(1024, 256, 768) == 4  # 4 ranges of 256 rows
+    assert tlin.weight_splits(700, 256, 256) == 2
     assert tlin.weight_splits(100, 256, 256) == 1
-    assert tlin.colsum_splits(8192) == 32 and tlin.colsum_splits(5) == 1
+    assert tlin.weight_splits(8192, 2048, 2048) == 1  # 256 tiles
+    # db's column parts: one a warp's 16 rows of each 128-row tile of g,
+    # added in row order by the dW launch (8192 rows: 512 parts)
+    assert tlin.colsum_rows(8192) == 512 and tlin.colsum_rows(5) == 8
+    assert tlin.colsum_rows(8200) == 520
     kernels.reset_launches()
     x = torch.randn(3, 32, requires_grad=True)
     kernels.mode_linear(x, torch.randn(32, 8), None, "bf16x3").sum().backward()
@@ -507,3 +515,43 @@ def test_weight_planes_are_split_once_per_weight_version(mode):
     key = tlin._cache_key(new, mode)[1]
     del new
     assert key not in tlin._CACHE
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_weight_planes_entry_is_replaced_when_the_weight_changes(mode):
+    """One cache entry per weight view and mode: an in-place change
+    (``_version``) or a new storage under the same tensor (``set_``)
+    replaces the entry (the old planes and maps are no longer returned nor
+    kept), and the backward reads the same entry's maps as the forward
+    (``_BWD_MAPS`` into the four maps ``_MAPS_BYTES`` holds)."""
+    w = torch.randn(16, 24)
+    key = tlin._cache_key(w, mode)[1]
+    first = tlin.weight_planes(w, mode)
+    assert tlin._CACHE[key].value is first
+    with torch.no_grad():
+        w.add_(1.0)
+    second = tlin.weight_planes(w, mode)
+    assert second is not first and tlin._CACHE[key].value is second
+    with torch.no_grad():
+        w.set_(torch.randn(16, 24))
+    third = tlin.weight_planes(w, mode)
+    assert third is not second and tlin._CACHE[key].value is third
+    assert torch.equal(third.planes[0], tlin.linear_planes(w, mode)[0])
+    assert [k for k in tlin._CACHE if k == key] == [key]
+    assert tlin._MAPS_BYTES == 4 * 128 and tlin._BWD_MAPS == 2 * 128
+
+
+def test_backward_plan():
+    """``mode_linear_bwd``'s host plan: its scratch g's planes (two at
+    "high") and db's column parts, one row a warp's 16 rows of a 128-row
+    tile; dW's row ranges a power of two up to ``MAX_SPLITS`` (one cluster
+    a tile, ``csrc/tc_gemm.cuh``'s EPI_SUM takes 1 to 8)."""
+    assert tlin.bwd_scratch(8192, 768, "bf16x3") == (2 * 8192 * 768,
+                                                     512 * 768)
+    assert tlin.bwd_scratch(8192, 108, "bf16") == (8192 * 112, 512 * 108)
+    assert tlin.bwd_scratch(300, 256, "bf16") == (300 * 256, 24 * 256)
+    for M in (1, 40, 300, 1024, 8192, 65536):
+        for K, N in ((256, 768), (108, 256), (256, 108), (2048, 2048)):
+            s = tlin.weight_splits(M, K, N)
+            assert 1 <= s <= tlin.MAX_SPLITS and s & (s - 1) == 0
+    assert tlin.MAX_SPLITS == 8

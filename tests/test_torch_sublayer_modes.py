@@ -358,7 +358,8 @@ def _c_params(entry):
 
 @pytest.mark.parametrize("entry", ["kit_attn_sublayer_tc",
                                    "kit_attn_sublayer_tc_bwd",
-                                   "kit_attn_bwd_fused"])
+                                   "kit_attn_bwd_fused",
+                                   "kit_attn_fwd_fused"])
 def test_signatures_match_the_c_entries(entry):
     assert tas._MODE_SIGS[entry] == _c_params(entry)
     assert "attn_sublayer_modes" in _build.SOURCES
@@ -493,3 +494,24 @@ def test_sublayer_route_takes_the_mode_and_packed_planes(rng, monkeypatch,
     with torch.no_grad():
         model.eval()(*_model_inputs(rng, 16))
     assert [m for _, m, _ in rec.calls] == [mode] * 3
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_forward_path_switch_and_plan(cross):
+    """The scratch plan of each training forward path in a mode
+    (``mode_forward_scratch``): none on the two-kernel path, which
+    ``kit_attn_fwd_fused`` takes at kernel width 256, 32-wide heads and T
+    <= 128 (every key of a video in one block; the card tests assert the
+    switch and the launches), q / k / v's planes on the five-launch one;
+    serving never takes the two-kernel path."""
+    for T in (1, 40, 128, 129, 144, 240, 512):
+        for D, dh in ((256, 32), (256, 64), (128, 32), (512, 32),
+                      (256, 16)):
+            fused = D == 256 and dh == 32 and T <= 128
+            for ln in (False, True):
+                nb, nf = tas.mode_forward_scratch(3, T, D, cross, "bf16x3",
+                                                  ln, True, fused)
+                assert (nb, nf) == ((0, 0) if fused else
+                                    (3 * 2 * 3 * T * D, 0)), (T, D, dh)
+    assert tas.mode_forward_scratch(3, 40, 256, cross, "bf16", True, False,
+                                    True)[0] > 0
