@@ -149,8 +149,13 @@ planes, labelled as not the same function), the merged layers' mode
 kernels (``enc_layer`` / ``dec_layer`` in "high" and "default", the
 decoder with and without its FF tail, both models' masks, at B=3 and T in
 {40, 128, 256, 300}, the decoder without its tail at T=512, timed at
-B=256 beside a yardstick of their products; held by LAYER_MODE_TOL, and
-in phase 10 at every width), the attention sublayer's mode kernels
+B=256 beside a yardstick of their products with their launches, held to
+CALL_LAUNCHES (3 a layer for the encoder, 5 for the decoder, on the
+two-kernel attention halves that ``layer_fused.mode_layer_fused`` takes
+at kernel width 256, 32-wide heads and T <= 128; T 256 and 300 run the
+longer launch chain), also at n = 224 with 7 heads (a padded head
+slice); held by LAYER_MODE_TOL, and in phase 10 at every width), the
+attention sublayer's mode kernels
 (``attn_sublayer``, ``attn_sublayer_train`` and ``attn_sublayer_bwd`` in
 "high" and "default", the model's three sublayers, B=3 at T in {40, 128,
 256, 300, 512} with a training video whose keys are all padded, the
@@ -1353,9 +1358,12 @@ def flip_draw_calls(torch, kmod, dev=DEV):
 
 
 def new_path_checks(torch, kmod):
-    """The attention sublayer's mode rows at n = 224 with 7 heads (the
-    kernel width 256: the two-kernel training forward's padded head slice)
-    at T 128 and 40; the training forward's kept planes (``acts``) against
+    """The attention sublayer's mode rows and the merged layers' mode rows
+    (the int8 encoder's too) at n = 224 with 7 heads (the kernel width 256:
+    the two-kernel forward's padded head slice) at T 128 and 40; the merged
+    layers' launches at the shapes either side of the two-kernel path's
+    edge (T 128 / 136, 32- / 64-wide heads); the training forward's kept
+    planes (``acts``) against
     ``attn_act_planes`` of its x, memory and a, bit for bit, at B_TRAIN x
     T_MAIN, at B=3 T=40 with a memory and at T=144 (the five-launch path);
     ``mode_linear_bwd`` twice on the same operands at the A1 step's q / k /
@@ -1364,10 +1372,14 @@ def new_path_checks(torch, kmod):
         .attn_sublayer import attn_act_planes, attn_train_planes
     narrow = KernelCheck(torch, kmod, d=224, heads=7)
     for T in (128, 40):
+        o, (mask, valid) = narrow.operands(3, T), narrow.masks(3, T)
         for name, variant, kern, plain, grad, wrong in \
-                narrow.sublayer_mode_calls(3, 3, T, True):
+                narrow.sublayer_mode_calls(3, 3, T, True) \
+                + narrow.layer_mode_calls(o, mask, valid) \
+                + narrow.int8_layer_mode_calls(o, mask, valid):
             narrow.compare(name, f"n=224 B=3 T={T} {variant}", kern(), plain(),
                            grad, wrong())
+    merged_launch_checks(torch, kmod)
     chk = KernelCheck(torch, kmod)
     for mode in ("bf16x3", "bf16"):
         for B, T, cross in ((B_TRAIN, T_MAIN, False), (3, 40, True),
@@ -1404,6 +1416,53 @@ def new_path_checks(torch, kmod):
             if not same:
                 fail(f"mode_linear_bwd {mode} M={rows} K={K} N={N}: two runs "
                      "differ")
+
+
+# the merged mode layers' device activities a call: on the two-kernel
+# attention halves, and on the longer launch chain (a memset more there
+# where n < D), then one more for the FF split (``ffn.tc_parts``) but in
+# the int8 tail
+MERGED_LAUNCHES = {True: {"enc_layer": 3, "dec_layer": 5,
+                          "enc_layer_int8": 3},
+                   False: {"enc_layer": 5, "dec_layer": 11,
+                           "enc_layer_int8": 5}}
+
+
+def merged_launch_checks(torch, kmod):
+    """The merged layers' mode kernels either side of the two-kernel
+    attention halves' edge (``layer_fused.mode_layer_fused``): T 128 and
+    136 at 32-wide heads, and T 128 at 64-wide heads (4 heads), each call's
+    device activities by the profiler against MERGED_LAUNCHES, in both
+    modes (the outputs are held in phase 2 and above)."""
+    from keypoints_interpolation_transformer_torch.ops.kernels.ffn import \
+        tc_parts
+    from keypoints_interpolation_transformer_torch.ops.kernels.layer_fused \
+        import mode_layer_fused
+    for heads, T in ((HEADS, 128), (HEADS, 136), (4, 128)):
+        chk = KernelCheck(torch, kmod, heads=heads)
+        o, (mask, valid) = chk.operands(3, T), chk.masks(3, T)
+        fused = mode_layer_fused(T, D, D // heads)
+        seen = set()
+        for name, variant, kern, *_ in (
+                chk.layer_mode_calls(o, mask, valid, tails=(True,))
+                + chk.int8_layer_mode_calls(o, mask, valid)):
+            if name in seen:
+                continue
+            seen.add(name)
+            base = name.rsplit("_", 1)[0]
+            want = MERGED_LAUNCHES[fused][base] + (
+                base != "enc_layer_int8" and tc_parts(3 * T, D, FF) > 1)
+            text, n = launch_ms(torch, kern, count=True)
+            for _ in range(2):  # an empty trace is the profiler's
+                if n >= want:
+                    break
+                text, n = launch_ms(torch, kern, count=True)
+            print(f"  launches {name} B=3 T={T} dh={D // heads} "
+                  f"({'two-kernel halves' if fused else 'launch chain'}): "
+                  f"{text} ms; {n} device activities a call", flush=True)
+            if n != want:
+                fail(f"{name} B=3 T={T} dh={D // heads}: {n} device "
+                     f"activities a call, not {want}")
 
 
 # the standing draw's rows whose dl flips: the Cycle model's "all" mask
@@ -1950,7 +2009,12 @@ CALL_LAUNCHES = {"mode_linear_high": 1, "mode_linear_default": 1,
                  "mode_linear_bwd_high": 2, "mode_linear_bwd_default": 2,
                  "attn_sublayer_train_high": 2,
                  "attn_sublayer_train_default": 2,
-                 "attn_sublayer_bwd_high": 7, "attn_sublayer_bwd_default": 7}
+                 "attn_sublayer_bwd_high": 7, "attn_sublayer_bwd_default": 7,
+                 # the merged layers' two-kernel attention halves at B=256,
+                 # T=128 (the decoder with its FF tail)
+                 "enc_layer_high": 3, "enc_layer_default": 3,
+                 "dec_layer_high": 5, "dec_layer_default": 5,
+                 "enc_layer_int8_high": 3, "enc_layer_int8_default": 3}
 # the sublayer forwards, whose launches phase 2 prints apart
 FORWARD_KERNELS = ("ffn", "ffn_train", "attn_sublayer", "attn_sublayer_train")
 # one 128-frame video and the 600-frame request's bucket: the FF split and
@@ -2187,7 +2251,7 @@ def phase_kernels(torch, kmod):
         if name in FORWARD_KERNELS + SUBLAYER_MODE_KERNELS + (
                 "attn_sublayer_bwd",) + ATTN_MODE_KERNELS \
                 + CHAIN_MODE_KERNELS + LINEAR_MODE_KERNELS \
-                + INT8_MODE_KERNELS:
+                + LAYER_MODE_KERNELS + INT8_MODE_KERNELS:
             text, n = launch_ms(torch, kern, count=True)
             for _ in range(2):  # an empty trace is the profiler's, not a call's
                 if n:

@@ -68,6 +68,30 @@
 // encoder layer, 11 for a decoder layer, one more each with the FF split),
 // each a host call.
 //
+// Redesigned for the H100 at the shape the flagship serves, where
+// fused_fwd (sub_fwd.cuh) takes (T, D, dh): kernel width 256, 32-wide
+// heads, T <= 128.  What held the chain back there was its attention
+// halves: each projection's epilogue wrote q / k / v's planes to device
+// memory (6 M D bf16 at "high") only for attn_mode_kernel to read them
+// back, x's planes the same, and attn_mode_kernel on mma.sync is
+// latency-bound at four warps a block.  Now an attention half is two
+// launches of the training sublayer's two-kernel forward in its serving
+// form (sub_fwd.cuh): sub_fwd_kernel, a block per (head slice, video),
+// projects the head's q / k / v on wgmma from x read in float32 by TMA and
+// split in registers and runs the core on wgmma from the accumulators,
+// writing only a's planes; out_ln_kernel adds a Wo + bo to x and, in the
+// decoder's self-attention, takes LN1 in its epilogue.  The weights are
+// read K-major: the transposes of the folded planes, made once per weight
+// version by the wrapper.  The cross-attention's blocks project the
+// memory's k / v too, from the memory read by TMA as x is (measured
+// against a launch before them on mode_linear.cuh's kernel, whose float32
+// k / v went through device memory: 0.068 ms a decoder layer slower at
+// "high").  An encoder layer is 3 launches (sub_fwd,
+// out-projection, FF tail), a decoder layer 5 (two sub_fwd, two
+// out-projections, FF tail), one more each with the FF split; no
+// split_kernel and no memset (a head slice past the model's heads writes
+// a = 0).  Elsewhere the chain above runs as it did.
+//
 // The attention core (attn_mode_kernel) and the projection launcher sit in
 // attn_modes.cuh, shared with the attention sublayer in a mode
 // (attn_sublayer_modes.cu).
@@ -77,6 +101,8 @@
 #include "grad.cuh"
 #include "int8.cuh"
 #include "mma_bf16.cuh"
+#include "mode_linear.cuh"
+#include "sub_fwd.cuh"
 #include "tc_gemm.cuh"
 
 using namespace kit;
@@ -88,6 +114,9 @@ struct AttnW {          // one attention sublayer's weights in a mode
   const float* b;       // [bq s | bk | bv] (3D)
   const bf16 *oh, *ol;  // Wo (D, D) planes
   const float* bo;      // (D)
+  // where fused_fwd takes the shape, the same planes K-major (their
+  // transposes): [Wq s | Wk | Wv]^T (3D, D) and Wo^T (D, D); else null
+  const bf16 *kh, *kl, *koh, *kol;
 };
 
 struct FfW {  // the FF tail: W1^T (FF, D) and W2^T (D, FF) planes, LN_in before it
@@ -206,6 +235,82 @@ int dec_layer(const float* x, const float* mem, int B, int T, int n, int H, cons
   return ff_tail<TN, PASSES>(r, M, n, ff, y, st);
 }
 
+// ---- where fused_fwd takes (T, D, dh): the attention halves on sub_fwd.cuh ----
+
+// One attention half: y = [LN](x + MHA(x) Wo + bo), MHA's k and v from x,
+// or (CROSS) from the memory mem; a's planes in ap.  Two launches:
+// sub_fwd_kernel's serving form, out_ln_kernel.
+template <int PASSES, bool CROSS>
+int attn_half(const float* x, const float* mem, int B, int T, int n, int H, const AttnW& at,
+              const float* gamma, const float* beta, const Masks& mk, Planes ap, float* y,
+              cudaStream_t st) {
+  constexpr int D = FWD_D;
+  const int M = B * T;
+  SubFwdMaps fm;
+  int rc;
+  KIT_CHECK(sub_fwd_maps(&fm, x, M, at.kh, PASSES == 3 ? at.kl : nullptr));
+  if (CROSS) KIT_CHECK(x_map(&fm.m, mem, M, D, D));
+  SubFwdArgs fa{};
+  fa.b = at.b;
+  fa.ah = ap.hi;
+  fa.al = ap.lo;
+  fa.mask = mk.mask;
+  fa.valid = mk.valid;
+  fa.repeat_inc = mk.repeat_inc;
+  fa.add_keypad = mk.add_keypad;
+  fa.T = T;
+  fa.H = H;
+  KIT_CHECK((launch_sub_fwd<PASSES, CROSS, false, CROSS>(fm, fa, B, st)));
+  return launch_out_ln<PASSES>(ap.hi, ap.lo, at.koh, at.kol,
+                               OutLnArgs{M, n, x, at.bo, gamma, beta, y, nullptr}, st);
+}
+
+// The encoder layer there: planes M D bf16 a plane (a's), fs M D floats
+// (r); 3 launches.
+template <int PASSES>
+int enc_layer_wg(const float* x, int B, int T, int n, int H, const AttnW& at, const FfW& ff,
+                 const Masks& mk, float* y, bf16* planes, float* fs, cudaStream_t st) {
+  bf16* cur = planes;
+  const Planes ap = carve<PASSES>(cur, (size_t)B * T * FWD_D);
+  int rc;
+  KIT_CHECK((attn_half<PASSES, false>(x, nullptr, B, T, n, H, at, nullptr, nullptr, mk, ap, fs,
+                                      st)));
+  return ff_tail<FWD_D / 32, PASSES>(fs, B * T, n, ff, y, st);
+}
+
+// The encoder layer with its FF tail int8 there (enc_layer_int8's tail).
+template <int PASSES>
+int enc_layer_int8_wg(const float* x, int B, int T, int n, int H, const AttnW& at,
+                      const FFInt8& q, const float* g1, const float* be1, const float* g2,
+                      const float* be2, const Masks& mk, float* y, bf16* planes, float* fs,
+                      float* h, cudaStream_t st) {
+  bf16* cur = planes;
+  const Planes ap = carve<PASSES>(cur, (size_t)B * T * FWD_D);
+  int rc;
+  KIT_CHECK((attn_half<PASSES, false>(x, nullptr, B, T, n, H, at, nullptr, nullptr, mk, ap, fs,
+                                      st)));
+  return launch_int8<FWD_D / 32>(fs, B * T, n, q, g1, be1, g2, be2, y, h, st);
+}
+
+// The decoder layer there: planes M D bf16 a plane (a's), fs 2 M D floats
+// (x1 and, with the FF tail, r); 5 launches, 4 without the FF tail.
+template <int PASSES>
+int dec_layer_wg(const float* x, const float* mem, int B, int T, int n, int H, const AttnW& sa,
+                 const AttnW& ca, const float* g1, const float* be1, const FfW& ff,
+                 const Masks& sm, const Masks& cm, float* y, bf16* planes, float* fs,
+                 cudaStream_t st) {
+  const int M = B * T;
+  const size_t MD = (size_t)M * FWD_D;
+  bf16* cur = planes;
+  const Planes ap = carve<PASSES>(cur, MD);
+  float *x1 = fs, *r = ff.w1h == nullptr ? y : fs + MD;
+  int rc;
+  KIT_CHECK((attn_half<PASSES, false>(x, nullptr, B, T, n, H, sa, g1, be1, sm, ap, x1, st)));
+  KIT_CHECK((attn_half<PASSES, true>(x1, mem, B, T, n, H, ca, nullptr, nullptr, cm, ap, r, st)));
+  if (ff.w1h == nullptr) return 0;
+  return ff_tail<FWD_D / 32, PASSES>(r, M, n, ff, y, st);
+}
+
 #undef KIT_CHECK
 
 // The arguments every entry checks: widths, heads, the mode's lo planes,
@@ -220,9 +325,17 @@ bool args_ok(int passes, int D, int n, int H, const AttnW& a, const FfW& f) {
 }
 
 AttnW attn_w(const void* wh, const void* wl, const void* b, const void* oh, const void* ol,
-             const void* bo) {
-  return AttnW{(const bf16*)wh, (const bf16*)wl, (const float*)b,
-               (const bf16*)oh, (const bf16*)ol, (const float*)bo};
+             const void* bo, const void* kh, const void* kl, const void* koh, const void* kol) {
+  auto h = [](const void* v) { return (const bf16*)v; };
+  return AttnW{h(wh), h(wl), (const float*)b, h(oh), h(ol), (const float*)bo,
+               h(kh), h(kl), h(koh),          h(kol)};
+}
+
+// The K-major planes are given exactly where fused_fwd takes the shape
+// (fused; the wrapper asks the same rule), their lo planes in mode "high".
+bool kmajor_ok(int passes, bool fused, const AttnW& a) {
+  if (!fused) return a.kh == nullptr && a.kl == nullptr && a.koh == nullptr && a.kol == nullptr;
+  return a.kh != nullptr && a.koh != nullptr && (passes == 1 || (a.kl && a.kol));
 }
 
 FfW ff_w(const void* w1h, const void* w1l, const void* b1, const void* w2h, const void* w2l,
@@ -244,23 +357,33 @@ FfW ff_w(const void* w1h, const void* w1l, const void* b1, const void* w2h, cons
 // FF) planes (the lo planes null with passes 1), b1, b2, LN1 g1 / be1 and
 // LN2 g2 / be2; parts the FF split of ffn_tc_kernel (1: none; else at
 // most one part per 64-wide FF chunk, with parts x B T x D floats of
-// partial).  mask, valid (B, T) may be null.  planes: 5 B T D bf16 a
-// plane (passes 3: two planes); fs: B T D floats.  D is 128, 256, 384 or
-// 512; n <= D the model's true width (the operands zero-padded; see
-// common.cuh); FF a multiple of 16.
+// partial).  kh / kl and koh / kol: where fused_fwd takes (T, D, n / H),
+// the planes of [Wq s | Wk | Wv]^T (3D, D) and Wo^T (D, D), the transposes
+// of wh / wl and oh / ol, which that path reads; elsewhere null.  mask,
+// valid (B, T) may be null.  planes: 5 B T D bf16 a plane (passes 3: two
+// planes), B T D where fused_fwd takes the shape; fs: B T D floats.  D is
+// 128, 256, 384 or 512; n <= D the model's true width (the operands
+// zero-padded; see common.cuh); FF a multiple of 16.
 extern "C" int kit_enc_layer_tc(int passes, const void* x, int B, int T, int D, int n, int H,
                                 int FF, int parts, const void* wh, const void* wl, const void* b,
-                                const void* oh, const void* ol, const void* bo, const void* w1h,
+                                const void* oh, const void* ol, const void* bo, const void* kh,
+                                const void* kl, const void* koh, const void* kol, const void* w1h,
                                 const void* w1l, const void* b1, const void* w2h,
                                 const void* w2l, const void* b2, const void* g1,
                                 const void* be1, const void* g2, const void* be2,
                                 const void* mask, const void* valid, int repeat_inc,
                                 int add_keypad, void* y, void* planes, void* fs, void* partial,
                                 void* stream) {
-  const AttnW at = attn_w(wh, wl, b, oh, ol, bo);
+  const AttnW at = attn_w(wh, wl, b, oh, ol, bo, kh, kl, koh, kol);
   const FfW ff = ff_w(w1h, w1l, b1, w2h, w2l, b2, g1, be1, g2, be2, FF, parts, partial);
   if (w1h == nullptr || !args_ok(passes, D, n, H, at, ff)) return (int)cudaErrorInvalidValue;
+  const bool fused = fused_fwd(T, D, n / H);
+  if (!kmajor_ok(passes, fused, at)) return (int)cudaErrorInvalidValue;
   const Masks mk{(const float*)mask, (const float*)valid, repeat_inc, add_keypad};
+  if (fused)
+    return (passes == 3 ? enc_layer_wg<3> : enc_layer_wg<1>)((const float*)x, B, T, n, H, at, ff,
+                                                             mk, (float*)y, (bf16*)planes,
+                                                             (float*)fs, (cudaStream_t)stream);
   return by_width(D, [&](auto tn) {
     constexpr int TN = decltype(tn)::value;
     auto layer = passes == 3 ? enc_layer<TN, 3> : enc_layer<TN, 1>;
@@ -278,20 +401,27 @@ extern "C" int kit_enc_layer_tc(int passes, const void* x, int B, int T, int D, 
 extern "C" int kit_enc_layer_int8_tc(int passes, const void* x, int B, int T, int D, int n, int H,
                                      int FF, const void* wh, const void* wl, const void* b,
                                      const void* oh, const void* ol, const void* bo,
-                                     const void* w1q, const void* w1s, const void* b1,
-                                     const void* w2q, const void* w2s, const void* b2,
-                                     const void* g1, const void* be1, const void* g2,
-                                     const void* be2, const void* mask, const void* valid,
-                                     int repeat_inc, int add_keypad, void* y, void* planes,
-                                     void* fs, void* h, void* stream) {
+                                     const void* kh, const void* kl, const void* koh,
+                                     const void* kol, const void* w1q, const void* w1s,
+                                     const void* b1, const void* w2q, const void* w2s,
+                                     const void* b2, const void* g1, const void* be1,
+                                     const void* g2, const void* be2, const void* mask,
+                                     const void* valid, int repeat_inc, int add_keypad, void* y,
+                                     void* planes, void* fs, void* h, void* stream) {
   auto f = [](const void* v) { return (const float*)v; };
-  const AttnW at = attn_w(wh, wl, b, oh, ol, bo);
+  const AttnW at = attn_w(wh, wl, b, oh, ol, bo, kh, kl, koh, kol);
   const FfW none = ff_w(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                         nullptr, nullptr, 0, 1, nullptr);
   if (w1q == nullptr || w2q == nullptr || FF <= 0 || FF % 4 || !args_ok(passes, D, n, H, at, none))
     return (int)cudaErrorInvalidValue;
+  const bool fused = fused_fwd(T, D, n / H);
+  if (!kmajor_ok(passes, fused, at)) return (int)cudaErrorInvalidValue;
   const FFInt8 q{(const int8_t*)w1q, f(w1s), f(b1), (const int8_t*)w2q, f(w2s), f(b2), FF};
   const Masks mk{f(mask), f(valid), repeat_inc, add_keypad};
+  if (fused)
+    return (passes == 3 ? enc_layer_int8_wg<3> : enc_layer_int8_wg<1>)(
+        f(x), B, T, n, H, at, q, f(g1), f(be1), f(g2), f(be2), mk, (float*)y, (bf16*)planes,
+        (float*)fs, (float*)h, (cudaStream_t)stream);
   return by_width(D, [&](auto tn) {
     constexpr int TN = decltype(tn)::value;
     auto layer = passes == 3 ? enc_layer_int8<TN, 3> : enc_layer_int8<TN, 1>;
@@ -306,14 +436,19 @@ extern "C" int kit_enc_layer_int8_tc(int passes, const void* x, int B, int T, in
 // LN1; w1h null means no FF tail (y = x1 + CA(x1, mem)), else the FF
 // weights as kit_enc_layer_tc's with LN2 g2 / be2 and LN3 g3 / be3.
 // smask / svalid and cmask / cvalid (B, T) build the self and cross bias
-// and may be null.  planes: 10 B T D bf16 a plane; fs: 3 B T D floats;
-// partial as kit_enc_layer_tc's.
+// and may be null.  sk* and ck*: the K-major planes as kit_enc_layer_tc
+// takes them.  planes: 10 B T D bf16 a plane, B T D where fused_fwd takes
+// the shape; fs: 3 B T D floats, 2 B T D there; partial as
+// kit_enc_layer_tc's.
 extern "C" int kit_dec_layer_tc(int passes, const void* x, const void* mem, int B, int T, int D,
                                 int n, int H, int FF, int parts, const void* swh,
                                 const void* swl, const void* sb, const void* soh,
-                                const void* sol, const void* sbo, const void* cwh,
-                                const void* cwl, const void* cb, const void* coh,
-                                const void* col, const void* cbo, const void* g1,
+                                const void* sol, const void* sbo, const void* skh,
+                                const void* skl, const void* skoh, const void* skol,
+                                const void* cwh, const void* cwl, const void* cb,
+                                const void* coh, const void* col, const void* cbo,
+                                const void* ckh, const void* ckl, const void* ckoh,
+                                const void* ckol, const void* g1,
                                 const void* be1, const void* w1h, const void* w1l,
                                 const void* b1, const void* w2h, const void* w2l,
                                 const void* b2, const void* g2, const void* be2,
@@ -322,13 +457,22 @@ extern "C" int kit_dec_layer_tc(int passes, const void* x, const void* mem, int 
                                 const void* cmask, const void* cvalid, int crepeat_inc,
                                 int cadd_keypad, void* y, void* planes, void* fs,
                                 void* partial, void* stream) {
-  const AttnW sa = attn_w(swh, swl, sb, soh, sol, sbo), ca = attn_w(cwh, cwl, cb, coh, col, cbo);
+  const AttnW sa = attn_w(swh, swl, sb, soh, sol, sbo, skh, skl, skoh, skol),
+              ca = attn_w(cwh, cwl, cb, coh, col, cbo, ckh, ckl, ckoh, ckol);
   const FfW ff = ff_w(w1h, w1l, b1, w2h, w2l, b2, g2, be2, g3, be3, FF, parts, partial);
   if (!args_ok(passes, D, n, H, sa, ff) || !args_ok(passes, D, n, H, ca, ff) ||
       (w1h == nullptr && parts != 1))
     return (int)cudaErrorInvalidValue;
+  const bool fused = fused_fwd(T, D, n / H);
+  if (!kmajor_ok(passes, fused, sa) || !kmajor_ok(passes, fused, ca))
+    return (int)cudaErrorInvalidValue;
   const Masks sm{(const float*)smask, (const float*)svalid, srepeat_inc, sadd_keypad};
   const Masks cm{(const float*)cmask, (const float*)cvalid, crepeat_inc, cadd_keypad};
+  if (fused)
+    return (passes == 3 ? dec_layer_wg<3> : dec_layer_wg<1>)(
+        (const float*)x, (const float*)mem, B, T, n, H, sa, ca, (const float*)g1,
+        (const float*)be1, ff, sm, cm, (float*)y, (bf16*)planes, (float*)fs,
+        (cudaStream_t)stream);
   return by_width(D, [&](auto tn) {
     constexpr int TN = decltype(tn)::value;
     auto layer = passes == 3 ? dec_layer<TN, 3> : dec_layer<TN, 1>;

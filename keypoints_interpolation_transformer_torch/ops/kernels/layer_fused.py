@@ -63,12 +63,14 @@ wrappers (``launches[mode]``).
 from __future__ import annotations
 
 import functools
+import weakref
+from typing import NamedTuple
 
 import torch
 
 from . import _build
-from .attn_sublayer import (_check_config, _mode_attn, attn_sublayer_plain,
-                            attn_weight_planes)
+from .attn_sublayer import (_check_config, _mode_attn, _pad_planes,
+                            attn_sublayer_plain, attn_weight_planes)
 from .ffn import (_FF_STEP_TC, _PASSES, _check_planes, check_int8_ff,
                   ff_kernel_width, ff_weight_planes, ffn_int8_plain, ffn_plain,
                   pad_int8_ff, tc_parts)
@@ -80,15 +82,18 @@ _SIGS = {"kit_enc_layer": "p" + "i" * 8 + "p" * 14 + "ii" + "p" * 3,
          "kit_enc_layer_int8": "p" + "i" * 8 + "p" * 16 + "ii" + "p" * 4,
          "kit_dec_layer": "pp" + "i" * 8 + "p" * 20 + "ii" + "pp" + "ii"
                           + "p" * 3}
-_MODE_SIGS = {"kit_enc_layer_tc": "ip" + "i" * 7 + "p" * 18 + "ii" + "p" * 5,
-              "kit_enc_layer_int8_tc": "ip" + "i" * 6 + "p" * 18 + "ii"
+_MODE_SIGS = {"kit_enc_layer_tc": "ip" + "i" * 7 + "p" * 22 + "ii" + "p" * 5,
+              "kit_enc_layer_int8_tc": "ip" + "i" * 6 + "p" * 22 + "ii"
                                        + "p" * 5,
-              "kit_dec_layer_tc": "ipp" + "i" * 7 + "p" * 26 + "ii" + "pp"
+              "kit_dec_layer_tc": "ipp" + "i" * 7 + "p" * 34 + "ii" + "pp"
                                   + "ii" + "p" * 5}
 _MAX_CLUSTER = 8  # the portable thread-block cluster size
 
 _MERGED_MAX_T = 256   # the JAX package's full-T residency cap
 _SUBLAYER_MAX_T = 512
+# the shape of the mode layers' two-kernel attention halves: kernel width,
+# head width, most frames (``csrc/sub_fwd.cuh`` FWD_D, FWD_DH, FWD_T)
+FWD_D, FWD_DH, FWD_T = 256, 32, 128
 
 
 def sublayer_supported(T: int, D: int) -> bool:
@@ -154,18 +159,80 @@ def scratch_floats(B: int, T: int, D: int, decoder: bool, parts: int) -> int:
     return B * T * D * (base + (parts if parts > 1 else 0))
 
 
+def mode_layer_fused(T: int, D: int, dh: int) -> bool:
+    """Whether the merged layers in a mode take their two-kernel attention
+    halves at (T, D, dh) (``csrc/sub_fwd.cuh`` ``fused_fwd``): kernel width
+    256, 32-wide heads, every key of a video in one block (T <= 128); the
+    longer launch chain elsewhere.  The C entries refuse K-major planes
+    (``attn_kmajor_planes``) given against their own rule, or missing."""
+    return D == FWD_D and dh == FWD_DH and 1 <= T <= FWD_T
+
+
 def mode_scratch(B: int, T: int, D: int, decoder: bool, mode: str,
-                 parts: int):
+                 parts: int, fused: bool = False):
     """The mode kernels' per-call scratch (``csrc/layer_modes.cu``): bf16
     planes (x, q / k / v and the attention output, 5 B T D a plane; the
     decoder's 10 add the memory, its cross k / v, x1 and the cross q; two
     planes in "bf16x3"), floats (the out-projection's sum; the decoder's 3
     B T D add x1 and the pre-FF sum) and the FF split's parts x B T x D
-    floats (none with one part): (bf16 elements, floats, split floats)."""
+    floats (none with one part): (bf16 elements, floats, split floats).
+    Where the two-kernel attention halves take the shape (``fused``,
+    ``mode_layer_fused``) only the attention output's planes, and floats
+    for the sum (the decoder's 2 B T D: x1 and the pre-FF sum)."""
     planes = 2 if mode == "bf16x3" else 1
     MD = B * T * D
+    split = parts * MD if parts > 1 else 0
+    if fused:
+        return planes * MD, (2 if decoder else 1) * MD, split
     return ((10 if decoder else 5) * planes * MD, (3 if decoder else 1) * MD,
-            parts * MD if parts > 1 else 0)
+            split)
+
+
+class _KEntry(NamedTuple):
+    refs: tuple
+    stamp: tuple
+    value: tuple
+
+
+_KMAJOR: dict = {}
+
+
+def _stamp(ts):
+    return tuple((t._version, t.data_ptr()) for t in ts)
+
+
+def attn_kmajor_planes(planes, D: int):
+    """(kh, kl, koh, kol): one attention sublayer's serving planes
+    (``attn_weight_planes``: [Wq s | Wk | Wv] (n, 3n), Wo (n, n)) as the
+    two-kernel attention halves read them: zero-padded to the kernel width
+    D as ``_mode_attn`` pads them, then transposed, [Wq s | Wk | Wv]^T (3D,
+    D) and Wo^T (D, D), the same bits; the lo planes None in "bf16".  Made
+    once per version of the planes: a hit needs the same plane tensors
+    (weak references: a new tensor at a freed one's address misses), their
+    ``_version`` and storage, as ``linear.weight_planes`` keys a weight;
+    inference tensors, which keep no version, are transposed every call.
+    ``attn_kmajor_planes.builds`` counts the transposes made."""
+    wh, wl, _, oh, ol = planes
+    ts = tuple(t for t in (wh, wl, oh, ol) if t is not None)
+    key = (tuple(id(t) for t in ts), D)
+    cache = not any(t.is_inference() for t in ts)
+    e = _KMAJOR.get(key) if cache else None
+    if e is not None and all(r() is t for r, t in zip(e.refs, ts)) \
+            and e.stamp == _stamp(ts):
+        return e.value
+    n = wh.shape[0]
+    value = tuple(None if t is None else t.t().contiguous()
+                  for t in _pad_planes((wh, wl), (oh, ol), n, D, 1))
+    attn_kmajor_planes.builds += 1
+    if cache:
+        def drop(_, k=key):
+            _KMAJOR.pop(k, None)
+        _KMAJOR[key] = _KEntry(tuple(weakref.ref(t, drop) for t in ts),
+                               _stamp(ts), value)
+    return value
+
+
+attn_kmajor_planes.builds = 0
 
 
 def encoder_layer_plain(x, wqkv, bqkv, wo, bo, w1, b1, w2, b2, g1, be1, g2,
@@ -489,10 +556,20 @@ def _mode_ff(where, x, ff, ff_planes, mode, D):
                  *(pad(t, D) for t in (b2, *norms)))
 
 
-def _mode_buffers(B, T, D, decoder, mode, parts, device):
+def _mode_attn_k(where, x, attn, planes, heads, mode, D, fused, prefix=""):
+    """``_mode_attn``'s operands (wh, wl, b, oh, ol, bo), then the K-major
+    planes (kh, kl, koh, kol) where the two-kernel attention halves take
+    the shape (``fused``; ``attn_kmajor_planes``), else four None."""
+    if planes is None:
+        planes = attn_weight_planes(*attn[:3], heads, mode)
+    at = _mode_attn(where, x, attn, planes, heads, mode, D, prefix)
+    return at + (attn_kmajor_planes(planes, D) if fused else (None,) * 4)
+
+
+def _mode_buffers(B, T, D, decoder, mode, parts, device, fused=False):
     """The mode kernels' scratch (``mode_scratch``): bf16 planes, floats
     and the FF split's parts (None without it)."""
-    nb, nf, ns = mode_scratch(B, T, D, decoder, mode, parts)
+    nb, nf, ns = mode_scratch(B, T, D, decoder, mode, parts, fused)
     return (torch.empty(nb, dtype=torch.bfloat16, device=device),
             torch.empty(nf, device=device),
             torch.empty(ns, device=device) if ns else None)
@@ -510,12 +587,14 @@ def _launch_encoder_mode(x, attn, ff, mask, valid, kind, add_keypad, heads,
     B, T, n = x.shape
     D = kernel_width(where, n)
     aplanes, fplanes = (None, None) if planes is None else planes
-    at = _mode_attn(where, x, attn, aplanes, heads, mode, D)
+    fused = mode_layer_fused(T, D, n // heads)
+    at = _mode_attn_k(where, x, attn, aplanes, heads, mode, D, fused)
     F16, ffw = _mode_ff(where, x, ff, fplanes, mode, D)
     x = pad(x, D)
     y = torch.empty_like(x)
     parts = tc_parts(B * T, D, F16)
-    buf, fs, partial = _mode_buffers(B, T, D, False, mode, parts, x.device)
+    buf, fs, partial = _mode_buffers(B, T, D, False, mode, parts, x.device,
+                                     fused)
     lib = _build.bind("layer_modes", _MODE_SIGS)
     _build.call(lib, "kit_enc_layer_tc", x.device, _PASSES[mode], x, B, T, D,
                 n, heads, F16, parts, *at, *ffw, mask, valid,
@@ -536,11 +615,12 @@ def _launch_encoder_int8_mode(x, attn, ff, mask, valid, kind, add_keypad,
     _cluster(where, x.shape[0], x.device, cluster)  # checked, not read
     B, T, n = x.shape
     D = kernel_width(where, n)
-    at = _mode_attn(where, x, attn, planes, heads, mode, D)
+    fused = mode_layer_fused(T, D, n // heads)
+    at = _mode_attn_k(where, x, attn, planes, heads, mode, D, fused)
     F4, ffw = _int8_ff(where, x, ff, D)
     x = pad(x, D)
     y = torch.empty_like(x)
-    buf, fs, _ = _mode_buffers(B, T, D, False, mode, 1, x.device)
+    buf, fs, _ = _mode_buffers(B, T, D, False, mode, 1, x.device, fused)
     h = torch.empty(B * T * F4, device=x.device)  # each row's GELU output
     lib = _build.bind("layer_modes", _MODE_SIGS)
     _build.call(lib, "kit_enc_layer_int8_tc", x.device, _PASSES[mode], x, B,
@@ -566,15 +646,19 @@ def _launch_decoder_mode(x, memory, sattn, cattn, g1, be1, ff, smask, svalid,
     _cluster(where, B, x.device, cluster)  # checked, not read
     D = kernel_width(where, n)
     splanes, cplanes, fplanes = (None,) * 3 if planes is None else planes
-    sa = _mode_attn(where, x, sattn, splanes, heads, mode, D, "self ")
-    ca = _mode_attn(where, x, cattn, cplanes, heads, mode, D, "cross ")
+    fused = mode_layer_fused(T, D, n // heads)
+    sa = _mode_attn_k(where, x, sattn, splanes, heads, mode, D, fused,
+                      "self ")
+    ca = _mode_attn_k(where, x, cattn, cplanes, heads, mode, D, fused,
+                      "cross ")
     F16, ffw = _mode_ff(where, x, ff, fplanes, mode, D)
     if ffw is None:
         ffw = (None,) * 10
     x, memory, g1, be1 = (pad(t, D) for t in (x, memory, g1, be1))
     y = torch.empty_like(x)
     parts = tc_parts(B * T, D, F16) if F16 else 1
-    buf, fs, partial = _mode_buffers(B, T, D, True, mode, parts, x.device)
+    buf, fs, partial = _mode_buffers(B, T, D, True, mode, parts, x.device,
+                                     fused)
     lib = _build.bind("layer_modes", _MODE_SIGS)
     _build.call(lib, "kit_dec_layer_tc", x.device, _PASSES[mode], x, memory,
                 B, T, D, n, heads, F16, parts, *sa, *ca, g1, be1, *ffw, smask,

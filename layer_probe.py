@@ -9,6 +9,7 @@ precision-mode kernels' time goes, on one CUDA card.
     python3 layer_probe.py attention TREE...  # per-op attention, in turns
     python3 layer_probe.py forwards TREE...  # sublayer forwards, in turns
     python3 layer_probe.py modes TREE...    # precision-mode kernels, in turns
+    python3 layer_probe.py merged TREE...   # a merged mode call, in turns
     python3 layer_probe.py spread           # "default" routes' spread
     python3 layer_probe.py host             # host time of two mode wrappers
     python3 layer_probe.py flipdl [DIR]     # the standing draw's dl, kernel
@@ -97,7 +98,15 @@ counterparts ``ffn``, ``ffn_train``, ``ffn_bwd``, ``enc_layer``,
 ``dec_layer``, ``attn_sublayer``, ``attn_sublayer_train`` and
 ``attn_sublayer_bwd`` (what an older tree runs at every precision):
 CUDA-event time, host time a call and one call's device time by kernel,
-and for the attention sublayer's and the Dense rows by launch, in order.
+and for the merged layers', the attention sublayer's and the Dense rows
+by launch, in order.
+
+``merged`` profiles one warm merged-route ``Inpainter`` call at "high"
+and at "default" (B = 256, T = 128, the flagship from seed 0, phase 6's
+videos) for each tree in turns (every source built): the device time of
+its kernels apart from the host-card copies, the copies, the wall time
+with the profiler on (``chip_smoke.profiled``), the better of two calls,
+and the kernels by device time.
 
 ``spread`` serves ``chip_smoke.py``'s phase 11 batch (B = 256, T = 128,
 the flagship widths) at "default" on the merged route through the kernel
@@ -642,8 +651,54 @@ def modes_one(tree):
                      "plain_ms": min(cs.timed_ms(plain) for _ in range(2)),
                      "host_ms": min(cs.host_ms(torch, kern) for _ in range(2)),
                      "kernels": by_kernel(cs, torch, kern)}
-        if name.startswith(("attn_sublayer", "mode_linear")):
+        if name.startswith(("attn_sublayer", "mode_linear", "enc_layer",
+                            "dec_layer")):
             out[name]["launches"] = cs.launch_ms(torch, kern)
+    print(json.dumps(out), flush=True)
+
+
+# every source: what a merged-route Inpainter call may build
+MERGED_SOURCES = ("pointwise", "attn_sublayer", "ffn", "layer_fused",
+                  "layer_modes", "attn_sublayer_modes", "attention",
+                  "attention_modes", "pointwise_modes", "mode_linear",
+                  "masked_loss", "int8_matmul")
+
+
+def merged_one(tree):
+    """The ``merged`` mode's numbers for one tree, one JSON line."""
+    import dataclasses
+
+    import torch
+    cs = load_smoke()
+    use_tree(tree, tree_sources(tree, MERGED_SOURCES))
+    from keypoints_interpolation_transformer_torch.eval.serving import (
+        Inpainter)
+    from keypoints_interpolation_transformer_torch.models.completer import (
+        KeypointCompleter)
+    sd = KeypointCompleter(cs.D, cs.LAYERS, cs.HEADS, ff_dim=cs.FF,
+                           generator=torch.Generator().manual_seed(0)
+                           ).state_dict()
+    videos, masks = cs.model_inputs(cs.B_MAIN, cs.T_MAIN, 3)
+    out = {}
+    for prec in ("high", "default"):
+        inp = Inpainter(sd, dataclasses.replace(cs.model_config(),
+                                                matmul_precision=prec),
+                        device="cuda")
+        best = None
+        for _ in range(2):
+            rows, wall = cs.profiled(
+                torch, lambda: inp.inpaint(list(videos), list(masks)))
+            copies = sum(ms for key, ms, _ in rows if "Memcpy" in key)
+            kernels = sum(ms for key, ms, _ in rows
+                          if "Memcpy" not in key and "Memset" not in key)
+            if best is None or kernels < best["kernels_ms"]:
+                best = {"kernels_ms": round(kernels, 3),
+                        "copies_ms": round(copies, 3),
+                        "wall_ms": round(wall, 3),
+                        "by_kernel": [[cs.kernel_key(k), n, round(ms, 3)]
+                                      for k, ms, n in sorted(
+                                          rows, key=lambda r: -r[1])[:10]]}
+        out[prec] = best
     print(json.dumps(out), flush=True)
 
 
@@ -883,6 +938,10 @@ def main():
         in_turns(args, MODE_SOURCES, "modes-one")
     elif mode == "modes-one":
         modes_one(args[0])
+    elif mode == "merged":
+        in_turns(args, MERGED_SOURCES, "merged-one")
+    elif mode == "merged-one":
+        merged_one(args[0])
     elif mode == "spread":
         spread()
     elif mode == "host":

@@ -1643,3 +1643,47 @@ def test_mode_linear_backward_is_two_launches(cuda, mode):
     with pytest.raises(ValueError, match="weight_planes"):
         kernels.mode_linear_bwd(g, x, w, mode, (
             planes[0], kernels.weight_planes(w.cpu(), mode)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_layer_mode_two_kernel_halves_match_plain(cuda, mode):
+    """The merged layers in a mode (the int8 encoder's too) on their
+    two-kernel attention halves (``mode_layer_fused``: kernel width 256,
+    32-wide heads, T <= 128; at T = 128 and for a narrower model, n = 224
+    with 7 heads, a padded head slice) and on the longer launch chain (T =
+    136 and 256) against their plain versions under ``LAYER_MODE_TOL`` and
+    the mean rule; the device activities of a layer at n = 256: 3 for the
+    encoder and 5 for the decoder on the halves, 5 and 11 on the chain, one
+    more with the FF split but in the int8 tail."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    from keypoints_interpolation_transformer_torch.ops.kernels.ffn import (
+        tc_parts)
+    from keypoints_interpolation_transformer_torch.ops.kernels.layer_fused \
+        import mode_layer_fused
+    tag = "high" if mode == "bf16x3" else "default"
+    for d, heads, T in ((256, 8, 128), (224, 7, 128), (256, 8, 136),
+                        (256, 8, 256)):
+        fused = mode_layer_fused(T, 256, d // heads)
+        assert fused == (T == 128)
+        chk = chip_smoke.KernelCheck(torch, kernels, d=d, heads=heads)
+        o, (mask, valid) = chk.operands(3, T), chk.masks(3, T)
+        counted = set()
+        for name, variant, kern, plain, grad, wrong in (
+                chk.layer_mode_calls(o, mask, valid)
+                + chk.int8_layer_mode_calls(o, mask, valid)):
+            if not name.endswith(tag):
+                continue
+            chk.compare(name, f"n={d} T={T} {variant}", kern(), plain(),
+                        grad, wrong())
+            if d != 256 or name in counted:
+                continue
+            counted.add(name)  # the first variant: the decoder's FF tail
+            base = name.rsplit("_", 1)[0]
+            want = chip_smoke.MERGED_LAUNCHES[fused][base] + (
+                base != "enc_layer_int8" and tc_parts(3 * T, 256, 2048) > 1)
+            names = _device_launches(kern, want)
+            assert len(names) == want, (name, T, names)
+            assert not any("split_kernel" in k or "emset" in k
+                           for k in names) or not fused, names
