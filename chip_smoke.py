@@ -184,7 +184,8 @@ operands with a float32 output at "default" (its library call) and a
 products-only yardstick; the launches a call of the timed rows read from
 the profiler and held to ``CALL_LAUNCHES`` (``mode_linear`` one, the
 sublayer's backward in a mode seven at T=128, given the forward's planes
-of x and a); the int8 merged encoder layer in "high" and
+of x and a, each pointwise chain in a mode one at D=256); the int8
+merged encoder layer in "high" and
 "default" with both models' masks (timed at B=256); a
 forward's statistics are held over the videos with a real key (a video
 whose keys are all padded holds a -1e9 sentinel); phase 5 also serves one
@@ -1227,16 +1228,21 @@ class KernelCheck:
                                 *a, mode=md)))
         return out
 
-    def chain_mode_calls(self, B, T):
+    def chain_mode_calls(self, B, T, f=F_IN):
         """(kernel name, variant, wrapper call, plain call, False, plain
         call in the wrong mode) of the pointwise chains in "high" and
         "default" at (B, T), their weights split into planes once as a
         packed model keeps them (``chain_planes``): the pre-stream chain
         with its embedding out (first: timed) and without, with and without
-        the Cycle residual; the post head."""
+        the Cycle residual; the post head.  ``f``: the frames' features
+        (the 108 of F_IN unless given)."""
         from keypoints_interpolation_transformer_torch.ops.kernels \
             .pointwise import chain_planes
         k, o = self.k, self.operands(B, T)
+        if f != F_IN:
+            o.update(x_in=self.rand(B, T, f, lo=0.2, hi=0.8),
+                     wemb=self.weight(f, self.d), wh=self.weight(self.d, f),
+                     bh=self.rand(f, scale=0.05))
         out = []
         for mode, tag in (("bf16x3", "high"), ("bf16", "default")):
             wrong = WRONG_MODE[mode]
@@ -2014,7 +2020,11 @@ CALL_LAUNCHES = {"mode_linear_high": 1, "mode_linear_default": 1,
                  # T=128 (the decoder with its FF tail)
                  "enc_layer_high": 3, "enc_layer_default": 3,
                  "dec_layer_high": 5, "dec_layer_default": 5,
-                 "enc_layer_int8_high": 3, "enc_layer_int8_default": 3}
+                 "enc_layer_int8_high": 3, "enc_layer_int8_default": 3,
+                 # the pointwise chains in a mode at the flagship width: one
+                 # launch a chain (chain_tc_kernel)
+                 "pre_stream_embed_high": 1, "pre_stream_embed_default": 1,
+                 "post_head_high": 1, "post_head_default": 1}
 # the sublayer forwards, whose launches phase 2 prints apart
 FORWARD_KERNELS = ("ffn", "ffn_train", "attn_sublayer", "attn_sublayer_train")
 # one 128-frame video and the 600-frame request's bucket: the FF split and
@@ -2253,7 +2263,9 @@ def phase_kernels(torch, kmod):
                 + CHAIN_MODE_KERNELS + LINEAR_MODE_KERNELS \
                 + LAYER_MODE_KERNELS + INT8_MODE_KERNELS:
             text, n = launch_ms(torch, kern, count=True)
-            for _ in range(2):  # an empty trace is the profiler's, not a call's
+            # an empty trace is the profiler's, not a call's (every row
+            # launches): three traces in a row once came back empty
+            for _ in range(5):
                 if n:
                     break
                 text, n = launch_ms(torch, kern, count=True)

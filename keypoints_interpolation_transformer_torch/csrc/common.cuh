@@ -8,19 +8,12 @@
 // D = 32 * TN wide lives in ONE warp and a row reduction (LayerNorm,
 // token_norm) is a warp shuffle, with no shared memory and no barrier.
 //
-// Matrix products are plain float32 FFMA.  The block's activation rows sit
-// in shared memory k-major (AT[k * LDT + r]), staged once per block; the
-// weight is streamed through a BK x N shared tile; each thread keeps a
-// TM x TN accumulator in registers.  One step of the inner loop is one
-// 128-bit load of the thread's 4 rows of A, TN / 4 128-bit loads of its
-// columns of B, and 4 * TN FFMAs: the loads issue at a quarter of the FFMA
-// rate, so fewer, wider loads keep the FFMA pipe fed.  Weights are (K, N)
-// row-major, the Flax layout, transposed once when the model packs them.
-// On an H100 this product is bound by shared memory: 12 floats read a step
-// for 32 FFMAs, where an SM reads 32 floats a cycle and FFMAs 128, so it
-// runs near 30 TFLOP/s.  sgemm.cuh's 8 x 8 tile is the core of the merged
-// layers, the per-sublayer forwards and the training backwards; only the
-// pointwise chains (pointwise.cu) still use mma_tile / mma_rows.
+// The row helpers here stage a block's activation rows k-major in shared
+// memory (AT[k * LDT + r]) and move a warp's rows between registers and
+// that layout.  The float32 products run on sgemm.cuh (the merged layers,
+// the per-sublayer forwards, the pointwise chains and, streamed by
+// sgemm_grad.cuh, the training backwards); int8.cuh multiplies 32-row
+// blocks in this layout.
 //
 // Widths: the kernels are built for D = 32 * TN with TN = 4, 8, 12 or 16
 // (D = 128 to 512; by_width dispatches).  A narrower model runs zero-padded
@@ -78,60 +71,6 @@ __device__ __forceinline__ void stage_rows(float* AT, const float* __restrict__ 
     int r = idx / Kp, c = idx - r * Kp;
     int row = row0 + r;
     AT[c * LDT + r] = (row < M && c < K) ? src[(size_t)row * lds + c] : 0.f;
-  }
-}
-
-// One BK-deep step of the block product: acc[i][j] += sum_{kk < BK}
-// AT[kk * LDA + row_of(i)] * Ws[kk * N + col_of(j)], N = 32 * TN, with AT
-// and Ws the step's k-major tiles in shared memory (LDA a multiple of 4).
-template <int TN, int LDA = LDT>
-__device__ __forceinline__ void mma_tile(float (&acc)[TM][TN], const float* AT, const float* Ws) {
-  constexpr int N = 32 * TN;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    const float4 a4 = *reinterpret_cast<const float4*>(AT + kk * LDA + 4 * warp);
-    const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-    float b[TN];
-#pragma unroll
-    for (int g = 0; g < TN / 4; ++g) {
-      const float4 b4 = *reinterpret_cast<const float4*>(Ws + kk * N + 4 * lane + 128 * g);
-      b[4 * g] = b4.x;
-      b[4 * g + 1] = b4.y;
-      b[4 * g + 2] = b4.z;
-      b[4 * g + 3] = b4.w;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_{k < K} AT[k * LDT + row_of(i)] * W[k * ldw + col_of(j)]
-//
-// AT: the block's rows k-major in shared memory, zero for k in
-// [K, round_up(K, BK)).  W: global, 16-byte aligned, row stride ldw a
-// multiple of 4; columns >= ncols (a multiple of 4) read as 0.
-// Ws: shared scratch of BK * 32 * TN floats.  Ends with a barrier, so the
-// caller may overwrite AT and Ws right after.
-template <int TN>
-__device__ __forceinline__ void mma_rows(float (&acc)[TM][TN], const float* AT, int K,
-                                         const float* __restrict__ W, int ldw, int ncols,
-                                         float* Ws) {
-  static_assert(TN % 4 == 0, "a lane holds whole float4 column groups");
-  constexpr int N = 32 * TN, N4 = N / 4;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = threadIdx.x; idx < BK * N4; idx += NT) {
-      int kk = idx / N4, c = 4 * (idx - kk * N4);
-      int k = k0 + kk;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k < K && c < ncols) v = __ldg(reinterpret_cast<const float4*>(W + (size_t)k * ldw + c));
-      *reinterpret_cast<float4*>(Ws + kk * N + c) = v;
-    }
-    __syncthreads();
-    mma_tile<TN>(acc, AT + k0 * LDT, Ws);
-    __syncthreads();
   }
 }
 

@@ -1,7 +1,8 @@
-// The float32 block product of the whole-layer kernels (layer_fused.cu) and
-// the per-sublayer forwards (ffn.cu, attn_sublayer.cu): a tile of BM token
-// rows times an N-wide slice of a weight, on FFMA.  Its thread tile (Mma,
-// mma_depth) also runs the training backwards' products (sgemm_grad.cuh).
+// The float32 block product of the whole-layer kernels (layer_fused.cu),
+// the per-sublayer forwards (ffn.cu, attn_sublayer.cu) and the pointwise
+// chains (pointwise.cu): a tile of BM token rows times an N-wide slice of
+// a weight, on FFMA.  Its thread tile (Mma, mma_depth) also runs the
+// training backwards' products (sgemm_grad.cuh).
 //
 // What bounds such a product on an H100, and what this core does about it:
 //   * Shared-memory bandwidth.  An SM's shared memory delivers 32 floats a
@@ -10,13 +11,14 @@
 //     thread's RT x CT sums take RT + CT floats a step of depth 1 for
 //     RT x CT FFMAs, so the two meet at 4 (RT + CT) = RT CT: at the 8 x 8
 //     tile here (BM = 64, N = 256), against 2.67 times the FFMAs' reads in
-//     common.cuh's 4 x 8 mma_tile.  No larger tile fits the FF tail, which
-//     holds two such tiles, so the products run at about 65 % of the FFMA
-//     peak (my chip runs, PR 8).  Warps are 2 x 4 over the tile, lanes
-//     4 x 8 over a warp's part; A and B are float4 reads, the operands of
-//     depth kk + 1 read while depth kk is multiplied.
+//     a 4 x 8 tile (the first form of the pointwise chains).  No larger
+//     tile fits the FF tail, which holds two such tiles, so the products
+//     run at about 65 % of the FFMA peak on an H100.  Warps are 2 x 4
+//     over the tile, lanes 4 x 8 over a warp's part; A and B are float4
+//     reads, the operands of depth kk + 1 read while depth kk is
+//     multiplied.
 //   * Weight bytes from L2.  Each weight tile fetched serves BM rows: 64
-//     where the budget allows (D <= 256), twice common.cuh's 32, so a
+//     where the budget allows (D <= 256), twice a 32-row block's, so a
 //     whole layer's weights cross L2 once per 64 rows (about 1.9 TB/s of
 //     L2 reads over the card at the FFMA peak, D = 256).
 //   * Load latency.  The weight streams through a ring of STAGES tiles of

@@ -14,9 +14,11 @@ Kernels (``csrc/pointwise.cu``), replacing
     embedding), swish, Linear(D -> F).
 
 Bound on an H100 by float32 FFMA work (about 0.4 MFLOP per token against
-2 KB of activations in and out); one block keeps a 32-row tile's whole
-chain in shared memory and registers, so no intermediate reaches device
-memory.  See the source note in ``csrc/pointwise.cu``.
+2 KB of activations in and out); one block keeps a 64-row tile's whole
+chain (32 rows at D = 384 and 512, and for a batch whose 64-row tiles
+would not fill half the card) in shared memory and registers, its
+products on ``csrc/sgemm.cuh``'s pipelined core, so no intermediate
+reaches device memory.  See the source note in ``csrc/pointwise.cu``.
 
 In the precision modes "bf16x3" ("high") and "bf16" ("default"),
 ``fused_pre_stream_embed`` and ``fused_post_head`` run
@@ -24,11 +26,16 @@ In the precision modes "bf16x3" ("high") and "bf16" ("default"),
 ``*_plain`` versions with ``mode`` say it step by step): every product's
 operands rounded to their bf16 parts, the activation split again before
 each product that reads it; token_norm, sigmoid, biases and the positional
-sum in float32.  Each chain is five launches (a split, the products on the
-bf16 tensor cores with the bias, residual or SwiGLU gate in their
-epilogues, a row step for the norm), its weights as bf16 planes
-(``chain_planes``) that a packed model splits once.  ``fused_pre_stream``
-stays float32 (its mode: ROADMAP B 3).
+sum in float32.  Up to D = 256 and F = 128 each chain is ONE launch on the
+bf16 tensor cores (``chain_tc_kernel``: 128 rows a block, the weights
+through a TMA ring, the activation's planes in shared memory, x split in
+registers), with no scratch; at D = 384 and 512, and for F > 128, it stays
+five launches (a split, the products with the bias, residual or SwiGLU
+gate in their epilogues, a row step for the norm) and their scratch
+(``chain_fused`` picks).  Both read the weights as K-major
+bf16 planes (``chain_planes``), which a packed model makes once per
+weight version (``models.layers.chain_planes_of``).  ``fused_pre_stream``
+stays float32 (its mode: ROADMAP B 2).
 
 Weights are in the Flax layout (in, out); fc1 and fc2 arrive packed as
 ``w12 = [W1 | W2]`` (D, 2D) with ``b12 = [b1 | b2]``.  A wrapper takes its
@@ -146,11 +153,12 @@ def _pad16(n: int) -> int:
 def chain_planes(w12, w3, mode: str, wemb=None, wh=None):
     """A chain's weights as ``csrc/pointwise_modes.cu`` reads them in
     ``mode``: (w12h, w12l, w3h, w3l, wxh, wxl), each a pair of contiguous
-    bf16 planes (the lo planes None in "bf16"): [W1 | W2] (D, 2D) with its
-    columns interleaved per GATE_COLS (W1's 64 j .. 64 j + 63, then W2's),
-    W3 (D, D), and the embedding Wemb (F, D) with zero rows to FP = F
-    rounded up to 16 (``wemb``), or the head Wh (D, F) with zero columns
-    to FP (``wh``)."""
+    bf16 planes (the lo planes None in "bf16"), every weight K-major (its
+    transpose, the contraction axis contiguous): [W1 | W2]^T (2D, D) with
+    its rows interleaved per GATE_COLS (W1's columns 64 j .. 64 j + 63, then
+    W2's), W3^T (D, D), and the embedding Wemb^T (D, FP) with zero columns
+    to FP = F rounded up to 16 (``wemb``), or the head Wh^T (FP, D) with
+    zero rows to FP (``wh``)."""
     D = w3.shape[0]
     w12i = w12.reshape(D, 2, D // GATE_COLS, GATE_COLS).transpose(1, 2)
     w12i = w12i.reshape(D, 2 * D)
@@ -160,8 +168,17 @@ def chain_planes(w12, w3, mode: str, wemb=None, wh=None):
     else:
         F = wh.shape[1]
         wx = torch.nn.functional.pad(wh, (0, _pad16(F) - F))
-    return (*weight_planes(w12i, mode), *weight_planes(w3, mode),
-            *weight_planes(wx, mode))
+    return (*weight_planes(w12i.t(), mode), *weight_planes(w3.t(), mode),
+            *weight_planes(wx.t(), mode))
+
+
+def chain_fused(D: int, F: int) -> bool:
+    """Whether a mode chain at kernel width D over F frame features is one
+    launch (``chain_tc_kernel``: D <= 256 and F <= 128, no scratch) rather
+    than the five-launch sequence with its scratch (D = 384 and 512, or F
+    > 128).  The C entries run the form this picks: the one launch where
+    they get no scratch."""
+    return D <= 256 and F <= 128
 
 
 def _check_swiglu(where, D, w12, b12, w3, b3):
@@ -221,8 +238,9 @@ def fused_pre_stream_embed(x, wemb, bemb, pe_learned, w12, b12, w3, b3,
     _check_swiglu(where, D, w12, b12, w3, b3)
     _build.check_aligned(where, wemb=wemb, w12=w12, w3=w3)
     out = torch.empty(B, T, D, device=x.device)
+    # the five-launch sequence reads e back
     emb = torch.empty(B, T, D, device=x.device) \
-        if want_emb or mode != "f32" else None
+        if want_emb or (mode != "f32" and not chain_fused(D, F)) else None
     if mode == "f32":
         lib = _build.bind("pointwise", _SIGS)
         _build.call(lib, "kit_pre_embed", x.device, x, B * T, T, F, D, wemb,
@@ -234,12 +252,15 @@ def fused_pre_stream_embed(x, wemb, bemb, pe_learned, w12, b12, w3, b3,
                              "planes (chain_planes)")
         FP = _pad16(F)
         _check_planes(where, planes, mode, x.device,
-                      ((D, 2 * D), (D, D), (FP, D)))
-        _build.check_aligned(where, x=x, bemb=bemb, b3=b3)
+                      ((2 * D, D), (D, D), (D, FP)))
+        _build.check_aligned(where, x=x, bemb=bemb, b3=b3, b12=b12,
+                             pe_learned=pe_learned)
         w12h, w12l, w3h, w3l, weh, wel = planes
-        planes_a = 2 if mode == "bf16x3" else 1  # bf16 planes an operand
-        scratch = torch.empty(planes_a * B * T * (FP + 2 * D),
-                              dtype=torch.bfloat16, device=x.device)
+        scratch = None
+        if not chain_fused(D, F):
+            planes_a = 2 if mode == "bf16x3" else 1  # bf16 planes an operand
+            scratch = torch.empty(planes_a * B * T * (FP + 2 * D),
+                                  dtype=torch.bfloat16, device=x.device)
         lib = _build.bind("pointwise_modes", _MODE_SIGS)
         _build.call(lib, "kit_pre_embed_tc", x.device, _PASSES[mode], x,
                     B * T, T, F, D, weh, wel, bemb, pe_learned, w12h, w12l,
@@ -310,14 +331,17 @@ def fused_post_head(decoded, filled_emb, w12, b12, w3, b3, wh, bh,
             raise ValueError(f"{where}: mode {mode!r} takes the weights' "
                              "planes (chain_planes)")
         _check_planes(where, planes, mode, decoded.device,
-                      ((D, 2 * D), (D, D), (D, _pad16(F))))
+                      ((2 * D, D), (D, D), (_pad16(F), D)))
         _build.check_aligned(where, decoded=decoded, filled_emb=filled_emb,
-                             b3=b3, bh=bh)
+                             b3=b3, bh=bh, b12=b12)
         w12h, w12l, w3h, w3l, whh, whl = planes
-        planes_a = 2 if mode == "bf16x3" else 1  # bf16 planes an operand
-        scratch = torch.empty(3 * planes_a * B * T * D,
-                              dtype=torch.bfloat16, device=decoded.device)
-        fs = torch.empty(B * T * D, device=decoded.device)
+        scratch = fs = None
+        if not chain_fused(D, F):
+            planes_a = 2 if mode == "bf16x3" else 1  # bf16 planes an operand
+            scratch = torch.empty(3 * planes_a * B * T * D,
+                                  dtype=torch.bfloat16,
+                                  device=decoded.device)
+            fs = torch.empty(B * T * D, device=decoded.device)
         lib = _build.bind("pointwise_modes", _MODE_SIGS)
         _build.call(lib, "kit_post_head_tc", decoded.device, _PASSES[mode],
                     decoded, filled_emb, B * T, D, w12h, w12l, b12, w3h, w3l,

@@ -10,9 +10,11 @@ precision-mode kernels' time goes, on one CUDA card.
     python3 layer_probe.py forwards TREE...  # sublayer forwards, in turns
     python3 layer_probe.py modes TREE...    # precision-mode kernels, in turns
     python3 layer_probe.py merged TREE...   # a merged mode call, in turns
+    python3 layer_probe.py chains TREE...   # the serving chains, in turns
     python3 layer_probe.py spread           # "default" routes' spread
     python3 layer_probe.py host             # host time of two mode wrappers
     python3 layer_probe.py flipdl [DIR]     # the standing draw's dl, kernel
+    python3 layer_probe.py chainphases [DIR]  # the mode chains' phases
 
 ``phases`` copies ``keypoints_interpolation_transformer_torch`` into DIR
 (default ``scratch_tree/layer_probe``, git-ignored), adds ``clock64()``
@@ -34,6 +36,16 @@ k / v projection from the planes a ``ModeLinearFunction`` keeps) into the
 whole call, the call with the C entry stubbed out (the Python: checks,
 allocations, argument packing), and two of its pieces, each the mean of
 200 back-to-back calls with the card idle at the start.
+
+``chainphases`` does the same for the one-launch mode chains
+(``csrc/pointwise_modes.cu`` ``chain_tc_kernel``, thread 0 of each
+consumer warpgroup: the embedding's products (pre), the activation's
+planes (the norm and the positional sum, or the decoded rows' split),
+[x1 | x2], the gate with the W3 products, the post head's norm and z's
+planes, its head products, the stores) in ``scratch_tree/chain_phases``,
+only ``pointwise_modes.cu`` built: the four mode rows at B = 256 and 1, T
+= 128, each call's time (counters on) and cycles a consumer warpgroup by
+phase.
 
 ``bwdphases`` does the same for the attention sublayer's fused backward
 core in the modes (``csrc/attn_modes.cuh`` ``attn_mode_bwd_kernel``, its
@@ -107,6 +119,16 @@ videos) for each tree in turns (every source built): the device time of
 its kernels apart from the host-card copies, the copies, the wall time
 with the profiler on (``chip_smoke.profiled``), the better of two calls,
 and the kernels by device time.
+
+``chains`` does the same for the serving pointwise chains
+(``pointwise.cu`` and ``pointwise_modes.cu`` alone, a minute of build):
+the six rows ``pre_stream_embed`` / ``post_head`` in float32, "high" and
+"default" at the serving batch B = 256 and at one 128-frame video (B =
+1), T = 128, each held against its plain version first (a mode row also
+against one mode down), then its CUDA-event time, the plain version's,
+the host time a call and one call's device time by launch, in order.
+The variants are phase 2's timed ones: the float32 pre chain without
+its embedding out, the mode pre chains with it.
 
 ``spread`` serves ``chip_smoke.py``'s phase 11 batch (B = 256, T = 128,
 the flagship widths) at "default" on the merged route through the kernel
@@ -287,6 +309,92 @@ def phases(out_dir):
             cyc = {PHASES[i]: int(buf[i]) // blocks for i in PHASES if buf[i]}
             print(f"  B={B} {name} {variant}: {ms:.4f} ms (counters on); "
                   f"cycles a block {json.dumps(cyc)}", flush=True)
+
+
+# the one-launch mode chains' phases (csrc/pointwise_modes.cu
+# chain_tc_kernel), counted by thread 0 of each consumer warpgroup
+CHAIN_PHASES = {5: "embed products", 0: "planes in", 1: "[x1 | x2]",
+                2: "gate + W3", 6: "norm + z planes", 7: "head",
+                4: "stores"}
+CHAIN_PATCHES = (
+    ("namespace kit {\n\n// ---- the one-launch chains",
+     "__device__ unsigned long long kit_prof[32];\n"
+     "#define PROF0 long long _t = clock64();\n"
+     "#define PROF(i) do { if ((threadIdx.x & 127) == 0) atomicAdd("
+     "&kit_prof[i], (unsigned long long)(clock64() - _t)); _t = clock64(); "
+     "} while (0)\n"
+     "namespace kit {\n\n// ---- the one-launch chains"),
+    ("  reg_alloc<CONSUMER_REGS>();\n", "  reg_alloc<CONSUMER_REGS>();\n"
+     "  PROF0\n"),
+    ("          e[h][i] = park[(64 * h + i) * CONSUMER_WARPS * 32 + "
+     "threadIdx.x] + e[h][i];\n    }\n",
+     "          e[h][i] = park[(64 * h + i) * CONSUMER_WARPS * 32 + "
+     "threadIdx.x] + e[h][i];\n    }\n    PROF(5);\n"),
+    ("  fence_proxy_async();\n  consumers_sync();\n\n",
+     "  fence_proxy_async();\n  consumers_sync();\n  PROF(0);\n\n"),
+    ("    fence_acc(u);\n    release(prev);\n    prev = -1;\n",
+     "    fence_acc(u);\n    release(prev);\n    prev = -1;\n    PROF(1);\n"),
+    ("    for (int h = 0; h < NH; ++h) release(st3[h]);\n",
+     "    for (int h = 0; h < NH; ++h) release(st3[h]);\n    PROF(2);\n"),
+    ("    put_planes(s);\n    fence_proxy_async();\n    consumers_sync();\n",
+     "    put_planes(s);\n    fence_proxy_async();\n    consumers_sync();\n"
+     "    PROF(6);\n"),
+    ("    fence_acc(o);\n", "    fence_acc(o);\n    PROF(7);\n"),
+    ("  }\n}\n\n// ---- the launch sequence",
+     "  }\n  PROF(4);\n}\n\n// ---- the launch sequence"),
+)
+
+
+def chain_phases(out_dir):
+    """The ``chainphases`` mode (see the module docstring)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    tree = os.path.abspath(out_dir)
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, PKG), os.path.join(tree, PKG),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    cu = os.path.join(tree, PKG, "csrc", "pointwise_modes.cu")
+    with open(cu) as f:
+        src = f.read()
+    for old, new in CHAIN_PATCHES:
+        if old not in src:
+            sys.exit(f"layer_probe: no longer in pointwise_modes.cu: {old!r}")
+        src = src.replace(old, new, 1)
+    with open(cu, "w") as f:
+        f.write(src + READ_COUNTERS)
+    cs = load_smoke()
+    _build = use_tree(tree, ("pointwise_modes",))
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    print(cs.gpu_line(), flush=True)
+    print(f"  nvcc pointwise_modes.cu (counters on) "
+          f"{_build.build(['pointwise_modes'])['pointwise_modes']:.1f} s",
+          flush=True)
+    lib = _build.bind("pointwise_modes", {})
+    lib.kit_prof_get.argtypes = [ctypes.c_void_p]
+    buf = np.zeros(32, dtype=np.uint64)
+    for B in (256, 1):
+        groups = 2 * -(-B * cs.T_MAIN // 128)
+        chk = cs.KernelCheck(torch, kmod)
+        seen = set()
+        for name, variant, kern, plain, grad, wrong in \
+                chk.chain_mode_calls(B, cs.T_MAIN):
+            if name in seen:
+                continue
+            seen.add(name)
+            chk.compare(name, f"B={B} {variant}", kern(), plain(), grad,
+                        wrong())
+            ms = min(cs.timed_ms(kern) for _ in range(2))
+            lib.kit_prof_get(buf.ctypes.data)  # reset
+            kern()
+            torch.cuda.synchronize()
+            lib.kit_prof_get(buf.ctypes.data)
+            cyc = {v: int(buf[i]) // groups for i, v in CHAIN_PHASES.items()
+                   if buf[i]}
+            print(f"  B={B} {name} {variant}: {ms:.4f} ms (counters on); "
+                  f"cycles a consumer warpgroup {json.dumps(cyc)}",
+                  flush=True)
 
 
 # the fused backward core's phases (csrc/attn_modes.cuh
@@ -702,6 +810,45 @@ def merged_one(tree):
     print(json.dumps(out), flush=True)
 
 
+CHAIN_SOURCES = ("pointwise", "pointwise_modes")
+# (B, T): the serving batch and one 128-frame video
+CHAIN_SHAPES = ((256, 128), (1, 128))
+
+
+def chains_one(tree):
+    """The ``chains`` mode's numbers for one tree, one JSON line."""
+    import torch
+    cs = load_smoke()
+    use_tree(tree, CHAIN_SOURCES)
+    from keypoints_interpolation_transformer_torch.ops import kernels as kmod
+    out = {}
+    for B, T in CHAIN_SHAPES:
+        chk = cs.KernelCheck(torch, kmod)
+        calls = {}
+        for name, variant, kern, plain in chk.calls(B, T):
+            if name in ("pre_stream_embed", "post_head") and name not in calls:
+                chk.compare(name, f"B={B} T={T} {variant}", kern(), plain())
+                calls[name] = (kern, plain)
+        for name, variant, kern, plain, grad, wrong in \
+                chk.chain_mode_calls(B, T):
+            if name not in calls:
+                chk.compare(name, f"B={B} T={T} {variant}", kern(), plain(),
+                            grad, wrong())
+                calls[name] = (kern, plain)
+        for name, (kern, plain) in calls.items():
+            text, n = cs.launch_ms(torch, kern, count=True)
+            for _ in range(5):  # an empty trace is the profiler's
+                if n:
+                    break
+                text, n = cs.launch_ms(torch, kern, count=True)
+            out[f"{name} B={B} T={T}"] = {
+                "ms": min(cs.timed_ms(kern) for _ in range(3)),
+                "plain_ms": min(cs.timed_ms(plain) for _ in range(2)),
+                "host_ms": min(cs.host_ms(torch, kern) for _ in range(2)),
+                "launches": text}
+    print(json.dumps(out), flush=True)
+
+
 ATTENTION_SOURCES = ("attention",)
 
 
@@ -919,6 +1066,9 @@ def main():
     elif mode == "bwdphases":
         bwd_phases(args[0] if args else os.path.join(ROOT, "scratch_tree",
                                                      "bwd_phases"))
+    elif mode == "chainphases":
+        chain_phases(args[0] if args else os.path.join(ROOT, "scratch_tree",
+                                                      "chain_phases"))
     elif mode == "flipdl":
         flip_dl(args[0] if args else os.path.join(ROOT, "scratch_tree",
                                                   "flip_dl"))
@@ -942,6 +1092,10 @@ def main():
         in_turns(args, MERGED_SOURCES, "merged-one")
     elif mode == "merged-one":
         merged_one(args[0])
+    elif mode == "chains":
+        in_turns(args, CHAIN_SOURCES, "chains-one")
+    elif mode == "chains-one":
+        chains_one(args[0])
     elif mode == "spread":
         spread()
     elif mode == "host":

@@ -1189,20 +1189,107 @@ def test_per_op_mode_pair_matches_plain_at_every_width(cuda):
 
 @pytest.mark.gpu
 def test_chain_mode_kernels_match_plain_at_every_width(cuda):
-    """The pointwise chains in "high" and "default" against their plain
-    versions in the same mode at the four kernel widths, a ragged batch of
-    one 608-frame video and a short one, with and without the Cycle
-    residual and the embedding out."""
+    """The pointwise chains in "high" and "default" and in float32 (the
+    pre-stream chain on an embedding too) against their plain versions in
+    the same mode at the four kernel widths, a ragged batch of one
+    608-frame video and a short one, and 272 rows (two videos of 136
+    frames: no multiple of the mode kernel's 128 rows or of the float32
+    kernel's 64), with and without the Cycle residual and the embedding
+    out; in a mode also frames of 160 features (past the one-launch
+    kernel's 128: the five-launch form at every width)."""
     import chip_smoke
     from keypoints_interpolation_transformer_torch.ops import kernels
     for d in (128, 256, 384, 512):
         chk = chip_smoke.KernelCheck(torch, kernels, d, 8 if d < 384 else 4,
                                      4 * d)
-        for B, T in ((3, 40), (1, 608)):
+        for B, T in ((3, 40), (1, 608), (2, 136)):
             for name, variant, kern, plain, grad, wrong in \
                     chk.chain_mode_calls(B, T):
                 chk.compare(name, f"D={d} B={B} T={T} {variant}", kern(),
                             plain(), grad, wrong())
+            if d >= 160 and B == 3:
+                for name, variant, kern, plain, grad, wrong in \
+                        chk.chain_mode_calls(B, T, f=160):
+                    chk.compare(name, f"D={d} F=160 B={B} T={T} {variant}",
+                                kern(), plain(), grad, wrong())
+            for name, variant, kern, plain in chk.calls(B, T):
+                if name in ("pre_stream_embed", "post_head"):
+                    chk.compare(name, f"D={d} B={B} T={T} {variant}",
+                                kern(), plain())
+            o = chk.operands(B, T)
+            for res in (False, True):
+                a = (chk.rand(B, T, d), o["pe"], o["w12"], o["b12"], o["w3"],
+                     o["b3"], res)
+                chk.compare("pre_stream", f"D={d} B={B} T={T} res={res}",
+                            kernels.fused_pre_stream(*a),
+                            kernels.pre_stream_plain(*a))
+
+
+@pytest.mark.gpu
+def test_mode_chains_give_the_same_bits_beside_a_busy_stream(cuda):
+    """Each mode chain at the flagship width, called again and again while
+    another stream keeps the card busy with products (blocks then start and
+    stall unevenly, and a block's consumer warpgroups drift apart: the pre
+    chain's parked sums and n's planes share shared memory), gives the bits
+    of a call on an idle card every time; 408 rows, no multiple of 128."""
+    import chip_smoke
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    side = torch.cuda.Stream()
+    a = torch.randn(2048, 2048, device="cuda") / 64
+    for name, variant, kern, *_ in chk.chain_mode_calls(3, 136):
+        first = kern()
+        first = first if isinstance(first, tuple) else (first,)
+        torch.cuda.synchronize()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(200):
+                torch.mm(a, a)
+        for i in range(50):
+            got = kern()
+            got = got if isinstance(got, tuple) else (got,)
+            assert all(torch.equal(g, f) for g, f in zip(got, first)), \
+                (name, variant, i)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_mode_chain_is_one_kernel_without_scratch_and_deterministic(cuda):
+    """At the flagship width each mode chain call is ONE device kernel
+    (the profiler), counts one launch, allocates nothing but its outputs
+    (the caching allocator's peak over the call), and two calls on the
+    same inputs give the same bits; 408 rows, no multiple of 128."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+    from keypoints_interpolation_transformer_torch.ops import kernels
+    chk = chip_smoke.KernelCheck(torch, kernels)
+    for name, variant, kern, *_ in chk.chain_mode_calls(3, 136):
+        kern()  # planes, libraries and tensor maps warm
+        torch.cuda.synchronize()
+        for _ in range(3):  # a trace that lost events is the profiler's
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                kern()
+                torch.cuda.synchronize()
+            ran = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            if ran:
+                break
+        assert len(ran) == 1 and "chain_tc_kernel" in ran[0], \
+            (name, variant, ran)
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got = kern()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        sizes = sum(-(-t.numel() * 4 // 512) * 512 for t in got)
+        assert torch.cuda.max_memory_allocated() - before == sizes, \
+            (name, variant)
+        assert kernels.launch_counts()[name] == 1
+        again = kern()
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            (name, variant)
 
 
 @pytest.mark.gpu

@@ -37,6 +37,8 @@ from keypoints_interpolation_transformer_torch.ops.kernels import (
     pointwise as tpw)
 from keypoints_interpolation_transformer_torch.ops.kernels.precision import (
     parts)
+from keypoints_interpolation_transformer_torch.ops.kernels.widths import (
+    KERNEL_WIDTHS)
 
 # one intra-op thread per test process: the suite runs in parallel
 # workers, and more threads only contend for the cores
@@ -68,7 +70,7 @@ class Chain:
     fc1 / fc2 / fc3, the head, the decoder's output and the filled
     embedding."""
 
-    def __init__(self, seed):
+    def __init__(self, seed, D=D, F=F):
         rng = np.random.default_rng(seed)
 
         def w(i, o):
@@ -142,71 +144,162 @@ def test_post_head_plain_matches_pallas_in_mode(mode):
           kernels.post_head_plain(*args, WRONG[mode]).numpy(), mode, "out")
 
 
-def _kernel_model(c, mode, pe_residual, planes_pre, planes_post):
-    """A float64 model of ``csrc/pointwise_modes.cu``'s launch sequence
-    from the planes the wrappers hand it: every product a float64 sum of
-    the bf16 parts (hi hi + hi lo + lo hi at "high") with the weight's
-    planes as ``chain_planes`` lays them out, the gate read from the
-    interleaved product's 128-column tiles (x1 in the first 64 columns of
-    tile j, x2 in the next 64), the embedding's K and the head's N padded
-    to 112; then the plain chains' float32 steps."""
-    def product(a, planes):
-        ap = [p.double() for p in parts(a, mode)]
-        wp = [p.double() for p in planes if p is not None]
-        out = ap[0] @ wp[0]
-        if len(ap) == 2:
-            out = out + ap[0] @ wp[1] + ap[1] @ wp[0]
-        return out.float()
+def _tiles(D, FP, post):
+    """The weight tiles of one chain in the order ``chain_tc_kernel``'s
+    producer issues them (``csrc/pointwise_modes.cu``): (plane, k0, n0),
+    the plane's rows n0 .. n0 + 127 and columns k0 .. k0 + 63 (TMA's zeros
+    past its edge); the embedding's first (pre) or the head's last
+    (post)."""
+    KB, NH = D // 64, D // 128
+    out = [] if post else [("wx", 64 * kb, 128 * h)
+                           for kb in range(-(-FP // 64)) for h in range(NH)]
+    for c in range(KB):
+        out += [("w12", 64 * kb, 128 * c) for kb in range(KB)]
+        out += [("w3", 64 * c, 128 * h) for h in range(NH)]
+    if post:
+        out += [("wx", 64 * kb, 0) for kb in range(KB)]
+    return out
 
-    def gate(n, planes, b12):
-        x12 = product(n, planes)                         # interleaved
-        tiles = x12.reshape(*x12.shape[:-1], D // 64, 2, 64)
-        x1 = tiles[..., 0, :].reshape(*x12.shape[:-1], D) + b12[:D]
-        x2 = tiles[..., 1, :].reshape(*x12.shape[:-1], D) + b12[D:]
-        return x1 * torch.sigmoid(x2)
 
-    x, wemb, bemb, pe, w12, b12, w3, b3 = c.pre_args()
-    xp = torch.nn.functional.pad(x, (0, 112 - F))        # FP = 112
-    e = product(xp, planes_pre[4:]) + bemb
+def _kernel_model(c, mode, pe_residual, planes_pre, planes_post, D):
+    """A float64 model of ``chain_tc_kernel`` (``csrc/pointwise_modes.cu``)
+    reading the K-major planes the wrappers hand it, one pass a chain: the
+    tiles of ``_tiles`` in order, each a 128 x 64 block of a plane (zero
+    past its edge) multiplied into the sums it feeds, every product a
+    float64 sum of the bf16 parts (hi hi + hi lo + lo hi at "high"); the
+    embedding's 112 columns read as two 64-deep tiles; [x1 | x2] of chunk
+    c from the 128 interleaved rows 128 c .. of [W1 | W2]^T, gated in
+    float32 and split before W3's rows 64 c ..; s starting at b3 (+ f in
+    the post head); the plain chains' float32 row steps between.  Returns
+    (s, e, out) and how often each plane element was read."""
+    named = {"pre": dict(zip(("w12", "w3", "wx"), (planes_pre[0:2],
+                                                   planes_pre[2:4],
+                                                   planes_pre[4:6]))),
+             "post": dict(zip(("w12", "w3", "wx"), (planes_post[0:2],
+                                                    planes_post[2:4],
+                                                    planes_post[4:6])))}
+    reads = {k: {n: torch.zeros(p[0].shape, dtype=torch.int32)
+                 for n, p in v.items()} for k, v in named.items()}
+
+    def tile(chain, name, k0, n0):
+        """The tile's parts as float64 (128, 64) blocks, zero past the
+        plane, and its reads counted."""
+        reads[chain][name][n0:n0 + 128, k0:k0 + 64] += 1
+        out = []
+        for p in named[chain][name]:
+            if p is None:
+                continue
+            t = torch.zeros(128, 64, dtype=torch.float64)
+            b = p[n0:n0 + 128, k0:k0 + 64].double()
+            t[:b.shape[0], :b.shape[1]] = b
+            out.append(t)
+        return out
+
+    def mult(a_parts, t_parts):  # (rows, 64) parts x a tile^T
+        out = a_parts[0] @ t_parts[0].T
+        if len(a_parts) == 2:
+            out = out + a_parts[0] @ t_parts[1].T + a_parts[1] @ t_parts[0].T
+        return out
+
+    def split(a):  # float32 -> float64 parts, as the kernel splits
+        return [q.double() for q in parts(a, mode)]
+
+    def swiglu(chain, n, b12, acc):
+        n_parts = split(n)
+        for cc in range(D // 64):
+            u = torch.zeros(n.shape[0], 128, dtype=torch.float64)
+            for name, k0, n0 in _tiles(D, 112, chain == "post"):
+                if name == "w12" and n0 == 128 * cc:
+                    u += mult([q[:, k0:k0 + 64] for q in n_parts],
+                              tile(chain, name, k0, n0))
+            u = u.float()
+            cols = slice(64 * cc, 64 * cc + 64)
+            g = (u[:, :64] + b12[cols]) * torch.sigmoid(
+                u[:, 64:] + b12[D:][cols])
+            for name, k0, n0 in _tiles(D, 112, chain == "post"):
+                if name == "w3" and k0 == 64 * cc:
+                    acc[:, n0:n0 + 128] += mult(split(g),
+                                                tile(chain, name, k0, n0))
+        return acc.float()
+
+    x, wemb, bemb, pe, w12, b12, w3, b3 = (a.reshape(-1, *a.shape[2:])
+                                           if a.dim() == 3 else a
+                                           for a in c.pre_args())
+    rows = x.shape[0]
+    xp = torch.nn.functional.pad(x, (0, 128 - F))  # TMA's zeros past F
+    e = torch.zeros(rows, D, dtype=torch.float64)
+    for name, k0, n0 in _tiles(D, 112, False):
+        if name == "wx":
+            e[:, n0:n0 + 128] += mult(split(xp[:, k0:k0 + 64]),
+                                      tile("pre", name, k0, n0))
+    e = e.float() + bemb
     n = tpw.token_norm(e)
-    n = (n + n + pe) if pe_residual else (n + pe)
-    s = product(gate(n, planes_pre[:2], b12), planes_pre[2:4]) + b3
-    dec, fe, _, _, _, _, wh, bh = c.post_args()
-    z = tpw.token_norm(product(gate(dec, planes_post[:2], b12),
-                               planes_post[2:4]) + b3 + fe)
-    out = product(z * torch.sigmoid(z), planes_post[4:])[..., :F] + bh
-    return s, e, out
+    pe_rows = pe.repeat(rows // T, 1)
+    n = (n + n + pe_rows) if pe_residual else (n + pe_rows)
+    s = swiglu("pre", n, b12, b3.double().expand(rows, D).clone())
+    dec, fe, *_, wh, bh = (a.reshape(-1, a.shape[-1]) if a.dim() == 3
+                           else a for a in c.post_args())
+    z = tpw.token_norm(swiglu("post", dec, b12,
+                              (b3 + fe).double()))
+    z = z * torch.sigmoid(z)
+    o = torch.zeros(rows, 128, dtype=torch.float64)
+    for name, k0, n0 in _tiles(D, 112, True):
+        if name == "wx":
+            o += mult(split(z[:, k0:k0 + 64]), tile("post", name, k0, n0))
+    out = o.float()[:, :F] + bh
+    shape = (B, T)
+    return (s.reshape(*shape, D), e.reshape(*shape, D),
+            out.reshape(*shape, F)), reads
 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
 def test_planes_and_launch_order_model_the_plain_chains(mode):
-    """``chain_planes``' layout (shapes, bf16, the interleaved [W1 | W2],
-    the zero padding) read as the mode kernels read it computes the plain
-    chains: the float64 model of the launch sequence against
-    ``pre_stream_embed_plain`` / ``post_head_plain`` in the mode."""
-    c = Chain(2)
-    x, wemb, bemb, pe, w12, b12, w3, b3 = c.pre_args()
-    wh = torch.from_numpy(c.wh)
-    pp = tpw.chain_planes(w12, w3, mode, wemb=wemb)
-    ph = tpw.chain_planes(w12, w3, mode, wh=wh)
-    shapes = [(D, 2 * D)] * 2 + [(D, D)] * 2
-    for planes, last in ((pp, (112, D)), (ph, (D, 112))):
-        assert len(planes) == 6
-        for t, shape in zip(planes, shapes + [last] * 2):
-            if t is None:
-                assert mode == "bf16"
-                continue
-            assert t.dtype == torch.bfloat16 and t.is_contiguous()
-            assert tuple(t.shape) == shape
-    assert not pp[4][F:].any() and not ph[4][:, F:].any()
-    for res in (False, True):
-        s, e, out = _kernel_model(c, mode, res, pp, ph)
-        ws, we = kernels.pre_stream_embed_plain(x, wemb, bemb, pe, w12, b12,
-                                                w3, b3, res, True, mode)
-        wo = kernels.post_head_plain(*c.post_args(), mode)
-        for name, g, w in (("s", s, ws), ("e", e, we), ("out", out, wo)):
-            sc = max(1.0, float(w.abs().max()))
-            assert float((g - w).abs().max()) / sc < TOL[mode], name
+    """``chain_planes``' K-major layout (shapes, bf16, the transposes of
+    the Flax-layout planes bit for bit, the interleaved [W1 | W2]^T rows,
+    the zero padding) read as the one-launch mode kernel reads it, one pass
+    a chain, computes the plain chains: the float64 model of its tile
+    order against ``pre_stream_embed_plain`` / ``post_head_plain`` in the
+    mode, at both of its widths (D = 128, 256)."""
+    for d in (128, 256):
+        c = Chain(2, d)
+        x, wemb, bemb, pe, w12, b12, w3, b3 = c.pre_args()
+        wh = torch.from_numpy(c.wh)
+        pp = tpw.chain_planes(w12, w3, mode, wemb=wemb)
+        ph = tpw.chain_planes(w12, w3, mode, wh=wh)
+        shapes = [(2 * d, d)] * 2 + [(d, d)] * 2
+        for planes, last in ((pp, (d, 112)), (ph, (112, d))):
+            assert len(planes) == 6
+            for t, shape in zip(planes, shapes + [last] * 2):
+                if t is None:
+                    assert mode == "bf16"
+                    continue
+                assert t.dtype == torch.bfloat16 and t.is_contiguous()
+                assert tuple(t.shape) == shape
+        assert not pp[4][:, F:].any() and not ph[4][F:].any()
+        # the transposes of the Flax-layout planes, bit for bit
+        w12i = w12.reshape(d, 2, d // 64, 64).transpose(1, 2).reshape(
+            d, 2 * d)
+        for got, w in ((pp[0:2], w12i), (pp[2:4], w3), (pp[4:6], wemb),
+                       (ph[4:6], wh)):
+            want = parts(w, mode)
+            for g, wp in zip(got, want):
+                g = g.t()[:w.shape[0], :w.shape[1]]
+                assert torch.equal(g.float(), wp)
+        assert tpw.chain_fused(d, F)
+        for res in (False, True):
+            (s, e, out), reads = _kernel_model(c, mode, res, pp, ph, d)
+            for chain in reads.values():  # one pass: each element once
+                for name, r in chain.items():
+                    assert int(r.min()) == int(r.max()) == 1, name
+            ws, we = kernels.pre_stream_embed_plain(x, wemb, bemb, pe, w12,
+                                                    b12, w3, b3, res, True,
+                                                    mode)
+            wo = kernels.post_head_plain(*c.post_args(), mode)
+            for name, g, w in (("s", s, ws), ("e", e, we),
+                               ("out", out, wo)):
+                sc = max(1.0, float(w.abs().max()))
+                assert float((g - w).abs().max()) / sc < TOL[mode], \
+                    (d, name)
 
 
 def test_wrappers_count_per_mode_and_take_the_plain_on_the_cpu():
@@ -251,6 +344,34 @@ def _c_params(entry):
     m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
     return "".join("i" if p.strip().startswith("int ") else "p"
                    for p in m.group(1).split(","))
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16"])
+def test_chains_past_the_one_launch_frames_match_pallas(mode):
+    """Frames wider than the one-launch kernel takes (F = 160 > 128 at D =
+    256, a model's ``input_size`` the JAX kernels serve): ``chain_fused``
+    sends them to the five-launch sequence on the card, the 108-wide frames
+    at D <= 256 to the one launch; the plain chains at F = 160 against the
+    JAX kernels in the mode."""
+    assert [tpw.chain_fused(d, F) for d in KERNEL_WIDTHS] == [
+        d <= 256 for d in KERNEL_WIDTHS]
+    assert tpw.chain_fused(128, 128) and not tpw.chain_fused(256, 160)
+    c = Chain(4, 256, 160)
+    with _interpret(PREC[mode]):
+        want = jpw._pre_embed_pallas(
+            *(jnp.asarray(a) for a in (c.x, c.wemb, c.bemb, c.pe, c.w1, c.b1,
+                                       c.w2, c.b2, c.w3, c.b3)), True, True)
+        want_out = jpw._post_pallas(
+            *(jnp.asarray(a) for a in (c.dec, c.fe, c.w1, c.b1, c.w2, c.b2,
+                                       c.w3, c.b3, c.wh, c.bh)))
+    args = c.pre_args()
+    got = kernels.pre_stream_embed_plain(*args, True, True, mode)
+    wrong = kernels.pre_stream_embed_plain(*args, True, True, WRONG[mode])
+    for name, g, w, x in zip(("s", "e"), got, want, wrong):
+        _held(g.numpy(), w, x.numpy(), mode, name)
+    args = c.post_args()
+    _held(kernels.post_head_plain(*args, mode).numpy(), want_out,
+          kernels.post_head_plain(*args, WRONG[mode]).numpy(), mode, "out")
 
 
 @pytest.mark.parametrize("entry", ["kit_pre_embed_tc", "kit_post_head_tc"])
